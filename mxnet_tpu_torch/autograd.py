@@ -1,0 +1,125 @@
+"""Imperative autograd scopes and ``backward`` over ``torch.autograd``.
+
+Counterpart of ``mxnet_tpu/autograd.py``.  Recording and training mode are
+MXNet's thread-local state:
+
+- ``record(train_mode=True)`` records operations for gradients (it enters
+  ``torch.enable_grad``) and sets training mode; ``pause`` stops recording
+  (``torch.no_grad``); ``train_mode``/``predict_mode`` set the mode alone;
+- ``is_training()`` is what mode-dependent layers read (``Dropout``,
+  ``BatchNorm``).  ``nn.Module.training`` is not consulted: as in MXNet,
+  a layer is in training mode exactly inside ``record()``/``train_mode()``.
+
+Outside ``record()`` recording is off, but PyTorch's own grad mode is left
+as the caller set it.
+
+``backward(heads, head_grads=None)`` runs one backward pass from ``heads``
+into the Parameters' gradients.  A head without a head gradient gets a
+gradient of ones of its own shape, as in MXNet, so a per-sample loss
+vector needs no ``.mean()`` first: ``autograd.backward(loss)`` is the
+port's spelling of MXNet's ``loss.backward()`` (a plain torch tensor's
+``backward()`` accepts only a scalar without an explicit gradient).  How a
+Parameter stores what arrives (``grad_req`` write/add) is
+``gluon.Parameter``'s business.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Optional, Sequence, Union
+
+import torch
+
+from .base import MXNetError
+
+__all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
+           "is_training", "backward"]
+
+_state = threading.local()
+
+
+def _st():
+    if not hasattr(_state, "recording"):
+        _state.recording = False
+        _state.training = False
+    return _state
+
+
+def is_recording() -> bool:
+    return _st().recording
+
+
+def is_training() -> bool:
+    return _st().training
+
+
+class _RecordingScope:
+    """Sets (recording, training) for its extent and restores both on exit;
+    a scope that changes recording also switches torch's grad mode."""
+
+    def __init__(self, recording: Optional[bool], training: Optional[bool]):
+        self._rec = recording
+        self._train = training
+        self._prev = None
+        self._grad = None
+
+    def __enter__(self):
+        st = _st()
+        self._prev = (st.recording, st.training)
+        if self._rec is not None:
+            st.recording = self._rec
+            self._grad = torch.set_grad_enabled(self._rec)
+            self._grad.__enter__()
+        if self._train is not None:
+            st.training = self._train
+        return self
+
+    def __exit__(self, *exc):
+        if self._grad is not None:
+            self._grad.__exit__(*exc)
+            self._grad = None
+        st = _st()
+        st.recording, st.training = self._prev
+
+
+def record(train_mode: bool = True) -> _RecordingScope:
+    """Record operations for gradient computation; sets training mode."""
+    return _RecordingScope(True, train_mode)
+
+
+def pause(train_mode: bool = False) -> _RecordingScope:
+    """Suspend recording (metric updates, running-statistic writes)."""
+    return _RecordingScope(False, train_mode)
+
+
+def train_mode() -> _RecordingScope:
+    return _RecordingScope(None, True)
+
+
+def predict_mode() -> _RecordingScope:
+    return _RecordingScope(None, False)
+
+
+Heads = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def backward(heads: Heads, head_grads: Optional[Heads] = None) -> None:
+    """Backward from ``heads`` (a tensor or a list) into the gradients of
+    the Parameters they were recorded from.  ``head_grads`` defaults to
+    ones for every head; a None entry in a list means ones too."""
+    if isinstance(heads, torch.Tensor):
+        heads = [heads]
+        if head_grads is not None:
+            head_grads = [head_grads]
+    heads = list(heads)
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    if len(head_grads) != len(heads):
+        raise MXNetError(f"backward: {len(heads)} heads but "
+                         f"{len(head_grads)} head gradients")
+    live = [(h, torch.ones_like(h) if g is None else g)
+            for h, g in zip(heads, head_grads) if h.requires_grad]
+    if not live:
+        raise MXNetError("this array is not connected to the recorded "
+                         "graph; call backward inside/after "
+                         "autograd.record()")
+    torch.autograd.backward([h for h, _ in live], [g for _, g in live])

@@ -1,9 +1,10 @@
 """Foundations: error type, env-var config registry, dtype canonicalisation.
 
 PyTorch counterpart of ``mxnet_tpu/base.py``, cut to what the BERT serving
-path reads: the ``MXTPU_SERVING_*`` request-serving knobs and
-``MXNET_ATTENTION_KERNEL``.  The registry is a typed view over
-``os.environ``, read live on every ``get_env`` call.
+and Gluon training paths read: the ``MXTPU_SERVING_*`` request-serving
+knobs, ``MXNET_ATTENTION_KERNEL`` and ``MXNET_OPTIMIZER_AGGREGATION_SIZE``.
+The registry is a typed view over ``os.environ``, read live on every
+``get_env`` call.
 """
 from __future__ import annotations
 
@@ -62,6 +63,10 @@ register_env("MXNET_ATTENTION_KERNEL", "auto", str,
              "Attention path: 'auto' (the flash-attention kernel on a "
              "CUDA tensor, its plain version on a CPU tensor) or 'xla' "
              "(the full masked-softmax path); any other value raises.")
+register_env("MXNET_OPTIMIZER_AGGREGATION_SIZE", 4, int,
+             "Max parameters one multi-tensor optimizer update takes "
+             "(gluon.Trainer groups them; read when an SGD optimizer is "
+             "created); <=1 updates each parameter on its own.")
 register_env("MXTPU_SERVING_MAX_BATCH", 8, int,
              "Serving: max requests fused into one batched call; batch "
              "buckets are powers of two up to this.")

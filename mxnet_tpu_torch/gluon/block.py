@@ -8,12 +8,15 @@ so ``parameters()`` and ``state_dict()`` see them under their attribute
 paths.  Layers write ``forward`` directly in torch ops; there is no ``F``
 namespace and no symbolic mode.
 
-Blocks start in predict mode (``training`` is False), as MXNet does
-outside ``autograd.train_mode()``.  Place a model with
+Layers whose behaviour depends on the mode (Dropout, BatchNorm) follow
+MXNet's global ``autograd.is_training()``, which is on only inside
+``autograd.record()``/``train_mode()``; ``nn.Module.training`` is not
+consulted (``train()``/``eval()`` change nothing).  Place a model with
 ``initialize(ctx=...)``; moving it with ``nn.Module.to`` is not supported,
 because a Parameter shared by two modules must move once, in place.
 
-``hybridize()`` records the flag and nothing else: PyTorch runs eagerly.
+``hybridize()`` records the flag and nothing else: PyTorch runs eagerly,
+in training as in inference.
 ``cached_graph(*examples)`` is the serving entry: a :class:`CachedGraph`
 whose ``raw(*arrays)`` copies host arrays to the block's device, runs the
 forward under ``torch.inference_mode()`` and returns device tensors.
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import autograd
 from ..context import DeviceLike
 from .parameter import Parameter, ParameterDict
 
@@ -188,10 +192,10 @@ class CachedGraph:
 
     def raw(self, *values) -> Tuple[torch.Tensor, ...]:
         """Host arrays (or tensors) in, tuple of device tensors out: one
-        forward under ``torch.inference_mode()``, no synchronisation.
-        Each calling thread enters inference mode itself (the mode is
-        thread-local)."""
-        with torch.inference_mode():
+        forward under ``torch.inference_mode()`` in predict mode, no
+        synchronisation.  Each calling thread enters both modes itself
+        (they are thread-local)."""
+        with torch.inference_mode(), autograd.predict_mode():
             args = [torch.as_tensor(np.asarray(v) if not
                                     isinstance(v, torch.Tensor) else v,
                                     device=self.device) for v in values]

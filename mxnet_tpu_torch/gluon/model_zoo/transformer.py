@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ... import autograd
 from ...base import MXNetError, get_env
 from ...ndarray import flash_attention
 from ..block import HybridBlock
@@ -112,7 +113,7 @@ class MultiHeadAttention(HybridBlock):
             return False
         if mask is not None and valid_len is None:
             return False
-        return not (self.drop is not None and self.training)
+        return not (self.drop is not None and autograd.is_training())
 
 
 class PositionwiseFFN(HybridBlock):

@@ -1,5 +1,8 @@
 """Gluon layers (``gluon.nn``)."""
-from .basic_layers import (Dense, Dropout, Embedding, HybridSequential,
-                           LayerNorm)
+from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
+                           Flatten, HybridSequential, LayerNorm)
+from .conv_layers import AvgPool2D, Conv2D, GlobalAvgPool2D, MaxPool2D
 
-__all__ = ["Dense", "Dropout", "Embedding", "HybridSequential", "LayerNorm"]
+__all__ = ["Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense",
+           "Dropout", "Embedding", "Flatten", "GlobalAvgPool2D",
+           "HybridSequential", "LayerNorm", "MaxPool2D"]

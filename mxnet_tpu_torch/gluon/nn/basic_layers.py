@@ -1,21 +1,35 @@
-"""Core Gluon layers the BERT serving path uses: HybridSequential, Dense,
-Dropout, LayerNorm, Embedding.
+"""Core Gluon layers of the BERT serving and the MLP/ResNet training
+paths: HybridSequential, Dense, Activation, Flatten, Dropout, BatchNorm,
+LayerNorm, Embedding.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the same
 parameter names, shapes (``(units, in_units)`` Dense weights) and defaults
-(LayerNorm eps 1e-5).  The JAX package leaves these to XLA, outside any
-Pallas kernel, so here they are plain torch calls.
+(LayerNorm and BatchNorm eps 1e-5, BatchNorm momentum 0.9).  The JAX
+package leaves these to XLA, outside any Pallas kernel, so here they are
+plain torch calls.  Dropout and BatchNorm follow ``autograd.is_training()``
+(MXNet's global mode), not ``nn.Module.training``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ... import autograd
+from ...base import MXNetError
 from ..block import HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "LayerNorm", "Embedding"]
+__all__ = ["HybridSequential", "Dense", "Activation", "Flatten", "Dropout",
+           "BatchNorm", "LayerNorm", "Embedding"]
 
-_ACTIVATIONS = {"tanh": torch.tanh}
+_ACTIVATIONS = {"relu": F.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh, "softrelu": F.softplus}
+
+
+def _activation(name):
+    if name not in _ACTIVATIONS:
+        raise MXNetError(f"unknown activation {name!r}; expected one of "
+                         f"{sorted(_ACTIVATIONS)}")
+    return _ACTIVATIONS[name]
 
 
 class HybridSequential(HybridBlock):
@@ -45,7 +59,7 @@ class Dense(HybridBlock):
         super().__init__(prefix=prefix, params=params)
         self._units = units
         self._flatten = flatten
-        self._act = _ACTIVATIONS[activation] if activation else None
+        self._act = _activation(activation) if activation else None
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(units, in_units), dtype=dtype,
@@ -62,13 +76,102 @@ class Dense(HybridBlock):
         return out if self._act is None else self._act(out)
 
 
+class Activation(HybridBlock):
+    """``relu``, ``sigmoid``, ``tanh`` or ``softrelu``."""
+
+    def __init__(self, activation, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._act = _activation(activation)
+
+    def forward(self, x):
+        return self._act(x)
+
+
+class Flatten(HybridBlock):
+    """``(N, ...)`` to ``(N, prod(...))``."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
 class Dropout(HybridBlock):
     def __init__(self, rate, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._rate = rate
 
     def forward(self, x):
-        return F.dropout(x, self._rate, training=self.training)
+        return F.dropout(x, self._rate, training=autograd.is_training())
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalisation over ``axis`` (the channel axis, 1 for NCHW).
+
+    The JAX layer's semantics (``mxnet_tpu/ndarray/ops_nn.py`` BatchNorm):
+
+    - in training mode (``autograd.is_training()`` and not
+      ``use_global_stats``) it normalises with the batch mean and the
+      *biased* batch variance, and updates the running statistics in
+      place, without autograd: ``new = momentum * old + (1 - momentum) *
+      batch`` (MXNet's convention, the reverse of torch's), the variance
+      biased and both taken in fp32;
+    - otherwise it normalises with the running statistics;
+    - ``scale=False`` fixes gamma at 1 (``fix_gamma``), and gamma then has
+      ``grad_req='null'``; ``center=False`` leaves beta untrained.
+
+    The normalisation itself is ``F.batch_norm`` without running buffers
+    (torch would update them with the unbiased variance); the running
+    statistics are updated here from ``torch.var_mean``.
+    """
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                grad_req="write" if scale else "null")
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                grad_req="write" if center else "null")
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,),
+                init=running_mean_initializer, grad_req="null")
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,),
+                init=running_variance_initializer, grad_req="null")
+
+    def forward(self, x):
+        ax = self._axis % x.ndim
+        if ax == 1:
+            return self._normalize(x)
+        # F.batch_norm takes the channels on dim 1
+        return self._normalize(x.movedim(ax, 1)).movedim(1, ax)
+
+    def _normalize(self, x):
+        gamma = self.gamma.data() if self._scale else None
+        beta = self.beta.data()
+        r_mean, r_var = self.running_mean.data(), self.running_var.data()
+        if not (autograd.is_training() and not self._use_global_stats):
+            return F.batch_norm(x, r_mean, r_var, gamma, beta, False, 0.0,
+                                self._epsilon)
+        with torch.no_grad():
+            dims = [d for d in range(x.ndim) if d != 1]
+            var, mean = torch.var_mean(x.detach().float(), dim=dims,
+                                       correction=0)
+            mom = self._momentum
+            r_mean.copy_(r_mean * mom + mean * (1 - mom))
+            r_var.copy_(r_var * mom + var * (1 - mom))
+        return F.batch_norm(x, None, None, gamma, beta, True, 0.0,
+                            self._epsilon)
 
 
 class LayerNorm(HybridBlock):

@@ -4,16 +4,30 @@ Counterpart of ``mxnet_tpu/gluon/parameter.py``.  A :class:`Parameter`
 keeps MXNet's prefixed name (``bertmodel0_enc_..._qkv_weight``) and owns one
 ``nn.Parameter`` for its whole life: initialisation and loading replace
 that tensor's ``.data`` in place, so every module that registered it (a
-tied weight is registered by two) sees the change.
+tied weight is registered by two) sees the change, and a weight shared by
+two blocks gets one gradient.
 
 Shapes must be known at construction (give ``in_units``/``in_channels``):
-the deferred shape inference of the JAX package is not ported.  Tensors
-are created with ``requires_grad=False``: this slice serves; gradients
-come with the training slice.
+the deferred shape inference of the JAX package is not ported.
+
+Gradients follow MXNet's ``grad_req``:
+
+- ``"null"``: no gradient; the tensor has ``requires_grad=False``;
+- ``"add"``: every backward adds into ``grad()`` until ``zero_grad()``;
+- ``"write"`` (the default): every backward pass overwrites ``grad()``.
+  PyTorch always accumulates into ``.grad``, so a hook on the tensor drops
+  the old gradient when the first contribution of a new backward pass
+  arrives (one pass is one autograd graph task; PyTorch sums the
+  contributions of one pass before the hook sees them).
+
+``fresh`` is the staleness flag of the JAX package's ``AGInfo``: True from
+initialisation, ``zero_grad()`` and each optimizer update until a backward
+writes the gradient.  ``gluon.Trainer`` refuses to apply a ``write``
+gradient that is still fresh.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -25,6 +39,8 @@ from ..context import DeviceLike, as_device
 
 __all__ = ["Parameter", "ParameterDict"]
 
+_GRAD_REQS = ("write", "add", "null")
+
 
 def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
@@ -34,9 +50,12 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 
 class Parameter:
-    """A named weight with its initializer and one ``nn.Parameter``."""
+    """A named weight with its initializer, ``grad_req``, lr/wd
+    multipliers and one ``nn.Parameter``."""
 
-    def __init__(self, name: str, shape=None, dtype="float32", init=None):
+    def __init__(self, name: str, grad_req: str = "write", shape=None,
+                 dtype="float32", lr_mult: float = 1.0,
+                 wd_mult: float = 1.0, init=None):
         self.name = name
         if isinstance(shape, int):
             shape = (shape,)
@@ -46,10 +65,44 @@ class Parameter:
                 f"Parameter {name!r} needs a known shape, got {shape}; "
                 f"give in_units/in_channels")
         self.dtype = _torch_dtype(dtype)
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self.init = init
+        self.fresh = True
         self._initialized = False
+        self._grad_task = None
+        self._hooked = False
         self._data = nn.Parameter(torch.empty(self.shape, dtype=self.dtype),
                                   requires_grad=False)
+        self._grad_req = "null"
+        self.grad_req = grad_req
+
+    @property
+    def grad_req(self) -> str:
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req: str) -> None:
+        if req not in _GRAD_REQS:
+            raise MXNetError(f"grad_req must be one of {_GRAD_REQS}, "
+                             f"got {req!r}")
+        self._grad_req = req
+        self._data.requires_grad_(req != "null")
+        if req == "null":
+            self._data.grad = None
+        elif not self._hooked:
+            self._data.register_hook(self._on_grad)
+            self._hooked = True
+
+    def _on_grad(self, grad):
+        """Tensor hook, run once per backward pass that reaches this
+        parameter, before PyTorch accumulates ``grad`` into ``.grad``."""
+        task = torch._C._current_graph_task_id()
+        if self._grad_req == "write" and (self.fresh
+                                          or task != self._grad_task):
+            self._data.grad = None
+        self._grad_task = task
+        self.fresh = False
 
     def initialize(self, init=None, ctx: DeviceLike = None,
                    generator: Optional[torch.Generator] = None,
@@ -65,7 +118,14 @@ class Parameter:
             init_mod.create(self.init).init_weight(self.name, host, generator)
         else:
             init_mod.create(init)(self.name, host, generator)
-        self._data.data = host.to(as_device(ctx))
+        self._set(host.to(as_device(ctx)))
+
+    def _set(self, value: torch.Tensor) -> None:
+        """Install ``value`` as the data; the old gradient is dropped
+        (``grad()`` reads zeros) and is stale until a backward writes it."""
+        self._data.data = value
+        self._data.grad = None
+        self.fresh = True
         self._initialized = True
 
     def data(self) -> nn.Parameter:
@@ -73,6 +133,26 @@ class Parameter:
             raise MXNetError(f"Parameter {self.name!r} has not been "
                              f"initialized; call .initialize()")
         return self._data
+
+    def grad(self) -> torch.Tensor:
+        """The gradient buffer (zeros before the first backward)."""
+        data = self.data()
+        if self._grad_req == "null":
+            raise MXNetError(
+                f"Parameter {self.name!r} has grad_req='null'; no gradient")
+        if data.grad is None:
+            data.grad = torch.zeros_like(data)
+        return data.grad
+
+    def list_grad(self) -> List[torch.Tensor]:
+        return [self.grad()]
+
+    def zero_grad(self) -> None:
+        if self._grad_req == "null" or not self._initialized:
+            return
+        if self._data.grad is not None:
+            self._data.grad.zero_()
+        self.fresh = True
 
     @property
     def device(self) -> torch.device:
@@ -90,8 +170,7 @@ class Parameter:
                 f"with data of shape {tuple(src.shape)}")
         dev = self._data.device if ctx is None and self._initialized \
             else as_device(ctx)
-        self._data.data = src.to(device=dev, dtype=self.dtype, copy=True)
-        self._initialized = True
+        self._set(src.detach().to(device=dev, dtype=self.dtype, copy=True))
 
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "

@@ -1,20 +1,25 @@
-"""Parameter initializers: the ones ``Dense``, ``Embedding`` and
-``LayerNorm`` use by default.
+"""Parameter initializers: the layers' defaults, ``Normal`` and ``Xavier``.
 
 Same rules as ``mxnet_tpu/initializer.py``: the default initializer is
-``Uniform(0.07)``, and it dispatches on the parameter name (``*bias`` and
-``*beta`` get zeros, ``*gamma`` ones, everything else the random draw).
+``Uniform(0.07)``, and it dispatches on the parameter name (``*bias``,
+``*beta`` and ``*running_mean`` get zeros, ``*gamma`` and ``*running_var``
+ones, everything else the random draw).  ``Xavier`` takes the JAX
+package's fan rule: ``fan_in = shape[1] * prod(shape[2:])``, ``fan_out =
+shape[0] * prod(shape[2:])``.
 Draws come from a ``torch.Generator`` the caller seeds; they match the JAX
 package in distribution, not bit for bit.  Fills run on CPU tensors, so one
 seed gives the same weights whatever device the parameters then move to.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "Uniform", "Zero", "One", "create"]
+__all__ = ["Initializer", "Uniform", "Normal", "Xavier", "Zero", "One",
+           "create"]
 
 
 class Initializer:
@@ -23,9 +28,9 @@ class Initializer:
     def __call__(self, name: str, arr: torch.Tensor,
                  generator: torch.Generator) -> None:
         name = name.lower()
-        if name.endswith("bias") or name.endswith("beta"):
+        if name.endswith(("bias", "beta", "running_mean")):
             arr.zero_()
-        elif name.endswith("gamma"):
+        elif name.endswith(("gamma", "running_var")):
             arr.fill_(1.0)
         else:
             self.init_weight(name, arr, generator)
@@ -48,6 +53,46 @@ class Uniform(Initializer):
         arr.uniform_(-self.scale, self.scale, generator=generator)
 
 
+class Normal(Initializer):
+    def __init__(self, sigma: float = 0.01):
+        self.sigma = sigma
+
+    def init_weight(self, name, arr, generator):
+        arr.normal_(0.0, self.sigma, generator=generator)
+
+
+def _fan(shape):
+    """(fan_in, fan_out), with the receptive field of a conv weight."""
+    hw = math.prod(shape[2:])
+    return (shape[1] if len(shape) > 1 else shape[0]) * hw, shape[0] * hw
+
+
+class Xavier(Initializer):
+    """Scale ``sqrt(magnitude / factor)``, factor the mean of the fans
+    (``avg``), ``fan_in`` (``in``) or ``fan_out`` (``out``); a uniform
+    draw in [-scale, scale] or a normal one of that sigma."""
+
+    def __init__(self, rnd_type: str = "uniform", factor_type: str = "avg",
+                 magnitude: float = 3):
+        if rnd_type not in ("uniform", "gaussian"):
+            raise MXNetError(f"bad rnd_type {rnd_type!r}")
+        if factor_type not in ("avg", "in", "out"):
+            raise MXNetError(f"bad factor_type {factor_type!r}")
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def init_weight(self, name, arr, generator):
+        fan_in, fan_out = _fan(arr.shape)
+        factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in,
+                  "out": fan_out}[self.factor_type]
+        scale = math.sqrt(self.magnitude / max(factor, 1.0))
+        if self.rnd_type == "uniform":
+            arr.uniform_(-scale, scale, generator=generator)
+        else:
+            arr.normal_(0.0, scale, generator=generator)
+
+
 class Zero(Initializer):
     def init_weight(self, name, arr, generator):
         arr.zero_()
@@ -58,8 +103,8 @@ class One(Initializer):
         arr.fill_(1.0)
 
 
-_registry = {"uniform": Uniform, "zero": Zero,
-             "zeros": Zero, "one": One, "ones": One}
+_registry = {"uniform": Uniform, "normal": Normal, "xavier": Xavier,
+             "zero": Zero, "zeros": Zero, "one": One, "ones": One}
 
 
 def create(init) -> Initializer:

@@ -5,5 +5,8 @@ Sources live in ``csrc/`` and are built by ``_build`` at first use (on a
 machine with the CUDA toolkit).  Importing this package builds nothing.
 """
 from .flash_attention import flash_attention, flash_attention_plain
+from .multi_sgd import (multi_sgd, multi_sgd_mom, multi_sgd_mom_plain,
+                        multi_sgd_plain)
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_plain", "multi_sgd",
+           "multi_sgd_mom", "multi_sgd_mom_plain", "multi_sgd_plain"]

@@ -133,7 +133,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On the CPU this runs :func:`flash_attention_plain`; on a CUDA tensor it
     launches the kernel, which takes D in {32, 64, 128} and float32 or
-    bfloat16, and raises on anything else."""
+    bfloat16, and raises on anything else.  The kernel has no backward
+    yet: on a CUDA tensor with grad mode on and q, k or v requiring grad
+    the wrapper raises rather than return a result without a gradient."""
     tensors = (q, k, v)
     if len({t.device for t in tensors}) != 1:
         raise MXNetError("flash_attention: q, k, v on different devices")
@@ -161,13 +163,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"divide batch*heads {bh}")
             vl = vl.repeat_interleave(bh // vl.shape[0])
         vl = vl.contiguous()
-    if q.device.type == "cpu":
-        out = flash_attention_plain(q, k, v, vl, causal, scale)
-    elif q.device.type == "cuda":
+    if _on_card(q):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors):
+            raise MXNetError(
+                "flash_attention: the CUDA kernel has no backward yet (it "
+                "comes with the BERT-training slice); on the card call it "
+                "without gradients (torch.no_grad/inference_mode) or set "
+                "MXNET_ATTENTION_KERNEL=xla")
         out = _launch(q, k, v, vl, causal, scale)
+    elif q.device.type == "cpu":
+        out = flash_attention_plain(q, k, v, vl, causal, scale)
     else:
         raise MXNetError(f"flash_attention: no kernel for device {q.device}")
     return out.reshape(b, h, lq, d) if four_d else out
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 flash_attention.launches = 0

@@ -1,0 +1,111 @@
+"""SGD update operators, in place on their weight and state tensors.
+
+Counterpart of the SGD family of ``mxnet_tpu/ndarray/ops_optimizer.py``:
+
+- per tensor (plain torch; the JAX package leaves them to XLA):
+  ``sgd_update(weight, grad, lr, ...)``, ``sgd_mom_update(weight, grad,
+  mom, lr, ...)`` and ``mp_sgd_mom_update(weight, grad, mom, weight32,
+  lr, ...)``;
+- multi-tensor, through the hand-written kernels of
+  ``kernels/multi_sgd.py`` on the card, with the reference's interleaved
+  inputs followed by the per-tensor lr and wd sequences:
+  ``multi_sgd_update(w0, g0, w1, g1, ..., lrs, wds)``,
+  ``multi_sgd_mom_update(w0, g0, m0, ..., lrs, wds)`` and
+  ``multi_mp_sgd_mom_update(w0, g0, m0, w32_0, ..., lrs, wds)``.
+
+Every operator writes its outputs into its inputs (weights, momenta, fp32
+masters) and returns them in the reference's output order.  The update is
+``w - lr * (c + wd * w)`` with ``c = grad * rescale_grad`` clipped to
+``[-clip_gradient, clip_gradient]`` when ``clip_gradient > 0``; the
+momentum form keeps ``m = momentum * m - lr * (c + wd * w)`` and adds it
+to ``w``.  The multi-precision forms run the fp32 update on the master
+weight ``w32`` (the gradient cast to fp32 first) and then store ``w32``
+cast into the low-precision weight.  Operators take no gradient: call them
+outside ``autograd.record()`` or under ``torch.no_grad()``.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from ..base import MXNetError
+from ..kernels.multi_sgd import _clip, _step, multi_sgd, multi_sgd_mom
+
+__all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_mom_update",
+           "multi_sgd_update", "multi_sgd_mom_update",
+           "multi_mp_sgd_mom_update"]
+
+
+@torch.no_grad()
+def sgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0,
+               clip_gradient=-1.0):
+    weight.sub_(_step(weight, grad, float(lr), wd, rescale_grad,
+                      _clip(clip_gradient)))
+    return weight
+
+
+@torch.no_grad()
+def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    mom.mul_(momentum).sub_(_step(weight, grad, float(lr), wd, rescale_grad,
+                                  _clip(clip_gradient)))
+    weight.add_(mom)
+    return weight, mom
+
+
+@torch.no_grad()
+def mp_sgd_mom_update(weight, grad, mom, weight32, lr, momentum=0.0,
+                      wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    sgd_mom_update(weight32, grad.float(), mom, lr, momentum, wd,
+                   rescale_grad, clip_gradient)
+    weight.copy_(weight32)
+    return weight, mom, weight32
+
+
+def _split(data, stride: int, num_weights, name: str):
+    arrs, lrs, wds = data[:-2], data[-2], data[-1]
+    if not arrs or len(arrs) % stride:
+        raise MXNetError(f"{name}: {len(arrs)} tensor inputs is not a "
+                         f"multiple of {stride}")
+    if num_weights is not None and num_weights != len(arrs) // stride:
+        raise MXNetError(f"{name}: num_weights={num_weights} but "
+                         f"{len(arrs) // stride} weights given")
+    return [list(arrs[i::stride]) for i in range(stride)], lrs, wds
+
+
+@torch.no_grad()
+def multi_sgd_update(*data, rescale_grad=1.0, clip_gradient=-1.0,
+                     num_weights=None) -> List[torch.Tensor]:
+    """``w0, g0, w1, g1, ..., lrs, wds``; returns the weights."""
+    (ws, gs), lrs, wds = _split(data, 2, num_weights, "multi_sgd_update")
+    multi_sgd(ws, gs, lrs, wds, rescale_grad, clip_gradient)
+    return ws
+
+
+@torch.no_grad()
+def multi_sgd_mom_update(*data, momentum=0.0, rescale_grad=1.0,
+                         clip_gradient=-1.0,
+                         num_weights=None) -> List[torch.Tensor]:
+    """``w0, g0, m0, ..., lrs, wds``; returns ``w0, m0, w1, m1, ...``."""
+    (ws, gs, ms), lrs, wds = _split(data, 3, num_weights,
+                                    "multi_sgd_mom_update")
+    multi_sgd_mom(ws, gs, ms, lrs, wds, momentum, rescale_grad,
+                  clip_gradient)
+    return [t for pair in zip(ws, ms) for t in pair]
+
+
+@torch.no_grad()
+def multi_mp_sgd_mom_update(*data, momentum=0.0, rescale_grad=1.0,
+                            clip_gradient=-1.0,
+                            num_weights=None) -> List[torch.Tensor]:
+    """``w0, g0, m0, w32_0, ..., lrs, wds``: the momentum kernel on the
+    fp32 masters, then each master cast into its weight; returns ``w0,
+    m0, w32_0, ...``."""
+    (ws, gs, ms, w32s), lrs, wds = _split(data, 4, num_weights,
+                                          "multi_mp_sgd_mom_update")
+    multi_sgd_mom(w32s, [g.float() for g in gs], ms, lrs, wds, momentum,
+                  rescale_grad, clip_gradient)
+    for w, w32 in zip(ws, w32s):
+        w.copy_(w32)
+    return [t for trio in zip(ws, ms, w32s) for t in trio]

@@ -1,0 +1,196 @@
+"""Optimizers: the ``Optimizer`` base, the registry and ``SGD``.
+
+Counterpart of ``mxnet_tpu/optimizer.py`` (Adam and the rest come later).
+The base keeps MXNet's bookkeeping: ``rescale_grad`` (the Trainer sets it
+to ``1 / batch_size`` each step), the learning rate and weight decay with
+per-parameter ``lr_mult``/``wd_mult`` read from ``param_dict`` (the
+Trainer's parameters), ``clip_gradient``, per-index update counts and
+``multi_precision`` (an fp32 master copy of each fp16/bf16 weight).
+
+``SGD.update_multi`` is the multi-tensor path of ``gluon.Trainer``: one
+``multi_sgd_update`` / ``multi_sgd_mom_update`` /
+``multi_mp_sgd_mom_update`` call per group, which on the card is one launch
+of a hand-written kernel.  It falls back to the per-tensor update for the
+same cases as the reference (mixed weight dtypes; multi-precision without
+momentum or with a state that is not a master pair).  Updates run under
+``torch.no_grad()`` and change the weights in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from .base import MXNetError, get_env
+from .ndarray import ops_optimizer as ops
+
+__all__ = ["Optimizer", "SGD", "register", "create"]
+
+_registry: Dict[str, type] = {}
+
+
+def _is_low_precision(dtype: torch.dtype) -> bool:
+    return dtype in (torch.float16, torch.bfloat16)
+
+
+def register(klass):
+    _registry[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(name, **kwargs) -> "Optimizer":
+    """An optimizer by registered name (``"sgd"``), or an instance as
+    is."""
+    if isinstance(name, Optimizer):
+        return name
+    if name.lower() not in _registry:
+        raise MXNetError(f"unknown optimizer {name!r}")
+    return _registry[name.lower()](**kwargs)
+
+
+def _is_mp_state(state) -> bool:
+    return isinstance(state, tuple) and len(state) == 2 and \
+        isinstance(state[1], torch.Tensor)
+
+
+class Optimizer:
+    """Base optimizer with per-index lr/wd multipliers and update
+    counting."""
+
+    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
+                 learning_rate=0.01, multi_precision=False, param_dict=None,
+                 **kwargs):
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
+        self.param_dict = param_dict or {}
+        self.num_update = 0
+        self._index_update_count: Dict[int, int] = {}
+        # >1 enables the multi-tensor path in Trainer; only optimizers
+        # with update_multi (SGD) set it
+        self.aggregate_num = 0
+
+    def _update_count(self, index) -> None:
+        cnt = self._index_update_count.get(index, 0) + 1
+        self._index_update_count[index] = cnt
+        self.num_update = max(self.num_update, cnt)
+
+    def set_learning_rate(self, lr: float) -> None:
+        self.lr = lr
+
+    @property
+    def learning_rate(self) -> float:
+        return self.lr
+
+    def _mult(self, index, attr: str) -> float:
+        param = self.param_dict.get(index)
+        return 1.0 if param is None else getattr(param, attr)
+
+    def _get_lr(self, index) -> float:
+        return self.lr * self._mult(index, "lr_mult")
+
+    def _get_wd(self, index) -> float:
+        return self.wd * self._mult(index, "wd_mult")
+
+    def create_state(self, index, weight):
+        return None
+
+    def create_state_multi_precision(self, index, weight):
+        """With ``multi_precision`` and an fp16/bf16 weight: ``(state of
+        the fp32 master, fp32 master)``; else the plain state."""
+        if self.multi_precision and _is_low_precision(weight.dtype):
+            w32 = weight.detach().float()
+            return (self.create_state(index, w32), w32)
+        return self.create_state(index, weight)
+
+    def update(self, index, weight, grad, state):
+        raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """The update, with multi-precision master weights where the
+        optimizer has them (SGD overrides this)."""
+        self.update(index, weight, grad, state)
+
+    def _common_kwargs(self, index) -> Dict[str, Any]:
+        kw = {"wd": self._get_wd(index), "rescale_grad": self.rescale_grad}
+        if self.clip_gradient is not None:
+            kw["clip_gradient"] = self.clip_gradient
+        return kw
+
+
+@register
+class SGD(Optimizer):
+    """SGD with momentum and multi-precision master weights."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.aggregate_num = int(get_env("MXNET_OPTIMIZER_AGGREGATION_SIZE"))
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._common_kwargs(index)
+        lr = self._get_lr(index)
+        if self.momentum == 0.0:
+            ops.sgd_update(weight, grad, lr, **kw)
+        else:
+            ops.sgd_mom_update(weight, grad, state, lr,
+                               momentum=self.momentum, **kw)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        if self.multi_precision and _is_mp_state(state):
+            mom, w32 = state
+            self._update_count(index)
+            if mom is None:
+                mom = torch.zeros_like(w32)
+            ops.mp_sgd_mom_update(weight, grad, mom, w32,
+                                  self._get_lr(index),
+                                  momentum=self.momentum,
+                                  **self._common_kwargs(index))
+        else:
+            self.update(index, weight, grad, state)
+
+    def update_multi(self, indices, weights, grads, states):
+        """One multi-tensor update over the group (the reference's
+        multi_sgd_update family); per tensor for mixed dtypes, or
+        multi-precision without momentum or without master pairs."""
+        dt = weights[0].dtype
+        mp = self.multi_precision and _is_mp_state(states[0])
+        fallback = (any(w.dtype != dt for w in weights)
+                    or (mp and self.momentum == 0.0)
+                    or (mp and not all(isinstance(s, tuple)
+                                       for s in states)))
+        if fallback:
+            for i, w, g, s in zip(indices, weights, grads, states):
+                self.update_multi_precision(i, w, g, s)
+            return
+        for i in indices:
+            self._update_count(i)
+        lrs = [self._get_lr(i) for i in indices]
+        wds = [self._get_wd(i) for i in indices]
+        kw: Dict[str, Any] = {"rescale_grad": self.rescale_grad,
+                              "num_weights": len(indices)}
+        if self.clip_gradient is not None:
+            kw["clip_gradient"] = self.clip_gradient
+        data: list = []
+        if mp:
+            for w, g, (mom, w32) in zip(weights, grads, states):
+                data.extend((w, g, mom, w32))
+            ops.multi_mp_sgd_mom_update(*data, lrs, wds,
+                                        momentum=self.momentum, **kw)
+        elif self.momentum != 0.0:
+            for w, g, s in zip(weights, grads, states):
+                data.extend((w, g, s))
+            ops.multi_sgd_mom_update(*data, lrs, wds,
+                                     momentum=self.momentum, **kw)
+        else:
+            for w, g in zip(weights, grads):
+                data.extend((w, g))
+            ops.multi_sgd_update(*data, lrs, wds, **kw)

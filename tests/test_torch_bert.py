@@ -54,7 +54,7 @@ def test_param_names_mirror_reference_and_decoder_is_tied():
     assert "mlm_out_bias" in ours and "mlm_out_weight" not in ours
     assert port.mlm_decoder.weight is port.word_embed.weight
     np.testing.assert_array_equal(
-        port.mlm_decoder.weight.data().numpy(),
+        port.mlm_decoder.weight.data().detach().numpy(),
         ref.collect_params()[ref.prefix + "word_embed_weight"]
         .data().asnumpy())
 
@@ -186,7 +186,7 @@ def test_load_reference_params_places_on_ctx(monkeypatch):
     load_reference_params(fresh, arrays)
     assert asked == [None]
     np.testing.assert_array_equal(
-        fresh.qkv.weight.data().numpy(),
+        fresh.qkv.weight.data().detach().numpy(),
         arrays[REF_ATTN + "qkv_weight"])
 
 

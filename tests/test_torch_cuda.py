@@ -1,12 +1,17 @@
-"""The flash-attention CUDA kernel held against its plain PyTorch version
-on the card.  Marked ``cuda``; every test skips (inside the ``card``
-fixture) where no CUDA device is present.  Run on a machine with an H100:
+"""The port's CUDA kernels held against their plain PyTorch versions on
+the card: flash attention, and the two multi-tensor SGD kernels alone and
+through gluon.Trainer.  Marked ``cuda``; every test skips (inside the
+``card`` fixture) where no CUDA device is present.  Run on a machine with
+an H100:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 max-abs 1e-4 (fp32 accumulation in both, summation order
-differs); bf16 2e-2 against the plain version run in fp32 on the same
-bf16 inputs (bf16 output rounding).
+Tolerances: flash fp32 max-abs 1e-4 (fp32 accumulation in both, summation
+order differs); bf16 2e-2 against the plain version run in fp32 on the
+same bf16 inputs (bf16 output rounding).  Multi-tensor SGD 1e-6 (the
+kernels round each operation as the plain version does: 0 expected).
+A training step on the card against the CPU: 1e-4 (cuDNN and the CPU's
+convolutions sum in different orders).
 """
 import math
 
@@ -15,7 +20,9 @@ import pytest
 import torch
 
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.kernels import flash_attention, flash_attention_plain
+from mxnet_tpu_torch.kernels import (flash_attention, flash_attention_plain,
+                                     multi_sgd, multi_sgd_mom,
+                                     multi_sgd_mom_plain, multi_sgd_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,7 +78,8 @@ def test_load_reference_params_defaults_to_the_card(card):
         MultiHeadAttention
     src = MultiHeadAttention(64, 4)
     src.initialize(ctx="cpu", seed=2)
-    arrays = {k: p.data().numpy() for k, p in src.collect_params().items()}
+    arrays = {k: p.data().detach().numpy()
+              for k, p in src.collect_params().items()}
     net = MultiHeadAttention(64, 4)
     load_reference_params(net, arrays)
     assert net.device() == card
@@ -137,3 +145,157 @@ def test_bert_forward_on_card_matches_cpu(card):
         assert flash_attention.launches - before == (2 if dev == card else 0)
     for a, b in zip(*outs):
         np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+ODD_SHAPES = [(1,), (3,), (7, 5), (1023,), (4097,), (8193,), (3, 33333),
+              (64, 3, 3, 3)] * 9                           # 72 tensors
+
+
+def _sgd_set(card, shapes, offset, seed):
+    """w, g, m of ``shapes`` on the card, each ``offset`` elements into its
+    own buffer (offset 1 misaligns every pointer)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def make():
+        out = []
+        for s in shapes:
+            n = int(np.prod(s))
+            out.append(torch.randn(n + offset, device=card,
+                                   generator=g)[offset:].view(s))
+        return out
+    return make(), make(), make()
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("clip", [-1.0, 0.5])
+@pytest.mark.parametrize("momentum", [False, True])
+def test_multi_sgd_kernels_match_plain(card, momentum, clip, offset):
+    """72 odd-sized tensors (vector body and scalar tails; scalar only when
+    misaligned): one group splits into 2 launches of the 64-entry table."""
+    w, g, m = _sgd_set(card, ODD_SHAPES, offset, 7 + offset)
+    lrs = np.linspace(0.01, 0.3, len(w)).tolist()
+    wds = np.linspace(0.0, 1e-2, len(w)).tolist()
+    wk, mk = [t.clone() for t in w], [t.clone() for t in m]
+    wp, mp = [t.clone() for t in w], [t.clone() for t in m]
+    counter = multi_sgd_mom if momentum else multi_sgd
+    before = counter.launches
+    if momentum:
+        multi_sgd_mom(wk, g, mk, lrs, wds, 0.9, 1 / 128, clip)
+        multi_sgd_mom_plain(wp, g, mp, lrs, wds, 0.9, 1 / 128, clip)
+    else:
+        multi_sgd(wk, g, lrs, wds, 1 / 128, clip)
+        multi_sgd_plain(wp, g, lrs, wds, 1 / 128, clip)
+    torch.cuda.synchronize()
+    assert counter.launches - before == 2
+    for a, b in zip(wk + mk, wp + mp):
+        assert (a - b).abs().max().item() <= 1e-6
+
+
+def test_multi_sgd_kernel_rejects_what_it_does_not_take(card):
+    w = [torch.zeros(4, 4, device=card)]
+    with pytest.raises(MXNetError, match="dtype"):
+        multi_sgd([w[0].bfloat16()], [w[0].bfloat16()], [0.1], [0.0])
+    with pytest.raises(MXNetError, match="contiguous"):
+        multi_sgd([w[0].t()], [w[0].t()], [0.1], [0.0])
+    with pytest.raises(MXNetError, match="match"):
+        multi_sgd(w, [torch.zeros(5, device=card)], [0.1], [0.0])
+    with pytest.raises(MXNetError, match="tensors on"):
+        multi_sgd(w, [torch.zeros(4, 4)], [0.1], [0.0])
+
+
+def test_multi_sgd_kernel_skips_empty_tensors(card):
+    """Empty tensors take no block; a group of only empty tensors makes no
+    launch and counts none."""
+    empty, w = torch.zeros(0, device=card), torch.ones(5, device=card)
+    before = multi_sgd.launches
+    multi_sgd([empty], [empty], [0.1], [0.0])
+    assert multi_sgd.launches == before
+    multi_sgd([empty, w, empty], [empty, torch.ones_like(w), empty],
+              [0.1] * 3, [0.0] * 3)
+    torch.cuda.synchronize()
+    assert multi_sgd.launches == before + 1
+    assert torch.allclose(w, torch.full_like(w, 0.9))
+
+
+def _small_resnet():
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    return resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                           [8, 16, 32, 64, 128], classes=10)
+
+
+def test_trainer_launches_one_kernel_per_group(card):
+    """53 trainable parameters of a small ResNet in groups of 4: 14
+    momentum launches per step; the 6 of the MLP: 2 plain launches."""
+    from mxnet_tpu_torch import autograd, gluon, initializer
+    from mxnet_tpu_torch.gluon import nn
+    net = _small_resnet()
+    net.initialize(initializer.Xavier("gaussian", "in", 2), ctx=card)
+    mlp = nn.HybridSequential()
+    mlp.add(nn.Dense(128, activation="relu", in_units=784),
+            nn.Dense(64, activation="relu", in_units=128),
+            nn.Dense(10, in_units=64))
+    mlp.initialize(ctx=card)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for model, opt, x, counter, per_step in (
+            (net, {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+             torch.randn(4, 3, 32, 32, device=card), multi_sgd_mom, 14),
+            (mlp, {"learning_rate": 0.1}, torch.randn(8, 784, device=card),
+             multi_sgd, 2)):
+        tr = gluon.Trainer(model.collect_params(), "sgd", opt)
+        y = torch.arange(x.shape[0], device=card).float() % 10
+        before = counter.launches
+        for _ in range(3):
+            with autograd.record():
+                loss = lossfn(model(x), y)
+            autograd.backward(loss)
+            tr.step(x.shape[0])
+        torch.cuda.synchronize()
+        assert counter.launches - before == 3 * per_step
+        assert torch.isfinite(loss).all()
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One SGD-momentum step of a small ResNet from the same weights and
+    data on the card and on the CPU: loss, weights and running statistics
+    within 1e-4."""
+    from mxnet_tpu_torch import autograd, gluon, initializer
+    from mxnet_tpu_torch import load_reference_params
+    src = _small_resnet()
+    src.initialize(initializer.Xavier("gaussian", "in", 2), ctx="cpu",
+                   seed=3)
+    arrays = {k: p.data().detach().numpy()
+              for k, p in src.collect_params().items()}
+    rs = np.random.RandomState(0)
+    x = rs.randn(4, 3, 32, 32).astype(np.float32)
+    y = rs.randint(0, 10, 4).astype(np.float32)
+    out = []
+    for dev in (torch.device("cpu"), card):
+        net = _small_resnet()
+        load_reference_params(net, arrays, ctx=dev)
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1, "momentum": 0.9,
+                            "wd": 1e-4})
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(torch.as_tensor(x, device=dev)),
+                torch.as_tensor(y, device=dev))
+        autograd.backward(loss)
+        tr.step(4)
+        out.append([loss.detach().cpu().numpy()] +
+                   [p.data().detach().cpu().numpy()
+                    for p in net.collect_params().values()])
+    for a, b in zip(*out):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+
+
+def test_flash_kernel_refuses_to_record(card):
+    """Under autograd.record() with inputs that require grad the kernel
+    would drop the gradient, so the wrapper raises; without grad it
+    runs."""
+    from mxnet_tpu_torch import autograd
+    q = torch.randn(2, 16, 64, device=card, requires_grad=True)
+    with autograd.record():
+        with pytest.raises(MXNetError, match="no backward"):
+            flash_attention(q, q, q)
+    with torch.no_grad():
+        assert flash_attention(q, q, q).shape == q.shape

@@ -122,3 +122,28 @@ def test_wrapper_rejects_bad_inputs():
         flash_attention(q, m, m)
     with pytest.raises(MXNetError, match="no kernel"):
         flash_attention(m, m, m)
+
+
+@pytest.mark.parametrize("grad_on", [True, False])
+def test_card_path_refuses_inputs_that_require_grad(monkeypatch, grad_on):
+    """The CUDA kernel has no backward: on the card path (forced here by
+    patching the device check and the launch) the wrapper raises under
+    grad mode when q/k/v require grad, and launches otherwise."""
+    import importlib
+    mod = importlib.import_module("mxnet_tpu_torch.kernels.flash_attention")
+    launched = []
+    monkeypatch.setattr(mod, "_on_card", lambda t: True)
+    monkeypatch.setattr(mod, "_launch", lambda q, *a: launched.append(1)
+                        or torch.zeros_like(q))
+    q = torch.randn(2, 8, 32, requires_grad=True)
+    with torch.set_grad_enabled(grad_on):
+        if grad_on:
+            with pytest.raises(MXNetError, match="no backward"):
+                flash_attention(q, q, q)
+            assert not launched
+        else:
+            assert flash_attention(q, q, q).shape == q.shape
+            assert launched == [1]
+    with torch.no_grad():
+        flash_attention(q.detach(), q.detach(), q.detach())
+    assert len(launched) == 1 + (not grad_on)

@@ -185,6 +185,10 @@ def test_port_imports_without_jax():
             "    sys.modules[m] = None\n"
             "import mxnet_tpu_torch, mxnet_tpu_torch.kernels._build\n"
             "import mxnet_tpu_torch.gluon.model_zoo.transformer\n"
+            "import mxnet_tpu_torch.gluon.model_zoo.vision.resnet\n"
+            "import mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.optimizer\n"
+            "import mxnet_tpu_torch.ndarray.ops_optimizer\n"
+            "import mxnet_tpu_torch.kernels.multi_sgd\n"
             "import chip_smoke\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))"
             " for m in sys.modules if sys.modules[m] is not None)\n")
