@@ -54,7 +54,33 @@ expected number of times and the other kernels not at all:
    prints
    images/s, step time, peak memory and a ``torch.profiler`` breakdown of
    one step;
-7. prints one JSON line of kernel measurements, the card line, and last
+7. rtc (kernels compiled at run time, the counterpart of the JAX
+   package's Pallas ``rtc``): compiles the user modules below with NVRTC
+   for ``sm_90a`` and records the compile ms; holds ``add_one`` (fp32)
+   and ``twice`` (int32, exact) of the JAX package's rtc tests, ``axpy``
+   reached through ``exports`` and a 100 KB dynamic-shared-memory kernel
+   against their plain versions; the softmax output layer's forward and
+   backward kernels at 100x10 (the MLP) and 4096x30522 (BERT-base's MLM
+   logits) against theirs (max-abs <= 1e-6 on probabilities: fp32, the
+   same expf per element, row sums in another order), timed beside the
+   bound, the plain version and ``torch.softmax``; the host cost of one
+   launch; and the refusals (wrong dtype, a CPU tensor, a CPU context,
+   an unexported C++ name, a compile error carrying NVRTC's log), each
+   raising ``MXNetError`` before any launch;
+8. custom-op MLP (config #1 at full width, ``examples/train_mnist_mlp.py``
+   with Adam): 2000 synthetic 784-feature samples from ``--seed`` (the
+   example's ``--synthetic`` recipe at 784 features) plus 300 held out,
+   batch 100, ``Trainer("adam", lr 2e-3)``, 2 epochs (40 steps), the
+   output layer ``nd.Custom(logits, label, op_type="softmax_rtc")``
+   under ``autograd.record``, ``autograd.backward``, ``metric.Accuracy``.
+   A twin run from the same weights takes ``SoftmaxCrossEntropyLoss``
+   (the same gradient).  Checks: the first step's gradients within 1e-6
+   of the twin's, per-step losses within 1e-4 relative + 1e-6 (the
+   custom head's loss is ``-log(p)`` of fp32 probabilities, which
+   resolves a loss near 0 only to ~6e-8), exactly one forward and one
+   backward rtc launch per step and no other kernel's, finite losses
+   that fall, held-out accuracy above 0.5;
+9. prints one JSON line of kernel measurements, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Writes the full report to ``<out>/chip_smoke.json``.
@@ -74,7 +100,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mxnet_tpu_torch import autograd, gluon, load_reference_params
+from mxnet_tpu_torch import (autograd, gluon, load_reference_params, metric,
+                             nd, operator, rtc)
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu, gpu
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_base
@@ -112,6 +140,234 @@ RESNET_BATCH, RESNET_WARM, RESNET_STEPS = 128, 3, 10
 RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 CPU_CHECK_BATCH = 2
 LEAF_K, LEAF_FLOOR = 4.0, 1e-3
+RTC_TPU = "mxnet_tpu/rtc.py:50"
+RTC_SRC = "chip_smoke.py"            # user kernels, compiled by rtc.py
+# fp32 probabilities <= 1: kernel and plain version take the same expf of
+# each element and differ only in the order of the row sums
+SOFTMAX_TOL = 1e-6
+SOFTMAX_SHAPES = [(100, 10), (4096, VOCAB)]   # the MLP; BERT-base's MLM
+CUSTOM_SAMPLES, CUSTOM_HELD_OUT = 2000, 300
+CUSTOM_BATCH, CUSTOM_EPOCHS, CUSTOM_LR = 100, 2, 2e-3
+SMEM_FLOATS = 25600                   # 100 KB of dynamic shared memory
+
+# ----------------------------------------------------------------------
+# User code of the rtc slice: CUDA sources compiled at run time by
+# mxnet_tpu_torch.rtc (the counterpart of the TPU kernel path
+# mxnet_tpu/rtc.py:50, PallasKernel._build, which compiles a user's Pallas
+# kernel), each kernel beside its plain PyTorch version, and the softmax
+# output layer as a custom operator (upstream MXNet's
+# example/numpy-ops/custom_softmax_rtc.py, with one block per row so that
+# it is right at any row width).
+
+SOFTMAX_SRC = r"""
+#define NEG_INF __int_as_float((int)0xff800000u)
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+// Block-wide max / sum, returned to every thread; blockDim.x is a
+// multiple of 32 and at most 1024.
+__device__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = warp_max(lane < (blockDim.x >> 5) ? red[lane] : NEG_INF);
+  __syncthreads();
+  return v;
+}
+__device__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = warp_sum(lane < (blockDim.x >> 5) ? red[lane] : 0.f);
+  __syncthreads();
+  return v;
+}
+
+// y = softmax(x) over each row of C; one block per row.  Bound by bytes:
+// x is read from memory once (the second and third passes over a row
+// hit L2) and y written once.  req: 1 write, 2 inplace, 3 add.
+extern "C" __global__ void softmax_fwd(const float* __restrict__ x,
+                                       float* __restrict__ y,
+                                       const int C, const int req) {
+  __shared__ float red[32];
+  const float* xr = x + (size_t)blockIdx.x * C;
+  float* yr = y + (size_t)blockIdx.x * C;
+  float m = NEG_INF;
+  for (int j = threadIdx.x; j < C; j += blockDim.x) m = fmaxf(m, xr[j]);
+  m = block_max(m, red);
+  float s = 0.f;
+  for (int j = threadIdx.x; j < C; j += blockDim.x) s += expf(xr[j] - m);
+  s = block_sum(s, red);
+  for (int j = threadIdx.x; j < C; j += blockDim.x) {
+    const float p = expf(xr[j] - m) / s;
+    if (req == 3) yr[j] += p; else yr[j] = p;
+  }
+}
+
+// dx = y - onehot(label) for each row; the head gradient is not read
+// (SoftmaxOutput's semantics).  Bound by bytes: y read, dx written.
+extern "C" __global__ void softmax_bwd(const float* __restrict__ label,
+                                       const float* __restrict__ y,
+                                       float* __restrict__ dx,
+                                       const int C, const int req) {
+  const size_t row = blockIdx.x;
+  const int l = (int)label[row];
+  const float* yr = y + row * C;
+  float* dr = dx + row * C;
+  for (int j = threadIdx.x; j < C; j += blockDim.x) {
+    const float g = yr[j] - (j == l ? 1.f : 0.f);
+    if (req == 3) dr[j] += g; else dr[j] = g;
+  }
+}
+"""
+SOFTMAX_FWD_SIG = "const float *x, float *y, const int C, const int req"
+SOFTMAX_BWD_SIG = ("const float *label, const float *y, float *dx, "
+                   "const int C, const int req")
+
+# the JAX package's rtc tests' two kernels (tests/test_aux.py: add_one on
+# fp32, twice on int32), written for the card; they write in place
+ELEMENTWISE_SRC = r"""
+extern "C" __global__ void add_one(const float* x, float* y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] + 1.0f;
+}
+extern "C" __global__ void twice(const int* x, int* y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * 2;
+}
+"""
+# a C++ template, reached through exports=("axpy<float>", ...)
+AXPY_SRC = r"""
+template <typename T>
+__global__ void axpy(const T* x, T* y, T alpha, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = alpha * x[i] + y[i];
+}
+"""
+AXPY_EXPORTS = ("axpy<float>", "axpy<double>")
+# reverses each block's n floats through dynamic shared memory (> 48 KB)
+SMEM_SRC = r"""
+extern "C" __global__ void smem_reverse(const float* x, float* y, int n) {
+  extern __shared__ float buf[];
+  const float* xb = x + (size_t)blockIdx.x * n;
+  float* yb = y + (size_t)blockIdx.x * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = xb[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) yb[i] = buf[n - 1 - i];
+}
+"""
+REQ_CODE = {"write": 1, "inplace": 2, "add": 3}
+
+
+def softmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``softmax_fwd``: exp(x - max) / sum, by row."""
+    m = x.max(dim=1, keepdim=True).values
+    e = torch.exp(x - m)
+    return e / e.sum(dim=1, keepdim=True)
+
+
+def softmax_bwd_plain(y: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``softmax_bwd``: y - onehot(label)."""
+    return y - F.one_hot(label.long(), y.shape[1]).to(y.dtype)
+
+
+def add_one_plain(x):
+    return x + 1.0
+
+
+def twice_plain(x):
+    return x * 2
+
+
+def axpy_plain(alpha, x, y):
+    return alpha * x + y
+
+
+def smem_reverse_plain(x, n):
+    return x.view(-1, n).flip(1).reshape(x.shape)
+
+
+def softmax_threads(c: int) -> int:
+    """Threads per row: a multiple of 32, at most 1024."""
+    return min(1024, max(32, -(-c // 32) * 32))
+
+
+_RTC: dict = {}
+
+
+def rtc_modules() -> dict:
+    """The user modules, compiled once per process at first use."""
+    if not _RTC:
+        _RTC.update(softmax=rtc.CudaModule(SOFTMAX_SRC),
+                    elementwise=rtc.CudaModule(ELEMENTWISE_SRC),
+                    axpy=rtc.CudaModule(AXPY_SRC, exports=AXPY_EXPORTS),
+                    smem=rtc.CudaModule(SMEM_SRC))
+        sm = _RTC["softmax"]
+        _RTC["softmax_fwd"] = sm.get_kernel("softmax_fwd", SOFTMAX_FWD_SIG)
+        _RTC["softmax_bwd"] = sm.get_kernel("softmax_bwd", SOFTMAX_BWD_SIG)
+    return _RTC
+
+
+class SoftmaxRtc(operator.CustomOp):
+    """Softmax output layer: the rtc kernels on a CUDA tensor, their plain
+    versions on a CPU tensor."""
+
+    def forward(self, is_train, req, in_data, out_data, aux):
+        x, y = in_data[0], out_data[0]
+        if req[0] == "null":
+            return
+        if x.device.type == "cpu":
+            self.assign(y, req[0], softmax_plain(x))
+            return
+        n, c = x.shape
+        rtc_modules()["softmax_fwd"].launch(
+            [x, y, c, REQ_CODE[req[0]]], x.device, (n, 1, 1),
+            (softmax_threads(c), 1, 1))
+
+    def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+        label, y, dx = in_data[1], out_data[0], in_grad[0]
+        if req[0] == "null":
+            return
+        if y.device.type == "cpu":
+            self.assign(dx, req[0], softmax_bwd_plain(y, label))
+            return
+        n, c = y.shape
+        rtc_modules()["softmax_bwd"].launch(
+            [label, y, dx, c, REQ_CODE[req[0]]], y.device, (n, 1, 1),
+            (softmax_threads(c), 1, 1))
+
+
+@operator.register("softmax_rtc")
+class SoftmaxRtcProp(operator.CustomOpProp):
+    """``data`` (N, C) and ``label`` (N,) in, probabilities (N, C) out;
+    the head gradient is not read (``need_top_grad=False``)."""
+
+    def __init__(self):
+        super().__init__(need_top_grad=False)
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def list_outputs(self):
+        return ["output"]
+
+    def infer_shape(self, in_shape):
+        return [in_shape[0], [in_shape[0][0]]], [in_shape[0]], []
+
+    def infer_type(self, in_type):
+        return in_type, [in_type[0]], []
+
+    def create_operator(self, ctx, in_shapes, in_dtypes):
+        return SoftmaxRtc()
 
 
 def _short(dtype: torch.dtype) -> str:
@@ -130,6 +386,10 @@ def zero_counts() -> None:
     """Set every kernel's launch count to 0, just before a main path."""
     for wrapper in (flash_attention, multi_sgd, multi_sgd_mom):
         wrapper.launches = 0
+    for name in ("softmax_fwd", "softmax_bwd"):
+        if name in _RTC:
+            _RTC[name].launches = 0
+    rtc.launches = 0
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -310,7 +570,7 @@ def serve_phase(seed: int, n_requests: int, card: str):
             t.join(900)
         wall = time.monotonic() - t0
         launches = flash_attention.launches
-        other = multi_sgd.launches + multi_sgd_mom.launches
+        other = multi_sgd.launches + multi_sgd_mom.launches + rtc.launches
         batches = srv.stats()["batches"] - b0
         if any(t.is_alive() for t in threads) or len(results) != n_requests:
             raise AssertionError("requests did not complete")
@@ -320,7 +580,8 @@ def serve_phase(seed: int, n_requests: int, card: str):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if launches != LAYERS * batches or other:
         raise AssertionError(f"flash launches {launches} != {LAYERS} x "
-                             f"{batches} batches, or {other} SGD launches")
+                             f"{batches} batches, or {other} SGD/rtc "
+                             f"launches")
     buckets = set()
     for i, (toks, _, _) in enumerate(reqs):
         mlm, nsp = results[i]
@@ -450,22 +711,29 @@ def check_sgd(case: SgdCase, momentum: bool, group: int, clip: float,
     return err, launches, sum(-(-len(idx) // 64) for idx in groups)
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, attempts: int = 3) -> float:
     """Device time of one ``fn`` call: the summed time of the CUDA kernels
     it launches (torch.profiler) over ``iters`` calls, after three warm
-    calls.  Unlike ``cuda_ms`` it leaves out the host's launch gaps."""
+    calls.  Unlike ``cuda_ms`` it leaves out the host's launch gaps.  A
+    trace that holds no device time at all (the profiler lost its
+    records) is taken again, up to ``attempts`` times, and then raises:
+    0 is never a measurement."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / iters / 1e3
+    raise AssertionError(f"torch.profiler saw no device time in "
+                         f"{attempts} traces of {iters} calls")
 
 
 def time_sgd(case: SgdCase, momentum: bool, iters: int):
@@ -586,7 +854,7 @@ def mlp_phase(seed: int):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = multi_sgd.launches
-    other = multi_sgd_mom.launches + flash_attention.launches
+    other = multi_sgd_mom.launches + flash_attention.launches + rtc.launches
     losses = [v.item() for v in losses]
     return {"steps": MLP_STEPS, "batch": MLP_BATCH, "launches": launches,
             "other_kernel_launches": other,
@@ -718,7 +986,7 @@ def resnet_phase(seed: int, card: str):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = multi_sgd_mom.launches
-    other = multi_sgd.launches + flash_attention.launches
+    other = multi_sgd.launches + flash_attention.launches + rtc.launches
     steps = RESNET_WARM + RESNET_STEPS
     losses = [v.item() for v in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -791,6 +1059,345 @@ def resnet_phase(seed: int, card: str):
         "cpu_check_leaves": leaves, "ok": ok}
 
 
+def softmax_bound(n: int, c: int, backward: bool):
+    """(bound_ms, bound_by) of one softmax kernel at (n, c) fp32: forward
+    reads x and writes y (8 B/element) and does ~7 fp32 operations per
+    element (max, 2 subtractions, 2 exps, a sum, a division); backward
+    reads y and the labels and writes dx, 1 operation per element."""
+    elems = n * c
+    nbytes = 8 * elems + (4 * n if backward else 0)
+    flops = (1 if backward else 7) * elems
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
+        else "operations"
+
+
+def _refused(fn) -> bool:
+    """True when ``fn`` raises MXNetError and launches no rtc kernel."""
+    before = rtc.launches
+    try:
+        fn()
+    except MXNetError:
+        return rtc.launches == before
+    return False
+
+
+def host_us_per_launch(fn, n: int) -> float:
+    """Host time of one call of ``fn`` (a launch, not synchronised),
+    averaged over ``n`` calls after a synchronised warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def check_softmax(gen, n: int, c: int, iters: int):
+    """Both softmax kernels at (n, c) against their plain versions, and
+    their times (CUDA events) beside the bound, the plain version and
+    ``torch.softmax`` (the forward's library call; the backward has
+    none)."""
+    dev = gpu(0)
+    k = rtc_modules()
+    x = torch.randn(n, c, device=dev, generator=gen) * 3.0
+    label = torch.randint(0, c, (n,), device=dev, generator=gen).float()
+    y = torch.empty_like(x)
+    dx = torch.empty_like(x)
+    grid, block = (n, 1, 1), (softmax_threads(c), 1, 1)
+
+    def fwd():
+        k["softmax_fwd"].launch([x, y, c, 1], dev, grid, block)
+
+    def bwd():
+        k["softmax_bwd"].launch([label, y, dx, c, 1], dev, grid, block)
+
+    fwd()
+    bwd()
+    torch.cuda.synchronize()
+    y_ref = softmax_plain(x)
+    fwd_err = (y - y_ref).abs().max().item()
+    bwd_err = (dx - softmax_bwd_plain(y, label)).abs().max().item()
+    rows = {}
+    for name, err, fn, plain, lib, backward in (
+            ("softmax_fwd", fwd_err, fwd, lambda: softmax_plain(x),
+             lambda: torch.softmax(x, dim=1), False),
+            ("softmax_bwd", bwd_err, bwd,
+             lambda: softmax_bwd_plain(y, label), None, True)):
+        bound_ms, bound_by = softmax_bound(n, c, backward)
+        rows[name] = {
+            "shape": [n, c], "max_abs_err": err,
+            "ms": cuda_ms(fn, iters), "plain_ms": cuda_ms(plain, iters),
+            "library_ms": cuda_ms(lib, iters) if lib else None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    return rows
+
+
+def rtc_phase(seed: int):
+    """The rtc path: compile the user modules (NVRTC, sm_90a), hold every
+    kernel against its plain version, time the softmax kernels at the
+    MLP's and BERT-base's MLM shapes, measure the host cost of a launch,
+    launch with 100 KB of dynamic shared memory, and check the
+    refusals."""
+    dev = gpu(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.monotonic()
+    mods = rtc_modules()
+    compile_s = time.monotonic() - t0
+    compile_ms = {name: mods[name].compile_ms
+                  for name in ("softmax", "elementwise", "axpy", "smem")}
+    checks = {}
+
+    # the JAX rtc tests' kernels, at their shapes
+    xf = torch.arange(8, dtype=torch.float32, device=dev).reshape(2, 4)
+    yf = torch.empty_like(xf)
+    add_one = mods["elementwise"].get_kernel(
+        "add_one", "const float *x, float *y, int n")
+    add_one.launch([xf, yf, xf.numel()], dev, (1, 1, 1), (256, 1, 1))
+    xi = torch.arange(6, dtype=torch.int32, device=dev).reshape(2, 3)
+    yi = torch.empty_like(xi)
+    twice = mods["elementwise"].get_kernel(
+        "twice", "const int *x, int *y, int n")
+    twice.launch([xi, yi, xi.numel()], dev, (1, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    checks["add_one"] = (yf - add_one_plain(xf)).abs().max().item()
+    checks["twice_exact"] = bool(torch.equal(yi, twice_plain(xi))
+                                 and yi.dtype == torch.int32)
+
+    # a C++ template through exports; alpha * x + y may contract to an FMA
+    # (one rounding fewer than the plain version): fp32 1e-6
+    n = 1 << 20
+    for dtype, name in ((torch.float32, "axpy<float>"),
+                        (torch.float64, "axpy<double>")):
+        ctype = "float" if dtype == torch.float32 else "double"
+        k = mods["axpy"].get_kernel(
+            name, f"const {ctype} *x, {ctype} *y, {ctype} alpha, int n")
+        x = torch.randn(n, device=dev, generator=gen).to(dtype)
+        y = torch.randn(n, device=dev, generator=gen).to(dtype)
+        ref = axpy_plain(0.5, x, y)
+        k.launch([x, y, 0.5, n], dev, (n // 256, 1, 1), (256, 1, 1))
+        torch.cuda.synchronize()
+        checks[name] = (y - ref).abs().max().item()
+
+    # 100 KB of dynamic shared memory (needs cuFuncSetAttribute)
+    smem = mods["smem"].get_kernel("smem_reverse",
+                                   "const float *x, float *y, int n")
+    xs = torch.randn(8 * SMEM_FLOATS, device=dev, generator=gen)
+    ys = torch.empty_like(xs)
+    smem.launch([xs, ys, SMEM_FLOATS], dev, (8, 1, 1), (1024, 1, 1),
+                shared_mem=4 * SMEM_FLOATS)
+    torch.cuda.synchronize()
+    checks["smem_reverse_100KB_exact"] = bool(
+        torch.equal(ys, smem_reverse_plain(xs, SMEM_FLOATS)))
+
+    softmax = {f"{n}x{c}": check_softmax(gen, n, c, 200 if n < 1000 else 20)
+               for n, c in SOFTMAX_SHAPES}
+    checks["softmax_max_abs"] = max(r["max_abs_err"] for rows in
+                                    softmax.values() for r in rows.values())
+
+    # host cost of one launch, beside PR 2's ctypes SGD wrapper at the
+    # MLP's shapes (one group of 4 tensors)
+    sgd_w = [torch.zeros(s, device=dev) for s in MLP_SHAPES[:AGG]]
+    sgd_g = [torch.zeros_like(w) for w in sgd_w]
+    sx = torch.zeros(100, 10, device=dev)
+    sy = torch.empty_like(sx)
+    host = {
+        "add_one": host_us_per_launch(lambda: add_one.launch(
+            [xf, yf, xf.numel()], dev, (1, 1, 1), (256, 1, 1)), 2000),
+        "softmax_fwd_100x10": host_us_per_launch(
+            lambda: mods["softmax_fwd"].launch(
+                [sx, sy, 10, 1], dev, (100, 1, 1), (32, 1, 1)), 2000),
+        "multi_sgd_mlp_group": host_us_per_launch(lambda: multi_sgd(
+            sgd_w, sgd_g, [0.0] * AGG, [0.0] * AGG), 2000)}
+
+    # refusals: each raises MXNetError before any launch
+    bad_src = 'extern "C" __global__ void broken(float* y) { y[0] = nope; }'
+    log = ""
+    try:
+        rtc.CudaModule(bad_src)
+    except MXNetError as e:
+        log = str(e)
+    refusals = {
+        "wrong_dtype": _refused(lambda: add_one.launch(
+            [xf.double(), yf, 8], dev, (1, 1, 1), (256, 1, 1))),
+        "cpu_tensor": _refused(lambda: add_one.launch(
+            [xf.cpu(), yf, 8], dev, (1, 1, 1), (256, 1, 1))),
+        "cpu_ctx": _refused(lambda: add_one.launch(
+            [xf, yf, 8], cpu(), (1, 1, 1), (256, 1, 1))),
+        "unexported_cpp_name": _refused(lambda: mods["axpy"].get_kernel(
+            "axpy", "const float *x, float *y, float alpha, int n")),
+        "compile_error_log": "nope" in log and "error" in log}
+    ok = (checks["add_one"] == 0.0 and checks["twice_exact"]
+          and checks["axpy<float>"] <= 1e-6
+          and checks["axpy<double>"] <= 1e-12
+          and checks["smem_reverse_100KB_exact"]
+          and checks["softmax_max_abs"] <= SOFTMAX_TOL
+          and all(refusals.values()))
+    return {"compile_ms": compile_ms, "compile_s_total": compile_s,
+            "checks": checks, "softmax": softmax,
+            "host_us_per_launch": host, "refusals": refusals,
+            "compile_error_log": log[-400:], "ok": ok}
+
+
+def synthetic_mnist(seed: int):
+    """The ``--synthetic`` recipe of ``examples/train_mnist_mlp.py`` at
+    784 features: class centres ``rand(10, 784)``, 0.1 noise, shifted by
+    -0.5; ``CUSTOM_SAMPLES`` to train on and ``CUSTOM_HELD_OUT`` held
+    out."""
+    rng = np.random.RandomState(seed)
+    total = CUSTOM_SAMPLES + CUSTOM_HELD_OUT
+    temp = rng.rand(10, 784).astype(np.float32)
+    y = rng.randint(0, 10, total)
+    x = temp[y] + 0.1 * rng.randn(total, 784).astype(np.float32)
+    x -= 0.5
+    n = CUSTOM_SAMPLES
+    return (x[:n], y[:n].astype(np.float32)), (x[n:], y[n:])
+
+
+def mlp_net(dev, arrays=None, seed=0):
+    """Config #1's MLP: Xavier() weights from ``seed``, or ``arrays``."""
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(128, activation="relu", in_units=784),
+                nn.Dense(64, activation="relu", in_units=128),
+                nn.Dense(10, in_units=64))
+    if arrays is None:
+        net.initialize(Xavier(), ctx=dev, seed=seed)
+    else:
+        load_reference_params(net, arrays, ctx=dev)
+    return net
+
+
+def custom_mlp_phase(seed: int):
+    """Config #1's MLP trained with Adam, its softmax output layer the
+    rtc ``softmax_rtc`` custom op, beside a twin run from the same weights
+    with ``SoftmaxCrossEntropyLoss`` (the same gradient, softmax - onehot
+    per sample)."""
+    dev = gpu(0)
+    (xtr, ytr), (xte, yte) = synthetic_mnist(seed)
+    xs = torch.as_tensor(xtr, device=dev)
+    ys = torch.as_tensor(ytr, device=dev)
+    batches = [(xs[i:i + CUSTOM_BATCH], ys[i:i + CUSTOM_BATCH])
+               for i in range(0, CUSTOM_SAMPLES, CUSTOM_BATCH)]
+    steps = CUSTOM_EPOCHS * len(batches)
+    init = {k: v.cpu().numpy()
+            for k, v in _snapshot(mlp_net(dev, seed=seed)).items()}
+
+    def grads(net):
+        return [p.grad().detach().clone()
+                for p in net.collect_params().values()]
+
+    def run(custom: bool):
+        net = mlp_net(dev, init)
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": CUSTOM_LR})
+        lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+        acc = metric.Accuracy()
+        losses, first = [], None
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(CUSTOM_EPOCHS):
+            for x, y in batches:
+                with autograd.record():
+                    logits = net(x)
+                    if custom:
+                        out = nd.Custom(logits, y, op_type="softmax_rtc")
+                    else:
+                        out = lossfn(logits, y)
+                autograd.backward(out)
+                if first is None:
+                    first = grads(net)
+                trainer.step(CUSTOM_BATCH)
+                with torch.no_grad():
+                    if custom:
+                        pick = out.gather(1, y.long()[:, None])
+                        losses.append(-pick.log().mean())
+                        acc.update([y], [out])
+                    else:
+                        losses.append(out.mean())
+                        acc.update([y], [logits])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        with torch.no_grad():
+            pred = net(torch.as_tensor(xte, device=dev)).argmax(1).cpu()
+        held_out = float((pred.numpy() == yte).mean())
+        return {"losses": [v.item() for v in losses], "first_grads": first,
+                "train_accuracy": acc.get()[1], "held_out_accuracy": held_out,
+                "step_ms": wall / steps * 1e3, "net": net,
+                "trainer": trainer}
+
+    def profile_step(net, trainer):
+        """Device time of one custom-op step by kernel class, and its idle
+        share of the step's wall time (torch.profiler)."""
+        from torch.profiler import ProfilerActivity, profile
+        x, y = batches[0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with autograd.record():
+                out = nd.Custom(net(x), y, op_type="softmax_rtc")
+            autograd.backward(out)
+            trainer.step(CUSTOM_BATCH)
+            metric.Accuracy().update([y], [out])
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        classes = {"rtc_softmax": 0.0, "gemm": 0.0, "memcpy": 0.0,
+                   "other": 0.0}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.key.lower()
+            cls = ("rtc_softmax" if "softmax_fwd" in name
+                   or "softmax_bwd" in name else
+                   "memcpy" if "memcpy" in name or "memset" in name else
+                   "gemm" if any(w in name for w in ("gemm", "cutlass",
+                                                     "xmma", "sm90"))
+                   else "other")
+            classes[cls] += e.self_device_time_total / 1e3
+        busy = sum(classes.values())
+        return {"wall_ms": wall_ms, "device_ms": classes,
+                "device_busy_ms": busy,
+                "device_idle_share": max(0.0, 1.0 - busy / wall_ms)}
+
+    zero_counts()
+    custom = run(True)
+    launches = {"softmax_fwd": _RTC["softmax_fwd"].launches,
+                "softmax_bwd": _RTC["softmax_bwd"].launches}
+    other = (flash_attention.launches + multi_sgd.launches
+             + multi_sgd_mom.launches)
+    breakdown = profile_step(custom["net"], custom["trainer"])
+    twin = run(False)
+    grad_err = max((a - b).abs().max().item() for a, b in
+                   zip(custom["first_grads"], twin["first_grads"]))
+    # per-step losses within 1e-4 relative + 1e-6: -log(p) of an fp32
+    # probability near 1 resolves only to ~6e-8, and the losses fall to
+    # ~1e-5.  Adam turns a rounding-sized difference of a gradient near 0
+    # into a step of +-lr (m / sqrt(v) ~ +-1), so the weights after the
+    # first step are not held to 1e-6: the gradients of the first step are
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(custom["losses"], twin["losses"]))
+    loss_ok = all(abs(a - b) <= 1e-4 * abs(b) + 1e-6 for a, b in
+                  zip(custom["losses"], twin["losses"]))
+    losses = custom["losses"]
+    ok = (grad_err <= 1e-6 and loss_ok
+          and launches == {"softmax_fwd": steps, "softmax_bwd": steps}
+          and other == 0 and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0]
+          and custom["held_out_accuracy"] > 0.5)
+    for r in (custom, twin):
+        for key in ("first_grads", "net", "trainer"):
+            del r[key]
+    return {"steps": steps, "batch": CUSTOM_BATCH, "launches": launches,
+            "profile": breakdown,
+            "other_kernel_launches": other,
+            "first_step_grad_max_abs_vs_twin": grad_err,
+            "loss_max_rel_vs_twin": loss_rel, "custom": custom,
+            "twin": twin, "ok": ok}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -805,7 +1412,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.monotonic()
+    start = t0 = time.monotonic()
     logs = _build.build_all()
     print(f"build: {sorted(logs)} in {time.monotonic() - t0:.1f} s")
     for name, log in logs.items():
@@ -842,6 +1449,17 @@ def main() -> int:
           f"{resnet['launches_per_step']} momentum launches per step")
     print(f"resnet50 on {card}:", json.dumps(resnet), flush=True)
 
+    rtc_res = rtc_phase(args.seed)
+    print(f"rtc on {card}:", json.dumps(rtc_res), flush=True)
+    custom = custom_mlp_phase(args.seed)
+    print(f"custom-op mlp on {card}: {custom['steps']} steps, launches "
+          f"{custom['launches']}, first-step gradients vs twin "
+          f"{custom['first_step_grad_max_abs_vs_twin']:.3g}, losses vs twin "
+          f"{custom['loss_max_rel_vs_twin']:.3g} relative, held-out "
+          f"accuracy {custom['custom']['held_out_accuracy']:.4f}",
+          flush=True)
+    print(f"custom-op mlp on {card}:", json.dumps(custom), flush=True)
+
     main_row = next(r for r in rows if r["case"].startswith(
         "bert_base B=8 L=512 float32"))
     # each SGD kernel's error at the shapes of its main path
@@ -870,19 +1488,39 @@ def main() -> int:
                sgd["times"]["multi_sgd_mlp"]),
         sgd_row("multi_sgd_mom", SGD_MOM_TPU, resnet["launches"],
                 sgd["times"]["multi_sgd_mom_resnet50"])]
+    timed = rtc_res["softmax"][f"{SOFTMAX_SHAPES[-1][0]}x"
+                               f"{SOFTMAX_SHAPES[-1][1]}"]
+    for name in ("softmax_fwd", "softmax_bwd"):
+        t = timed[name]
+        kernels.append({
+            "name": f"rtc:{name}", "route": "cuda", "source": RTC_SRC,
+            "replaces": RTC_TPU, "launches": custom["launches"][name],
+            "max_abs_err": max(rows[name]["max_abs_err"]
+                               for rows in rtc_res["softmax"].values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"timed at {t['shape'][0]}x{t['shape'][1]} fp32; "
+                     f"100x10 on the main path",
+            "compile_ms": rtc_res["compile_ms"]["softmax"],
+            "host_us_per_launch":
+                rtc_res["host_us_per_launch"]["softmax_fwd_100x10"]})
+    elapsed = time.monotonic() - start
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_logs": logs, "flash": rows,
          "serving": serving, "sgd": sgd, "mlp": mlp, "resnet50": resnet,
-         "kernels": kernels}, indent=1))
+         "rtc": rtc_res, "custom_mlp": custom, "kernels": kernels,
+         "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
-    failed += [f"{name} phase" for name, ph in (("mlp", mlp),
-                                                ("resnet50", resnet))
-               if not ph["ok"]]
+    failed += [f"{name} phase" for name, ph in (
+        ("mlp", mlp), ("resnet50", resnet), ("rtc", rtc_res),
+        ("custom-op mlp", custom)) if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)
         return 1
+    print(f"chip_smoke: every phase passed in {elapsed:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,17 +6,25 @@ flash-attention kernel (``kernels/csrc/flash_attention.cu``), and trains
 through ``autograd.record`` -> ``autograd.backward`` ->
 ``gluon.Trainer.step`` (ResNet-50 v1, the MNIST MLP), with the
 multi-tensor SGD update in hand-written kernels
-(``kernels/csrc/multi_sgd.cu``).  It imports ``torch`` and never ``jax``
-or ``mxnet_tpu``.  Entry points run on ``gpu(0)`` unless the caller passes
-``ctx=cpu()``.
+(``kernels/csrc/multi_sgd.cu``) and Adam in plain torch.  Users add
+operators of their own: ``operator.CustomOp``/``CustomOpProp`` run
+through ``mx.nd.Custom`` inside autograd, ``autograd.Function`` is a
+differentiable function, and ``rtc.CudaModule`` compiles CUDA source
+strings at run time with NVRTC (the counterpart of the JAX package's
+Pallas ``rtc``).  ``metric.Accuracy`` scores the training.  Arrays are
+``torch.Tensor``s; ``nd.array``/``zeros``/``ones``/``empty``/``full``
+make them.  It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.
+Entry points run on ``gpu(0)`` unless the caller passes ``ctx=cpu()``.
 """
 from . import autograd, base, context, gluon, initializer, kernels, \
-    ndarray, observability, optimizer, serving
+    metric, ndarray, observability, operator, optimizer, rtc, serving
 from .base import MXNetError
 from .context import cpu, current_context, gpu
 from .convert import load_reference_params
 
+nd = ndarray
+
 __all__ = ["MXNetError", "autograd", "base", "context", "cpu",
            "current_context", "gpu", "gluon", "initializer", "kernels",
-           "load_reference_params", "ndarray", "observability", "optimizer",
-           "serving"]
+           "load_reference_params", "metric", "nd", "ndarray",
+           "observability", "operator", "optimizer", "rtc", "serving"]

@@ -21,6 +21,10 @@ port's spelling of MXNet's ``loss.backward()`` (a plain torch tensor's
 ``backward()`` accepts only a scalar without an explicit gradient).  How a
 Parameter stores what arrives (``grad_req`` write/add) is
 ``gluon.Parameter``'s business.
+
+``Function`` is MXNet's user-defined differentiable function
+(``forward``/``backward`` on tensors, ``save_for_backward``/
+``saved_tensors``), built on ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward"]
+           "is_training", "backward", "Function"]
 
 _state = threading.local()
 
@@ -123,3 +127,74 @@ def backward(heads: Heads, head_grads: Optional[Heads] = None) -> None:
                          "graph; call backward inside/after "
                          "autograd.record()")
     torch.autograd.backward([h for h, _ in live], [g for _, g in live])
+
+
+class _Bridge(torch.autograd.Function):
+    """Runs a :class:`Function`'s ``forward``/``backward`` as one node of
+    torch's graph.  What the user saves moves into torch's saved tensors
+    between the two (an output kept on the instance would make a cycle
+    through the graph that the garbage collector cannot see)."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        with pause():
+            outputs = fn.forward(*inputs)
+        multi = isinstance(outputs, (list, tuple))
+        outs = tuple(outputs) if multi else (outputs,)
+        ctx.fn, ctx.n_in = fn, len(inputs)
+        ctx.save_for_backward(*fn._saved)
+        fn._saved = ()
+        ctx.mark_non_differentiable(
+            *[o for o in outs if not o.is_floating_point()])
+        return outs if multi else outs[0]
+
+    @staticmethod
+    def backward(ctx, *output_grads):
+        # torch hands over zeros for an output no head reached
+        # (materialize_grads), as MXNet does
+        fn = ctx.fn
+        fn._saved = ctx.saved_tensors
+        try:
+            with pause():
+                grads = fn.backward(*output_grads)
+        finally:
+            fn._saved = ()
+        if not isinstance(grads, (list, tuple)):
+            grads = (grads,)
+        if len(grads) != ctx.n_in:
+            raise MXNetError(f"{type(fn).__name__}.backward returned "
+                             f"{len(grads)} gradients for {ctx.n_in} inputs")
+        return (None,) + tuple(g if need else None for g, need in
+                               zip(grads, ctx.needs_input_grad[1:]))
+
+
+class Function:
+    """A user-defined differentiable function (MXNet's
+    ``autograd.Function``).
+
+    Subclass it with ``forward(self, *inputs)`` and ``backward(self,
+    *output_grads)`` on tensors; ``backward`` returns one gradient per
+    input, None for an input that takes none (an integer tensor).  Both
+    run under :func:`pause`.  What ``save_for_backward`` keeps belongs to
+    the call; other state set on ``self`` is shared by every call of the
+    instance, so make one instance per call, as MXNet does.
+    """
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *tensors) -> None:
+        self._saved = tensors
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        return _Bridge.apply(self, *inputs)

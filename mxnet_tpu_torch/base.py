@@ -13,8 +13,10 @@ import threading
 from typing import Any, Callable, Dict
 
 import numpy as np
+import torch
 
-__all__ = ["MXNetError", "register_env", "get_env", "compute_dtype"]
+__all__ = ["MXNetError", "register_env", "get_env", "compute_dtype",
+           "torch_dtype"]
 
 
 class MXNetError(RuntimeError):
@@ -96,3 +98,15 @@ def compute_dtype(dtype: Any) -> np.dtype:
         return np.dtype({"i": np.int32, "u": np.uint32,
                          "f": np.float32}[d.kind])
     return d
+
+
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or type, or a name
+    (``"float32"``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise MXNetError(f"unknown dtype {dtype!r}")
+    return dt

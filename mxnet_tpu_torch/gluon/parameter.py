@@ -34,19 +34,12 @@ import torch
 from torch import nn
 
 from .. import initializer as init_mod
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 from ..context import DeviceLike, as_device
 
 __all__ = ["Parameter", "ParameterDict"]
 
 _GRAD_REQS = ("write", "add", "null")
-
-
-def _torch_dtype(dtype) -> torch.dtype:
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return getattr(torch, dtype if isinstance(dtype, str)
-                   else np.dtype(dtype).name)
 
 
 class Parameter:
@@ -64,7 +57,7 @@ class Parameter:
             raise MXNetError(
                 f"Parameter {name!r} needs a known shape, got {shape}; "
                 f"give in_units/in_channels")
-        self.dtype = _torch_dtype(dtype)
+        self.dtype = torch_dtype(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init

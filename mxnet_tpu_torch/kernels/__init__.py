@@ -2,7 +2,9 @@
 version.
 
 Sources live in ``csrc/`` and are built by ``_build`` at first use (on a
-machine with the CUDA toolkit).  Importing this package builds nothing.
+machine with the CUDA toolkit).  ``_nvrtc`` binds NVRTC and the CUDA
+driver API for ``mxnet_tpu_torch.rtc``, which compiles users' CUDA source
+strings at run time.  Importing this package builds and loads nothing.
 """
 from .flash_attention import flash_attention, flash_attention_plain
 from .multi_sgd import (multi_sgd, multi_sgd_mom, multi_sgd_mom_plain,

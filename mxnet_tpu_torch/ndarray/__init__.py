@@ -1,9 +1,12 @@
-"""Operators as plain functions on tensors."""
+"""Operators as plain functions on tensors, and array creation."""
+from .ndarray import array, empty, full, ones, zeros
 from .ops_contrib import flash_attention
-from .ops_optimizer import (mp_sgd_mom_update, multi_mp_sgd_mom_update,
-                            multi_sgd_mom_update, multi_sgd_update,
-                            sgd_mom_update, sgd_update)
+from .ops_custom import Custom
+from .ops_optimizer import (adam_update, mp_sgd_mom_update,
+                            multi_mp_sgd_mom_update, multi_sgd_mom_update,
+                            multi_sgd_update, sgd_mom_update, sgd_update)
 
-__all__ = ["flash_attention", "mp_sgd_mom_update", "multi_mp_sgd_mom_update",
-           "multi_sgd_mom_update", "multi_sgd_update", "sgd_mom_update",
-           "sgd_update"]
+__all__ = ["Custom", "adam_update", "array", "empty", "flash_attention",
+           "full", "mp_sgd_mom_update", "multi_mp_sgd_mom_update",
+           "multi_sgd_mom_update", "multi_sgd_update", "ones",
+           "sgd_mom_update", "sgd_update", "zeros"]

@@ -1,4 +1,5 @@
-"""SGD update operators, in place on their weight and state tensors.
+"""Optimizer update operators, in place on their weight and state
+tensors.
 
 Counterpart of the SGD family of ``mxnet_tpu/ndarray/ops_optimizer.py``:
 
@@ -12,6 +13,13 @@ Counterpart of the SGD family of ``mxnet_tpu/ndarray/ops_optimizer.py``:
   ``multi_sgd_update(w0, g0, w1, g1, ..., lrs, wds)``,
   ``multi_sgd_mom_update(w0, g0, m0, ..., lrs, wds)`` and
   ``multi_mp_sgd_mom_update(w0, g0, m0, w32_0, ..., lrs, wds)``.
+
+``adam_update(weight, grad, mean, var, lr, ...)`` is plain torch, as the
+JAX package leaves it to XLA (it has no Pallas kernel for Adam): the
+gradient ``g = c + wd * weight`` (rescaled, clipped), then ``mean =
+beta1 * mean + (1 - beta1) * g``, ``var = beta2 * var + (1 - beta2) *
+g^2`` and ``weight -= lr * mean / (sqrt(var) + epsilon)``; the caller
+folds the bias correction into ``lr``.
 
 Every operator writes its outputs into its inputs (weights, momenta, fp32
 masters) and returns them in the reference's output order.  The update is
@@ -34,7 +42,7 @@ from ..kernels.multi_sgd import _clip, _step, multi_sgd, multi_sgd_mom
 
 __all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_mom_update",
            "multi_sgd_update", "multi_sgd_mom_update",
-           "multi_mp_sgd_mom_update"]
+           "multi_mp_sgd_mom_update", "adam_update"]
 
 
 @torch.no_grad()
@@ -61,6 +69,21 @@ def mp_sgd_mom_update(weight, grad, mom, weight32, lr, momentum=0.0,
                    rescale_grad, clip_gradient)
     weight.copy_(weight32)
     return weight, mom, weight32
+
+
+@torch.no_grad()
+def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns ``weight, mean, var``, updated in place."""
+    g = grad * rescale_grad
+    clip = _clip(clip_gradient)
+    if clip > 0:
+        g = g.clamp(-clip, clip)
+    g = g + wd * weight
+    mean.mul_(beta1).add_((1 - beta1) * g)
+    var.mul_(beta2).add_((1 - beta2) * torch.square(g))
+    weight.sub_(float(lr) * mean / (var.sqrt() + epsilon))
+    return weight, mean, var
 
 
 def _split(data, stride: int, num_weights, name: str):

@@ -1,6 +1,7 @@
-"""Optimizers: the ``Optimizer`` base, the registry and ``SGD``.
+"""Optimizers: the ``Optimizer`` base, the registry, ``SGD`` and ``Adam``.
 
-Counterpart of ``mxnet_tpu/optimizer.py`` (Adam and the rest come later).
+Counterpart of ``mxnet_tpu/optimizer.py`` (the other optimizers come
+later).
 The base keeps MXNet's bookkeeping: ``rescale_grad`` (the Trainer sets it
 to ``1 / batch_size`` each step), the learning rate and weight decay with
 per-parameter ``lr_mult``/``wd_mult`` read from ``param_dict`` (the
@@ -14,9 +15,18 @@ of a hand-written kernel.  It falls back to the per-tensor update for the
 same cases as the reference (mixed weight dtypes; multi-precision without
 momentum or with a state that is not a master pair).  Updates run under
 ``torch.no_grad()`` and change the weights in place.
+
+``Adam`` is MXNet's: the bias correction folds into the rate, ``lr_t = lr
+* sqrt(1 - beta2^t) / (1 - beta1^t)`` with ``t`` the parameter's own
+update count, and ``epsilon`` is added outside ``sqrt(var)``
+(``adam_update``).  This is not ``torch.optim.Adam``'s formula, and the
+port does not call ``torch.optim``.  With ``multi_precision`` an fp16/bf16
+weight is updated through its fp32 master copy (the base class's
+``update_multi_precision``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -24,7 +34,7 @@ import torch
 from .base import MXNetError, get_env
 from .ndarray import ops_optimizer as ops
 
-__all__ = ["Optimizer", "SGD", "register", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "register", "create"]
 
 _registry: Dict[str, type] = {}
 
@@ -109,9 +119,16 @@ class Optimizer:
         raise NotImplementedError
 
     def update_multi_precision(self, index, weight, grad, state):
-        """The update, with multi-precision master weights where the
-        optimizer has them (SGD overrides this)."""
-        self.update(index, weight, grad, state)
+        """The update; with a ``(state, fp32 master)`` pair from
+        :meth:`create_state_multi_precision`, the update of the master
+        from the fp32 gradient, then the master cast into the weight (SGD
+        overrides this with its fused multi-precision op)."""
+        if self.multi_precision and _is_mp_state(state):
+            inner, w32 = state
+            self.update(index, w32, grad.float(), inner)
+            weight.copy_(w32)
+        else:
+            self.update(index, weight, grad, state)
 
     def _common_kwargs(self, index) -> Dict[str, Any]:
         kw = {"wd": self._get_wd(index), "rescale_grad": self.rescale_grad}
@@ -194,3 +211,33 @@ class SGD(Optimizer):
             for w, g in zip(weights, grads):
                 data.extend((w, g))
             ops.multi_sgd_update(*data, lrs, wds, **kw)
+
+
+@register
+class Adam(Optimizer):
+    """Adam with MXNet's bias-corrected rate (see the module docstring)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        """``(mean, var)``, zeros like the weight."""
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        if grad.layout != torch.strided:
+            raise MXNetError("Adam: sparse (row_sparse) gradients are not "
+                             "ported; the lazy update comes with the "
+                             "sparse slice")
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr_t = self._get_lr(index) * math.sqrt(1.0 - self.beta2 ** t) \
+            / (1.0 - self.beta1 ** t)
+        mean, var = state
+        ops.adam_update(weight, grad, mean, var, lr_t, beta1=self.beta1,
+                        beta2=self.beta2, epsilon=self.epsilon,
+                        **self._common_kwargs(index))

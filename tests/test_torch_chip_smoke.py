@@ -2,7 +2,8 @@
 CPU: a small ResNet's fp32 step held leaf by leaf against its float64
 step by ``chip_smoke.leaf_check``.  The fp32 step passes as the "card"; a
 fault of 1 % in one leaf's gradient, the size of a card-only fault the
-check must see, fails that leaf and no other."""
+check must see, fails that leaf and no other.  And ``device_ms``, which
+must not report a trace without device time as 0 ms."""
 from __future__ import annotations
 
 import numpy as np
@@ -63,3 +64,40 @@ def test_leaf_check_flags_a_one_percent_gradient_fault(steps, leaf):
     out = chip_smoke.leaf_check(run(torch.float32, fault=index)[1], cpu32,
                                 cpu64, init)
     assert [r["leaf"] for r in out["failed"]] == [name]
+
+
+class _Event:
+    def __init__(self, us):
+        self.device_type = torch.autograd.DeviceType.CUDA
+        self.self_device_time_total = us
+
+
+def _fake_profiler(monkeypatch, traces):
+    """torch.profiler.profile handing out ``traces`` (lists of device
+    microseconds), one per ``with``."""
+    class Profile:
+        def __init__(self, *args, **kwargs):
+            self.events = [_Event(us) for us in traces.pop(0)]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.events
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+
+
+def test_device_ms_retakes_a_trace_that_lost_its_records(monkeypatch):
+    _fake_profiler(monkeypatch, [[], [300.0, 100.0]])
+    assert chip_smoke.device_ms(lambda: None, 2) == 0.2
+
+
+def test_device_ms_never_reports_zero(monkeypatch):
+    _fake_profiler(monkeypatch, [[], [0.0], []])
+    with pytest.raises(AssertionError, match="no device time"):
+        chip_smoke.device_ms(lambda: None, 2)

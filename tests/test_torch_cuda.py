@@ -1,8 +1,10 @@
 """The port's CUDA kernels held against their plain PyTorch versions on
-the card: flash attention, and the two multi-tensor SGD kernels alone and
-through gluon.Trainer.  Marked ``cuda``; every test skips (inside the
-``card`` fixture) where no CUDA device is present.  Run on a machine with
-an H100:
+the card: flash attention, the two multi-tensor SGD kernels alone and
+through gluon.Trainer, and kernels compiled at run time by ``rtc`` (the
+user kernels of ``chip_smoke.py``, alone and inside a custom op's
+backward).  Marked ``cuda``; every test skips (inside the ``card``
+fixture) where no CUDA device is present.  Run on a machine with an
+H100:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -11,7 +13,10 @@ order differs); bf16 2e-2 against the plain version run in fp32 on the
 same bf16 inputs (bf16 output rounding).  Multi-tensor SGD 1e-6 (the
 kernels round each operation as the plain version does: 0 expected).
 A training step on the card against the CPU: 1e-4 (cuDNN and the CPU's
-convolutions sum in different orders).
+convolutions sum in different orders).  rtc: exact for add_one, twice,
+the reversal through shared memory and the fp16 product (one rounding in
+both); axpy fp32 1e-6 (NVRTC may contract to an FMA); softmax 1e-6
+(probabilities; the same expf per element, row sums in another order).
 """
 import math
 
@@ -299,3 +304,153 @@ def test_flash_kernel_refuses_to_record(card):
             flash_attention(q, q, q)
     with torch.no_grad():
         assert flash_attention(q, q, q).shape == q.shape
+
+
+# ---------------------------------------------------------------- rtc
+
+def _rtc(card):
+    import chip_smoke
+    return chip_smoke, chip_smoke.rtc_modules()
+
+
+def test_rtc_user_kernels_match_plain(card):
+    """add_one (fp32) and twice (int32, exact, stays int32), in place;
+    axpy<float>/<double> reached through ``exports``."""
+    cs, mods = _rtc(card)
+    xf = torch.randn(1000, device=card)
+    yf = torch.empty_like(xf)
+    mods["elementwise"].get_kernel("add_one", "const float *x, float *y, "
+                                   "int n").launch(
+        [xf, yf, 1000], card, (4, 1, 1), (256, 1, 1))
+    xi = torch.randint(-2 ** 20, 2 ** 20, (999,), device=card,
+                       dtype=torch.int32)
+    yi = torch.empty_like(xi)
+    mods["elementwise"].get_kernel("twice", "const int *x, int *y, int n") \
+        .launch([xi, yi, 999], card, (4, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(yf, cs.add_one_plain(xf))
+    assert yi.dtype == torch.int32 and torch.equal(yi, cs.twice_plain(xi))
+    for dtype, name, tol in ((torch.float32, "axpy<float>", 1e-6),
+                             (torch.float64, "axpy<double>", 1e-12)):
+        ct = "float" if dtype == torch.float32 else "double"
+        k = mods["axpy"].get_kernel(name, f"const {ct} *x, {ct} *y, "
+                                          f"{ct} alpha, int n")
+        x = torch.randn(5000, device=card, dtype=dtype)
+        y = torch.randn(5000, device=card, dtype=dtype)
+        ref = cs.axpy_plain(-1.25, x, y)
+        k.launch([x, y, -1.25, 5000], card, (20, 1, 1), (256, 1, 1))
+        torch.cuda.synchronize()
+        assert (y - ref).abs().max().item() <= tol
+        assert k.launches == 1
+
+
+@pytest.mark.parametrize("n,c", [(100, 10), (7, 1500), (3, 30522),
+                                 (5, 1)])
+def test_rtc_softmax_kernels_match_plain(card, n, c):
+    cs, mods = _rtc(card)
+    g = torch.Generator(device=card).manual_seed(n * c)
+    x = torch.randn(n, c, device=card, generator=g) * 4
+    label = torch.randint(0, c, (n,), device=card, generator=g).float()
+    y, dx = torch.empty_like(x), torch.full_like(x, 0.5)
+    threads = (cs.softmax_threads(c), 1, 1)
+    mods["softmax_fwd"].launch([x, y, c, 1], card, (n, 1, 1), threads)
+    mods["softmax_bwd"].launch([label, y, dx, c, 3], card, (n, 1, 1),
+                               threads)                        # req add
+    torch.cuda.synchronize()
+    ref = cs.softmax_plain(x)
+    assert (y - ref).abs().max().item() <= cs.SOFTMAX_TOL
+    want = 0.5 + cs.softmax_bwd_plain(y, label)
+    assert (dx - want).abs().max().item() <= cs.SOFTMAX_TOL
+
+
+def test_rtc_half_and_int64_signatures(card):
+    from mxnet_tpu_torch import rtc
+    src = r"""
+    #include <cuda_fp16.h>
+    extern "C" __global__ void hscale(const __half* x, __half* y, __half a,
+                                      int n) {
+      const int i = blockIdx.x * blockDim.x + threadIdx.x;
+      if (i < n) y[i] = __hmul(x[i], a);
+    }
+    extern "C" __global__ void iota64(long long* out, long long base,
+                                      int n) {
+      const int i = blockIdx.x * blockDim.x + threadIdx.x;
+      if (i < n) out[i] = base + i;
+    }
+    """
+    mod = rtc.CudaModule(src)
+    x = torch.randn(300, device=card).half()
+    y = torch.empty_like(x)
+    mod.get_kernel("hscale", "const __half *x, __half *y, __half a, int n") \
+        .launch([x, y, 0.75, 300], card, (2, 1, 1), (256, 1, 1))
+    out = torch.empty(300, device=card, dtype=torch.int64)
+    mod.get_kernel("iota64", "int64_t *out, int64_t base, int n").launch(
+        [out, 2 ** 40, 300], card, (2, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 0.75)
+    assert torch.equal(out, torch.arange(300, device=card) + 2 ** 40)
+
+
+def test_rtc_dynamic_shared_memory_above_48kb(card):
+    cs, mods = _rtc(card)
+    k = mods["smem"].get_kernel("smem_reverse",
+                                "const float *x, float *y, int n")
+    n = cs.SMEM_FLOATS
+    x = torch.randn(3 * n, device=card)
+    y = torch.empty_like(x)
+    k.launch([x, y, n], card, (3, 1, 1), (1024, 1, 1), shared_mem=4 * n)
+    torch.cuda.synchronize()
+    assert torch.equal(y, cs.smem_reverse_plain(x, n))
+
+
+def test_rtc_launch_from_a_custom_op_backward(card):
+    """softmax_rtc inside autograd.record(): torch runs the backward on its
+    own thread for the card, where the driver needs the primary context
+    made current; the gradient equals the plain version's."""
+    import threading
+    from mxnet_tpu_torch import autograd, nd
+    cs, mods = _rtc(card)
+    threads = []
+    bwd = cs.SoftmaxRtc.backward
+
+    def spy(self, *args, **kwargs):
+        threads.append(threading.get_ident())
+        return bwd(self, *args, **kwargs)
+
+    cs.SoftmaxRtc.backward = spy
+    try:
+        x = torch.randn(64, 10, device=card, requires_grad=True)
+        label = torch.randint(0, 10, (64,), device=card).float()
+        before = (mods["softmax_fwd"].launches, mods["softmax_bwd"].launches)
+        with autograd.record():
+            y = nd.Custom(x * 2.0, label, op_type="softmax_rtc")
+        autograd.backward(y)
+        torch.cuda.synchronize()
+    finally:
+        cs.SoftmaxRtc.backward = bwd
+    assert (mods["softmax_fwd"].launches - before[0],
+            mods["softmax_bwd"].launches - before[1]) == (1, 1)
+    assert threads and threads[0] != threading.get_ident()
+    ref = 2.0 * cs.softmax_bwd_plain(cs.softmax_plain(x.detach() * 2.0),
+                                     label)
+    assert (x.grad - ref).abs().max().item() <= 2 * cs.SOFTMAX_TOL
+
+
+def test_rtc_refusals_launch_nothing(card):
+    from mxnet_tpu_torch import rtc
+    cs, mods = _rtc(card)
+    k = mods["elementwise"].get_kernel("add_one",
+                                       "const float *x, float *y, int n")
+    x = torch.zeros(8, device=card)
+    before = rtc.launches
+    for args, ctx in (([x.double(), x, 8], card), ([x.cpu(), x, 8], card),
+                      ([x, x, 8], "cpu"), ([x[::2], x, 4], card)):
+        with pytest.raises(MXNetError):
+            k.launch(args, ctx, (1, 1, 1), (32, 1, 1))
+    assert rtc.launches == before
+    with pytest.raises(MXNetError, match="exports"):
+        mods["axpy"].get_kernel("axpy", "const float *x, float *y, "
+                                        "float alpha, int n")
+    with pytest.raises(MXNetError, match="undefined_name"):
+        rtc.CudaModule('extern "C" __global__ void bad(float* y) '
+                       '{ y[0] = undefined_name; }')
