@@ -11,11 +11,16 @@ expected number of times and the other kernels not at all:
 1. device check: a CUDA card must be present; prints the card's name and
    power limit; TF32 is switched off so every fp32 tolerance means fp32;
 2. build: compiles every CUDA source of the port (one nvcc each, in
-   parallel) and prints the ptxas register/spill report;
+   parallel), prints the ptxas register/spill report and a SASS census
+   of the flash library (``cuobjdump -sass``: tensor-core MMAs, async
+   copies, ldmatrix, FFMA per kernel); fails if a flash kernel has no
+   tensor-core MMA or no asynchronous copy;
 3. kernels: calls each kernel's wrapper at the shapes its main path gives
    it and holds the result against the plain PyTorch version on the same
-   inputs.  Flash attention at the BERT-base serving shapes (fp32 max-abs
-   <= 1e-4; bf16 <= 2e-2 against the plain version in fp32); the two
+   inputs.  Flash attention (tensor cores: bf16, or 3xTF32 for fp32) at
+   the BERT-base serving shapes, B=8, H=12, D=64, L=128 and 512, in fp32
+   and bf16 (fp32 max-abs <= 1e-4; bf16 <= 2e-2 against the plain version
+   in fp32), and a causal, a D=128 and a D=32 case; the two
    multi-tensor SGD kernels on ResNet-50's 161 trainable shapes, in the
    Trainer's groups of 4 and as one group of 161, and on the MLP's 6
    shapes in its groups of 4, clip on and off, wd != 0, rescale != 1, plus
@@ -24,14 +29,17 @@ expected number of times and the other kernels not at all:
    kernel, plain version and the library call (``scaled_dot_product_
    attention``; ``torch.optim.SGD(fused=True)``) with CUDA events, the
    SGD kernels' device time also with torch.profiler (their back-to-back
-   calls are bound by the host), and computes the bound;
+   calls are bound by the host), and computes the bound (flash: at the
+   tensor cores' TF32 or bf16 peak, or the memory rate);
 4. serving: BERT-base (12 layers, 768 wide, 12 heads, FFN 3072, vocab
    30522, max length 512, weights from ``--seed``) served by
    ``ModelServer`` over length buckets 32..512 and batch buckets 1 and 8;
    requests submitted from threads; checks finite, correctly unpadded
    outputs, batching invariance against the direct forward on the card,
    one request against the same weights on the CPU (plain path), and that
-   the flash kernel launched exactly 12 times per dispatched batch;
+   the flash kernel launched exactly 12 times per dispatched batch; a
+   profile of one B=8, L=512 batch by kernel class, whose flash class
+   must hold device time;
 5. MLP training (BASELINE config #1 at full width): Dense 784-128 relu -
    64 relu - 10, batch 64, ``gluon.Trainer("sgd", lr 0.1)``, 20 steps on
    one seeded batch; the loss must fall and the plain-SGD kernel must
@@ -80,7 +88,8 @@ expected number of times and the other kernels not at all:
    resolves a loss near 0 only to ~6e-8), exactly one forward and one
    backward rtc launch per step and no other kernel's, finite losses
    that fall, held-out accuracy above 0.5;
-9. prints one JSON line of kernel measurements, the card line, and last
+9. prints one JSON line of kernel measurements (flash: the fp32 and, as
+   ``bf16_*``, the bf16 B=8 L=512 case), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Writes the full report to ``<out>/chip_smoke.json``.
@@ -88,8 +97,11 @@ Imports nothing of JAX.  Writes the full report to ``<out>/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import threading
@@ -118,9 +130,12 @@ from mxnet_tpu_torch.observability import registry
 from mxnet_tpu_torch.serving import ModelServer
 from mxnet_tpu_torch.serving.server import readback
 
-# H100 SXM published peaks (dense): fp32 on the CUDA cores, bf16 on the
-# tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM published peaks (dense): fp32 on the CUDA cores (the softmax
+# kernels' unit); the tensor cores, where the flash kernel computes, in TF32
+# (the fastest unit that carries an fp32-accurate product, as 3xTF32) and
+# in bf16; HBM3 bandwidth
+CUDA_CORE_FLOPS = 67e12
+TENSOR_FLOPS = {torch.float32: 495e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LENGTH_BUCKETS = (32, 64, 128, 256, 512)
@@ -412,8 +427,9 @@ def flash_bound(vl_bh, lq, lk, d, dtype):
     """(bound_ms, bound_by, flops, bytes) of one flash-attention call, for
     the keys this run's lengths make live (min(ceil(vl), Lk) per row; the
     output depends on no later key, and a row with none is 0 whatever its
-    q): 4 * Lq * keys * D operations; out written once, and the q rows
-    and K/V keys that are live read once."""
+    q): 4 * Lq * keys * D operations at the tensor cores' rate for
+    ``dtype``; out written once, and the q rows and K/V keys that are live
+    read once."""
     bh = vl_bh.numel()
     keys_bh = torch.clamp(torch.ceil(vl_bh.float()), 0, lk)
     keys = keys_bh.sum().item()
@@ -421,19 +437,37 @@ def flash_bound(vl_bh, lq, lk, d, dtype):
     flops = 4.0 * lq * keys * d
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = ((live_bh + bh) * lq + 2 * keys) * d * itemsize + bh * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / TENSOR_FLOPS[dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters):
-    dev = gpu(0)
-    bh = b * h
-    q, k, v = (torch.randn(bh, n, d, generator=gen).to(dev, dtype)
+def flash_inputs(gen, b, h, lq, lk, d):
+    """q, k, v (fp32, on the CPU) and the (B,) lengths of one flash case,
+    drawn from ``gen``: lengths in 1..Lk, the first 0 (a batch-pad row)."""
+    q, k, v = (torch.randn(b * h, n, d, generator=gen)
                for n in (lq, lk, lk))
     vl = torch.randint(1, lk + 1, (b,), generator=gen).float()
-    vl[0] = 0.0                                   # a batch-pad row
-    vl = vl.to(dev)
+    vl[0] = 0.0
+    return q, k, v, vl
+
+
+# (name, B, H, Lq, Lk, D, dtype, causal, timed iterations), in draw order
+FLASH_CASES = [
+    (f"bert_base B=8 L={lq} {_short(dtype)}", 8, HEADS, lq, lq, HEAD_DIM,
+     dtype, False, 50)
+    for lq in (128, 512) for dtype in (torch.float32, torch.bfloat16)] + [
+    # the causal mask with Lq > Lk (dead rows), and the other head dims
+    ("causal Lq=160 Lk=96", 2, HEADS, 160, 96, HEAD_DIM, torch.float32,
+     True, 0),
+    ("D=128 ragged", 2, 4, 200, 131, 128, torch.float32, False, 0),
+    ("D=32 ragged bf16", 2, 4, 77, 77, 32, torch.bfloat16, True, 0)]
+
+
+def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters):
+    dev = gpu(0)
+    q, k, v, vl = (t.to(dev) for t in flash_inputs(gen, b, h, lq, lk, d))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
     vl_bh = vl.repeat_interleave(h)
     scale = 1.0 / math.sqrt(d)
     out = flash_attention(q, k, v, vl, causal, scale)
@@ -455,13 +489,25 @@ def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters):
         q4, k4, v4 = (t.view(b, h, -1, d) for t in (q, k, v))
         bound_ms, bound_by, flops, nbytes = flash_bound(vl_bh, lq, lk, d,
                                                         dtype)
+
+        def kernel():
+            return flash_attention(q, k, v, vl, causal, scale)
+
+        def plain():
+            return flash_attention_plain(q, k, v, vl_bh, causal, scale)
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  scale=scale)
+
+        library_kernels = {}
         row.update(
-            ms=cuda_ms(lambda: flash_attention(q, k, v, vl, causal, scale),
-                       iters),
-            plain_ms=cuda_ms(lambda: flash_attention_plain(
-                q, k, v, vl_bh, causal, scale), iters),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, scale=scale), iters),
+            ms=device_ms(kernel, iters, only="flash_fwd_kernel"),
+            plain_ms=device_ms(plain, 5),
+            library_ms=device_ms(library, iters, kernels=library_kernels),
+            library_kernels=library_kernels,
+            wall_ms=cuda_ms(kernel, iters), plain_wall_ms=cuda_ms(plain, 5),
+            library_wall_ms=cuda_ms(library, iters),
             bound_ms=bound_ms, bound_by=bound_by, flops=flops,
             bytes=nbytes)
     return row
@@ -469,20 +515,69 @@ def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters):
 
 def kernel_phase(seed: int):
     gen = torch.Generator().manual_seed(seed)
-    rows = []
-    for lq in (128, 512):
-        for dtype in (torch.float32, torch.bfloat16):
-            rows.append(check_flash(
-                gen, f"bert_base B=8 L={lq} {_short(dtype)}", 8, HEADS, lq,
-                lq, HEAD_DIM, dtype, False, iters=50))
-    # the causal mask with Lq > Lk (dead rows), and the other head dims
-    rows.append(check_flash(gen, "causal Lq=160 Lk=96", 2, HEADS, 160, 96,
-                            HEAD_DIM, torch.float32, True, iters=0))
-    rows.append(check_flash(gen, "D=128 ragged", 2, 4, 200, 131, 128,
-                            torch.float32, False, iters=0))
-    rows.append(check_flash(gen, "D=32 ragged bf16", 2, 4, 77, 77, 32,
-                            torch.bfloat16, True, iters=0))
-    return rows
+    return [check_flash(gen, *case) for case in FLASH_CASES]
+
+
+# instruction families counted in the flash library's SASS
+SASS_OPS = {"tensor_core_mma": ("HMMA", "HGMMA"),
+            "async_copy": ("LDGSTS", "UTMALDG", "UBLKCP"),
+            "ldmatrix": ("LDSM",), "ffma": ("FFMA",)}
+_SASS_FN = re.compile(r"\s*Function : (\S+)")
+_SASS_OP = re.compile(                # address, predicate, opcode
+    r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
+
+
+def sass_census(text: str) -> dict:
+    """Counts of each ``SASS_OPS`` family, per kernel (mangled name), in a
+    ``cuobjdump -sass`` listing."""
+    census, counts = {}, None
+    for line in text.splitlines():
+        fn = _SASS_FN.match(line)
+        if fn:
+            counts = census.setdefault(fn.group(1),
+                                       {fam: 0 for fam in SASS_OPS})
+            continue
+        op = _SASS_OP.match(line)
+        if op and counts is not None:
+            for fam, ops in SASS_OPS.items():
+                if op.group(1) in ops:
+                    counts[fam] += 1
+    return census
+
+
+def cuobjdump() -> str:
+    """The CUDA toolkit's ``cuobjdump``, else the copy in Triton's package."""
+    cands = [os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                          "bin", "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    for cand in cands:
+        if os.path.exists(cand):
+            return cand
+    raise AssertionError(f"cuobjdump not found at {cands}")
+
+
+def flash_sass() -> dict:
+    """SASS census of each flash kernel instantiation in the built library;
+    fails unless every one has tensor-core MMAs and asynchronous copies."""
+    out = subprocess.run([cuobjdump(), "-sass",
+                          str(_build._target("flash_attention"))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    census = {}
+    for fn, counts in sass_census(out.stdout).items():
+        if "flash_fwd_kernel" not in fn:
+            continue
+        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
+        census[f"{'float32' if m.group(1) == 'f' else 'bfloat16'} "
+               f"D={m.group(2)}" if m else fn] = counts
+    if not census or not all(c["tensor_core_mma"] and c["async_copy"]
+                             for c in census.values()):
+        raise AssertionError(f"flash kernel without tensor-core MMAs or "
+                             f"asynchronous copies: {census}")
+    return census
 
 
 def bucket_lengths(rng, n_requests):
@@ -524,6 +619,9 @@ def profile_batch(net, dev, n_iters=3):
         else:
             cls = "other"
         classes[cls] += e.self_device_time_total / 1e3 / n_iters
+    if not classes["flash_attention"] > 0:
+        raise AssertionError(f"profile: no device time in flash_fwd_kernel "
+                             f"({classes})")
     busy = sum(classes.values())
     return {"batch": [b, s], "wall_ms": wall_ms, "device_ms": classes,
             "device_busy_ms": busy,
@@ -711,13 +809,16 @@ def check_sgd(case: SgdCase, momentum: bool, group: int, clip: float,
     return err, launches, sum(-(-len(idx) // 64) for idx in groups)
 
 
-def device_ms(fn, iters: int, attempts: int = 3) -> float:
+def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
+              kernels: dict = None) -> float:
     """Device time of one ``fn`` call: the summed time of the CUDA kernels
-    it launches (torch.profiler) over ``iters`` calls, after three warm
-    calls.  Unlike ``cuda_ms`` it leaves out the host's launch gaps.  A
-    trace that holds no device time at all (the profiler lost its
-    records) is taken again, up to ``attempts`` times, and then raises:
-    0 is never a measurement."""
+    it launches (torch.profiler; with ``only``, of those whose name holds
+    it) over ``iters`` calls, after three warm calls.  Unlike ``cuda_ms``
+    it leaves out the host's launch gaps.  A trace that lost records (no
+    device time at all, or a kernel counted a number of times that is not
+    a multiple of ``iters``) is taken again, up to ``attempts`` times, and
+    then raises: 0 is never a measurement.  ``kernels``, if given, gets
+    each kernel's launches per call."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -728,12 +829,17 @@ def device_ms(fn, iters: int, attempts: int = 3) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and only in e.key]
+        total = sum(e.self_device_time_total for e in events)
+        if total > 0 and all(e.count % iters == 0 for e in events):
+            if kernels is not None:
+                kernels.update({e.key[:80]: e.count // iters
+                                for e in events})
             return total / iters / 1e3
-    raise AssertionError(f"torch.profiler saw no device time in "
-                         f"{attempts} traces of {iters} calls")
+    raise AssertionError(f"torch.profiler saw no device time, or partial "
+                         f"records, in {attempts} traces of {iters} calls")
 
 
 def time_sgd(case: SgdCase, momentum: bool, iters: int):
@@ -1067,7 +1173,7 @@ def softmax_bound(n: int, c: int, backward: bool):
     elems = n * c
     nbytes = 8 * elems + (4 * n if backward else 0)
     flops = (1 if backward else 7) * elems
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / CUDA_CORE_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -1419,6 +1525,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  [{name}] {line.strip()}")
+    sass = flash_sass()
+    print("sass census flash_attention:", json.dumps(sass), flush=True)
 
     rows = kernel_phase(args.seed)
     for r in rows:
@@ -1460,8 +1568,9 @@ def main() -> int:
           flush=True)
     print(f"custom-op mlp on {card}:", json.dumps(custom), flush=True)
 
-    main_row = next(r for r in rows if r["case"].startswith(
-        "bert_base B=8 L=512 float32"))
+    main_row, bf16_row = (next(r for r in rows if r["case"] ==
+                               f"bert_base B=8 L=512 {dt}")
+                          for dt in ("float32", "bfloat16"))
     # each SGD kernel's error at the shapes of its main path
     sgd_err = {k: max(c["max_abs_err"] for c in sgd["checks"]
                       if c["kernel"] == k and c["case"] == case)
@@ -1484,6 +1593,9 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"], "shape": main_row["case"],
+        **{f"bf16_{key}": bf16_row[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
     }, sgd_row("multi_sgd", SGD_TPU, mlp["launches"],
                sgd["times"]["multi_sgd_mlp"]),
         sgd_row("multi_sgd_mom", SGD_MOM_TPU, resnet["launches"],
@@ -1509,7 +1621,7 @@ def main() -> int:
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_logs": logs, "flash": rows,
+        {"card": card, "build_logs": logs, "sass": sass, "flash": rows,
          "serving": serving, "sgd": sgd, "mlp": mlp, "resnet50": resnet,
          "rtc": rtc_res, "custom_mlp": custom, "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))

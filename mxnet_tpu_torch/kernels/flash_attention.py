@@ -8,7 +8,8 @@ softmax, fp32 accumulation, and no (Lq, Lk) score matrix in device memory.
 Semantics, shared by the kernel (``csrc/flash_attention.cu``) and the plain
 version below, exactly as the TPU kernel has them:
 
-- ``scale`` multiplies q (in fp32) before the product;
+- ``scale`` multiplies the fp32 scores (the plain version scales q in
+  fp32 before the product: the two differ by fp32 rounding);
 - key ``k`` of row ``bh`` is valid iff ``float(k) < min(valid_len[bh], Lk)``;
 - ``causal`` also masks ``k > q + (Lk - Lq)`` (bottom-right aligned, from
   the unpadded lengths);
@@ -37,6 +38,7 @@ BLOCK_K = 128           # key chunk of the plain version (the TPU tile)
 _NEG_INF = -1e30
 _KERNEL_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_BH = 65535         # the kernel's grid.y
 _count_lock = threading.Lock()
 
 
@@ -103,6 +105,16 @@ def _launch(q, k, v, vl, causal: bool, scale: float) -> torch.Tensor:
     if q.dtype not in _KERNEL_DTYPES:
         raise MXNetError(f"flash_attention kernel: dtype {q.dtype} not in "
                          f"{tuple(_KERNEL_DTYPES)}")
+    if bh > _MAX_BH:
+        raise MXNetError(f"flash_attention kernel: batch*heads {bh} > "
+                         f"{_MAX_BH}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise MXNetError(
+                f"flash_attention kernel: {name} starts {t.data_ptr() % 16} "
+                f"bytes past a 16-byte boundary (storage offset "
+                f"{t.storage_offset()}); its 16-byte copies need aligned "
+                f"rows: pass a copy ({name}.clone())")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -132,8 +144,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b-major to ``(B*H,)``.  ``scale`` defaults to ``1/sqrt(D)``.
 
     On the CPU this runs :func:`flash_attention_plain`; on a CUDA tensor it
-    launches the kernel, which takes D in {32, 64, 128} and float32 or
-    bfloat16, and raises on anything else.  The kernel has no backward
+    launches the kernel, which takes D in {32, 64, 128}, float32 or
+    bfloat16, q/k/v starting on a 16-byte boundary and batch*heads up to
+    65535, and raises on anything else (a contiguous view at an unaligned
+    offset included).  The kernel has no backward
     yet: on a CUDA tensor with grad mode on and q, k or v requiring grad
     the wrapper raises rather than return a result without a gradient."""
     tensors = (q, k, v)

@@ -2,8 +2,10 @@
 CPU: a small ResNet's fp32 step held leaf by leaf against its float64
 step by ``chip_smoke.leaf_check``.  The fp32 step passes as the "card"; a
 fault of 1 % in one leaf's gradient, the size of a card-only fault the
-check must see, fails that leaf and no other.  And ``device_ms``, which
-must not report a trace without device time as 0 ms."""
+check must see, fails that leaf and no other.  ``device_ms``, which
+must not report a trace without device time as 0 ms.  The flash bound at
+the tensor cores' peaks on ``kernel_phase``'s own seed-0 draws, and the
+SASS census's parser on a ``cuobjdump -sass`` excerpt."""
 from __future__ import annotations
 
 import numpy as np
@@ -67,17 +69,22 @@ def test_leaf_check_flags_a_one_percent_gradient_fault(steps, leaf):
 
 
 class _Event:
-    def __init__(self, us):
+    """An entry of ``key_averages()``: a kernel's name, its launches and
+    their summed device microseconds."""
+    def __init__(self, us, count=2, key="kernel"):
         self.device_type = torch.autograd.DeviceType.CUDA
         self.self_device_time_total = us
+        self.count = count
+        self.key = key
 
 
 def _fake_profiler(monkeypatch, traces):
     """torch.profiler.profile handing out ``traces`` (lists of device
-    microseconds), one per ``with``."""
+    microseconds, or of ``_Event`` arguments), one per ``with``."""
     class Profile:
         def __init__(self, *args, **kwargs):
-            self.events = [_Event(us) for us in traces.pop(0)]
+            self.events = [_Event(*e) if isinstance(e, tuple) else _Event(e)
+                           for e in traces.pop(0)]
 
         def __enter__(self):
             return self
@@ -101,3 +108,92 @@ def test_device_ms_never_reports_zero(monkeypatch):
     _fake_profiler(monkeypatch, [[], [0.0], []])
     with pytest.raises(AssertionError, match="no device time"):
         chip_smoke.device_ms(lambda: None, 2)
+
+
+def test_device_ms_retakes_a_trace_with_partial_records(monkeypatch):
+    """A kernel seen 3 times in a trace of 2 calls lost records: the trace
+    is taken again; ``only`` keeps the kernels whose name holds it, and
+    ``kernels`` gets their launches per call."""
+    _fake_profiler(monkeypatch, [
+        [(300.0, 3, "flash_fwd_kernel")],
+        [(300.0, 2, "flash_fwd_kernel<float, 64>"), (100.0, 4, "copy")]])
+    seen = {}
+    assert chip_smoke.device_ms(lambda: None, 2, only="flash_fwd_kernel",
+                                kernels=seen) == 0.15
+    assert seen == {"flash_fwd_kernel<float, 64>": 1}
+
+
+def test_flash_bound_takes_the_tensor_core_peaks():
+    """fp32 at 495 TFLOP/s (TF32), bf16 at 989; at kernel_phase's seed-0
+    draws both B=8, L=512 cases are bound by bytes: 0.0109 ms (3.29
+    GFLOP, 36.4 MB) and 0.0048 ms (2.27 GFLOP, 16.2 MB)."""
+    assert chip_smoke.TENSOR_FLOPS == {torch.float32: 495e12,
+                                       torch.bfloat16: 989e12}
+    gen = torch.Generator().manual_seed(0)
+    bounds = {}
+    for name, b, h, lq, lk, d, dtype, _, _ in chip_smoke.FLASH_CASES:
+        vl = chip_smoke.flash_inputs(gen, b, h, lq, lk, d)[3]
+        bounds[name] = chip_smoke.flash_bound(vl.repeat_interleave(h), lq,
+                                              lk, d, dtype)
+    ms, by, flops, nbytes = bounds["bert_base B=8 L=512 float32"]
+    assert (round(ms, 4), by) == (0.0109, "bytes")
+    assert (round(flops / 1e9, 2), round(nbytes / 1e6, 1)) == (3.29, 36.4)
+    assert flops / 495e12 < nbytes / 3.35e12
+    ms, by, flops, nbytes = bounds["bert_base B=8 L=512 bfloat16"]
+    assert (round(ms, 4), by) == (0.0048, "bytes")
+    assert (round(flops / 1e9, 2), round(nbytes / 1e6, 1)) == (2.27, 16.2)
+
+
+# lines of a ``cuobjdump -sass`` listing of csrc/flash_attention.cu built
+# for sm_90a (two of its kernels), and of a kernel of another library
+SASS = """
+\t\tFunction : _ZN51_GLOBAL__N__e09e4dff_18_flash_attention_cu_f2eeda7216flash_fwd_kernelI13__nv_bfloat16Li32EEEvPKT_S4_S4_PKfPS2_iiif
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_ACCELERATORS EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                                              /* 0x00000a00ff017b82 */
+                                                                                                       /* 0x000e620000000800 */
+        /*07d0*/                   LDGSTS.E.BYPASS.128 [R11+0x8800], desc[UR8][R8.64], !P4 ;           /* 0x08800000080b7fae */
+        /*0b30*/                   LDGSTS.E.BYPASS.128 [R25+0x8800], desc[UR8][R10.64], !P4 ;          /* 0x088000000a197fae */
+        /*1f70*/                   LDSM.16.M88.4 R24, [R4+0x8800] ;                                    /* 0x008800000418783b */
+        /*3650*/                   HMMA.16816.F32.BF16 R8, R24.reuse, R12, RZ ;                        /* 0x0000000c1808723c */
+        /*3670*/                   HMMA.16816.F32.BF16 R12, R24.reuse, R14, RZ ;                       /* 0x0000000e180c723c */
+        /*52e0*/               @P6 MUFU.EX2 R146, R21 ;                                                /* 0x0000001500926308 */
+        /*6b70*/                   F2FP.BF16.F32.PACK_AB R68, R145, R146 ;                             /* 0x000000929144723e */
+        /*6b80*/                   FFMA R146, R149, R150, R146 ;                                       /* 0x0000009695927223 */
+\t\t..........
+
+
+\t\tFunction : _ZN51_GLOBAL__N__e09e4dff_18_flash_attention_cu_f2eeda7216flash_fwd_kernelIfLi32EEEvPKT_S3_S3_PKfPS1_iiif
+        /*4cb0*/                   HMMA.1688.F32.TF32 R164, R168, R4, RZ ;                             /* 0x00000004a8a4723c */
+        /*4d50*/                   HMMA.1688.F32.TF32 R164, R20, R8, R164 ;                            /* 0x0000000814a4723c */
+        /*4d60*/              @!P0 FFMA R3, R2, R2, R3 ;                                               /* 0x0000000202037223 */
+\t\tFunction : other_kernel
+        /*0000*/              @!UP1 FFMA R3, R2, R2, R3 ;
+"""
+
+
+def test_sass_census_counts_instruction_families():
+    census = chip_smoke.sass_census(SASS)
+    bf16, fp32, other = census.values()
+    assert bf16 == {"tensor_core_mma": 2, "async_copy": 2, "ldmatrix": 1,
+                    "ffma": 1}
+    assert fp32 == {"tensor_core_mma": 2, "async_copy": 0, "ldmatrix": 0,
+                    "ffma": 1}
+    assert other == {"tensor_core_mma": 0, "async_copy": 0, "ldmatrix": 0,
+                     "ffma": 1}
+
+
+def test_flash_sass_fails_without_async_copies(monkeypatch):
+    """The census labels each flash instantiation by dtype and D, and the
+    run fails when one has no tensor-core MMA or no asynchronous copy (the
+    fp32 kernel's lines above have no LDGSTS)."""
+    import subprocess
+    import types
+    monkeypatch.setattr(chip_smoke, "cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=SASS))
+    with pytest.raises(AssertionError, match="float32 D=32"):
+        chip_smoke.flash_sass()
+    only_bf16 = SASS[:SASS.index("\t\tFunction", 10)]
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=only_bf16))
+    assert list(chip_smoke.flash_sass()) == ["bfloat16 D=32"]

@@ -9,7 +9,8 @@ H100:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: flash fp32 max-abs 1e-4 (fp32 accumulation in both, summation
-order differs); bf16 2e-2 against the plain version run in fp32 on the
+order differs; the kernel's products are 3xTF32, as accurate as fp32);
+bf16 2e-2 against the plain version run in fp32 on the
 same bf16 inputs (bf16 output rounding).  Multi-tensor SGD 1e-6 (the
 kernels round each operation as the plain version does: 0 expected).
 A training step on the card against the CPU: 1e-4 (cuDNN and the CPU's
@@ -50,31 +51,44 @@ def _inputs(seed, bh, lq, lk, d, dtype, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,lq,lk,d,causal", [
-    (8, 12, 128, 128, 64, False),      # BERT-base, bucket 128
-    (8, 12, 512, 512, 64, False),      # BERT-base, bucket 512
-    (1, 12, 37, 37, 64, False),        # a direct forward, ragged length
-    (2, 12, 160, 96, 64, True),        # causal, Lq > Lk: dead rows
-    (2, 4, 200, 131, 128, False),      # D = 128 (dynamic shared memory)
-    (2, 4, 77, 90, 32, True),          # D = 32
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,vl,scale", [
+    (8, 12, 128, 128, 64, False, None, None),   # BERT-base, bucket 128
+    (8, 12, 512, 512, 64, False, None, None),   # BERT-base, bucket 512
+    (1, 12, 37, 37, 64, False, None, None),     # a direct forward, ragged
+    (2, 12, 160, 96, 64, True, None, None),     # causal, Lq > Lk: dead rows
+    (2, 4, 200, 131, 128, False, None, None),   # D = 128
+    (2, 4, 77, 90, 32, True, None, None),       # D = 32
+    # tile edges (64-row query and key tiles), cross-paired; fractional
+    # and zero lengths; a non-default scale
+    (2, 2, 1, 512, 32, False, [0.0, 300.5], None),
+    (2, 2, 63, 1, 64, False, [1.0, 0.5], None),
+    (2, 2, 64, 127, 128, True, [127.0, 63.5], None),   # causal, Lq < Lk
+    (2, 2, 65, 129, 32, False, [129.0, 64.5], 0.5),
+    (2, 2, 127, 64, 64, True, [64.0, 0.0], None),      # causal, Lq > Lk
+    (2, 2, 129, 65, 128, False, [65.0, 63.5], 2.0),
+    (2, 2, 512, 63, 64, True, [63.0, 62.5], None),     # causal, Lq > Lk
 ])
-def test_kernel_matches_plain(card, dtype, b, h, lq, lk, d, causal):
+def test_kernel_matches_plain(card, dtype, b, h, lq, lk, d, causal, vl,
+                              scale):
     q, k, v = _inputs(b * lq + d, b * h, lq, lk, d, dtype, card)
-    vl = torch.randint(1, lk + 1, (b,),
-                       generator=torch.Generator().manual_seed(d)).float()
-    vl[0] = 0.0
-    vl = vl.to(card)
-    scale = 1.0 / math.sqrt(d)
+    if vl is None:
+        vl = torch.randint(1, lk + 1, (b,),
+                           generator=torch.Generator().manual_seed(d))
+        vl = vl.float()
+        vl[0] = 0.0
+    vl = torch.as_tensor(vl, dtype=torch.float32).to(card)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     before = flash_attention.launches
     out = flash_attention(q, k, v, vl, causal, scale)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    ref = flash_attention_plain(q.float(), k.float(), v.float(),
-                                vl.repeat_interleave(h), causal, scale)
+    vl_bh = vl.repeat_interleave(h)
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), vl_bh,
+                                causal, scale)
     err = (out.float() - ref).abs().max().item()
     assert err <= TOL[dtype], err
-    assert not out[:h].any()          # valid_len 0: the zero rows
+    assert not out[vl_bh == 0].any()  # valid_len 0: the zero rows
 
 
 def test_load_reference_params_defaults_to_the_card(card):
@@ -114,6 +128,12 @@ def test_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(MXNetError, match="contiguous"):
         flash_attention(x, x.transpose(0, 1).contiguous().transpose(0, 1),
                         x)
+    # a contiguous view 4 bytes into its storage: refused, not launched
+    odd = torch.zeros(2 * 16 * 64 + 1, device=card)[1:].view(2, 16, 64)
+    before = flash_attention.launches
+    with pytest.raises(MXNetError, match="4 bytes past a 16-byte boundary"):
+        flash_attention(x, odd, x)
+    assert flash_attention.launches == before
 
 
 def test_readback_is_one_batched_copy(card):

@@ -147,3 +147,39 @@ def test_card_path_refuses_inputs_that_require_grad(monkeypatch, grad_on):
     with torch.no_grad():
         flash_attention(q.detach(), q.detach(), q.detach())
     assert len(launched) == 1 + (not grad_on)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head dim", "head dim 48"),
+    ("dtype", "dtype torch.float16"),
+    ("unaligned", "v starts 8 bytes past a 16-byte boundary"),
+    ("batch*heads", r"batch\*heads 65536"),
+    ("aligned offset", None),          # 16 bytes in: taken, reaches _kernel
+])
+def test_card_path_checks_raise_before_any_launch(monkeypatch, case, match):
+    """On the card path (forced by patching the device check) the wrapper
+    refuses what the kernel does not take with MXNetError before it builds
+    or launches anything: ``_kernel`` is replaced by one that fails if
+    reached.  A contiguous view 16 bytes into its storage is taken."""
+    import importlib
+    mod = importlib.import_module("mxnet_tpu_torch.kernels.flash_attention")
+    monkeypatch.setattr(mod, "_on_card", lambda t: True)
+
+    def unreachable():
+        raise AssertionError("kernel reached")
+
+    monkeypatch.setattr(mod, "_kernel", unreachable)
+    q = torch.zeros(2, 8, 64)
+    args = {
+        "head dim": (torch.zeros(2, 8, 48),) * 3,
+        "dtype": (torch.zeros(2, 8, 64, dtype=torch.float16),) * 3,
+        "unaligned": (q, q, torch.zeros(2 * 8 * 64 + 2)[2:].view(2, 8, 64)),
+        "batch*heads": (torch.zeros(65536, 1, 32),) * 3,
+        "aligned offset": (q, q,
+                           torch.zeros(2 * 8 * 64 + 4)[4:].view(2, 8, 64)),
+    }[case]
+    before = flash_attention.launches
+    with pytest.raises(AssertionError if match is None else MXNetError,
+                       match=match or "kernel reached"):
+        flash_attention(*args)
+    assert flash_attention.launches == before
