@@ -11,10 +11,14 @@ expected number of times and the other kernels not at all:
 1. device check: a CUDA card must be present; prints the card's name and
    power limit; TF32 is switched off so every fp32 tolerance means fp32;
 2. build: compiles every CUDA source of the port (one nvcc each, in
-   parallel), prints the ptxas register/spill report and a SASS census
-   of the flash library (``cuobjdump -sass``: tensor-core MMAs, async
-   copies, ldmatrix, FFMA per kernel); fails if a flash kernel has no
-   tensor-core MMA or no asynchronous copy;
+   parallel), prints the ptxas register/spill report (and, for the
+   multi-SGD library, registers and spills per kernel; it fails on a
+   spill) and a SASS census of each library (``cuobjdump -sass``; flash:
+   tensor-core MMAs, async copies, ldmatrix, FFMA per kernel;
+   multi-SGD: 16-byte global loads, global stores, bulk copies); fails
+   if a flash kernel has no tensor-core MMA or no asynchronous copy, or
+   a multi-SGD kernel lacks its register-staged 16-byte loads (4 per
+   array);
 3. kernels: calls each kernel's wrapper at the shapes its main path gives
    it and holds the result against the plain PyTorch version on the same
    inputs.  Flash attention (tensor cores: bf16, or 3xTF32 for fp32) at
@@ -29,8 +33,10 @@ expected number of times and the other kernels not at all:
    kernel, plain version and the library call (``scaled_dot_product_
    attention``; ``torch.optim.SGD(fused=True)``) with CUDA events, the
    SGD kernels' device time also with torch.profiler (their back-to-back
-   calls are bound by the host), and computes the bound (flash: at the
-   tensor cores' TF32 or bf16 peak, or the memory rate);
+   calls are bound by the host), each SGD launch's own device time in
+   the Trainer's groups of 4 (binned by group size, < 64K, 64K-1M and
+   > 1M elements, beside each bin's bound), and computes the bound
+   (flash: at the tensor cores' TF32 or bf16 peak, or the memory rate);
 4. serving: BERT-base (12 layers, 768 wide, 12 heads, FFN 3072, vocab
    30522, max length 512, weights from ``--seed``) served by
    ``ModelServer`` over length buckets 32..512 and batch buckets 1 and 8;
@@ -71,7 +77,8 @@ expected number of times and the other kernels not at all:
    backward kernels at 100x10 (the MLP) and 4096x30522 (BERT-base's MLM
    logits) against theirs (max-abs <= 1e-6 on probabilities: fp32, the
    same expf per element, row sums in another order), timed beside the
-   bound, the plain version and ``torch.softmax``; the host cost of one
+   bound, the plain version and one library call each (``torch.softmax``;
+   ``torch.scatter_add`` of -1 at each row's label); the host cost of one
    launch; and the refusals (wrong dtype, a CPU tensor, a CPU context,
    an unexported C++ name, a compile error carrying NVRTC's log), each
    raising ``MXNetError`` before any launch;
@@ -522,25 +529,33 @@ def kernel_phase(seed: int):
 SASS_OPS = {"tensor_core_mma": ("HMMA", "HGMMA"),
             "async_copy": ("LDGSTS", "UTMALDG", "UBLKCP"),
             "ldmatrix": ("LDSM",), "ffma": ("FFMA",)}
+# and in the multi-SGD library's: 16-byte global loads (a family may be a
+# pattern of the whole mnemonic)
+SGD_SASS_OPS = {"load_128": re.compile(r"LDG(\.\w+)*\.128(\.\w+)*")}
+SGD_UNROLL = 4                        # kUnroll of csrc/multi_sgd.cu
 _SASS_FN = re.compile(r"\s*Function : (\S+)")
-_SASS_OP = re.compile(                # address, predicate, opcode
-    r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)")
+_SASS_OP = re.compile(                # address, predicate, mnemonic
+    r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)"
+    r"((?:\.[A-Z0-9_]+)*)")
 
 
-def sass_census(text: str) -> dict:
-    """Counts of each ``SASS_OPS`` family, per kernel (mangled name), in a
+def sass_census(text: str, families: dict = SASS_OPS) -> dict:
+    """Counts of each family of ``families`` (default ``SASS_OPS``: opcodes,
+    or a pattern of the whole mnemonic), per kernel (mangled name), in a
     ``cuobjdump -sass`` listing."""
     census, counts = {}, None
     for line in text.splitlines():
         fn = _SASS_FN.match(line)
         if fn:
             counts = census.setdefault(fn.group(1),
-                                       {fam: 0 for fam in SASS_OPS})
+                                       {fam: 0 for fam in families})
             continue
         op = _SASS_OP.match(line)
         if op and counts is not None:
-            for fam, ops in SASS_OPS.items():
-                if op.group(1) in ops:
+            for fam, ops in families.items():
+                if (ops.fullmatch(op.group(1) + op.group(2))
+                        if isinstance(ops, re.Pattern)
+                        else op.group(1) in ops):
                     counts[fam] += 1
     return census
 
@@ -559,15 +574,18 @@ def cuobjdump() -> str:
     raise AssertionError(f"cuobjdump not found at {cands}")
 
 
+def library_sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library of ``csrc/<name>.cu``."""
+    return subprocess.run([cuobjdump(), "-sass", str(_build._target(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+
+
 def flash_sass() -> dict:
     """SASS census of each flash kernel instantiation in the built library;
     fails unless every one has tensor-core MMAs and asynchronous copies."""
-    out = subprocess.run([cuobjdump(), "-sass",
-                          str(_build._target("flash_attention"))],
-                         capture_output=True, text=True, timeout=300,
-                         check=True)
     census = {}
-    for fn, counts in sass_census(out.stdout).items():
+    for fn, counts in sass_census(library_sass("flash_attention")).items():
         if "flash_fwd_kernel" not in fn:
             continue
         m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
@@ -578,6 +596,52 @@ def flash_sass() -> dict:
         raise AssertionError(f"flash kernel without tensor-core MMAs or "
                              f"asynchronous copies: {census}")
     return census
+
+
+def sgd_sass() -> dict:
+    """SASS census of the two multi-SGD kernels (``sgd``: the plain form,
+    ``sgd_mom``: with momentum); fails unless each holds the 16-byte loads
+    it stages in registers (``SGD_UNROLL`` per array: w, g and m)."""
+    census = {}
+    for fn, counts in sass_census(library_sass("multi_sgd"),
+                                  SGD_SASS_OPS).items():
+        m = re.search(r"multi_sgd_kernelILb([01])E", fn)
+        if m:
+            census["sgd_mom" if m.group(1) == "1" else "sgd"] = counts
+    want = {"sgd": 2 * SGD_UNROLL, "sgd_mom": 3 * SGD_UNROLL}
+    if sorted(census) != sorted(want) or not all(
+            census[k]["load_128"] >= n for k, n in want.items()):
+        raise AssertionError(f"multi-SGD kernels without {want} staged "
+                             f"16-byte loads: {census}")
+    return census
+
+
+_PTXAS_FN = re.compile(r"Function properties for (\S+)")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes per kernel (mangled name) from a
+    ``-Xptxas -v`` log."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {"registers": None, "spill_stores": 0,
+                          "spill_loads": 0}
+            continue
+        if fn is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            report[fn]["spill_stores"] = int(m.group(1))
+            report[fn]["spill_loads"] = int(m.group(2))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+    return report
 
 
 def bucket_lengths(rng, n_requests):
@@ -842,6 +906,64 @@ def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
                          f"records, in {attempts} traces of {iters} calls")
 
 
+def launch_ms(fn, n_launches: int, iters: int, only: str,
+              attempts: int = 5) -> list:
+    """Device time of each of the ``n_launches`` kernel launches (those
+    whose name holds ``only``) that one ``fn`` call makes, in launch order,
+    averaged over ``iters`` calls after three warm calls: torch.profiler's
+    kernel events, ordered by their start on the device.  Each trace
+    opens with a small synchronised op (a trace can lose its first kernel
+    record); a trace with another number of ``only`` events is taken
+    again, up to ``attempts`` times, and then raises."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    sentinel = torch.zeros(1, device=gpu(0))
+    found = 0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sentinel.add_(1)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and only in e.name),
+                        key=lambda e: e.time_range.start)
+        found = len(events)
+        if found == n_launches * iters:
+            per = [0.0] * n_launches
+            for i, e in enumerate(events):
+                per[i % n_launches] += e.time_range.elapsed_us()
+            return [t / iters / 1e3 for t in per]
+    raise AssertionError(f"torch.profiler saw {found} {only!r} launches in "
+                         f"{iters} calls, not {n_launches * iters}")
+
+
+# group sizes (elements) that bin the per-launch table
+LAUNCH_BINS = (("< 64K", 0, 1 << 16), ("64K-1M", 1 << 16, 1 << 20),
+               ("> 1M", 1 << 20, math.inf))
+
+
+def launch_bins(elements: list, ms: list, momentum: bool) -> list:
+    """The per-launch table binned by group size: launches, elements,
+    device ms and the bytes bound of each bin, and the bound's share of
+    the device time."""
+    rows = []
+    for name, lo, hi in LAUNCH_BINS:
+        pick = [i for i, n in enumerate(elements) if lo <= n < hi]
+        n = sum(elements[i] for i in pick)
+        t = sum(ms[i] for i in pick)
+        bound = sgd_bound(n, momentum)[0]
+        rows.append({"bin": name, "launches": len(pick), "elements": n,
+                     "ms": t, "bound_ms": bound,
+                     "bound_share": bound / t if t > 0 else None})
+    return rows
+
+
 def time_sgd(case: SgdCase, momentum: bool, iters: int):
     """Times of one update over the whole set at the Trainer's settings of
     the ResNet recipe (lr 0.1, wd 1e-4, momentum 0.9, rescale 1/128, no
@@ -880,7 +1002,14 @@ def time_sgd(case: SgdCase, momentum: bool, iters: int):
     row = {"wall_ms": cuda_ms(lambda: kernel(groups), iters)}
     row["launches_per_update"] = (multi_sgd.launches + multi_sgd_mom.launches
                                   - before) / (iters + 3)
+    elements = [sum(math.prod(case.shapes[i]) for i in idx) for idx in groups]
+    per_launch = launch_ms(lambda: kernel(groups), len(groups), 5,
+                           "multi_sgd_kernel")
     row.update(
+        per_launch=[{"elements": n, "ms": t,
+                     "bound_ms": sgd_bound(n, momentum)[0]}
+                    for n, t in zip(elements, per_launch)],
+        per_launch_bins=launch_bins(elements, per_launch, momentum),
         ms=device_ms(lambda: kernel(groups), 5),
         one_group_ms=device_ms(lambda: kernel(one_group), 5),
         one_group_wall_ms=cuda_ms(lambda: kernel(one_group), iters),
@@ -1203,9 +1332,11 @@ def host_us_per_launch(fn, n: int) -> float:
 
 def check_softmax(gen, n: int, c: int, iters: int):
     """Both softmax kernels at (n, c) against their plain versions, and
-    their times (CUDA events) beside the bound, the plain version and
-    ``torch.softmax`` (the forward's library call; the backward has
-    none)."""
+    their times (CUDA events) beside the bound, the plain version and one
+    library call each: ``torch.softmax`` for the forward, and for the
+    backward ``torch.scatter_add(y, 1, index, -1)``, which computes
+    y - onehot(label) from the (n, 1) label index and a column of -1 made
+    beforehand."""
     dev = gpu(0)
     k = rtc_modules()
     x = torch.randn(n, c, device=dev, generator=gen) * 3.0
@@ -1220,6 +1351,12 @@ def check_softmax(gen, n: int, c: int, iters: int):
     def bwd():
         k["softmax_bwd"].launch([label, y, dx, c, 1], dev, grid, block)
 
+    index = label.long().view(n, 1)
+    minus_ones = torch.full((n, 1), -1.0, device=dev)
+
+    def bwd_library():
+        return torch.scatter_add(y, 1, index, minus_ones)
+
     fwd()
     bwd()
     torch.cuda.synchronize()
@@ -1231,12 +1368,13 @@ def check_softmax(gen, n: int, c: int, iters: int):
             ("softmax_fwd", fwd_err, fwd, lambda: softmax_plain(x),
              lambda: torch.softmax(x, dim=1), False),
             ("softmax_bwd", bwd_err, bwd,
-             lambda: softmax_bwd_plain(y, label), None, True)):
+             lambda: softmax_bwd_plain(y, label), bwd_library, True)):
         bound_ms, bound_by = softmax_bound(n, c, backward)
         rows[name] = {
             "shape": [n, c], "max_abs_err": err,
+            "library_max_abs_err": (lib() - plain()).abs().max().item(),
             "ms": cuda_ms(fn, iters), "plain_ms": cuda_ms(plain, iters),
-            "library_ms": cuda_ms(lib, iters) if lib else None,
+            "library_ms": cuda_ms(lib, iters),
             "bound_ms": bound_ms, "bound_by": bound_by}
     return rows
 
@@ -1525,8 +1663,17 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  [{name}] {line.strip()}")
-    sass = flash_sass()
-    print("sass census flash_attention:", json.dumps(sass), flush=True)
+    sass = {"flash_attention": flash_sass(), "multi_sgd": sgd_sass()}
+    for name, census in sass.items():
+        print(f"sass census {name}:", json.dumps(census), flush=True)
+    sgd_build = {"ptxas": ptxas_report(logs.get("multi_sgd", ""))}
+    print("ptxas multi_sgd:", json.dumps(sgd_build), flush=True)
+    spills = [fn for fn, r in sgd_build["ptxas"].items()
+              if r["spill_stores"] or r["spill_loads"]]
+    if spills or len(sgd_build["ptxas"]) != 2:
+        print(f"chip_smoke: multi-SGD ptxas report: spills in {spills}, "
+              f"{len(sgd_build['ptxas'])} kernels", file=sys.stderr)
+        return 1
 
     rows = kernel_phase(args.seed)
     for r in rows:
@@ -1547,6 +1694,10 @@ def main() -> int:
         print("sgd check", json.dumps(c), flush=True)
     for name, t in sgd["times"].items():
         print(f"sgd time {name} on {card}:", json.dumps(t), flush=True)
+        for b in t["per_launch_bins"]:
+            print(f"  sgd launches {name} {b['bin']}: {b['launches']} "
+                  f"launches, {b['elements']} elements, {b['ms']:.6f} ms "
+                  f"device, bound {b['bound_ms']:.6f} ms", flush=True)
 
     mlp = mlp_phase(args.seed)
     print(f"mlp on {card}:", json.dumps(mlp), flush=True)
@@ -1621,7 +1772,8 @@ def main() -> int:
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_logs": logs, "sass": sass, "flash": rows,
+        {"card": card, "build_logs": logs, "sass": sass,
+         "multi_sgd_build": sgd_build, "flash": rows,
          "serving": serving, "sgd": sgd, "mlp": mlp, "resnet50": resnet,
          "rtc": rtc_res, "custom_mlp": custom, "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))

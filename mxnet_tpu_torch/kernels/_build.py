@@ -11,7 +11,9 @@ file name carries a hash of the source and the flags, so an edited source
 never loads a stale library.  ``build_all()`` starts one ``nvcc`` for every
 source at once; ``load(name)`` builds one source if needed and returns the
 loaded library.  The ``-Xptxas -v`` report (registers, shared memory,
-spills per kernel) is kept in ``build_logs``.
+spills per kernel) is kept in ``build_logs`` and beside the library
+(``build/<name>-<hash>.log``), so a library built earlier keeps its
+report.
 """
 from __future__ import annotations
 
@@ -78,6 +80,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         raise MXNetError(f"nvcc failed on csrc/{name}.cu "
                          f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -92,7 +95,11 @@ def build_all() -> Dict[str, str]:
         started = {n: _start(n) for n in sources()}
         for n, s in started.items():
             _finish(n, s)
-    return {n: build_logs.get(n, "") for n in started}
+    for n in started:
+        if n not in build_logs:
+            saved = _target(n).with_suffix(".log")
+            build_logs[n] = saved.read_text() if saved.exists() else ""
+    return {n: build_logs[n] for n in started}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,8 +14,14 @@ Both run one pass over memory and are bound by bytes: 12 bytes per element
 m), over the card's 3.35 TB/s.  The kernels (``csrc/multi_sgd.cu``) are a
 multi-tensor apply: a table of pointers, sizes and each tensor's lr and
 wd, passed by value, covers up to ``MAX_TENSORS`` tensors per launch; a
-larger group takes several launches.  They round each operation as the
-plain version does, so the two agree bit for bit.
+larger group takes several launches.  Each launch is sized to the card by
+:func:`_launch_plans`: work items ("tiles") of a power of two between
+``MIN_TILE`` and ``MAX_TILE`` elements, the largest that still gives about
+``TILES_PER_SM`` tiles per SM, walked grid-stride by at most
+``BLOCKS_PER_SM`` blocks per SM, so even a group of a few small tensors
+spreads over every SM; each thread keeps 4 16-byte loads of every array
+in flight.  The kernels round each operation as the plain version does,
+so the two agree bit for bit.
 
 ``multi_sgd`` and ``multi_sgd_mom`` are the wrappers.  On CPU tensors they
 run the plain version; on CUDA tensors they launch the kernel (fp32,
@@ -26,8 +32,10 @@ launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 import threading
-from typing import List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,7 +45,66 @@ __all__ = ["multi_sgd", "multi_sgd_mom", "multi_sgd_plain",
            "multi_sgd_mom_plain", "MAX_TENSORS"]
 
 MAX_TENSORS = 64          # kMaxTensors of csrc/multi_sgd.cu
+MIN_TILE, MAX_TILE = 512, 8192
+BLOCKS_PER_SM = 3         # kBlocksPerSm: what the registers let stay resident
+TILES_PER_SM = 2          # the least tiles per SM a tile size must give
 _count_lock = threading.Lock()
+
+
+class LaunchPlan(NamedTuple):
+    """One kernel launch over the tensors ``[lo, hi)`` of a group:
+    ``tile`` elements per work item, ``starts`` the prefix sums of each
+    tensor's tiles (``starts[-1]`` tiles in all) and ``grid`` blocks, all
+    handed to the kernel as they are."""
+    lo: int
+    hi: int
+    tile: int
+    starts: Tuple[int, ...]
+    grid: int
+
+
+def _tiles(n: int, tile: int) -> int:
+    return -(-n // tile)
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_plans(sizes: Tuple[int, ...], num_sms: int) -> Tuple[LaunchPlan,
+                                                                   ...]:
+    """The launches of one group of tensors of ``sizes`` elements on a card
+    with ``num_sms`` SMs: one per ``MAX_TENSORS`` tensors that hold at
+    least one element.  The tile is the largest power of two in
+    [``MIN_TILE``, ``MAX_TILE``] that gives at least ``TILES_PER_SM`` *
+    ``num_sms`` tiles, else ``MIN_TILE``; tiles never span two tensors.
+    The grid is min(tiles, ``BLOCKS_PER_SM`` * ``num_sms``): each block
+    walks tiles b, b + grid, b + 2 grid and so on.  The kernel takes the
+    plan as it is."""
+    plans = []
+    for lo in range(0, len(sizes), MAX_TENSORS):
+        part = sizes[lo:lo + MAX_TENSORS]
+        if not any(part):
+            continue
+        tile = MAX_TILE
+        while (tile > MIN_TILE and sum(_tiles(n, tile) for n in part)
+               < TILES_PER_SM * num_sms):
+            tile //= 2
+        starts = tuple(itertools.accumulate(
+            (_tiles(n, tile) for n in part), initial=0))
+        plans.append(LaunchPlan(lo, lo + len(part), tile, starts,
+                                min(starts[-1], BLOCKS_PER_SM * num_sms)))
+    return tuple(plans)
+
+
+_sms: Dict[int, int] = {}
+
+
+def _num_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once per device."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 def _clip(clip_gradient: Optional[float]) -> float:
@@ -90,9 +157,9 @@ def _kernel():
     if _fn is None:
         from . import _build
         fn = _build.load("multi_sgd").mxtpu_multi_sgd
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + \
             [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -118,29 +185,30 @@ def _check(name, groups):
 
 def _launch(wrapper, weights, grads, moms, lrs, wds, momentum,
             rescale_grad, clip) -> None:
-    """Launch ``csrc/multi_sgd.cu`` on the current CUDA stream, one launch
-    per ``MAX_TENSORS`` tensors that hold at least one element."""
+    """Launch ``csrc/multi_sgd.cu`` on the current CUDA stream, as
+    :func:`_launch_plans` plans it: one launch per ``MAX_TENSORS`` tensors
+    that hold at least one element."""
     groups = [weights, grads] + ([moms] if moms is not None else [])
     _check(wrapper.__name__, groups)
     fn = _kernel()
-    stream = torch.cuda.current_stream(weights[0].device).cuda_stream
-    for lo in range(0, len(weights), MAX_TENSORS):
-        hi = min(lo + MAX_TENSORS, len(weights))
+    dev = weights[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sizes = tuple(t.numel() for t in weights)
+    for plan in _launch_plans(sizes, _num_sms(dev)):
+        lo, hi = plan.lo, plan.hi
         k = hi - lo
-        sizes = [t.numel() for t in weights[lo:hi]]
-        if not any(sizes):
-            continue
         ptrs = [(ctypes.c_uint64 * k)(*(t.data_ptr() for t in grp[lo:hi]))
                 for grp in groups]
-        n = (ctypes.c_longlong * k)(*sizes)
+        n = (ctypes.c_longlong * k)(*sizes[lo:hi])
+        starts = (ctypes.c_int * (k + 1))(*plan.starts)
         lr = (ctypes.c_float * k)(*lrs[lo:hi])
         wd = (ctypes.c_float * k)(*wds[lo:hi])
         m_ptr = ptrs[2] if moms is not None else ptrs[0]
         err = fn(k, ctypes.addressof(ptrs[0]), ctypes.addressof(ptrs[1]),
                  ctypes.addressof(m_ptr), ctypes.addressof(n),
-                 ctypes.addressof(lr), ctypes.addressof(wd),
+                 ctypes.addressof(starts), ctypes.addressof(lr), ctypes.addressof(wd),
                  int(moms is not None), float(momentum),
-                 float(rescale_grad), clip, stream)
+                 float(rescale_grad), clip, plan.tile, plan.grid, stream)
         if err != 0:
             raise MXNetError(f"{wrapper.__name__} kernel launch failed: "
                              f"CUDA error {err}")

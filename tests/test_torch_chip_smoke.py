@@ -197,3 +197,122 @@ def test_flash_sass_fails_without_async_copies(monkeypatch):
     monkeypatch.setattr(subprocess, "run", lambda *a, **k:
                         types.SimpleNamespace(stdout=only_bf16))
     assert list(chip_smoke.flash_sass()) == ["bfloat16 D=32"]
+
+
+# two multi-SGD kernels of a ``cuobjdump -sass`` listing (sgd_mom first)
+SGD_SASS = """
+\t\tFunction : _ZN45_GLOBAL__N__3f86046f_12_multi_sgd_cu_8d19394816multi_sgd_kernelILb1EEEvNS_5TableENS_7ScalarsE
+        /*0400*/              @!P0 LDG.E.128 R4, desc[UR6][R2.64] ;
+        /*0410*/              @!P0 LDG.E.128.CONSTANT R8, desc[UR6][R6.64] ;
+        /*0420*/              @!P1 LDG.E.128 R12, desc[UR6][R10.64] ;
+        /*0430*/                   LDG.E R16, desc[UR6][R14.64] ;
+        /*0c00*/                   STG.E.128 desc[UR6][R8.64], R12 ;
+\t\tFunction : _ZN45_GLOBAL__N__3f86046f_12_multi_sgd_cu_8d19394816multi_sgd_kernelILb0EEEvNS_5TableENS_7ScalarsE
+        /*0400*/              @!P0 LDG.E.128 R4, desc[UR6][R2.64] ;
+        /*0c00*/                   STG.E.128 desc[UR6][R8.64], R12 ;
+"""
+
+
+def test_sgd_sass_fails_without_the_staged_loads(monkeypatch):
+    """The census names the two multi-SGD kernels by form, counts 16-byte
+    loads by their whole mnemonic, and fails when a kernel has fewer than
+    ``SGD_UNROLL`` per array (the plain form's lines above have 1 of
+    2)."""
+    import subprocess
+    import types
+    monkeypatch.setattr(chip_smoke, "cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(chip_smoke, "SGD_UNROLL", 1)
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=SGD_SASS))
+    with pytest.raises(AssertionError, match="staged 16-byte loads"):
+        chip_smoke.sgd_sass()
+    both = SGD_SASS + SGD_SASS[SGD_SASS.index("        /*0400"):
+                               SGD_SASS.index("        /*0410")]
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k:
+                        types.SimpleNamespace(stdout=both))
+    census = chip_smoke.sgd_sass()
+    assert census == {"sgd_mom": {"load_128": 3}, "sgd": {"load_128": 2}}
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1kILb0EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z1kILb0EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 28 registers, used 1 barriers
+ptxas info    : Function properties for _Z1kILb1EEvv
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+"""
+    assert chip_smoke.ptxas_report(log) == {
+        "_Z1kILb0EEvv": {"registers": 28, "spill_stores": 0,
+                         "spill_loads": 0},
+        "_Z1kILb1EEvv": {"registers": 255, "spill_stores": 8,
+                         "spill_loads": 4}}
+
+
+class _Interval:
+    def __init__(self, start, us):
+        self.start, self._us = start, us
+
+    def elapsed_us(self):
+        return self._us
+
+
+class _KernelEvent:
+    """An entry of ``events()``: one launch on the device."""
+    def __init__(self, name, start, us):
+        self.device_type = torch.autograd.DeviceType.CUDA
+        self.name = name
+        self.time_range = _Interval(start, us)
+
+
+def _fake_event_profiler(monkeypatch, traces):
+    """torch.profiler.profile whose ``events()`` hand out ``traces`` (lists
+    of (name, start, us)), one per ``with``."""
+    class Profile:
+        def __init__(self, *args, **kwargs):
+            self.trace = [_KernelEvent(*e) for e in traces.pop(0)]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self.trace
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: "cpu")
+
+
+def test_launch_ms_orders_launches_and_retakes_partial_traces(monkeypatch):
+    """Launch i of each call is the i-th matching kernel by start time,
+    averaged over the calls; a trace with a launch missing is taken
+    again, and other kernels are left out."""
+    k = "multi_sgd_kernel<true>"
+    _fake_event_profiler(monkeypatch, [
+        [(k, 0, 5.0), (k, 10, 7.0), (k, 20, 5.0)],
+        [(k, 30, 9.0), (k, 0, 4.0), ("memcpy", 5, 100.0), (k, 10, 6.0),
+         (k, 20, 2.0)]])
+    assert chip_smoke.launch_ms(lambda: None, 2, 2, "multi_sgd_kernel") \
+        == [0.003, 0.0075]
+
+
+def test_launch_ms_raises_after_partial_traces(monkeypatch):
+    _fake_event_profiler(monkeypatch, [[("multi_sgd_kernel", 0, 1.0)]] * 5)
+    with pytest.raises(AssertionError, match="saw 1"):
+        chip_smoke.launch_ms(lambda: None, 2, 1, "multi_sgd_kernel")
+
+
+def test_launch_bins_sum_each_bin_beside_its_bound():
+    rows = chip_smoke.launch_bins([1000, 70000, 2000000, 60000],
+                                  [0.003, 0.004, 0.02, 0.002], True)
+    assert [(r["bin"], r["launches"], r["elements"]) for r in rows] == [
+        ("< 64K", 2, 61000), ("64K-1M", 1, 70000), ("> 1M", 1, 2000000)]
+    assert rows[0]["ms"] == pytest.approx(0.005)
+    assert rows[2]["bound_ms"] == pytest.approx(20 * 2e6 / 3.35e12 * 1e3)
+    assert rows[2]["bound_share"] == pytest.approx(
+        rows[2]["bound_ms"] / 0.02)

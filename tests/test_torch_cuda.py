@@ -242,6 +242,63 @@ def test_multi_sgd_kernel_skips_empty_tensors(card):
     assert torch.allclose(w, torch.full_like(w, 0.9))
 
 
+# the edges of the launch plan and of the staged loads, as (name, shapes
+# for an SM count): each group is one launch of one kernel
+TILE_CASES = [
+    # one element past a tile: 512-element tiles, and 8192-element tiles
+    # (a group of 2 * SMs * 8192 + 1 elements)
+    ("one_past_a_512_tile", lambda sms: [(513,)]),
+    ("one_past_an_8192_tile", lambda sms: [(2 * sms * 8192 + 1,)]),
+    # 16-byte aligned, length not a multiple of 4: 1-3 scalar elements
+    ("aligned_length_not_a_multiple_of_4",
+     lambda sms: [(1027,), (4097,), (6,), (3, 5)]),
+    # 4 trips of the staged loads a tile, and more tiles than blocks
+    ("a_block_walks_several_tiles",
+     lambda sms: [((3 * sms + 7) * 8192 + 3,)]),
+    ("an_empty_tensor_between_two_full_ones",
+     lambda sms: [(5000,), (0,), (7000,)]),
+    ("a_group_of_64_tensors",
+     lambda sms: [(37 * (i + 1) + i % 5,) for i in range(64)]),
+]
+
+
+@pytest.mark.parametrize("momentum", [False, True])
+@pytest.mark.parametrize("name,shapes", TILE_CASES,
+                         ids=[c[0] for c in TILE_CASES])
+def test_multi_sgd_tile_edges_match_plain_bitwise(card, momentum, name,
+                                                  shapes):
+    """The edges of the launch plan and of the staged loads, bit for bit
+    against the plain version, in one launch."""
+    import importlib
+    ms = importlib.import_module("mxnet_tpu_torch.kernels.multi_sgd")
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    shapes = shapes(sms)
+    (plan,) = ms._launch_plans(tuple(int(np.prod(s)) for s in shapes), sms)
+    if name == "one_past_a_512_tile":
+        assert plan.tile == 512 and plan.starts[-1] == 2
+    if name == "one_past_an_8192_tile":
+        assert plan.tile == 8192 and plan.starts[-1] == 2 * sms + 1
+    if name == "a_block_walks_several_tiles":
+        assert plan.tile == 8192 and plan.starts[-1] > plan.grid
+    w, g, m = _sgd_set(card, shapes, 0, 11)
+    lrs = np.linspace(0.01, 0.3, len(w)).tolist()
+    wds = np.linspace(0.0, 1e-2, len(w)).tolist()
+    wk, mk = [t.clone() for t in w], [t.clone() for t in m]
+    wp, mp = [t.clone() for t in w], [t.clone() for t in m]
+    counter = multi_sgd_mom if momentum else multi_sgd
+    before = counter.launches
+    if momentum:
+        multi_sgd_mom(wk, g, mk, lrs, wds, 0.9, 1 / 128, 0.5)
+        multi_sgd_mom_plain(wp, g, mp, lrs, wds, 0.9, 1 / 128, 0.5)
+    else:
+        multi_sgd(wk, g, lrs, wds, 1 / 128, 0.5)
+        multi_sgd_plain(wp, g, lrs, wds, 1 / 128, 0.5)
+    torch.cuda.synchronize()
+    assert counter.launches - before == 1
+    for a, b in zip(wk + mk, wp + mp):
+        assert torch.equal(a, b)
+
+
 def _small_resnet():
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
     return resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
