@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero without printing the ok line).  Every
 kernel's launch count is set to 0 just before each main path (serving,
-MLP, ResNet-50) and read just after; a path must launch its kernel the
+MLP, ResNet-50, the custom-op MLP, BERT-base training) and read just
+after; a path must launch its kernel the
 expected number of times and the other kernels not at all:
 
 1. device check: a CUDA card must be present; prints the card's name and
@@ -95,9 +96,33 @@ expected number of times and the other kernels not at all:
    resolves a loss near 0 only to ~6e-8), exactly one forward and one
    backward rtc launch per step and no other kernel's, finite losses
    that fall, held-out accuracy above 0.5;
-9. prints one JSON line of kernel measurements (flash: the fp32 and, as
-   ``bf16_*``, the bf16 B=8 L=512 case), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+9. BERT-base pretraining (config #3 at full width and depth, as
+   ``bench_bert_base`` runs it: ``dropout=0.0``, weights from ``--seed``,
+   the MLM + NSP loss from the ``nd`` ops, ``Trainer("adam", lr 1e-4)``,
+   batch 8 of sequence 256 with valid lengths in [128, 256] and 15 % of
+   the valid positions masked): (a) fp32: one batch-2, sequence-128 Adam
+   step from the initial weights on the card against the CPU in fp32 and
+   float64, leaf by leaf (ResNet-50's ``leaf_check`` bounds) on the
+   updated weights and on the gradients; 3 warm and 10 timed steps (step
+   ms, sequences/s, tokens/s), one profiled step by class (GEMMs, flash
+   forward, the flash backward's torch ops, LayerNorm, log-softmax,
+   Adam, memcpy, other; idle share; Adam's kernels per parameter); (b)
+   the same from the same weights under ``amp.init("bfloat16")``, 20
+   steps: finite losses that fall, the first within 2e-2 (relative) of
+   the fp32 run's, every parameter and Adam state still fp32; both: the
+   flash kernel launched exactly 12 times per step (the backward is torch
+   code and launches none), on fp32 q/k/v in (a) and bf16 in (b), and no
+   other kernel; (c) the flash backward alone at B=8, H=12, L=256 and
+   512, D=64, fp32 and bf16, ragged lengths: q/k/v gradients against
+   torch autograd through the plain version in fp32 (max-abs <= the
+   forward's tolerance x max(1, max|g|)), device ms of forward + backward
+   beside the plain version's and ``scaled_dot_product_attention``'s
+   (same key mask) and the bound, and the backward's peak memory beside
+   one (B*H, L, L) fp32 matrix;
+10. prints one JSON line of kernel measurements (flash: the fp32 and, as
+   ``bf16_*``, the bf16 B=8 L=512 case; its training launches and its
+   backward's times under ``train_launches`` and ``backward``), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Writes the full report to ``<out>/chip_smoke.json``.
 """
@@ -123,6 +148,7 @@ from mxnet_tpu_torch import (autograd, gluon, load_reference_params, metric,
                              nd, operator, rtc)
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu, gpu
+from mxnet_tpu_torch.contrib import amp
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_base
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
@@ -171,6 +197,12 @@ SOFTMAX_SHAPES = [(100, 10), (4096, VOCAB)]   # the MLP; BERT-base's MLM
 CUSTOM_SAMPLES, CUSTOM_HELD_OUT = 2000, 300
 CUSTOM_BATCH, CUSTOM_EPOCHS, CUSTOM_LR = 100, 2, 2e-3
 SMEM_FLOATS = 25600                   # 100 KB of dynamic shared memory
+BERT_BATCH, BERT_SEQ = 8, 256         # bench_bert_base's shape
+BERT_WARM, BERT_STEPS, BERT_AMP_STEPS = 3, 10, 20
+BERT_OPT = {"learning_rate": 1e-4}
+BERT_CHECK = (2, 128)                 # the leaf check's batch, sequence
+BERT_AMP_LOSS_RTOL = 2e-2             # first AMP loss vs the fp32 one
+MASK_ID = 103
 
 # ----------------------------------------------------------------------
 # User code of the rtc slice: CUDA sources compiled at run time by
@@ -408,10 +440,21 @@ def zero_counts() -> None:
     """Set every kernel's launch count to 0, just before a main path."""
     for wrapper in (flash_attention, multi_sgd, multi_sgd_mom):
         wrapper.launches = 0
+    for dtype in flash_attention.launches_by_dtype:
+        flash_attention.launches_by_dtype[dtype] = 0
     for name in ("softmax_fwd", "softmax_bwd"):
         if name in _RTC:
             _RTC[name].launches = 0
     rtc.launches = 0
+
+
+def _is_kernel(event) -> bool:
+    """A device-side record of torch.profiler that is a kernel or a copy,
+    not the device span of a ``record_function`` range (the flash
+    backward's, the trainer step's), which would count its kernels and
+    its idle gaps a second time."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not event.is_user_annotation)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -469,11 +512,22 @@ FLASH_CASES = [
      True, 0),
     ("D=128 ragged", 2, 4, 200, 131, 128, torch.float32, False, 0),
     ("D=32 ragged bf16", 2, 4, 77, 77, 32, torch.bfloat16, True, 0)]
+# the training phase's shape, drawn after FLASH_CASES, with the lengths of
+# its batch (``bert_batch``: in [S/2, S]) in place of the drawn ones
+TRAIN_FLASH_CASES = [
+    (f"bert_train B={BERT_BATCH} L={BERT_SEQ} {_short(dtype)}", BERT_BATCH,
+     HEADS, BERT_SEQ, BERT_SEQ, HEAD_DIM, dtype, False, 50)
+    for dtype in (torch.float32, torch.bfloat16)]
 
 
-def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters):
+def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters, vl=None):
+    """One flash case: the kernel's output against the plain version's in
+    fp32 (raises past ``TOL[dtype]``) and, with ``iters``, device and wall
+    times beside the plain version's, SDPA's and the bound.  ``vl``, if
+    given, replaces the (B,) lengths drawn from ``gen``."""
     dev = gpu(0)
-    q, k, v, vl = (t.to(dev) for t in flash_inputs(gen, b, h, lq, lk, d))
+    q, k, v, drawn = (t.to(dev) for t in flash_inputs(gen, b, h, lq, lk, d))
+    vl = drawn if vl is None else vl.float().to(dev)
     q, k, v = (t.to(dtype) for t in (q, k, v))
     vl_bh = vl.repeat_interleave(h)
     scale = 1.0 / math.sqrt(d)
@@ -522,7 +576,10 @@ def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters):
 
 def kernel_phase(seed: int):
     gen = torch.Generator().manual_seed(seed)
-    return [check_flash(gen, *case) for case in FLASH_CASES]
+    rows = [check_flash(gen, *case) for case in FLASH_CASES]
+    train_vl = torch.as_tensor(bert_batch(seed, BERT_BATCH, BERT_SEQ)[2])
+    return rows + [check_flash(gen, *case, vl=train_vl)
+                   for case in TRAIN_FLASH_CASES]
 
 
 # instruction families counted in the flash library's SASS
@@ -671,7 +728,7 @@ def profile_batch(net, dev, n_iters=3):
     classes = {"flash_attention": 0.0, "gemm": 0.0, "memcpy": 0.0,
                "other": 0.0}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not _is_kernel(e):
             continue
         name = e.key.lower()
         if "flash_fwd_kernel" in name:
@@ -874,15 +931,18 @@ def check_sgd(case: SgdCase, momentum: bool, group: int, clip: float,
 
 
 def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
-              kernels: dict = None) -> float:
+              kernels: dict = None, lost: int = 0) -> float:
     """Device time of one ``fn`` call: the summed time of the CUDA kernels
     it launches (torch.profiler; with ``only``, of those whose name holds
     it) over ``iters`` calls, after three warm calls.  Unlike ``cuda_ms``
     it leaves out the host's launch gaps.  A trace that lost records (no
-    device time at all, or a kernel counted a number of times that is not
-    a multiple of ``iters``) is taken again, up to ``attempts`` times, and
-    then raises: 0 is never a measurement.  ``kernels``, if given, gets
-    each kernel's launches per call."""
+    device time at all, or a kernel counted more than ``lost`` times short
+    of a multiple of ``iters``) is taken again, up to ``attempts`` times,
+    and then raises: 0 is never a measurement.  With ``lost`` (a call of
+    many kernels, some from autograd's backward thread, where a trace of
+    thousands of records can lose one), a kernel short of at most
+    ``lost`` records has its time scaled up to its full count.
+    ``kernels``, if given, gets each kernel's launches per call."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -894,12 +954,15 @@ def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  if _is_kernel(e)
                   and only in e.key]
-        total = sum(e.self_device_time_total for e in events)
-        if total > 0 and all(e.count % iters == 0 for e in events):
+        full = {e.key: e.count + (-e.count) % iters for e in events}
+        total = sum(e.self_device_time_total * full[e.key] / e.count
+                    for e in events)
+        if total > 0 and all(full[e.key] - e.count <= lost
+                             for e in events):
             if kernels is not None:
-                kernels.update({e.key[:80]: e.count // iters
+                kernels.update({e.key[:80]: full[e.key] // iters
                                 for e in events})
             return total / iters / 1e3
     raise AssertionError(f"torch.profiler saw no device time, or partial "
@@ -930,7 +993,7 @@ def launch_ms(fn, n_launches: int, iters: int, only: str,
                 fn()
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         if _is_kernel(e)
                          and only in e.name),
                         key=lambda e: e.time_range.start)
         found = len(events)
@@ -1106,7 +1169,7 @@ def _device_classes(prof, wall_ms):
                "multi_sgd_mom": 0.0, "memcpy": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not _is_kernel(e):
             continue
         name = e.key.lower()
         if "multi_sgd" in name:
@@ -1591,7 +1654,7 @@ def custom_mlp_phase(seed: int):
         classes = {"rtc_softmax": 0.0, "gemm": 0.0, "memcpy": 0.0,
                    "other": 0.0}
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            if not _is_kernel(e):
                 continue
             name = e.key.lower()
             cls = ("rtc_softmax" if "softmax_fwd" in name
@@ -1640,6 +1703,392 @@ def custom_mlp_phase(seed: int):
             "first_step_grad_max_abs_vs_twin": grad_err,
             "loss_max_rel_vs_twin": loss_rel, "custom": custom,
             "twin": twin, "ok": ok}
+
+
+# ----------------------------------------------------------------------
+# BERT-base pretraining (config #3) through gluon.Trainer("adam"), in fp32
+# and under contrib.amp's bf16 casts: bench_bert_base's recipe (bench.py
+# :392-478) on one card.
+
+def bert_batch(seed: int, batch: int, seq: int, vocab: int = VOCAB):
+    """``bench_bert_base``'s synthetic batch (bench.py:453-463) from
+    ``seed``: token ids, valid lengths in [seq/2, seq], 15 % of the valid
+    positions masked (and position 0 of every row), no second segment.
+    Returns numpy ``(inputs, segments, valid_lengths, labels, weights,
+    nsp_labels)``."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (batch, seq))
+    valid_lens = rng.integers(seq // 2, seq + 1, (batch,))
+    valid = np.arange(seq)[None, :] < valid_lens[:, None]
+    mask_pos = (rng.random((batch, seq)) < 0.15) & valid
+    mask_pos[:, 0] = True                # >= 1 masked position per row
+    inputs = np.where(mask_pos, MASK_ID, tokens)
+    segs = np.zeros((batch, seq), np.int64)
+    nsp_y = rng.integers(0, 2, (batch,))
+    return (inputs, segs, valid_lens.astype(np.float32), tokens,
+            mask_pos.astype(np.float32), nsp_y)
+
+
+def mlm_nsp_loss(mlm, nsp, labels, weights, nsp_y, F=nd):
+    """The reference's pretraining loss (bench.py:440-449) from the ``nd``
+    ops of ``F``: masked-LM cross-entropy over the weighted positions plus
+    the NSP head's cross-entropy."""
+    logp = F.log_softmax(mlm, axis=-1)
+    ce = -F.pick(logp, labels, axis=-1)                  # (B, S)
+    mlm_l = F.sum(ce * weights) / F.sum(weights)
+    nsp_logp = F.log_softmax(nsp, axis=-1)
+    return mlm_l - F.mean(F.pick(nsp_logp, nsp_y, axis=-1))
+
+
+def bert_train_step(net, trainer, batch):
+    """``autograd.record`` -> MLM + NSP loss -> ``autograd.backward`` ->
+    ``trainer.step(1)`` (the loss is already a mean); returns the loss.
+    The update runs in a profiler range named ``trainer_step``."""
+    inputs, segs, vl, labels, weights, nsp_y = batch
+    with autograd.record():
+        mlm, nsp = net(inputs, segs, vl)
+        loss = mlm_nsp_loss(mlm, nsp, labels, weights, nsp_y)
+    autograd.backward(loss)
+    with torch.profiler.record_function("trainer_step"):
+        trainer.step(1)
+    return loss.detach()
+
+
+def bert_check_step(model, batch):
+    """One Adam step of ``model`` from its current weights: the loss
+    (float64, on the CPU), the gradients and the updated weights."""
+    tr = gluon.Trainer(model.collect_params(), "adam", BERT_OPT)
+    inputs, segs, vl, labels, weights, nsp_y = batch
+    with autograd.record():
+        loss = mlm_nsp_loss(*model(inputs, segs, vl), labels, weights, nsp_y)
+    autograd.backward(loss)
+    grads = {k: p.grad().detach().clone()
+             for k, p in model.collect_params().items()}
+    tr.step(1)
+    return loss.detach().cpu().double(), grads, _snapshot(model)
+
+
+# kernel classes of a BERT training step; the two profiler ranges
+# (the flash backward's torch ops, the Adam update) take every kernel
+# launched inside them, the rest go by kernel name
+BERT_RANGES = {"flash_attention_backward": "flash_backward",
+               "trainer_step": "adam"}
+
+
+def _bert_kernel_class(name: str) -> str:
+    name = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash_forward"
+    if "memcpy" in name or "memset" in name:
+        return "memcpy"
+    if any(w in name for w in ("gemm", "cutlass", "xmma", "sm90", "nvjet",
+                               "cublas")):
+        return "gemm"
+    if "layer_norm" in name or "layernorm" in name:
+        return "layernorm"
+    if "softmax" in name:
+        return "log_softmax"
+    return "other"
+
+
+def _range_of(event):
+    while event is not None:
+        if event.name in BERT_RANGES:
+            return BERT_RANGES[event.name]
+        event = event.cpu_parent
+    return None
+
+
+def bert_step_classes(prof, wall_ms: float, n_params: int) -> dict:
+    """Device time of one profiled training step by class (GEMMs, flash
+    forward, the flash backward's torch ops, LayerNorm, the log-softmax,
+    Adam's elementwise kernels, memcpy, other), its idle share of the
+    step's wall time, the Adam kernels per parameter, and how long each
+    range spans on the device's timeline (its kernels and the gaps
+    between them).  A kernel is put in a range's class through the CPU
+    op that launched it."""
+    classes = dict.fromkeys(("gemm", "flash_forward", "flash_backward",
+                             "layernorm", "log_softmax", "adam", "memcpy",
+                             "other"), 0.0)
+    top, spans = [], {}
+    for e in prof.key_averages():
+        if _is_kernel(e):
+            ms = e.self_device_time_total / 1e3
+            classes[_bert_kernel_class(e.key)] += ms
+            top.append((ms, e.count, e.key[:100]))
+        elif e.key in BERT_RANGES and e.is_user_annotation:
+            spans[BERT_RANGES[e.key]] = e.self_device_time_total / 1e3
+    ranged = {"flash_backward": 0, "adam": 0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        cls = _range_of(e)
+        if cls is None:
+            continue
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            classes[_bert_kernel_class(k.name)] -= ms
+            classes[cls] += ms
+            ranged[cls] += 1
+    busy = sum(classes.values())
+    return {"wall_ms": wall_ms, "device_ms": classes,
+            "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "kernels_in_ranges": ranged,
+            "range_spans_ms": spans,
+            "adam_kernels_per_param": ranged["adam"] / n_params,
+            "top_kernels": [{"ms": ms, "calls": n, "name": name}
+                            for ms, n, name in sorted(top, reverse=True)[:15]]}
+
+
+def bert_run(net, batch, n_steps: int) -> dict:
+    """``n_steps`` Adam steps of ``net`` on one batch (``BERT_WARM`` warm,
+    then ``BERT_STEPS`` timed, then the rest), the flash launches of
+    them all, one profiled step after them, and the dtypes of every
+    parameter and Adam state at the end."""
+    from torch.profiler import ProfilerActivity, profile
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "adam", BERT_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses = [bert_train_step(net, trainer, batch)
+              for _ in range(BERT_WARM)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses += [bert_train_step(net, trainer, batch)
+               for _ in range(BERT_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses += [bert_train_step(net, trainer, batch)
+               for _ in range(n_steps - len(losses))]
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    by_dtype = {k.replace("torch.", ""): n
+                for k, n in flash_attention.launches_by_dtype.items()}
+    other = multi_sgd.launches + multi_sgd_mom.launches + rtc.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        bert_train_step(net, trainer, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.monotonic() - t1) * 1e3
+    states = [t for st in trainer._states.values() for t in st]
+    seqs = batch[0].shape[0]
+    tokens = batch[0].numel()
+    return {
+        "steps": n_steps, "losses": [v.item() for v in losses],
+        "step_ms": wall / BERT_STEPS * 1e3,
+        "sequences_per_s": seqs * BERT_STEPS / wall,
+        "tokens_per_s": tokens * BERT_STEPS / wall,
+        "real_tokens_per_s": batch[2].sum().item() * BERT_STEPS / wall,
+        "flash_launches": launches, "flash_launches_by_dtype": by_dtype,
+        "other_kernel_launches": other, "peak_memory_gb": peak_gb,
+        "profile": bert_step_classes(prof, prof_wall_ms, len(params)),
+        "param_dtypes": sorted({_short(p.data().dtype)
+                                for p in params.values()}),
+        "adam_state_dtypes": sorted({_short(t.dtype) for t in states}),
+        "adam_states": len(states)}
+
+
+def bert_leaf_check(net, seed: int) -> dict:
+    """One Adam step at batch 2, sequence 128 from ``net``'s weights on
+    the card, on the CPU in fp32 and on the CPU in float64 (the arbiter),
+    held leaf by leaf (``leaf_check``, ResNet-50's bounds): the updated
+    weights, and the gradients themselves (Adam's first step moves each
+    weight by about ``lr * sign(g)``, which hides the size of a gradient's
+    error)."""
+    w_init = _snapshot(net)
+    arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
+    batch = bert_batch(seed + 1, *BERT_CHECK)
+    after = {"card": bert_check_step(
+        net, [torch.as_tensor(a, device=gpu(0)) for a in batch])}
+    for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+        model = bert_base(dropout=0.0)
+        load_reference_params(model, arrays, ctx=cpu())
+        after[name] = bert_check_step(model.to(dtype),
+                                      [torch.as_tensor(a) for a in batch])
+        del model
+    zeros = {k: torch.zeros_like(v) for k, v in w_init.items()}
+    loss_err = (after["card"][0] - after["cpu"][0]).abs().item()
+    weights = leaf_check(after["card"][2], after["cpu"][2],
+                         after["cpu64"][2], w_init)
+    grads = leaf_check(after["card"][1], after["cpu"][1],
+                       after["cpu64"][1], zeros)
+    load_reference_params(net, arrays, ctx=gpu(0))
+    return {"batch": list(BERT_CHECK), "loss_abs_err_vs_cpu": loss_err,
+            "loss_card": after["card"][0].item(),
+            "loss_cpu64": after["cpu64"][0].item(),
+            "weights": weights, "grads": grads,
+            "ok": loss_err <= 1e-4 and weights["ok"] and grads["ok"]}
+
+
+def flash_backward_bound(vl_bh, lq, lk, d, dtype):
+    """(bound_ms, bound_by) of one flash-attention forward + backward:
+    the six products of the two directions (S = QKᵀ, O = PV; dV = PᵀdO,
+    dP = dO Vᵀ, dQ = dS K, dK = dSᵀQ), 12 * Lq * keys * D operations over
+    the live keys, at the tensor cores' rate for ``dtype``; q, k, v and dO
+    read once, O, dQ, dK, dV written once."""
+    bh = vl_bh.numel()
+    keys = torch.clamp(torch.ceil(vl_bh.float()), 0, lk).sum().item()
+    flops = 12.0 * lq * keys * d
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = 4 * bh * (lq + lk) * d * itemsize + bh * 4
+    t_ops, t_bytes = flops / TENSOR_FLOPS[dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_flash_backward(gen, b, h, length, d, dtype, iters):
+    """The backward alone at (B, H, L, D): the kernel's output against the
+    plain version's (max-abs <= TOL[dtype]) and q/k/v gradients through
+    the kernel's Function against torch autograd through the plain version
+    in fp32 on the same values (max-abs <= TOL[dtype] x max(1, max|g|)),
+    device ms of forward + backward against the plain version's and
+    ``scaled_dot_product_attention``'s with the same key mask, and the
+    backward's peak memory beside one (B*H, L, L) fp32 matrix."""
+    dev = gpu(0)
+    bh = b * h
+    q, k, v, dout = (torch.randn(bh, length, d, generator=gen)
+                     .to(dev, dtype) for _ in range(4))
+    vl = torch.randint(length // 2, length + 1, (b,), generator=gen) \
+        .float().to(dev)
+    vl_bh = vl.repeat_interleave(h)
+    scale = 1.0 / math.sqrt(d)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = flash_attention(q, k, v, vl)
+    grads = torch.autograd.grad(out, leaves, dout)
+    ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+    ref_out = flash_attention_plain(*ref_leaves, vl_bh, False, scale)
+    ref = torch.autograd.grad(ref_out, ref_leaves, dout.float())
+    fwd_err = (out.detach().float() - ref_out.detach()).abs().max().item()
+    err = max((g.float() - r).abs().max().item()
+              for g, r in zip(grads, ref))
+    ref_max = max(r.abs().max().item() for r in ref)
+    tol = TOL[dtype] * max(1.0, ref_max)
+    del out, ref_out
+
+    out = flash_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+
+    mask = (torch.arange(length, device=dev)[None, :]
+            < vl[:, None])[:, None, None, :]
+    sdpa_leaves = [t.detach().view(b, h, length, d).requires_grad_()
+                   for t in (q, k, v)]
+    dout4 = dout.view(b, h, length, d)
+
+    def ours():
+        return torch.autograd.grad(flash_attention(q, k, v, vl), leaves,
+                                   dout)
+
+    def plain():
+        return torch.autograd.grad(
+            flash_attention_plain(*ref_leaves, vl_bh, False, scale),
+            ref_leaves, dout.float())
+
+    def library():
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            *sdpa_leaves, attn_mask=mask, scale=scale), sdpa_leaves, dout4)
+
+    def forward():
+        with torch.no_grad():
+            return flash_attention(q, k, v, vl)
+
+    bound_ms, bound_by = flash_backward_bound(vl_bh, length, length, d,
+                                              dtype)
+    launches = {"ours": {}, "library": {}}
+    fwd_bwd_ms = device_ms(ours, iters, kernels=launches["ours"], lost=1)
+    fwd_ms = device_ms(forward, iters, only="flash_fwd_kernel")
+    return {
+        "case": f"B={b} H={h} L={length} D={d} {_short(dtype)}",
+        "max_abs_err": err, "tolerance": tol, "ref_max_abs": ref_max,
+        "forward_max_abs_err": fwd_err, "forward_tolerance": TOL[dtype],
+        "ok": err <= tol and fwd_err <= TOL[dtype],
+        "fwd_bwd_ms": fwd_bwd_ms, "fwd_ms": fwd_ms,
+        "bwd_ms": fwd_bwd_ms - fwd_ms,
+        "plain_fwd_bwd_ms": device_ms(plain, 3, lost=1),
+        "library_fwd_bwd_ms": device_ms(library, iters,
+                                        kernels=launches["library"],
+                                        lost=1),
+        "launches_per_call": launches,
+        "wall_fwd_bwd_ms": cuda_ms(ours, iters),
+        "library_wall_fwd_bwd_ms": cuda_ms(library, iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bwd_peak_memory_mb": peak / 1e6,
+        "full_matrix_mb": bh * length * length * 4 / 1e6}
+
+
+def bert_train_phase(seed: int, card: str) -> dict:
+    """Config #3: BERT-base (12 layers, 768 wide, 12 heads, FFN 3072,
+    vocab 30522, ``dropout=0.0``, weights from ``seed``) pretrained with
+    the MLM + NSP loss through ``gluon.Trainer("adam", lr 1e-4)`` at batch
+    8, sequence 256: (a) fp32 with the leaf check, (b) under
+    ``amp.init("bfloat16")`` from the same weights, (c) the flash backward
+    alone."""
+    dev = gpu(0)
+    batch = [torch.as_tensor(a, device=dev)
+             for a in bert_batch(seed, BERT_BATCH, BERT_SEQ)]
+    runs = {}
+    try:
+        for mode in ("fp32", "amp_bf16"):
+            if mode == "amp_bf16":
+                amp.init("bfloat16")
+            net = bert_base(dropout=0.0)
+            net.initialize(ctx=dev, seed=seed)
+            check = bert_leaf_check(net, seed) if mode == "fp32" else None
+            runs[mode] = bert_run(net, batch, BERT_WARM + BERT_STEPS
+                                  if mode == "fp32" else BERT_AMP_STEPS)
+            runs[mode]["leaf_check"] = check
+            print(f"bert-base training {mode} on {card}:",
+                  json.dumps(runs[mode]), flush=True)
+            del net
+            torch.cuda.empty_cache()
+    finally:
+        amp.disable()
+    gen = torch.Generator().manual_seed(seed)
+    backward = []
+    for length in (256, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            backward.append(check_flash_backward(gen, 8, HEADS, length,
+                                                 HEAD_DIM, dtype, 20))
+            print("flash backward", json.dumps(backward[-1]), flush=True)
+    fp32, bf16 = runs["fp32"], runs["amp_bf16"]
+    per_step = LAYERS                       # the backward launches none
+    first_rel = abs(bf16["losses"][0] - fp32["losses"][0]) \
+        / abs(fp32["losses"][0])
+    checks = {
+        "leaf_check": fp32["leaf_check"]["ok"],
+        "fp32_launches": fp32["flash_launches"] == per_step * fp32["steps"]
+        and fp32["flash_launches_by_dtype"]["float32"]
+        == fp32["flash_launches"],
+        "amp_launches_bf16": bf16["flash_launches"]
+        == per_step * bf16["steps"]
+        and bf16["flash_launches_by_dtype"]["bfloat16"]
+        == bf16["flash_launches"],
+        "no_other_kernel": fp32["other_kernel_launches"] == 0
+        and bf16["other_kernel_launches"] == 0,
+        "finite_losses": all(math.isfinite(v) for r in (fp32, bf16)
+                             for v in r["losses"]),
+        "amp_loss_falls": bf16["losses"][-1] < bf16["losses"][0],
+        "amp_first_loss_vs_fp32": first_rel <= BERT_AMP_LOSS_RTOL,
+        "fp32_weights_and_states": all(
+            r["param_dtypes"] == ["float32"]
+            and r["adam_state_dtypes"] == ["float32"]
+            for r in (fp32, bf16)),
+        "flash_backward": all(r["ok"] for r in backward)}
+    return {"card": card, "batch": BERT_BATCH, "seq": BERT_SEQ,
+            "lr": BERT_OPT["learning_rate"], "fp32": fp32, "amp_bf16": bf16,
+            "amp_first_loss_rel_vs_fp32": first_rel,
+            "flash_launches_per_step": per_step, "backward": backward,
+            "checks": checks, "ok": all(checks.values())}
 
 
 def main() -> int:
@@ -1719,6 +2168,27 @@ def main() -> int:
           flush=True)
     print(f"custom-op mlp on {card}:", json.dumps(custom), flush=True)
 
+    bert = bert_train_phase(args.seed, card)
+    for mode in ("fp32", "amp_bf16"):
+        r = bert[mode]
+        print(f"bert-base training {mode} on {card}: step "
+              f"{r['step_ms']:.3f} ms, {r['sequences_per_s']:.3f} "
+              f"sequences/s, {r['tokens_per_s']:.1f} tokens/s, flash "
+              f"launches {r['flash_launches_by_dtype']}, losses "
+              f"{r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}, peak memory "
+              f"{r['peak_memory_gb']:.2f} GB", flush=True)
+        print(f"bert-base profile {mode} on {card}:",
+              json.dumps(r["profile"]), flush=True)
+    print(f"bert-base leaf check on {card}:", json.dumps({
+        k: bert["fp32"]["leaf_check"][k] for k in
+        ("loss_abs_err_vs_cpu", "ok")} | {
+        part: {k: bert["fp32"]["leaf_check"][part][k] for k in
+               ("ok", "leaves", "failed", "cpu_share_median",
+                "worst_margin")}
+        for part in ("weights", "grads")}), flush=True)
+    print(f"bert-base checks on {card}:", json.dumps(bert["checks"]),
+          flush=True)
+
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -1747,6 +2217,17 @@ def main() -> int:
         **{f"bf16_{key}": bf16_row[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
+        "train_launches": {mode: bert[mode]["flash_launches"]
+                           for mode in ("fp32", "amp_bf16")},
+        "train_shape": {r["case"]: {key: r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for r in rows if r["case"].startswith(
+                "bert_train")},
+        "backward": {r["case"]: {key: r[key] for key in (
+            "max_abs_err", "forward_max_abs_err", "fwd_bwd_ms", "bwd_ms", "plain_fwd_bwd_ms",
+            "library_fwd_bwd_ms", "bound_ms", "bound_by",
+            "bwd_peak_memory_mb", "full_matrix_mb")}
+            for r in bert["backward"]},
     }, sgd_row("multi_sgd", SGD_TPU, mlp["launches"],
                sgd["times"]["multi_sgd_mlp"]),
         sgd_row("multi_sgd_mom", SGD_MOM_TPU, resnet["launches"],
@@ -1775,12 +2256,13 @@ def main() -> int:
         {"card": card, "build_logs": logs, "sass": sass,
          "multi_sgd_build": sgd_build, "flash": rows,
          "serving": serving, "sgd": sgd, "mlp": mlp, "resnet50": resnet,
-         "rtc": rtc_res, "custom_mlp": custom, "kernels": kernels,
+         "rtc": rtc_res, "custom_mlp": custom, "bert_train": bert,
+         "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
         ("mlp", mlp), ("resnet50", resnet), ("rtc", rtc_res),
-        ("custom-op mlp", custom)) if not ph["ok"]]
+        ("custom-op mlp", custom), ("bert train", bert)) if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)
         return 1

@@ -11,20 +11,25 @@ operators of their own: ``operator.CustomOp``/``CustomOpProp`` run
 through ``mx.nd.Custom`` inside autograd, ``autograd.Function`` is a
 differentiable function, and ``rtc.CudaModule`` compiles CUDA source
 strings at run time with NVRTC (the counterpart of the JAX package's
-Pallas ``rtc``).  ``metric.Accuracy`` scores the training.  Arrays are
-``torch.Tensor``s; ``nd.array``/``zeros``/``ones``/``empty``/``full``
-make them.  It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.
-Entry points run on ``gpu(0)`` unless the caller passes ``ctx=cpu()``.
+Pallas ``rtc``).  ``metric.Accuracy`` scores the training.  BERT-base
+pretrains through ``gluon.Trainer("adam")`` with the flash kernel's
+forward and a chunked torch backward, in fp32 or under
+``contrib.amp.init("bfloat16")``, whose casts each listed op makes
+itself.  Arrays are ``torch.Tensor``s;
+``nd.array``/``zeros``/``ones``/``empty``/``full`` make them.  It
+imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Entry points run
+on ``gpu(0)`` unless the caller passes ``ctx=cpu()``.
 """
-from . import autograd, base, context, gluon, initializer, kernels, \
-    metric, ndarray, observability, operator, optimizer, rtc, serving
+from . import autograd, base, context, contrib, gluon, initializer, \
+    kernels, metric, ndarray, observability, operator, optimizer, rtc, \
+    serving
 from .base import MXNetError
 from .context import cpu, current_context, gpu
 from .convert import load_reference_params
 
 nd = ndarray
 
-__all__ = ["MXNetError", "autograd", "base", "context", "cpu",
+__all__ = ["MXNetError", "autograd", "base", "context", "contrib", "cpu",
            "current_context", "gpu", "gluon", "initializer", "kernels",
            "load_reference_params", "metric", "nd", "ndarray",
            "observability", "operator", "optimizer", "rtc", "serving"]

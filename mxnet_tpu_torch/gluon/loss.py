@@ -10,9 +10,9 @@ a loss returns one value per sample, the mean over every axis but
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..ndarray.ops_nn import log_softmax
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss"]
@@ -68,7 +68,7 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = F.log_softmax(pred, dim=self._axis)
+            pred = log_softmax(pred, axis=self._axis)   # FP32 under AMP
         ax = self._axis % pred.ndim
         if self._sparse_label:
             idx = label.long().clamp(0, pred.shape[ax] - 1)

@@ -1,11 +1,14 @@
 """BERT (GluonNLP-style) encoder family.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/transformer.py`` for the BERT
-serving path: ``MultiHeadAttention`` (:61-184), ``PositionwiseFFN``,
-``TransformerEncoderCell``, ``TransformerEncoder``, ``BERTEncoder``,
-``BERTModel`` (with the tied MLM decoder) and the ``bert_base`` /
-``bert_small`` configurations, with the same parameter names and the same
-attention-kernel policy.  gelu is the exact (erf) form.
+serving and pretraining paths: ``MultiHeadAttention`` (:61-184),
+``PositionwiseFFN``, ``TransformerEncoderCell``, ``TransformerEncoder``,
+``BERTEncoder``, ``BERTModel`` (with the tied MLM decoder) and the
+``bert_base`` / ``bert_small`` configurations, with the same parameter
+names and the same attention-kernel policy.  gelu is the exact (erf) form.  Under
+``contrib.amp`` the masked-softmax path's two products are ``batch_dot``
+(LP16) and its softmax FP32; the flash path takes q/k/v in the dtype the
+qkv Dense gives them (bf16 under AMP).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 
 from ... import autograd
 from ...base import MXNetError, get_env
+from ...contrib.amp import amp as _amp
 from ...ndarray import flash_attention
 from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
@@ -28,8 +32,9 @@ __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
 def _masked_softmax(scores, mask):
     """scores (B*H, Sq, Sk); mask broadcastable to it, 1 = keep."""
     if mask is not None:
-        # additive -1e9 mask, as the JAX package's XLA path
-        scores = scores + (mask.to(scores.dtype) - 1.0) * 1e9
+        # additive -1e9 mask in float32, as the JAX package's XLA path
+        scores = scores + (mask.float() - 1.0) * 1e9
+    scores, = _amp.cast("softmax", scores)              # FP32 under AMP
     return torch.softmax(scores, dim=-1)
 
 
@@ -79,11 +84,12 @@ class MultiHeadAttention(HybridBlock):
         else:
             if mask is None and valid_len is not None:
                 mask = self._length_mask(valid_len, b, sq)
+            q, k = _amp.cast("batch_dot", q, k)           # LP16 under AMP
             att = _masked_softmax(torch.bmm(q, k.transpose(1, 2)) * scale,
                                   mask)
             if self.drop is not None:
                 att = self.drop(att)
-            out = torch.bmm(att, v)
+            out = torch.bmm(*_amp.cast("batch_dot", att, v))
         return self.proj(self._merge_heads(out, b, sq))
 
     def _length_mask(self, valid_len, batch, seq):
@@ -103,8 +109,10 @@ class MultiHeadAttention(HybridBlock):
         #   xla             the masked-softmax path
         # Whatever the policy, a mask without lengths cannot be proven to
         # be a prefix mask and takes the masked-softmax path, and so does a
-        # block with live attention dropout (flash has no probabilities
-        # tensor to drop).
+        # block with attention dropout while recording or in training
+        # mode (flash has no probabilities tensor to drop): the JAX
+        # package's condition, so record(train_mode=False) takes the
+        # masked-softmax path in both.
         mode = get_env("MXNET_ATTENTION_KERNEL").lower()
         if mode not in ("auto", "xla"):
             raise MXNetError(f"MXNET_ATTENTION_KERNEL={mode!r}: expected "
@@ -113,7 +121,8 @@ class MultiHeadAttention(HybridBlock):
             return False
         if mask is not None and valid_len is None:
             return False
-        return not (self.drop is not None and autograd.is_training())
+        return not (self.drop is not None and (autograd.is_recording()
+                                               or autograd.is_training()))
 
 
 class PositionwiseFFN(HybridBlock):

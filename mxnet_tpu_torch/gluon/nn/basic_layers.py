@@ -7,7 +7,11 @@ parameter names, shapes (``(units, in_units)`` Dense weights) and defaults
 (LayerNorm and BatchNorm eps 1e-5, BatchNorm momentum 0.9).  The JAX
 package leaves these to XLA, outside any Pallas kernel, so here they are
 plain torch calls.  Dropout and BatchNorm follow ``autograd.is_training()``
-(MXNet's global mode), not ``nn.Module.training``.
+(MXNet's global mode), not ``nn.Module.training``.  Under ``contrib.amp``
+Dense ("FullyConnected") casts its input, weight and bias to the target
+dtype and LayerNorm its input and parameters to float32; Embedding,
+BatchNorm and the activations keep their input dtype, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch.nn.functional as F
 
 from ... import autograd
 from ...base import MXNetError
+from ...contrib.amp import amp as _amp
 from ..block import HybridBlock
 
 __all__ = ["HybridSequential", "Dense", "Activation", "Flatten", "Dropout",
@@ -71,8 +76,10 @@ class Dense(HybridBlock):
     def forward(self, x):
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
-        out = F.linear(x, self.weight.data(),
-                       None if self.bias is None else self.bias.data())
+        # FullyConnected: LP16 under AMP
+        x, w, b = _amp.cast("FullyConnected", x, self.weight.data(),
+                            None if self.bias is None else self.bias.data())
+        out = F.linear(x, w, b)
         return out if self._act is None else self._act(out)
 
 
@@ -189,8 +196,10 @@ class LayerNorm(HybridBlock):
                                         init=beta_initializer)
 
     def forward(self, x):
-        return F.layer_norm(x, (x.shape[-1],), self.gamma.data(),
-                            self.beta.data(), self._epsilon)
+        # FP32 under AMP
+        x, gamma, beta = _amp.cast("LayerNorm", x, self.gamma.data(),
+                                   self.beta.data())
+        return F.layer_norm(x, (x.shape[-1],), gamma, beta, self._epsilon)
 
 
 class Embedding(HybridBlock):

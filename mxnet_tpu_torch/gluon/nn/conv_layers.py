@@ -4,7 +4,9 @@ Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py`` for the layers
 ResNet uses: ``Conv2D``, ``MaxPool2D``, ``AvgPool2D``,
 ``GlobalAvgPool2D``.  The JAX package computes them in XLA outside any
 Pallas kernel, so here they are ``F.conv2d`` and torch's pooling calls.
-``in_channels`` must be given (no deferred shape inference).
+``in_channels`` must be given (no deferred shape inference).  Under
+``contrib.amp`` Conv2D ("Convolution") casts its input, weight and bias to
+the target dtype.
 
 Pooling keeps MXNet's default conventions: padding is implicit ``-inf``
 for max and zeros for average, and the average divides by the window size
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from ...base import MXNetError
+from ...contrib.amp import amp as _amp
 from ..block import HybridBlock
 from .basic_layers import _activation
 
@@ -55,9 +58,10 @@ class Conv2D(HybridBlock):
                 if use_bias else None
 
     def forward(self, x):
-        out = F.conv2d(x, self.weight.data(),
-                       None if self.bias is None else self.bias.data(),
-                       **self._kw)
+        # Convolution: LP16 under AMP
+        x, w, b = _amp.cast("Convolution", x, self.weight.data(),
+                            None if self.bias is None else self.bias.data())
+        out = F.conv2d(x, w, b, **self._kw)
         return out if self._act is None else self._act(out)
 
 

@@ -16,6 +16,12 @@ stale: ``step`` raises on it, or skips the parameter with
 
 ``kvstore`` takes ``"device"``, ``"local"`` or None, all the same on one
 device; the distributed kvstores are not ported.
+
+Under ``contrib.amp`` the Trainer carries the loss scaler
+(``amp.init_trainer``), the scale ``update`` divides gradients by
+(``_scale``, which ``amp.scale_loss`` divides by the loss scale).  When
+``amp.unscale`` reports an overflow, the caller skips ``step``: the
+gradients are stale by then, and a ``step`` raises on them as above.
 """
 from __future__ import annotations
 
@@ -49,6 +55,10 @@ class Trainer:
                                          **(optimizer_params or {}))
         self._scale = self._optimizer.rescale_grad
         self._states: Dict[int, object] = {}
+        # contrib.amp: init_trainer sets the scaler and the unscaled
+        # ``_scale``; scale_loss divides ``_scale`` by the loss scale
+        self._amp_loss_scaler = None
+        self._amp_original_scale = self._scale
 
     @property
     def learning_rate(self) -> float:

@@ -64,3 +64,13 @@ def empty(shape, ctx: DeviceLike = None, dtype=None) -> torch.Tensor:
 def full(shape, val, ctx: DeviceLike = None, dtype=None) -> torch.Tensor:
     return torch.full(_shape(shape), val, dtype=_dtype(dtype),
                       device=as_device(ctx))
+
+
+def write_out(res: torch.Tensor, out) -> torch.Tensor:
+    """MXNet's ``out=`` argument of an op: the result copied into ``out``
+    (which keeps its dtype) and ``out`` returned, or the result as is."""
+    if out is None:
+        return res
+    with torch.no_grad():
+        out.copy_(res)
+    return out

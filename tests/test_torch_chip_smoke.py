@@ -71,11 +71,12 @@ def test_leaf_check_flags_a_one_percent_gradient_fault(steps, leaf):
 class _Event:
     """An entry of ``key_averages()``: a kernel's name, its launches and
     their summed device microseconds."""
-    def __init__(self, us, count=2, key="kernel"):
+    def __init__(self, us, count=2, key="kernel", annotation=False):
         self.device_type = torch.autograd.DeviceType.CUDA
         self.self_device_time_total = us
         self.count = count
         self.key = key
+        self.is_user_annotation = annotation    # a record_function span
 
 
 def _fake_profiler(monkeypatch, traces):
@@ -108,6 +109,92 @@ def test_device_ms_never_reports_zero(monkeypatch):
     _fake_profiler(monkeypatch, [[], [0.0], []])
     with pytest.raises(AssertionError, match="no device time"):
         chip_smoke.device_ms(lambda: None, 2)
+
+
+def test_device_sums_leave_out_record_function_spans(monkeypatch):
+    """The device span of a ``record_function`` range (the flash
+    backward's) holds its kernels and the gaps between them: summed with
+    the kernels it would count them twice.  With ``lost=1`` a trace in
+    which a kernel lost one record is kept, that kernel's time scaled up
+    to its full count."""
+    span = (5000.0, 2, "flash_attention_backward", True)
+    _fake_profiler(monkeypatch, [[(300.0, 2, "bmm"), span],
+                                 [(300.0, 2, "bmm"), (100.0, 3, "copy"),
+                                  span]])
+    assert chip_smoke.device_ms(lambda: None, 2) == 0.15
+    seen = {}
+    got = chip_smoke.device_ms(lambda: None, 2, kernels=seen, lost=1)
+    assert got == pytest.approx((300.0 + 100.0 * 4 / 3) / 2 / 1e3)
+    assert seen == {"bmm": 1, "copy": 2}
+
+
+def test_device_ms_retakes_a_trace_that_lost_more_than_allowed(
+        monkeypatch):
+    """``lost=1`` keeps one lost record per kernel, not two: a kernel
+    two records short retakes the trace, and after ``attempts`` such
+    traces ``device_ms`` raises."""
+    _fake_profiler(monkeypatch, [[(300.0, 18, "bmm")],
+                                 [(300.0, 20, "bmm"), (50.0, 19, "copy")]])
+    assert chip_smoke.device_ms(lambda: None, 10, lost=1) == \
+        pytest.approx((300.0 + 50.0 * 20 / 19) / 10 / 1e3)
+    _fake_profiler(monkeypatch, [[(300.0, 18, "bmm")]] * 3)
+    with pytest.raises(AssertionError, match="partial"):
+        chip_smoke.device_ms(lambda: None, 10, lost=1)
+
+
+def test_train_flash_cases_take_the_training_shape():
+    """The flash rows at the training phase's shape: B=8, H=12, L=256,
+    D=64, fp32 and bf16, with lengths as ``bert_batch`` draws them."""
+    assert [c[1:] for c in chip_smoke.TRAIN_FLASH_CASES] == [
+        (8, 12, 256, 256, 64, dtype, False, 50)
+        for dtype in (torch.float32, torch.bfloat16)]
+    vl = chip_smoke.bert_batch(0, 8, 256)[2]
+    assert vl.shape == (8,) and 128 <= vl.min() and vl.max() <= 256
+
+
+def test_bert_step_classes_put_range_kernels_in_their_class():
+    """A kernel launched inside the ``flash_attention_backward`` or
+    ``trainer_step`` range (through its CPU op's ancestors) leaves its
+    name's class for the range's; a range's device span is reported
+    apart and summed nowhere."""
+    from collections import namedtuple
+    Kernel = namedtuple("Kernel", ["name", "device", "duration"])
+    cpu_type = torch.autograd.DeviceType.CPU
+
+    class Op:
+        def __init__(self, name, parent=None, kernels=()):
+            self.name, self.cpu_parent = name, parent
+            self.kernels = list(kernels)
+            self.device_type = cpu_type
+
+    bwd, step = Op("flash_attention_backward"), Op("trainer_step")
+    ops = [bwd, step,
+           Op("aten::bmm", bwd, [Kernel("sm80_xmma_gemm_f32", 0, 30.0)]),
+           Op("aten::mul", Op("aten::add_", step),
+              [Kernel("vectorized_elementwise_kernel", 0, 10.0)]),
+           Op("aten::mm", None, [Kernel("sm80_xmma_gemm_f32", 0, 100.0)])]
+
+    class Prof:
+        def key_averages(self):
+            return [_Event(130.0, 2, "sm80_xmma_gemm_f32"),
+                    _Event(10.0, 1, "vectorized_elementwise_kernel"),
+                    _Event(5.0, 1, "flash_fwd_kernel<float, 64>"),
+                    _Event(500.0, 1, "flash_attention_backward", True)]
+
+        def events(self):
+            return ops
+
+    got = chip_smoke.bert_step_classes(Prof(), 1.0, n_params=1)
+    ms = got["device_ms"]
+    assert ms["gemm"] == pytest.approx(0.1)
+    assert ms["flash_backward"] == pytest.approx(0.03)
+    assert ms["adam"] == pytest.approx(0.01)
+    assert ms["other"] == pytest.approx(0.0)
+    assert ms["flash_forward"] == pytest.approx(0.005)
+    assert got["device_busy_ms"] == pytest.approx(0.145)
+    assert got["range_spans_ms"] == {"flash_backward": 0.5}
+    assert got["kernels_in_ranges"] == {"flash_backward": 1, "adam": 1}
+    assert got["adam_kernels_per_param"] == 1.0
 
 
 def test_device_ms_retakes_a_trace_with_partial_records(monkeypatch):
@@ -263,6 +350,7 @@ class _KernelEvent:
     """An entry of ``events()``: one launch on the device."""
     def __init__(self, name, start, us):
         self.device_type = torch.autograd.DeviceType.CUDA
+        self.is_user_annotation = False
         self.name = name
         self.time_range = _Interval(start, us)
 

@@ -50,8 +50,7 @@ def _inputs(seed, bh, lq, lk, d, dtype, dev):
             for n in (lq, lk, lk)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,lq,lk,d,causal,vl,scale", [
+FLASH_CASES = [
     (8, 12, 128, 128, 64, False, None, None),   # BERT-base, bucket 128
     (8, 12, 512, 512, 64, False, None, None),   # BERT-base, bucket 512
     (1, 12, 37, 37, 64, False, None, None),     # a direct forward, ragged
@@ -67,7 +66,11 @@ def _inputs(seed, bh, lq, lk, d, dtype, dev):
     (2, 2, 127, 64, 64, True, [64.0, 0.0], None),      # causal, Lq > Lk
     (2, 2, 129, 65, 128, False, [65.0, 63.5], 2.0),
     (2, 2, 512, 63, 64, True, [63.0, 62.5], None),     # causal, Lq > Lk
-])
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,vl,scale", FLASH_CASES)
 def test_kernel_matches_plain(card, dtype, b, h, lq, lk, d, causal, vl,
                               scale):
     q, k, v = _inputs(b * lq + d, b * h, lq, lk, d, dtype, card)
@@ -90,6 +93,113 @@ def test_kernel_matches_plain(card, dtype, b, h, lq, lk, d, causal, vl,
     assert err <= TOL[dtype], err
     assert not out[vl_bh == 0].any()  # valid_len 0: the zero rows
 
+
+
+def _lengths(vl, b, lk, d, card):
+    if vl is None:
+        vl = torch.randint(1, lk + 1, (b,),
+                           generator=torch.Generator().manual_seed(d))
+        vl = vl.float()
+        vl[0] = 0.0
+    return torch.as_tensor(vl, dtype=torch.float32).to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,causal,vl,scale", FLASH_CASES)
+def test_backward_matches_plain_autograd(card, dtype, b, h, lq, lk, d,
+                                         causal, vl, scale):
+    """q/k/v gradients through the kernel's autograd node (kernel
+    forward, chunked torch backward) against torch autograd through the
+    plain version in fp32 on the same values, at the forward's tile-edge
+    cases: max-abs <= TOL[dtype] * max(1, max|g|)."""
+    q, k, v = _inputs(b * lq + d, b * h, lq, lk, d, dtype, card)
+    dout = _inputs(d, b * h, lq, lq, d, dtype, card)[0]
+    vl = _lengths(vl, b, lk, d, card)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, vl, causal, scale)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+    ref = torch.autograd.grad(
+        flash_attention_plain(*ref_leaves, vl.repeat_interleave(h), causal,
+                              scale), ref_leaves, dout.float())
+    for g, r in zip(grads, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        err = (g.float() - r).abs().max().item()
+        assert err <= TOL[dtype] * max(1.0, r.abs().max().item()), err
+
+
+def test_backward_peak_memory_below_a_score_matrix(card):
+    """At L=2048 the backward's peak memory (gradients included) stays
+    below one (B*H, L, L) fp32 score matrix: it works one 128-key chunk
+    at a time."""
+    bh, length, d = 4, 2048, 64
+    q, k, v = (t.requires_grad_() for t in
+               _inputs(3, bh, length, length, d, torch.float32, card))
+    out = flash_attention(q, k, v, torch.full((bh,), 1500.0, device=card))
+    dout = torch.randn_like(out)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak < bh * length * length * 4, peak
+
+
+def _bert_step(dev, bf16):
+    """One Adam step of a 2-layer BERT (head dim 64, so the kernel takes
+    it) on ``chip_smoke.bert_batch``: the loss and each leaf's
+    gradient."""
+    import chip_smoke
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import BERTModel
+    net = BERTModel(vocab_size=1000, num_layers=2, units=128,
+                    hidden_size=256, num_heads=2, max_length=64,
+                    dropout=0.0)
+    net.initialize(ctx=dev, seed=5)
+    batch = [torch.as_tensor(a, device=dev)
+             for a in chip_smoke.bert_batch(0, 2, 40, 1000)]
+    if bf16:
+        amp.init("bfloat16")
+    try:
+        tr = gluon.Trainer(net.collect_params(), "adam",
+                           {"learning_rate": 1e-4})
+        with autograd.record():
+            loss = chip_smoke.mlm_nsp_loss(*net(*batch[:3]), *batch[3:])
+        autograd.backward(loss)
+        grads = {k: p.grad().detach().cpu().clone()
+                 for k, p in net.collect_params().items()}
+        tr.step(1)
+    finally:
+        amp.disable()
+    return loss.item(), grads
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_bert_train_step_on_card_matches_cpu(card, bf16):
+    """One training step (MLM + NSP loss, Adam) of a small BERT on the
+    card (flash kernel, chunked backward) against the same step on the
+    CPU (plain version): fp32 loss to 1e-5 relative and each leaf's
+    gradient to 1e-4 * max|g| + 1e-6; under AMP the losses to 2e-2
+    relative, the gradients fp32."""
+    before = flash_attention.launches_by_dtype.copy()
+    loss_card, g_card = _bert_step(card, bf16)
+    key = "torch.bfloat16" if bf16 else "torch.float32"
+    assert flash_attention.launches_by_dtype[key] == before[key] + 2
+    loss_cpu, g_cpu = _bert_step(torch.device("cpu"), bf16)
+    if bf16:
+        assert abs(loss_card - loss_cpu) <= 2e-2 * abs(loss_cpu)
+        assert {g.dtype for g in g_card.values()} == {torch.float32}
+        return
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    for (k, g), gc in zip(g_cpu.items(), g_card.values()):  # in order
+        err = (gc - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-6, (k, err)
 
 def test_load_reference_params_defaults_to_the_card(card):
     from mxnet_tpu_torch import load_reference_params
@@ -370,17 +480,24 @@ def test_train_step_on_card_matches_cpu(card):
         np.testing.assert_allclose(a, b, atol=1e-4)
 
 
-def test_flash_kernel_refuses_to_record(card):
-    """Under autograd.record() with inputs that require grad the kernel
-    would drop the gradient, so the wrapper raises; without grad it
-    runs."""
+def test_flash_kernel_records_and_backpropagates(card):
+    """The kernel records under autograd.record(): one launch, an output
+    with a ``grad_fn``, and a backward that fills q's gradient with the
+    plain version's; under pause() it records nothing."""
     from mxnet_tpu_torch import autograd
     q = torch.randn(2, 16, 64, device=card, requires_grad=True)
+    before = flash_attention.launches
     with autograd.record():
-        with pytest.raises(MXNetError, match="no backward"):
-            flash_attention(q, q, q)
-    with torch.no_grad():
-        assert flash_attention(q, q, q).shape == q.shape
+        out = flash_attention(q, q, q)
+    assert flash_attention.launches == before + 1
+    assert out.grad_fn is not None
+    autograd.backward(out)
+    qr = q.detach().clone().requires_grad_()
+    flash_attention_plain(qr, qr, qr, torch.full((2,), 16.0, device=card),
+                          False, 1 / 8).sum().backward()
+    assert (q.grad - qr.grad).abs().max().item() <= 1e-4
+    with autograd.pause():
+        assert flash_attention(q, q, q).grad_fn is None
 
 
 # ---------------------------------------------------------------- rtc

@@ -126,27 +126,31 @@ def test_wrapper_rejects_bad_inputs():
 
 @pytest.mark.parametrize("grad_on", [True, False])
 def test_card_path_refuses_inputs_that_require_grad(monkeypatch, grad_on):
-    """The CUDA kernel has no backward: on the card path (forced here by
-    patching the device check and the launch) the wrapper raises under
-    grad mode when q/k/v require grad, and launches otherwise."""
+    """The card path (forced here by patching the device check and the
+    launch) no longer refuses inputs that require grad: it launches once
+    either way; with grad on it returns a tensor with a ``grad_fn`` whose
+    backward fills q's gradient, with grad off one without.  (Until the
+    backward existed this test held the refusal, under the same name.)"""
     import importlib
     mod = importlib.import_module("mxnet_tpu_torch.kernels.flash_attention")
     launched = []
     monkeypatch.setattr(mod, "_on_card", lambda t: True)
     monkeypatch.setattr(mod, "_launch", lambda q, *a: launched.append(1)
-                        or torch.zeros_like(q))
+                        or mod.flash_attention_plain(q, *a))
     q = torch.randn(2, 8, 32, requires_grad=True)
     with torch.set_grad_enabled(grad_on):
-        if grad_on:
-            with pytest.raises(MXNetError, match="no backward"):
-                flash_attention(q, q, q)
-            assert not launched
-        else:
-            assert flash_attention(q, q, q).shape == q.shape
-            assert launched == [1]
+        out = flash_attention(q, q, q)
+    assert out.shape == q.shape and launched == [1]
+    if grad_on:
+        assert out.grad_fn is not None
+        out.sum().backward()
+        assert q.grad is not None and q.grad.shape == q.shape
+        assert q.grad.abs().sum() > 0
+    else:
+        assert out.grad_fn is None
     with torch.no_grad():
         flash_attention(q.detach(), q.detach(), q.detach())
-    assert len(launched) == 1 + (not grad_on)
+    assert len(launched) == 2
 
 
 @pytest.mark.parametrize("case,match", [

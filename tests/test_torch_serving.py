@@ -192,6 +192,9 @@ def test_port_imports_without_jax():
             "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.operator\n"
             "import mxnet_tpu_torch.metric, mxnet_tpu_torch.kernels._nvrtc\n"
             "import mxnet_tpu_torch.ndarray.ops_custom\n"
+            "import mxnet_tpu_torch.contrib.amp, mxnet_tpu_torch.ndarray.ops_nn\n"
+            "import mxnet_tpu_torch.ndarray.ops_matrix\n"
+            "import mxnet_tpu_torch.ndarray.ops_reduce\n"
             "import chip_smoke\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))"
             " for m in sys.modules if sys.modules[m] is not None)\n")
