@@ -5,34 +5,41 @@
 
 Phases (any failure exits non-zero without printing the ok line).  Every
 kernel's launch count is set to 0 just before each main path (serving,
-MLP, ResNet-50, the custom-op MLP, BERT-base training) and read just
-after; a path must launch its kernel the
-expected number of times and the other kernels not at all:
+MLP, ResNet-50, the custom-op MLP, BERT-base training, and phase 10's
+low-precision runs) and read just after; a path must launch its kernel
+the expected number of times and the other kernels not at all:
 
 1. device check: a CUDA card must be present; prints the card's name and
    power limit; TF32 is switched off so every fp32 tolerance means fp32;
 2. build: compiles every CUDA source of the port (one nvcc each, in
    parallel), prints the ptxas register/spill report (and, for the
-   multi-SGD library, registers and spills per kernel; it fails on a
-   spill) and a SASS census of each library (``cuobjdump -sass``; flash:
-   tensor-core MMAs, async copies, ldmatrix, FFMA per kernel;
-   multi-SGD: 16-byte global loads, global stores, bulk copies); fails
-   if a flash kernel has no tensor-core MMA or no asynchronous copy, or
-   a multi-SGD kernel lacks its register-staged 16-byte loads (4 per
-   array);
+   multi-SGD library, registers and spills for each of its 10 kernels:
+   fp32, bf16 and fp16 in the plain and momentum forms, bf16 and fp16 on
+   the mixed path with and without momentum; it fails on a spill) and a
+   SASS census of each library (``cuobjdump -sass``; flash: tensor-core
+   MMAs, async copies, ldmatrix, FFMA per kernel; multi-SGD: 16-byte
+   global loads); fails if a flash kernel has no tensor-core MMA or no
+   asynchronous copy, or a multi-SGD kernel lacks its register-staged
+   16-byte loads (``sgd_words``);
 3. kernels: calls each kernel's wrapper at the shapes its main path gives
    it and holds the result against the plain PyTorch version on the same
    inputs.  Flash attention (tensor cores: bf16, or 3xTF32 for fp32) at
    the BERT-base serving shapes, B=8, H=12, D=64, L=128 and 512, in fp32
    and bf16 (fp32 max-abs <= 1e-4; bf16 <= 2e-2 against the plain version
-   in fp32), and a causal, a D=128 and a D=32 case; the two
+   in fp32), and a causal, a D=128 and a D=32 case; in fp16 (<= 4e-3)
+   at B=8, L = 128, 256, 512 and D = 32, 64, 128 (H = 768 / D); the two
    multi-tensor SGD kernels on ResNet-50's 161 trainable shapes, in the
    Trainer's groups of 4 and as one group of 161, and on the MLP's 6
    shapes in its groups of 4, clip on and off, wd != 0, rescale != 1, plus
-   odd sizes on misaligned pointers (fp32 max-abs <= 1e-6; they round as
-   the plain version does, so 0 is expected).  Times
+   odd sizes on misaligned pointers, and in bf16 and fp16 the same in
+   every mode (plain, momentum, mixed with fp32 masters, with and without
+   momentum): bit for bit (the kernels round as the plain versions do),
+   each mixed weight its master rounded.  Times
    kernel, plain version and the library call (``scaled_dot_product_
-   attention``; ``torch.optim.SGD(fused=True)``) with CUDA events, the
+   attention``; ``torch.optim.SGD(fused=True)``, in the weights' dtype
+   where it computes the same function: not on the mixed path) with CUDA
+   events, the unfused mixed route the port ran before (per tensor a
+   gradient cast and a master copy around the fp32 kernel), the
    SGD kernels' device time also with torch.profiler (their back-to-back
    calls are bound by the host), each SGD launch's own device time in
    the Trainer's groups of 4 (binned by group size, < 64K, 64K-1M and
@@ -119,10 +126,37 @@ expected number of times and the other kernels not at all:
    beside the plain version's and ``scaled_dot_product_attention``'s
    (same key mask) and the bound, and the backward's peak memory beside
    one (B*H, L, L) fp32 matrix;
-10. prints one JSON line of kernel measurements (flash: the fp32 and, as
-   ``bf16_*``, the bf16 B=8 L=512 case; its training launches and its
-   backward's times under ``train_launches`` and ``backward``), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+10. low precision, as the JAX package trains its two headline models:
+   (a) ResNet-50 v1 of phase 6 (same weights and batch) under
+   ``amp.init("bfloat16")``, 3 warm + 10 timed steps: finite losses
+   that fall within the warm steps, the first 4 within 2e-2 of phase
+   6's (the same weights and batch; the runs part ways later), every
+   parameter and momentum fp32, exactly 41 momentum launches a step and
+   only they in the ``trainer_step`` range; (b) the same after
+   ``net.cast("bfloat16")`` with ``multi_precision``: after every step
+   each weight its fp32 master rounded, bit for bit, 41 mixed-path
+   launches a step and nothing else in the ``trainer_step`` range (no
+   per-tensor cast or copy); both: step ms, images/s, device time by
+   class (convolutions, BatchNorm, its statistics pass, casts, cuDNN's
+   layout transposes, elementwise, the update) and
+   idle share of one profiled step; (c) BERT-base pretraining of phase 9
+   under ``amp.init("float16")`` with ``amp.init_trainer`` (dynamic loss
+   scale from 2**16), 20 steps of ``scale_loss`` -> ``backward`` ->
+   ``unscale`` -> ``step`` unless skipped: at least 15 applied steps
+   with finite, falling losses, the first applied within 2e-2 of phase
+   9's first fp32 loss, exactly 12 flash launches a step, all on fp16
+   q/k/v, fp32 weights and Adam states; step ms, sequences/s, the loss
+   scales and the skipped steps; the flash backward alone on fp16 inputs
+   at L=256 and 512 (gradients within 2e-2 x max(1, max|g|)); (e) the
+   MLP of phase 5 with bf16 weights: 2 plain-SGD launches a step on
+   bf16 weights, a falling loss;
+11. prints one JSON line of kernel measurements (flash: the fp32 and, as
+   ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
+   fp16 case; its training launches and its backward's times under
+   ``train_launches`` and ``backward``; the SGD kernels' bf16/fp16
+   entries, and the mixed path's own entry beside the unfused route's
+   ``before_ms``), the card line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Imports nothing of JAX.  Writes the full report to ``<out>/chip_smoke.json``.
 """
@@ -156,7 +190,11 @@ from mxnet_tpu_torch.initializer import Xavier
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-from mxnet_tpu_torch.kernels.multi_sgd import (multi_sgd, multi_sgd_mom,
+from mxnet_tpu_torch.kernels.multi_sgd import (multi_mp_sgd,
+                                               multi_mp_sgd_mom,
+                                               multi_mp_sgd_mom_plain,
+                                               multi_mp_sgd_plain, multi_sgd,
+                                               multi_sgd_mom,
                                                multi_sgd_mom_plain,
                                                multi_sgd_plain)
 from mxnet_tpu_torch.observability import registry
@@ -168,9 +206,13 @@ from mxnet_tpu_torch.serving.server import readback
 # (the fastest unit that carries an fp32-accurate product, as 3xTF32) and
 # in bf16; HBM3 bandwidth
 CUDA_CORE_FLOPS = 67e12
-TENSOR_FLOPS = {torch.float32: 495e12, torch.bfloat16: 989e12}
+TENSOR_FLOPS = {torch.float32: 495e12, torch.bfloat16: 989e12,
+                torch.float16: 989e12}
 PEAK_BYTES = 3.35e12
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the flash forward against its plain version in fp32: fp32; bf16 and
+# fp16 output rounding (8 and 11 significant bits, and P rounded to the
+# input type for the PV product)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 LENGTH_BUCKETS = (32, 64, 128, 256, 512)
 BATCH_BUCKETS = (1, 8)
 LAYERS, HEADS, HEAD_DIM, VOCAB = 12, 12, 64, 30522
@@ -203,6 +245,13 @@ BERT_OPT = {"learning_rate": 1e-4}
 BERT_CHECK = (2, 128)                 # the leaf check's batch, sequence
 BERT_AMP_LOSS_RTOL = 2e-2             # first AMP loss vs the fp32 one
 MASK_ID = 103
+# phase 10: low precision
+LP_DTYPES = (torch.bfloat16, torch.float16)
+SGD_MODES = ("sgd", "sgd_mom", "mp_sgd", "mp_sgd_mom")
+RESNET_AMP_LOSS_RTOL = 2e-2           # first bf16 loss vs the fp32 one
+RESNET_TRACKED = 4                    # bf16 steps held to the fp32 run's
+BERT_FP16_STEPS, BERT_FP16_MIN_APPLIED = 20, 15
+FP16_BACKWARD_TOL = 2e-2              # x max(1, max|g|)
 
 # ----------------------------------------------------------------------
 # User code of the rtc slice: CUDA sources compiled at run time by
@@ -436,9 +485,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+COUNTED = (flash_attention, multi_sgd, multi_sgd_mom, multi_mp_sgd,
+           multi_mp_sgd_mom)
+
+
 def zero_counts() -> None:
     """Set every kernel's launch count to 0, just before a main path."""
-    for wrapper in (flash_attention, multi_sgd, multi_sgd_mom):
+    for wrapper in COUNTED:
         wrapper.launches = 0
     for dtype in flash_attention.launches_by_dtype:
         flash_attention.launches_by_dtype[dtype] = 0
@@ -446,6 +499,12 @@ def zero_counts() -> None:
         if name in _RTC:
             _RTC[name].launches = 0
     rtc.launches = 0
+
+
+def other_launches(*mine) -> int:
+    """Launches of every kernel wrapper but ``mine`` (and of rtc), since
+    the counts were last set to 0."""
+    return sum(w.launches for w in COUNTED if w not in mine) + rtc.launches
 
 
 def _is_kernel(event) -> bool:
@@ -518,6 +577,12 @@ TRAIN_FLASH_CASES = [
     (f"bert_train B={BERT_BATCH} L={BERT_SEQ} {_short(dtype)}", BERT_BATCH,
      HEADS, BERT_SEQ, BERT_SEQ, HEAD_DIM, dtype, False, 50)
     for dtype in (torch.float32, torch.bfloat16)]
+# the fp16 forward (AMP's "float16" target) at B=8 and BERT-base's width
+# (768 = H x D), drawn after TRAIN_FLASH_CASES
+FP16_FLASH_CASES = [
+    (f"fp16 B=8 L={lq} D={d}", 8, 768 // d, lq, lq, d, torch.float16,
+     False, 20)
+    for lq in (128, 256, 512) for d in (32, 64, 128)]
 
 
 def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters, vl=None):
@@ -578,8 +643,9 @@ def kernel_phase(seed: int):
     gen = torch.Generator().manual_seed(seed)
     rows = [check_flash(gen, *case) for case in FLASH_CASES]
     train_vl = torch.as_tensor(bert_batch(seed, BERT_BATCH, BERT_SEQ)[2])
-    return rows + [check_flash(gen, *case, vl=train_vl)
-                   for case in TRAIN_FLASH_CASES]
+    rows += [check_flash(gen, *case, vl=train_vl)
+             for case in TRAIN_FLASH_CASES]
+    return rows + [check_flash(gen, *case) for case in FP16_FLASH_CASES]
 
 
 # instruction families counted in the flash library's SASS
@@ -589,7 +655,7 @@ SASS_OPS = {"tensor_core_mma": ("HMMA", "HGMMA"),
 # and in the multi-SGD library's: 16-byte global loads (a family may be a
 # pattern of the whole mnemonic)
 SGD_SASS_OPS = {"load_128": re.compile(r"LDG(\.\w+)*\.128(\.\w+)*")}
-SGD_UNROLL = 4                        # kUnroll of csrc/multi_sgd.cu
+SGD_UNROLL = 4     # fp32 vectors a thread stages (csrc/multi_sgd.cu)
 _SASS_FN = re.compile(r"\s*Function : (\S+)")
 _SASS_OP = re.compile(                # address, predicate, mnemonic
     r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)"
@@ -638,6 +704,11 @@ def library_sass(name: str) -> str:
                           check=True).stdout
 
 
+# mangled template arguments of the kernels' storage types
+_MANGLED = {"f": "float32", "13__nv_bfloat16": "bfloat16",
+            "6__half": "float16"}
+
+
 def flash_sass() -> dict:
     """SASS census of each flash kernel instantiation in the built library;
     fails unless every one has tensor-core MMAs and asynchronous copies."""
@@ -645,9 +716,10 @@ def flash_sass() -> dict:
     for fn, counts in sass_census(library_sass("flash_attention")).items():
         if "flash_fwd_kernel" not in fn:
             continue
-        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E", fn)
-        census[f"{'float32' if m.group(1) == 'f' else 'bfloat16'} "
-               f"D={m.group(2)}" if m else fn] = counts
+        m = re.search(r"flash_fwd_kernelI(f|13__nv_bfloat16|6__half)"
+                      r"Li(\d+)E", fn)
+        census[f"{_MANGLED[m.group(1)]} D={m.group(2)}" if m else fn] = \
+            counts
     if not census or not all(c["tensor_core_mma"] and c["async_copy"]
                              for c in census.values()):
         raise AssertionError(f"flash kernel without tensor-core MMAs or "
@@ -655,17 +727,35 @@ def flash_sass() -> dict:
     return census
 
 
+def sgd_words(dtype: str, mode: str) -> int:
+    """16-byte words a vector of ``mode``'s kernel loads (w or its fp32
+    master, g, and m with momentum), times the vectors each thread stages
+    (``SGD_UNROLL`` fp32 vectors of 4, half as many of 8 in a 2-byte
+    dtype): the kernel's staged 16-byte loads."""
+    mixed = mode.startswith("mp")
+    unroll = SGD_UNROLL if dtype == "float32" else SGD_UNROLL // 2
+    master = 2 if mixed else 1            # an fp32 array of 8 elements
+    words = 1 + master + (master if mode.endswith("mom") else 0)
+    return unroll * words
+
+
 def sgd_sass() -> dict:
-    """SASS census of the two multi-SGD kernels (``sgd``: the plain form,
-    ``sgd_mom``: with momentum); fails unless each holds the 16-byte loads
-    it stages in registers (``SGD_UNROLL`` per array: w, g and m)."""
+    """SASS census of the multi-SGD kernels, one per storage type and
+    mode (``float32 sgd``, ``bfloat16 mp_sgd_mom``, ...); fails unless
+    there are all 10 and each holds the 16-byte loads it stages in
+    registers (``sgd_words``)."""
     census = {}
     for fn, counts in sass_census(library_sass("multi_sgd"),
                                   SGD_SASS_OPS).items():
-        m = re.search(r"multi_sgd_kernelILb([01])E", fn)
+        m = re.search(r"multi_sgd_kernelI(f|13__nv_bfloat16|6__half)"
+                      r"Li([0-3])E", fn)
         if m:
-            census["sgd_mom" if m.group(1) == "1" else "sgd"] = counts
-    want = {"sgd": 2 * SGD_UNROLL, "sgd_mom": 3 * SGD_UNROLL}
+            census[f"{_MANGLED[m.group(1)]} "
+                   f"{SGD_MODES[int(m.group(2))]}"] = counts
+    want = {f"{dt} {mode}": sgd_words(dt, mode)
+            for dt in ("float32", "bfloat16", "float16")
+            for mode in SGD_MODES
+            if dt != "float32" or not mode.startswith("mp")}
     if sorted(census) != sorted(want) or not all(
             census[k]["load_128"] >= n for k, n in want.items()):
         raise AssertionError(f"multi-SGD kernels without {want} staged "
@@ -789,7 +879,7 @@ def serve_phase(seed: int, n_requests: int, card: str):
             t.join(900)
         wall = time.monotonic() - t0
         launches = flash_attention.launches
-        other = multi_sgd.launches + multi_sgd_mom.launches + rtc.launches
+        other = other_launches(flash_attention)
         batches = srv.stats()["batches"] - b0
         if any(t.is_alive() for t in threads) or len(results) != n_requests:
             raise AssertionError("requests did not complete")
@@ -873,61 +963,15 @@ def sgd_bound(n_elems: int, momentum: bool):
     return nbytes / PEAK_BYTES * 1e3, nbytes
 
 
-class SgdCase:
-    """fp32 weights, gradients and momenta of ``shapes`` on the card, with
-    per-tensor lr and wd, all drawn from ``gen``; ``offset`` > 0 places
-    every tensor that many elements into its buffer (misaligned)."""
-
-    def __init__(self, gen, shapes, offset=0):
-        dev = gpu(0)
-
-        def make(shape, scale):
-            n = math.prod(shape)
-            buf = torch.randn(n + offset, device=dev, generator=gen) * scale
-            return buf[offset:].view(shape)
-
-        self.shapes = shapes
-        self.w = [make(s, 1.0) for s in shapes]
-        self.g = [make(s, 2.0) for s in shapes]
-        self.m = [make(s, 0.1) for s in shapes]
-        k = len(shapes)
-        self.lrs = (torch.rand(k, generator=torch.Generator().manual_seed(k))
-                    * 0.2 + 0.01).tolist()
-        self.wds = (torch.rand(k, generator=torch.Generator().manual_seed(
-            k + 1)) * 1e-3).tolist()
-        self.n = sum(math.prod(s) for s in shapes)
-
-    def clones(self):
-        return ([t.clone() for t in self.w], [t.clone() for t in self.m])
+def _clone_at(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of ``t`` placed ``offset`` elements into a buffer of its
+    own, as the original was (a plain clone would start aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
 
 
-def check_sgd(case: SgdCase, momentum: bool, group: int, clip: float,
-              rescale: float):
-    """Kernel in groups of ``group`` against the plain version over the
-    whole set; returns (max-abs error, launches, expected launches: one
-    per 64 tensors of each group)."""
-    wk, mk = case.clones()
-    wp, mp = case.clones()
-    before = multi_sgd.launches + multi_sgd_mom.launches
-    groups = _groups(len(case.shapes), group)
-    for idx in groups:
-        pick = [case.lrs[i] for i in idx], [case.wds[i] for i in idx]
-        if momentum:
-            multi_sgd_mom([wk[i] for i in idx], [case.g[i] for i in idx],
-                          [mk[i] for i in idx], *pick, 0.9, rescale, clip)
-        else:
-            multi_sgd([wk[i] for i in idx], [case.g[i] for i in idx],
-                      *pick, rescale, clip)
-    launches = multi_sgd.launches + multi_sgd_mom.launches - before
-    if momentum:
-        multi_sgd_mom_plain(wp, case.g, mp, case.lrs, case.wds, 0.9,
-                            rescale, clip)
-    else:
-        multi_sgd_plain(wp, case.g, case.lrs, case.wds, rescale, clip)
-    torch.cuda.synchronize()
-    outs = zip(wk + mk, wp + mp) if momentum else zip(wk, wp)
-    err = max((a - b).abs().max().item() for a, b in outs)
-    return err, launches, sum(-(-len(idx) // 64) for idx in groups)
+# the kernel of ``torch.cuda._sleep``, which opens each trace of device_ms
+SENTINEL, SENTINEL_CYCLES = "spin_kernel", 1000
 
 
 def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
@@ -941,8 +985,11 @@ def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
     and then raises: 0 is never a measurement.  With ``lost`` (a call of
     many kernels, some from autograd's backward thread, where a trace of
     thousands of records can lose one), a kernel short of at most
-    ``lost`` records has its time scaled up to its full count.
-    ``kernels``, if given, gets each kernel's launches per call."""
+    ``lost`` records has its time scaled up to its full count.  Each
+    trace opens with a sentinel kernel (``SENTINEL``, left out of the
+    sums), so that the record a trace may lose first is not one of
+    ``fn``'s.  ``kernels``, if given, gets each kernel's launches per
+    call."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -950,11 +997,13 @@ def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SENTINEL_CYCLES)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if _is_kernel(e)
+                  if _is_kernel(e) and SENTINEL not in e.key
                   and only in e.key]
         full = {e.key: e.count + (-e.count) % iters for e in events}
         total = sum(e.self_device_time_total * full[e.key] / e.count
@@ -965,8 +1014,10 @@ def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
                 kernels.update({e.key[:80]: full[e.key] // iters
                                 for e in events})
             return total / iters / 1e3
+    seen = [(e.key[:60], e.count) for e in events]
     raise AssertionError(f"torch.profiler saw no device time, or partial "
-                         f"records, in {attempts} traces of {iters} calls")
+                         f"records, in {attempts} traces of {iters} calls; "
+                         f"the last: {seen}")
 
 
 def launch_ms(fn, n_launches: int, iters: int, only: str,
@@ -1035,7 +1086,7 @@ def time_sgd(case: SgdCase, momentum: bool, iters: int):
     ``library_ms`` are device time (``device_ms``); the ``*_wall_ms`` keys
     are CUDA-event time of back-to-back calls, which includes the host's
     launch overhead whenever the host is slower than the card."""
-    w, m = case.clones()
+    w, m = case.state("sgd_mom")
     lrs, wds = [0.1] * len(w), [1e-4] * len(w)
     rescale = 1.0 / RESNET_BATCH
     groups = _groups(len(w), AGG)
@@ -1073,11 +1124,12 @@ def time_sgd(case: SgdCase, momentum: bool, iters: int):
                      "bound_ms": sgd_bound(n, momentum)[0]}
                     for n, t in zip(elements, per_launch)],
         per_launch_bins=launch_bins(elements, per_launch, momentum),
-        ms=device_ms(lambda: kernel(groups), 5),
-        one_group_ms=device_ms(lambda: kernel(one_group), 5),
+        ms=device_ms(lambda: kernel(groups), 5, lost=1),
+        one_group_ms=device_ms(lambda: kernel(one_group), 5, lost=1),
         one_group_wall_ms=cuda_ms(lambda: kernel(one_group), iters),
-        plain_ms=device_ms(plain, 5), plain_wall_ms=cuda_ms(plain, iters),
-        library_ms=device_ms(lib.step, 5),
+        plain_ms=device_ms(plain, 5, lost=1),
+        plain_wall_ms=cuda_ms(plain, iters),
+        library_ms=device_ms(lib.step, 5, lost=1),
         library_wall_ms=cuda_ms(lib.step, iters))
     bound_ms, nbytes = sgd_bound(case.n, momentum)
     row.update(bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
@@ -1085,55 +1137,229 @@ def time_sgd(case: SgdCase, momentum: bool, iters: int):
     return row
 
 
+def sgd_bytes(mode: str, itemsize: int) -> int:
+    """Bytes per element that one update of ``mode`` must move, each input
+    read once and each output written once: w and g of ``itemsize``
+    bytes, m in it too (plain), or m and the master w32 in fp32 (mixed,
+    where w is written and not read)."""
+    if mode.startswith("mp"):
+        return 2 * itemsize + 8 + (8 if mode.endswith("mom") else 0)
+    return (5 if mode.endswith("mom") else 3) * itemsize
+
+
+SGD_FNS = {"sgd": (multi_sgd, multi_sgd_plain),
+           "sgd_mom": (multi_sgd_mom, multi_sgd_mom_plain),
+           "mp_sgd": (multi_mp_sgd, multi_mp_sgd_plain),
+           "mp_sgd_mom": (multi_mp_sgd_mom, multi_mp_sgd_mom_plain)}
+
+
+class SgdCase:
+    """Weights and gradients of ``shapes`` and ``dtype`` (fp32, bf16 or
+    fp16) on the card, momenta in that dtype (``m``, plain) and in fp32
+    (``m32``, mixed), fp32 masters a little off their weights (``w32``),
+    per-tensor lr and wd, all drawn from ``gen``; ``offset`` > 0 places
+    every tensor that many elements into its buffer (misaligned)."""
+
+    def __init__(self, gen, shapes, dtype=torch.float32, offset=0):
+        dev = gpu(0)
+
+        def make(shape, scale, dt):
+            n = math.prod(shape)
+            buf = torch.randn(n + offset, device=dev, generator=gen) * scale
+            return buf.to(dt)[offset:].view(shape)
+
+        self.shapes, self.dtype, self.offset = shapes, dtype, offset
+        self.w = [make(s, 1.0, dtype) for s in shapes]
+        self.g = [make(s, 2.0, dtype) for s in shapes]
+        self.m = [make(s, 0.1, dtype) for s in shapes]
+        self.m32 = [make(s, 0.1, torch.float32) for s in shapes]
+        self.w32 = [make(s, 1e-3, torch.float32).add_(w.float())
+                    for s, w in zip(shapes, self.w)]
+        k = len(shapes)
+        self.lrs = (torch.rand(k, generator=torch.Generator().manual_seed(k))
+                    * 0.2 + 0.01).tolist()
+        self.wds = (torch.rand(k, generator=torch.Generator().manual_seed(
+            k + 1)) * 1e-3).tolist()
+        self.n = sum(math.prod(s) for s in shapes)
+
+    def state(self, mode):
+        """Copies (at the case's offset) of what ``mode`` updates: [w],
+        [w, m], [w, w32] or [w, m32, w32]."""
+        parts = {"sgd": (self.w,), "sgd_mom": (self.w, self.m),
+                 "mp_sgd": (self.w, self.w32),
+                 "mp_sgd_mom": (self.w, self.m32, self.w32)}[mode]
+        return [[_clone_at(t, self.offset) for t in part] for part in parts]
+
+
+def sgd_args(mode, state, g, lrs, wds, rescale, clip, momentum=0.9):
+    """The arguments of ``mode``'s wrapper (and plain version) over
+    ``state`` (``SgdCase.state``)."""
+    mom = (momentum,) if mode.endswith("mom") else ()
+    return (state[0], g, *state[1:], lrs, wds, *mom, rescale, clip)
+
+
+def check_sgd(case: SgdCase, mode: str, group: int, clip: float,
+              rescale: float) -> dict:
+    """``mode``'s kernel in groups of ``group`` against its plain version
+    over the whole set: bit for bit, one launch per 64 tensors of each
+    group, and on the mixed path every weight its master rounded."""
+    kernel, plain = SGD_FNS[mode]
+    ks, ps = case.state(mode), case.state(mode)
+    before = kernel.launches
+    groups = _groups(len(case.shapes), group)
+    for idx in groups:
+        kernel(*sgd_args(mode, [[part[i] for i in idx] for part in ks],
+                         [case.g[i] for i in idx],
+                         [case.lrs[i] for i in idx],
+                         [case.wds[i] for i in idx], rescale, clip))
+    launches = kernel.launches - before
+    plain(*sgd_args(mode, ps, case.g, case.lrs, case.wds, rescale, clip))
+    torch.cuda.synchronize()
+    pairs = [(a, b) for ka, pa in zip(ks, ps) for a, b in zip(ka, pa)]
+    bits = {2: torch.int16, 4: torch.int32}
+    bitwise = all(torch.equal(a.view(bits[a.element_size()]),
+                              b.view(bits[b.element_size()]))
+                  for a, b in pairs)
+    rounded = (not mode.startswith("mp")) or all(
+        torch.equal(w, w32.to(w.dtype)) for w, w32 in zip(ks[0], ks[-1]))
+    return {"kernel": mode, "dtype": _short(case.dtype), "group": group,
+            "clip": clip, "rescale": rescale, "launches": launches,
+            "expected_launches": sum(-(-len(i) // 64) for i in groups),
+            "bitwise": bitwise, "weights_are_rounded_masters": rounded,
+            "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                               for a, b in pairs)}
+
+
+def time_lp_sgd(case: SgdCase, mode: str, iters: int) -> dict:
+    """Times of one update over the whole set in the Trainer's groups of
+    4 at the ResNet recipe's settings (lr 0.1, wd 1e-4, momentum 0.9,
+    rescale 1/128): the kernel (device ms and CUDA-event wall ms), its
+    plain version, ``torch.optim.SGD(fused=True)`` on the same dtype
+    (plain modes; the mixed update has no one PyTorch call) and the
+    bound."""
+    kernel, plain = SGD_FNS[mode]
+    state = case.state(mode)
+    rescale = 1.0 / RESNET_BATCH
+    k = len(case.shapes)
+    lrs, wds = [0.1] * k, [1e-4] * k
+    groups = _groups(k, AGG)
+
+    def run():
+        for idx in groups:
+            kernel(*sgd_args(mode, [[part[i] for i in idx]
+                                    for part in state],
+                             [case.g[i] for i in idx], lrs[:len(idx)],
+                             wds[:len(idx)], rescale, -1.0))
+
+    before = kernel.launches
+    row = {"wall_ms": cuda_ms(run, iters)}
+    row["launches_per_update"] = (kernel.launches - before) / (iters + 3)
+    row.update(ms=device_ms(run, 5, lost=1),
+               plain_ms=device_ms(lambda: plain(*sgd_args(
+                   mode, state, case.g, lrs, wds, rescale, -1.0)), 3,
+                   lost=1))
+    row["library_ms"] = None
+    if not mode.startswith("mp"):
+        params = [torch.nn.Parameter(t.clone()) for t in case.w]
+        for p, g in zip(params, case.g):
+            p.grad = g
+        lib = torch.optim.SGD(params, lr=0.1, weight_decay=1e-4, fused=True,
+                              momentum=0.9 if mode.endswith("mom") else 0.0)
+        row["library_ms"] = device_ms(lib.step, 5, lost=1)
+    nbytes = sgd_bytes(mode, case.w[0].element_size()) * case.n
+    row.update(bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes",
+               bytes=nbytes, elements=case.n, tensors=k,
+               dtype=_short(case.dtype))
+    return row
+
+
+def time_unfused_mixed(case: SgdCase, iters: int) -> dict:
+    """The mixed momentum update as ``multi_mp_sgd_mom_update`` ran it
+    before the kernel had a mixed path: per group, each gradient cast to
+    fp32, the fp32 momentum kernel on the masters, then each master
+    copied into its weight; timed as ``time_lp_sgd``."""
+    w, m32, w32 = case.state("mp_sgd_mom")
+    rescale = 1.0 / RESNET_BATCH
+    groups = _groups(len(case.shapes), AGG)
+
+    def run():
+        for idx in groups:
+            multi_sgd_mom([w32[i] for i in idx],
+                          [case.g[i].float() for i in idx],
+                          [m32[i] for i in idx], [0.1] * len(idx),
+                          [1e-4] * len(idx), 0.9, rescale)
+            for i in idx:
+                w[i].copy_(w32[i])
+
+    kernels = {}
+    return {"ms": device_ms(run, 5, kernels=kernels, lost=1),
+            "wall_ms": cuda_ms(run, iters),
+            "launches_per_update": sum(kernels.values()),
+            "bytes_per_element": 6 + 20 + 6}
+
+
 def sgd_kernel_phase(seed: int):
-    """Both multi-tensor SGD kernels against their plain versions on
-    ResNet-50's and the MLP's trainable shapes and on odd, misaligned ones;
-    their times at ResNet-50's and the MLP's shapes."""
+    """The multi-tensor SGD kernels against their plain versions on
+    ResNet-50's and the MLP's trainable shapes and on odd, misaligned ones:
+    fp32 (both forms), and bf16/fp16 in every mode (plain, momentum,
+    mixed, mixed with momentum), bit for bit; their times at ResNet-50's
+    and the MLP's shapes, and the unfused mixed route's."""
     gen = torch.Generator(device=gpu(0)).manual_seed(seed)
-    resnet = SgdCase(gen, resnet50_trainable_shapes())
+    shapes = resnet50_trainable_shapes()
     odd_shapes = [(1,), (3,), (7, 5), (1023,), (4097,), (8191,), (8193,),
                   (3, 33333)] * 9
-    mlp = SgdCase(gen, MLP_SHAPES)
-    cases = [(resnet, "resnet50", (AGG, 161), RESNET_BATCH),
-             (mlp, "mlp", (AGG,), MLP_BATCH),
-             (SgdCase(gen, odd_shapes), "odd x72", (AGG, 72), RESNET_BATCH),
-             (SgdCase(gen, odd_shapes, offset=1), "odd x72 misaligned",
-              (AGG, 72), RESNET_BATCH)]
-    checks = []
-    for momentum in (False, True):
-        for case, name, groups, batch in cases:
-            for group in groups:
-                for clip in (-1.0, 0.5):
-                    err, launches, want = check_sgd(
-                        case, momentum, group, clip, 1.0 / batch)
-                    checks.append({
-                        "kernel": "multi_sgd_mom" if momentum
-                        else "multi_sgd", "case": name, "group": group,
-                        "clip": clip, "rescale": 1.0 / batch,
-                        "launches": launches, "expected_launches": want,
-                        "max_abs_err": err})
-    bad = [c for c in checks if not c["max_abs_err"] <= SGD_TOL
-           or c["launches"] != c["expected_launches"]]
+    cases, checks = {}, []
+    for dt in (torch.float32, *LP_DTYPES):
+        cases[dt] = (
+            (SgdCase(gen, shapes, dt), "resnet50", (AGG, 161), RESNET_BATCH),
+            (SgdCase(gen, MLP_SHAPES, dt), "mlp", (AGG,), MLP_BATCH),
+            (SgdCase(gen, odd_shapes, dt), "odd x72", (AGG, 72),
+             RESNET_BATCH),
+            (SgdCase(gen, odd_shapes, dt, offset=1), "odd x72 misaligned",
+             (AGG, 72), RESNET_BATCH))
+        checks += [check_sgd(case, mode, group, clip, 1.0 / batch)
+                   | {"case": name}
+                   for mode in SGD_MODES
+                   if dt != torch.float32 or not mode.startswith("mp")
+                   for case, name, groups, batch in cases[dt]
+                   for group in groups for clip in (-1.0, 0.5)]
+    bad = [c for c in checks if not (
+        c["bitwise"] and c["weights_are_rounded_masters"]
+        and c["launches"] == c["expected_launches"])]
+    resnet, mlp = cases[torch.float32][0][0], cases[torch.float32][1][0]
+    lp = {dt: cases[dt][0][0] for dt in LP_DTYPES}
     times = {"multi_sgd_mlp": time_sgd(mlp, False, iters=200),
              "multi_sgd_resnet50": time_sgd(resnet, False, iters=20),
-             "multi_sgd_mom_resnet50": time_sgd(resnet, True, iters=20)}
+             "multi_sgd_mom_resnet50": time_sgd(resnet, True, iters=20),
+             "multi_sgd_bf16_mlp": time_lp_sgd(
+                 cases[torch.bfloat16][1][0], "sgd", 200),
+             "multi_sgd_mom_bf16_resnet50": time_lp_sgd(
+                 lp[torch.bfloat16], "sgd_mom", 20),
+             "multi_sgd_mom_fp16_resnet50": time_lp_sgd(
+                 lp[torch.float16], "sgd_mom", 20),
+             "multi_mp_sgd_mom_resnet50": time_lp_sgd(
+                 lp[torch.bfloat16], "mp_sgd_mom", 20),
+             "unfused_mixed_resnet50": time_unfused_mixed(
+                 lp[torch.bfloat16], 20)}
     return {"checks": checks, "failed": bad, "times": times}
 
 
-def mlp_phase(seed: int):
+def mlp_phase(seed: int, dtype: str = "float32"):
     """Config #1: the 784-128-64-10 MLP trained by plain SGD on one seeded
-    batch; the plain-SGD kernel must launch exactly twice per step (6
-    parameters in groups of 4)."""
+    batch, its Dense layers (and so its input) in ``dtype``; the
+    plain-SGD kernel must launch exactly twice per step (6 parameters in
+    groups of 4), on weights of ``dtype``."""
     dev = gpu(0)
     net = nn.HybridSequential()
-    net.add(nn.Dense(128, activation="relu", in_units=784),
-            nn.Dense(64, activation="relu", in_units=128),
-            nn.Dense(10, in_units=64))
+    net.add(nn.Dense(128, activation="relu", in_units=784, dtype=dtype),
+            nn.Dense(64, activation="relu", in_units=128, dtype=dtype),
+            nn.Dense(10, in_units=64, dtype=dtype))
     net.initialize(ctx=dev, seed=seed)
     net.hybridize()
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.standard_normal((MLP_BATCH, 784),
                                             dtype=np.float32), device=dev)
+    x = x.to(getattr(torch, dtype))
     y = torch.as_tensor(rng.integers(0, 10, MLP_BATCH).astype(np.float32),
                         device=dev)
     trainer = gluon.Trainer(net.collect_params(), "sgd",
@@ -1148,48 +1374,94 @@ def mlp_phase(seed: int):
             loss = lossfn(net(x), y)
         autograd.backward(loss)
         trainer.step(MLP_BATCH)
-        losses.append(loss.detach().mean())
+        losses.append(loss.detach().float().mean())
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = multi_sgd.launches
-    other = multi_sgd_mom.launches + flash_attention.launches + rtc.launches
+    other = other_launches(multi_sgd)
     losses = [v.item() for v in losses]
-    return {"steps": MLP_STEPS, "batch": MLP_BATCH, "launches": launches,
-            "other_kernel_launches": other,
+    dtypes = {_short(p.data().dtype) for p in net.collect_params().values()}
+    return {"steps": MLP_STEPS, "batch": MLP_BATCH, "dtype": dtype,
+            "launches": launches, "other_kernel_launches": other,
             "losses": losses, "step_ms": wall / MLP_STEPS * 1e3,
             "ok": launches == 2 * MLP_STEPS and other == 0
-            and losses[-1] < losses[0]
+            and losses[-1] < losses[0] and dtypes == {dtype}
             and all(math.isfinite(v) for v in losses)}
 
 
+# the profiler ranges of a ResNet training step: each takes the kernels
+# that ran inside it on the device (``_spans``)
+RESNET_RANGES = {"batchnorm_stats": "batchnorm_stats",
+                 "trainer_step": "update"}
+
+
+def _spans(prof, names) -> list:
+    """(start, end, name) on the device's clock of every ``record_function``
+    range of ``names``: the CUDA-typed user annotation that spans the
+    kernels launched inside the range, from any launcher (a ctypes launch
+    has no CPU op for ``kernels`` to hang from)."""
+    return [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.is_user_annotation and e.name in names]
+
+
+def range_kernels(prof, name: str) -> list:
+    """Names of the kernels that started on the device inside a
+    ``record_function`` range ``name`` (``_spans``)."""
+    spans = [(s, t) for s, t, _ in _spans(prof, {name})]
+    return [e.name for e in prof.events() if _is_kernel(e)
+            and any(s <= e.time_range.start <= t for s, t in spans)]
+
+
 def _device_classes(prof, wall_ms):
-    """Device time of one profiled step by kernel class, and its idle
-    share of the step's wall time."""
-    classes = {"conv_gemm": 0.0, "batchnorm": 0.0, "elementwise": 0.0,
-               "multi_sgd_mom": 0.0, "memcpy": 0.0, "other": 0.0}
+    """Device time of one profiled step by kernel class (convolutions and
+    GEMMs, BatchNorm, casts, cuDNN's NCHW/NHWC transposes, elementwise,
+    the update, memcpy, other; the
+    kernels that ran inside a range of ``RESNET_RANGES`` in the range's
+    class), and its idle share of the step's wall time."""
+    classes = {"conv_gemm": 0.0, "batchnorm": 0.0, "batchnorm_stats": 0.0,
+               "casts": 0.0, "layout": 0.0, "elementwise": 0.0,
+               "update": 0.0, "memcpy": 0.0, "other": 0.0}
+
+    def by_name(name):
+        name = name.lower()
+        if "multi_sgd" in name:
+            return "update"
+        if "memcpy" in name or "memset" in name:
+            return "memcpy"
+        if "nchwtonhwc" in name or "nhwctonchw" in name:
+            return "layout"
+        if any(w in name for w in ("conv", "gemm", "xmma", "cutlass",
+                                   "sm90", "implicit", "winograd",
+                                   "fft", "wgrad", "dgrad", "fprop")):
+            return "conv_gemm"
+        if any(w in name for w in ("bn_", "batch_norm", "batchnorm")):
+            return "batchnorm"
+        if "copy_kernel" in name:
+            return "casts"
+        if any(w in name for w in ("elementwise", "reduce", "softmax",
+                                   "foreach")):
+            return "elementwise"
+        return "other"
+
     top = []
     for e in prof.key_averages():
         if not _is_kernel(e):
             continue
-        name = e.key.lower()
-        if "multi_sgd" in name:
-            cls = "multi_sgd_mom"
-        elif "memcpy" in name or "memset" in name:
-            cls = "memcpy"
-        elif any(w in name for w in ("conv", "gemm", "xmma", "cutlass",
-                                     "sm90", "implicit", "winograd",
-                                     "fft", "wgrad", "dgrad", "fprop")):
-            cls = "conv_gemm"
-        elif any(w in name for w in ("bn_", "batch_norm", "batchnorm")):
-            cls = "batchnorm"
-        elif any(w in name for w in ("elementwise", "reduce", "softmax",
-                                     "foreach")):
-            cls = "elementwise"
-        else:
-            cls = "other"
         ms = e.self_device_time_total / 1e3
-        classes[cls] += ms
+        classes[by_name(e.key)] += ms
         top.append((ms, e.key[:90], e.count))
+    spans = _spans(prof, RESNET_RANGES)
+    for e in prof.events():
+        if not _is_kernel(e):
+            continue
+        for start, end, name in spans:
+            if start <= e.time_range.start <= end:
+                ms = e.time_range.elapsed_us() / 1e3
+                classes[by_name(e.name)] -= ms
+                classes[RESNET_RANGES[name]] += ms
+                break
     busy = sum(classes.values())
     top.sort(reverse=True)
     return {"wall_ms": wall_ms, "device_ms": classes,
@@ -1284,7 +1556,7 @@ def resnet_phase(seed: int, card: str):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = multi_sgd_mom.launches
-    other = multi_sgd.launches + flash_attention.launches + rtc.launches
+    other = other_launches(multi_sgd_mom)
     steps = RESNET_WARM + RESNET_STEPS
     losses = [v.item() for v in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1673,8 +1945,7 @@ def custom_mlp_phase(seed: int):
     custom = run(True)
     launches = {"softmax_fwd": _RTC["softmax_fwd"].launches,
                 "softmax_bwd": _RTC["softmax_bwd"].launches}
-    other = (flash_attention.launches + multi_sgd.launches
-             + multi_sgd_mom.launches)
+    other = sum(w.launches for w in COUNTED)
     breakdown = profile_step(custom["net"], custom["trainer"])
     twin = run(False)
     grad_err = max((a - b).abs().max().item() for a, b in
@@ -1866,7 +2137,7 @@ def bert_run(net, batch, n_steps: int) -> dict:
     launches = flash_attention.launches
     by_dtype = {k.replace("torch.", ""): n
                 for k, n in flash_attention.launches_by_dtype.items()}
-    other = multi_sgd.launches + multi_sgd_mom.launches + rtc.launches
+    other = other_launches(flash_attention)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1941,11 +2212,13 @@ def flash_backward_bound(vl_bh, lq, lk, d, dtype):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_flash_backward(gen, b, h, length, d, dtype, iters):
+def check_flash_backward(gen, b, h, length, d, dtype, iters,
+                         grad_tol=None):
     """The backward alone at (B, H, L, D): the kernel's output against the
     plain version's (max-abs <= TOL[dtype]) and q/k/v gradients through
     the kernel's Function against torch autograd through the plain version
-    in fp32 on the same values (max-abs <= TOL[dtype] x max(1, max|g|)),
+    in fp32 on the same values (max-abs <= ``grad_tol``, default
+    TOL[dtype], x max(1, max|g|)),
     device ms of forward + backward against the plain version's and
     ``scaled_dot_product_attention``'s with the same key mask, and the
     backward's peak memory beside one (B*H, L, L) fp32 matrix."""
@@ -1967,7 +2240,7 @@ def check_flash_backward(gen, b, h, length, d, dtype, iters):
     err = max((g.float() - r).abs().max().item()
               for g, r in zip(grads, ref))
     ref_max = max(r.abs().max().item() for r in ref)
-    tol = TOL[dtype] * max(1.0, ref_max)
+    tol = (grad_tol or TOL[dtype]) * max(1.0, ref_max)
     del out, ref_out
 
     out = flash_attention(q, k, v, vl)
@@ -2006,7 +2279,7 @@ def check_flash_backward(gen, b, h, length, d, dtype, iters):
                                               dtype)
     launches = {"ours": {}, "library": {}}
     fwd_bwd_ms = device_ms(ours, iters, kernels=launches["ours"], lost=1)
-    fwd_ms = device_ms(forward, iters, only="flash_fwd_kernel")
+    fwd_ms = device_ms(forward, iters, only="flash_fwd_kernel", lost=1)
     return {
         "case": f"B={b} H={h} L={length} D={d} {_short(dtype)}",
         "max_abs_err": err, "tolerance": tol, "ref_max_abs": ref_max,
@@ -2091,6 +2364,275 @@ def bert_train_phase(seed: int, card: str) -> dict:
             "checks": checks, "ok": all(checks.values())}
 
 
+# ----------------------------------------------------------------------
+# Phase 10: low precision as the JAX package runs it.  ResNet-50 v1 in
+# bf16 (amp.init, and Block.cast with fp32 masters through the mixed-path
+# kernel), BERT-base under amp.init("float16") with dynamic loss scaling
+# (the flash kernel's fp16 path), the MLP with bf16 weights (the plain SGD
+# kernel in bf16).
+
+def masters_mismatched(trainer) -> list:
+    """Names of the parameters whose weight is not its fp32 master
+    rounded to the weight's dtype, bit for bit (multi-precision states:
+    ``(momentum, master)``)."""
+    bits = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
+    bad = []
+    for i, p in enumerate(trainer._params):
+        w, w32 = p.data(), trainer._states[i][1]
+        if not torch.equal(w.view(bits[w.dtype]),
+                           w32.to(w.dtype).view(bits[w.dtype])):
+            bad.append(p.name)
+    return bad
+
+
+def update_range_check(prof, kernel: str, expected: int) -> dict:
+    """The kernels launched inside the ``trainer_step`` range: exactly
+    ``expected`` launches of ``kernel`` and nothing else (a per-tensor
+    cast or copy there fails it)."""
+    names = range_kernels(prof, "trainer_step")
+    ours = sum(kernel in n for n in names)
+    others = sorted({n[:90] for n in names if kernel not in n})
+    return {"kernel_launches": ours, "expected": expected,
+            "other_kernels": others,
+            "ok": ours == expected and not others}
+
+
+def resnet_lp_run(seed: int, recipe: str, fp32_losses: list) -> dict:
+    """ResNet-50 v1 at batch 128 from phase 6's weights and batch, SGD lr
+    0.1, momentum 0.9, wd 1e-4 through ``gluon.Trainer``, 3 warm and 10
+    timed steps, in one of the JAX package's two bf16 recipes: ``amp``,
+    ``amp.init("bfloat16")`` (fp32 weights, the momentum kernel in fp32),
+    or ``cast``, ``net.cast("bfloat16")`` and a bf16 batch with
+    ``multi_precision`` (fp32 masters, the mixed-path kernel).  Each step
+    ends in a synchronise (the step time is the mean of the timed steps'
+    own times); after each ``cast`` step every weight must be its master
+    rounded.  The losses are held against phase 6's fp32 run
+    (``fp32_losses``, the same weights and batch): the first within
+    ``RESNET_AMP_LOSS_RTOL``, the first ``RESNET_TRACKED`` within it too,
+    and the loss must fall below the first within the warm steps.  (At
+    lr 0.1 on one batch the loss of every recipe, fp32 included, climbs
+    again from step 4 and the runs part ways there: whether the 13th loss
+    ends below the first is chance.)  One profiled step gives the device
+    time by class and the kernels of the ``trainer_step`` range."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = gpu(0)
+    if recipe == "amp":
+        amp.init("bfloat16")
+    try:
+        net = resnet50_v1(classes=1000)
+        net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+        net.hybridize()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(RESNET_BATCH, 3, 224, 224, device=dev, generator=gen)
+        y = torch.randint(0, 1000, (RESNET_BATCH,), device=dev,
+                          generator=gen).float()
+        opt = dict(RESNET_OPT)
+        if recipe == "cast":
+            net.cast("bfloat16")
+            x = x.bfloat16()
+            opt["multi_precision"] = True
+        params = net.collect_params()
+        trainer = gluon.Trainer(params, "sgd", opt)
+        lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+        counter = multi_mp_sgd_mom if recipe == "cast" else multi_sgd_mom
+        groups = -(-len(trainer._params) // AGG)
+
+        def step():
+            with autograd.record():
+                loss = lossfn(net(x), y)
+            autograd.backward(loss)
+            with torch.profiler.record_function("trainer_step"):
+                trainer.step(x.shape[0])
+            return loss.detach().float().mean()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses, times, mismatched = [], [], []
+        for _ in range(RESNET_WARM + RESNET_STEPS):
+            t0 = time.monotonic()
+            losses.append(step())
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            if recipe == "cast":
+                mismatched.append(masters_mismatched(trainer))
+        steps = RESNET_WARM + RESNET_STEPS
+        launches, other = counter.launches, other_launches(counter)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            step()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.monotonic() - t1) * 1e3
+        update = update_range_check(prof, "multi_sgd_kernel", groups)
+        states = [t for st in trainer._states.values()
+                  for t in (st if isinstance(st, tuple) else (st,))]
+        param_dtypes = sorted({_short(p.data().dtype)
+                               for p in params.values()})
+    finally:
+        amp.disable()
+    losses = [v.item() for v in losses]
+    step_s = sum(times[RESNET_WARM:]) / RESNET_STEPS
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, fp32_losses)]
+    first_rel = rel[0]
+    checks = {
+        "finite_losses": all(math.isfinite(v) for v in losses),
+        "losses_fall": min(losses[1:RESNET_WARM + 1]) < losses[0],
+        "tracks_fp32": max(rel[:RESNET_TRACKED]) <= RESNET_AMP_LOSS_RTOL,
+        "launches": launches == groups * steps and other == 0,
+        "update_range": update["ok"],
+        "state_dtypes": {_short(t.dtype) for t in states} == {"float32"}}
+    checks["first_loss_vs_fp32"] = first_rel <= RESNET_AMP_LOSS_RTOL
+    if recipe == "amp":
+        checks["param_dtypes"] = param_dtypes == ["float32"]
+    else:
+        checks["weights_are_rounded_masters"] = not any(mismatched)
+        checks["param_dtypes"] = param_dtypes == ["bfloat16"]
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {"recipe": recipe, "batch": RESNET_BATCH, "steps": steps,
+            "timed_steps": RESNET_STEPS, "losses": losses,
+            "first_loss_rel_vs_fp32": first_rel,
+            "loss_rel_vs_fp32": rel, "step_ms": step_s * 1e3,
+            "images_per_s": RESNET_BATCH / step_s,
+            "peak_memory_gb": peak_gb, "kernel": counter.__name__,
+            "launches": launches, "launches_per_step": launches / steps,
+            "expected_launches_per_step": groups,
+            "other_kernel_launches": other, "update_range": update,
+            "mismatched_masters_per_step": [len(m) for m in mismatched],
+            "param_dtypes": param_dtypes,
+            "profile": _device_classes(prof, prof_wall_ms),
+            "checks": checks, "ok": all(checks.values())}
+
+
+def bert_fp16_run(seed: int, fp32_first_loss: float) -> dict:
+    """BERT-base pretraining (phase 9's weights, batch and recipe) under
+    ``amp.init("float16")`` for ``BERT_FP16_STEPS`` steps, with
+    ``amp.init_trainer``'s ``DynamicLossScaler`` (2**16):
+    ``amp.scale_loss`` -> ``autograd.backward`` -> ``amp.unscale``, which
+    skips a step whose gradients overflowed and halves the scale, else
+    ``trainer.step(1)``.  Times steps ``BERT_WARM`` to ``BERT_WARM +
+    BERT_STEPS``; profiles one more step."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = gpu(0)
+    batch = [torch.as_tensor(a, device=dev)
+             for a in bert_batch(seed, BERT_BATCH, BERT_SEQ)]
+    inputs, segs, vl, labels, weights, nsp_y = batch
+    amp.init("float16")
+    try:
+        net = bert_base(dropout=0.0)
+        net.initialize(ctx=dev, seed=seed)
+        params = net.collect_params()
+        trainer = amp.init_trainer(gluon.Trainer(params, "adam", BERT_OPT))
+        first_scale = trainer._amp_loss_scaler.loss_scale
+
+        def step():
+            with autograd.record():
+                loss = mlm_nsp_loss(*net(inputs, segs, vl), labels, weights,
+                                    nsp_y)
+            with amp.scale_loss(loss, trainer) as scaled:
+                autograd.backward(scaled)
+            skip = amp.unscale(trainer)
+            if not skip:
+                with torch.profiler.record_function("trainer_step"):
+                    trainer.step(1)
+            return loss.detach(), skip
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses, skipped, scales, t0, wall = [], [], [], 0.0, 0.0
+        for i in range(BERT_FP16_STEPS):
+            if i == BERT_WARM:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+            scales.append(trainer._amp_loss_scaler.loss_scale)
+            loss, skip = step()
+            losses.append(loss)
+            skipped.append(skip)
+            if i == BERT_WARM + BERT_STEPS - 1:
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        by_dtype = {k.replace("torch.", ""): n
+                    for k, n in flash_attention.launches_by_dtype.items()}
+        other = other_launches(flash_attention)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            step()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.monotonic() - t1) * 1e3
+        states = [t for st in trainer._states.values() for t in st]
+        param_dtypes = sorted({_short(p.data().dtype)
+                               for p in params.values()})
+    finally:
+        amp.disable()
+    losses = [v.item() for v in losses]
+    applied = [v for v, s in zip(losses, skipped) if not s]
+    first_rel = abs(applied[0] - fp32_first_loss) / abs(fp32_first_loss) \
+        if applied else math.inf
+    checks = {
+        "applied_steps": len(applied) >= BERT_FP16_MIN_APPLIED,
+        "finite_applied_losses": all(math.isfinite(v) for v in applied),
+        "applied_losses_fall": len(applied) > 1 and applied[-1] < applied[0],
+        "first_applied_loss_vs_fp32": first_rel <= BERT_AMP_LOSS_RTOL,
+        "flash_launches_fp16": launches == LAYERS * BERT_FP16_STEPS
+        and by_dtype["float16"] == launches,
+        "no_other_kernel": other == 0,
+        "initial_scale": first_scale == 2.0 ** 16,
+        "fp32_weights_and_states": param_dtypes == ["float32"]
+        and {_short(t.dtype) for t in states} == {"float32"}}
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {"steps": BERT_FP16_STEPS, "losses": losses,
+            "skipped_steps": [i for i, s in enumerate(skipped) if s],
+            "loss_scales": scales, "applied_steps": len(applied),
+            "first_applied_loss_rel_vs_fp32": first_rel,
+            "step_ms": wall / BERT_STEPS * 1e3,
+            "sequences_per_s": BERT_BATCH * BERT_STEPS / wall,
+            "flash_launches": launches, "flash_launches_by_dtype": by_dtype,
+            "other_kernel_launches": other, "peak_memory_gb": peak_gb,
+            "profile": bert_step_classes(prof, prof_wall_ms, len(params)),
+            "param_dtypes": param_dtypes, "checks": checks,
+            "ok": all(checks.values())}
+
+
+def low_precision_phase(seed: int, card: str, resnet: dict,
+                        bert: dict) -> dict:
+    """Phase 10: (a) ResNet-50 under ``amp.init("bfloat16")``, (b) after
+    ``cast("bfloat16")`` with ``multi_precision``, both against phase 6's
+    first fp32 loss; (c) BERT-base under ``amp.init("float16")`` against
+    phase 9's, and the flash backward alone on fp16 inputs; (e) the MLP
+    with bf16 weights (the plain SGD kernel in bf16)."""
+    runs = {}
+    for recipe in ("amp", "cast"):
+        runs[f"resnet50_{recipe}"] = resnet_lp_run(seed, recipe,
+                                                   resnet["losses"])
+        print(f"resnet50 {recipe} bf16 on {card}:",
+              json.dumps(runs[f"resnet50_{recipe}"]), flush=True)
+    runs["bert_fp16"] = bert_fp16_run(seed, bert["fp32"]["losses"][0])
+    print(f"bert-base fp16 amp on {card}:", json.dumps(runs["bert_fp16"]),
+          flush=True)
+    gen = torch.Generator().manual_seed(seed + 10)
+    backward = [check_flash_backward(gen, 8, HEADS, length, HEAD_DIM,
+                                     torch.float16, 20, FP16_BACKWARD_TOL)
+                for length in (256, 512)]
+    for r in backward:
+        print("flash backward", json.dumps(r), flush=True)
+    runs["mlp_bf16"] = mlp_phase(seed, "bfloat16")
+    print(f"mlp bf16 on {card}:", json.dumps(runs["mlp_bf16"]), flush=True)
+    checks = {name: r["ok"] for name, r in runs.items()}
+    checks["flash_backward_fp16"] = all(r["ok"] for r in backward)
+    return {"card": card, **runs, "backward": backward, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2119,7 +2661,7 @@ def main() -> int:
     print("ptxas multi_sgd:", json.dumps(sgd_build), flush=True)
     spills = [fn for fn, r in sgd_build["ptxas"].items()
               if r["spill_stores"] or r["spill_loads"]]
-    if spills or len(sgd_build["ptxas"]) != 2:
+    if spills or len(sgd_build["ptxas"]) != 10:
         print(f"chip_smoke: multi-SGD ptxas report: spills in {spills}, "
               f"{len(sgd_build['ptxas'])} kernels", file=sys.stderr)
         return 1
@@ -2143,7 +2685,7 @@ def main() -> int:
         print("sgd check", json.dumps(c), flush=True)
     for name, t in sgd["times"].items():
         print(f"sgd time {name} on {card}:", json.dumps(t), flush=True)
-        for b in t["per_launch_bins"]:
+        for b in t.get("per_launch_bins", []):
             print(f"  sgd launches {name} {b['bin']}: {b['launches']} "
                   f"launches, {b['elements']} elements, {b['ms']:.6f} ms "
                   f"device, bound {b['bound_ms']:.6f} ms", flush=True)
@@ -2189,34 +2731,68 @@ def main() -> int:
     print(f"bert-base checks on {card}:", json.dumps(bert["checks"]),
           flush=True)
 
+    low = low_precision_phase(args.seed, card, resnet, bert)
+    for recipe in ("amp", "cast"):
+        r = low[f"resnet50_{recipe}"]
+        print(f"resnet50 bf16 {recipe} on {card}: step {r['step_ms']:.3f} "
+              f"ms, {r['images_per_s']:.1f} images/s, {r['kernel']} "
+              f"launches per step {r['launches_per_step']}, first loss "
+              f"{r['first_loss_rel_vs_fp32']:.3g} from fp32's, device "
+              f"{json.dumps(r['profile']['device_ms'])}, idle "
+              f"{r['profile']['device_idle_share']:.3f}", flush=True)
+    r = low["bert_fp16"]
+    print(f"bert-base fp16 amp on {card}: step {r['step_ms']:.3f} ms, "
+          f"{r['sequences_per_s']:.3f} sequences/s, skipped "
+          f"{r['skipped_steps']}, scales {r['loss_scales'][0]} -> "
+          f"{r['loss_scales'][-1]}, flash launches "
+          f"{r['flash_launches_by_dtype']}", flush=True)
+    print(f"low precision checks on {card}:", json.dumps(low["checks"]),
+          flush=True)
+
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
+    def lp_err(mode, dtype, case=None):
+        return max(c["max_abs_err"] for c in sgd["checks"]
+                   if c["kernel"] == mode and c["dtype"] == dtype
+                   and case in (None, c["case"]))
+
     # each SGD kernel's error at the shapes of its main path
-    sgd_err = {k: max(c["max_abs_err"] for c in sgd["checks"]
-                      if c["kernel"] == k and c["case"] == case)
-               for k, case in (("multi_sgd", "mlp"),
-                               ("multi_sgd_mom", "resnet50"))}
+    sgd_err = {"multi_sgd": lp_err("sgd", "float32", "mlp"),
+               "multi_sgd_mom": lp_err("sgd_mom", "float32", "resnet50")}
+
+    def timing(t, prefix=""):
+        return {f"{prefix}{key}": t[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     def sgd_row(name, replaces, launches, t):
         return {"name": name, "route": "cuda", "source": SGD_SRC,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": sgd_err[name], "ms": t["ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "max_abs_err": sgd_err[name], **timing(t),
                 "shape": f"{t['tensors']} tensors, {t['elements']} fp32"}
 
+    times = sgd["times"]
+    fp16_rows = [r for r in rows if r["dtype"] == "float16"]
+    fp16_main = next(r for r in fp16_rows if r["case"] ==
+                     "fp16 B=8 L=512 D=64")
+    bf16_mlp, mixed = times["multi_sgd_bf16_mlp"], \
+        times["multi_mp_sgd_mom_resnet50"]
     kernels = [{
         "name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
         "replaces": FLASH_TPU, "launches": serving["flash_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows
                            if r["dtype"] == "float32"),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"], "shape": main_row["case"],
+        **timing(main_row), "shape": main_row["case"],
         **{f"bf16_{key}": bf16_row[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
+        "fp16_launches": low["bert_fp16"]["flash_launches_by_dtype"][
+            "float16"],
+        "fp16_max_abs_err": max(r["max_abs_err"] for r in fp16_rows),
+        **timing(fp16_main, "fp16_"),
+        "fp16_cases": {r["case"]: {key: r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for r in fp16_rows},
         "train_launches": {mode: bert[mode]["flash_launches"]
                            for mode in ("fp32", "amp_bf16")},
         "train_shape": {r["case"]: {key: r[key] for key in (
@@ -2224,14 +2800,36 @@ def main() -> int:
             "library_ms")} for r in rows if r["case"].startswith(
                 "bert_train")},
         "backward": {r["case"]: {key: r[key] for key in (
-            "max_abs_err", "forward_max_abs_err", "fwd_bwd_ms", "bwd_ms", "plain_fwd_bwd_ms",
-            "library_fwd_bwd_ms", "bound_ms", "bound_by",
-            "bwd_peak_memory_mb", "full_matrix_mb")}
-            for r in bert["backward"]},
+            "max_abs_err", "forward_max_abs_err", "fwd_bwd_ms", "bwd_ms",
+            "plain_fwd_bwd_ms", "library_fwd_bwd_ms", "bound_ms",
+            "bound_by", "bwd_peak_memory_mb", "full_matrix_mb")}
+            for r in bert["backward"] + low["backward"]},
     }, sgd_row("multi_sgd", SGD_TPU, mlp["launches"],
-               sgd["times"]["multi_sgd_mlp"]),
+               times["multi_sgd_mlp"])
+        | {"bf16_launches": low["mlp_bf16"]["launches"],
+           "bf16_max_abs_err": lp_err("sgd", "bfloat16"),
+           **timing(bf16_mlp, "bf16_"),
+           "fp16_max_abs_err": lp_err("sgd", "float16")},
         sgd_row("multi_sgd_mom", SGD_MOM_TPU, resnet["launches"],
-                sgd["times"]["multi_sgd_mom_resnet50"])]
+                times["multi_sgd_mom_resnet50"])
+        | {"amp_bf16_launches": low["resnet50_amp"]["launches"],
+           **{f"{dt}_{key}": value for dt, t in (
+               ("bf16", times["multi_sgd_mom_bf16_resnet50"]),
+               ("fp16", times["multi_sgd_mom_fp16_resnet50"]))
+              for key, value in timing(t).items()},
+           "bf16_max_abs_err": lp_err("sgd_mom", "bfloat16"),
+           "fp16_max_abs_err": lp_err("sgd_mom", "float16")},
+        {"name": "multi_mp_sgd_mom", "route": "cuda", "source": SGD_SRC,
+         "replaces": SGD_MOM_TPU,
+         "launches": low["resnet50_cast"]["launches"],
+         "max_abs_err": max(lp_err(m, dt) for m in ("mp_sgd", "mp_sgd_mom")
+                            for dt in ("bfloat16", "float16")),
+         **timing(mixed),
+         "shape": f"{mixed['tensors']} tensors, {mixed['elements']} bf16 "
+                  f"weights with fp32 masters and momenta",
+         "before_ms": times["unfused_mixed_resnet50"]["ms"],
+         "before_launches_per_update":
+             times["unfused_mixed_resnet50"]["launches_per_update"]}]
     timed = rtc_res["softmax"][f"{SOFTMAX_SHAPES[-1][0]}x"
                                f"{SOFTMAX_SHAPES[-1][1]}"]
     for name in ("softmax_fwd", "softmax_bwd"):
@@ -2257,12 +2855,14 @@ def main() -> int:
          "multi_sgd_build": sgd_build, "flash": rows,
          "serving": serving, "sgd": sgd, "mlp": mlp, "resnet50": resnet,
          "rtc": rtc_res, "custom_mlp": custom, "bert_train": bert,
+         "low_precision": low,
          "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
         ("mlp", mlp), ("resnet50", resnet), ("rtc", rtc_res),
-        ("custom-op mlp", custom), ("bert train", bert)) if not ph["ok"]]
+        ("custom-op mlp", custom), ("bert train", bert),
+        ("low precision", low)) if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)
         return 1

@@ -22,8 +22,13 @@ the card.  The ops with a cast point are ``FullyConnected`` (``Dense``),
 transformer's masked-softmax path), ``LayerNorm`` and the ``nd`` ops
 ``log_softmax``, ``sum`` and ``mean``.
 
-Weights stay fp32 (``Block.cast`` and bf16 weights are not ported yet).
-``convert_symbol``/``convert_model`` are not ported: there is no Symbol.
+Weights stay fp32 under AMP; for bf16/fp16 weights use ``Block.cast``
+with ``Trainer(..., {"multi_precision": True})`` (MXNet's recipe).  Under
+``init("float16")`` the flash kernel takes fp16 q/k/v on the card, and
+``init_trainer``'s ``DynamicLossScaler`` (initial scale 2**16) with
+``scale_loss`` and ``unscale`` skips a step whose gradients overflowed
+and halves the scale.  ``convert_symbol``/``convert_model`` are not
+ported: there is no Symbol.
 """
 from __future__ import annotations
 

@@ -16,7 +16,11 @@ consulted (``train()``/``eval()`` change nothing).  Place a model with
 because a Parameter shared by two modules must move once, in place.
 
 ``hybridize()`` records the flag and nothing else: PyTorch runs eagerly,
-in training as in inference.
+in training as in inference.  ``cast(dtype)`` casts every parameter of
+the block and its children (MXNet's ``Block.cast``); the JAX package's
+``HybridBlock.cast`` also drops its cached graphs, and the port keeps
+none to drop: a ``CachedGraph`` holds the block, so its next batch runs
+on the cast parameters.
 ``cached_graph(*examples)`` is the serving entry: a :class:`CachedGraph`
 whose ``raw(*arrays)`` copies host arrays to the block's device, runs the
 forward under ``torch.inference_mode()`` and returns device tensors.
@@ -148,6 +152,15 @@ class Block(nn.Module):
         for child in self._modules.values():
             if isinstance(child, Block):
                 child.hybridize(active, **kwargs)
+
+    def cast(self, dtype) -> None:
+        """Cast the parameters of this block and of its children to
+        ``dtype`` (``Parameter.cast``)."""
+        for child in self._modules.values():
+            if isinstance(child, Block):
+                child.cast(dtype)
+        for p in self._params.values():
+            p.cast(dtype)
 
     def device(self) -> torch.device:
         """Where this block's parameters live (CPU for a block without

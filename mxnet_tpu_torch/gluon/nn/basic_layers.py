@@ -11,7 +11,8 @@ plain torch calls.  Dropout and BatchNorm follow ``autograd.is_training()``
 Dense ("FullyConnected") casts its input, weight and bias to the target
 dtype and LayerNorm its input and parameters to float32; Embedding,
 BatchNorm and the activations keep their input dtype, as in the JAX
-package.
+package.  After ``Block.cast`` the layers run in the parameters' dtype
+(the caller casts the input, as in MXNet).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import autograd
-from ...base import MXNetError
+from ...base import MXNetError, torch_dtype
 from ...contrib.amp import amp as _amp
 from ..block import HybridBlock
 
@@ -127,7 +128,18 @@ class BatchNorm(HybridBlock):
 
     The normalisation itself is ``F.batch_norm`` without running buffers
     (torch would update them with the unbiased variance); the running
-    statistics are updated here from ``torch.var_mean``.
+    statistics are updated here from ``torch.var_mean``, in the profiler
+    range ``batchnorm_stats``.
+
+    Low precision: bf16/fp16 activations keep their dtype, and the batch
+    statistics are taken in fp32 from ``x.float()``, as the JAX op does
+    (``mxnet_tpu/ndarray/ops_nn.py:306-331``); the running statistics keep
+    the parameters' dtype (fp32 under AMP, bf16 after ``cast("bfloat16")``).
+    ``F.batch_norm`` takes parameters of another dtype than the input and
+    normalises in fp32, rounding its output once (the JAX op normalises
+    in the activations' dtype, op by op).  ``cast("float16")`` keeps the
+    parameters fp32, as MXNet 1.x's ``BatchNorm.cast`` does (the JAX
+    package casts them to fp16).
     """
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
@@ -156,6 +168,11 @@ class BatchNorm(HybridBlock):
                 "running_var", shape=(in_channels,),
                 init=running_variance_initializer, grad_req="null")
 
+    def cast(self, dtype) -> None:
+        if torch_dtype(dtype) == torch.float16:
+            dtype = torch.float32
+        super().cast(dtype)
+
     def forward(self, x):
         ax = self._axis % x.ndim
         if ax == 1:
@@ -170,7 +187,9 @@ class BatchNorm(HybridBlock):
         if not (autograd.is_training() and not self._use_global_stats):
             return F.batch_norm(x, r_mean, r_var, gamma, beta, False, 0.0,
                                 self._epsilon)
-        with torch.no_grad():
+        # a named range, so that a profile can tell this pass apart
+        with torch.no_grad(), \
+                torch.profiler.record_function("batchnorm_stats"):
             dims = [d for d in range(x.ndim) if d != 1]
             var, mean = torch.var_mean(x.detach().float(), dim=dims,
                                        correction=0)

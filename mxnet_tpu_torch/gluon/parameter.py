@@ -24,6 +24,13 @@ Gradients follow MXNet's ``grad_req``:
 initialisation, ``zero_grad()`` and each optimizer update until a backward
 writes the gradient.  ``gluon.Trainer`` refuses to apply a ``write``
 gradient that is still fresh.
+
+``cast(dtype)`` (MXNet's ``Parameter.cast``, used by ``Block.cast``)
+records the dtype and replaces the data with a cast copy on its device,
+inside the same ``nn.Parameter``: the modules that registered it, a
+``Trainer``'s parameter list and a ``CachedGraph`` all see the new tensor.
+``set_data`` takes numpy arrays of any dtype, the JAX package's bfloat16
+(``ml_dtypes``) included, by their bits.
 """
 from __future__ import annotations
 
@@ -121,6 +128,15 @@ class Parameter:
         self.fresh = True
         self._initialized = True
 
+    def cast(self, dtype) -> None:
+        """Cast to ``dtype`` (MXNet's ``Parameter.cast``): an initialized
+        parameter gets a cast copy of its data on the same device, keeps
+        its ``grad_req`` and drops its gradient (stale until a backward
+        writes one); one not yet initialized only records the dtype."""
+        self.dtype = torch_dtype(dtype)
+        if self._initialized:
+            self._set(self._data.detach().to(self.dtype, copy=True))
+
     def data(self) -> nn.Parameter:
         if not self._initialized:
             raise MXNetError(f"Parameter {self.name!r} has not been "
@@ -156,7 +172,7 @@ class Parameter:
         onto ``ctx``; without ``ctx`` an initialized parameter keeps its
         device and one never initialized goes to the default context."""
         src = value if isinstance(value, torch.Tensor) \
-            else torch.tensor(np.asarray(value))
+            else _from_numpy(np.asarray(value))
         if tuple(src.shape) != self.shape:
             raise MXNetError(
                 f"cannot set Parameter {self.name!r} of shape {self.shape} "
@@ -168,6 +184,15 @@ class Parameter:
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
                 f"dtype={self.dtype})")
+
+
+def _from_numpy(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor copy of ``arr``; a bfloat16 array (``ml_dtypes``, which
+    numpy knows only as 2-byte records) is carried over by its bits."""
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
+                                .copy()).view(torch.bfloat16)
+    return torch.tensor(arr)
 
 
 class ParameterDict:

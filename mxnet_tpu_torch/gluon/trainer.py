@@ -12,7 +12,11 @@ step, each one launch of the momentum kernel on the card.
 
 A ``write`` gradient that no backward has written since the last step is
 stale: ``step`` raises on it, or skips the parameter with
-``ignore_stale_grad=True``.
+``ignore_stale_grad=True``.  The optimizer state of a parameter is made
+at its first update, for the weight's dtype then (with
+``multi_precision``, fp32 masters for bf16/fp16 weights); a parameter
+cast to another dtype after that raises at the next step (cast before
+the first step, as MXNet expects).
 
 ``kvstore`` takes ``"device"``, ``"local"`` or None, all the same on one
 device; the distributed kvstores are not ported.
@@ -55,6 +59,7 @@ class Trainer:
                                          **(optimizer_params or {}))
         self._scale = self._optimizer.rescale_grad
         self._states: Dict[int, object] = {}
+        self._state_dtypes: Dict[int, torch.dtype] = {}
         # contrib.amp: init_trainer sets the scaler and the unscaled
         # ``_scale``; scale_loss divides ``_scale`` by the loss scale
         self._amp_loss_scaler = None
@@ -108,6 +113,12 @@ class Trainer:
             if i not in self._states:
                 self._states[i] = \
                     self._optimizer.create_state_multi_precision(i, data)
+                self._state_dtypes[i] = data.dtype
+            elif self._state_dtypes.get(i, data.dtype) != data.dtype:
+                raise MXNetError(
+                    f"Parameter {param.name!r} is {data.dtype}, but its "
+                    f"optimizer state was made for "
+                    f"{self._state_dtypes[i]}: cast before the first step")
             if use_multi:
                 group.append((i, data, param.grad(), self._states[i]))
                 if len(group) >= agg:

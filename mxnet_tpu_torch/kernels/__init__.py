@@ -8,9 +8,12 @@ strings at run time.  Importing this package builds and loads nothing.
 """
 from .flash_attention import (flash_attention, flash_attention_backward,
                               flash_attention_plain)
-from .multi_sgd import (multi_sgd, multi_sgd_mom, multi_sgd_mom_plain,
+from .multi_sgd import (multi_mp_sgd, multi_mp_sgd_mom,
+                        multi_mp_sgd_mom_plain, multi_mp_sgd_plain,
+                        multi_sgd, multi_sgd_mom, multi_sgd_mom_plain,
                         multi_sgd_plain)
 
 __all__ = ["flash_attention", "flash_attention_backward",
-           "flash_attention_plain", "multi_sgd",
+           "flash_attention_plain", "multi_mp_sgd", "multi_mp_sgd_mom",
+           "multi_mp_sgd_mom_plain", "multi_mp_sgd_plain", "multi_sgd",
            "multi_sgd_mom", "multi_sgd_mom_plain", "multi_sgd_plain"]

@@ -9,20 +9,21 @@
 // A row with no valid key ("dead") takes the key-length mask as weights;
 // a row whose weights sum to 0 divides by 1 (so outputs 0).  The key loop
 // stops at min(ceil(vl), Lk): later keys are masked for every row.
-// Accumulation is fp32; the output has the input dtype (float32 or
-// bfloat16).  No (Lq, Lk) matrix reaches device memory.
+// Accumulation is fp32; the output has the input dtype (float32,
+// bfloat16 or float16).  No (Lq, Lk) matrix reaches device memory.
 //
 // Bound.  FLOPs = 4 * sum_bh Lq * min(ceil(vl_bh), Lk) * D (QK^T and PV);
 // bytes = q, the live K/V keys and out, each once.  At BERT-base shapes
-// (D = 64) that is 64 flops per byte in fp32 and 128 in bf16, below the
-// tensor cores' 148 (TF32, 495 TFLOP/s) and 295 (bf16, 989 TFLOP/s) per
-// byte of HBM3 (3.35 TB/s): on the tensor cores the kernel is bound by
-// bytes, and its work is to keep the MMAs fed while the next tile loads.
+// (D = 64) that is 64 flops per byte in fp32 and 128 in bf16 and fp16,
+// below the tensor cores' 148 (TF32, 495 TFLOP/s) and 295 (bf16 and fp16,
+// 989 TFLOP/s) per byte of HBM3 (3.35 TB/s): on the tensor cores the
+// kernel is bound by bytes, and its work is to keep the MMAs fed while the
+// next tile loads.
 //
 // Design (FlashAttention-2's forward).  One block of 4 warps per
 // (64-query tile, bh), so B = 8, H = 12 gives 768 blocks at L = 512 and
 // 192 at L = 128 for the 132 SMs; each warp owns 16 query rows.  K/V tiles
-// (64 keys in bf16, 32 in fp32) come in through cp.async (16-byte LDGSTS,
+// (64 keys in bf16/fp16, 32 in fp32) come in through cp.async (16-byte LDGSTS,
 // zero-filled past the last live key) into a ring of 2 shared-memory
 // stages, so tile t+1's copy runs under tile t's MMAs.  Scores (16 x tile
 // per warp) and the output (16 x D) live in MMA accumulator fragments;
@@ -35,9 +36,11 @@
 // ex2.approx.
 //
 // Instructions.  Both products use mma.sync (HMMA), not wgmma:
-//  - bf16: m16n8k16 with fp32 accumulation; Q and K fed by ldmatrix, V by
-//    ldmatrix.trans (V is row-major (key, d), the MMA's B wants d-major);
-//    P is rounded to bf16 for the PV product, as FlashAttention-2 does.
+//  - bf16 and fp16: m16n8k16 with fp32 accumulation, one template for
+//    both 16-bit types; Q and K fed by ldmatrix, V by ldmatrix.trans (V
+//    is row-major (key, d), the MMA's B wants d-major); P is rounded to
+//    the input type for the PV product, as FlashAttention-2 does (fp16
+//    keeps 3 more mantissa bits of P than bf16; P <= 1 cannot overflow).
 //    Q arrives with tile 0 in stage 1's K slot and is held in registers.
 //  - fp32: 3xTF32 on m16n8k8.  Each operand x splits into
 //    hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi); the product is
@@ -55,15 +58,18 @@
 // layouts that a padded row-major cp.async tile is not, and at L <= 512
 // the kernel is bound by bytes, where mma.sync's rate is enough.
 //
-// Shared memory rows are padded (bf16: D + 8 elements, so the 8 rows of an
-// ldmatrix fall in 8 different 4-bank groups; fp32: D + 4 floats, so the
-// scalar fragment loads of a warp hit 32 different banks).  Per block at
-// D = 64: bf16 36 KB (2 stages x (K + V)), fp32 51 KB (the same and Q),
-// so 4 blocks (16 warps) fit an SM in both.
+// Shared memory rows are padded (bf16/fp16: D + 8 elements, so the 8 rows
+// of an ldmatrix fall in 8 different 4-bank groups; fp32: D + 4 floats, so
+// the scalar fragment loads of a warp hit 32 different banks).  Per block
+// at D = 64: bf16/fp16 36 KB (2 stages x (K + V)), fp32 51 KB (the same and
+// Q), so 4 blocks (16 warps) fit an SM in all three.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -128,6 +134,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a * b, m16n8k16, fp16 inputs, fp32 accumulator.
+__device__ __forceinline__ void mma_f16(float (&c)[4],
+                                        const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // c += a * b, m16n8k8, tf32 inputs, fp32 accumulator.
 __device__ __forceinline__ void mma_tf32(float (&c)[4],
                                          const uint32_t (&a)[4],
@@ -182,11 +200,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The MMA and the operand packing of one 16-bit input type T.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same_v<T, __half>)
+    mma_f16(c, a, b0, b1);
+  else
+    mma_bf16(c, a, b0, b1);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 // The two products on one warp's 16 rows, per input type.  `lane` is the
@@ -195,9 +239,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 template <typename T, int D>
 struct Mma;
 
-template <int D>
-struct Mma<__nv_bfloat16, D> {
-  using T = __nv_bfloat16;
+// bf16 and fp16 (T): the same tiles and fragments, T's MMA.
+template <typename T, int D>
+struct Mma16 {
   static constexpr int kStride = D + 8;
   static constexpr int kBK = 64;              // keys per tile
   static constexpr int kNT = kBK / 8;         // 8-key column tiles
@@ -228,8 +272,8 @@ struct Mma<__nv_bfloat16, D> {
         uint32_t b[4];
         ldmatrix_x4(b, sk + (jp * 16 + (lane & 7) + (lane >> 4) * 8) *
                                kStride + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
+        mma16<T>(s[2 * jp], qa[kk], b[0], b[1]);
+        mma16<T>(s[2 * jp + 1], qa[kk], b[2], b[3]);
       }
     }
   }
@@ -240,10 +284,10 @@ struct Mma<__nv_bfloat16, D> {
                                             const T* sv, int lane) {
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                             pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                             pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                             pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+      const uint32_t a[4] = {pack16<T>(p[2 * kk][0], p[2 * kk][1]),
+                             pack16<T>(p[2 * kk][2], p[2 * kk][3]),
+                             pack16<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                             pack16<T>(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
       for (int np = 0; np < D / 16; ++np) {
         // matrices: keys 16kk+{0..7, 8..15, 0..7, 8..15} x
@@ -252,12 +296,18 @@ struct Mma<__nv_bfloat16, D> {
         ldmatrix_x4_trans(b, sv + (kk * 16 + (lane & 7) +
                                    ((lane >> 3) & 1) * 8) * kStride +
                                  np * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * np], a, b[0], b[1]);
-        mma_bf16(o[2 * np + 1], a, b[2], b[3]);
+        mma16<T>(o[2 * np], a, b[0], b[1]);
+        mma16<T>(o[2 * np + 1], a, b[2], b[3]);
       }
     }
   }
 };
+
+template <int D>
+struct Mma<__nv_bfloat16, D> : Mma16<__nv_bfloat16, D> {};
+
+template <int D>
+struct Mma<__half, D> : Mma16<__half, D> {};
 
 template <int D>
 struct Mma<float, D> {
@@ -526,8 +576,8 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q: (bh, lq, d), k/v: (bh, lk, d), out: (bh, lq, d), all contiguous, of
-// one dtype (0 = float32, 1 = bfloat16) and 16-byte aligned; vl: (bh,)
-// float32.  Launches on `stream` without synchronising and returns
+// one dtype (0 = float32, 1 = bfloat16, 2 = float16) and 16-byte aligned;
+// vl: (bh,) float32.  Launches on `stream` without synchronising and returns
 // cudaGetLastError().
 extern "C" int mxtpu_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, const void* vl,
@@ -544,5 +594,8 @@ extern "C" int mxtpu_flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1)
     return dispatch_dim<__nv_bfloat16>(q, k, v, vlf, out, bh, lq, lk, d,
                                        causal, scale, s);
+  if (dtype == 2)
+    return dispatch_dim<__half>(q, k, v, vlf, out, bh, lq, lk, d, causal,
+                                scale, s);
   return cudaErrorInvalidValue;
 }

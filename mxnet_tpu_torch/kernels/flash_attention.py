@@ -43,7 +43,8 @@ __all__ = ["flash_attention", "flash_attention_backward",
 BLOCK_K = 128           # key chunk of the plain version (the TPU tile)
 _NEG_INF = -1e30
 _KERNEL_DIMS = (32, 64, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1,
+                  torch.float16: 2}
 _MAX_BH = 65535         # the kernel's grid.y
 _count_lock = threading.Lock()
 
@@ -91,7 +92,7 @@ def _online_softmax(qs, kf, vf, vl_eff, causal):
 
 def _prepare(q, k, v, vl, scale):
     """q scaled, k, v and the clamped lengths in the accumulation dtype:
-    fp32 for fp32/bf16 inputs, float64 for float64 (the backward's
+    fp32 for fp32/bf16/fp16 inputs, float64 for float64 (the backward's
     reference runs and ``gradcheck``)."""
     acc = torch.promote_types(q.dtype, torch.float32)
     lk = k.shape[1]
@@ -252,11 +253,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b-major to ``(B*H,)``.  ``scale`` defaults to ``1/sqrt(D)``.
 
     On the CPU this runs :func:`flash_attention_plain`; on a CUDA tensor it
-    launches the kernel, which takes D in {32, 64, 128}, float32 or
-    bfloat16, q/k/v starting on a 16-byte boundary and batch*heads up to
-    65535, and raises on anything else (a contiguous view at an unaligned
-    offset included).  It is differentiable in q, k and v on both devices
-    (:class:`_FlashAttention`, whose backward,
+    launches the kernel, which takes D in {32, 64, 128}, float32,
+    bfloat16 or float16, q/k/v starting on a 16-byte boundary and
+    batch*heads up to 65535, and raises on anything else (a contiguous
+    view at an unaligned offset included).  It is differentiable in q, k
+    and v on both devices (:class:`_FlashAttention`, whose backward,
     :func:`flash_attention_backward`, recomputes the probabilities chunk
     by chunk in torch); it records a node when grad mode is on and an
     input requires grad, as any torch op does."""

@@ -3,10 +3,13 @@ tensors.
 
 Counterpart of the SGD family of ``mxnet_tpu/ndarray/ops_optimizer.py``:
 
-- per tensor (plain torch; the JAX package leaves them to XLA):
-  ``sgd_update(weight, grad, lr, ...)``, ``sgd_mom_update(weight, grad,
-  mom, lr, ...)`` and ``mp_sgd_mom_update(weight, grad, mom, weight32,
-  lr, ...)``;
+- per tensor: ``sgd_update(weight, grad, lr, ...)`` and
+  ``sgd_mom_update(weight, grad, mom, lr, ...)`` (plain torch; the JAX
+  package leaves them to XLA), and the multi-precision
+  ``mp_sgd_update(weight, grad, weight32, lr, ...)`` and
+  ``mp_sgd_mom_update(weight, grad, mom, weight32, lr, ...)``, which run
+  the mixed path of ``kernels/multi_sgd.py`` on a group of one (the
+  kernel on the card);
 - multi-tensor, through the hand-written kernels of
   ``kernels/multi_sgd.py`` on the card, with the reference's interleaved
   inputs followed by the per-tensor lr and wd sequences:
@@ -26,10 +29,13 @@ masters) and returns them in the reference's output order.  The update is
 ``w - lr * (c + wd * w)`` with ``c = grad * rescale_grad`` clipped to
 ``[-clip_gradient, clip_gradient]`` when ``clip_gradient > 0``; the
 momentum form keeps ``m = momentum * m - lr * (c + wd * w)`` and adds it
-to ``w``.  The multi-precision forms run the fp32 update on the master
-weight ``w32`` (the gradient cast to fp32 first) and then store ``w32``
-cast into the low-precision weight.  Operators take no gradient: call them
-outside ``autograd.record()`` or under ``torch.no_grad()``.
+to ``w``.  On bf16/fp16 weights the SGD ops round as the JAX package does
+(lr, wd and momentum to the weight's dtype, ``grad * rescale_grad`` in the
+gradient's; ``kernels/multi_sgd.py``).  The multi-precision forms run the
+fp32 update on the master weight ``w32`` (the gradient cast to fp32) and
+store ``w32`` rounded into the low-precision weight, in the same pass.
+Operators take no gradient: call them outside ``autograd.record()`` or
+under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -38,36 +44,46 @@ from typing import List
 import torch
 
 from ..base import MXNetError
-from ..kernels.multi_sgd import _clip, _step, multi_sgd, multi_sgd_mom
+from ..kernels.multi_sgd import (_clip, multi_mp_sgd, multi_mp_sgd_mom,
+                                 multi_sgd, multi_sgd_mom,
+                                 multi_sgd_mom_plain, multi_sgd_plain)
 
-__all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_mom_update",
-           "multi_sgd_update", "multi_sgd_mom_update",
+__all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
+           "mp_sgd_mom_update", "multi_sgd_update", "multi_sgd_mom_update",
            "multi_mp_sgd_mom_update", "adam_update"]
 
 
 @torch.no_grad()
 def sgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0,
                clip_gradient=-1.0):
-    weight.sub_(_step(weight, grad, float(lr), wd, rescale_grad,
-                      _clip(clip_gradient)))
+    multi_sgd_plain([weight], [grad], [lr], [wd], rescale_grad,
+                    clip_gradient)
     return weight
 
 
 @torch.no_grad()
 def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
                    rescale_grad=1.0, clip_gradient=-1.0):
-    mom.mul_(momentum).sub_(_step(weight, grad, float(lr), wd, rescale_grad,
-                                  _clip(clip_gradient)))
-    weight.add_(mom)
+    multi_sgd_mom_plain([weight], [grad], [mom], [lr], [wd], momentum,
+                        rescale_grad, clip_gradient)
     return weight, mom
+
+
+@torch.no_grad()
+def mp_sgd_update(weight, grad, weight32, lr, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=-1.0):
+    """Returns ``weight, weight32``, updated in place."""
+    multi_mp_sgd([weight], [grad], [weight32], [lr], [wd], rescale_grad,
+                 clip_gradient)
+    return weight, weight32
 
 
 @torch.no_grad()
 def mp_sgd_mom_update(weight, grad, mom, weight32, lr, momentum=0.0,
                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
-    sgd_mom_update(weight32, grad.float(), mom, lr, momentum, wd,
-                   rescale_grad, clip_gradient)
-    weight.copy_(weight32)
+    """Returns ``weight, mom, weight32``, updated in place."""
+    multi_mp_sgd_mom([weight], [grad], [mom], [weight32], [lr], [wd],
+                     momentum, rescale_grad, clip_gradient)
     return weight, mom, weight32
 
 
@@ -122,13 +138,12 @@ def multi_sgd_mom_update(*data, momentum=0.0, rescale_grad=1.0,
 def multi_mp_sgd_mom_update(*data, momentum=0.0, rescale_grad=1.0,
                             clip_gradient=-1.0,
                             num_weights=None) -> List[torch.Tensor]:
-    """``w0, g0, m0, w32_0, ..., lrs, wds``: the momentum kernel on the
-    fp32 masters, then each master cast into its weight; returns ``w0,
-    m0, w32_0, ...``."""
+    """``w0, g0, m0, w32_0, ..., lrs, wds``: the momentum update on the
+    fp32 masters, each master rounded into its weight in the same pass
+    (one launch of the kernel's mixed path per group on the card);
+    returns ``w0, m0, w32_0, ...``."""
     (ws, gs, ms, w32s), lrs, wds = _split(data, 4, num_weights,
                                           "multi_mp_sgd_mom_update")
-    multi_sgd_mom(w32s, [g.float() for g in gs], ms, lrs, wds, momentum,
-                  rescale_grad, clip_gradient)
-    for w, w32 in zip(ws, w32s):
-        w.copy_(w32)
+    multi_mp_sgd_mom(ws, gs, ms, w32s, lrs, wds, momentum, rescale_grad,
+                     clip_gradient)
     return [t for trio in zip(ws, ms, w32s) for t in trio]

@@ -11,10 +11,14 @@ Trainer's parameters), ``clip_gradient``, per-index update counts and
 ``SGD.update_multi`` is the multi-tensor path of ``gluon.Trainer``: one
 ``multi_sgd_update`` / ``multi_sgd_mom_update`` /
 ``multi_mp_sgd_mom_update`` call per group, which on the card is one launch
-of a hand-written kernel.  It falls back to the per-tensor update for the
-same cases as the reference (mixed weight dtypes; multi-precision without
-momentum or with a state that is not a master pair).  Updates run under
-``torch.no_grad()`` and change the weights in place.
+of a hand-written kernel (fp32, bf16 or fp16 weights; the mixed path for
+fp32 masters of bf16/fp16 weights).  It falls back to the per-tensor
+update for the same cases as the reference (mixed weight dtypes;
+multi-precision without momentum, which then runs ``mp_sgd_update``, or
+with a state that is not a master pair).  ``create_state`` keeps the
+momentum in the weight's dtype; with ``multi_precision`` the master and
+its momentum are fp32.  Updates run under ``torch.no_grad()`` and change
+the weights in place.
 
 ``Adam`` is MXNet's: the bias correction folds into the rate, ``lr_t = lr
 * sqrt(1 - beta2^t) / (1 - beta1^t)`` with ``t`` the parameter's own
@@ -166,11 +170,13 @@ class SGD(Optimizer):
             mom, w32 = state
             self._update_count(index)
             if mom is None:
-                mom = torch.zeros_like(w32)
-            ops.mp_sgd_mom_update(weight, grad, mom, w32,
-                                  self._get_lr(index),
-                                  momentum=self.momentum,
+                ops.mp_sgd_update(weight, grad, w32, self._get_lr(index),
                                   **self._common_kwargs(index))
+            else:
+                ops.mp_sgd_mom_update(weight, grad, mom, w32,
+                                      self._get_lr(index),
+                                      momentum=self.momentum,
+                                      **self._common_kwargs(index))
         else:
             self.update(index, weight, grad, state)
 

@@ -8,6 +8,8 @@ the tensor cores' peaks on ``kernel_phase``'s own seed-0 draws, and the
 SASS census's parser on a ``cuobjdump -sass`` excerpt."""
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -98,11 +100,22 @@ def _fake_profiler(monkeypatch, traces):
 
     monkeypatch.setattr(torch.profiler, "profile", Profile)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda *args: None)
 
 
 def test_device_ms_retakes_a_trace_that_lost_its_records(monkeypatch):
     _fake_profiler(monkeypatch, [[], [300.0, 100.0]])
     assert chip_smoke.device_ms(lambda: None, 2) == 0.2
+
+
+def test_device_ms_leaves_out_the_sentinel(monkeypatch):
+    """The sentinel that opens each trace is no part of ``fn``'s time."""
+    _fake_profiler(monkeypatch, [[(50.0, 1, "at::cuda::(anonymous "
+                                   "namespace)::spin_kernel(long)"),
+                                  (300.0, 2, "flash_fwd_kernel")]])
+    seen = {}
+    assert chip_smoke.device_ms(lambda: None, 2, kernels=seen) == 0.15
+    assert seen == {"flash_fwd_kernel": 1}
 
 
 def test_device_ms_never_reports_zero(monkeypatch):
@@ -211,11 +224,12 @@ def test_device_ms_retakes_a_trace_with_partial_records(monkeypatch):
 
 
 def test_flash_bound_takes_the_tensor_core_peaks():
-    """fp32 at 495 TFLOP/s (TF32), bf16 at 989; at kernel_phase's seed-0
-    draws both B=8, L=512 cases are bound by bytes: 0.0109 ms (3.29
-    GFLOP, 36.4 MB) and 0.0048 ms (2.27 GFLOP, 16.2 MB)."""
+    """fp32 at 495 TFLOP/s (TF32), bf16 and fp16 at 989; at kernel_phase's
+    seed-0 draws both B=8, L=512 cases are bound by bytes: 0.0109 ms
+    (3.29 GFLOP, 36.4 MB) and 0.0048 ms (2.27 GFLOP, 16.2 MB)."""
     assert chip_smoke.TENSOR_FLOPS == {torch.float32: 495e12,
-                                       torch.bfloat16: 989e12}
+                                       torch.bfloat16: 989e12,
+                                       torch.float16: 989e12}
     gen = torch.Generator().manual_seed(0)
     bounds = {}
     for name, b, h, lq, lk, d, dtype, _, _ in chip_smoke.FLASH_CASES:
@@ -286,39 +300,166 @@ def test_flash_sass_fails_without_async_copies(monkeypatch):
     assert list(chip_smoke.flash_sass()) == ["bfloat16 D=32"]
 
 
-# two multi-SGD kernels of a ``cuobjdump -sass`` listing (sgd_mom first)
-SGD_SASS = """
-\t\tFunction : _ZN45_GLOBAL__N__3f86046f_12_multi_sgd_cu_8d19394816multi_sgd_kernelILb1EEEvNS_5TableENS_7ScalarsE
-        /*0400*/              @!P0 LDG.E.128 R4, desc[UR6][R2.64] ;
-        /*0410*/              @!P0 LDG.E.128.CONSTANT R8, desc[UR6][R6.64] ;
-        /*0420*/              @!P1 LDG.E.128 R12, desc[UR6][R10.64] ;
-        /*0430*/                   LDG.E R16, desc[UR6][R14.64] ;
-        /*0c00*/                   STG.E.128 desc[UR6][R8.64], R12 ;
-\t\tFunction : _ZN45_GLOBAL__N__3f86046f_12_multi_sgd_cu_8d19394816multi_sgd_kernelILb0EEEvNS_5TableENS_7ScalarsE
-        /*0400*/              @!P0 LDG.E.128 R4, desc[UR6][R2.64] ;
-        /*0c00*/                   STG.E.128 desc[UR6][R8.64], R12 ;
-"""
+# a multi-SGD kernel of a ``cuobjdump -sass`` listing: its name, and
+# ``loads`` 16-byte loads (every other one marked .CONSTANT, which counts
+# too), a 4-byte load and a 16-byte store, which do not
+SGD_MANGLED = {"float32": "f", "bfloat16": "13__nv_bfloat16",
+               "float16": "6__half"}
+
+
+def _sgd_listing(dtype, mode, loads):
+    lines = ["\t\tFunction : _ZN45_GLOBAL__N__3f86046f_12_multi_sgd_cu_8d1939"
+             f"4816multi_sgd_kernelI{SGD_MANGLED[dtype]}Li"
+             f"{chip_smoke.SGD_MODES.index(mode)}EEEvNS_5TableENS_7ScalarsE"]
+    for i in range(loads):
+        lines.append(f"        /*{i:04x}*/              @!P0 LDG.E.128"
+                     f"{'.CONSTANT' if i % 2 else ''} R4, desc[UR6][R2.64] ;")
+    lines += ["        /*0c00*/                   LDG.E R16, desc[UR6]"
+              "[R14.64] ;",
+              "        /*0c10*/                   STG.E.128 desc[UR6]"
+              "[R8.64], R12 ;"]
+    return "\n".join(lines) + "\n"
+
+
+KERNELS = [(dt, mode) for dt in ("float32", "bfloat16", "float16")
+           for mode in chip_smoke.SGD_MODES
+           if dt != "float32" or not mode.startswith("mp")]
 
 
 def test_sgd_sass_fails_without_the_staged_loads(monkeypatch):
-    """The census names the two multi-SGD kernels by form, counts 16-byte
-    loads by their whole mnemonic, and fails when a kernel has fewer than
-    ``SGD_UNROLL`` per array (the plain form's lines above have 1 of
-    2)."""
+    """The census names the 10 multi-SGD kernels by storage type and mode,
+    counts 16-byte loads by their whole mnemonic, and fails when one has
+    fewer than it stages (``sgd_words``: 4 fp32 vectors or 2 of 8
+    elements, each a word of every array and two of an fp32 array on the
+    mixed path) or when one is missing."""
     import subprocess
     import types
     monkeypatch.setattr(chip_smoke, "cuobjdump", lambda: "cuobjdump")
-    monkeypatch.setattr(chip_smoke, "SGD_UNROLL", 1)
+    words = {k: chip_smoke.sgd_words(*k) for k in KERNELS}
+    assert words == {
+        ("float32", "sgd"): 8, ("float32", "sgd_mom"): 12,
+        ("bfloat16", "sgd"): 4, ("bfloat16", "sgd_mom"): 6,
+        ("bfloat16", "mp_sgd"): 6, ("bfloat16", "mp_sgd_mom"): 10,
+        ("float16", "sgd"): 4, ("float16", "sgd_mom"): 6,
+        ("float16", "mp_sgd"): 6, ("float16", "mp_sgd_mom"): 10}
+
+    def listing(short=None, drop=None):
+        return "".join(_sgd_listing(dt, mode, n - (k == short))
+                       for k, n in words.items() if k != drop
+                       for dt, mode in (k,))
+
+    for text in (listing(short=("bfloat16", "mp_sgd_mom")),
+                 listing(drop=("float16", "sgd"))):
+        monkeypatch.setattr(subprocess, "run", lambda *a, **k:
+                            types.SimpleNamespace(stdout=text))
+        with pytest.raises(AssertionError, match="staged 16-byte loads"):
+            chip_smoke.sgd_sass()
+    full = listing()
     monkeypatch.setattr(subprocess, "run", lambda *a, **k:
-                        types.SimpleNamespace(stdout=SGD_SASS))
-    with pytest.raises(AssertionError, match="staged 16-byte loads"):
-        chip_smoke.sgd_sass()
-    both = SGD_SASS + SGD_SASS[SGD_SASS.index("        /*0400"):
-                               SGD_SASS.index("        /*0410")]
-    monkeypatch.setattr(subprocess, "run", lambda *a, **k:
-                        types.SimpleNamespace(stdout=both))
+                        types.SimpleNamespace(stdout=full))
     census = chip_smoke.sgd_sass()
-    assert census == {"sgd_mom": {"load_128": 3}, "sgd": {"load_128": 2}}
+    assert census == {f"{dt} {mode}": {"load_128": n}
+                      for (dt, mode), n in words.items()}
+
+
+def test_sgd_bytes_take_each_array_once():
+    """Bytes per element of each update, as the kernel's bound counts
+    them: fp32 12 and 20; bf16/fp16 6 and 10; the mixed path 12 and 20
+    (the unfused route it replaces moved 32)."""
+    got = {(mode, isz): chip_smoke.sgd_bytes(mode, isz)
+           for mode in chip_smoke.SGD_MODES for isz in (4, 2)
+           if isz == 2 or not mode.startswith("mp")}
+    assert got == {("sgd", 4): 12, ("sgd_mom", 4): 20, ("sgd", 2): 6,
+                   ("sgd_mom", 2): 10, ("mp_sgd", 2): 12,
+                   ("mp_sgd_mom", 2): 20}
+
+
+def test_fp16_flash_cases_keep_bert_base_width():
+    cases = chip_smoke.FP16_FLASH_CASES
+    assert len(cases) == 9
+    assert {(c[3], c[5]) for c in cases} == {
+        (lq, d) for lq in (128, 256, 512) for d in (32, 64, 128)}
+    assert all(c[1] == 8 and c[2] * c[5] == 768 and c[6] == torch.float16
+               for c in cases)
+
+
+@pytest.fixture(scope="module")
+def cast_step():
+    """A small ResNet cast to bf16 and one SGD-momentum step with
+    ``multi_precision`` on the CPU (the plain version of the mixed
+    path): the trainer, whose states hold the fp32 masters."""
+    from mxnet_tpu_torch import autograd
+    net = _net()
+    net.initialize(Xavier("gaussian", "in", 2), ctx=cpu(), seed=0)
+    net.cast("bfloat16")
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": 0.1, "momentum": 0.9,
+                        "multi_precision": True})
+    x = torch.randn(2, 3, 32, 32,
+                    generator=torch.Generator().manual_seed(0)).bfloat16()
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+            net(x), torch.tensor([1.0, 7.0]))
+    autograd.backward(loss)
+    tr.step(2)
+    return tr
+
+
+def test_masters_check_fails_on_a_master_one_ulp_off(cast_step):
+    """Phase 10 (b)'s check: after the step every weight is its master
+    rounded; a master moved by one bf16 ulp (or a weight by one) fails
+    that parameter alone."""
+    tr = cast_step
+    assert chip_smoke.masters_mismatched(tr) == []
+    i, p = 5, tr._params[5]
+    w32 = tr._states[i][1]
+    saved = w32.clone()
+    ulp = torch.frexp(w32)[1].float().sub(8).exp2()     # 2^(e - 8)
+    w32.add_(ulp)
+    assert chip_smoke.masters_mismatched(tr) == [p.name]
+    w32.copy_(saved)
+    assert chip_smoke.masters_mismatched(tr) == []
+
+
+def _update_prof(names):
+    """A fake profile: a forward kernel, then a ``trainer_step`` range
+    whose device span holds the kernels ``names`` (launched by ctypes, so
+    no CPU op carries them), then a kernel after it."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def event(name, start, end, annotation=False, device=cuda):
+        return types.SimpleNamespace(
+            name=name, device_type=device, is_user_annotation=annotation,
+            kernels=[], time_range=types.SimpleNamespace(
+                start=start, end=end, elapsed_us=lambda: end - start))
+
+    t = 100.0 + 2.0 * len(names)
+    events = [event("sm90_xmma_fprop", 0.0, 90.0),
+              event("trainer_step", 95.0, t + 5.0, True,
+                    torch.autograd.DeviceType.CPU),
+              event("trainer_step", 100.0, t, True)]
+    events += [event(n, 100.0 + 2 * i, 101.0 + 2 * i)
+               for i, n in enumerate(names)]
+    events.append(event("vectorized_elementwise_kernel", t + 10, t + 11))
+    return types.SimpleNamespace(events=lambda: events)
+
+
+def test_update_range_check_fails_when_a_per_tensor_copy_comes_back():
+    """Phase 10's update range holds exactly the 41 launches of the
+    mixed-path kernel; one ``copy_`` of a master into its weight (a
+    direct_copy kernel), or a launch short, fails it."""
+    mixed = "void (anonymous namespace)::multi_sgd_kernel<__nv_bfloat16, 3>"
+    ok = chip_smoke.update_range_check(_update_prof([mixed] * 41),
+                                       "multi_sgd_kernel", 41)
+    assert ok["ok"] and ok["kernel_launches"] == 41
+    copy = ("void at::native::unrolled_elementwise_kernel<at::native::"
+            "direct_copy_kernel_cuda>")
+    bad = chip_smoke.update_range_check(
+        _update_prof([mixed] * 41 + [copy]), "multi_sgd_kernel", 41)
+    assert not bad["ok"] and bad["other_kernels"] == [copy[:90]]
+    short = chip_smoke.update_range_check(_update_prof([mixed] * 40),
+                                          "multi_sgd_kernel", 41)
+    assert not short["ok"]
 
 
 def test_ptxas_report_reads_registers_and_spills():

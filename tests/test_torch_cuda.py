@@ -10,9 +10,11 @@ H100:
 
 Tolerances: flash fp32 max-abs 1e-4 (fp32 accumulation in both, summation
 order differs; the kernel's products are 3xTF32, as accurate as fp32);
-bf16 2e-2 against the plain version run in fp32 on the
-same bf16 inputs (bf16 output rounding).  Multi-tensor SGD 1e-6 (the
-kernels round each operation as the plain version does: 0 expected).
+bf16 2e-2 and fp16 4e-3 against the plain version run in fp32 on the
+same bf16/fp16 inputs (output rounding, and P rounded to the input type
+for the PV product: 8 and 11 significant bits).  Multi-tensor SGD 1e-6
+in fp32 (the kernels round each operation as the plain version does: 0
+expected), bit for bit in bf16/fp16 and on the mixed path.
 A training step on the card against the CPU: 1e-4 (cuDNN and the CPU's
 convolutions sum in different orders).  rtc: exact for add_one, twice,
 the reversal through shared memory and the fp16 product (one rounding in
@@ -27,12 +29,16 @@ import torch
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.kernels import (flash_attention, flash_attention_plain,
-                                     multi_sgd, multi_sgd_mom,
-                                     multi_sgd_mom_plain, multi_sgd_plain)
+                                     multi_mp_sgd, multi_mp_sgd_mom,
+                                     multi_mp_sgd_mom_plain,
+                                     multi_mp_sgd_plain, multi_sgd,
+                                     multi_sgd_mom, multi_sgd_mom_plain,
+                                     multi_sgd_plain)
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+FLASH_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -69,7 +75,7 @@ FLASH_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
 @pytest.mark.parametrize("b,h,lq,lk,d,causal,vl,scale", FLASH_CASES)
 def test_kernel_matches_plain(card, dtype, b, h, lq, lk, d, causal, vl,
                               scale):
@@ -104,7 +110,7 @@ def _lengths(vl, b, lk, d, card):
     return torch.as_tensor(vl, dtype=torch.float32).to(card)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", FLASH_DTYPES)
 @pytest.mark.parametrize("b,h,lq,lk,d,causal,vl,scale", FLASH_CASES)
 def test_backward_matches_plain_autograd(card, dtype, b, h, lq, lk, d,
                                          causal, vl, scale):
@@ -229,9 +235,11 @@ def test_kernel_rejects_what_it_does_not_take(card):
     q = torch.zeros(2, 16, 48, device=card)
     with pytest.raises(MXNetError, match="head dim"):
         flash_attention(q, q, q)
-    h = torch.zeros(2, 16, 64, device=card, dtype=torch.float16)
+    h = torch.zeros(2, 16, 64, device=card, dtype=torch.float64)
+    before = flash_attention.launches
     with pytest.raises(MXNetError, match="dtype"):
         flash_attention(h, h, h)
+    assert flash_attention.launches == before
     x = torch.zeros(2, 16, 64, device=card)
     with pytest.raises(MXNetError, match="devices"):
         flash_attention(x, x.cpu(), x)
@@ -327,9 +335,21 @@ def test_multi_sgd_kernels_match_plain(card, momentum, clip, offset):
 
 
 def test_multi_sgd_kernel_rejects_what_it_does_not_take(card):
+    """A dtype without a kernel raises and launches nothing (float64; a
+    mixed group of fp32 weights, of bf16 masters, of bf16 weights with
+    fp16 gradients); so do other layouts, sizes and devices."""
     w = [torch.zeros(4, 4, device=card)]
+    d, b = [w[0].double()], [w[0].bfloat16()]
+    before = multi_sgd.launches + multi_mp_sgd_mom.launches
     with pytest.raises(MXNetError, match="dtype"):
-        multi_sgd([w[0].bfloat16()], [w[0].bfloat16()], [0.1], [0.0])
+        multi_sgd(d, d, [0.1], [0.0])
+    with pytest.raises(MXNetError, match="dtype"):
+        multi_mp_sgd_mom(w, w, w, w, [0.1], [0.0], 0.9)
+    with pytest.raises(MXNetError, match="dtype"):
+        multi_mp_sgd_mom(b, b, w, b, [0.1], [0.0], 0.9)
+    with pytest.raises(MXNetError, match="dtype"):
+        multi_mp_sgd_mom(b, [w[0].half()], w, w, [0.1], [0.0], 0.9)
+    assert multi_sgd.launches + multi_mp_sgd_mom.launches == before
     with pytest.raises(MXNetError, match="contiguous"):
         multi_sgd([w[0].t()], [w[0].t()], [0.1], [0.0])
     with pytest.raises(MXNetError, match="match"):
@@ -406,6 +426,85 @@ def test_multi_sgd_tile_edges_match_plain_bitwise(card, momentum, name,
     torch.cuda.synchronize()
     assert counter.launches - before == 1
     for a, b in zip(wk + mk, wp + mp):
+        assert torch.equal(a, b)
+
+
+LP_MODES = ["sgd", "sgd_mom", "mp_sgd", "mp_sgd_mom"]
+
+
+def _lp_sgd(card, mode, dtype, shapes, offset, seed):
+    """Run ``mode`` (a plain update on ``dtype`` tensors, or the mixed one
+    on ``dtype`` weights with fp32 momenta and masters) through the
+    kernel and through the plain version on copies of the same tensors,
+    each ``offset`` elements into its own buffer; returns the launches
+    and the pairs (kernel, plain) of every updated tensor."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    mixed = mode.startswith("mp")
+
+    def make(dt, scale):
+        out = []
+        for s in shapes:
+            n = int(np.prod(s))
+            buf = torch.randn(n + offset, device=card, generator=gen) * scale
+            out.append(buf.to(dt)[offset:].view(s))
+        return out
+    w, g = make(dtype, 1.0), make(dtype, 2.0)
+    m = make(torch.float32 if mixed else dtype, 0.1)
+    w32 = [t.float() + 1e-3 for t in w]
+    lrs = np.linspace(0.01, 0.3, len(w)).tolist()
+    wds = np.linspace(0.0, 1e-2, len(w)).tolist()
+    runs = []
+    for fns in ((multi_sgd, multi_sgd_mom, multi_mp_sgd, multi_mp_sgd_mom),
+                (multi_sgd_plain, multi_sgd_mom_plain, multi_mp_sgd_plain,
+                 multi_mp_sgd_mom_plain)):
+        fn = fns[LP_MODES.index(mode)]
+        wk, mk, w32k = ([t.clone() for t in ts] for ts in (w, m, w32))
+        args = {"sgd": (wk, g), "sgd_mom": (wk, g, mk),
+                "mp_sgd": (wk, g, w32k), "mp_sgd_mom": (wk, g, mk, w32k)}
+        momentum = (0.9,) if mode.endswith("mom") else ()
+        before = fn.launches if hasattr(fn, "launches") else 0
+        fn(*args[mode], lrs, wds, *momentum, 1 / 128, 0.5)
+        runs.append((getattr(fn, "launches", 0) - before,
+                     [t for grp in args[mode][:1] + args[mode][2:]
+                      for t in grp]))
+    torch.cuda.synchronize()
+    return runs[0][0], list(zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode", LP_MODES)
+def test_low_precision_sgd_kernels_match_plain_bitwise(card, mode, dtype,
+                                                       offset):
+    """bf16/fp16 weights, plain and mixed, on 72 odd-sized tensors (16-byte
+    vectors of 8 elements and scalar tails; at an odd element offset
+    every pointer is misaligned and the scalar path takes all): bit for
+    bit against the plain version, 2 launches; on the mixed path each
+    weight is its master rounded."""
+    launches, pairs = _lp_sgd(card, mode, dtype, ODD_SHAPES, offset,
+                              3 + offset)
+    assert launches == 2
+    for a, b in pairs:
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if mode.startswith("mp"):
+        n = len(ODD_SHAPES)
+        for w, w32 in zip([a for a, _ in pairs[:n]],
+                          [a for a, _ in pairs[-n:]]):
+            assert torch.equal(w, w32.to(w.dtype))
+
+
+@pytest.mark.parametrize("mode", LP_MODES)
+@pytest.mark.parametrize("name,shapes", TILE_CASES,
+                         ids=[c[0] for c in TILE_CASES])
+def test_low_precision_sgd_tile_edges_match_plain_bitwise(card, name,
+                                                          shapes, mode):
+    """The launch plan's edges in bf16 (tiles of 1024 to 16384 elements,
+    8 to a vector), one launch each, bit for bit."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    launches, pairs = _lp_sgd(card, mode, torch.bfloat16, shapes(sms), 0,
+                              13)
+    assert launches == 1
+    for a, b in pairs:
         assert torch.equal(a, b)
 
 

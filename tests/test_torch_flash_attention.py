@@ -4,7 +4,9 @@ wrapper) held against the JAX package's Pallas kernel in interpret mode.
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerance: 2e-5 in fp32 (two fp32 online softmaxes that differ only in
 summation order); bf16 inputs are compared in fp32 at 2e-2 (bf16 output
-rounding, 8 mantissa bits).
+rounding, 8 mantissa bits), fp16 inputs at 4e-3 (fp16 output rounding,
+11 bits; the JAX kernel also rounds P to fp16 for the PV product, as the
+card's kernel does).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,9 +19,12 @@ from mxnet_tpu_torch.kernels import flash_attention, flash_attention_plain
 from mxnet_tpu_torch.ndarray import flash_attention as op_flash
 
 
+_DTYPES = {"bfloat16": (jnp.bfloat16, torch.bfloat16),
+           "float16": (jnp.float16, torch.float16)}
+
+
 def _both(q, k, v, causal=False, valid_len=None, dtype=np.float32):
-    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jdt, tdt = _DTYPES.get(dtype, (jnp.float32, torch.float32))
     ref = jax_flash(jnp.asarray(q).astype(jdt), jnp.asarray(k).astype(jdt),
                     jnp.asarray(v).astype(jdt), causal=causal,
                     interpret=True,
@@ -93,6 +98,36 @@ def test_bf16_input():
     np.testing.assert_allclose(out, ref, atol=2e-2)
 
 
+# the cases above, on fp16 inputs: (name, seed, (BH, Lq, Lk, D) or the
+# 4-d shape, causal, valid_len)
+FP16_CASES = [
+    ("ragged_cross_lengths_d64", 0, (3, 100, 75, 64), False, [75, 40.0, 3]),
+    ("causal_lq_longer_than_lk_dead_rows", 1, (2, 90, 40, 32), True,
+     [40, 25]),
+    ("valid_len_zero_4d", 2, (2, 3, 70, 32), False, [0, 45]),
+    ("unmasked", 3, (2, 33, 130, 16), False, None),
+    ("bert_shape_ragged", 4, (2, 64, 64, 64), False, [64, 30]),
+]
+
+
+@pytest.mark.parametrize("name,seed,shape,causal,vl", FP16_CASES,
+                         ids=[c[0] for c in FP16_CASES])
+def test_fp16_input(name, seed, shape, causal, vl):
+    """The plain version on fp16 inputs (the kernel's fp16 path on the
+    card) against the JAX kernel in interpret mode on the same fp16
+    values: output fp16, within 4e-3."""
+    rs = np.random.RandomState(seed)
+    if len(shape) == 4 and name.endswith("4d"):
+        q, k, v = (rs.randn(*shape).astype(np.float32) for _ in range(3))
+    else:
+        q, k, v = _qkv(rs, *shape)
+    vl = None if vl is None else np.array(vl, np.float32)
+    out, ref = _both(q, k, v, causal=causal, valid_len=vl, dtype="float16")
+    np.testing.assert_allclose(out, ref, atol=4e-3)
+    if name.endswith("4d"):
+        assert not out[0].any()
+
+
 def test_op_signature_and_launch_count_on_cpu():
     """The op is the kernel wrapper, with the op's argument order (q, k, v,
     valid_len, causal, scale); the CPU path runs the plain version and
@@ -155,7 +190,7 @@ def test_card_path_refuses_inputs_that_require_grad(monkeypatch, grad_on):
 
 @pytest.mark.parametrize("case,match", [
     ("head dim", "head dim 48"),
-    ("dtype", "dtype torch.float16"),
+    ("dtype", "dtype torch.float64"),
     ("unaligned", "v starts 8 bytes past a 16-byte boundary"),
     ("batch*heads", r"batch\*heads 65536"),
     ("aligned offset", None),          # 16 bytes in: taken, reaches _kernel
@@ -176,7 +211,7 @@ def test_card_path_checks_raise_before_any_launch(monkeypatch, case, match):
     q = torch.zeros(2, 8, 64)
     args = {
         "head dim": (torch.zeros(2, 8, 48),) * 3,
-        "dtype": (torch.zeros(2, 8, 64, dtype=torch.float16),) * 3,
+        "dtype": (torch.zeros(2, 8, 64, dtype=torch.float64),) * 3,
         "unaligned": (q, q, torch.zeros(2 * 8 * 64 + 2)[2:].view(2, 8, 64)),
         "batch*heads": (torch.zeros(65536, 1, 32),) * 3,
         "aligned offset": (q, q,

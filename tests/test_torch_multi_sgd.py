@@ -175,11 +175,11 @@ def _record_launches(monkeypatch, err=0):
     that ``_launch`` runs on CPU tensors."""
     seen = []
 
-    def fn(count, w, g, m, n, starts, lr, wd, use_mom, mu, rescale, clip,
-           tile, grid, stream):
+    def fn(count, w, g, m, w32, n, starts, lr, wd, dtype, mode, mu,
+           rescale, clip, tile, grid, stream):
         sizes = list((ctypes.c_longlong * count).from_address(n))
         starts = tuple((ctypes.c_int * (count + 1)).from_address(starts))
-        seen.append((count, sizes, starts, use_mom, tile, grid, stream))
+        seen.append((count, sizes, starts, dtype, mode, tile, grid, stream))
         return err
 
     monkeypatch.setattr(ms, "_kernel", lambda: fn)
@@ -189,16 +189,21 @@ def _record_launches(monkeypatch, err=0):
     return seen
 
 
+def _scalars(k, momentum=0.9):
+    return ms._scalars(torch.float32, torch.float32, [0.1] * k, [0.0] * k,
+                       momentum, 1.0, -1.0)
+
+
 def test_launch_hands_the_plan_to_the_kernel(monkeypatch):
     seen = _record_launches(monkeypatch)
     shapes = [(3, 33333), (0,), (8193,)] + [(5,)] * 64
     w = [torch.zeros(s) for s in shapes]
     before = ms.multi_sgd_mom.launches
-    ms._launch(ms.multi_sgd_mom, w, w, w, [0.1] * 67, [0.0] * 67, 0.9,
-               1.0, -1.0)
+    ms._launch(ms.multi_sgd_mom, ms.SGD_MOM, w, w, w, None, _scalars(67))
     plans = ms._launch_plans(tuple(t.numel() for t in w), H100_SMS)
     assert seen == [(p.hi - p.lo, [t.numel() for t in w[p.lo:p.hi]],
-                     p.starts, 1, p.tile, p.grid, 7) for p in plans]
+                     p.starts, 0, ms.SGD_MOM, p.tile, p.grid, 7)
+                    for p in plans]
     assert ms.multi_sgd_mom.launches - before == len(plans) == 2
 
 
@@ -207,5 +212,49 @@ def test_launch_raises_on_a_kernel_error_and_counts_nothing(monkeypatch):
     w = [torch.zeros(10)]
     before = ms.multi_sgd.launches
     with pytest.raises(MXNetError, match="CUDA error 700"):
-        ms._launch(ms.multi_sgd, w, w, None, [0.1], [0.0], 0.0, 1.0, -1.0)
+        ms._launch(ms.multi_sgd, ms.SGD, w, w, None, None, _scalars(1, 0.0))
     assert ms.multi_sgd.launches == before
+
+
+@pytest.mark.parametrize("name", SETS)
+def test_plan_in_a_two_byte_dtype_covers_every_element_once(resnet_sizes,
+                                                            name):
+    """In bf16/fp16 a 16-byte vector holds 8 elements: tiles of 1024 to
+    16384 elements (the fp32 plan's bytes), each a multiple of 8, still
+    covering every element exactly once and spreading as the fp32 plan
+    does."""
+    for group in _sizes(name, resnet_sizes):
+        for plan in ms._launch_plans(group, H100_SMS, 8):
+            assert plan.tile in (1024, 2048, 4096, 8192, 16384)
+            assert 1 <= plan.grid <= ms.BLOCKS_PER_SM * H100_SMS
+            assert plan.starts[-1] >= 2 * H100_SMS or plan.tile == 1024
+            for cover in _walk(plan, group):
+                assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("dtype,mode,code", [
+    (torch.bfloat16, "SGD_MOM", 1), (torch.float16, "SGD", 2),
+    (torch.bfloat16, "MP_SGD_MOM", 1), (torch.float16, "MP_SGD", 2)])
+def test_launch_hands_a_two_byte_plan_dtype_and_mode(monkeypatch, dtype,
+                                                     mode, code):
+    """bf16/fp16 weights go with their dtype code, the mode, and the plan
+    of 8-element vectors; the mixed modes take fp32 momenta and masters,
+    and refuse fp32 weights."""
+    seen = _record_launches(monkeypatch)
+    shapes = [(3, 33333), (8193,), (5,)]
+    w = [torch.zeros(s, dtype=dtype) for s in shapes]
+    f = [torch.zeros(s) for s in shapes]
+    m = f if mode.startswith("MP") else w
+    w32 = f if mode.startswith("MP") else None
+    wrapper = {"SGD": ms.multi_sgd, "SGD_MOM": ms.multi_sgd_mom,
+               "MP_SGD": ms.multi_mp_sgd,
+               "MP_SGD_MOM": ms.multi_mp_sgd_mom}[mode]
+    ms._launch(wrapper, getattr(ms, mode), w, w,
+               m if mode.endswith("MOM") else None, w32, _scalars(3))
+    (plan,) = ms._launch_plans(tuple(t.numel() for t in w), H100_SMS, 8)
+    assert seen == [(3, [t.numel() for t in w], plan.starts, code,
+                     getattr(ms, mode), plan.tile, plan.grid, 7)]
+    if mode.startswith("MP"):
+        with pytest.raises(MXNetError, match="dtype"):
+            ms._launch(wrapper, getattr(ms, mode), f, f,
+                       f if mode.endswith("MOM") else None, f, _scalars(3))
