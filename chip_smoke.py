@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero without printing the ok line).  Every
 kernel's launch count is set to 0 just before each main path (serving,
-MLP, ResNet-50, the custom-op MLP, BERT-base training, and phase 10's
-low-precision runs) and read just after; a path must launch its kernel
+MLP, ResNet-50, the custom-op MLP, BERT-base training, phase 10's
+low-precision runs and phase 11's imperative MLP) and read just after; a path must launch its kernel
 the expected number of times and the other kernels not at all:
 
 1. device check: a CUDA card must be present; prints the card's name and
@@ -150,7 +150,26 @@ the expected number of times and the other kernels not at all:
    at L=256 and 512 (gradients within 2e-2 x max(1, max|g|)); (e) the
    MLP of phase 5 with bf16 weights: 2 plain-SGD launches a step on
    bf16 weights, a falling loss;
-11. prints one JSON line of kernel measurements (flash: the fp32 and, as
+11. the imperative surface (config #1 at full width, 784-128-64-10,
+   batch 64, written in ``nd`` ops as the verify recipe writes it):
+   ``nd.array`` data and labels, the weights ``NDArray``s with
+   ``attach_grad()``, ``autograd.record()`` over ``nd.FullyConnected``
+   -> ``nd.Activation("relu")`` (twice) -> ``nd.FullyConnected`` ->
+   ``nd.log_softmax`` -> ``nd.pick`` -> ``nd.mean``, ``L.backward()``,
+   then outside ``record()`` one ``nd.multi_sgd_mom_update(w0, g0, m0,
+   ..., lrs, wds, out=weights)`` a step (the momentum kernel, exactly 1
+   launch a step and no other kernel's), 20 steps with finite, falling
+   losses; the first step from the same weights on the CPU in fp32 and
+   float64 (``leaf_check``); the gradients through ``nd.SoftmaxOutput(z,
+   y, normalization="batch")`` within 1e-5 of those through log-softmax
+   + pick + mean; ``examples/train_mnist_mlp.py``'s loop spelled against
+   the port (``nd.array`` inputs, ``net(x)`` an ``NDArray``,
+   ``L.backward()``, ``trainer.step``, ``metric.update``, the held-out
+   forward through ``.asnumpy()``) for 10 Adam steps; prints both loops'
+   step ms, the engine's waits and host reads a step, and the host
+   microseconds of one ``nd.FullyConnected`` on NDArrays against
+   ``F.linear`` on the same tensors;
+12. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; the SGD kernels' bf16/fp16
@@ -180,6 +199,8 @@ import torch.nn.functional as F
 
 from mxnet_tpu_torch import (autograd, gluon, load_reference_params, metric,
                              nd, operator, rtc)
+from mxnet_tpu_torch import engine as mx_engine
+from mxnet_tpu_torch import init as mx_init
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu, gpu
 from mxnet_tpu_torch.contrib import amp
@@ -2288,9 +2309,11 @@ def check_flash_backward(gen, b, h, length, d, dtype, iters,
         "fwd_bwd_ms": fwd_bwd_ms, "fwd_ms": fwd_ms,
         "bwd_ms": fwd_bwd_ms - fwd_ms,
         "plain_fwd_bwd_ms": device_ms(plain, 3, lost=1),
+        # SDPA's cuDNN backward: a trace of 20 fp16 calls read one
+        # elementwise kernel 2 records short in 3 traces running
         "library_fwd_bwd_ms": device_ms(library, iters,
                                         kernels=launches["library"],
-                                        lost=1),
+                                        lost=2),
         "launches_per_call": launches,
         "wall_fwd_bwd_ms": cuda_ms(ours, iters),
         "library_wall_fwd_bwd_ms": cuda_ms(library, iters),
@@ -2633,6 +2656,296 @@ def low_precision_phase(seed: int, card: str, resnet: dict,
             "ok": all(checks.values())}
 
 
+# ----------------------------------------------------------------------
+# Phase 11: config #1 written in nd ops on NDArrays (the imperative
+# surface), as the verify recipe writes it, and the Gluon loop of
+# examples/train_mnist_mlp.py spelled against the port.
+
+IMPERATIVE_STEPS, IMPERATIVE_LR, IMPERATIVE_WD = 20, 0.1, 1e-4
+IMPERATIVE_GLUON_STEPS = 10
+FC_HOST_CALLS = 500                    # calls timed for the host cost
+SOFTMAX_OUTPUT_TOL = 1e-5
+
+
+def imperative_init(seed: int):
+    """The MLP's weights (He normal) and zero biases, and one batch of 64,
+    drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    arrays = [(rng.standard_normal(s) * math.sqrt(2.0 / s[1])).astype(
+        np.float32) if len(s) == 2 else np.zeros(s, np.float32)
+        for s in MLP_SHAPES]
+    x = rng.standard_normal((MLP_BATCH, 784), dtype=np.float32)
+    y = rng.integers(0, 10, MLP_BATCH).astype(np.float32)
+    return arrays, x, y
+
+
+def imperative_logits(x, params):
+    w0, b0, w1, b1, w2, b2 = params
+    h = nd.Activation(nd.FullyConnected(x, w0, b0, num_hidden=128),
+                      act_type="relu")
+    h = nd.Activation(nd.FullyConnected(h, w1, b1, num_hidden=64),
+                      act_type="relu")
+    return nd.FullyConnected(h, w2, b2, num_hidden=10)
+
+
+def imperative_loss(x, y, params):
+    return -nd.mean(nd.pick(nd.log_softmax(imperative_logits(x, params)), y,
+                            axis=-1))
+
+
+class ImperativeMLP:
+    """The MLP's state as NDArrays on ``ctx``: weights with
+    ``attach_grad()``, zero momenta, the batch and the ``lrs``/``wds``
+    arrays of the multi-tensor update."""
+
+    def __init__(self, seed: int, ctx, dtype: str = "float32"):
+        arrays, x, y = imperative_init(seed)
+        with ctx:
+            self.params = [nd.array(a, dtype=dtype) for a in arrays]
+            for p in self.params:
+                p.attach_grad()
+            self.moms = [nd.zeros(a.shape, dtype=dtype) for a in arrays]
+            self.x = nd.array(x, dtype=dtype)
+            self.y = nd.array(y)
+            self.lrs = nd.array(np.full(len(arrays), IMPERATIVE_LR))
+            self.wds = nd.array([IMPERATIVE_WD if a.ndim == 2 else 0.0
+                                 for a in arrays])
+
+    def step(self):
+        """Record the loss, backward, and one ``multi_sgd_mom_update`` over
+        the 6 parameters into the weights (``out=``)."""
+        with autograd.record():
+            loss = imperative_loss(self.x, self.y, self.params)
+        loss.backward()
+        self.update()
+        return loss
+
+    def update(self):
+        nd.multi_sgd_mom_update(
+            *[t for p, m in zip(self.params, self.moms)
+              for t in (p, p.grad, m)],
+            self.lrs, self.wds, momentum=0.9,
+            num_weights=len(self.params), out=self.params)
+
+    def snapshot(self):
+        return {f"param{i}": p._data.detach().clone()
+                for i, p in enumerate(self.params)}
+
+
+def imperative_breakdown(mlp: ImperativeMLP, n: int = 10) -> dict:
+    """Where an imperative step's time goes: the host time of its three
+    parts (the recorded forward and the backward are the host's enqueue;
+    the update includes the two host reads of ``lrs``/``wds``, each of
+    which waits for the device), mean over ``n`` steps without a
+    synchronise inside; then one profiled step: device ms by kernel class
+    and the idle share of its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    parts = {"forward": 0.0, "backward": 0.0, "update": 0.0}
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        with autograd.record():
+            loss = imperative_loss(mlp.x, mlp.y, mlp.params)
+        t1 = time.perf_counter()
+        loss.backward()
+        t2 = time.perf_counter()
+        mlp.update()
+        t3 = time.perf_counter()
+        parts["forward"] += (t1 - t0) * 1e3 / n
+        parts["backward"] += (t2 - t1) * 1e3 / n
+        parts["update"] += (t3 - t2) * 1e3 / n
+    torch.cuda.synchronize()
+    wall_all = (time.perf_counter() - t_all) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mlp.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    classes = {"gemm": 0.0, "update": 0.0, "memcpy": 0.0, "other": 0.0}
+    kernels = 0
+    for e in prof.key_averages():
+        if not _is_kernel(e):
+            continue
+        name = e.key.lower()
+        cls = ("update" if "multi_sgd" in name else
+               "memcpy" if "memcpy" in name or "memset" in name else
+               "gemm" if any(w in name for w in ("gemm", "cutlass", "xmma",
+                                                 "sm90")) else "other")
+        classes[cls] += e.self_device_time_total / 1e3
+        kernels += e.count
+    busy = sum(classes.values())
+    return {"host_ms": parts, "step_ms": wall_all,
+            "profiled_wall_ms": wall_ms, "device_ms": classes,
+            "device_busy_ms": busy, "device_records": kernels,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms)}
+
+
+def softmax_output_check(seed: int):
+    """One batch's gradients through ``nd.SoftmaxOutput(z, y,
+    normalization="batch")`` against those through log-softmax + pick +
+    mean, on the card."""
+    grads = []
+    for head in ("softmax_output", "log_softmax"):
+        mlp = ImperativeMLP(seed, gpu(0))
+        with autograd.record():
+            if head == "softmax_output":
+                out = nd.SoftmaxOutput(imperative_logits(mlp.x, mlp.params),
+                                       mlp.y, normalization="batch")
+            else:
+                out = imperative_loss(mlp.x, mlp.y, mlp.params)
+        out.backward()
+        grads.append([p.grad._data.clone() for p in mlp.params])
+    return max((a - b).abs().max().item() for a, b in zip(*grads))
+
+
+def host_us(fn, n: int) -> float:
+    """Host microseconds per call of ``fn`` over ``n`` calls (the card's
+    queue absorbs the launches; synchronised before and after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / n * 1e6
+
+
+def imperative_gluon_loop(seed: int):
+    """``examples/train_mnist_mlp.py``'s loop against the port (shapes
+    given: deferred shape inference is not ported): ``nd.array`` inputs on
+    the default context, ``net(x)`` an NDArray, ``L.backward()``,
+    ``trainer.step``, ``metric.update`` and the held-out forward through
+    ``.asnumpy()``, inside ``with gpu(0):`` (the default context, as
+    the example leaves it)."""
+    with gpu(0):
+        return _imperative_gluon_loop(seed)
+
+
+def _imperative_gluon_loop(seed: int):
+    (xtr, ytr), (xte, yte) = synthetic_mnist(seed)
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(128, activation="relu", in_units=784),
+                nn.Dense(64, activation="relu", in_units=128),
+                nn.Dense(10, in_units=64))
+    net.initialize(mx_init.Xavier(), seed=seed)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": CUSTOM_LR})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    acc = metric.Accuracy()
+    losses, types = [], set()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i in range(IMPERATIVE_GLUON_STEPS):
+        lo = i * CUSTOM_BATCH
+        x = nd.array(xtr[lo:lo + CUSTOM_BATCH])
+        y = nd.array(ytr[lo:lo + CUSTOM_BATCH])
+        with autograd.record():
+            out = net(x)
+            L = loss_fn(out, y)
+        L.backward()
+        trainer.step(x.shape[0])
+        acc.update([y], [out])
+        losses.append(L.mean())
+        types.add((type(out).__name__, type(L).__name__))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    held = float(np.mean(np.argmax(net(nd.array(xte)).asnumpy(), 1) == yte))
+    losses = [v.asscalar() for v in losses]
+    return {"steps": IMPERATIVE_GLUON_STEPS, "batch": CUSTOM_BATCH,
+            "losses": losses, "train_accuracy": acc.get()[1],
+            "held_out_accuracy": held,
+            "step_ms": wall / IMPERATIVE_GLUON_STEPS * 1e3,
+            "types": sorted(types),
+            "ok": types == {("NDArray", "NDArray")}
+            and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0] and 0.0 <= held <= 1.0}
+
+
+def imperative_phase(seed: int):
+    """Config #1 at full width (784-128-64-10, batch 64) through
+    NDArrays and the nd registry: 20 steps of record -> FullyConnected /
+    Activation / log_softmax / pick / mean -> ``L.backward()`` -> one
+    ``nd.multi_sgd_mom_update`` (the momentum kernel, one launch a step
+    for the 6 tensors); the first step against the CPU in fp32 and
+    float64 (``leaf_check``); SoftmaxOutput's gradients against the
+    log-softmax path; the Gluon loop of the example; the host cost of one
+    op through the registry; the engine's waits and host reads a step."""
+    import torch.nn.functional as F_
+
+    eng = mx_engine.engine()
+    # one step from the initial weights: the card against the CPU
+    steps = {}
+    for name, ctx, dtype in (("run", gpu(0), "float32"),
+                             ("cpu32", cpu(), "float32"),
+                             ("cpu64", cpu(), "float64")):
+        mlp = ImperativeMLP(seed, ctx, dtype)
+        if name == "run":
+            init = mlp.snapshot()
+        first_loss = mlp.step().asscalar()
+        steps[name] = (first_loss, mlp.snapshot())
+    leaf = leaf_check(steps["run"][1], steps["cpu32"][1], steps["cpu64"][1],
+                      init)
+    loss_err = abs(steps["run"][0] - steps["cpu64"][0])
+
+    # the main path: 20 steps, counts set to 0 just before
+    mlp = ImperativeMLP(seed, gpu(0))
+    torch.cuda.synchronize()
+    eng.reset_stats()
+    zero_counts()
+    t0 = time.monotonic()
+    losses = [mlp.step() for _ in range(IMPERATIVE_STEPS)]
+    nd.waitall()
+    wall = time.monotonic() - t0
+    launches = multi_sgd_mom.launches
+    other = other_launches(multi_sgd_mom)
+    stats = eng.stats()
+    losses = [v.asscalar() for v in losses]
+
+    breakdown = imperative_breakdown(mlp)
+    so_err = softmax_output_check(seed)
+    zero_counts()
+    gluon_loop = imperative_gluon_loop(seed)
+    gluon_other = other_launches()
+
+    # the registry's host cost for one op on NDArrays, against F.linear on
+    # the same tensors
+    x, w, b = mlp.x, mlp.params[0], mlp.params[1]
+    with torch.no_grad():
+        fc_us = host_us(lambda: nd.FullyConnected(x, w, b, num_hidden=128),
+                        FC_HOST_CALLS)
+        linear_us = host_us(lambda: F_.linear(x._data, w._data, b._data),
+                            FC_HOST_CALLS)
+    ok = (launches == IMPERATIVE_STEPS and other == 0 and leaf["ok"]
+          and loss_err <= 1e-4 and so_err <= SOFTMAX_OUTPUT_TOL
+          and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0] and gluon_loop["ok"]
+          and gluon_other == 0)
+    return {"steps": IMPERATIVE_STEPS, "batch": MLP_BATCH,
+            "launches": launches, "launches_per_step":
+                launches / IMPERATIVE_STEPS,
+            "other_kernel_launches": other, "losses": losses,
+            "step_ms": wall / IMPERATIVE_STEPS * 1e3,
+            "waits_per_step": (stats["waits"] - 1) / IMPERATIVE_STEPS,
+            "waitall_after_loop": 1,
+            "host_reads_per_step": stats["host_reads"] / IMPERATIVE_STEPS,
+            "leaf_check": {"loss_abs_err_vs_cpu64": loss_err,
+                           **{k: leaf[k] for k in (
+                               "ok", "leaves", "failed", "cpu_share_median",
+                               "worst_margin")}},
+            "softmax_output_grad_max_abs_vs_log_softmax": so_err,
+            "breakdown": breakdown,
+            "gluon_loop": gluon_loop,
+            "gluon_other_kernel_launches": gluon_other,
+            "host_us": {"nd_fully_connected": fc_us, "f_linear": linear_us,
+                        "registry_overhead": fc_us - linear_us},
+            "ok": ok}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2749,6 +3062,17 @@ def main() -> int:
     print(f"low precision checks on {card}:", json.dumps(low["checks"]),
           flush=True)
 
+    imp = imperative_phase(args.seed)
+    print(f"imperative mlp on {card}: step {imp['step_ms']:.3f} ms "
+          f"(gluon loop {imp['gluon_loop']['step_ms']:.3f} ms), "
+          f"{imp['launches_per_step']} momentum launches per step, "
+          f"{imp['waits_per_step']} waits and {imp['host_reads_per_step']} "
+          f"host reads per step, nd.FullyConnected "
+          f"{imp['host_us']['nd_fully_connected']:.2f} us on the host vs "
+          f"F.linear {imp['host_us']['f_linear']:.2f} us, losses "
+          f"{imp['losses'][0]:.5f} -> {imp['losses'][-1]:.5f}", flush=True)
+    print(f"imperative mlp on {card}:", json.dumps(imp), flush=True)
+
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -2813,6 +3137,7 @@ def main() -> int:
         sgd_row("multi_sgd_mom", SGD_MOM_TPU, resnet["launches"],
                 times["multi_sgd_mom_resnet50"])
         | {"amp_bf16_launches": low["resnet50_amp"]["launches"],
+           "imperative_launches": imp["launches"],
            **{f"{dt}_{key}": value for dt, t in (
                ("bf16", times["multi_sgd_mom_bf16_resnet50"]),
                ("fp16", times["multi_sgd_mom_fp16_resnet50"]))
@@ -2855,14 +3180,14 @@ def main() -> int:
          "multi_sgd_build": sgd_build, "flash": rows,
          "serving": serving, "sgd": sgd, "mlp": mlp, "resnet50": resnet,
          "rtc": rtc_res, "custom_mlp": custom, "bert_train": bert,
-         "low_precision": low,
+         "low_precision": low, "imperative_mlp": imp,
          "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
         ("mlp", mlp), ("resnet50", resnet), ("rtc", rtc_res),
         ("custom-op mlp", custom), ("bert train", bert),
-        ("low precision", low)) if not ph["ok"]]
+        ("low precision", low), ("imperative mlp", imp)) if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)
         return 1

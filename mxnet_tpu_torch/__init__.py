@@ -15,21 +15,27 @@ Pallas ``rtc``).  ``metric.Accuracy`` scores the training.  BERT-base
 pretrains through ``gluon.Trainer("adam")`` with the flash kernel's
 forward and a chunked torch backward, in fp32 or under
 ``contrib.amp.init("bfloat16")``, whose casts each listed op makes
-itself.  Arrays are ``torch.Tensor``s;
-``nd.array``/``zeros``/``ones``/``empty``/``full`` make them.  It
+itself.  The imperative surface is MXNet's: ``nd.NDArray`` over a
+``torch.Tensor``, the ``mx.nd.<op>`` frontends of the op registry (on
+``NDArray``s or tensors), autograd on arrays (``attach_grad``,
+``backward``), ``mx.random`` and the engine's waits (``mx.engine``,
+``nd.waitall``); Gluon blocks, losses and metrics take ``NDArray``s.  It
 imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Entry points run
-on ``gpu(0)`` unless the caller passes ``ctx=cpu()``.
+on ``gpu(0)`` unless the caller passes ``ctx=cpu()`` or opens a ``with
+mx.cpu():`` scope.
 """
-from . import autograd, base, context, contrib, gluon, initializer, \
-    kernels, metric, ndarray, observability, operator, optimizer, rtc, \
-    serving
+from . import autograd, base, context, contrib, engine, gluon, \
+    initializer, kernels, metric, ndarray, observability, operator, \
+    optimizer, random, rtc, serving
 from .base import MXNetError
-from .context import cpu, current_context, gpu
+from .context import Context, cpu, current_context, gpu, num_gpus
 from .convert import load_reference_params
 
 nd = ndarray
+init = initializer
 
-__all__ = ["MXNetError", "autograd", "base", "context", "contrib", "cpu",
-           "current_context", "gpu", "gluon", "initializer", "kernels",
-           "load_reference_params", "metric", "nd", "ndarray",
-           "observability", "operator", "optimizer", "rtc", "serving"]
+__all__ = ["Context", "MXNetError", "autograd", "base", "context",
+           "contrib", "cpu", "current_context", "engine", "gpu", "gluon",
+           "init", "initializer", "kernels", "load_reference_params",
+           "metric", "nd", "ndarray", "num_gpus", "observability",
+           "operator", "optimizer", "random", "rtc", "serving"]

@@ -10,8 +10,9 @@ MXNet's thread-local state:
   ``BatchNorm``).  ``nn.Module.training`` is not consulted: as in MXNet,
   a layer is in training mode exactly inside ``record()``/``train_mode()``.
 
-Outside ``record()`` recording is off, but PyTorch's own grad mode is left
-as the caller set it.
+Outside ``record()`` recording is off.  Ops on ``NDArray``s then run under
+``torch.no_grad()`` (``ndarray/register.py``); on tensors PyTorch's own
+grad mode is left as the caller set it.
 
 ``backward(heads, head_grads=None)`` runs one backward pass from ``heads``
 into the Parameters' gradients.  A head without a head gradient gets a
@@ -22,9 +23,16 @@ port's spelling of MXNet's ``loss.backward()`` (a plain torch tensor's
 Parameter stores what arrives (``grad_req`` write/add) is
 ``gluon.Parameter``'s business.
 
+Heads and head gradients may be ``NDArray``s (``NDArray.backward()`` calls
+``backward``).  ``grad(heads, variables)`` returns the gradients without
+touching the variables' buffers; ``mark_variables(variables, gradients,
+grad_reqs)`` makes arrays leaves whose gradients land in the given
+buffers (``NDArray.attach_grad`` with buffers of the caller's).
+
 ``Function`` is MXNet's user-defined differentiable function
-(``forward``/``backward`` on tensors, ``save_for_backward``/
-``saved_tensors``), built on ``torch.autograd.Function``.
+(``forward``/``backward``, ``save_for_backward``/``saved_tensors``), built
+on ``torch.autograd.Function``; called on ``NDArray``s, its ``forward``
+and ``backward`` see ``NDArray``s and its outputs are ``NDArray``s.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward", "Function"]
+           "is_training", "backward", "grad", "mark_variables", "Function"]
 
 _state = threading.local()
 
@@ -106,27 +114,89 @@ def predict_mode() -> _RecordingScope:
 Heads = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def backward(heads: Heads, head_grads: Optional[Heads] = None) -> None:
-    """Backward from ``heads`` (a tensor or a list) into the gradients of
-    the Parameters they were recorded from.  ``head_grads`` defaults to
-    ones for every head; a None entry in a list means ones too."""
-    if isinstance(heads, torch.Tensor):
+def _nd():
+    from .ndarray.ndarray import NDArray
+    return NDArray
+
+
+def _tensor(x):
+    return x._data if isinstance(x, _nd()) else x
+
+
+def _heads(heads, head_grads):
+    if not isinstance(heads, (list, tuple)):
         heads = [heads]
-        if head_grads is not None:
+        if head_grads is not None and not isinstance(head_grads,
+                                                     (list, tuple)):
             head_grads = [head_grads]
-    heads = list(heads)
+    heads = [_tensor(h) for h in heads]
     if head_grads is None:
         head_grads = [None] * len(heads)
     if len(head_grads) != len(heads):
         raise MXNetError(f"backward: {len(heads)} heads but "
                          f"{len(head_grads)} head gradients")
+    return heads, [_tensor(g) for g in head_grads]
+
+
+def backward(heads: Heads, head_grads: Optional[Heads] = None,
+             retain_graph: bool = False, train_mode: bool = True) -> None:
+    """Backward from ``heads`` (a tensor or an ``NDArray``, or a list)
+    into the gradients of the Parameters and arrays they were recorded
+    from.  ``head_grads`` defaults to ones for every head; a None entry in
+    a list means ones too."""
+    heads, head_grads = _heads(heads, head_grads)
     live = [(h, torch.ones_like(h) if g is None else g)
             for h, g in zip(heads, head_grads) if h.requires_grad]
     if not live:
         raise MXNetError("this array is not connected to the recorded "
                          "graph; call backward inside/after "
                          "autograd.record()")
-    torch.autograd.backward([h for h, _ in live], [g for _, g in live])
+    torch.autograd.backward([h for h, _ in live], [g for _, g in live],
+                            retain_graph=retain_graph)
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph: bool = False, train_mode: bool = True):
+    """The gradients of ``heads`` with respect to ``variables`` (arrays
+    with ``attach_grad``), as new arrays; the variables' own gradient
+    buffers are left as they are.  ``create_graph`` is not supported, as
+    in the JAX package."""
+    from .ndarray.ndarray import _GradState
+    if create_graph:
+        raise MXNetError("create_graph=True not yet supported")
+    hs, gs = _heads(heads, head_grads)
+    single = not isinstance(variables, (list, tuple))
+    variables = [variables] if single else list(variables)
+    vs = [_tensor(v) for v in variables]
+    if not all(v.requires_grad for v in vs):
+        raise MXNetError("each variable must have attach_grad() called "
+                         "before the computation was recorded")
+    gs = [torch.ones_like(h) if g is None else g for h, g in zip(hs, gs)]
+    _GradState.suppressed += 1
+    try:
+        res = torch.autograd.grad(hs, vs, gs, retain_graph=retain_graph,
+                                  allow_unused=True)
+    finally:
+        _GradState.suppressed -= 1
+    res = [torch.zeros_like(v) if r is None else r for r, v in zip(res, vs)]
+    if any(isinstance(v, _nd()) for v in variables):
+        res = [_nd()(r) for r in res]
+    return res[0] if single else res
+
+
+def mark_variables(variables, gradients, grad_reqs="write") -> None:
+    """Make each array of ``variables`` a leaf whose gradient lands in the
+    matching array of ``gradients`` by its ``grad_req`` (write, add or
+    null)."""
+    from .ndarray.ndarray import attach
+    variables = variables if isinstance(variables, (list, tuple)) \
+        else [variables]
+    gradients = gradients if isinstance(gradients, (list, tuple)) \
+        else [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        v._data = attach(v._data, req, _tensor(g))
 
 
 class _Bridge(torch.autograd.Function):
@@ -136,13 +206,15 @@ class _Bridge(torch.autograd.Function):
     through the graph that the garbage collector cannot see)."""
 
     @staticmethod
-    def forward(ctx, fn, *inputs):
+    def forward(ctx, fn, wrapped, *inputs):
         with pause():
-            outputs = fn.forward(*inputs)
+            outputs = fn.forward(*(map(_nd(), inputs) if wrapped
+                                   else inputs))
         multi = isinstance(outputs, (list, tuple))
-        outs = tuple(outputs) if multi else (outputs,)
-        ctx.fn, ctx.n_in = fn, len(inputs)
-        ctx.save_for_backward(*fn._saved)
+        outs = tuple(map(_tensor, outputs)) if multi else \
+            (_tensor(outputs),)
+        ctx.fn, ctx.n_in, ctx.wrapped = fn, len(inputs), wrapped
+        ctx.save_for_backward(*map(_tensor, fn._saved))
         fn._saved = ()
         ctx.mark_non_differentiable(
             *[o for o in outs if not o.is_floating_point()])
@@ -153,10 +225,12 @@ class _Bridge(torch.autograd.Function):
         # torch hands over zeros for an output no head reached
         # (materialize_grads), as MXNet does
         fn = ctx.fn
-        fn._saved = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        fn._saved = tuple(map(_nd(), saved)) if ctx.wrapped else saved
         try:
             with pause():
-                grads = fn.backward(*output_grads)
+                grads = fn.backward(*(map(_nd(), output_grads)
+                                      if ctx.wrapped else output_grads))
         finally:
             fn._saved = ()
         if not isinstance(grads, (list, tuple)):
@@ -164,8 +238,9 @@ class _Bridge(torch.autograd.Function):
         if len(grads) != ctx.n_in:
             raise MXNetError(f"{type(fn).__name__}.backward returned "
                              f"{len(grads)} gradients for {ctx.n_in} inputs")
-        return (None,) + tuple(g if need else None for g, need in
-                               zip(grads, ctx.needs_input_grad[1:]))
+        return (None, None) + tuple(
+            _tensor(g) if need else None
+            for g, need in zip(grads, ctx.needs_input_grad[2:]))
 
 
 class Function:
@@ -173,7 +248,8 @@ class Function:
     ``autograd.Function``).
 
     Subclass it with ``forward(self, *inputs)`` and ``backward(self,
-    *output_grads)`` on tensors; ``backward`` returns one gradient per
+    *output_grads)`` on tensors (``NDArray``s when it is called on
+    them); ``backward`` returns one gradient per
     input, None for an input that takes none (an integer tensor).  Both
     run under :func:`pause`.  What ``save_for_backward`` keeps belongs to
     the call; other state set on ``self`` is shared by every call of the
@@ -197,4 +273,14 @@ class Function:
         raise NotImplementedError
 
     def __call__(self, *inputs):
-        return _Bridge.apply(self, *inputs)
+        if not any(isinstance(x, _nd()) for x in inputs):
+            return _Bridge.apply(self, False, *inputs)
+        tensors = [_tensor(x) for x in inputs]
+        if is_recording():
+            out = _Bridge.apply(self, True, *tensors)
+        else:
+            with torch.no_grad():
+                out = _Bridge.apply(self, True, *tensors)
+        if isinstance(out, tuple):
+            return tuple(map(_nd(), out))
+        return _nd()(out)

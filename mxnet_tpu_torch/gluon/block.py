@@ -15,6 +15,11 @@ consulted (``train()``/``eval()`` change nothing).  Place a model with
 ``initialize(ctx=...)``; moving it with ``nn.Module.to`` is not supported,
 because a Parameter shared by two modules must move once, in place.
 
+Called with ``NDArray`` inputs, a block runs on their tensors (under
+``torch.no_grad()`` outside ``autograd.record()``, as MXNet records only
+inside it) and returns ``NDArray``s; called with tensors it returns
+tensors, as the layers inside a model call each other.
+
 ``hybridize()`` records the flag and nothing else: PyTorch runs eagerly,
 in training as in inference.  ``cast(dtype)`` casts every parameter of
 the block and its children (MXNet's ``Block.cast``); the JAX package's
@@ -37,6 +42,8 @@ from torch import nn
 
 from .. import autograd
 from ..context import DeviceLike
+from ..ndarray.ndarray import NDArray
+from ..ndarray.register import call_on_tensors
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "CachedGraph"]
@@ -100,6 +107,13 @@ class Block(nn.Module):
         self._scope = _BlockScope(self)
         self._reg_params: Dict[str, Parameter] = {}
         self.training = False
+
+    def __call__(self, *args, **kwargs):
+        if not any(isinstance(a, NDArray) for a in args) and not any(
+                isinstance(a, NDArray) for a in kwargs.values()):
+            return nn.Module.__call__(self, *args, **kwargs)
+        return call_on_tensors(
+            lambda *a, **k: nn.Module.__call__(self, *a, **k), args, kwargs)
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):

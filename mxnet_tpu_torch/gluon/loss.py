@@ -5,14 +5,15 @@ a loss returns one value per sample, the mean over every axis but
 ``batch_axis``; ``sample_weight`` multiplies elementwise (broadcast) and
 ``weight`` is a scalar factor.  Back-propagate a per-sample loss with
 ``autograd.backward(loss)`` (a head gradient of ones, as MXNet's
-``loss.backward()``).
+``loss.backward()``), or, on ``NDArray`` inputs (``Block.__call__``
+returns an ``NDArray``), with ``loss.backward()`` itself.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import MXNetError
-from ..ndarray.ops_nn import log_softmax
+from ..ndarray import log_softmax
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss"]

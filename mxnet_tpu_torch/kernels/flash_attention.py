@@ -260,7 +260,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and v on both devices (:class:`_FlashAttention`, whose backward,
     :func:`flash_attention_backward`, recomputes the probabilities chunk
     by chunk in torch); it records a node when grad mode is on and an
-    input requires grad, as any torch op does."""
+    input requires grad, as any torch op does.  On ``NDArray``s (``mx.nd``)
+    it runs on their tensors and returns an ``NDArray``."""
+    if not isinstance(q, torch.Tensor):
+        from ..ndarray.register import call_on_tensors
+        return call_on_tensors(flash_attention, (q, k, v, valid_len, causal,
+                                                 scale), {})
     tensors = (q, k, v)
     if len({t.device for t in tensors}) != 1:
         raise MXNetError("flash_attention: q, k, v on different devices")

@@ -2,7 +2,7 @@
 ``create``.
 
 Counterpart of ``mxnet_tpu/metric.py`` (:25-113).  ``update(labels,
-preds)`` takes tensors on any device (or numpy arrays) and reads them on
+preds)`` takes ``NDArray``s or tensors on any device (or numpy arrays) and reads them on
 the host, as MXNet's metrics do; ``get()`` returns ``(name, value)``.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "Accuracy", "register", "create"]
 
@@ -38,6 +39,8 @@ def create(metric, *args, **kwargs) -> "EvalMetric":
 
 
 def _to_np(x) -> np.ndarray:
+    if isinstance(x, NDArray):
+        return x.asnumpy()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)

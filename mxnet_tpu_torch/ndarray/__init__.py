@@ -1,16 +1,73 @@
-"""Operators as plain functions on tensors, and array creation."""
-from .ndarray import array, empty, full, ones, zeros
+"""``mx.nd``: ``NDArray``, the operator frontends and array creation.
+
+Counterpart of ``mxnet_tpu/ndarray/__init__.py``.  The frontends are made
+from the op registry (``register.make_frontend``) for every op the
+``ops_*`` modules register; each takes ``NDArray``s (and returns them)
+or tensors (and returns tensors), see ``register.py``.  The fluent
+methods (``x.sum(axis)``, ``x.exp()``, ``x.transpose()``, ...) delegate
+to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
+``_attach_fluent`` :71).  Hand-written frontends: the optimizer updates
+(``ops_optimizer.py``), ``Custom`` (``ops_custom.py``),
+``flash_attention`` (``ops_contrib.py``), the draws of ``nd.random``,
+``waitall``, ``save`` and ``load``.
+"""
+import sys as _sys
+
+from . import (ops_elemwise, ops_matrix, ops_nn, ops_random,  # noqa: F401
+               ops_reduce)
+from . import random, utils
+from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,
+                      ones, zeros)
 from .ops_contrib import flash_attention
 from .ops_custom import Custom
-from .ops_matrix import pick
-from .ops_nn import log_softmax
 from .ops_optimizer import (adam_update, mp_sgd_mom_update, mp_sgd_update,
                             multi_mp_sgd_mom_update, multi_sgd_mom_update,
                             multi_sgd_update, sgd_mom_update, sgd_update)
-from .ops_reduce import mean, sum
+from .register import _registry, get_op, list_ops, make_frontend
+from .utils import load, save
 
-__all__ = ["Custom", "adam_update", "array", "empty", "flash_attention",
-           "full", "log_softmax", "mean", "mp_sgd_mom_update", "mp_sgd_update",
+_this = _sys.modules[__name__]
+for _name, _op in list(_registry.items()):
+    if not hasattr(_this, _name):
+        setattr(_this, _name, make_frontend(_op))
+
+_FLUENT_METHODS = (
+    "sum", "mean", "prod", "max", "min", "argmax", "argmin", "transpose",
+    "dot", "broadcast_to", "broadcast_like", "expand_dims", "squeeze",
+    "slice", "slice_axis", "take", "pick", "one_hot", "tile", "repeat",
+    "flip", "swapaxes", "clip", "abs", "sign", "round", "floor", "ceil",
+    "trunc", "rint", "fix", "exp", "expm1", "log", "log1p", "log2",
+    "log10", "sqrt", "rsqrt", "cbrt", "rcbrt", "square", "reciprocal",
+    "sin", "cos", "tan", "arcsin", "arccos", "arctan", "sinh", "cosh",
+    "tanh", "arcsinh", "arccosh", "arctanh", "degrees", "radians", "erf",
+    "erfinv", "gamma", "gammaln", "relu", "sigmoid", "softmax",
+    "log_softmax", "zeros_like", "ones_like")
+
+
+def _attach_fluent(name):
+    fn = getattr(_this, name)
+
+    def method(self, *args, **kwargs):
+        return fn(self, *args, **kwargs)
+    method.__name__ = name
+    method.__doc__ = f"Fluent form of ``mx.nd.{name}`` (self as data)."
+    return method
+
+
+for _m in _FLUENT_METHODS:
+    if not hasattr(NDArray, _m):
+        setattr(NDArray, _m, _attach_fluent(_m))
+
+
+def waitall() -> None:
+    """Block until every op queued on every device has run."""
+    from ..engine import wait_all
+    wait_all()
+
+
+__all__ = ["Custom", "NDArray", "adam_update", "arange", "array", "empty",
+           "eye", "flash_attention", "full", "get_op", "linspace",
+           "list_ops", "load", "mp_sgd_mom_update", "mp_sgd_update",
            "multi_mp_sgd_mom_update", "multi_sgd_mom_update",
-           "multi_sgd_update", "ones", "pick", "sgd_mom_update",
-           "sgd_update", "sum", "zeros"]
+           "multi_sgd_update", "ones", "random", "save", "sgd_mom_update",
+           "sgd_update", "utils", "waitall", "zeros"] + sorted(_registry)

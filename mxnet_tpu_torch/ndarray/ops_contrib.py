@@ -7,7 +7,8 @@ wrapper itself, which takes the op's signature
 It is differentiable in q, k and v on both devices: the forward is the
 CUDA kernel on the card (its plain version on the CPU), the backward a
 chunked torch function (``kernels.flash_attention_backward``), as the JAX
-package's is a custom VJP in jnp.
+package's is a custom VJP in jnp.  On ``NDArray``s it returns an
+``NDArray``.
 """
 from ..kernels.flash_attention import flash_attention
 

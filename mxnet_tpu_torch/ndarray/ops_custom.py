@@ -23,6 +23,9 @@ they run inline, as the JAX package's eager path does.  Semantics:
   and the Parameters like a built-in op's.  An output that no head
   reached gets a zero gradient, as in MXNet.
 
+On ``NDArray`` inputs the op runs on their tensors and returns
+``NDArray``s (``register.boundary``); the user's operator sees tensors.
+
 The registry of props (``register`` in ``mxnet_tpu_torch/operator.py``
 fills it) lives here, beside the op that looks names up in it.
 """
@@ -35,6 +38,7 @@ import torch
 from .. import autograd
 from ..base import MXNetError, torch_dtype
 from ..context import DeviceLike, as_device
+from .register import boundary
 
 __all__ = ["Custom"]
 
@@ -84,6 +88,7 @@ class _CustomNode(autograd.Function):
         return tuple(in_grads)
 
 
+@boundary
 def Custom(*inputs: torch.Tensor, op_type: Optional[str] = None,
            ctx: DeviceLike = None, **kwargs):
     """Run the custom op registered as ``op_type`` on ``inputs`` (tensors

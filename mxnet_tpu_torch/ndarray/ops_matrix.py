@@ -1,33 +1,249 @@
-"""Matrix operators as functions on tensors: ``pick``.
+"""Shape, indexing and contraction operators.
 
-Counterpart of the ``pick`` registration in
-``mxnet_tpu/ndarray/ops_matrix.py`` (:235-243), with its signature.  The
-rest of that module's registry is not ported yet.
+Counterpart of ``mxnet_tpu/ndarray/ops_matrix.py``: ``dot`` :32,
+``batch_dot`` :42, ``reshape`` :62 (MXNet's codes 0, -1, -2, -3, -4),
+``transpose`` :68, ``expand_dims`` :74, ``concat`` :133, ``slice`` :159,
+``take`` :198, ``one_hot`` :231, ``pick`` :235-243 and ``broadcast_to``
+:285, with their conventions: ``dot`` contracts the last axis of the
+left input with the first of the right (transposes reverse every axis),
+``batch_dot`` is a batched matmul, ``slice`` takes None for "from the
+edge", indices may arrive as floats and are truncated, ``broadcast_to``
+keeps a dim given as 0.  ``dot`` and ``batch_dot`` are torch's matmul:
+the JAX package computes them outside any Pallas kernel.  Every op
+returns a new array, never a view of its input (MXNet's ops copy; only
+``NDArray.reshape`` and basic slicing alias).
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
-from ..base import MXNetError
-from .ndarray import write_out
+from ..base import MXNetError, torch_dtype
+from .ndarray import resolve_reshape
+from .register import register_op, simple_op
 
-__all__ = ["pick"]
+
+def _fresh(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y`` as a contiguous tensor of its own when it is a view of
+    ``x``."""
+    if y._base is not None or y.data_ptr() == x.data_ptr():
+        return y.clone(memory_format=torch.contiguous_format)
+    return y
 
 
-def pick(data: torch.Tensor, index: torch.Tensor, axis: int = -1,
-         keepdims: bool = False, mode: str = "clip",
-         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _reverse(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(*range(t.dim() - 1, -1, -1))
+
+
+def dot_maker(transpose_a=False, transpose_b=False):
+    def fn(a, b):
+        if transpose_a:
+            a = _reverse(a)
+        if transpose_b:
+            b = _reverse(b)
+        if a.dim() <= 2 and b.dim() <= 2:
+            return torch.matmul(a, b) if a.dim() and b.dim() else a * b
+        return torch.tensordot(a, b, dims=1)
+    return fn
+
+
+def batch_dot_maker(transpose_a=False, transpose_b=False):
+    def fn(a, b):
+        if transpose_a:
+            a = a.transpose(-1, -2)
+        if transpose_b:
+            b = b.transpose(-1, -2)
+        return torch.matmul(a, b)
+    return fn
+
+
+def reshape_maker(shape=None, reverse=False):
+    def fn(x):
+        return _fresh(x.reshape(resolve_reshape(x.shape, shape, reverse)), x)
+    return fn
+
+
+def transpose_maker(axes=None):
+    def fn(x):
+        y = x.permute(*axes) if axes else _reverse(x)
+        return _fresh(y.contiguous(), x)
+    return fn
+
+
+def expand_dims_maker(axis=0):
+    def fn(x):
+        return _fresh(x.unsqueeze(axis), x)
+    return fn
+
+
+def squeeze_maker(axis=None):
+    def fn(x):
+        if axis is None:
+            y = x.squeeze()
+        else:
+            axes = (axis,) if isinstance(axis, int) else tuple(axis)
+            y = x.squeeze(tuple(a % x.dim() for a in axes))
+        return _fresh(y, x)
+    return fn
+
+
+def flatten_maker():
+    def fn(x):
+        return _fresh(x.reshape(x.shape[0], -1), x)
+    return fn
+
+
+def swapaxes_maker(dim1=0, dim2=0):
+    def fn(x):
+        return _fresh(x.transpose(dim1, dim2).contiguous(), x)
+    return fn
+
+
+def cast_maker(dtype="float32"):
+    dt = torch_dtype(dtype)
+
+    def fn(x):
+        return x.to(dt, copy=True)
+    return fn
+
+
+def concat_maker(dim=1, num_args=None):
+    def fn(*xs):
+        return torch.cat(xs, dim=dim)
+    return fn
+
+
+def stack_maker(axis=0, num_args=None):
+    def fn(*xs):
+        return torch.stack(xs, dim=axis)
+    return fn
+
+
+def slice_maker(begin=(), end=(), step=None):
+    steps = step if step is not None else (None,) * len(begin)
+    key = tuple(slice(b, e, s) for b, e, s in zip(begin, end, steps))
+
+    def fn(x):
+        if any(s.step is not None and s.step < 0 for s in key):
+            raise MXNetError("slice: a negative step is not ported")
+        return _fresh(x[key], x)
+    return fn
+
+
+def slice_axis_maker(axis=0, begin=0, end=None):
+    def fn(x):
+        idx = [slice(None)] * x.dim()
+        idx[axis % x.dim()] = slice(begin, end)
+        return _fresh(x[tuple(idx)], x)
+    return fn
+
+
+def take_maker(axis=0, mode="clip"):
+    if mode not in ("clip", "wrap"):
+        raise MXNetError(f"take: mode {mode!r} not in ('clip', 'wrap')")
+
+    def fn(a, indices):
+        ax = axis % a.dim()
+        n = a.shape[ax]
+        idx = indices.long()
+        idx = idx.clamp(0, n - 1) if mode == "clip" else idx.remainder(n)
+        out = torch.index_select(a, ax, idx.reshape(-1))
+        return out.reshape(a.shape[:ax] + indices.shape + a.shape[ax + 1:])
+    return fn
+
+
+def one_hot_maker(depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
+    dt = torch_dtype(dtype)
+
+    def fn(indices):
+        idx = indices.long()
+        hit = (idx.unsqueeze(-1) == torch.arange(depth, device=idx.device))
+        return torch.where(hit, torch.tensor(on_value, dtype=dt,
+                                             device=idx.device),
+                           torch.tensor(off_value, dtype=dt,
+                                        device=idx.device))
+    return fn
+
+
+def pick_maker(axis=-1, keepdims=False, mode="clip"):
     """``data``'s element at ``index`` along ``axis``: ``index`` has
     ``data``'s shape without that axis (float indices are truncated).
     ``mode="clip"`` clips indices into range, ``"wrap"`` wraps them.  The
     axis is kept with size 1 when ``keepdims``."""
     if mode not in ("clip", "wrap"):
         raise MXNetError(f"pick: mode {mode!r} not in ('clip', 'wrap')")
-    ax = axis % data.dim()
-    n = data.shape[ax]
-    idx = index.long()
-    idx = idx.clamp(0, n - 1) if mode == "clip" else idx.remainder(n)
-    res = torch.take_along_dim(data, idx.unsqueeze(ax), dim=ax)
-    return write_out(res if keepdims else res.squeeze(ax), out)
+
+    def fn(data, index):
+        ax = axis % data.dim()
+        n = data.shape[ax]
+        idx = index.long()
+        idx = idx.clamp(0, n - 1) if mode == "clip" else idx.remainder(n)
+        res = torch.take_along_dim(data, idx.unsqueeze(ax), dim=ax)
+        return res if keepdims else res.squeeze(ax)
+    return fn
+
+
+def broadcast_to_maker(shape=()):
+    def fn(x):
+        tgt = tuple(s if s != 0 else x.shape[i] for i, s in enumerate(shape))
+        return _fresh(x.expand(tgt).contiguous(), x)
+    return fn
+
+
+def broadcast_like_maker(lhs_axes=None, rhs_axes=None):
+    def fn(x, like):
+        return _fresh(x.expand(like.shape).contiguous(), x)
+    return fn
+
+
+def tile_maker(reps=()):
+    def fn(x):
+        return torch.tile(x, tuple(reps))
+    return fn
+
+
+def repeat_maker(repeats=1, axis=None):
+    def fn(x):
+        if axis is None:
+            return x.reshape(-1).repeat_interleave(repeats)
+        return x.repeat_interleave(repeats, dim=axis)
+    return fn
+
+
+def reverse_maker(axis=()):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+
+    def fn(x):
+        return torch.flip(x, axes)
+    return fn
+
+
+def _register():
+    register_op("dot", dot_maker)
+    register_op("batch_dot", batch_dot_maker)
+    register_op("reshape", reshape_maker, aliases=("Reshape",))
+    register_op("transpose", transpose_maker)
+    register_op("expand_dims", expand_dims_maker)
+    register_op("squeeze", squeeze_maker)
+    register_op("flatten", flatten_maker, aliases=("Flatten",))
+    register_op("swapaxes", swapaxes_maker, aliases=("SwapAxis",))
+    register_op("cast", cast_maker, aliases=("Cast",))
+    register_op("concat", concat_maker, aliases=("Concat",))
+    register_op("stack", stack_maker)
+    register_op("slice", slice_maker)
+    register_op("slice_axis", slice_axis_maker)
+    register_op("take", take_maker)
+    register_op("one_hot", one_hot_maker)
+    register_op("pick", pick_maker)
+    register_op("broadcast_to", broadcast_to_maker)
+    register_op("broadcast_like", broadcast_like_maker)
+    register_op("tile", tile_maker)
+    register_op("repeat", repeat_maker)
+    register_op("reverse", reverse_maker, aliases=("flip",))
+    simple_op("where", lambda c, x, y: torch.where(c != 0, x, y))
+    simple_op("zeros_like", lambda x: torch.zeros_like(
+        x, memory_format=torch.contiguous_format))
+    simple_op("ones_like", lambda x: torch.ones_like(
+        x, memory_format=torch.contiguous_format))
+
+
+_register()

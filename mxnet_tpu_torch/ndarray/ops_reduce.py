@@ -1,23 +1,23 @@
-"""Reductions as functions on tensors: ``sum`` and ``mean``.
+"""Reductions: ``sum``, ``mean``, ``prod``, ``max``, ``min``, ``argmax``
+and ``argmin``.
 
-Counterpart of ``mxnet_tpu/ndarray/ops_reduce.py`` (``_make_reduce``,
-:33-47; ``sum``/``mean`` at :52-54), with its signature and conventions:
-``axis`` is an int, a tuple or None (every axis), ``exclude=True`` reduces
-over every axis *except* those given, and an fp16/bf16 input accumulates
-in float32 and returns its own dtype (``MXNET_SAFE_ACCUMULATION``).  Under
-AMP both are ``FP32_OPS``: the input is cast to float32 first.  The other
-reductions are not ported yet.
+Counterpart of ``mxnet_tpu/ndarray/ops_reduce.py`` (``_make_reduce``
+:33-47; ``sum``/``mean`` :52-54, ``max`` :58, ``argmax`` :82), with its
+conventions: ``axis`` is an int, a tuple or None (every axis),
+``exclude=True`` reduces over every axis *except* those given, and an
+fp16/bf16 input of ``sum``/``mean`` accumulates in float32 and returns
+its own dtype (``MXNET_SAFE_ACCUMULATION``).  ``argmax``/``argmin``
+return the indices as float32 (MXNet's convention).  Under AMP ``sum``
+and ``mean`` are ``FP32_OPS``: the input is cast to float32 first.
 """
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
 from ..contrib.amp import amp as _amp
-from .ndarray import write_out
+from .register import register_op
 
-__all__ = ["sum", "mean"]
+_LOW = (torch.float16, torch.bfloat16)
 
 
 def _axes(x: torch.Tensor, axis, exclude: bool):
@@ -30,32 +30,55 @@ def _axes(x: torch.Tensor, axis, exclude: bool):
     return axes
 
 
-def _reduce(op_name, fn, data, axis, keepdims, exclude, out):
-    data, = _amp.cast(op_name, data)
-    axes = _axes(data, axis, exclude)
-    if axes == ():
-        res = data                   # no axis to reduce
-    else:
-        low = data.dtype in (torch.float16, torch.bfloat16)
-        acc = data.float() if low else data
-        res = fn(acc) if axes is None else fn(acc, dim=axes,
-                                                keepdim=keepdims)
-        if keepdims and axes is None:
-            res = res.reshape((1,) * data.dim())
-        res = res.to(data.dtype) if low else res
-    return write_out(res, out)
+def _make_reduce(op_name, fn, acc32=False, amp=False):
+    def maker(axis=None, keepdims=False, exclude=False):
+        def reduce(data):
+            if amp:
+                data, = _amp.cast(op_name, data)
+            axes = _axes(data, axis, exclude)
+            if axes == ():
+                return data.clone()          # no axis to reduce
+            low = acc32 and data.dtype in _LOW
+            acc = data.float() if low else data
+            res = fn(acc) if axes is None else fn(acc, dim=axes,
+                                                  keepdim=keepdims)
+            if keepdims and axes is None:
+                res = res.reshape((1,) * data.dim())
+            return res.to(data.dtype) if low else res
+        return reduce
+    return maker
 
 
-def sum(data: torch.Tensor, axis=None, keepdims: bool = False,
-        exclude: bool = False,
-        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Sum over ``axis`` (see the module docstring)."""
-    return _reduce("sum", torch.sum, data, axis, keepdims, exclude, out)
+def _prod(x, dim=None, keepdim=False):
+    if dim is None:
+        return torch.prod(x)
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
 
 
-def mean(data: torch.Tensor, axis=None, keepdims: bool = False,
-         exclude: bool = False,
-         out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean over ``axis`` (see the module docstring)."""
-    return _reduce("mean", torch.mean, data, axis, keepdims, exclude, out)
+def _arg(fn):
+    def maker(axis=None, keepdims=False):
+        def f(x):
+            if axis is None:
+                return fn(x).float()
+            return fn(x, dim=axis, keepdim=keepdims).float()
+        return f
+    return maker
 
+
+def _register():
+    register_op("sum", _make_reduce("sum", torch.sum, acc32=True, amp=True),
+                aliases=("sum_axis",))
+    register_op("mean", _make_reduce("mean", torch.mean, acc32=True,
+                                     amp=True))
+    register_op("prod", _make_reduce("prod", _prod))
+    register_op("max", _make_reduce("max", torch.amax),
+                aliases=("max_axis",))
+    register_op("min", _make_reduce("min", torch.amin),
+                aliases=("min_axis",))
+    register_op("argmax", _arg(torch.argmax))
+    register_op("argmin", _arg(torch.argmin))
+
+
+_register()

@@ -747,3 +747,86 @@ def test_rtc_refusals_launch_nothing(card):
     with pytest.raises(MXNetError, match="undefined_name"):
         rtc.CudaModule('extern "C" __global__ void bad(float* y) '
                        '{ y[0] = undefined_name; }')
+
+
+# ------------------------------------------- NDArrays and the nd registry
+
+def _nd_inputs(seed):
+    rs = np.random.RandomState(seed)
+    return {"x": rs.randn(8, 20).astype(np.float32),
+            "w": rs.randn(16, 20).astype(np.float32),
+            "b": rs.randn(16).astype(np.float32),
+            "img": rs.randn(2, 3, 9, 9).astype(np.float32),
+            "k": rs.randn(4, 3, 3, 3).astype(np.float32),
+            "y": rs.randint(0, 16, 8).astype(np.float32)}
+
+
+ND_CARD_CASES = [
+    ("FullyConnected", ["x", "w", "b"], {"num_hidden": 16}),
+    ("Convolution", ["img", "k"], {"kernel": (3, 3), "num_filter": 4,
+                                   "no_bias": True, "pad": (1, 1)}),
+    ("Pooling", ["img"], {"kernel": (3, 3), "stride": (2, 2),
+                          "pooling_convention": "full"}),
+    ("softmax", ["x"], {}),
+    ("log_softmax", ["x"], {}),
+    ("sum", ["img"], {"axis": (0, 2)}),
+    ("dot", ["x", "w"], {"transpose_b": True}),
+    ("relu", ["x"], {}),
+    ("transpose", ["img"], {"axes": (0, 2, 3, 1)}),
+]
+
+
+@pytest.mark.parametrize("op,names,kw", ND_CARD_CASES,
+                         ids=[c[0] for c in ND_CARD_CASES])
+def test_ndarray_ops_on_card_match_cpu(card, op, names, kw):
+    """An nd op on NDArrays on the card, forward and input gradients,
+    against the same op on the CPU (1e-4: cuDNN and cuBLAS sum in other
+    orders)."""
+    from mxnet_tpu_torch import autograd, cpu, gpu, nd
+    arrays = _nd_inputs(3)
+    res = []
+    for ctx in (gpu(0), cpu()):
+        ins = [nd.array(arrays[n], ctx=ctx) for n in names]
+        for a in ins:
+            a.attach_grad()
+        with autograd.record():
+            out = getattr(nd, op)(*ins, **kw)
+        assert out.context == ctx
+        out.backward(nd.ones(out.shape, ctx=ctx) * 0.5)
+        res.append([out.asnumpy()] + [a.grad.asnumpy() for a in ins])
+    for a, b in zip(*res):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_nd_multi_sgd_mom_update_launches_the_kernel(card):
+    """``nd.multi_sgd_mom_update`` on NDArrays on the card: one launch of
+    the momentum kernel for the group, into the weights (``out=``) in
+    place, the momenta in place, equal to the plain version on the CPU;
+    ``lrs``/``wds`` arrays on the card cost one host read each."""
+    from mxnet_tpu_torch import cpu, gpu, nd
+    from mxnet_tpu_torch.engine import engine
+    rs = np.random.RandomState(4)
+    shapes = [(128, 784), (128,), (64, 128), (64,), (10, 64), (10,)]
+    arrays = [rs.randn(*s).astype(np.float32) for s in shapes]
+    grads = [rs.randn(*s).astype(np.float32) for s in shapes]
+    lrs = np.full(6, 0.1, np.float32)
+    wds = np.array([1e-4, 0] * 3, np.float32)
+    res = []
+    for ctx in (gpu(0), cpu()):
+        ws = [nd.array(a, ctx=ctx) for a in arrays]
+        ms = [nd.zeros(a.shape, ctx=ctx) for a in arrays]
+        ptrs = [w._data.data_ptr() for w in ws]
+        before, reads = multi_sgd_mom.launches, engine().host_reads
+        for _ in range(2):
+            out = nd.multi_sgd_mom_update(
+                *[t for w, g, m in zip(ws, grads, ms)
+                  for t in (w, nd.array(g, ctx=ctx), m)],
+                nd.array(lrs, ctx=ctx), nd.array(wds, ctx=ctx),
+                momentum=0.9, num_weights=6, out=ws)
+        assert out is ws and [w._data.data_ptr() for w in ws] == ptrs
+        if ctx == gpu(0):
+            assert multi_sgd_mom.launches - before == 2
+            assert engine().host_reads - reads == 4
+        res.append([w.asnumpy() for w in ws] + [m.asnumpy() for m in ms])
+    for a, b in zip(*res):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)

@@ -349,20 +349,26 @@ def test_custom_function_matches_jax():
 
 
 def test_creation_functions():
+    """The constructors make NDArrays (MXNet's surface) over tensors of
+    MXNet's default dtypes."""
     a = mt.nd.array([[1, 2], [3, 4]], ctx=cpu())
-    assert a.dtype == torch.float32 and a.device.type == "cpu"
-    assert mt.nd.array(np.arange(3), ctx=cpu()).dtype == torch.int64
-    assert mt.nd.array(np.ones(2), ctx=cpu()).dtype == torch.float32
-    assert mt.nd.array(np.ones(2), ctx=cpu(), dtype="int32").dtype == \
-        torch.int32
+    assert isinstance(a, mt.nd.NDArray)
+    assert a._data.dtype == torch.float32 and a.context == cpu()
+    assert a.dtype == np.float32 and a._data.device.type == "cpu"
+    assert mt.nd.array(np.arange(3), ctx=cpu())._data.dtype == torch.int64
+    assert mt.nd.array(np.ones(2), ctx=cpu())._data.dtype == torch.float32
+    assert mt.nd.array(np.ones(2), ctx=cpu(), dtype="int32")._data.dtype \
+        == torch.int32
     src = torch.arange(3, dtype=torch.int32)
     copy = mt.nd.array(src, ctx=cpu())
-    assert copy.dtype == torch.int32 and copy.data_ptr() != src.data_ptr()
+    assert copy._data.dtype == torch.int32 and \
+        copy._data.data_ptr() != src.data_ptr()
     for fn, fill in ((mt.nd.zeros, 0.0), (mt.nd.ones, 1.0)):
         t = fn((2, 3), ctx=cpu())
-        assert t.dtype == torch.float32 and t.tolist() == [[fill] * 3] * 2
-    assert mt.nd.full(4, 2.5, ctx=cpu(), dtype="float64").tolist() == \
-        [2.5] * 4
+        assert t._data.dtype == torch.float32 and \
+            t.asnumpy().tolist() == [[fill] * 3] * 2
+    assert mt.nd.full(4, 2.5, ctx=cpu(), dtype="float64").asnumpy() \
+        .tolist() == [2.5] * 4
     assert mt.nd.empty((5,), ctx=cpu()).shape == (5,)
 
 

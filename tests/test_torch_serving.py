@@ -195,6 +195,14 @@ def test_port_imports_without_jax():
             "import mxnet_tpu_torch.contrib.amp, mxnet_tpu_torch.ndarray.ops_nn\n"
             "import mxnet_tpu_torch.ndarray.ops_matrix\n"
             "import mxnet_tpu_torch.ndarray.ops_reduce\n"
+            "import mxnet_tpu_torch.ndarray.ops_elemwise\n"
+            "import mxnet_tpu_torch.ndarray.ops_random\n"
+            "import mxnet_tpu_torch.ndarray.register\n"
+            "import mxnet_tpu_torch.ndarray.ndarray\n"
+            "import mxnet_tpu_torch.ndarray.random\n"
+            "import mxnet_tpu_torch.ndarray.utils\n"
+            "import mxnet_tpu_torch.context, mxnet_tpu_torch.engine\n"
+            "import mxnet_tpu_torch.random, mxnet_tpu_torch.autograd\n"
             "import chip_smoke\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))"
             " for m in sys.modules if sys.modules[m] is not None)\n")
