@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero without printing the ok line).  Every
 kernel's launch count is set to 0 just before each main path (serving,
 MLP, ResNet-50, the custom-op MLP, BERT-base training, phase 10's
-low-precision runs and phase 11's imperative MLP) and read just after; a path must launch its kernel
-the expected number of times and the other kernels not at all:
+low-precision runs, phase 11's imperative MLP and phase 12's NMT
+training, each ``translate`` and the bucketing fit) and read just after;
+a path must launch its kernel the expected number of times and the other
+kernels not at all:
 
 1. device check: a CUDA card must be present; prints the card's name and
    power limit; TF32 is switched off so every fp32 tolerance means fp32;
@@ -169,10 +171,52 @@ the expected number of times and the other kernels not at all:
    step ms, the engine's waits and host reads a step, and the host
    microseconds of one ``nd.FullyConnected`` on NDArrays against
    ``F.linear`` on the same tensors;
-12. prints one JSON line of kernel measurements (flash: the fp32 and, as
+12. config #4 (``BASELINE.json:10``, Sockeye's Transformer NMT with the
+   Symbol bucketing executor): (a) ``transformer_nmt_base`` (6 + 6
+   layers, 512 wide, FFN 2048, 8 heads, vocabulary 32000, max length
+   128, the output tied to the embedding; weights from ``--seed``, fp32)
+   trained as ``bench_nmt`` trains it (``bench.py:484-531``: Adam at lr
+   1e-4 through ``gluon.Trainer``, B=16, one first step per bucket
+   32/48/64, 2 warm and 8 timed passes over the buckets, each pass ending
+   in a synchronise): exactly 12 flash launches a step (the encoder's
+   self-attention and the decoder's cross-attention; its causal
+   self-attention takes the masked softmax), no other kernel's, finite
+   losses, the parameter count; one batch-2, length-16 step from the
+   initial weights on the card against the CPU in fp32 and float64,
+   ``leaf_check`` on the updated weights and on the gradients, the loss
+   within 1e-4, the CPU runs taking the card's ReLU decisions
+   (``ReluDecisions``; float64's own may differ in at most 1e-4 of the
+   units); tokens/s, step ms per bucket (CUDA events), one profiled
+   step by class (GEMMs, flash forward, the flash backward's torch ops,
+   LayerNorm, the decoder's masked softmax, log-softmax/cross-entropy
+   over 32000, Adam, memcpy, other) and its idle share; (b)
+   ``translate`` as ``examples/translate_nmt.py`` calls it, greedy on 8
+   rows and beam 3 on 4, source length 32, ``max_len`` 35: exactly 6 +
+   6 flash launches per decoder call, one host read per decoder call,
+   the same result on a second run, and the card's every decoder call
+   replayed on the CPU model from the same weights (teacher forcing):
+   log-probabilities within 1e-4, each chosen token (greedy: the argmax;
+   beam: the top 3) within 1e-4 of the CPU's best (3rd best); ms per
+   output token; (c) the LSTM language model of
+   ``examples/train_char_lm_bucketing.py`` at the upstream example's
+   widths (Embedding(10000, 200), two LSTMCell(200), FullyConnected,
+   SoftmaxOutput), ``BucketingModule.fit`` over ``BucketSentenceIter``
+   (7680 sentences drawn from ``--seed``: lengths 2..60, Zipf-distributed
+   tokens over 10,000 ids; batch 32, buckets 10..60), SGD lr 0.01, wd
+   1e-5, ``Perplexity(invalid_label=0)``, one epoch: perplexity falls,
+   every bucket's module on the master's parameter and gradient tensors,
+   no kernel launches, one ``forward_backward`` + ``update`` on the card
+   against the CPU (``leaf_check``), the checkpoint round trip bit for
+   bit; samples/s, step ms per bucket, the host's share of a step; the
+   flash kernel at the NMT shapes (B=16 H=8 L=64, cross Lq=48 Lk=64,
+   decode Lq=1 Lk=64 and Lq=7 Lk=32, fp32: in phase 3, timed) and its
+   backward at the cross shape;
+13. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
-   ``train_launches`` and ``backward``; the SGD kernels' bf16/fp16
+   ``train_launches`` and ``backward``; phase 12's launches and shapes
+   under ``nmt_train_launches``, ``nmt_translate_launches`` and
+   ``nmt_shapes``; the SGD kernels' bf16/fp16
    entries, and the mixed path's own entry beside the unfused route's
    ``before_ms``), the card line, and last ``{"ok": true, "device":
    {...}}``.
@@ -186,6 +230,7 @@ import importlib.util
 import json
 import math
 import os
+import random
 import re
 import subprocess
 import sys
@@ -199,6 +244,12 @@ import torch.nn.functional as F
 
 from mxnet_tpu_torch import (autograd, gluon, load_reference_params, metric,
                              nd, operator, rtc)
+from mxnet_tpu_torch import callback as mx_callback
+from mxnet_tpu_torch import model as mx_model
+from mxnet_tpu_torch import module as mx_mod
+from mxnet_tpu_torch import random as mx_random
+from mxnet_tpu_torch import rnn as mx_rnn
+from mxnet_tpu_torch import symbol as mx_sym
 from mxnet_tpu_torch import engine as mx_engine
 from mxnet_tpu_torch import init as mx_init
 from mxnet_tpu_torch.base import MXNetError
@@ -660,13 +711,27 @@ def check_flash(gen, name, b, h, lq, lk, d, dtype, causal, iters, vl=None):
     return row
 
 
+# config #4's shapes (phase 12), drawn after FP16_FLASH_CASES, every key
+# valid (the NMT attentions that take the kernel carry no mask): training
+# self- and cross-attention at B=16, H=8, D=64, and translate's decoder
+# cross-attention, a prefix of Lq tokens against a source of Lk
+NMT_FLASH_CASES = [
+    ("nmt B=16 H=8 L=64", 16, 8, 64, 64, 64, torch.float32, False, 50),
+    ("nmt cross Lq=48 Lk=64", 16, 8, 48, 64, 64, torch.float32, False, 50),
+    ("nmt decode Lq=1 Lk=64", 8, 8, 1, 64, 64, torch.float32, False, 50),
+    ("nmt decode Lq=7 Lk=32", 8, 8, 7, 32, 64, torch.float32, False, 50)]
+
+
 def kernel_phase(seed: int):
     gen = torch.Generator().manual_seed(seed)
     rows = [check_flash(gen, *case) for case in FLASH_CASES]
     train_vl = torch.as_tensor(bert_batch(seed, BERT_BATCH, BERT_SEQ)[2])
     rows += [check_flash(gen, *case, vl=train_vl)
              for case in TRAIN_FLASH_CASES]
-    return rows + [check_flash(gen, *case) for case in FP16_FLASH_CASES]
+    rows += [check_flash(gen, *case) for case in FP16_FLASH_CASES]
+    return rows + [check_flash(gen, *case, vl=torch.full((case[1],),
+                                                         float(case[4])))
+                   for case in NMT_FLASH_CASES]
 
 
 # instruction families counted in the flash library's SASS
@@ -2091,7 +2156,13 @@ def _range_of(event):
     return None
 
 
-def bert_step_classes(prof, wall_ms: float, n_params: int) -> dict:
+BERT_CLASSES = ("gemm", "flash_forward", "flash_backward", "layernorm",
+                "log_softmax", "adam", "memcpy", "other")
+
+
+def bert_step_classes(prof, wall_ms: float, n_params: int,
+                      classify=_bert_kernel_class,
+                      names=BERT_CLASSES) -> dict:
     """Device time of one profiled training step by class (GEMMs, flash
     forward, the flash backward's torch ops, LayerNorm, the log-softmax,
     Adam's elementwise kernels, memcpy, other), its idle share of the
@@ -2099,14 +2170,12 @@ def bert_step_classes(prof, wall_ms: float, n_params: int) -> dict:
     range spans on the device's timeline (its kernels and the gaps
     between them).  A kernel is put in a range's class through the CPU
     op that launched it."""
-    classes = dict.fromkeys(("gemm", "flash_forward", "flash_backward",
-                             "layernorm", "log_softmax", "adam", "memcpy",
-                             "other"), 0.0)
+    classes = dict.fromkeys(names, 0.0)
     top, spans = [], {}
     for e in prof.key_averages():
         if _is_kernel(e):
             ms = e.self_device_time_total / 1e3
-            classes[_bert_kernel_class(e.key)] += ms
+            classes[classify(e.key)] += ms
             top.append((ms, e.count, e.key[:100]))
         elif e.key in BERT_RANGES and e.is_user_annotation:
             spans[BERT_RANGES[e.key]] = e.self_device_time_total / 1e3
@@ -2119,7 +2188,7 @@ def bert_step_classes(prof, wall_ms: float, n_params: int) -> dict:
             continue
         for k in e.kernels:
             ms = k.duration / 1e3
-            classes[_bert_kernel_class(k.name)] -= ms
+            classes[classify(k.name)] -= ms
             classes[cls] += ms
             ranged[cls] += 1
     busy = sum(classes.values())
@@ -2234,20 +2303,26 @@ def flash_backward_bound(vl_bh, lq, lk, d, dtype):
 
 
 def check_flash_backward(gen, b, h, length, d, dtype, iters,
-                         grad_tol=None):
-    """The backward alone at (B, H, L, D): the kernel's output against the
+                         grad_tol=None, lk=None, lost=1):
+    """The backward alone at (B, H, L, D) (queries ``length``, keys ``lk``,
+    default ``length``): the kernel's output against the
     plain version's (max-abs <= TOL[dtype]) and q/k/v gradients through
     the kernel's Function against torch autograd through the plain version
     in fp32 on the same values (max-abs <= ``grad_tol``, default
     TOL[dtype], x max(1, max|g|)),
     device ms of forward + backward against the plain version's and
     ``scaled_dot_product_attention``'s with the same key mask, and the
-    backward's peak memory beside one (B*H, L, L) fp32 matrix."""
+    backward's peak memory beside one (B*H, Lq, Lk) fp32 matrix.  ``lost``
+    is ``device_ms``'s allowance of lost records for the kernel's and the
+    plain version's timings (at Lq=48, Lk=64 a trace of 20 forwards lost
+    2 of its 20 kernel records, one of 3 plain forward + backward calls 2
+    of an elementwise kernel's 24)."""
     dev = gpu(0)
     bh = b * h
-    q, k, v, dout = (torch.randn(bh, length, d, generator=gen)
-                     .to(dev, dtype) for _ in range(4))
-    vl = torch.randint(length // 2, length + 1, (b,), generator=gen) \
+    lk = lk or length
+    q, k, v, dout = (torch.randn(bh, n, d, generator=gen).to(dev, dtype)
+                     for n in (length, lk, lk, length))
+    vl = torch.randint(lk // 2, lk + 1, (b,), generator=gen) \
         .float().to(dev)
     vl_bh = vl.repeat_interleave(h)
     scale = 1.0 / math.sqrt(d)
@@ -2273,9 +2348,9 @@ def check_flash_backward(gen, b, h, length, d, dtype, iters,
     peak = torch.cuda.max_memory_allocated() - base
     del out
 
-    mask = (torch.arange(length, device=dev)[None, :]
+    mask = (torch.arange(lk, device=dev)[None, :]
             < vl[:, None])[:, None, None, :]
-    sdpa_leaves = [t.detach().view(b, h, length, d).requires_grad_()
+    sdpa_leaves = [t.detach().view(b, h, -1, d).requires_grad_()
                    for t in (q, k, v)]
     dout4 = dout.view(b, h, length, d)
 
@@ -2296,19 +2371,21 @@ def check_flash_backward(gen, b, h, length, d, dtype, iters,
         with torch.no_grad():
             return flash_attention(q, k, v, vl)
 
-    bound_ms, bound_by = flash_backward_bound(vl_bh, length, length, d,
-                                              dtype)
+    bound_ms, bound_by = flash_backward_bound(vl_bh, length, lk, d, dtype)
     launches = {"ours": {}, "library": {}}
-    fwd_bwd_ms = device_ms(ours, iters, kernels=launches["ours"], lost=1)
-    fwd_ms = device_ms(forward, iters, only="flash_fwd_kernel", lost=1)
+    fwd_bwd_ms = device_ms(ours, iters, kernels=launches["ours"],
+                           lost=lost)
+    fwd_ms = device_ms(forward, iters, only="flash_fwd_kernel", lost=lost)
     return {
-        "case": f"B={b} H={h} L={length} D={d} {_short(dtype)}",
+        "case": f"B={b} H={h} L={length} D={d} {_short(dtype)}"
+                if lk == length else
+                f"B={b} H={h} Lq={length} Lk={lk} D={d} {_short(dtype)}",
         "max_abs_err": err, "tolerance": tol, "ref_max_abs": ref_max,
         "forward_max_abs_err": fwd_err, "forward_tolerance": TOL[dtype],
         "ok": err <= tol and fwd_err <= TOL[dtype],
         "fwd_bwd_ms": fwd_bwd_ms, "fwd_ms": fwd_ms,
         "bwd_ms": fwd_bwd_ms - fwd_ms,
-        "plain_fwd_bwd_ms": device_ms(plain, 3, lost=1),
+        "plain_fwd_bwd_ms": device_ms(plain, 3, lost=lost),
         # SDPA's cuDNN backward: a trace of 20 fp16 calls read one
         # elementwise kernel 2 records short in 3 traces running
         "library_fwd_bwd_ms": device_ms(library, iters,
@@ -2319,7 +2396,7 @@ def check_flash_backward(gen, b, h, length, d, dtype, iters,
         "library_wall_fwd_bwd_ms": cuda_ms(library, iters),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bwd_peak_memory_mb": peak / 1e6,
-        "full_matrix_mb": bh * length * length * 4 / 1e6}
+        "full_matrix_mb": bh * length * lk * 4 / 1e6}
 
 
 def bert_train_phase(seed: int, card: str) -> dict:
@@ -2946,6 +3023,609 @@ def imperative_phase(seed: int):
             "ok": ok}
 
 
+# ----------------------------------------------------------------------
+# Phase 12: config #4 (BASELINE.json:10, Sockeye's Transformer NMT and
+# the Symbol bucketing executor).  (a) transformer_nmt_base trained
+# through gluon.Trainer as bench_nmt runs it (bench.py:484-531), (b)
+# ``translate`` as examples/translate_nmt.py calls it, (c) the LSTM
+# language model of examples/train_char_lm_bucketing.py through
+# BucketingModule.fit, at the widths of the upstream example its
+# docstring names (example/rnn/bucketing/lstm_bucketing.py).
+
+NMT_VOCAB, NMT_MAXLEN, NMT_LAYERS, NMT_HEADS = 32000, 128, 6, 8
+NMT_BATCH, NMT_BUCKETS = 16, (32, 48, 64)
+NMT_WARM, NMT_PASSES = 2, 8
+NMT_OPT = {"learning_rate": 1e-4}
+NMT_CHECK = (2, 16)                   # the leaf check's batch, sequence
+NMT_CLASSES = ("gemm", "flash_forward", "flash_backward", "layernorm",
+               "masked_softmax", "log_softmax_ce", "adam", "memcpy",
+               "other")
+TRANSLATE_SRC, TRANSLATE_TOL = 32, 1e-4
+TRANSLATE_RUNS = (("greedy", 8, 1), ("beam", 4, 3))   # rows, beam size
+BOS, EOS = 1, 2
+LM_VOCAB, LM_EMB, LM_HIDDEN, LM_LAYERS = 10000, 200, 200, 2
+LM_BATCH, LM_BUCKETS = 32, (10, 20, 30, 40, 50, 60)
+LM_OPT = {"learning_rate": 0.01, "wd": 1e-5}
+LM_SENTENCES = 7680                   # ~240 batches of 32
+LM_WINDOW = 20                        # batches per perplexity reading
+LM_TIMED = 5                          # timed steps per bucket
+
+
+def nmt_data(seed: int, batch: int, buckets, vocab: int) -> dict:
+    """``bench_nmt``'s batches (bench.py:506-512) from ``seed``: per
+    bucket length, source, target and label ids in [1, vocab), float32
+    (the bench's ``nd.array``), on the CPU."""
+    rng = np.random.default_rng(seed)
+    return {s: tuple(torch.as_tensor(rng.integers(1, vocab, (batch, s)),
+                                     dtype=torch.float32)
+                     for _ in range(3)) for s in buckets}
+
+
+def nmt_loss(net, src, tgt, lab):
+    """``bench_nmt``'s loss: the mean over the batch of
+    ``SoftmaxCrossEntropyLoss`` of the logits."""
+    return nd.mean(gluon.loss.SoftmaxCrossEntropyLoss()(net(src, tgt), lab))
+
+
+def nmt_step(net, trainer, src, tgt, lab):
+    """One ``bench_nmt`` step: record, the loss, ``autograd.backward``,
+    ``trainer.step(batch)`` (in a ``trainer_step`` profiler range);
+    returns the loss."""
+    with autograd.record():
+        loss = nmt_loss(net, src, tgt, lab)
+    autograd.backward(loss)
+    with torch.profiler.record_function("trainer_step"):
+        trainer.step(src.shape[0])
+    return loss.detach()
+
+
+def _nmt_kernel_class(name: str) -> str:
+    low = name.lower()
+    if "logsoftmax" in low or "gather" in low or "nll" in low:
+        return "log_softmax_ce"
+    if "softmax" in low:
+        return "masked_softmax"
+    return _bert_kernel_class(name)
+
+
+def nmt_param_count(net) -> int:
+    return sum(math.prod(p.shape) for p in net.collect_params().values())
+
+
+def nmt_check_step(model, batch):
+    """One Adam step of ``model`` from its weights at the bench's recipe:
+    the loss (float64, on the CPU), the gradients, the updated weights."""
+    tr = gluon.Trainer(model.collect_params(), "adam", NMT_OPT)
+    src, tgt, lab = batch
+    with autograd.record():
+        loss = nmt_loss(model, src, tgt, lab)
+    autograd.backward(loss)
+    grads = {k: p.grad().detach().clone()
+             for k, p in model.collect_params().items()}
+    tr.step(src.shape[0])
+    return loss.detach().cpu().double(), grads, _snapshot(model)
+
+
+class ReluDecisions:
+    """While open, the ReLUs of ``model``'s position-wise FFNs record
+    which units they pass (one mask per FFN, for one forward), or, given
+    ``masks``, pass those units and no others (``z * mask``: the same
+    piecewise-linear function, its gradient the mask) and count the units
+    where their own decision (``z > 0``) differs (``flips``).
+
+    A unit whose pre-activation sits within rounding of 0 can fall either
+    way in two fp32 runs, and one such unit moves every gradient upstream
+    of it (one of the base model's 786,432 at the check's shape put ten
+    leaves 1.4e-3 to 5.3e-3 of their norm from float64 on an H100, where
+    the CPU fp32 run sat at 1e-6).  Holding the CPU runs to the card's
+    decisions keeps the leaf check about the arithmetic; ``flips``
+    reports how many decisions were the card's own."""
+
+    def __init__(self, model, masks=None):
+        from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+            PositionwiseFFN
+        self._ffns = [m for m in model.modules()
+                      if isinstance(m, PositionwiseFFN)]
+        self._forced = masks
+        self.masks = {}
+        self.flips = 0
+        self.units = 0
+
+    def _act(self, i):
+        def act(z):
+            own = z > 0
+            self.units += own.numel()
+            if self._forced is None:
+                self.masks[i] = own.cpu()
+                return torch.relu(z)
+            mask = self._forced[i].to(z.device)
+            self.flips += int((own != mask).sum())
+            return z * mask.to(z.dtype)
+        return act
+
+    def __enter__(self):
+        self._saved = [ffn._act for ffn in self._ffns]
+        for i, ffn in enumerate(self._ffns):
+            ffn._act = self._act(i)
+        return self
+
+    def __exit__(self, *exc):
+        for ffn, act in zip(self._ffns, self._saved):
+            ffn._act = act
+
+
+def nmt_leaf_check(net, seed: int, build) -> dict:
+    """One Adam step at batch 2, length 16 from ``net``'s weights on the
+    card, on the CPU in fp32 and in float64, held leaf by leaf
+    (``leaf_check``) on the updated weights and on the gradients; the
+    card's loss within 1e-4 of the CPU's.  The CPU runs take the card's
+    ReLU decisions (``ReluDecisions``); the units where float64 would
+    have decided otherwise must be at most 1e-4 of them.  ``net``'s
+    weights are put back after."""
+    w_init = _snapshot(net)
+    arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
+    batch = nmt_data(seed + 1, NMT_CHECK[0], (NMT_CHECK[1],),
+                     NMT_VOCAB)[NMT_CHECK[1]]
+    with ReluDecisions(net) as card:
+        after = {"card": nmt_check_step(net,
+                                        [t.to(gpu(0)) for t in batch])}
+    flips = {}
+    for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+        model = build()
+        load_reference_params(model, arrays, ctx=cpu())
+        with ReluDecisions(model, card.masks) as forced:
+            after[name] = nmt_check_step(model.to(dtype),
+                                         [t.to(dtype) for t in batch])
+        flips[name] = forced.flips
+        del model
+    zeros = {k: torch.zeros_like(v) for k, v in w_init.items()}
+    loss_err = (after["card"][0] - after["cpu"][0]).abs().item()
+    weights = leaf_check(after["card"][2], after["cpu"][2],
+                         after["cpu64"][2], w_init)
+    grads = leaf_check(after["card"][1], after["cpu"][1],
+                       after["cpu64"][1], zeros)
+    load_reference_params(net, arrays, ctx=gpu(0))
+    return {"batch": list(NMT_CHECK), "loss_abs_err_vs_cpu": loss_err,
+            "loss_card": after["card"][0].item(),
+            "loss_cpu64": after["cpu64"][0].item(),
+            "relu_units": card.units, "relu_flips": flips,
+            "weights": weights, "grads": grads,
+            "ok": loss_err <= 1e-4 and weights["ok"] and grads["ok"]
+            and flips["cpu64"] <= 1e-4 * card.units}
+
+
+def nmt_train_run(net, seed: int) -> dict:
+    """The bench's schedule: one first step per bucket, ``NMT_WARM`` warm
+    passes, then ``NMT_PASSES`` timed passes over the buckets, each
+    ending in a synchronise (each step's device-clock span taken by CUDA
+    events); the flash launches of every step; one profiled step at the
+    longest bucket."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = gpu(0)
+    data = {s: [t.to(dev) for t in b] for s, b in
+            nmt_data(seed, NMT_BATCH, NMT_BUCKETS, NMT_VOCAB).items()}
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "adam", NMT_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    first = [nmt_step(net, trainer, *data[s]) for s in NMT_BUCKETS]
+    for _ in range(NMT_WARM):
+        for s in NMT_BUCKETS:
+            nmt_step(net, trainer, *data[s])
+    torch.cuda.synchronize()
+    spans = {s: [] for s in NMT_BUCKETS}
+    losses = []
+    t0 = time.monotonic()
+    for _ in range(NMT_PASSES):
+        marks = []
+        for s in NMT_BUCKETS:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            losses.append(nmt_step(net, trainer, *data[s]))
+            e1.record()
+            marks.append((s, e0, e1))
+        torch.cuda.synchronize()
+        for s, e0, e1 in marks:
+            spans[s].append(e0.elapsed_time(e1))
+    wall = time.monotonic() - t0
+    steps = len(NMT_BUCKETS) * (1 + NMT_WARM + NMT_PASSES)
+    launches = flash_attention.launches
+    other = other_launches(flash_attention)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        nmt_step(net, trainer, *data[NMT_BUCKETS[-1]])
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.monotonic() - t1) * 1e3
+    tokens = NMT_PASSES * NMT_BATCH * sum(NMT_BUCKETS)
+    return {
+        "steps": steps, "first_losses": [v.item() for v in first],
+        "losses": [v.item() for v in losses],
+        "tokens_per_s": tokens / wall,
+        "pass_ms": wall / NMT_PASSES * 1e3,
+        "step_ms": {str(s): sum(v) / len(v) for s, v in spans.items()},
+        "flash_launches": launches, "flash_launches_per_step":
+            launches / steps,
+        "other_kernel_launches": other, "peak_memory_gb": peak_gb,
+        "profile": bert_step_classes(prof, prof_wall_ms, len(params),
+                                     _nmt_kernel_class, NMT_CLASSES)}
+
+
+class DecoderCalls:
+    """Counts (and with ``record``, keeps) ``net``'s decoder calls of one
+    ``translate`` while open: each call's prefix on the host, the source
+    row its memory starts at, and the log-probabilities the card read
+    back."""
+
+    def __init__(self, net, record: bool = False):
+        self._net = net
+        self._record = record
+        self.calls = 0
+        self.records = []
+
+    def __enter__(self):
+        step = type(self._net)._step_logp
+
+        def counted(tgt, mem, src_mask):
+            logp = step(self._net, tgt, mem, src_mask)
+            self.calls += 1
+            if self._record:
+                row = mem.storage_offset() // (mem.shape[1] * mem.shape[2])
+                self.records.append((tgt.detach().cpu(), row,
+                                     mem.shape[0], logp))
+            return logp
+        self._net._step_logp = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self._net._step_logp
+
+
+def translate_flash_launches(layers: int, decoder_calls: int) -> int:
+    """The flash launches of one ``translate``: the encoder's
+    self-attention once, the decoder's cross-attention once a call (its
+    causal self-attention takes the masked softmax)."""
+    return layers * (1 + decoder_calls)
+
+
+def teacher_forcing(cpu_net, src, records, beam: int, tol: float) -> dict:
+    """Replays the card's decoder calls on ``cpu_net`` (the same weights
+    on the CPU): each call's prefix against the CPU encoder's memory of
+    the same source rows, the last position's log-probabilities against
+    the card's (max-abs), and the tokens the card chose (greedy: its
+    argmax; beam: its top ``beam``) each within ``tol`` of the CPU's best
+    (greedy) or ``beam``-th best."""
+    with torch.no_grad():
+        mem = cpu_net.encode(torch.as_tensor(src, dtype=torch.float32))
+        err, worst_choice, bad = 0.0, 0.0, 0
+        for tgt, row, rows, logp_card in records:
+            m = mem[row:row + rows]
+            dec = cpu_net.decoder(
+                cpu_net.word_embed(tgt) * math.sqrt(cpu_net._units), m)
+            logp = torch.log_softmax(cpu_net.out_proj(dec[:, -1]),
+                                     dim=-1).numpy()
+            err = max(err, float(np.abs(logp - logp_card).max()))
+            chosen = np.argsort(logp_card, axis=-1)[:, -beam:]
+            kth = np.sort(logp, axis=-1)[:, -beam][:, None]
+            short = kth - np.take_along_axis(logp, chosen, axis=-1)
+            worst_choice = max(worst_choice, float(short.max()))
+            bad += int((short > tol).sum())
+    return {"calls": len(records), "logp_max_abs_err": err,
+            "choice_max_shortfall": worst_choice, "bad_choices": bad,
+            "ok": err <= tol and bad == 0}
+
+
+def translate_run(net, cpu_net, seed: int) -> dict:
+    """``translate`` as examples/translate_nmt.py calls it, greedy on 8
+    rows and beam 3 on 4, ``max_len`` = source length + 3: a timed run
+    (the flash launches exact, the host reads one per decoder call), a
+    recorded run that must decode the same, and its teacher-forcing
+    replay on the CPU."""
+    eng = mx_engine.engine()
+    rng = np.random.default_rng(seed + 2)
+    src = rng.integers(3, NMT_VOCAB, (TRANSLATE_RUNS[0][1], TRANSLATE_SRC))
+    max_len = TRANSLATE_SRC + 3
+    net.translate(nd.array(src[:1], ctx=gpu(0)), BOS, EOS, max_len=2)
+    out = {}
+    for mode, rows, beam in TRANSLATE_RUNS:
+        x = nd.array(src[:rows], ctx=gpu(0))
+        torch.cuda.synchronize()
+        eng.reset_stats()
+        zero_counts()
+        with DecoderCalls(net) as calls:
+            t0 = time.monotonic()
+            toks, scores = net.translate(x, BOS, EOS, max_len=max_len,
+                                         beam_size=beam)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        launches = flash_attention.launches
+        other = other_launches(flash_attention)
+        reads = eng.stats()["host_reads"]
+        with DecoderCalls(net, record=True) as rec:
+            again = net.translate(x, BOS, EOS, max_len=max_len,
+                                  beam_size=beam)
+        n_tokens = max(1, sum(len(t) for t in toks))
+        tf = teacher_forcing(cpu_net, src[:rows], rec.records, beam,
+                             TRANSLATE_TOL)
+        expected = translate_flash_launches(NMT_LAYERS, calls.calls)
+        out[mode] = {
+            "rows": rows, "beam": beam, "max_len": max_len,
+            "decoder_calls": calls.calls, "flash_launches": launches,
+            "flash_launches_expected": expected,
+            "other_kernel_launches": other, "host_reads": reads,
+            "output_tokens": n_tokens, "wall_ms": wall * 1e3,
+            "ms_per_token": wall * 1e3 / n_tokens,
+            "ms_per_decoder_call": wall * 1e3 / calls.calls,
+            "scores": scores, "same_on_rerun": again == (toks, scores),
+            "teacher_forcing": tf,
+            "ok": launches == expected and other == 0
+            and reads == calls.calls and again == (toks, scores)
+            and tf["ok"] and all(math.isfinite(v) for v in scores)}
+    return out
+
+
+def nmt_phase(seed: int, card: str) -> dict:
+    """Config #4's model: ``transformer_nmt_base(vocab 32000, max_length
+    128)`` (6 + 6 layers, 512 wide, FFN 2048, 8 heads, the output tied to
+    the embedding), weights from ``seed``, fp32 with TF32 off: the leaf
+    check, ``bench_nmt``'s training run, then ``translate``."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        transformer_nmt_base
+
+    def build():
+        return transformer_nmt_base(vocab_size=NMT_VOCAB,
+                                    max_length=NMT_MAXLEN)
+    net = build()
+    net.initialize(ctx=gpu(0), seed=seed)
+    n_params = nmt_param_count(net)
+    check = nmt_leaf_check(net, seed, build)
+    arrays = {k: v.cpu().numpy() for k, v in _snapshot(net).items()}
+    train = nmt_train_run(net, seed)
+    print(f"nmt training on {card}:", json.dumps(train), flush=True)
+    # translate from the initial weights, on the card and on the CPU
+    load_reference_params(net, arrays, ctx=gpu(0))
+    cpu_net = build()
+    load_reference_params(cpu_net, arrays, ctx=cpu())
+    trans = translate_run(net, cpu_net, seed)
+    del net, cpu_net
+    torch.cuda.empty_cache()
+    steps = train["steps"]
+    checks = {
+        "leaf_check": check["ok"],
+        "flash_launches": train["flash_launches"]
+        == 2 * NMT_LAYERS * steps,
+        "no_other_kernel": train["other_kernel_launches"] == 0,
+        "finite_losses": all(math.isfinite(v) for v in
+                             train["first_losses"] + train["losses"]),
+        "param_count": n_params == NMT_VOCAB * 512 + 2 * NMT_MAXLEN * 512
+        + NMT_LAYERS * (3152384 + 4204032),
+        "translate_greedy": trans["greedy"]["ok"],
+        "translate_beam": trans["beam"]["ok"]}
+    return {"card": card, "params": n_params, "batch": NMT_BATCH,
+            "buckets": list(NMT_BUCKETS), "leaf_check": check,
+            "train": train, "translate": trans, "checks": checks,
+            "ok": all(checks.values())}
+
+
+def lm_sentences(seed: int, n: int) -> list:
+    """``n`` id sentences from ``seed``: lengths uniform in [2, 60] (the
+    buckets' span), tokens from a Zipf law (exponent 1.1) over ids 1 ..
+    9999 of a 10,000-word vocabulary (PTB's size; id 0 pads)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, LM_BUCKETS[-1] + 1, n)
+    p = 1.0 / np.arange(1, LM_VOCAB) ** 1.1
+    tokens = rng.choice(np.arange(1, LM_VOCAB), size=int(lengths.sum()),
+                        p=p / p.sum())
+    return [t.tolist() for t in np.split(tokens, np.cumsum(lengths)[:-1])]
+
+
+def lm_sym_gen(seq_len):
+    """examples/train_char_lm_bucketing.py's ``sym_gen`` at the upstream
+    widths: Embedding(10000, 200), two LSTMCell(200) unrolled to the
+    bucket's length, FullyConnected to the vocabulary, SoftmaxOutput."""
+    data, label = mx_sym.var("data"), mx_sym.var("softmax_label")
+    embed = mx_sym.Embedding(data, input_dim=LM_VOCAB, output_dim=LM_EMB,
+                             name="embed")
+    stack = mx_rnn.SequentialRNNCell()
+    for i in range(LM_LAYERS):
+        stack.add(mx_rnn.LSTMCell(LM_HIDDEN, prefix=f"lstm_l{i}_"))
+    outputs, _ = stack.unroll(seq_len, embed, layout="NTC",
+                              merge_outputs=True)
+    pred = mx_sym.reshape(outputs, shape=(-1, LM_HIDDEN))
+    pred = mx_sym.FullyConnected(pred, num_hidden=LM_VOCAB, name="pred")
+    label = mx_sym.reshape(label, shape=(-1,))
+    pred = mx_sym.SoftmaxOutput(pred, label, name="softmax")
+    return pred, ("data",), ("softmax_label",)
+
+
+def lm_iter(seed: int, n: int):
+    random.seed(seed)
+    np.random.seed(seed)
+    return mx_rnn.BucketSentenceIter(lm_sentences(seed, n), LM_BATCH,
+                                     buckets=list(LM_BUCKETS),
+                                     invalid_label=0)
+
+
+def unshared_parameters(bmod) -> list:
+    """(bucket, name) of every parameter or gradient array of a bucket's
+    module that is not the master module's tensor."""
+    master = bmod.buckets[bmod.default_bucket_key]
+    bad = []
+    for key, m in bmod.buckets.items():
+        for n in master._param_names:
+            for mine, theirs in ((m._arg_params[n], master._arg_params[n]),
+                                 (m._grad_params[n],
+                                  master._grad_params[n])):
+                if mine._data.data_ptr() != theirs._data.data_ptr():
+                    bad.append((key, n))
+    return bad
+
+
+def module_to(bmod, dtype) -> None:
+    """Every array of every bucket's executor in ``dtype`` (the buckets
+    share theirs, so each moves once)."""
+    seen = set()
+    for m in bmod.buckets.values():
+        exe = m._exec_group.execs[0]
+        for arr in exe.arg_arrays + exe.grad_arrays + exe.aux_arrays:
+            if arr is not None and id(arr) not in seen:
+                seen.add(id(arr))
+                arr._data = arr._data.to(dtype)
+
+
+def lm_module(ctx, key: int):
+    bmod = mx_mod.BucketingModule(lm_sym_gen, default_bucket_key=key,
+                                  context=ctx)
+    shape = (LM_BATCH, key)
+    bmod.bind([("data", shape)], [("softmax_label", shape)])
+    return bmod
+
+
+def lm_check_step(ctx, dtype, arg_params, batch):
+    """One ``forward_backward`` + ``update`` of a fresh module on ``ctx``
+    in ``dtype`` from ``arg_params``: (gradients, updated weights), by
+    parameter name, on the CPU."""
+    bmod = lm_module(ctx, batch.bucket_key)
+    bmod.init_params(arg_params=arg_params)
+    module_to(bmod, dtype)
+    bmod.init_optimizer(optimizer="sgd", optimizer_params=dict(LM_OPT))
+    bmod.forward_backward(batch)
+    m = bmod.buckets[batch.bucket_key]
+    grads = {n: g._data.detach().cpu().clone()
+             for n, g in m._grad_params.items()}
+    bmod.update()
+    return grads, {n: a._data.detach().cpu().clone()
+                   for n, a in m._arg_params.items()}
+
+
+def lm_leaf_check(seed: int) -> dict:
+    """One SGD step at the longest bucket from the same initial weights on
+    the card, on the CPU in fp32 and in float64, held leaf by leaf
+    (``leaf_check``) on the gradients and the updated weights."""
+    mx_random.seed(seed)
+    init = lm_module(gpu(0), LM_BUCKETS[-1])
+    init.init_params()
+    arg, _ = init.get_params()
+    batch = next(b for b in lm_iter(seed + 1, 1500)
+                 if b.bucket_key == LM_BUCKETS[-1])
+    runs = {name: lm_check_step(ctx, dtype, arg, batch)
+            for name, ctx, dtype in (("card", gpu(0), torch.float32),
+                                     ("cpu", cpu(), torch.float32),
+                                     ("cpu64", cpu(), torch.float64))}
+    w0 = {n: arg[n]._data for n in runs["card"][1]}
+    zeros = {n: torch.zeros_like(t) for n, t in w0.items()}
+    grads = leaf_check(runs["card"][0], runs["cpu"][0], runs["cpu64"][0],
+                       zeros)
+    weights = leaf_check(runs["card"][1], runs["cpu"][1], runs["cpu64"][1],
+                         w0)
+    return {"bucket": LM_BUCKETS[-1], "grads": grads, "weights": weights,
+            "ok": grads["ok"] and weights["ok"]}
+
+
+def device_busy_ms(prof) -> float:
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if _is_kernel(e)) / 1e3
+
+
+def lm_phase(seed: int, card: str, out_dir: Path) -> dict:
+    """Config #4's executor: ``BucketingModule.fit`` of the LSTM language
+    model over ``BucketSentenceIter`` (batch 32, buckets 10..60), SGD at
+    lr 0.01, wd 1e-5, ``Perplexity(invalid_label=0)`` as the example
+    passes it; the buckets' parameter sharing, the leaf check, the
+    checkpoint round trip, step ms per bucket and the host's share of a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    out_dir.mkdir(parents=True, exist_ok=True)
+    it = lm_iter(seed, LM_SENTENCES)
+    mx_random.seed(seed)
+    bmod = mx_mod.BucketingModule(lm_sym_gen,
+                                  default_bucket_key=it.default_bucket_key,
+                                  context=gpu(0))
+    metric_ = metric.Perplexity(invalid_label=0)
+    readings, speed = [], mx_callback.Speedometer(LM_BATCH, LM_WINDOW)
+
+    def read(param):
+        if param.nbatch and param.nbatch % LM_WINDOW == 0:
+            readings.append(param.eval_metric.get()[1])
+    n_batches = len(it.idx)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.monotonic()
+    bmod.fit(it, num_epoch=1, eval_metric=metric_, optimizer="sgd",
+             optimizer_params=dict(LM_OPT),
+             batch_end_callback=[read, speed])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = other_launches()
+    unshared = unshared_parameters(bmod)
+    # step ms per bucket, and one profiled step at the longest
+    it.reset()
+    by_key = {}
+    for b in it:
+        by_key.setdefault(b.bucket_key, b)
+    step_ms, graph_ops = {}, {}
+    for key, b in sorted(by_key.items()):
+        bmod.forward_backward(b)
+        bmod.update()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        for _ in range(LM_TIMED):
+            bmod.forward_backward(b)
+            bmod.update()
+        torch.cuda.synchronize()
+        step_ms[str(key)] = (time.monotonic() - t1) / LM_TIMED * 1e3
+        graph_ops[str(key)] = bmod.buckets[key]._exec_group.execs[0] \
+            ._run(True).steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        bmod.forward_backward(by_key[LM_BUCKETS[-1]])
+        bmod.update()
+        torch.cuda.synchronize()
+        prof_wall = (time.monotonic() - t1) * 1e3
+    busy = device_busy_ms(prof)
+    # the checkpoint round trip
+    prefix = str(out_dir / "lm_bucketing")
+    bmod.save_checkpoint(prefix, 1)
+    arg, aux = bmod.get_params()
+    sym, arg2, aux2 = mx_model.load_checkpoint(prefix, 1, ctx=cpu())
+    master = bmod.buckets[bmod.default_bucket_key]
+    round_trip = sym.tojson() == master.symbol.tojson() \
+        and arg.keys() == arg2.keys() and aux.keys() == aux2.keys() \
+        and all(torch.equal(arg[k]._data, arg2[k]._data) for k in arg)
+    for path in (f"{prefix}-symbol.json", f"{prefix}-0001.params"):
+        os.remove(path)
+    leaf = lm_leaf_check(seed)
+    n_params = sum(a.size for a in arg.values())
+    checks = {
+        "perplexity_falls": len(readings) >= 2
+        and readings[-1] < readings[0],
+        "finite": all(math.isfinite(v) for v in readings),
+        "buckets_bound": sorted(bmod.buckets) == list(LM_BUCKETS),
+        "parameters_shared": not unshared,
+        "no_kernel_launches": launches == 0,
+        "leaf_check": leaf["ok"], "checkpoint_round_trip": round_trip}
+    return {
+        "card": card, "batches": n_batches, "discarded": it.ndiscard,
+        "params": n_params, "perplexity_windows": readings,
+        "samples_per_s": n_batches * LM_BATCH / wall,
+        "fit_wall_s": wall, "speedometer_samples_per_s": speed.speeds,
+        "step_ms": step_ms, "graph_ops_per_forward": graph_ops,
+        "profiled_step_ms": prof_wall, "device_busy_ms": busy,
+        "host_share": max(0.0, 1.0 - busy / prof_wall),
+        "unshared": unshared[:10], "leaf_check": {
+            part: {k: leaf[part][k] for k in ("ok", "leaves", "failed",
+                                               "cpu_share_median",
+                                               "worst_margin")}
+            for part in ("grads", "weights")},
+        "checks": checks, "ok": all(checks.values())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3073,6 +3753,43 @@ def main() -> int:
           f"{imp['losses'][0]:.5f} -> {imp['losses'][-1]:.5f}", flush=True)
     print(f"imperative mlp on {card}:", json.dumps(imp), flush=True)
 
+    nmt = nmt_phase(args.seed, card)
+    tr = nmt["train"]
+    print(f"nmt on {card}: {nmt['params']} parameters, "
+          f"{tr['tokens_per_s']:.1f} tokens/s, step ms by bucket "
+          f"{json.dumps(tr['step_ms'])}, flash launches "
+          f"{tr['flash_launches']} in {tr['steps']} steps, device "
+          f"{json.dumps(tr['profile']['device_ms'])}, idle "
+          f"{tr['profile']['device_idle_share']:.3f}, peak memory "
+          f"{tr['peak_memory_gb']:.2f} GB", flush=True)
+    for mode, r in nmt["translate"].items():
+        print(f"nmt translate {mode} on {card}: {r['ms_per_token']:.3f} ms "
+              f"per output token, {r['ms_per_decoder_call']:.3f} ms per "
+              f"decoder call ({r['decoder_calls']} calls, "
+              f"{r['host_reads']} host reads), flash launches "
+              f"{r['flash_launches']} of {r['flash_launches_expected']}, "
+              f"teacher forcing {json.dumps(r['teacher_forcing'])}",
+              flush=True)
+    print(f"nmt leaf check on {card}:", json.dumps({
+        "loss_abs_err_vs_cpu": nmt["leaf_check"]["loss_abs_err_vs_cpu"]} | {
+        part: {k: nmt["leaf_check"][part][k] for k in
+               ("ok", "leaves", "failed", "cpu_share_median",
+                "worst_margin")}
+        for part in ("weights", "grads")}), flush=True)
+    print(f"nmt checks on {card}:", json.dumps(nmt["checks"]), flush=True)
+    lm = lm_phase(args.seed, card, Path(args.out))
+    print(f"lstm bucketing on {card}: {lm['samples_per_s']:.1f} samples/s "
+          f"over {lm['batches']} batches, step ms by bucket "
+          f"{json.dumps(lm['step_ms'])}, host share "
+          f"{lm['host_share']:.3f}, perplexity "
+          f"{lm['perplexity_windows'][0]:.1f} -> "
+          f"{lm['perplexity_windows'][-1]:.1f}", flush=True)
+    print(f"lstm bucketing on {card}:", json.dumps(lm), flush=True)
+    nmt_backward = check_flash_backward(
+        torch.Generator().manual_seed(args.seed), NMT_BATCH, NMT_HEADS, 48,
+        HEAD_DIM, torch.float32, 20, lk=64, lost=3)
+    print("flash backward", json.dumps(nmt_backward), flush=True)
+
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -3127,7 +3844,14 @@ def main() -> int:
             "max_abs_err", "forward_max_abs_err", "fwd_bwd_ms", "bwd_ms",
             "plain_fwd_bwd_ms", "library_fwd_bwd_ms", "bound_ms",
             "bound_by", "bwd_peak_memory_mb", "full_matrix_mb")}
-            for r in bert["backward"] + low["backward"]},
+            for r in bert["backward"] + low["backward"] + [nmt_backward]},
+        "nmt_train_launches": tr["flash_launches"],
+        "nmt_translate_launches": {
+            mode: r["flash_launches"]
+            for mode, r in nmt["translate"].items()},
+        "nmt_shapes": {r["case"]: {key: r[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for r in rows if r["case"].startswith("nmt")},
     }, sgd_row("multi_sgd", SGD_TPU, mlp["launches"],
                times["multi_sgd_mlp"])
         | {"bf16_launches": low["mlp_bf16"]["launches"],
@@ -3181,13 +3905,17 @@ def main() -> int:
          "serving": serving, "sgd": sgd, "mlp": mlp, "resnet50": resnet,
          "rtc": rtc_res, "custom_mlp": custom, "bert_train": bert,
          "low_precision": low, "imperative_mlp": imp,
+         "nmt": nmt, "lstm_bucketing": lm, "nmt_flash_backward":
+             nmt_backward,
          "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
         ("mlp", mlp), ("resnet50", resnet), ("rtc", rtc_res),
         ("custom-op mlp", custom), ("bert train", bert),
-        ("low precision", low), ("imperative mlp", imp)) if not ph["ok"]]
+        ("low precision", low), ("imperative mlp", imp), ("nmt", nmt),
+        ("lstm bucketing", lm), ("nmt flash backward", nmt_backward))
+        if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)
         return 1

@@ -20,22 +20,31 @@ itself.  The imperative surface is MXNet's: ``nd.NDArray`` over a
 ``NDArray``s or tensors), autograd on arrays (``attach_grad``,
 ``backward``), ``mx.random`` and the engine's waits (``mx.engine``,
 ``nd.waitall``); Gluon blocks, losses and metrics take ``NDArray``s.  It
-imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Entry points run
-on ``gpu(0)`` unless the caller passes ``ctx=cpu()`` or opens a ``with
-mx.cpu():`` scope.
+imports ``torch`` and never ``jax`` or ``mxnet_tpu``.  Config #4 runs
+both ways: the Transformer NMT trains through ``gluon.Trainer`` and
+``translate``s with the flash kernel in its encoder and cross-attention,
+and the Symbol API (``mx.sym``, ``Executor``) drives ``mx.mod.Module`` /
+``BucketingModule.fit`` over ``mx.rnn`` cells and ``BucketSentenceIter``
+with the metrics, callbacks, checkpoints and the one-process kvstore.
+Entry points run on ``gpu(0)`` unless the caller passes ``ctx=cpu()`` or
+opens a ``with mx.cpu():`` scope.
 """
-from . import autograd, base, context, contrib, engine, gluon, \
-    initializer, kernels, metric, ndarray, observability, operator, \
-    optimizer, random, rtc, serving
+from . import autograd, base, callback, context, contrib, engine, gluon, \
+    initializer, io, kernels, kvstore, metric, model, module, ndarray, \
+    observability, operator, optimizer, random, rnn, rtc, serving, symbol
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .convert import load_reference_params
 
 nd = ndarray
 init = initializer
+sym = symbol
+mod = module
 
-__all__ = ["Context", "MXNetError", "autograd", "base", "context",
-           "contrib", "cpu", "current_context", "engine", "gpu", "gluon",
-           "init", "initializer", "kernels", "load_reference_params",
-           "metric", "nd", "ndarray", "num_gpus", "observability",
-           "operator", "optimizer", "random", "rtc", "serving"]
+__all__ = ["Context", "MXNetError", "autograd", "base", "callback",
+           "context", "contrib", "cpu", "current_context", "engine", "gpu",
+           "gluon", "init", "initializer", "io", "kernels", "kvstore",
+           "load_reference_params", "metric", "mod", "model", "module",
+           "nd", "ndarray", "num_gpus", "observability", "operator",
+           "optimizer", "random", "rnn", "rtc", "serving", "sym",
+           "symbol"]

@@ -1,32 +1,45 @@
-"""BERT (GluonNLP-style) encoder family.
+"""BERT (GluonNLP-style) and Transformer NMT (Sockeye-style) models.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/transformer.py`` for the BERT
-serving and pretraining paths: ``MultiHeadAttention`` (:61-184),
-``PositionwiseFFN``, ``TransformerEncoderCell``, ``TransformerEncoder``,
-``BERTEncoder``, ``BERTModel`` (with the tied MLM decoder) and the
-``bert_base`` / ``bert_small`` configurations, with the same parameter
-names and the same attention-kernel policy.  gelu is the exact (erf) form.  Under
-``contrib.amp`` the masked-softmax path's two products are ``batch_dot``
-(LP16) and its softmax FP32; the flash path takes q/k/v in the dtype the
-qkv Dense gives them (bf16 under AMP).
+serving and pretraining paths and the NMT training and translation path:
+``MultiHeadAttention`` (:61-184, self- and cross-attention),
+``PositionwiseFFN`` (gelu or an ``Activation``), ``TransformerEncoderCell``,
+``TransformerDecoderCell``, ``TransformerEncoder``, ``TransformerDecoder``,
+``TransformerNMT`` with ``translate`` (:238-487), ``BERTEncoder``,
+``BERTModel`` (with the tied MLM decoder) and the ``bert_base`` /
+``bert_small`` / ``transformer_nmt_base`` configurations, with the same
+parameter names and the same attention-kernel policy: an attention
+without an explicit mask takes the flash path (the NMT encoder's
+self-attention and the decoder's cross-attention), a masked one the
+masked-softmax path (the decoder's causal self-attention, whose
+``(B*H, S, S)`` mask is built as the JAX package builds it, never
+folded into the kernel's ``causal`` flag).  gelu is the exact (erf)
+form.  Under ``contrib.amp`` the masked-softmax path's two products are
+``batch_dot`` (LP16) and its softmax FP32; the flash path takes q/k/v in
+the dtype the qkv Dense gives them (bf16 under AMP).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ... import autograd
+from ... import ndarray as nd
 from ...base import MXNetError, get_env
 from ...contrib.amp import amp as _amp
 from ...ndarray import flash_attention
+from ...ndarray.ndarray import NDArray
+from ...ndarray.register import get_op
 from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
-           "TransformerEncoder", "BERTEncoder", "BERTModel", "bert_base",
-           "bert_small"]
+           "TransformerDecoderCell", "TransformerEncoder",
+           "TransformerDecoder", "TransformerNMT", "BERTEncoder",
+           "BERTModel", "bert_base", "bert_small", "transformer_nmt_base"]
 
 
 def _masked_softmax(scores, mask):
@@ -39,19 +52,29 @@ def _masked_softmax(scores, mask):
 
 
 class MultiHeadAttention(HybridBlock):
-    """Scaled dot-product self-attention with one fused QKV projection."""
+    """Scaled dot-product attention.  Self-attention has one fused QKV
+    projection; cross-attention (``self_attention=False``) takes queries
+    from ``x`` through ``q_`` and keys and values from ``mem`` through one
+    fused ``kv_`` projection."""
 
-    def __init__(self, units, num_heads, dropout=0.0, prefix=None,
-                 params=None):
+    def __init__(self, units, num_heads, dropout=0.0, self_attention=True,
+                 prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         if units % num_heads:
             raise MXNetError(f"units {units} not divisible by heads "
                              f"{num_heads}")
         self._units = units
         self._heads = num_heads
+        self._self = self_attention
         with self.name_scope():
-            self.qkv = Dense(3 * units, flatten=False, in_units=units,
-                             prefix="qkv_")
+            if self_attention:
+                self.qkv = Dense(3 * units, flatten=False, in_units=units,
+                                 prefix="qkv_")
+            else:
+                self.q_proj = Dense(units, flatten=False, in_units=units,
+                                    prefix="q_")
+                self.kv = Dense(2 * units, flatten=False, in_units=units,
+                                prefix="kv_")
             self.proj = Dense(units, flatten=False, in_units=units,
                               prefix="proj_")
             self.drop = Dropout(dropout) if dropout else None
@@ -67,23 +90,34 @@ class MultiHeadAttention(HybridBlock):
         return x.reshape(batch, self._heads, seq, d).transpose(1, 2) \
             .reshape(batch, seq, self._units)
 
-    def forward(self, x, mask=None, valid_len=None):
+    def forward(self, x, mask=None, valid_len=None, mem=None):
         """``mask``: attention mask broadcastable to (B*H, Sq, Sk), 1 =
         keep (the masked-softmax path).  ``valid_len``: per-sequence key
         lengths (B,) or (B*H,), which the flash path honours and from which
         the masked-softmax path builds its key mask when ``mask`` is None.
-        Passing both is allowed when they express the same prefix mask."""
+        Passing both is allowed when they express the same prefix mask.
+        ``mem``: the keys' and values' source (B, Sk, U) of a
+        cross-attention (the JAX package takes it third, before
+        ``valid_len``)."""
         b, sq = x.shape[0], x.shape[1]
-        q, k, v = self.qkv(x).split(self._units, dim=-1)
+        if self._self:
+            q, k, v = self.qkv(x).split(self._units, dim=-1)
+            sk = sq
+        else:
+            if mem is None:
+                raise MXNetError("cross-attention needs memory input")
+            q = self.q_proj(x)
+            k, v = self.kv(mem).split(self._units, dim=-1)
+            sk = mem.shape[1]
         q = self._split_heads(q, b, sq)
-        k = self._split_heads(k, b, sq)
-        v = self._split_heads(v, b, sq)
+        k = self._split_heads(k, b, sk)
+        v = self._split_heads(v, b, sk)
         scale = 1.0 / math.sqrt(self._units // self._heads)
         if self._flash_eligible(mask, valid_len):
             out = flash_attention(q, k, v, valid_len, scale=scale)
         else:
             if mask is None and valid_len is not None:
-                mask = self._length_mask(valid_len, b, sq)
+                mask = self._length_mask(valid_len, b, sk)
             q, k = _amp.cast("batch_dot", q, k)           # LP16 under AMP
             att = _masked_softmax(torch.bmm(q, k.transpose(1, 2)) * scale,
                                   mask)
@@ -126,6 +160,9 @@ class MultiHeadAttention(HybridBlock):
 
 
 class PositionwiseFFN(HybridBlock):
+    """``ffn2(act(ffn1(x)))``: the exact gelu, or an ``Activation`` type
+    (``relu`` for the NMT model)."""
+
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -135,11 +172,13 @@ class PositionwiseFFN(HybridBlock):
             self.ffn2 = Dense(units, flatten=False, in_units=hidden_size,
                               prefix="ffn2_")
             self.drop = Dropout(dropout) if dropout else None
-        if activation != "gelu":
-            raise MXNetError(f"unsupported activation {activation!r}")
+        self._act = None if activation == "gelu" else \
+            get_op("Activation").get_fn({"act_type": activation})
 
     def forward(self, x):
-        h = F.gelu(self.ffn1(x), approximate="none")
+        h = self.ffn1(x)
+        h = F.gelu(h, approximate="none") if self._act is None \
+            else self._act(h)
         if self.drop is not None:
             h = self.drop(h)
         return self.ffn2(h)
@@ -169,6 +208,31 @@ class TransformerEncoderCell(HybridBlock):
         if self.drop is not None:
             f = self.drop(f)
         return self.ln2(x + f)
+
+
+class TransformerDecoderCell(HybridBlock):
+    """Decoder layer: causal self-attention + cross-attention + FFN, each
+    followed by a residual add and LayerNorm (post-LN)."""
+
+    def __init__(self, units, hidden_size, num_heads, dropout=0.0,
+                 activation="relu", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.self_attn = MultiHeadAttention(units, num_heads, dropout,
+                                                prefix="selfattn_")
+            self.ln1 = LayerNorm(in_channels=units, prefix="ln1_")
+            self.cross_attn = MultiHeadAttention(
+                units, num_heads, dropout, self_attention=False,
+                prefix="crossattn_")
+            self.ln2 = LayerNorm(in_channels=units, prefix="ln2_")
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       activation, prefix="ffn_")
+            self.ln3 = LayerNorm(in_channels=units, prefix="ln3_")
+
+    def forward(self, x, causal_mask=None, mem=None, mem_mask=None):
+        x = self.ln1(x + self.self_attn(x, causal_mask))
+        x = self.ln2(x + self.cross_attn(x, mem_mask, mem=mem))
+        return self.ln3(x + self.ffn(x))
 
 
 def _tie_weight(dense, embed):
@@ -216,6 +280,180 @@ class TransformerEncoder(HybridBlock):
         for cell in self.cells:
             x = cell(x, att_mask, valid_len)
         return x
+
+
+class TransformerDecoder(HybridBlock):
+    def __init__(self, num_layers=6, units=512, hidden_size=2048,
+                 num_heads=8, max_length=512, dropout=0.0,
+                 activation="relu", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
+        self._heads = num_heads
+        self._max_len = max_length
+        with self.name_scope():
+            self.pos_embed = Embedding(max_length, units,
+                                       prefix="pos_embed_")
+            self.cells = HybridSequential(prefix="layers_")
+            with self.cells.name_scope():
+                for _ in range(num_layers):
+                    self.cells.add(TransformerDecoderCell(
+                        units, hidden_size, num_heads, dropout, activation))
+
+    def forward(self, x, mem, mem_mask=None):
+        """x: (B, S, units) embedded target prefix; mem: (B, Sm, units)
+        the encoder's output; mem_mask: (B, Sm) 1 = valid source
+        position, or None (every position valid: the flash path)."""
+        b, s = x.shape[0], x.shape[1]
+        if s > self._max_len:
+            raise ValueError(
+                f"sequence length {s} exceeds max_length={self._max_len}")
+        sm = mem.shape[1]
+        x = x + self.pos_embed(torch.arange(s, device=x.device))
+        # the causal mask (S, S) -> (B*H, S, S), as the JAX package builds
+        # it (a broadcast view here): the masked-softmax path
+        pos = torch.arange(s, device=x.device)
+        causal = (pos[:, None] >= pos[None, :]).expand(b * self._heads, s, s)
+        mmask = None
+        if mem_mask is not None:
+            mmask = mem_mask.reshape(b, 1, 1, sm) \
+                .expand(b, self._heads, 1, sm).reshape(b * self._heads, 1, sm)
+        for cell in self.cells:
+            x = cell(x, causal, mem, mmask)
+        return x
+
+
+def _as_tensor(x):
+    return x._data if isinstance(x, NDArray) else x
+
+
+class TransformerNMT(HybridBlock):
+    """Sockeye-style seq2seq transformer (BASELINE config #4): one
+    source/target vocabulary embedding, encoder-decoder, the output
+    projection tied to the embedding."""
+
+    def __init__(self, vocab_size, num_layers=6, units=512,
+                 hidden_size=2048, num_heads=8, max_length=512,
+                 dropout=0.0, tie_weights=True, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units,
+                                        prefix="word_embed_")
+            self.encoder = TransformerEncoder(
+                num_layers, units, hidden_size, num_heads, max_length,
+                dropout, activation="relu", prefix="enc_")
+            self.decoder = TransformerDecoder(
+                num_layers, units, hidden_size, num_heads, max_length,
+                dropout, activation="relu", prefix="dec_")
+            self.out_proj = Dense(vocab_size, flatten=False,
+                                  in_units=units, use_bias=False,
+                                  prefix="out_")
+            if tie_weights:
+                _tie_weight(self.out_proj, self.word_embed)
+
+    def forward(self, src, tgt, src_mask=None):
+        mem = self.encode(src, src_mask)
+        return self._decode_logits(tgt, mem, src_mask)
+
+    def encode(self, src, src_mask=None):
+        return self.encoder(self.word_embed(src) * math.sqrt(self._units),
+                            src_mask)
+
+    def _decode_logits(self, tgt, mem, src_mask):
+        dec = self.decoder(self.word_embed(tgt) * math.sqrt(self._units),
+                           mem, src_mask)
+        return self.out_proj(dec)
+
+    def _step_logp(self, tgt, mem, src_mask) -> np.ndarray:
+        """Log-probabilities of the next token after each row of ``tgt``,
+        read to the host (one ``asnumpy``, a host read, per decoder
+        call)."""
+        logits = self._decode_logits(tgt, mem, src_mask)
+        return nd.log_softmax(NDArray(logits[:, -1, :])).asnumpy()
+
+    def translate(self, src, bos: int, eos: int, max_len: int = 50,
+                  beam_size: int = 1, alpha: float = 0.6, src_mask=None):
+        """Greedy (``beam_size=1``) or length-normalised beam-search
+        decoding, as the JAX package's (:402-485, Sockeye's translate
+        workflow; scores use the GNMT length penalty with ``alpha``).
+        ``src`` is a (B, Ls) ``NDArray`` (or tensor) of token ids on the
+        model's device.  The prefix grows by one token a step and the
+        decoder runs again on all of it; each decoder call reads its
+        last position's log-probabilities to the host.  Beam search runs
+        one source row at a time, one decoder call per live beam.
+
+        Returns (tokens, scores): a list per batch row (EOS stripped)."""
+        src = _as_tensor(src)
+        src_mask = None if src_mask is None else _as_tensor(src_mask)
+        dev = src.device
+        with torch.no_grad():
+            mem = self.encode(src, src_mask)
+            b = src.shape[0]
+            if beam_size <= 1:
+                return self._greedy(mem, src_mask, b, bos, eos, max_len,
+                                    alpha, dev)
+            return self._beam(mem, src_mask, b, bos, eos, max_len,
+                              beam_size, alpha, dev)
+
+    def _greedy(self, mem, src_mask, b, bos, eos, max_len, alpha, dev):
+        tgt = torch.full((b, 1), float(bos), device=dev)
+        finished = np.zeros((b,), bool)
+        logprob = np.zeros((b,), np.float64)
+        steps = np.zeros((b,), np.int64)
+        for _ in range(max_len):
+            logp = self._step_logp(tgt, mem, src_mask)
+            nxt = logp.argmax(-1)
+            nxt = np.where(finished, eos, nxt)
+            logprob += np.where(finished, 0.0, logp[np.arange(b), nxt])
+            steps += (~finished).astype(np.int64)
+            finished |= (nxt == eos)
+            tgt = torch.cat([tgt, torch.as_tensor(
+                nxt.reshape(b, 1), dtype=tgt.dtype, device=dev)], dim=1)
+            if finished.all():
+                break
+        out = []
+        for row in tgt[:, 1:].cpu().numpy().astype(int).tolist():
+            out.append(row[:row.index(eos)] if eos in row else row)
+        # the beam path's GNMT length normalisation, so that greedy and
+        # beam scores compare
+        lens = np.maximum(steps, 1)
+        scores = logprob / (((5 + lens) / 6.0) ** alpha)
+        return out, [float(s) for s in scores]
+
+    def _beam(self, mem, src_mask, b, bos, eos, max_len, beam_size, alpha,
+              dev):
+        def norm(entry):
+            toks, lp, _ = entry
+            length = max(len(toks) - 1, 1)
+            return lp / (((5 + length) / 6.0) ** alpha)
+
+        results, scores = [], []
+        for i in range(b):
+            mem_i = mem[i:i + 1]
+            mask_i = None if src_mask is None else src_mask[i:i + 1]
+            beams = [([bos], 0.0, False)]
+            for _ in range(max_len):
+                if all(f for _, _, f in beams):
+                    break
+                cand = []
+                for toks, lp, fin in beams:
+                    if fin:
+                        cand.append((toks, lp, True))
+                        continue
+                    tgt = torch.as_tensor([toks], dtype=torch.float32,
+                                          device=dev)
+                    logp = self._step_logp(tgt, mem_i, mask_i)[0]
+                    top = np.argsort(logp)[-beam_size:]
+                    for t in top:
+                        cand.append((toks + [int(t)], lp + float(logp[t]),
+                                     int(t) == eos))
+                cand.sort(key=norm, reverse=True)
+                beams = cand[:beam_size]
+            best, best_lp, _ = max(beams, key=norm)
+            row = best[1:]
+            results.append(row[:row.index(eos)] if eos in row else row)
+            scores.append(norm((best, best_lp, True)))
+        return results, scores
 
 
 class BERTEncoder(TransformerEncoder):
@@ -277,3 +515,8 @@ def bert_small(vocab_size=1000, **kwargs):
     kwargs.setdefault("max_length", 128)
     return BERTModel(vocab_size=vocab_size, num_layers=2, units=64,
                      hidden_size=128, num_heads=4, **kwargs)
+
+
+def transformer_nmt_base(vocab_size=32000, **kwargs):
+    return TransformerNMT(vocab_size, num_layers=6, units=512,
+                          hidden_size=2048, num_heads=8, **kwargs)

@@ -2,16 +2,19 @@
 
 Same rules as ``mxnet_tpu/initializer.py``: the default initializer is
 ``Uniform(0.07)``, and it dispatches on the parameter name (``*bias``,
-``*beta`` and ``*running_mean`` get zeros, ``*gamma`` and ``*running_var``
-ones, everything else the random draw).  ``Xavier`` takes the JAX
-package's fan rule: ``fan_in = shape[1] * prod(shape[2:])``, ``fan_out =
-shape[0] * prod(shape[2:])``.
+``*beta`` and ``*running_mean``/``*moving_mean`` get zeros, ``*gamma``
+and ``*running_var``/``*moving_var`` ones, everything else the random
+draw), unless the name is an ``InitDesc`` whose ``__init__`` attribute
+names another initializer (``LSTMBias`` for ``mx.rnn.LSTMCell``).
+``Xavier`` takes the JAX package's fan rule: ``fan_in = shape[1] *
+prod(shape[2:])``, ``fan_out = shape[0] * prod(shape[2:])``.
 Draws come from a ``torch.Generator`` the caller seeds; they match the JAX
 package in distribution, not bit for bit.  Fills run on CPU tensors, so one
 seed gives the same weights whatever device the parameters then move to.
 """
 from __future__ import annotations
 
+import json
 import math
 
 import torch
@@ -19,7 +22,31 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Initializer", "Uniform", "Normal", "Xavier", "Zero", "One",
-           "create"]
+           "LSTMBias", "InitDesc", "create"]
+
+
+class InitDesc(str):
+    """A parameter name carrying its variable's attributes (MXNet's
+    ``mx.init.InitDesc``): an ``__init__`` attribute (``"zeros"``, or
+    ``'["lstmbias", {"forget_bias": 1.0}]'`` as a string or parsed)
+    overrides the name rules."""
+
+    def __new__(cls, name, attrs=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        return obj
+
+
+def _explicit(desc) -> "Initializer":
+    """The initializer an ``__init__`` attribute names."""
+    if isinstance(desc, str):
+        try:
+            desc = json.loads(desc)
+        except ValueError:
+            return create(desc)
+    if isinstance(desc, (list, tuple)):
+        return create(desc[0], **(desc[1] if len(desc) > 1 else {}))
+    return create(desc)
 
 
 class Initializer:
@@ -27,10 +54,14 @@ class Initializer:
 
     def __call__(self, name: str, arr: torch.Tensor,
                  generator: torch.Generator) -> None:
+        desc = getattr(name, "attrs", {}).get("__init__")
+        if desc:
+            _explicit(desc).init_weight(str(name), arr, generator)
+            return
         name = name.lower()
-        if name.endswith(("bias", "beta", "running_mean")):
+        if name.endswith(("bias", "beta", "running_mean", "moving_mean")):
             arr.zero_()
-        elif name.endswith(("gamma", "running_var")):
+        elif name.endswith(("gamma", "running_var", "moving_var")):
             arr.fill_(1.0)
         else:
             self.init_weight(name, arr, generator)
@@ -103,17 +134,31 @@ class One(Initializer):
         arr.fill_(1.0)
 
 
+class LSTMBias(Initializer):
+    """An LSTM's packed (i, f, c, o) bias: ``forget_bias`` on the forget
+    gate's quarter, 0 elsewhere."""
+
+    def __init__(self, forget_bias: float = 1.0):
+        self.forget_bias = forget_bias
+
+    def init_weight(self, name, arr, generator):
+        n = arr.shape[0] // 4
+        arr.zero_()
+        arr[n:2 * n] = self.forget_bias
+
+
 _registry = {"uniform": Uniform, "normal": Normal, "xavier": Xavier,
-             "zero": Zero, "zeros": Zero, "one": One, "ones": One}
+             "zero": Zero, "zeros": Zero, "one": One, "ones": One,
+             "lstmbias": LSTMBias}
 
 
-def create(init) -> Initializer:
-    """An Initializer from None (the default ``Uniform(0.07)``), a name, or
-    an instance."""
+def create(init, **kwargs) -> Initializer:
+    """An Initializer from None (the default ``Uniform(0.07)``), a name
+    (with ``kwargs`` for its constructor), or an instance."""
     if init is None:
         return Uniform(0.07)
     if isinstance(init, Initializer):
         return init
     if isinstance(init, str) and init.lower() in _registry:
-        return _registry[init.lower()]()
+        return _registry[init.lower()](**kwargs)
     raise MXNetError(f"cannot create initializer from {init!r}")

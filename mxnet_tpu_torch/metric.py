@@ -1,12 +1,23 @@
-"""Evaluation metrics: ``EvalMetric``, ``Accuracy``, ``register`` and
+"""Evaluation metrics: ``EvalMetric``, ``Accuracy``, ``CrossEntropy``,
+``Perplexity``, ``Loss``, ``CompositeEvalMetric``, ``register`` and
 ``create``.
 
-Counterpart of ``mxnet_tpu/metric.py`` (:25-113).  ``update(labels,
-preds)`` takes ``NDArray``s or tensors on any device (or numpy arrays) and reads them on
-the host, as MXNet's metrics do; ``get()`` returns ``(name, value)``.
+Counterpart of ``mxnet_tpu/metric.py`` (:25-113, :216-375), with its
+conventions: ``Perplexity`` is ``exp`` of the mean ``-log p(label)`` over
+the rows of ``pred.reshape(-1, classes)`` (probabilities floored at
+1e-12), rows whose label is ``ignore_label`` left out (the keyword is
+``ignore_label``; other keywords, such as the examples'
+``invalid_label``, are kept and change nothing, as in the JAX package);
+``CrossEntropy`` is the mean ``-log(p + eps)``; ``Loss`` the mean of the
+outputs themselves; ``create`` takes a name, an instance or a list
+(a ``CompositeEvalMetric``).  ``update(labels, preds)`` takes
+``NDArray``s or tensors on any device (or numpy arrays) and reads them
+on the host, as MXNet's metrics do; ``get()`` returns ``(name,
+value)``.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -15,10 +26,11 @@ import torch
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
-__all__ = ["EvalMetric", "Accuracy", "register", "create"]
+__all__ = ["EvalMetric", "Accuracy", "CrossEntropy", "Perplexity", "Loss",
+           "CompositeEvalMetric", "register", "create"]
 
 _registry: Dict[str, type] = {}
-_ALIASES = {"acc": "accuracy"}
+_ALIASES = {"acc": "accuracy", "ce": "crossentropy"}
 
 
 def register(klass):
@@ -27,10 +39,15 @@ def register(klass):
 
 
 def create(metric, *args, **kwargs) -> "EvalMetric":
-    """A metric by registered name (``"accuracy"``, ``"acc"``), or an
-    instance as is."""
+    """A metric by registered name (``"accuracy"``, ``"acc"``), an
+    instance as is, or a list of either as a ``CompositeEvalMetric``."""
     if isinstance(metric, EvalMetric):
         return metric
+    if isinstance(metric, (list, tuple)):
+        composite = CompositeEvalMetric()
+        for m in metric:
+            composite.add(create(m, *args, **kwargs))
+        return composite
     name = str(metric).lower()
     name = _ALIASES.get(name, name)
     if name not in _registry:
@@ -101,3 +118,93 @@ class Accuracy(EvalMetric):
                                  f"{label.shape}")
             self.sum_metric += float((pred == label).sum())
             self.num_inst += len(pred)
+
+
+@register
+class CrossEntropy(EvalMetric):
+    """Mean ``-log(p[label] + eps)`` over the rows of ``pred``."""
+
+    def __init__(self, eps=1e-12, name="cross-entropy", **kwargs):
+        super().__init__(name, **kwargs)
+        self.eps = eps
+
+    def update(self, labels, preds) -> None:
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label = _to_np(label).astype(np.int32).flatten()
+            pred = _to_np(pred)
+            prob = pred[np.arange(label.shape[0]), label]
+            self.sum_metric += float((-np.log(prob + self.eps)).sum())
+            self.num_inst += label.shape[0]
+
+
+@register
+class Perplexity(EvalMetric):
+    """``exp`` of the mean ``-log p(label)`` (see the module docstring)."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 **kwargs):
+        super().__init__(name, **kwargs)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds) -> None:
+        for label, pred in zip(_as_list(labels), _as_list(preds)):
+            label = _to_np(label).astype(np.int32).flatten()
+            pred = _to_np(pred)
+            pred = pred.reshape(-1, pred.shape[-1])
+            prob = pred[np.arange(label.shape[0]), label]
+            if self.ignore_label is not None:
+                ignore = label == self.ignore_label
+                prob = np.where(ignore, 1.0, prob)
+                num = int((~ignore).sum())
+            else:
+                num = label.shape[0]
+            self.sum_metric += float(-np.log(np.maximum(prob, 1e-12)).sum())
+            self.num_inst += num
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
+@register
+class Loss(EvalMetric):
+    """Mean of the outputs (a loss the graph computes)."""
+
+    def __init__(self, name="loss", **kwargs):
+        super().__init__(name, **kwargs)
+
+    def update(self, _, preds) -> None:
+        for pred in _as_list(preds):
+            loss = _to_np(pred)
+            self.sum_metric += float(loss.sum())
+            self.num_inst += loss.size
+
+
+class CompositeEvalMetric(EvalMetric):
+    """Several metrics updated together; ``get`` gives their names and
+    values as two lists."""
+
+    def __init__(self, metrics=None, name="composite", **kwargs):
+        super().__init__(name, **kwargs)
+        self.metrics = [create(m) for m in (metrics or [])]
+
+    def add(self, metric) -> None:
+        self.metrics.append(create(metric))
+
+    def update(self, labels, preds) -> None:
+        for m in self.metrics:
+            m.update(labels, preds)
+
+    def reset(self) -> None:
+        for m in getattr(self, "metrics", []):
+            m.reset()
+
+    def get(self):
+        names, values = [], []
+        for m in self.metrics:
+            n, v = m.get()
+            names.append(n)
+            values.append(v)
+        return (names, values)

@@ -182,13 +182,16 @@ class NDArray:
 
     # ------------------------------------------------------------ host reads
     def asnumpy(self) -> np.ndarray:
-        """Copy to host memory; waits for the value (a sync point)."""
+        """Copy to host memory; waits for the value (a sync point).  The
+        result is a copy on the CPU too (``Tensor.numpy`` would share the
+        array's memory, and a later write to the array would show)."""
         t = self._data.detach()
         if t.is_cuda:
             _engine.host_reads += 1
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.cpu().numpy()
+            return (t.float() if t.dtype == torch.bfloat16 else t) \
+                .cpu().numpy()
+        return t.float().numpy() if t.dtype == torch.bfloat16 \
+            else t.numpy().copy()
 
     def asscalar(self):
         if self.size != 1:

@@ -2,13 +2,16 @@
 
 Counterpart of ``mxnet_tpu/ndarray/ops_matrix.py``: ``dot`` :32,
 ``batch_dot`` :42, ``reshape`` :62 (MXNet's codes 0, -1, -2, -3, -4),
-``transpose`` :68, ``expand_dims`` :74, ``concat`` :133, ``slice`` :159,
-``take`` :198, ``one_hot`` :231, ``pick`` :235-243 and ``broadcast_to``
-:285, with their conventions: ``dot`` contracts the last axis of the
+``transpose`` :68, ``expand_dims`` :74, ``concat`` :133, ``split`` /
+``SliceChannel`` :140-148, ``slice`` :159, ``take`` :198, ``Embedding``
+:200-206, ``one_hot`` :231, ``pick`` :235-243 and ``broadcast_to`` :285,
+with their conventions: ``dot`` contracts the last axis of the
 left input with the first of the right (transposes reverse every axis),
 ``batch_dot`` is a batched matmul, ``slice`` takes None for "from the
 edge", indices may arrive as floats and are truncated, ``broadcast_to``
-keeps a dim given as 0.  ``dot`` and ``batch_dot`` are torch's matmul:
+keeps a dim given as 0, ``split`` returns one array for
+``num_outputs=1`` and a tuple otherwise, ``Embedding`` clips its ids into
+``[0, input_dim - 1]``.  ``dot`` and ``batch_dot`` are torch's matmul:
 the JAX package computes them outside any Pallas kernel.  Every op
 returns a new array, never a view of its input (MXNet's ops copy; only
 ``NDArray.reshape`` and basic slicing alias).
@@ -118,6 +121,18 @@ def stack_maker(axis=0, num_args=None):
     return fn
 
 
+def split_maker(num_outputs=1, axis=1, squeeze_axis=False):
+    def fn(x):
+        ax = axis % x.dim()
+        if x.shape[ax] % num_outputs:
+            raise MXNetError(f"split: axis {axis} of size {x.shape[ax]} "
+                             f"does not divide into {num_outputs}")
+        parts = [_fresh(p.squeeze(ax) if squeeze_axis else p, x).contiguous()
+                 for p in torch.chunk(x, num_outputs, dim=ax)]
+        return tuple(parts) if num_outputs > 1 else parts[0]
+    return fn
+
+
 def slice_maker(begin=(), end=(), step=None):
     steps = step if step is not None else (None,) * len(begin)
     key = tuple(slice(b, e, s) for b, e, s in zip(begin, end, steps))
@@ -148,6 +163,14 @@ def take_maker(axis=0, mode="clip"):
         idx = idx.clamp(0, n - 1) if mode == "clip" else idx.remainder(n)
         out = torch.index_select(a, ax, idx.reshape(-1))
         return out.reshape(a.shape[:ax] + indices.shape + a.shape[ax + 1:])
+    return fn
+
+
+def embedding_maker(input_dim=None, output_dim=None, dtype="float32",
+                    sparse_grad=False):
+    def fn(data, weight):
+        ids = data.long().clamp(0, weight.shape[0] - 1)
+        return torch.nn.functional.embedding(ids, weight)
     return fn
 
 
@@ -229,9 +252,11 @@ def _register():
     register_op("cast", cast_maker, aliases=("Cast",))
     register_op("concat", concat_maker, aliases=("Concat",))
     register_op("stack", stack_maker)
+    register_op("split", split_maker, aliases=("SliceChannel",))
     register_op("slice", slice_maker)
     register_op("slice_axis", slice_axis_maker)
     register_op("take", take_maker)
+    register_op("Embedding", embedding_maker, aliases=("embedding",))
     register_op("one_hot", one_hot_maker)
     register_op("pick", pick_maker)
     register_op("broadcast_to", broadcast_to_maker)

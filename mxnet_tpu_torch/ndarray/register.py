@@ -251,10 +251,20 @@ def _maker_param_names(op: Operator) -> Tuple[str, ...]:
         return ()
 
 
+#: what a frontend takes as an op's input (``symbol`` adds ``Symbol``)
+_INPUT_TYPES = (NDArray, torch.Tensor, np.ndarray, list)
+
+
+def register_input_type(cls) -> None:
+    """Have the frontends take instances of ``cls`` as inputs."""
+    global _INPUT_TYPES
+    _INPUT_TYPES = _INPUT_TYPES + (cls,)
+
+
 def _is_param_value(v) -> bool:
     """A positional value that is a parameter of the op, not an input:
     numbers, strings, tuples (shapes, axes), dtypes and None."""
-    return not isinstance(v, (NDArray, torch.Tensor, np.ndarray, list))
+    return not isinstance(v, _INPUT_TYPES)
 
 
 def split_positional_params(op: Operator, args: Sequence,

@@ -38,7 +38,8 @@ import torch
 from .base import MXNetError, get_env
 from .ndarray import ops_optimizer as ops
 
-__all__ = ["Optimizer", "SGD", "Adam", "register", "create"]
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater",
+           "register", "create"]
 
 _registry: Dict[str, type] = {}
 
@@ -73,13 +74,14 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
                  learning_rate=0.01, multi_precision=False, param_dict=None,
-                 **kwargs):
+                 param_idx2name=None, **kwargs):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
         self.param_dict = param_dict or {}
+        self.idx2name = dict(param_idx2name or {})
         self.num_update = 0
         self._index_update_count: Dict[int, int] = {}
         # >1 enables the multi-tensor path in Trainer; only optimizers
@@ -247,3 +249,86 @@ class Adam(Optimizer):
         ops.adam_update(weight, grad, mean, var, lr_t, beta1=self.beta1,
                         beta2=self.beta2, epsilon=self.epsilon,
                         **self._common_kwargs(index))
+
+
+def _unwrap(x) -> torch.Tensor:
+    return x._data if hasattr(x, "_data") else x
+
+
+class Updater:
+    """The optimizer as ``updater(index, grad, weight)`` on ``NDArray``s
+    or tensors (MXNet's ``get_updater``, what ``Module.update`` and a
+    kvstore call): the state of each index made at its first update, the
+    weight updated in place under ``torch.no_grad()``.
+    ``get_states``/``set_states`` pickle the states as numpy arrays, with
+    the update counts when ``dump_optimizer``, in the JAX package's
+    layout."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict[Any, Any] = {}
+
+    @torch.no_grad()
+    def __call__(self, index, grad, weight) -> None:
+        w, g = _unwrap(weight), _unwrap(grad)
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, w)
+        self.optimizer.update_multi_precision(index, w, g,
+                                              self.states[index])
+
+    def get_states(self, dump_optimizer: bool = False) -> bytes:
+        import pickle
+        blob = {"states": {k: _states_to_np(v)
+                           for k, v in self.states.items()}}
+        if dump_optimizer:
+            blob["num_update"] = self.optimizer.num_update
+            blob["index_update_count"] = \
+                dict(self.optimizer._index_update_count)
+        return pickle.dumps(blob)
+
+    def set_states(self, states: bytes, device=None) -> None:
+        """Load ``get_states``' bytes, the states onto ``device`` (the
+        device of the first state already held, else the CPU)."""
+        import pickle
+        loaded = pickle.loads(states)
+        if "states" not in loaded:
+            loaded = {"states": loaded}
+        if device is None:
+            held = [t for v in self.states.values()
+                    for t in _flat(v)]
+            device = held[0].device if held else torch.device("cpu")
+        self.states = {k: _states_from_np(v, device)
+                       for k, v in loaded["states"].items()}
+        if "num_update" in loaded:
+            self.optimizer.num_update = loaded["num_update"]
+            self.optimizer._index_update_count = dict(
+                loaded["index_update_count"])
+
+
+def _flat(state):
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [t for s in state for t in _flat(s)]
+    return [state]
+
+
+def _states_to_np(state):
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_states_to_np(s) for s in state)
+    return _unwrap(state).detach().cpu().numpy()
+
+
+def _states_from_np(state, device):
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_states_from_np(s, device) for s in state)
+    return torch.as_tensor(state).to(device)
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    return Updater(optimizer)

@@ -1,0 +1,20 @@
+"""``mx.sym``: graphs over the op registry, bound into Executors.
+
+Counterpart of ``mxnet_tpu/symbol/``: ``Symbol``, ``var``/``Variable``,
+``Group``, ``load``/``load_json`` and one frontend per registry op
+(``mx.sym.FullyConnected``, ``mx.sym.split``, ...).  ``symbol.contrib``
+(control flow) and ``symbol.random`` are not ported.
+"""
+import sys as _sys
+
+from .executor import Executor
+from .register import _attach_frontends
+from .symbol import Group, Symbol, Variable, load, load_json, var
+
+from ..ndarray.register import register_input_type  # noqa: E402
+
+register_input_type(Symbol)
+_attach_frontends(_sys.modules[__name__])
+
+__all__ = ["Executor", "Group", "Symbol", "Variable", "load", "load_json",
+           "var"]

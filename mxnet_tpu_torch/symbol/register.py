@@ -1,0 +1,108 @@
+"""``mx.sym.<op>``: Symbol frontends made from the op registry.
+
+Counterpart of ``mxnet_tpu/symbol/register.py`` (:96-157): one frontend
+for every op of the ``nd`` registry, with the same positional-parameter
+convention (``split_positional_params``), so ``mx.sym.X`` and ``mx.nd.X``
+stay in lockstep.  The tensor inputs an op declares and the caller leaves
+out become variables named ``{node name}_{input}``
+(``mx.sym.FullyConnected(data=d, num_hidden=8, name="fc")`` grows
+``fc_weight`` and ``fc_bias``); BatchNorm's moving statistics become
+auxiliary states.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+from ..base import MXNetError
+from .symbol import Symbol, _Node, _auto_name
+
+__all__ = ["apply_op", "num_outputs"]
+
+# tensor inputs of the ops whose missing inputs become variables
+_OP_INPUTS: Dict[str, List[str]] = {
+    "FullyConnected": ["data", "weight", "bias"],
+    "Convolution": ["data", "weight", "bias"],
+    "BatchNorm": ["data", "gamma", "beta", "moving_mean", "moving_var"],
+    "LayerNorm": ["data", "gamma", "beta"],
+    "Embedding": ["data", "weight"],
+    "SoftmaxOutput": ["data", "label"],
+}
+_OP_AUX = {"BatchNorm": ("moving_mean", "moving_var")}
+
+
+def _needed_inputs(opname: str, kwargs: Dict[str, Any]) -> List[str]:
+    names = _OP_INPUTS[opname]
+    if opname in ("FullyConnected", "Convolution") and kwargs.get("no_bias"):
+        names = names[:2]
+    return names
+
+
+def num_outputs(opname: str, kwargs: Dict[str, Any], n_inputs: int = 1
+                ) -> int:
+    """Outputs of one node of ``opname`` with attributes ``kwargs``.
+    BatchNorm has one (the port's op updates its moving statistics in
+    place; the JAX package's returns them as two more outputs)."""
+    if opname in ("split", "SliceChannel"):
+        return int(kwargs.get("num_outputs", 1))
+    if opname == "BatchNorm" and kwargs.get("output_mean_var"):
+        return 3
+    return 1
+
+
+def apply_op(opname: str, args: List[Symbol], kwargs: Dict[str, Any],
+             name: Optional[str] = None) -> Symbol:
+    """One node of ``opname`` over the Symbols ``args`` (and those among
+    ``kwargs``), named ``name`` or ``{op}{counter}``."""
+    from ..ndarray.register import get_op
+    canonical = get_op(opname).name
+    tensor_kwargs = {k: v for k, v in kwargs.items()
+                     if isinstance(v, Symbol)}
+    attrs = {k: v for k, v in kwargs.items()
+             if not isinstance(v, Symbol) and k != "name"}
+    node_name = name or kwargs.get("name") or \
+        _auto_name(canonical.lower().lstrip("_"))
+    if canonical in _OP_INPUTS:
+        inputs = []
+        pos = list(args)
+        for in_name in _needed_inputs(canonical, attrs):
+            if pos:
+                sym = pos.pop(0)
+            elif in_name in tensor_kwargs:
+                sym = tensor_kwargs.pop(in_name)
+            else:
+                aux = in_name in _OP_AUX.get(canonical, ())
+                sym = Symbol.var(f"{node_name}_{in_name}",
+                                 **({"__aux__": True} if aux else {}))
+            inputs.append(sym)
+    else:
+        inputs = list(args) + list(tensor_kwargs.values())
+    refs = []
+    for s in inputs:
+        if not isinstance(s, Symbol):
+            raise MXNetError(f"symbol op {opname} got non-symbol input "
+                             f"{type(s)}")
+        if len(s._heads) != 1:
+            raise MXNetError("cannot feed a grouped symbol as one input")
+        refs.append(s._heads[0])
+    node = _Node(canonical, node_name, attrs, refs,
+                 num_outputs(canonical, attrs, len(refs)))
+    return Symbol([(node, i) for i in range(node.num_outputs)])
+
+
+def _make_frontend(opname: str):
+    def frontend(*args, **kwargs):
+        from ..ndarray.register import get_op, split_positional_params
+        name = kwargs.pop("name", None)
+        inputs, kwargs = split_positional_params(get_op(opname), args,
+                                                 kwargs)
+        return apply_op(opname, list(inputs), kwargs, name=name)
+    frontend.__name__ = opname
+    frontend.__qualname__ = opname
+    return frontend
+
+
+def _attach_frontends(module) -> None:
+    from ..ndarray.register import _registry
+    for name in list(_registry):
+        if not hasattr(module, name):
+            setattr(module, name, _make_frontend(name))

@@ -545,3 +545,176 @@ def test_launch_bins_sum_each_bin_beside_its_bound():
     assert rows[2]["bound_ms"] == pytest.approx(20 * 2e6 / 3.35e12 * 1e3)
     assert rows[2]["bound_share"] == pytest.approx(
         rows[2]["bound_ms"] / 0.02)
+
+
+# --------------------------------------------------------------- phase 12
+
+def _small_nmt(seed=0):
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerNMT
+    net = TransformerNMT(60, num_layers=2, units=32, hidden_size=64,
+                         num_heads=2, max_length=32)
+    net.initialize(ctx=cpu(), seed=seed)
+    return net
+
+
+@pytest.mark.parametrize("beam", [1, 3])
+def test_decoder_calls_count_each_translate_step(beam):
+    """``DecoderCalls`` counts one call per decoder run of ``translate``
+    (greedy: one per step for the batch; beam: one per live hypothesis),
+    records each prefix with its memory row, and leaves the model as it
+    was; ``translate_flash_launches`` is the encoder's layers plus the
+    decoder's per call."""
+    net = _small_nmt()
+    src = torch.as_tensor(np.random.RandomState(0).randint(3, 60, (3, 5)))
+    with chip_smoke.DecoderCalls(net, record=True) as rec:
+        toks, _ = net.translate(src, 1, 2, max_len=4, beam_size=beam)
+    assert "_step_logp" not in vars(net)
+    assert rec.calls == len(rec.records) > 0
+    if beam == 1:
+        assert rec.calls <= 4
+        assert [r[0].shape for r in rec.records] == \
+            [(3, n) for n in range(1, rec.calls + 1)]
+        assert {r[1] for r in rec.records} == {0}
+    else:
+        assert {r[1] for r in rec.records} == {0, 1, 2}
+        assert rec.calls <= 3 * (1 + 3 * 3)
+    assert chip_smoke.translate_flash_launches(6, rec.calls) == \
+        6 + 6 * rec.calls
+
+
+def test_teacher_forcing_passes_itself_and_flags_a_wrong_choice():
+    """The replay of the model's own decoder calls on the same model
+    passes (errors 0); a record whose log-probabilities would have made
+    another token the greedy choice fails the choice check, and an
+    offset of 1e-3 fails the log-probability check."""
+    net = _small_nmt()
+    src = np.random.RandomState(1).randint(3, 60, (2, 6))
+    with chip_smoke.DecoderCalls(net, record=True) as rec:
+        net.translate(torch.as_tensor(src), 1, 2, max_len=5)
+    good = chip_smoke.teacher_forcing(net, src, rec.records, 1, 1e-4)
+    assert good["ok"] and good["logp_max_abs_err"] <= 1e-6
+    tgt, row, rows, logp = rec.records[2]
+    wrong = logp.copy()
+    wrong[0, np.argmin(wrong[0])] = wrong[0].max() + 1.0
+    bad = chip_smoke.teacher_forcing(
+        net, src, rec.records[:2] + [(tgt, row, rows, wrong)], 1, 1e-4)
+    assert not bad["ok"] and bad["bad_choices"] == 1
+    off = chip_smoke.teacher_forcing(
+        net, src, [(tgt, row, rows, logp + 1e-3)], 1, 1e-4)
+    assert not off["ok"] and off["bad_choices"] == 0
+
+
+def _lm_bucketing(monkeypatch):
+    from mxnet_tpu_torch import random as mx_random
+    for name, value in (("LM_VOCAB", 40), ("LM_EMB", 8), ("LM_HIDDEN", 8),
+                        ("LM_BATCH", 4)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    mx_random.seed(0)
+    bmod = chip_smoke.lm_module(cpu(), 20)
+    bmod.init_params()
+    bmod.init_optimizer(optimizer="sgd",
+                        optimizer_params=dict(chip_smoke.LM_OPT))
+    for b in chip_smoke.lm_iter(0, 120):
+        bmod.forward_backward(b)
+        bmod.update()
+    return bmod
+
+
+def test_parameter_sharing_check_flags_a_copied_tensor(monkeypatch):
+    """Every bucket's module holds the master's parameter and gradient
+    tensors after training; a bucket given its own copy of one weight is
+    flagged, that weight alone."""
+    bmod = _lm_bucketing(monkeypatch)
+    assert len(bmod.buckets) >= 3
+    assert chip_smoke.unshared_parameters(bmod) == []
+    key = next(k for k in bmod.buckets if k != bmod.default_bucket_key)
+    arr = bmod.buckets[key]._arg_params["pred_weight"]
+    bmod.buckets[key]._arg_params["pred_weight"] = type(arr)(
+        arr._data.clone())
+    assert chip_smoke.unshared_parameters(bmod) == [(key, "pred_weight")]
+
+
+def test_lm_data_spans_the_buckets_with_a_zipf_law():
+    sents = chip_smoke.lm_sentences(0, 3000)
+    lengths = np.array([len(s) for s in sents])
+    assert lengths.min() >= 2 and lengths.max() <= 60
+    ids = np.concatenate([np.asarray(s) for s in sents])
+    assert ids.min() >= 1 and ids.max() < chip_smoke.LM_VOCAB
+    counts = np.bincount(ids, minlength=10)
+    assert counts[1] > 1.8 * counts[2] > 1.8 * 1.2 * counts[4]
+    assert chip_smoke.lm_sentences(0, 3000) == sents
+
+
+def test_nmt_data_is_bench_nmts_shapes():
+    data = chip_smoke.nmt_data(0, 16, (32, 48, 64), 32000)
+    assert sorted(data) == [32, 48, 64]
+    for s, (src, tgt, lab) in data.items():
+        assert src.shape == tgt.shape == lab.shape == (16, s)
+        assert src.dtype == torch.float32
+        assert src.min() >= 1 and src.max() < 32000
+    again = chip_smoke.nmt_data(0, 16, (32, 48, 64), 32000)
+    assert torch.equal(again[48][2], data[48][2])
+
+
+def test_nmt_flash_cases_and_kernel_classes():
+    shapes = {c[0]: c[1:6] for c in chip_smoke.NMT_FLASH_CASES}
+    assert shapes["nmt B=16 H=8 L=64"] == (16, 8, 64, 64, 64)
+    assert shapes["nmt cross Lq=48 Lk=64"] == (16, 8, 48, 64, 64)
+    assert shapes["nmt decode Lq=1 Lk=64"][2:] == (1, 64, 64)
+    cls = chip_smoke._nmt_kernel_class
+    assert cls("void at::native::(anonymous namespace)::cunn_SoftMaxForward"
+               "<4, float, float, float, LogSoftMaxForwardEpilogue>") == \
+        "log_softmax_ce"
+    assert cls("cunn_SoftMaxForward<4, float, float, float, "
+               "SoftMaxForwardEpilogue>") == "masked_softmax"
+    assert cls("void at::native::_scatter_gather_elementwise_kernel") == \
+        "log_softmax_ce"
+    assert cls("flash_fwd_kernel<float, 64>") == "flash_forward"
+    assert cls("sm90_xmma_gemm_f32f32") == "gemm"
+
+
+def test_nmt_leaf_check_passes_a_small_model_on_the_cpu(monkeypatch):
+    """``nmt_leaf_check`` with the CPU standing in for the card: the fp32
+    step against itself and float64 passes, and the weights are put
+    back."""
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    monkeypatch.setattr(chip_smoke, "NMT_VOCAB", 60)
+    net = _small_nmt(2)
+    before = chip_smoke._snapshot(net)
+    out = chip_smoke.nmt_leaf_check(net, 0, _small_nmt)
+    assert out["ok"], out
+    assert out["weights"]["leaves"] == len(before)
+    after = chip_smoke._snapshot(net)
+    assert all(torch.equal(before[k], after[k]) for k in before)
+
+
+def test_relu_decisions_record_force_and_count_flips():
+    """``ReluDecisions`` records each FFN's ReLU mask; forcing the masks
+    back reproduces the forward and its gradients exactly, forcing a mask
+    with one unit flipped in the last FFN (nothing downstream to move)
+    counts that one flip and moves the gradients, and the model's own
+    ReLUs come back after."""
+    net = _small_nmt(3)
+    src = torch.as_tensor(np.random.RandomState(2).randint(3, 60, (2, 5)))
+    lab = torch.as_tensor(np.random.RandomState(3).randint(3, 60, (2, 5)))
+
+    def grads(masks=None):
+        with chip_smoke.ReluDecisions(net, masks) as rd:
+            loss = chip_smoke.nmt_check_step(net, [src, src, lab])
+        load_reference_params(net, init, ctx=cpu())
+        return rd, loss[0].item(), loss[1]
+
+    init = {k: v.numpy() for k, v in chip_smoke._snapshot(net).items()}
+    rec, loss, g = grads()
+    assert len(rec.masks) == 4 and rec.units == 4 * 2 * 5 * 64
+    same, loss2, g2 = grads(rec.masks)
+    assert same.flips == 0 and loss2 == loss
+    assert all(torch.equal(g[k], g2[k]) for k in g)
+    flipped = {i: m.clone() for i, m in rec.masks.items()}
+    flipped[3].view(-1)[0] = ~flipped[3].view(-1)[0]
+    one, _, g3 = grads(flipped)
+    assert one.flips == 1
+    assert any(not torch.equal(g[k], g3[k]) for k in g)
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import PositionwiseFFN
+    acts = {m._act for m in net.modules() if isinstance(m, PositionwiseFFN)}
+    assert acts == {torch.relu}

@@ -830,3 +830,138 @@ def test_nd_multi_sgd_mom_update_launches_the_kernel(card):
         res.append([w.asnumpy() for w in ws] + [m.asnumpy() for m in ms])
     for a, b in zip(*res):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+# ------------------------------------------------- config #4 (NMT, Module)
+
+NMT_CASES = [                     # (B, H, Lq, Lk): H=8, D=64 throughout
+    (16, 8, 64, 64),              # training self-attention, bucket 64
+    (16, 8, 48, 64),              # cross-attention, Lq != Lk
+    (8, 8, 1, 64),                # translate's first decoder call
+    (8, 8, 7, 32),                # a later one, source 32
+    (1, 8, 35, 32),               # beam search's last, one row
+]
+
+
+@pytest.mark.parametrize("b,h,lq,lk", NMT_CASES)
+def test_nmt_shapes_forward_and_backward(card, b, h, lq, lk):
+    """The kernel at config #4's shapes, every key valid (no mask), and
+    its backward: output and q/k/v gradients against the plain version
+    and autograd through it in fp32 (1e-4, x max(1, max|g|) for the
+    gradients)."""
+    q, k, v = _inputs(lq * lk + b, b * h, lq, lk, 64, torch.float32, card)
+    dout = _inputs(b, b * h, lq, lq, 64, torch.float32, card)[0]
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    ref_out = flash_attention_plain(*ref_leaves,
+                                    torch.full((b * h,), float(lk),
+                                               device=card), False, 1 / 8)
+    ref = torch.autograd.grad(ref_out, ref_leaves, dout)
+    assert (out.detach() - ref_out.detach()).abs().max().item() <= 1e-4
+    for g, r in zip(grads, ref):
+        err = (g - r).abs().max().item()
+        assert err <= 1e-4 * max(1.0, r.abs().max().item()), err
+
+
+def _small_nmt(dev, arrays=None):
+    from mxnet_tpu_torch import load_reference_params
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerNMT
+    net = TransformerNMT(500, num_layers=2, units=128, hidden_size=256,
+                         num_heads=2, max_length=64)     # head dim 64
+    if arrays is None:
+        net.initialize(ctx=dev, seed=4)
+    else:
+        load_reference_params(net, arrays, ctx=dev)
+    return net
+
+
+def test_nmt_train_step_on_card_matches_cpu(card):
+    """One Adam step (bench_nmt's loss) of a small NMT from the same
+    weights on the card (flash kernel in the encoder's self-attention and
+    the decoder's cross-attention, 4 launches) and on the CPU, which
+    takes the card's ReLU decisions (``chip_smoke.ReluDecisions``): the
+    loss to 1e-5 relative, each leaf's gradient to 1e-4 * max|g| +
+    1e-6."""
+    import chip_smoke
+    src = _small_nmt(torch.device("cpu"))
+    arrays = {k: p.data().detach().numpy()
+              for k, p in src.collect_params().items()}
+    batch = chip_smoke.nmt_data(0, 2, (24,), 500)[24]
+    res, masks = [], None
+    for dev in (card, torch.device("cpu")):
+        net = _small_nmt(dev, arrays)
+        before = flash_attention.launches
+        with chip_smoke.ReluDecisions(net, masks) as relu:
+            loss, grads, _ = chip_smoke.nmt_check_step(
+                net, [t.to(dev) for t in batch])
+        masks = relu.masks
+        if dev == card:
+            assert flash_attention.launches - before == 4
+        res.append((loss.item(), {k: g.cpu() for k, g in grads.items()}))
+    (l_card, g_card), (l_cpu, g_cpu) = res
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for (k, g), gc in zip(g_cpu.items(), g_card.values()):
+        err = (gc - g).abs().max().item()
+        assert err <= 1e-4 * g.abs().max().item() + 1e-6, (k, err)
+
+
+def test_nmt_translate_on_card_matches_cpu(card):
+    """Greedy and beam ``translate`` of a small NMT on the card decode the
+    CPU's tokens, scores within 1e-4; the flash kernel runs 2 times for
+    the encoder and 2 per decoder call."""
+    import chip_smoke
+    from mxnet_tpu_torch import nd
+    src = _small_nmt(torch.device("cpu"))
+    arrays = {k: p.data().detach().numpy()
+              for k, p in src.collect_params().items()}
+    x = np.random.RandomState(1).randint(3, 500, (3, 9))
+    for beam in (1, 2):
+        out = []
+        for dev in (card, torch.device("cpu")):
+            net = _small_nmt(dev, arrays)
+            before = flash_attention.launches
+            with chip_smoke.DecoderCalls(net) as calls:
+                out.append(net.translate(nd.array(x, ctx=dev), 1, 2,
+                                         max_len=8, beam_size=beam))
+            if dev == card:
+                assert flash_attention.launches - before == \
+                    chip_smoke.translate_flash_launches(2, calls.calls)
+        assert out[0][0] == out[1][0]
+        np.testing.assert_allclose(out[0][1], out[1][1], atol=1e-4,
+                                   rtol=1e-4)
+
+
+def test_bucketing_module_step_on_card_matches_cpu(card):
+    """One ``forward_backward`` + ``update`` of the LSTM bucketing model
+    (vocabulary 50, hidden 32) from the same weights on the card and on
+    the CPU: gradients and updated weights within 1e-5 * max(1, max|x|),
+    the card module's arrays on the card."""
+    import chip_smoke
+    from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch import random as mx_random
+    mp = pytest.MonkeyPatch()
+    for name, value in (("LM_VOCAB", 50), ("LM_EMB", 16), ("LM_HIDDEN", 32),
+                        ("LM_BATCH", 4)):
+        mp.setattr(chip_smoke, name, value)
+    try:
+        mx_random.seed(0)
+        init = chip_smoke.lm_module(cpu(), 10)
+        init.init_params()
+        arg, _ = init.get_params()
+        batch = next(b for b in chip_smoke.lm_iter(1, 60)
+                     if b.bucket_key == 10)
+        card_run = chip_smoke.lm_check_step(gpu(0), torch.float32, arg,
+                                            batch)
+        cpu_run = chip_smoke.lm_check_step(cpu(), torch.float32, arg, batch)
+    finally:
+        mp.undo()
+    for a, b in zip(card_run, cpu_run):
+        assert a.keys() == b.keys()
+        for k in a:
+            err = (a[k] - b[k]).abs().max().item()
+            assert err <= 1e-5 * max(1.0, b[k].abs().max().item()), (k, err)

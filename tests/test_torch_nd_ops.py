@@ -101,6 +101,16 @@ CASES = [
     ("slice", "slice", {"begin": (0, 1, None), "end": (2, 3, None)},
      ["X3"], True),
     ("take", "take", {"axis": 1}, ["A", "IDX"], True),
+    ("embedding", "Embedding", {"input_dim": 6, "output_dim": 4},
+     ["IDX", "W"], True),
+    ("embedding_clip", "Embedding", {"input_dim": 3, "output_dim": 4},
+     ["IDX4", "A"], True),
+    ("split_one", "split", {"num_outputs": 1, "axis": 1}, ["A"], True),
+    ("slice_channel_one", "SliceChannel", {"num_outputs": 1, "axis": 0,
+                                           "squeeze_axis": True},
+     ["R"], False),
+    ("swapaxes", "swapaxes", {"dim1": 0, "dim2": 2}, ["X3"], True),
+    ("zeros_like", "zeros_like", {}, ["A"], False),
     ("one_hot", "one_hot", {"depth": 5}, ["IDX"], False),
     ("pick", "pick", {"axis": 0}, ["A", "IDX4"], True),
     ("broadcast_to", "broadcast_to", {"shape": (3, 0)}, ["R"], True),
@@ -190,6 +200,35 @@ def test_gradients_match_jax(case):
         if n in floats:
             np.testing.assert_allclose(p.grad.asnumpy(), j.grad.asnumpy(),
                                        err_msg=n, **TOL)
+
+
+@pytest.mark.parametrize("op,kwargs", [
+    ("split", {"num_outputs": 2, "axis": 1}),
+    ("split", {"num_outputs": 4, "axis": -1, "squeeze_axis": True}),
+    ("SliceChannel", {"num_outputs": 3, "axis": 0}),
+    ("SliceChannel", {"num_outputs": 2, "axis": 2, "squeeze_axis": False}),
+], ids=["split2", "split4_squeeze", "slice_channel3", "slice_channel_x3"])
+def test_split_outputs_and_gradients_match_jax(op, kwargs):
+    """``split``/``SliceChannel`` with several outputs: each output, and
+    the input's gradient under a random head gradient on every output."""
+    name = "X3" if kwargs["axis"] == 2 else "A"
+    j = mx.nd.array(ARRAYS[name])
+    p = nd.array(ARRAYS[name], ctx=mt.cpu())
+    j.attach_grad()
+    p.attach_grad()
+    with mx.autograd.record():
+        jy = getattr(mx.nd, op)(j, **kwargs)
+    with autograd.record():
+        py = getattr(nd, op)(p, **kwargs)
+    assert len(py) == len(jy) == kwargs["num_outputs"]
+    rs = np.random.RandomState(5)
+    heads = [rs.randn(*y.shape).astype(np.float32) for y in jy]
+    for a, b in zip(py, jy):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.asnumpy(), b.asnumpy(), **TOL)
+    mx.autograd.backward(list(jy), [mx.nd.array(h) for h in heads])
+    autograd.backward(list(py), [nd.array(h, ctx=mt.cpu()) for h in heads])
+    np.testing.assert_allclose(p.grad.asnumpy(), j.grad.asnumpy(), **TOL)
 
 
 def test_softmax_output_gradient_matches_jax():
