@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero without printing the ok line).  Every
 kernel's launch count is set to 0 just before each main path (serving,
 MLP, ResNet-50, the custom-op MLP, BERT-base training, phase 10's
-low-precision runs, phase 11's imperative MLP and phase 12's NMT
-training, each ``translate`` and the bucketing fit) and read just after;
+low-precision runs, phase 11's imperative MLP, phase 12's NMT
+training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
+and Mask-RCNN training) and read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -185,7 +186,7 @@ kernels not at all:
    initial weights on the card against the CPU in fp32 and float64,
    ``leaf_check`` on the updated weights and on the gradients, the loss
    within 1e-4, the CPU runs taking the card's ReLU decisions
-   (``ReluDecisions``; float64's own may differ in at most 1e-4 of the
+   (``Decisions``; float64's own may differ in at most 1e-4 of the
    units); tokens/s, step ms per bucket (CUDA events), one profiled
    step by class (GEMMs, flash forward, the flash backward's torch ops,
    LayerNorm, the decoder's masked softmax, log-softmax/cross-entropy
@@ -211,12 +212,47 @@ kernels not at all:
    flash kernel at the NMT shapes (B=16 H=8 L=64, cross Lq=48 Lk=64,
    decode Lq=1 Lk=64 and Lq=7 Lk=32, fp32: in phase 3, timed) and its
    backward at the cross shape;
-13. prints one JSON line of kernel measurements (flash: the fp32 and, as
+13. config #5 (``BASELINE.json:10``, GluonCV's SSD and Mask-RCNN): (a)
+   ``ssd_512_resnet50_v1(classes=20)`` as ``bench_ssd`` trains it
+   (``bench.py:533-575``): ``initialize()`` leaves the extra stages' and
+   the predictors' widths deferred, ``Trainer("sgd", lr 1e-3, momentum
+   0.9)`` is built before the first forward, which settles them; batch
+   8 of 512 x 512 fp32 images from ``--seed`` with ``bench_ssd``'s labels
+   (4 rows an image, 2 real), 3 warm and 10 timed steps of
+   ``autograd.record`` -> ``SSDMultiBoxLoss`` -> ``autograd.backward`` ->
+   ``trainer.step``: step ms, images/s, one profiled step by class
+   (convolutions, BatchNorm, ``MultiBoxTarget``, the loss, the update)
+   and its idle share, peak memory, the trainable tensors, exactly one
+   momentum launch per group of 4 of them a step and no other kernel's;
+   (b) one batch-2 step at 512 x 512 from the initial weights on the
+   card against the CPU in fp32 and float64 (``leaf_check`` on the
+   updated parameters and on the gradients, the loss within 1e-4, or 1e-5
+   relative above 10), the
+   CPU runs taking the card's ReLU masks and ``MultiBoxTarget`` outputs
+   (``Decisions``, ``TargetDecisions``; the decisions float64 would have
+   taken otherwise at most 1e-4 of them); (c) ``MultiBoxDetection`` at
+   its defaults on the trained net's softmax output at batch 8 (5,630
+   anchors): ms a batch, ms in the NMS, its passes, the same kept set
+   as the CPU's run of the op on the same inputs with scores and boxes
+   within 1e-5, and as a plain greedy loop on the card; (d)
+   ``mask_rcnn_resnet18_v1(classes=20)`` at its defaults (256 x 256,
+   256 proposals before the NMS, 64 after, heads 256 wide, mask head 64)
+   at batch 4, SGD lr 1e-3 momentum 0.9, boxes, classes and 14 x 14
+   masks from ``--seed``, 3 warm and 10 timed steps: step ms, images/s,
+   the device ms of ``Proposal``, ``ROIAlign``, the heads and the rest,
+   the idle share, exact momentum launches; one batch-1 step by
+   ``leaf_check``, the CPU runs taking the card's rois and ReLU masks;
+   both models' updates: the momentum kernel in the Trainer's groups bit
+   for bit against its plain version, its device ms beside the bound
+   (20 B an element), the plain version's and fused
+   ``torch.optim.SGD``'s;
+14. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
    under ``nmt_train_launches``, ``nmt_translate_launches`` and
-   ``nmt_shapes``; the SGD kernels' bf16/fp16
+   ``nmt_shapes``; the momentum kernel's phase-13 launches and updates
+   under ``ssd_*`` and ``rcnn_*``; the SGD kernels' bf16/fp16
    entries, and the mixed path's own entry beside the unfused route's
    ``before_ms``), the card line, and last ``{"ok": true, "device":
    {...}}``.
@@ -256,12 +292,17 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu, gpu
 from mxnet_tpu_torch.contrib import amp
 from mxnet_tpu_torch.gluon import nn
+from mxnet_tpu_torch.gluon.model_zoo.rcnn import (RCNNLoss,
+                                                  mask_rcnn_resnet18_v1)
+from mxnet_tpu_torch.gluon.model_zoo.ssd import (SSDMultiBoxLoss,
+                                                 ssd_512_resnet50_v1)
 from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_base
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 from mxnet_tpu_torch.initializer import Xavier
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+from mxnet_tpu_torch.ndarray import ops_contrib
 from mxnet_tpu_torch.kernels.multi_sgd import (multi_mp_sgd,
                                                multi_mp_sgd_mom,
                                                multi_mp_sgd_mom_plain,
@@ -1500,15 +1541,17 @@ def range_kernels(prof, name: str) -> list:
             and any(s <= e.time_range.start <= t for s, t in spans)]
 
 
-def _device_classes(prof, wall_ms):
+def _device_classes(prof, wall_ms, ranges=RESNET_RANGES):
     """Device time of one profiled step by kernel class (convolutions and
     GEMMs, BatchNorm, casts, cuDNN's NCHW/NHWC transposes, elementwise,
     the update, memcpy, other; the
-    kernels that ran inside a range of ``RESNET_RANGES`` in the range's
-    class), and its idle share of the step's wall time."""
+    kernels that ran inside a range of ``ranges`` in the class of the
+    narrowest such range), and its idle share of the step's wall
+    time."""
     classes = {"conv_gemm": 0.0, "batchnorm": 0.0, "batchnorm_stats": 0.0,
                "casts": 0.0, "layout": 0.0, "elementwise": 0.0,
                "update": 0.0, "memcpy": 0.0, "other": 0.0}
+    classes.update(dict.fromkeys(ranges.values(), 0.0))
 
     def by_name(name):
         name = name.lower()
@@ -1538,16 +1581,16 @@ def _device_classes(prof, wall_ms):
         ms = e.self_device_time_total / 1e3
         classes[by_name(e.key)] += ms
         top.append((ms, e.key[:90], e.count))
-    spans = _spans(prof, RESNET_RANGES)
+    spans = _spans(prof, ranges)
     for e in prof.events():
         if not _is_kernel(e):
             continue
-        for start, end, name in spans:
-            if start <= e.time_range.start <= end:
-                ms = e.time_range.elapsed_us() / 1e3
-                classes[by_name(e.name)] -= ms
-                classes[RESNET_RANGES[name]] += ms
-                break
+        inside = [(end - start, name) for start, end, name in spans
+                  if start <= e.time_range.start <= end]
+        if inside:
+            ms = e.time_range.elapsed_us() / 1e3
+            classes[by_name(e.name)] -= ms
+            classes[ranges[min(inside)[1]]] += ms
     busy = sum(classes.values())
     top.sort(reverse=True)
     return {"wall_ms": wall_ms, "device_ms": classes,
@@ -3106,52 +3149,44 @@ def nmt_check_step(model, batch):
     return loss.detach().cpu().double(), grads, _snapshot(model)
 
 
-class ReluDecisions:
-    """While open, the ReLUs of ``model``'s position-wise FFNs record
-    which units they pass (one mask per FFN, for one forward), or, given
-    ``masks``, pass those units and no others (``z * mask``: the same
-    piecewise-linear function, its gradient the mask) and count the units
-    where their own decision (``z > 0``) differs (``flips``).
+class Decisions(torch.overrides.TorchFunctionMode):
+    """While open, every ReLU of the forward (``F.relu``, ``torch.relu``,
+    ``Tensor.relu``) records which units it passes, one mask a call in
+    call order, or, given ``masks``, passes those units and no others
+    (``z * mask``: the same piecewise-linear function, its gradient the
+    mask) and counts the units where its own decision (``z > 0``) differs
+    (``flips``).
 
     A unit whose pre-activation sits within rounding of 0 can fall either
     way in two fp32 runs, and one such unit moves every gradient upstream
-    of it (one of the base model's 786,432 at the check's shape put ten
-    leaves 1.4e-3 to 5.3e-3 of their norm from float64 on an H100, where
-    the CPU fp32 run sat at 1e-6).  Holding the CPU runs to the card's
-    decisions keeps the leaf check about the arithmetic; ``flips``
+    of it (one of the NMT base model's 786,432 at its check's shape put
+    ten leaves 1.4e-3 to 5.3e-3 of their norm from float64 on an H100,
+    where the CPU fp32 run sat at 1e-6).  Holding the CPU runs to the
+    card's decisions keeps a leaf check about the arithmetic; ``flips``
     reports how many decisions were the card's own."""
 
-    def __init__(self, model, masks=None):
-        from mxnet_tpu_torch.gluon.model_zoo.transformer import \
-            PositionwiseFFN
-        self._ffns = [m for m in model.modules()
-                      if isinstance(m, PositionwiseFFN)]
+    RELUS = (F.relu, torch.relu, torch.Tensor.relu)
+
+    def __init__(self, masks=None):
+        super().__init__()
         self._forced = masks
-        self.masks = {}
-        self.flips = 0
-        self.units = 0
+        self.masks = []
+        self.flips = self.units = self._calls = 0
 
-    def _act(self, i):
-        def act(z):
-            own = z > 0
-            self.units += own.numel()
-            if self._forced is None:
-                self.masks[i] = own.cpu()
-                return torch.relu(z)
-            mask = self._forced[i].to(z.device)
-            self.flips += int((own != mask).sum())
-            return z * mask.to(z.dtype)
-        return act
-
-    def __enter__(self):
-        self._saved = [ffn._act for ffn in self._ffns]
-        for i, ffn in enumerate(self._ffns):
-            ffn._act = self._act(i)
-        return self
-
-    def __exit__(self, *exc):
-        for ffn, act in zip(self._ffns, self._saved):
-            ffn._act = act
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in self.RELUS:
+            return func(*args, **kwargs)
+        z = args[0]
+        own = z > 0
+        self.units += own.numel()
+        if self._forced is None:
+            self.masks.append(own)
+            return func(*args, **kwargs)
+        mask = self._forced[self._calls].to(z.device)
+        self._calls += 1
+        self.flips += int((own != mask).sum())
+        return z * mask.to(z.dtype)
 
 
 def nmt_leaf_check(net, seed: int, build) -> dict:
@@ -3159,21 +3194,21 @@ def nmt_leaf_check(net, seed: int, build) -> dict:
     card, on the CPU in fp32 and in float64, held leaf by leaf
     (``leaf_check``) on the updated weights and on the gradients; the
     card's loss within 1e-4 of the CPU's.  The CPU runs take the card's
-    ReLU decisions (``ReluDecisions``); the units where float64 would
+    ReLU decisions (``Decisions``); the units where float64 would
     have decided otherwise must be at most 1e-4 of them.  ``net``'s
     weights are put back after."""
     w_init = _snapshot(net)
     arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
     batch = nmt_data(seed + 1, NMT_CHECK[0], (NMT_CHECK[1],),
                      NMT_VOCAB)[NMT_CHECK[1]]
-    with ReluDecisions(net) as card:
+    with Decisions() as card:
         after = {"card": nmt_check_step(net,
                                         [t.to(gpu(0)) for t in batch])}
     flips = {}
     for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
         model = build()
         load_reference_params(model, arrays, ctx=cpu())
-        with ReluDecisions(model, card.masks) as forced:
+        with Decisions(card.masks) as forced:
             after[name] = nmt_check_step(model.to(dtype),
                                          [t.to(dtype) for t in batch])
         flips[name] = forced.flips
@@ -3626,6 +3661,490 @@ def lm_phase(seed: int, card: str, out_dir: Path) -> dict:
         "checks": checks, "ok": all(checks.values())}
 
 
+# ----------------------------------------------------------------------
+# Phase 13: config #5 (``BASELINE.json:10``, GluonCV's SSD and Mask-RCNN)
+SSD_BATCH, SSD_SIZE, SSD_WARM, SSD_STEPS = 8, 512, 3, 10   # bench_ssd
+SSD_OPT = {"learning_rate": 1e-3, "momentum": 0.9}
+SSD_CHECK = 2                          # the leaf check's batch
+SSD_ANCHORS = 5630                     # 32²·4 + 16²·4 + (8² + 4² + 2² + 1)·6
+DET_TOL = 1e-5
+DET_ITERS = 5
+RCNN_BATCH, RCNN_WARM, RCNN_STEPS = 4, 3, 10
+RCNN_OPT = {"learning_rate": 1e-3, "momentum": 0.9}
+RCNN_IMG, RCNN_CLASSES, RCNN_GT = 256, 20, 3
+RCNN_CHECK = 1
+#: share of the discrete decisions (ReLU units, anchors' class targets)
+#: that a CPU run may have decided otherwise than the card
+DECISION_FLIPS = 1e-4
+UPDATE_LOST = 4                         # records a kernel, of 5 calls
+SSD_RANGES = {"batchnorm_stats": "batchnorm_stats",
+              "multibox_target": "multibox_target", "ssd_loss": "loss",
+              "trainer_step": "update"}
+RCNN_RANGES = {"batchnorm_stats": "batchnorm_stats",
+               "proposal": "proposal", "roi_align": "roi_align",
+               "rcnn_heads": "heads", "rcnn_loss": "loss",
+               "trainer_step": "update"}
+
+
+def ssd_batch(seed: int, batch: int):
+    """``bench_ssd``'s batch: ``SSD_SIZE`` images from ``seed``, 4 label
+    rows an image, 2 of them real boxes, the rest padding (class -1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, 3, SSD_SIZE, SSD_SIZE),
+                            dtype=np.float32)
+    labels = np.full((batch, 4, 5), -1, np.float32)
+    for i in range(batch):
+        labels[i, 0] = [i % 20, 0.1, 0.1, 0.6, 0.6]
+        labels[i, 1] = [(i + 3) % 20, 0.5, 0.5, 0.9, 0.9]
+    return torch.as_tensor(x), torch.as_tensor(labels)
+
+
+def ranged(fn, name: str):
+    """``fn`` called inside a profiler range ``name``."""
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return call
+
+
+class RangedSSDLoss(SSDMultiBoxLoss):
+    """``SSDMultiBoxLoss`` in the range ``ssd_loss``, its
+    ``MultiBoxTarget`` in ``multibox_target``."""
+
+    def targets(self, *args):
+        with torch.profiler.record_function("multibox_target"):
+            return super().targets(*args)
+
+    def forward(self, *args):
+        with torch.profiler.record_function("ssd_loss"):
+            return super().forward(*args)
+
+
+class TargetDecisions:
+    """While open, ``lossfn``'s ``MultiBoxTarget`` outputs are recorded
+    (``saved``), or, given ``forced``, replaced by them; ``flips`` counts
+    the anchors whose class target (match or mined negative) the run
+    would have set otherwise, of ``anchors``."""
+
+    def __init__(self, lossfn, forced=None):
+        self._lossfn, self._forced = lossfn, forced
+        self.saved, self.flips, self.anchors = None, 0, 0
+
+    def __enter__(self):
+        own = self._lossfn.targets
+
+        def targets(*args):
+            out = own(*args)
+            if self._forced is None:
+                self.saved = [t.detach().clone() for t in out]
+                return out
+            forced = [f.to(t.device, t.dtype)
+                      for f, t in zip(self._forced, out)]
+            self.flips += int((forced[2] != out[2]).sum())
+            self.anchors += out[2].numel()
+            return forced
+        self._lossfn.targets = targets
+        return self
+
+    def __exit__(self, *exc):
+        del self._lossfn.targets
+
+
+def check_step(model, run, opt):
+    """One SGD step of ``model`` from its weights: ``run()`` gives the
+    loss under ``autograd.record()``.  Returns the loss (float64, on the
+    CPU), the gradients of the trainable leaves and the updated
+    parameters."""
+    params = model.collect_params()
+    tr = gluon.Trainer(params, "sgd", opt)
+    with autograd.record():
+        loss = run()
+    autograd.backward(loss)
+    grads = {k: p.grad().detach().clone() for k, p in params.items()
+             if p.grad_req != "null"}
+    tr.step(1)
+    return loss.detach().cpu().double(), grads, _snapshot(model)
+
+
+def decision_leaf_check(after, w_init, flips, units) -> dict:
+    """``leaf_check`` on the updated parameters and on the gradients of
+    three ``check_step`` runs (card, CPU fp32, CPU float64), the card's
+    loss within 1e-4 of the CPU's, or 1e-5 of it where it is larger than
+    10 (SSD's multibox loss at the first step is ~100, a sum over 11,260
+    anchors: 8.4e-5 apart on an H100), and the decisions float64 would
+    have taken otherwise at most ``DECISION_FLIPS`` of them."""
+    zeros = {k: torch.zeros_like(w_init[k]) for k in after["card"][1]}
+    loss_err = (after["card"][0] - after["cpu"][0]).abs().item()
+    loss_tol = max(1e-4, 1e-5 * abs(after["cpu"][0].item()))
+    weights = leaf_check(after["card"][2], after["cpu"][2],
+                         after["cpu64"][2], w_init)
+    grads = leaf_check(after["card"][1], after["cpu"][1],
+                       after["cpu64"][1], zeros)
+    flips_ok = all(flips["cpu64"][k] <= DECISION_FLIPS * max(units[k], 1)
+                   for k in units)
+    return {"loss_abs_err_vs_cpu": loss_err,
+            "loss_card": after["card"][0].item(),
+            "loss_cpu64": after["cpu64"][0].item(),
+            "decisions": units, "flips": flips, "weights": weights,
+            "grads": grads,
+            "ok": loss_err <= loss_tol and weights["ok"] and grads["ok"]
+            and flips_ok}
+
+
+def ssd_leaf_check(net, arrays, seed: int) -> dict:
+    """One batch-2 step at 512 x 512 from the initial weights
+    (``arrays``) on the card, on the CPU in fp32 and in float64, held by
+    ``decision_leaf_check``; the CPU runs take the card's ReLU masks and
+    ``MultiBoxTarget`` outputs (matches and mined negatives)."""
+    x, labels = ssd_batch(seed + 1, SSD_CHECK)
+    w_init = _snapshot(net)
+    lossfn = SSDMultiBoxLoss()
+    with Decisions() as relus, TargetDecisions(lossfn) as targets:
+        dx, dl = x.to(gpu(0)), labels.to(gpu(0))
+        after = {"card": check_step(
+            net, lambda: lossfn(*net(dx), dl), SSD_OPT)}
+    flips = {}
+    for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+        model = ssd_512_resnet50_v1(classes=20)
+        load_reference_params(model, arrays, ctx=cpu())
+        model.to(dtype)
+        with Decisions(relus.masks) as r, \
+                TargetDecisions(lossfn, targets.saved) as t:
+            xc, lc = x.to(dtype), labels.to(dtype)
+            after[name] = check_step(
+                model, lambda: lossfn(*model(xc), lc), SSD_OPT)
+        flips[name] = {"relu_units": r.flips, "anchors": t.flips}
+        units = {"relu_units": r.units, "anchors": t.anchors}
+        del model
+    return {"batch": SSD_CHECK, **decision_leaf_check(after, w_init, flips,
+                                                      units)}
+
+
+def sgd_update_row(shapes, seed: int, opt: dict, batch: int,
+                   update_ms: float) -> dict:
+    """The momentum kernel over ``shapes`` in the Trainer's groups of 4 at
+    ``opt``: bit for bit against its plain version; ``update_ms``, the
+    device time of the main path's update (the ``trainer_step`` range of
+    its profiled step), beside the bound and the plain version's and
+    fused ``torch.optim.SGD``'s device times on the same update.  Late in
+    the whole script on an H100, ``device_ms`` traces of these updates
+    lost a few of their thousands of records in every take (4-10 of the
+    kernel's 260): the kernel's time is read off the step's trace, and
+    the other two are kept with up to ``UPDATE_LOST`` records a kernel
+    missing, scaled to whole calls."""
+    case = SgdCase(torch.Generator(device=gpu(0)).manual_seed(seed), shapes)
+    rescale = 1.0 / batch
+    check = check_sgd(case, "sgd_mom", AGG, -1.0, rescale)
+    w, m = case.state("sgd_mom")
+    lrs, wds = [opt["learning_rate"]] * len(w), [0.0] * len(w)
+    params = [torch.nn.Parameter(t.clone()) for t in case.w]
+    for p, g in zip(params, case.g):
+        p.grad = g
+    lib = torch.optim.SGD(params, lr=opt["learning_rate"],
+                          momentum=opt["momentum"], fused=True)
+    bound_ms, nbytes = sgd_bound(case.n, True)
+    return {"check": check, "ms": update_ms,
+            "plain_ms": device_ms(lambda: multi_sgd_mom_plain(
+                w, case.g, m, lrs, wds, opt["momentum"], rescale), 5,
+                lost=UPDATE_LOST),
+            "library_ms": device_ms(lib.step, 5, lost=UPDATE_LOST),
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+            "elements": case.n, "tensors": len(w),
+            "launches_per_update": -(-len(w) // AGG)}
+
+
+def train_run(step, images: int, warm: int, steps: int, ranges) -> dict:
+    """``warm`` then ``steps`` timed calls of ``step`` (one training step
+    of ``images`` images, returning its loss), the momentum launches of
+    them all, and one profiled step by class (``_device_classes`` with
+    ``ranges``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses += [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, other = multi_sgd_mom.launches, other_launches(multi_sgd_mom)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.monotonic() - t1) * 1e3
+    return {"steps": warm + steps, "losses": [v.item() for v in losses],
+            "step_ms": wall / steps * 1e3,
+            "images_per_s": images * steps / wall,
+            "launches": launches, "other_kernel_launches": other,
+            "peak_memory_gb": peak_gb,
+            "profile": _device_classes(prof, prof_wall_ms, ranges)}
+
+
+def ssd_train_run(net, trainer, lossfn, x, labels) -> dict:
+    """``bench_ssd``'s steps: ``autograd.record`` -> ``net`` -> the
+    multibox loss -> ``autograd.backward`` -> ``trainer.step``."""
+    def step():
+        with autograd.record():
+            loss = lossfn(*net(x), labels)
+        autograd.backward(loss)
+        with torch.profiler.record_function("trainer_step"):
+            trainer.step(x.shape[0])
+        return loss.detach()
+    return train_run(step, x.shape[0], SSD_WARM, SSD_STEPS, SSD_RANGES)
+
+
+def greedy_loop_keep(det, thresh: float) -> torch.Tensor:
+    """The kept set of ``box_nms`` over ``det`` (B, N, 6) [id, score,
+    corners] (valid: score > 0; only boxes of one id suppress each
+    other) by the plain greedy walk, one candidate at a time over the
+    batch, each IoU row computed on its own."""
+    scores, ids, boxes = det[..., 1], det[..., 0], det[..., 2:6]
+    valid = scores > 0
+    order = ops_contrib._desc_order(torch.where(
+        valid, scores, torch.full_like(scores, -math.inf)))
+    cand = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    cid = torch.gather(ids, 1, order)
+    keep = torch.gather(valid, 1, order)
+    later = torch.arange(cand.shape[1], device=det.device)
+    for i in range(cand.shape[1]):
+        iou = ops_contrib._iou_corner(cand[:, i:i + 1], cand)
+        kill = (iou > thresh) & (cid == cid[:, i:i + 1]) & keep[:, i:i + 1]
+        keep &= ~(kill & (later > i))
+    return torch.zeros_like(valid).scatter(1, order, keep)
+
+
+def ssd_detect(net, x) -> dict:
+    """``MultiBoxDetection`` at its defaults on the trained net's softmax
+    output at batch 8: ms per batch, ms in the NMS, the NMS's passes; the
+    card's output against the CPU's run of the op on the same inputs (the
+    same kept set by index, scores and boxes within ``DET_TOL``), and its
+    kept set against a plain greedy loop on the card."""
+    detect = nd.contrib.MultiBoxDetection
+    with autograd.predict_mode(), torch.no_grad():
+        anchors, cls, box = net(x)
+    prob = torch.softmax(cls, dim=-1).transpose(1, 2).contiguous()
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(DET_ITERS):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.monotonic() - t0) / DET_ITERS * 1e3
+
+    ops_contrib.nms_stats.reset()
+    out, det_ms = timed(lambda: detect(prob, box, anchors))
+    passes = {"run": ops_contrib.nms_stats.last,
+              "settled": ops_contrib.nms_stats.settled}
+    # the detections before the NMS (no pair of boxes overlaps by more
+    # than IoU 2), then the NMS alone on them
+    pre = detect(prob, box, anchors, nms_threshold=2.0)
+    _, nms_ms = timed(lambda: nd.contrib.box_nms(
+        pre, overlap_thresh=0.5, coord_start=2, score_index=1, id_index=0))
+    host = detect(prob.cpu(), box.cpu(), anchors.cpu())
+    kept, kept_cpu = out[..., 1] > 0, host[..., 1] > 0
+    greedy = greedy_loop_keep(pre, 0.5)
+    torch.cuda.synchronize()
+    err = (out.cpu() - host).abs().max().item()
+    res = {"batch": x.shape[0], "anchors": anchors.shape[1],
+           "candidates": int((pre[..., 1] > 0).sum()) // x.shape[0],
+           "kept_per_image": kept.sum(dim=1).tolist(),
+           "ms_per_batch": det_ms, "nms_ms": nms_ms, "nms_passes": passes,
+           "max_abs_err_vs_cpu": err,
+           "same_kept_set_as_cpu": bool(torch.equal(kept.cpu(), kept_cpu)),
+           "same_kept_set_as_greedy_loop": bool(torch.equal(kept, greedy))}
+    res["ok"] = (res["same_kept_set_as_cpu"] and err <= DET_TOL
+                 and res["same_kept_set_as_greedy_loop"]
+                 and passes["run"] < res["anchors"])
+    return res
+
+
+def ssd_phase(seed: int, card: str) -> dict:
+    """(a) SSD-512 training as ``bench_ssd``, (b) its leaf check, (c)
+    ``MultiBoxDetection`` on the trained net."""
+    dev = gpu(0)
+    net = ssd_512_resnet50_v1(classes=20)
+    net.initialize(ctx=dev, seed=seed)
+    net.hybridize()
+    params = net.collect_params()
+    deferred = sum(not p.shape_known() for p in params.values())
+    trainer = gluon.Trainer(params, "sgd", SSD_OPT)     # before any forward
+    x, labels = (t.to(dev) for t in ssd_batch(seed, SSD_BATCH))
+    with autograd.predict_mode(), torch.no_grad():
+        net(x[:1])                       # settles the deferred shapes
+    arrays = {k: v.cpu().numpy() for k, v in _snapshot(net).items()}
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    train = ssd_train_run(net, trainer, RangedSSDLoss(), x, labels)
+    print(f"ssd-512 training on {card}:", json.dumps(train), flush=True)
+    detection = ssd_detect(net, x)
+    print(f"ssd-512 detection on {card}:", json.dumps(detection),
+          flush=True)
+    load_reference_params(net, arrays, ctx=dev)
+    check = ssd_leaf_check(net, arrays, seed)
+    update = sgd_update_row([p.shape for p in trainable], seed, SSD_OPT,
+                            SSD_BATCH, train["profile"]["device_ms"]["update"])
+    del net, trainer
+    torch.cuda.empty_cache()
+    groups = -(-len(trainable) // AGG)
+    checks = {
+        "deferred_then_settled": deferred > 0 and all(
+            p.shape_known() for p in params.values()),
+        "anchors": detection["anchors"] == SSD_ANCHORS,
+        "momentum_launches": train["launches"] == groups * train["steps"],
+        "no_other_kernel": train["other_kernel_launches"] == 0,
+        "finite_losses": all(math.isfinite(v) for v in train["losses"]),
+        "leaf_check": check["ok"], "detection": detection["ok"],
+        "update_bitwise": update["check"]["bitwise"]
+        and update["check"]["launches"]
+        == update["check"]["expected_launches"]}
+    return {"card": card, "batch": SSD_BATCH, "size": SSD_SIZE,
+            "deferred_params": deferred, "trainable_params": len(trainable),
+            "expected_launches_per_step": groups, "train": train,
+            "detection": detection, "leaf_check": check, "update": update,
+            "checks": checks, "ok": all(checks.values())}
+
+
+def rcnn_batch(seed: int, batch: int):
+    """Images, ``RCNN_GT`` boxes (corners in pixels, 1/8 to 5/8 of the
+    image wide and high), classes and 14 x 14 binary masks an image,
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, 3, RCNN_IMG, RCNN_IMG),
+                            dtype=np.float32)
+    wh = rng.uniform(RCNN_IMG / 8, RCNN_IMG * 5 / 8, (batch, RCNN_GT, 2))
+    lo = rng.uniform(0, 1, (batch, RCNN_GT, 2)) * (RCNN_IMG - wh)
+    boxes = np.concatenate([lo, lo + wh], -1).astype(np.float32)
+    classes = rng.integers(0, RCNN_CLASSES, (batch, RCNN_GT)).astype(
+        np.float32)
+    masks = (rng.random((batch, RCNN_GT, 14, 14)) > 0.5).astype(np.float32)
+    return [torch.as_tensor(a) for a in (x, boxes, classes, masks)]
+
+
+class RoiDecisions:
+    """While open, ``net``'s proposals are recorded (``rois``) or, given
+    ``forced``, replaced by those."""
+
+    def __init__(self, net, forced=None):
+        self._net, self._forced, self.rois = net, forced, None
+
+    def __enter__(self):
+        own = self._net.proposals
+
+        def proposals(score, loc):
+            if self._forced is not None:
+                return self._forced.to(score.device, score.dtype)
+            self.rois = own(score, loc)
+            return self.rois
+        self._net.proposals = proposals
+        return self
+
+    def __exit__(self, *exc):
+        del self._net.proposals
+
+
+def rcnn_leaf_check(net, arrays, seed: int) -> dict:
+    """One batch-1 step from ``arrays`` on the card, on the CPU in fp32
+    and in float64 (``decision_leaf_check``); the CPU runs take the
+    card's rois and ReLU masks."""
+    batch = rcnn_batch(seed + 1, RCNN_CHECK)
+    w_init = _snapshot(net)
+    lossfn = RCNNLoss.for_net(net)
+    with Decisions() as relus, RoiDecisions(net) as rois:
+        dev = [t.to(gpu(0)) for t in batch]
+        after = {"card": check_step(
+            net, lambda: lossfn(net(dev[0]), *dev[1:]), RCNN_OPT)}
+    flips, units = {}, {}
+    for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+        model = mask_rcnn_resnet18_v1(classes=RCNN_CLASSES)
+        load_reference_params(model, arrays, ctx=cpu())
+        model.to(dtype)
+        with Decisions(relus.masks) as r, RoiDecisions(model, rois.rois):
+            host = [t.to(dtype) for t in batch]
+            after[name] = check_step(
+                model, lambda: lossfn(model(host[0]), *host[1:]), RCNN_OPT)
+        flips[name], units = {"relu_units": r.flips}, {"relu_units": r.units}
+        del model
+    return {"batch": RCNN_CHECK, **decision_leaf_check(after, w_init, flips,
+                                                       units)}
+
+
+def rcnn_phase(seed: int, card: str) -> dict:
+    """(d) ``mask_rcnn_resnet18_v1(classes=20)`` at its defaults trained
+    at batch 4 by SGD with momentum, and its leaf check."""
+    dev = gpu(0)
+    net = mask_rcnn_resnet18_v1(classes=RCNN_CLASSES)
+    net.initialize(ctx=dev, seed=seed)
+    params = net.collect_params()
+    deferred = sum(not p.shape_known() for p in params.values())
+    trainer = gluon.Trainer(params, "sgd", RCNN_OPT)    # before any forward
+    x, boxes, classes, masks = (t.to(dev) for t in
+                                rcnn_batch(seed, RCNN_BATCH))
+    with autograd.predict_mode(), torch.no_grad():
+        net(x[:1])                       # settles the deferred shapes
+    arrays = {k: v.cpu().numpy() for k, v in _snapshot(net).items()}
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    lossfn = RCNNLoss.for_net(net)
+    roi_align = net._roi_align
+    net.proposals = ranged(net.proposals, "proposal")
+    net._roi_align = ranged(roi_align, "roi_align")
+    for head in (net.head, net.cls_pred, net.box_pred, net.mask_head):
+        head.forward = ranged(head.forward, "rcnn_heads")
+
+    def step():
+        with autograd.record():
+            out = net(x)
+            with torch.profiler.record_function("rcnn_loss"):
+                loss = lossfn(out, boxes, classes, masks)
+        autograd.backward(loss)
+        with torch.profiler.record_function("trainer_step"):
+            trainer.step(x.shape[0])
+        return loss.detach()
+
+    train = train_run(step, RCNN_BATCH, RCNN_WARM, RCNN_STEPS, RCNN_RANGES)
+    del net.proposals
+    net._roi_align = roi_align
+    for head in (net.head, net.cls_pred, net.box_pred, net.mask_head):
+        del head.forward
+    print(f"mask-rcnn training on {card}:", json.dumps(train), flush=True)
+    load_reference_params(net, arrays, ctx=dev)
+    check = rcnn_leaf_check(net, arrays, seed)
+    update = sgd_update_row([p.shape for p in trainable], seed + 1,
+                            RCNN_OPT, RCNN_BATCH,
+                            train["profile"]["device_ms"]["update"])
+    del net, trainer
+    torch.cuda.empty_cache()
+    groups = -(-len(trainable) // AGG)
+    checks = {
+        "deferred_then_settled": deferred > 0 and all(
+            p.shape_known() for p in params.values()),
+        "momentum_launches": train["launches"] == groups * train["steps"],
+        "no_other_kernel": train["other_kernel_launches"] == 0,
+        "finite_losses": all(math.isfinite(v) for v in train["losses"]),
+        "leaf_check": check["ok"],
+        "update_bitwise": update["check"]["bitwise"]
+        and update["check"]["launches"]
+        == update["check"]["expected_launches"]}
+    return {"card": card, "batch": RCNN_BATCH, "img_size": RCNN_IMG,
+            "deferred_params": deferred, "trainable_params": len(trainable),
+            "expected_launches_per_step": groups, "train": train,
+            "leaf_check": check, "update": update, "checks": checks,
+            "ok": all(checks.values())}
+
+
+def detection_phase(seed: int, card: str) -> dict:
+    """Phase 13: config #5, SSD-512 then Mask-RCNN."""
+    ssd_res = ssd_phase(seed, card)
+    rcnn_res = rcnn_phase(seed, card)
+    return {"ssd": ssd_res, "rcnn": rcnn_res,
+            "ok": ssd_res["ok"] and rcnn_res["ok"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3790,6 +4309,34 @@ def main() -> int:
         HEAD_DIM, torch.float32, 20, lk=64, lost=3)
     print("flash backward", json.dumps(nmt_backward), flush=True)
 
+    det = detection_phase(args.seed, card)
+    for name, r in (("ssd-512", det["ssd"]), ("mask-rcnn", det["rcnn"])):
+        run = r["train"]
+        print(f"{name} on {card}: batch {r['batch']}, step "
+              f"{run['step_ms']:.3f} ms, {run['images_per_s']:.2f} images/s, "
+              f"{r['trainable_params']} trainable tensors, momentum "
+              f"launches {run['launches']} in {run['steps']} steps "
+              f"({r['expected_launches_per_step']} a step expected), "
+              f"device {json.dumps(run['profile']['device_ms'])}, idle "
+              f"{run['profile']['device_idle_share']:.3f}, peak memory "
+              f"{run['peak_memory_gb']:.2f} GB", flush=True)
+        print(f"{name} leaf check on {card}:", json.dumps({
+            k: r["leaf_check"][k] for k in (
+                "loss_abs_err_vs_cpu", "decisions", "flips", "ok")} | {
+            part: {k: r["leaf_check"][part][k] for k in
+                   ("ok", "leaves", "failed", "cpu_share_median",
+                    "worst_margin")}
+            for part in ("weights", "grads")}), flush=True)
+        print(f"{name} checks on {card}:", json.dumps(r["checks"]),
+              flush=True)
+    d = det["ssd"]["detection"]
+    print(f"ssd-512 detection on {card}: {d['ms_per_batch']:.3f} ms a batch "
+          f"of {d['batch']}, NMS {d['nms_ms']:.3f} ms, "
+          f"{d['nms_passes']['run']} NMS passes (settled after "
+          f"{d['nms_passes']['settled']}) over {d['candidates']} candidates, "
+          f"kept {d['kept_per_image']}, vs CPU {d['max_abs_err_vs_cpu']:.3g}",
+          flush=True)
+
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -3862,6 +4409,13 @@ def main() -> int:
                 times["multi_sgd_mom_resnet50"])
         | {"amp_bf16_launches": low["resnet50_amp"]["launches"],
            "imperative_launches": imp["launches"],
+           **{f"{name}_launches": det[name]["train"]["launches"]
+              for name in ("ssd", "rcnn")},
+           **{f"{name}_update": timing(det[name]["update"]) | {
+               "shape": f"{det[name]['update']['tensors']} tensors, "
+                        f"{det[name]['update']['elements']} fp32",
+               "max_abs_err": det[name]["update"]["check"]["max_abs_err"]}
+              for name in ("ssd", "rcnn")},
            **{f"{dt}_{key}": value for dt, t in (
                ("bf16", times["multi_sgd_mom_bf16_resnet50"]),
                ("fp16", times["multi_sgd_mom_fp16_resnet50"]))
@@ -3906,7 +4460,7 @@ def main() -> int:
          "rtc": rtc_res, "custom_mlp": custom, "bert_train": bert,
          "low_precision": low, "imperative_mlp": imp,
          "nmt": nmt, "lstm_bucketing": lm, "nmt_flash_backward":
-             nmt_backward,
+             nmt_backward, "detection": det,
          "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
@@ -3914,7 +4468,8 @@ def main() -> int:
         ("mlp", mlp), ("resnet50", resnet), ("rtc", rtc_res),
         ("custom-op mlp", custom), ("bert train", bert),
         ("low precision", low), ("imperative mlp", imp), ("nmt", nmt),
-        ("lstm bucketing", lm), ("nmt flash backward", nmt_backward))
+        ("lstm bucketing", lm), ("nmt flash backward", nmt_backward),
+        ("detection", det))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

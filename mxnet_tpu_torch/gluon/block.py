@@ -20,6 +20,16 @@ Called with ``NDArray`` inputs, a block runs on their tensors (under
 inside it) and returns ``NDArray``s; called with tensors it returns
 tensors, as the layers inside a model call each other.
 
+Deferred shape inference (``mxnet_tpu/gluon/block.py:315-350``): a layer
+built without its input width (``Dense(in_units=0)``, ``Conv2D`` or
+``BatchNorm`` without ``in_channels``) holds parameters with unknown
+dimensions.  At its first call, before ``forward``, the block's
+``infer_shape(*inputs)`` fixes them from the input and finishes their
+deferred initialization (``Parameter._finish_deferred_init``); one eager
+pass thus settles every deferred shape of a model, children in the order
+they run.  A block with unknown shapes and no ``infer_shape`` raises
+``MXNetError``.
+
 ``hybridize()`` records the flag and nothing else: PyTorch runs eagerly,
 in training as in inference.  ``cast(dtype)`` casts every parameter of
 the block and its children (MXNet's ``Block.cast``); the JAX package's
@@ -41,6 +51,7 @@ import torch
 from torch import nn
 
 from .. import autograd
+from ..base import MXNetError
 from ..context import DeviceLike
 from ..ndarray.ndarray import NDArray
 from ..ndarray.register import call_on_tensors
@@ -106,9 +117,12 @@ class Block(nn.Module):
         self._prefix, self._params = _BlockScope.create(prefix, params, hint)
         self._scope = _BlockScope(self)
         self._reg_params: Dict[str, Parameter] = {}
+        self._deferred_shapes = False
         self.training = False
 
     def __call__(self, *args, **kwargs):
+        if self._deferred_shapes:
+            self._deferred_infer(*args)
         if not any(isinstance(a, NDArray) for a in args) and not any(
                 isinstance(a, NDArray) for a in kwargs.values()):
             return nn.Module.__call__(self, *args, **kwargs)
@@ -122,8 +136,30 @@ class Block(nn.Module):
             self._reg_params[name] = value
             self._parameters[name] = value._data
             object.__setattr__(self, name, value)
+            if not value.shape_known():
+                object.__setattr__(self, "_deferred_shapes", True)
             return
         super().__setattr__(name, value)
+
+    def infer_shape(self, *args) -> None:
+        """Fix the unknown dimensions of this block's parameters from its
+        inputs (``Parameter._finish_deferred_init``); layers with deferred
+        parameters override it."""
+        raise MXNetError(
+            f"{type(self).__name__} has uninitialized parameters with "
+            f"unknown shape and no infer_shape; give explicit in_units/"
+            f"in_channels")
+
+    def _deferred_infer(self, *args) -> None:
+        """Settle this block's unknown shapes from its first inputs (a
+        shared parameter another block settled needs nothing)."""
+        params = self._reg_params.values()
+        if not all(p.shape_known() for p in params):
+            self.infer_shape(*args)
+            if not all(p.shape_known() for p in params):
+                raise MXNetError(f"{type(self).__name__}.infer_shape left "
+                                 f"a shape unknown")
+        object.__setattr__(self, "_deferred_shapes", False)
 
     @property
     def prefix(self) -> str:
@@ -157,10 +193,13 @@ class Block(nn.Module):
 
     def initialize(self, init=None, ctx: DeviceLike = None,
                    force_reinit: bool = False, seed: int = 0) -> None:
-        """Initialize every parameter from one ``torch.Generator`` seeded
-        with ``seed`` and place it on ``ctx`` (default ``gpu(0)``)."""
-        gen = torch.Generator().manual_seed(seed)
-        self.collect_params().initialize(init, ctx, gen, force_reinit)
+        """Initialize every parameter from ``seed`` and place it on
+        ``ctx`` (default ``gpu(0)``): those of known shape from one
+        ``torch.Generator`` in ``collect_params()`` order, the deferred
+        ones at the first forward, each from its own generator
+        (``ParameterDict.initialize``)."""
+        self.collect_params().initialize(init, ctx, None, force_reinit,
+                                         seed=seed)
 
     def hybridize(self, active: bool = True, **kwargs) -> None:
         for child in self._modules.values():

@@ -1,9 +1,11 @@
-"""Gluon losses: ``SoftmaxCrossEntropyLoss`` and ``L2Loss``.
+"""Gluon losses: ``SoftmaxCrossEntropyLoss``, ``SigmoidBinaryCrossEntropyLoss``
+and ``L2Loss``.
 
 Counterpart of ``mxnet_tpu/gluon/loss.py``, with its reduction semantics:
 a loss returns one value per sample, the mean over every axis but
 ``batch_axis``; ``sample_weight`` multiplies elementwise (broadcast) and
-``weight`` is a scalar factor.  Back-propagate a per-sample loss with
+``weight`` is a scalar factor (RCNN's ``(N, 1)`` weight on an ``(N, C)``
+softmax loss weighs each sample).  Back-propagate a per-sample loss with
 ``autograd.backward(loss)`` (a head gradient of ones, as MXNet's
 ``loss.backward()``), or, on ``NDArray`` inputs (``Block.__call__``
 returns an ``NDArray``), with ``loss.backward()`` itself.
@@ -11,12 +13,14 @@ returns an ``NDArray``), with ``loss.backward()`` itself.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError
 from ..ndarray import log_softmax
 from .block import HybridBlock
 
-__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss"]
+__all__ = ["Loss", "L2Loss", "SigmoidBinaryCrossEntropyLoss",
+           "SigmoidBCELoss", "SoftmaxCrossEntropyLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -79,3 +83,35 @@ class SoftmaxCrossEntropyLoss(Loss):
                                                            keepdim=True)
         return self._batch_mean(
             _apply_weighting(loss, self._weight, sample_weight))
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    """Binary cross-entropy: on logits (``from_sigmoid=False``) in the
+    stable form ``relu(x) - x * y + softplus(-|x|)``, or on probabilities
+    as ``-(log(p + 1e-12) * y + log(1 - p + 1e-12) * (1 - y))``;
+    ``pos_weight`` scales the positive term (JAX ``loss.py:69-101``)."""
+
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def forward(self, pred, label, sample_weight=None, pos_weight=None):
+        label = label.reshape(pred.shape)
+        if not self._from_sigmoid:
+            soft = F.softplus(-pred.abs())
+            loss = torch.relu(pred) - pred * label + soft
+            if pos_weight is not None:
+                loss = loss + (pos_weight - 1) * label * (
+                    torch.relu(-pred) + soft)
+        else:
+            eps = 1e-12
+            pos = torch.log(pred + eps) * label
+            if pos_weight is not None:
+                pos = pos * pos_weight
+            loss = -(pos + torch.log(1 - pred + eps) * (1 - label))
+        return self._batch_mean(
+            _apply_weighting(loss, self._weight, sample_weight))
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss

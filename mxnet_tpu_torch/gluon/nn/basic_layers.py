@@ -4,7 +4,9 @@ LayerNorm, Embedding.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the same
 parameter names, shapes (``(units, in_units)`` Dense weights) and defaults
-(LayerNorm and BatchNorm eps 1e-5, BatchNorm momentum 0.9).  The JAX
+(LayerNorm and BatchNorm eps 1e-5, BatchNorm momentum 0.9).  A width
+left at 0 (``in_units``, ``in_channels``) is inferred from the first
+input (``infer_shape``, as the JAX layers do).  The JAX
 package leaves these to XLA, outside any Pallas kernel, so here they are
 plain torch calls.  Dropout and BatchNorm follow ``autograd.is_training()``
 (MXNet's global mode), not ``nn.Module.training``.  Under ``contrib.amp``
@@ -15,6 +17,8 @@ package.  After ``Block.cast`` the layers run in the parameters' dtype
 (the caller casts the input, as in MXNet).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -69,10 +73,14 @@ class Dense(HybridBlock):
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(units, in_units), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer, allow_deferred_init=True)
             self.bias = self.params.get(
                 "bias", shape=(units,), dtype=dtype,
                 init=bias_initializer) if use_bias else None
+
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self.weight._finish_deferred_init((self._units, in_units))
 
     def forward(self, x):
         if self._flatten:
@@ -157,16 +165,26 @@ class BatchNorm(HybridBlock):
         with self.name_scope():
             self.gamma = self.params.get(
                 "gamma", shape=(in_channels,), init=gamma_initializer,
-                grad_req="write" if scale else "null")
+                grad_req="write" if scale else "null",
+                allow_deferred_init=True)
             self.beta = self.params.get(
                 "beta", shape=(in_channels,), init=beta_initializer,
-                grad_req="write" if center else "null")
+                grad_req="write" if center else "null",
+                allow_deferred_init=True)
             self.running_mean = self.params.get(
                 "running_mean", shape=(in_channels,),
-                init=running_mean_initializer, grad_req="null")
+                init=running_mean_initializer, grad_req="null",
+                allow_deferred_init=True)
             self.running_var = self.params.get(
                 "running_var", shape=(in_channels,),
-                init=running_variance_initializer, grad_req="null")
+                init=running_variance_initializer, grad_req="null",
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p._finish_deferred_init((c,))
 
     def cast(self, dtype) -> None:
         if torch_dtype(dtype) == torch.float16:
@@ -210,9 +228,15 @@ class LayerNorm(HybridBlock):
         self._epsilon = epsilon
         with self.name_scope():
             self.gamma = self.params.get("gamma", shape=(in_channels,),
-                                         init=gamma_initializer)
+                                         init=gamma_initializer,
+                                         allow_deferred_init=True)
             self.beta = self.params.get("beta", shape=(in_channels,),
-                                        init=beta_initializer)
+                                        init=beta_initializer,
+                                        allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        for p in (self.gamma, self.beta):
+            p._finish_deferred_init((x.shape[-1],))
 
     def forward(self, x):
         # FP32 under AMP

@@ -7,8 +7,26 @@ that tensor's ``.data`` in place, so every module that registered it (a
 tied weight is registered by two) sees the change, and a weight shared by
 two blocks gets one gradient.
 
-Shapes must be known at construction (give ``in_units``/``in_channels``):
-the deferred shape inference of the JAX package is not ported.
+Deferred initialization (MXNet's, as ``mxnet_tpu/gluon/parameter.py``
+:50-125 runs it): a parameter made with ``allow_deferred_init=True`` may
+have 0 (unknown) dimensions.  ``initialize()`` then records the
+initializer, the device and the generator and fills nothing; the layer's
+first forward infers the shape from its input (``Block.infer_shape``) and
+``_finish_deferred_init`` fills the data, on the CPU from the recorded
+generator, then moves it to the device.  ``set_data`` on such a parameter
+(``load_reference_params``) takes the shape from the array.  The data is
+installed into the same ``nn.Parameter`` (``.data`` replaced with a tensor
+of the new shape), so a ``Trainer`` built before the first forward, a tied
+weight, ``state_dict()`` and the gradient hook all see the resolved tensor.
+``data()`` before the shape is known raises
+:class:`DeferredInitializationError`.
+
+Seeds: ``ParameterDict.initialize(seed=)`` (``Block.initialize``) draws the
+parameters of known shape one after another from one generator seeded with
+``seed``, in ``collect_params()`` order, and gives each deferred parameter
+a generator of its own, seeded from ``(seed, its index in that order)``.  A deferred draw thus depends on neither the
+forward order nor the device, and one seed gives the same weights on any
+device.
 
 Gradients follow MXNet's ``grad_req``:
 
@@ -44,9 +62,21 @@ from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
 from ..context import DeviceLike, as_device
 
-__all__ = ["Parameter", "ParameterDict"]
+__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
 
 _GRAD_REQS = ("write", "add", "null")
+
+
+class DeferredInitializationError(MXNetError):
+    """Parameter data asked for before its shape is known."""
+
+
+def _deferred_generator(seed: int, index: int) -> torch.Generator:
+    """The generator of the deferred parameter at ``index`` (in
+    ``collect_params()`` order) of a block initialized with ``seed``."""
+    state = np.random.SeedSequence([seed & (2 ** 64 - 1), index])
+    return torch.Generator().manual_seed(
+        int(state.generate_state(1, np.uint64)[0]) >> 1)
 
 
 class Parameter:
@@ -55,12 +85,14 @@ class Parameter:
 
     def __init__(self, name: str, grad_req: str = "write", shape=None,
                  dtype="float32", lr_mult: float = 1.0,
-                 wd_mult: float = 1.0, init=None):
+                 wd_mult: float = 1.0, init=None,
+                 allow_deferred_init: bool = False):
         self.name = name
         if isinstance(shape, int):
             shape = (shape,)
         self.shape = tuple(shape or ())
-        if not self.shape or any(s <= 0 for s in self.shape):
+        if not self.shape or (not allow_deferred_init
+                              and not self.shape_known()):
             raise MXNetError(
                 f"Parameter {name!r} needs a known shape, got {shape}; "
                 f"give in_units/in_channels")
@@ -72,8 +104,10 @@ class Parameter:
         self._initialized = False
         self._grad_task = None
         self._hooked = False
-        self._data = nn.Parameter(torch.empty(self.shape, dtype=self.dtype),
-                                  requires_grad=False)
+        self._deferred = None   # (init, device, generator) until resolved
+        self._data = nn.Parameter(
+            torch.empty(self.shape if self.shape_known() else (0,),
+                        dtype=self.dtype), requires_grad=False)
         self._grad_req = "null"
         self.grad_req = grad_req
 
@@ -104,21 +138,48 @@ class Parameter:
         self._grad_task = task
         self.fresh = False
 
+    def shape_known(self) -> bool:
+        return all(s > 0 for s in self.shape)
+
     def initialize(self, init=None, ctx: DeviceLike = None,
                    generator: Optional[torch.Generator] = None,
                    force_reinit: bool = False) -> None:
         """Fill on the CPU from ``generator`` (the parameter's own
-        initializer wins over ``init``), then move to ``ctx``."""
+        initializer wins over ``init``), then move to ``ctx``; with the
+        shape still unknown, record the three for the first forward."""
         if self._initialized and not force_reinit:
             return
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        if not self.shape_known():
+            self._deferred = (init, as_device(ctx), generator)
+            return
+        self._init_impl(init, as_device(ctx), generator)
+
+    def _init_impl(self, init, device: torch.device,
+                   generator: torch.Generator) -> None:
         host = torch.empty(self.shape, dtype=self.dtype)
         if self.init is not None:
             init_mod.create(self.init).init_weight(self.name, host, generator)
         else:
             init_mod.create(init)(self.name, host, generator)
-        self._set(host.to(as_device(ctx)))
+        self._set(host.to(device))
+
+    def _finish_deferred_init(self, inferred_shape) -> None:
+        """Merge ``inferred_shape`` into the unknown dimensions (a known
+        one must agree) and fill the data as ``initialize`` recorded it
+        (nothing to fill before ``initialize``)."""
+        inferred = tuple(int(s) for s in inferred_shape)
+        if not self.accepts_shape(inferred):
+            raise MXNetError(
+                f"Parameter {self.name!r} of shape {self.shape} cannot "
+                f"take the inferred shape {inferred}")
+        self.shape = inferred
+        if self._deferred is None:
+            return
+        init, device, generator = self._deferred
+        self._deferred = None
+        self._init_impl(init, device, generator)
 
     def _set(self, value: torch.Tensor) -> None:
         """Install ``value`` as the data; the old gradient is dropped
@@ -139,6 +200,10 @@ class Parameter:
 
     def data(self) -> nn.Parameter:
         if not self._initialized:
+            if self._deferred is not None:
+                raise DeferredInitializationError(
+                    f"Parameter {self.name!r} awaits shape inference; run "
+                    f"a forward pass first")
             raise MXNetError(f"Parameter {self.name!r} has not been "
                              f"initialized; call .initialize()")
         return self._data
@@ -167,18 +232,35 @@ class Parameter:
     def device(self) -> torch.device:
         return self._data.device
 
+    def accepts_shape(self, shape) -> bool:
+        """Whether data of ``shape`` fits: every known dimension agrees
+        (an unknown one takes any size)."""
+        shape = tuple(shape)
+        return len(shape) == len(self.shape) and all(
+            s in (0, t) for s, t in zip(self.shape, shape))
+
     def set_data(self, value, ctx: DeviceLike = None) -> None:
         """Copy ``value`` (numpy or tensor) in, in this parameter's dtype,
         onto ``ctx``; without ``ctx`` an initialized parameter keeps its
-        device and one never initialized goes to the default context."""
+        device, a deferred one goes where ``initialize`` said, and one
+        never initialized to the default context.  A shape still unknown
+        is taken from ``value``."""
         src = value if isinstance(value, torch.Tensor) \
             else _from_numpy(np.asarray(value))
-        if tuple(src.shape) != self.shape:
+        if not self.accepts_shape(src.shape):
             raise MXNetError(
                 f"cannot set Parameter {self.name!r} of shape {self.shape} "
                 f"with data of shape {tuple(src.shape)}")
-        dev = self._data.device if ctx is None and self._initialized \
-            else as_device(ctx)
+        if ctx is not None:
+            dev = as_device(ctx)
+        elif self._initialized:
+            dev = self._data.device
+        elif self._deferred is not None:
+            dev = self._deferred[1]
+        else:
+            dev = as_device(None)
+        self.shape = tuple(src.shape)
+        self._deferred = None
         self._set(src.detach().to(device=dev, dtype=self.dtype, copy=True))
 
     def __repr__(self):
@@ -249,6 +331,14 @@ class ParameterDict:
 
     def initialize(self, init=None, ctx: DeviceLike = None,
                    generator: Optional[torch.Generator] = None,
-                   force_reinit: bool = False) -> None:
-        for p in self._params.values():
-            p.initialize(init, ctx, generator, force_reinit)
+                   force_reinit: bool = False, seed: int = 0) -> None:
+        """Initialize every parameter: those of known shape one after
+        another from ``generator`` (default: seeded with ``seed``), each
+        deferred one from a generator of its own, seeded from ``seed`` and
+        its index."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        for i, p in enumerate(self._params.values()):
+            gen = generator if p.shape_known() \
+                else _deferred_generator(seed, i)
+            p.initialize(init, ctx, gen, force_reinit)

@@ -9,13 +9,15 @@ to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
 ``_attach_fluent`` :71).  Hand-written frontends: the optimizer updates
 (``ops_optimizer.py``), ``Custom`` (``ops_custom.py``),
 ``flash_attention`` (``ops_contrib.py``), the draws of ``nd.random``,
-``waitall``, ``save`` and ``load``.
+``waitall``, ``save`` and ``load``.  ``nd.contrib`` holds the
+``_contrib_*`` ops by their short names (the detection ops of
+``ops_contrib.py``).
 """
 import sys as _sys
 
-from . import (ops_elemwise, ops_matrix, ops_nn, ops_random,  # noqa: F401
-               ops_reduce)
-from . import random, utils
+from . import (ops_contrib, ops_elemwise, ops_matrix,  # noqa: F401
+               ops_nn, ops_random, ops_reduce)
+from . import contrib, random, utils
 from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,
                       ones, zeros)
 from .ops_contrib import flash_attention
@@ -65,7 +67,8 @@ def waitall() -> None:
     wait_all()
 
 
-__all__ = ["Custom", "NDArray", "adam_update", "arange", "array", "empty",
+__all__ = ["Custom", "NDArray", "adam_update", "arange", "array",
+           "contrib", "empty",
            "eye", "flash_attention", "full", "get_op", "linspace",
            "list_ops", "load", "mp_sgd_mom_update", "mp_sgd_update",
            "multi_mp_sgd_mom_update", "multi_sgd_mom_update",

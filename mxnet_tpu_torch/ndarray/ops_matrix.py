@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/ndarray/ops_matrix.py``: ``dot`` :32,
 ``batch_dot`` :42, ``reshape`` :62 (MXNet's codes 0, -1, -2, -3, -4),
 ``transpose`` :68, ``expand_dims`` :74, ``concat`` :133, ``split`` /
 ``SliceChannel`` :140-148, ``slice`` :159, ``take`` :198, ``Embedding``
-:200-206, ``one_hot`` :231, ``pick`` :235-243 and ``broadcast_to`` :285,
+:200-206, ``one_hot`` :231, ``pick`` :235-243, ``broadcast_to`` :285,
+``stop_gradient`` (``BlockGrad``) :434 and ``smooth_l1`` :440-447,
 with their conventions: ``dot`` contracts the last axis of the
 left input with the first of the right (transposes reverse every axis),
 ``batch_dot`` is a batched matmul, ``slice`` takes None for "from the
@@ -240,6 +241,17 @@ def reverse_maker(axis=()):
     return fn
 
 
+def smooth_l1_maker(scalar=1.0):
+    """``0.5 * (s * x)**2`` where ``|x| < 1 / s**2``, else ``|x| - 0.5 /
+    s**2`` (the JAX op's branch and arithmetic)."""
+    s2 = float(scalar) * float(scalar)
+
+    def fn(x):
+        return torch.where(x.abs() < 1.0 / s2, 0.5 * s2 * torch.square(x),
+                           x.abs() - 0.5 / s2)
+    return fn
+
+
 def _register():
     register_op("dot", dot_maker)
     register_op("batch_dot", batch_dot_maker)
@@ -265,6 +277,9 @@ def _register():
     register_op("repeat", repeat_maker)
     register_op("reverse", reverse_maker, aliases=("flip",))
     simple_op("where", lambda c, x, y: torch.where(c != 0, x, y))
+    simple_op("stop_gradient", torch.Tensor.detach,
+              aliases=("BlockGrad", "block_grad"))
+    register_op("smooth_l1", smooth_l1_maker)
     simple_op("zeros_like", lambda x: torch.zeros_like(
         x, memory_format=torch.contiguous_format))
     simple_op("ones_like", lambda x: torch.ones_like(

@@ -689,17 +689,17 @@ def test_nmt_leaf_check_passes_a_small_model_on_the_cpu(monkeypatch):
 
 
 def test_relu_decisions_record_force_and_count_flips():
-    """``ReluDecisions`` records each FFN's ReLU mask; forcing the masks
-    back reproduces the forward and its gradients exactly, forcing a mask
-    with one unit flipped in the last FFN (nothing downstream to move)
-    counts that one flip and moves the gradients, and the model's own
-    ReLUs come back after."""
+    """``Decisions`` records each ReLU call's mask (the small NMT's: one
+    a position-wise FFN); forcing the masks back reproduces the forward
+    and its gradients exactly, forcing a mask with one unit flipped in
+    the last FFN counts that one flip and moves the gradients, and no
+    mode is left active after."""
     net = _small_nmt(3)
     src = torch.as_tensor(np.random.RandomState(2).randint(3, 60, (2, 5)))
     lab = torch.as_tensor(np.random.RandomState(3).randint(3, 60, (2, 5)))
 
     def grads(masks=None):
-        with chip_smoke.ReluDecisions(net, masks) as rd:
+        with chip_smoke.Decisions(masks) as rd:
             loss = chip_smoke.nmt_check_step(net, [src, src, lab])
         load_reference_params(net, init, ctx=cpu())
         return rd, loss[0].item(), loss[1]
@@ -710,11 +710,96 @@ def test_relu_decisions_record_force_and_count_flips():
     same, loss2, g2 = grads(rec.masks)
     assert same.flips == 0 and loss2 == loss
     assert all(torch.equal(g[k], g2[k]) for k in g)
-    flipped = {i: m.clone() for i, m in rec.masks.items()}
+    flipped = [m.clone() for m in rec.masks]
     flipped[3].view(-1)[0] = ~flipped[3].view(-1)[0]
     one, _, g3 = grads(flipped)
     assert one.flips == 1
     assert any(not torch.equal(g[k], g3[k]) for k in g)
-    from mxnet_tpu_torch.gluon.model_zoo.transformer import PositionwiseFFN
-    acts = {m._act for m in net.modules() if isinstance(m, PositionwiseFFN)}
-    assert acts == {torch.relu}
+    assert not torch._C._is_torch_function_mode_enabled()
+
+
+# ---- phase 13 (config #5) at toy sizes -----------------------------------
+def _toy_detection(monkeypatch):
+    """Phase 13 with the CPU for the card, ``ssd_toy`` at 64 x 64 for
+    SSD-512 (1,344 anchors) and ``mask_rcnn_toy`` at 64 x 64 for the
+    ResNet-18 Mask-RCNN, 1 warm and 2 timed steps, ``device_ms`` (the
+    card's profiler) stubbed."""
+    from mxnet_tpu_torch.gluon.model_zoo import rcnn, ssd
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, iters, **kw: 1.0)
+    monkeypatch.setattr(chip_smoke, "ssd_512_resnet50_v1",
+                        lambda classes=20: ssd.ssd_toy(classes=classes))
+    monkeypatch.setattr(chip_smoke, "mask_rcnn_resnet18_v1",
+                        lambda classes=20: rcnn.mask_rcnn_toy(
+                            classes=classes, img_size=64))
+    for name, value in (("SSD_SIZE", 64), ("SSD_BATCH", 2),
+                        ("SSD_ANCHORS", 1344), ("SSD_WARM", 1),
+                        ("SSD_STEPS", 2), ("RCNN_IMG", 64),
+                        ("RCNN_BATCH", 2), ("RCNN_WARM", 1),
+                        ("RCNN_STEPS", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_detection_phase_rehearses_on_the_cpu(monkeypatch):
+    """Every check of phase 13 but the kernel's launches (0 on CPU
+    tensors) passes with toy models: deferred shapes settled, the leaf
+    checks (no ReLU or target decision flipped between two CPU runs),
+    the detection against the CPU and a greedy loop, in fewer NMS
+    passes than anchors."""
+    _toy_detection(monkeypatch)
+    out = chip_smoke.detection_phase(0, "cpu")
+    for name in ("ssd", "rcnn"):
+        checks = dict(out[name]["checks"])
+        assert not checks.pop("momentum_launches")   # no kernel on the CPU
+        assert not checks.pop("update_bitwise")      # (its launches)
+        assert all(checks.values()), (name, checks)
+        flips = out[name]["leaf_check"]["flips"]["cpu"]
+        assert set(flips.values()) == {0}
+    det = out["ssd"]["detection"]
+    assert det["anchors"] == 1344 and det["nms_passes"]["run"] < 1344
+    assert out["ssd"]["deferred_params"] > 0
+    assert out["rcnn"]["train"]["profile"]["device_ms"].keys() >= {
+        "proposal", "roi_align", "heads", "loss", "update"}
+
+
+@pytest.mark.parametrize("model,leaf", [("ssd", 0), ("rcnn", 14)])
+def test_detection_leaf_checks_flag_a_one_percent_gradient_fault(
+        monkeypatch, model, leaf):
+    """A 1 % fault in one leaf's gradient of the "card" step (SSD: the
+    first conv's weight; RCNN: the box head's first Dense weight) fails
+    exactly that leaf in both ``leaf_check``s of the phase-13 checks."""
+    _toy_detection(monkeypatch)
+    check_step = chip_smoke.check_step
+    calls = []
+
+    def faulty(net, run, opt):
+        calls.append(net)
+        if len(calls) == 1:
+            param = list(net.collect_params().values())[leaf]
+            hook = param._data.register_hook(lambda g: g * 1.01)
+            try:
+                return check_step(net, run, opt)
+            finally:
+                hook.remove()
+        return check_step(net, run, opt)
+
+    monkeypatch.setattr(chip_smoke, "check_step", faulty)
+    if model == "ssd":
+        net = chip_smoke.ssd_512_resnet50_v1(classes=20)
+        x = chip_smoke.ssd_batch(0, 1)[0]
+        check = chip_smoke.ssd_leaf_check
+    else:
+        net = chip_smoke.mask_rcnn_resnet18_v1(classes=20)
+        x = chip_smoke.rcnn_batch(0, 1)[0]
+        check = chip_smoke.rcnn_leaf_check
+    net.initialize(ctx=cpu())
+    net(x)
+    arrays = {k: v.numpy() for k, v in chip_smoke._snapshot(net).items()}
+    out = check(net, arrays, 0)
+    assert not out["ok"]
+    name = list(net.collect_params())[leaf]
+    for part in ("weights", "grads"):
+        assert [r["leaf"] for r in out[part]["failed"]] == [name], part

@@ -884,7 +884,7 @@ def test_nmt_train_step_on_card_matches_cpu(card):
     """One Adam step (bench_nmt's loss) of a small NMT from the same
     weights on the card (flash kernel in the encoder's self-attention and
     the decoder's cross-attention, 4 launches) and on the CPU, which
-    takes the card's ReLU decisions (``chip_smoke.ReluDecisions``): the
+    takes the card's ReLU decisions (``chip_smoke.Decisions``): the
     loss to 1e-5 relative, each leaf's gradient to 1e-4 * max|g| +
     1e-6."""
     import chip_smoke
@@ -896,7 +896,7 @@ def test_nmt_train_step_on_card_matches_cpu(card):
     for dev in (card, torch.device("cpu")):
         net = _small_nmt(dev, arrays)
         before = flash_attention.launches
-        with chip_smoke.ReluDecisions(net, masks) as relu:
+        with chip_smoke.Decisions(masks) as relu:
             loss, grads, _ = chip_smoke.nmt_check_step(
                 net, [t.to(dev) for t in batch])
         masks = relu.masks
@@ -965,3 +965,168 @@ def test_bucketing_module_step_on_card_matches_cpu(card):
         for k in a:
             err = (a[k] - b[k]).abs().max().item()
             assert err <= 1e-5 * max(1.0, b[k].abs().max().item()), (k, err)
+
+
+# ---- config #5: the detection ops, deferred shapes, SSD's update -------
+def _det_boxes(rs, b, n):
+    lo = rs.rand(b, n, 2) * 0.8
+    wh = rs.rand(b, n, 2) * 0.3 + 0.02
+    return np.concatenate([lo, lo + wh], -1).astype(np.float32)
+
+
+def _greedy_loop(boxes, valid, thresh):
+    """The plain greedy walk, one candidate at a time over the batch."""
+    from mxnet_tpu_torch.ndarray.ops_contrib import _iou_corner
+    keep = valid.clone()
+    later = torch.arange(boxes.shape[1], device=boxes.device)
+    for i in range(boxes.shape[1]):
+        iou = _iou_corner(boxes[:, i:i + 1], boxes)
+        keep &= ~((iou > thresh) & keep[:, i:i + 1] & (later > i))
+    return keep
+
+
+def test_fixed_point_nms_is_the_greedy_walk_at_ssd512_size(card):
+    """5,630 score-sorted candidates (SSD-512's anchors) a batch of 2:
+    the fixed point keeps exactly the greedy walk's set, in fewer passes
+    than candidates."""
+    from mxnet_tpu_torch.ndarray import ops_contrib
+    rs = np.random.RandomState(0)
+    boxes = torch.tensor(_det_boxes(rs, 2, 5630), device=card)
+    valid = torch.tensor(rs.rand(2, 5630) > 0.05, device=card)
+    sup = torch.stack([ops_contrib._iou_corner(b[:, None], b[None]) > 0.5
+                       for b in boxes])
+    ops_contrib.nms_stats.reset()
+    keep = ops_contrib.greedy_keep(valid, sup)
+    assert torch.equal(keep, _greedy_loop(boxes, valid, 0.5))
+    assert ops_contrib.nms_stats.last < 5630
+
+
+def _det_arrays():
+    rs = np.random.RandomState(1)
+    n = 300
+    det = np.zeros((2, n, 6), np.float32)
+    det[..., 0] = rs.randint(0, 4, (2, n))
+    det[..., 1] = np.round(rs.rand(2, n), 2)         # ties
+    det[..., 2:] = _det_boxes(rs, 2, n)
+    labels = np.full((2, 4, 5), -1.0, np.float32)
+    labels[:, :2, 0] = [[1, 3], [0, 2]]
+    labels[:, :2, 1:] = _det_boxes(rs, 2, 2)
+    prob = rs.rand(2, 5, n).astype(np.float32)
+    return {
+        "det": det, "anchors": _det_boxes(rs, 1, n), "labels": labels,
+        "cls": rs.randn(2, 5, n).astype(np.float32),
+        "prob": prob / prob.sum(1, keepdims=True),
+        "loc": (rs.randn(2, n * 4) * 0.3).astype(np.float32),
+        "feat": rs.randn(2, 8, 16, 16).astype(np.float32),
+        "rois": np.concatenate([rs.randint(0, 2, (20, 1)),
+                                _det_boxes(rs, 1, 20)[0] * 16], 1)
+        .astype(np.float32),
+        "score": rs.rand(2, 18, 8, 8).astype(np.float32),
+        "bbox": (rs.randn(2, 36, 8, 8) * 0.2).astype(np.float32),
+        "info": np.array([[128, 128, 1]] * 2, np.float32),
+        "a": _det_boxes(rs, 2, 30), "b": _det_boxes(rs, 2, 6)}
+
+
+DET_CARD_CASES = [
+    ("MultiBoxPrior", ["feat"], {"sizes": (0.3, 0.2),
+                                 "ratios": (1, 2, 0.5)}, ()),
+    ("box_iou", ["a", "b"], {}, (0, 1)),
+    ("box_nms", ["det"], {"overlap_thresh": 0.4, "id_index": 0}, (0,)),
+    ("MultiBoxTarget", ["anchors", "labels", "cls"],
+     {"negative_mining_ratio": 3.0}, ()),
+    ("MultiBoxDetection", ["prob", "loc", "anchors"], {}, ()),
+    ("ROIAlign", ["feat", "rois"], {"pooled_size": (7, 7),
+                                    "spatial_scale": 1.0,
+                                    "sample_ratio": 2}, (0,)),
+    ("Proposal", ["score", "bbox", "info"], {
+        "rpn_pre_nms_top_n": 200, "rpn_post_nms_top_n": 50,
+        "scales": (2.0, 4.0, 8.0), "rpn_min_size": 1}, ()),
+    ("box_decode", ["b", "a"], {"std0": 0.1, "clip": 1.0}, (0,)),
+]
+
+
+@pytest.mark.parametrize("op,names,kw,grads", DET_CARD_CASES,
+                         ids=[c[0] for c in DET_CARD_CASES])
+def test_detection_ops_on_card_match_cpu(card, op, names, kw, grads):
+    """Each detection op on the card against the same op on the CPU:
+    outputs (and input gradients where it is differentiable) within
+    1e-5, relative for values far from 1 (``Proposal``'s pixel
+    coordinates: the card's and the CPU's ``exp`` differ by an ulp); the
+    kept sets, matches and labels equal."""
+    from mxnet_tpu_torch import autograd, nd
+    arrays = _det_arrays()
+    if op == "box_decode":
+        arrays["a"] = arrays["a"][:1, :6]
+    res = []
+    for dev in (card, torch.device("cpu")):
+        ins = [torch.tensor(arrays[n], device=dev) for n in names]
+        for i in grads:
+            ins[i].requires_grad_()
+        with autograd.record():
+            out = getattr(nd.contrib, op)(*ins, **kw)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        if grads:
+            autograd.backward(outs, [torch.full_like(o, 0.5) for o in outs])
+        res.append([o.detach().cpu() for o in outs]
+                   + [ins[i].grad.cpu() for i in grads])
+    for a, b in zip(*res):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_deferred_initialization_on_the_card(card):
+    """Widths left to the first forward on ``gpu(0)``: the weights land on
+    the card, equal to a CPU twin's from the same seed, inside the
+    ``nn.Parameter`` a Trainer built before the forward holds."""
+    from mxnet_tpu_torch import autograd, cpu, gluon, gpu
+    from mxnet_tpu_torch.gluon import nn
+
+    def build():
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(8, 3, 1, 1), nn.BatchNorm(),
+                nn.Conv2DTranspose(4, 2, 2), nn.Dense(5))
+        return net
+    net, twin = build(), build()
+    net.initialize(ctx=gpu(0), seed=3)
+    twin.initialize(ctx=cpu(), seed=3)
+    tensors = [p._data for p in net.collect_params().values()]
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": 0.1, "momentum": 0.9})
+    x = torch.randn(2, 3, 6, 6)
+    net(x.to(card))
+    twin(x)
+    for p, q, t in zip(net.collect_params().values(),
+                       twin.collect_params().values(), tensors):
+        assert p.data() is t and p.data().device == card
+        assert torch.equal(p.data().cpu(), q.data())
+    before = multi_sgd_mom.launches
+    with autograd.record():
+        loss = net(x.to(card)).square().mean()
+    autograd.backward(loss)
+    tr.step(2)
+    torch.cuda.synchronize()
+    assert multi_sgd_mom.launches - before == 2          # 7 tensors
+
+
+def test_momentum_kernel_at_ssd512_groups_bitwise(card):
+    """The momentum kernel over SSD-512's trainable shapes in the
+    Trainer's groups of 4, bit for bit against its plain version."""
+    from mxnet_tpu_torch.gluon.model_zoo.ssd import ssd_512_resnet50_v1
+    net = ssd_512_resnet50_v1(classes=20)
+    net.initialize(ctx=torch.device("cpu"))
+    net(torch.zeros(1, 3, 64, 64))
+    shapes = [p.shape for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    w, g, m = _sgd_set(card, shapes, 0, 11)
+    lrs = [1e-3] * len(w)
+    wds = [0.0] * len(w)
+    wk, mk = [t.clone() for t in w], [t.clone() for t in m]
+    before = multi_sgd_mom.launches
+    for lo in range(0, len(w), 4):
+        sl = slice(lo, lo + 4)
+        multi_sgd_mom(wk[sl], g[sl], mk[sl], lrs[sl], wds[sl], 0.9, 1 / 8)
+    multi_sgd_mom_plain(w, g, m, lrs, wds, 0.9, 1 / 8)
+    torch.cuda.synchronize()
+    assert multi_sgd_mom.launches - before == -(-len(w) // 4)
+    for a, b in zip(wk + mk, w + m):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
