@@ -8,7 +8,8 @@ kernel's launch count is set to 0 just before each main path (serving,
 MLP, ResNet-50, the custom-op MLP, BERT-base training, phase 10's
 low-precision runs, phase 11's imperative MLP, phase 12's NMT
 training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
-and Mask-RCNN training) and read just after;
+and Mask-RCNN training, and phase 14's hybridized runs) and read just
+after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -246,7 +247,33 @@ kernels not at all:
    for bit against its plain version, its device ms beside the bound
    (20 B an element), the plain version's and fused
    ``torch.optim.SGD``'s;
-14. prints one JSON line of kernel measurements (flash: the fp32 and, as
+14. ``hybridize()`` on CUDA graphs (``gluon/cached_op.py``): phases 4
+   (``ModelServer``'s ``cached_graph``s), 5, 6, 10 and 13 (hybridized)
+   already run on captured graphs and print each one's entries, graphs,
+   replays and eager calls (one warm call per signature and mode, the
+   deferred-shape calls, no other); their exact launch counts hold
+   through replays (a capture counts nothing, each replay its
+   launches), their batch-2 check steps replay after a warm call of the
+   signature, and each phase frees its graphs before the next.  Then:
+   (a) phase 12's NMT training, hybridized, from the same weights and
+   batches, at 4 timed passes (phase 12 times 8): one recording entry a
+   bucket, 12 flash launches a step, tokens/s, step ms per bucket, the
+   idle share, device ms, the host's launches a step, capture ms and
+   pool bytes a graph, the losses against phase 12's; phase 12's check
+   step replayed from a graph, held by ``leaf_check``'s bounds against
+   the float64 step and against the eager card step, and whether eager
+   repeats bit for bit and the replay equals it; (b) phase 9's BERT-base
+   pretraining, fp32 and bf16 AMP, hybridized, at 5 timed steps (phase 9
+   times 10), beside phase 9's numbers, its check step replayed as in
+   (a); (c) phase 4's 32 requests served from captured graphs, by eager
+   dispatch, and from the graphs again: requests/s, p50/p99, the outputs
+   against a direct forward and against eager dispatch (<= 1e-3); (d)
+   Mask-RCNN, which reads the host in its forward (``reads_host``),
+   hybridized: one warning, each step an eager call, counted, its losses
+   within 1e-5 of phase 13's; (e) the flash kernel replayed from a
+   captured graph against its eager call on the same inputs, bit for
+   bit (B=8, L=512 and 256, fp32 and bf16, ragged lengths);
+15. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -262,6 +289,7 @@ Imports nothing of JAX.  Writes the full report to ``<out>/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib.util
 import json
 import math
@@ -981,8 +1009,8 @@ def serve_phase(seed: int, n_requests: int, card: str):
     results, futs = {}, {}
     try:
         t0 = time.monotonic()
-        graphs = srv.warmup(*[(np.zeros(n, np.int32), np.zeros(n, np.int32),
-                               np.float32(n)) for n in LENGTH_BUCKETS])
+        srv.warmup(*[(np.zeros(n, np.int32), np.zeros(n, np.int32),
+                      np.float32(n)) for n in LENGTH_BUCKETS])
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
         srv.start()
@@ -1008,6 +1036,7 @@ def serve_phase(seed: int, n_requests: int, card: str):
         launches = flash_attention.launches
         other = other_launches(flash_attention)
         batches = srv.stats()["batches"] - b0
+        graphs = graph_summary(net)
         if any(t.is_alive() for t in threads) or len(results) != n_requests:
             raise AssertionError("requests did not complete")
     finally:
@@ -1018,6 +1047,11 @@ def serve_phase(seed: int, n_requests: int, card: str):
         raise AssertionError(f"flash launches {launches} != {LAYERS} x "
                              f"{batches} batches, or {other} SGD/rtc "
                              f"launches")
+    if (graphs["graphs"] != len(LENGTH_BUCKETS) * len(BATCH_BUCKETS)
+            or graphs["replays"] != batches or graphs["warm_calls"]
+            or graphs["deferred_calls"]):
+        raise AssertionError(f"served {batches} batches from graphs "
+                             f"{graphs}")
     buckets = set()
     for i, (toks, _, _) in enumerate(reqs):
         mlm, nsp = results[i]
@@ -1043,7 +1077,9 @@ def serve_phase(seed: int, n_requests: int, card: str):
 
     invariance = {i: max_err(i, direct(net, i, dev)) for i in range(4)}
     breakdown = profile_batch(net, dev)
+    free_graphs(net)
     del net
+    gc.collect()
     torch.cuda.empty_cache()
     cpu_net = bert_base(dropout=0.0)
     cpu_net.initialize(ctx=cpu(), seed=seed)
@@ -1057,7 +1093,7 @@ def serve_phase(seed: int, n_requests: int, card: str):
     dispatch = registry().histogram("serving.dispatch_us")
     return {
         "card": card, "requests": n_requests, "batches": batches,
-        "flash_launches": launches, "graphs": graphs,
+        "flash_launches": launches, "graph_stats": graphs,
         "warmup_s": warm_s, "wall_s": wall,
         "requests_per_s": n_requests / wall,
         "latency_ms_p50": float(np.percentile(lat, 50)),
@@ -1102,7 +1138,8 @@ SENTINEL, SENTINEL_CYCLES = "spin_kernel", 1000
 
 
 def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
-              kernels: dict = None, lost: int = 0) -> float:
+              kernels: dict = None, lost: int = 0,
+              per_call: int = 0) -> float:
     """Device time of one ``fn`` call: the summed time of the CUDA kernels
     it launches (torch.profiler; with ``only``, of those whose name holds
     it) over ``iters`` calls, after three warm calls.  Unlike ``cuda_ms``
@@ -1116,7 +1153,10 @@ def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
     trace opens with a sentinel kernel (``SENTINEL``, left out of the
     sums), so that the record a trace may lose first is not one of
     ``fn``'s.  ``kernels``, if given, gets each kernel's launches per
-    call."""
+    call.  With ``per_call`` (``only`` names one kernel that ``fn``
+    launches exactly that often) the count is known, so a trace is taken
+    if at least half the records arrived and none too many, and the time
+    is their mean duration times the known count."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -1132,11 +1172,14 @@ def device_ms(fn, iters: int, attempts: int = 3, only: str = "",
         events = [e for e in prof.key_averages()
                   if _is_kernel(e) and SENTINEL not in e.key
                   and only in e.key]
-        full = {e.key: e.count + (-e.count) % iters for e in events}
+        full = {e.key: per_call * iters if per_call
+                else e.count + (-e.count) % iters for e in events}
         total = sum(e.self_device_time_total * full[e.key] / e.count
                     for e in events)
-        if total > 0 and all(full[e.key] - e.count <= lost
-                             for e in events):
+        short = lost if not per_call else per_call * iters // 2
+        if total > 0 and all(0 <= full[e.key] - e.count <= short
+                             for e in events) \
+                and (not per_call or len(events) == 1):
             if kernels is not None:
                 kernels.update({e.key[:80]: full[e.key] // iters
                                 for e in events})
@@ -1508,12 +1551,19 @@ def mlp_phase(seed: int, dtype: str = "float32"):
     other = other_launches(multi_sgd)
     losses = [v.item() for v in losses]
     dtypes = {_short(p.data().dtype) for p in net.collect_params().values()}
+    graphs = graph_summary(net)
+    free_graphs(net)
     return {"steps": MLP_STEPS, "batch": MLP_BATCH, "dtype": dtype,
             "launches": launches, "other_kernel_launches": other,
             "losses": losses, "step_ms": wall / MLP_STEPS * 1e3,
+            "graphs": graphs,
             "ok": launches == 2 * MLP_STEPS and other == 0
             and losses[-1] < losses[0] and dtypes == {dtype}
-            and all(math.isfinite(v) for v in losses)}
+            and all(math.isfinite(v) for v in losses)
+            and graphs["entries"] == graphs["graphs"] == 1
+            and graphs["replays"] == MLP_STEPS - 1
+            and graphs["warm_calls"] == 1
+            and graphs["deferred_calls"] == 0}
 
 
 # the profiler ranges of a ResNet training step: each takes the kernels
@@ -1722,13 +1772,19 @@ def resnet_phase(seed: int, card: str):
         results.append(_snapshot(net))
     torch.cuda.synchronize()
     agg_vs_per_tensor = _max_diff(*results)
+    graphs = graph_summary(net)
 
-    # one step at batch 2 from the initial weights on the card, on the CPU
-    # in fp32 and on the CPU in float64 (the arbiter)
+    # one step at batch 2 from the initial weights on the card (replayed
+    # from its captured graph: a warm call of the signature first), on the
+    # CPU in fp32 and on the CPU in float64 (the arbiter)
     arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
-    load_reference_params(net, arrays, ctx=dev)
     xb, yb = x[:CPU_CHECK_BATCH], y[:CPU_CHECK_BATCH]
+    warm_call(lambda: lossfn(net(xb), yb))
+    load_reference_params(net, arrays, ctx=dev)
+    replays = net.graph_stats()["replays"]
     after = {"card": one_step(net, xb, yb, lossfn)}
+    check_replayed = net.graph_stats()["replays"] - replays
+    free_graphs(net)
     for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
         model = resnet50_v1(classes=1000)
         load_reference_params(model, arrays, ctx=cpu())
@@ -1741,7 +1797,10 @@ def resnet_phase(seed: int, card: str):
     ok = (launches == groups * steps and other == 0
           and all(math.isfinite(v) for v in losses)
           and agg_vs_per_tensor <= SGD_TOL and cpu_loss_err <= 1e-4
-          and leaves["ok"])
+          and leaves["ok"] and check_replayed == 1
+          and graphs["entries"] == graphs["graphs"] == 1
+          and graphs["replays"] == steps + 1 and graphs["warm_calls"] == 1
+          and graphs["deferred_calls"] == 0)
     return {
         "card": card, "batch": RESNET_BATCH, "warm_steps": RESNET_WARM,
         "timed_steps": RESNET_STEPS, "trainable_params": len(trainable),
@@ -1755,7 +1814,8 @@ def resnet_phase(seed: int, card: str):
         "cpu_check_batch": CPU_CHECK_BATCH,
         "cpu_check_loss_abs_err": cpu_loss_err,
         "cpu_check_weight_max_abs": cpu_weight_err,
-        "cpu_check_leaves": leaves, "ok": ok}
+        "cpu_check_leaves": leaves, "graphs": graphs,
+        "cpu_check_step_replayed": check_replayed, "ok": ok}
 
 
 def softmax_bound(n: int, c: int, backward: bool):
@@ -2203,6 +2263,27 @@ BERT_CLASSES = ("gemm", "flash_forward", "flash_backward", "layernorm",
                 "log_softmax", "adam", "memcpy", "other")
 
 
+# the CUDA runtime and driver calls by which the host starts device work
+LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync"}
+GRAPH_LAUNCH = "cudaGraphLaunch"
+
+
+def host_launches(prof) -> dict:
+    """The launches the host issued in a profiled window: kernel, copy
+    and memset launches, and CUDA-graph launches (each of which starts
+    all of its graph's kernels); and the device ms of the multi-tensor
+    kernels (``torch._foreach_copy_``'s: a replay's outputs and gradients
+    copied out of the graph's buffers; the port's Adam and SGD launch
+    none of these)."""
+    names = [e.name for e in prof.events()]
+    return {"host_launches": sum(n in LAUNCH_CALLS for n in names),
+            "host_graph_launches": names.count(GRAPH_LAUNCH),
+            "foreach_copy_ms": sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if _is_kernel(e) and "multi_tensor_apply" in e.key) / 1e3}
+
+
 def bert_step_classes(prof, wall_ms: float, n_params: int,
                       classify=_bert_kernel_class,
                       names=BERT_CLASSES) -> dict:
@@ -2238,6 +2319,7 @@ def bert_step_classes(prof, wall_ms: float, n_params: int,
     return {"wall_ms": wall_ms, "device_ms": classes,
             "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            **host_launches(prof),
             "kernels_in_ranges": ranged,
             "range_spans_ms": spans,
             "adam_kernels_per_param": ranged["adam"] / n_params,
@@ -2245,12 +2327,13 @@ def bert_step_classes(prof, wall_ms: float, n_params: int,
                             for ms, n, name in sorted(top, reverse=True)[:15]]}
 
 
-def bert_run(net, batch, n_steps: int) -> dict:
+def bert_run(net, batch, n_steps: int, timed: int = None) -> dict:
     """``n_steps`` Adam steps of ``net`` on one batch (``BERT_WARM`` warm,
-    then ``BERT_STEPS`` timed, then the rest), the flash launches of
+    then ``timed`` (``BERT_STEPS``) timed, then the rest), the flash launches of
     them all, one profiled step after them, and the dtypes of every
     parameter and Adam state at the end."""
     from torch.profiler import ProfilerActivity, profile
+    timed = BERT_STEPS if timed is None else timed
     params = net.collect_params()
     trainer = gluon.Trainer(params, "adam", BERT_OPT)
     torch.cuda.synchronize()
@@ -2261,7 +2344,7 @@ def bert_run(net, batch, n_steps: int) -> dict:
     torch.cuda.synchronize()
     t0 = time.monotonic()
     losses += [bert_train_step(net, trainer, batch)
-               for _ in range(BERT_STEPS)]
+               for _ in range(timed)]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     losses += [bert_train_step(net, trainer, batch)
@@ -2283,11 +2366,12 @@ def bert_run(net, batch, n_steps: int) -> dict:
     seqs = batch[0].shape[0]
     tokens = batch[0].numel()
     return {
-        "steps": n_steps, "losses": [v.item() for v in losses],
-        "step_ms": wall / BERT_STEPS * 1e3,
-        "sequences_per_s": seqs * BERT_STEPS / wall,
-        "tokens_per_s": tokens * BERT_STEPS / wall,
-        "real_tokens_per_s": batch[2].sum().item() * BERT_STEPS / wall,
+        "steps": n_steps, "timed_steps": timed,
+        "losses": [v.item() for v in losses],
+        "step_ms": wall / timed * 1e3,
+        "sequences_per_s": seqs * timed / wall,
+        "tokens_per_s": tokens * timed / wall,
+        "real_tokens_per_s": batch[2].sum().item() * timed / wall,
         "flash_launches": launches, "flash_launches_by_dtype": by_dtype,
         "other_kernel_launches": other, "peak_memory_gb": peak_gb,
         "profile": bert_step_classes(prof, prof_wall_ms, len(params)),
@@ -2297,18 +2381,19 @@ def bert_run(net, batch, n_steps: int) -> dict:
         "adam_states": len(states)}
 
 
-def bert_leaf_check(net, seed: int) -> dict:
+def bert_leaf_check(net, seed: int, keep: dict = None) -> dict:
     """One Adam step at batch 2, sequence 128 from ``net``'s weights on
     the card, on the CPU in fp32 and on the CPU in float64 (the arbiter),
     held leaf by leaf (``leaf_check``, ResNet-50's bounds): the updated
     weights, and the gradients themselves (Adam's first step moves each
     weight by about ``lr * sign(g)``, which hides the size of a gradient's
-    error)."""
+    error).  ``keep`` takes the three steps and the card's batch for
+    phase 14's replayed step."""
     w_init = _snapshot(net)
     arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
     batch = bert_batch(seed + 1, *BERT_CHECK)
-    after = {"card": bert_check_step(
-        net, [torch.as_tensor(a, device=gpu(0)) for a in batch])}
+    card_batch = [torch.as_tensor(a, device=gpu(0)) for a in batch]
+    after = {"card": bert_check_step(net, card_batch)}
     for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
         model = bert_base(dropout=0.0)
         load_reference_params(model, arrays, ctx=cpu())
@@ -2322,6 +2407,8 @@ def bert_leaf_check(net, seed: int) -> dict:
     grads = leaf_check(after["card"][1], after["cpu"][1],
                        after["cpu64"][1], zeros)
     load_reference_params(net, arrays, ctx=gpu(0))
+    if keep is not None:
+        keep.update(after=after, w_init=w_init, batch=card_batch)
     return {"batch": list(BERT_CHECK), "loss_abs_err_vs_cpu": loss_err,
             "loss_card": after["card"][0].item(),
             "loss_cpu64": after["cpu64"][0].item(),
@@ -2359,7 +2446,9 @@ def check_flash_backward(gen, b, h, length, d, dtype, iters,
     is ``device_ms``'s allowance of lost records for the kernel's and the
     plain version's timings (at Lq=48, Lk=64 a trace of 20 forwards lost
     2 of its 20 kernel records, one of 3 plain forward + backward calls 2
-    of an elementwise kernel's 24)."""
+    of an elementwise kernel's 24).  The forward alone launches the
+    kernel once a call, so its timing needs no allowance: it takes the
+    records that arrive (``device_ms``'s ``per_call``)."""
     dev = gpu(0)
     bh = b * h
     lk = lk or length
@@ -2418,7 +2507,9 @@ def check_flash_backward(gen, b, h, length, d, dtype, iters,
     launches = {"ours": {}, "library": {}}
     fwd_bwd_ms = device_ms(ours, iters, kernels=launches["ours"],
                            lost=lost)
-    fwd_ms = device_ms(forward, iters, only="flash_fwd_kernel", lost=lost)
+    # on an H100, traces taken after phases that replayed CUDA graphs
+    # lost 2 of these 20 records (bf16, L=512) and 4 (fp32, Lq=48)
+    fwd_ms = device_ms(forward, iters, only="flash_fwd_kernel", per_call=1)
     return {
         "case": f"B={b} H={h} L={length} D={d} {_short(dtype)}"
                 if lk == length else
@@ -2459,7 +2550,8 @@ def bert_train_phase(seed: int, card: str) -> dict:
                 amp.init("bfloat16")
             net = bert_base(dropout=0.0)
             net.initialize(ctx=dev, seed=seed)
-            check = bert_leaf_check(net, seed) if mode == "fp32" else None
+            check = bert_leaf_check(net, seed, CHECK_STEPS.setdefault(
+                "bert", {})) if mode == "fp32" else None
             runs[mode] = bert_run(net, batch, BERT_WARM + BERT_STEPS
                                   if mode == "fp32" else BERT_AMP_STEPS)
             runs[mode]["leaf_check"] = check
@@ -2614,6 +2706,8 @@ def resnet_lp_run(seed: int, recipe: str, fp32_losses: list) -> dict:
                   for t in (st if isinstance(st, tuple) else (st,))]
         param_dtypes = sorted({_short(p.data().dtype)
                                for p in params.values()})
+        graphs = graph_summary(net)
+        free_graphs(net)
     finally:
         amp.disable()
     losses = [v.item() for v in losses]
@@ -2625,6 +2719,9 @@ def resnet_lp_run(seed: int, recipe: str, fp32_losses: list) -> dict:
         "losses_fall": min(losses[1:RESNET_WARM + 1]) < losses[0],
         "tracks_fp32": max(rel[:RESNET_TRACKED]) <= RESNET_AMP_LOSS_RTOL,
         "launches": launches == groups * steps and other == 0,
+        "graphs": graphs["entries"] == graphs["graphs"] == 1
+        and graphs["replays"] == steps and graphs["warm_calls"] == 1
+        and graphs["deferred_calls"] == 0,
         "update_range": update["ok"],
         "state_dtypes": {_short(t.dtype) for t in states} == {"float32"}}
     checks["first_loss_vs_fp32"] = first_rel <= RESNET_AMP_LOSS_RTOL
@@ -2645,7 +2742,7 @@ def resnet_lp_run(seed: int, recipe: str, fp32_losses: list) -> dict:
             "expected_launches_per_step": groups,
             "other_kernel_launches": other, "update_range": update,
             "mismatched_masters_per_step": [len(m) for m in mismatched],
-            "param_dtypes": param_dtypes,
+            "param_dtypes": param_dtypes, "graphs": graphs,
             "profile": _device_classes(prof, prof_wall_ms),
             "checks": checks, "ok": all(checks.values())}
 
@@ -3189,14 +3286,15 @@ class Decisions(torch.overrides.TorchFunctionMode):
         return z * mask.to(z.dtype)
 
 
-def nmt_leaf_check(net, seed: int, build) -> dict:
+def nmt_leaf_check(net, seed: int, build, keep: dict = None) -> dict:
     """One Adam step at batch 2, length 16 from ``net``'s weights on the
     card, on the CPU in fp32 and in float64, held leaf by leaf
     (``leaf_check``) on the updated weights and on the gradients; the
     card's loss within 1e-4 of the CPU's.  The CPU runs take the card's
     ReLU decisions (``Decisions``); the units where float64 would
     have decided otherwise must be at most 1e-4 of them.  ``net``'s
-    weights are put back after."""
+    weights are put back after.  ``keep`` takes the three steps and the
+    card's batch for phase 14's replayed step."""
     w_init = _snapshot(net)
     arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
     batch = nmt_data(seed + 1, NMT_CHECK[0], (NMT_CHECK[1],),
@@ -3220,6 +3318,9 @@ def nmt_leaf_check(net, seed: int, build) -> dict:
     grads = leaf_check(after["card"][1], after["cpu"][1],
                        after["cpu64"][1], zeros)
     load_reference_params(net, arrays, ctx=gpu(0))
+    if keep is not None:
+        keep.update(after=after, w_init=w_init,
+                    batch=[t.to(gpu(0)) for t in batch])
     return {"batch": list(NMT_CHECK), "loss_abs_err_vs_cpu": loss_err,
             "loss_card": after["card"][0].item(),
             "loss_cpu64": after["cpu64"][0].item(),
@@ -3229,13 +3330,14 @@ def nmt_leaf_check(net, seed: int, build) -> dict:
             and flips["cpu64"] <= 1e-4 * card.units}
 
 
-def nmt_train_run(net, seed: int) -> dict:
+def nmt_train_run(net, seed: int, passes: int = None) -> dict:
     """The bench's schedule: one first step per bucket, ``NMT_WARM`` warm
-    passes, then ``NMT_PASSES`` timed passes over the buckets, each
+    passes, then ``passes`` (``NMT_PASSES``) timed passes over the buckets, each
     ending in a synchronise (each step's device-clock span taken by CUDA
     events); the flash launches of every step; one profiled step at the
     longest bucket."""
     from torch.profiler import ProfilerActivity, profile
+    passes = NMT_PASSES if passes is None else passes
     dev = gpu(0)
     data = {s: [t.to(dev) for t in b] for s, b in
             nmt_data(seed, NMT_BATCH, NMT_BUCKETS, NMT_VOCAB).items()}
@@ -3252,7 +3354,7 @@ def nmt_train_run(net, seed: int) -> dict:
     spans = {s: [] for s in NMT_BUCKETS}
     losses = []
     t0 = time.monotonic()
-    for _ in range(NMT_PASSES):
+    for _ in range(passes):
         marks = []
         for s in NMT_BUCKETS:
             e0 = torch.cuda.Event(enable_timing=True)
@@ -3265,7 +3367,7 @@ def nmt_train_run(net, seed: int) -> dict:
         for s, e0, e1 in marks:
             spans[s].append(e0.elapsed_time(e1))
     wall = time.monotonic() - t0
-    steps = len(NMT_BUCKETS) * (1 + NMT_WARM + NMT_PASSES)
+    steps = len(NMT_BUCKETS) * (1 + NMT_WARM + passes)
     launches = flash_attention.launches
     other = other_launches(flash_attention)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3276,12 +3378,13 @@ def nmt_train_run(net, seed: int) -> dict:
         nmt_step(net, trainer, *data[NMT_BUCKETS[-1]])
         torch.cuda.synchronize()
         prof_wall_ms = (time.monotonic() - t1) * 1e3
-    tokens = NMT_PASSES * NMT_BATCH * sum(NMT_BUCKETS)
+    tokens = passes * NMT_BATCH * sum(NMT_BUCKETS)
     return {
-        "steps": steps, "first_losses": [v.item() for v in first],
+        "steps": steps, "timed_passes": passes,
+        "first_losses": [v.item() for v in first],
         "losses": [v.item() for v in losses],
         "tokens_per_s": tokens / wall,
-        "pass_ms": wall / NMT_PASSES * 1e3,
+        "pass_ms": wall / passes * 1e3,
         "step_ms": {str(s): sum(v) / len(v) for s, v in spans.items()},
         "flash_launches": launches, "flash_launches_per_step":
             launches / steps,
@@ -3417,7 +3520,8 @@ def nmt_phase(seed: int, card: str) -> dict:
     net = build()
     net.initialize(ctx=gpu(0), seed=seed)
     n_params = nmt_param_count(net)
-    check = nmt_leaf_check(net, seed, build)
+    check = nmt_leaf_check(net, seed, build,
+                           CHECK_STEPS.setdefault("nmt", {}))
     arrays = {k: v.cpu().numpy() for k, v in _snapshot(net).items()}
     train = nmt_train_run(net, seed)
     print(f"nmt training on {card}:", json.dumps(train), flush=True)
@@ -3795,14 +3899,22 @@ def ssd_leaf_check(net, arrays, seed: int) -> dict:
     """One batch-2 step at 512 x 512 from the initial weights
     (``arrays``) on the card, on the CPU in fp32 and in float64, held by
     ``decision_leaf_check``; the CPU runs take the card's ReLU masks and
-    ``MultiBoxTarget`` outputs (matches and mined negatives)."""
+    ``MultiBoxTarget`` outputs (matches and mined negatives), recorded in
+    the signature's warm call.  A hybridized ``net`` replays the card's
+    step from its captured graph, which is also held against the eager
+    step on the card (``vs_eager``: ``leaf_check`` with that step as the
+    comparator)."""
     x, labels = ssd_batch(seed + 1, SSD_CHECK)
     w_init = _snapshot(net)
     lossfn = SSDMultiBoxLoss()
+    dx, dl = x.to(gpu(0)), labels.to(gpu(0))
     with Decisions() as relus, TargetDecisions(lossfn) as targets:
-        dx, dl = x.to(gpu(0)), labels.to(gpu(0))
-        after = {"card": check_step(
-            net, lambda: lossfn(*net(dx), dl), SSD_OPT)}
+        warm_call(lambda: lossfn(*net(dx), dl))
+    load_reference_params(net, arrays, ctx=gpu(0))
+    replays = net.graph_stats()["replays"]
+    after = {"card": check_step(net, lambda: lossfn(*net(dx), dl),
+                                SSD_OPT)}
+    replayed = net.graph_stats()["replays"] - replays
     flips = {}
     for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
         model = ssd_512_resnet50_v1(classes=20)
@@ -3816,8 +3928,26 @@ def ssd_leaf_check(net, arrays, seed: int) -> dict:
         flips[name] = {"relu_units": r.flips, "anchors": t.flips}
         units = {"relu_units": r.units, "anchors": t.anchors}
         del model
-    return {"batch": SSD_CHECK, **decision_leaf_check(after, w_init, flips,
-                                                      units)}
+    hybridized = net._active
+    free_graphs(net)
+    net.hybridize(False)
+    load_reference_params(net, arrays, ctx=gpu(0))
+    eager = check_step(net, lambda: lossfn(*net(dx), dl), SSD_OPT)
+    zeros = {k: torch.zeros_like(w_init[k]) for k in eager[1]}
+    vs_eager = {"weights": leaf_check(after["card"][2], eager[2],
+                                      after["cpu64"][2], w_init),
+                "grads": leaf_check(after["card"][1], eager[1],
+                                    after["cpu64"][1], zeros)}
+    res = {"batch": SSD_CHECK, **decision_leaf_check(after, w_init, flips,
+                                                     units)}
+    want = 1 if hybridized and dx.device.type == "cuda" else 0
+    res.update(replayed=replayed, vs_eager=vs_eager,
+               replay_bitwise_eager=_bitwise(
+                   [after["card"][0], *after["card"][1].values()],
+                   [eager[0], *eager[1].values()]))
+    res["ok"] = (res["ok"] and replayed == want
+                 and all(r["ok"] for r in vs_eager.values()))
+    return res
 
 
 def sgd_update_row(shapes, seed: int, opt: dict, batch: int,
@@ -3985,6 +4115,8 @@ def ssd_phase(seed: int, card: str) -> dict:
     detection = ssd_detect(net, x)
     print(f"ssd-512 detection on {card}:", json.dumps(detection),
           flush=True)
+    graphs = graph_summary(net)
+    free_graphs(net)
     load_reference_params(net, arrays, ctx=dev)
     check = ssd_leaf_check(net, arrays, seed)
     update = sgd_update_row([p.shape for p in trainable], seed, SSD_OPT,
@@ -4000,12 +4132,18 @@ def ssd_phase(seed: int, card: str) -> dict:
         "no_other_kernel": train["other_kernel_launches"] == 0,
         "finite_losses": all(math.isfinite(v) for v in train["losses"]),
         "leaf_check": check["ok"], "detection": detection["ok"],
+        # the warm calls: the first training step, the first detection
+        "graphs": graphs["warm_calls"] == (2 if dev.type == "cuda" else 0)
+        and graphs["deferred_calls"] == 1
+        and graphs["replays"] == (train["steps"] if dev.type == "cuda"
+                                  else 0),
         "update_bitwise": update["check"]["bitwise"]
         and update["check"]["launches"]
         == update["check"]["expected_launches"]}
     return {"card": card, "batch": SSD_BATCH, "size": SSD_SIZE,
             "deferred_params": deferred, "trainable_params": len(trainable),
-            "expected_launches_per_step": groups, "train": train,
+            "expected_launches_per_step": groups, "graphs": graphs,
+            "train": train,
             "detection": detection, "leaf_check": check, "update": update,
             "checks": checks, "ok": all(checks.values())}
 
@@ -4145,6 +4283,448 @@ def detection_phase(seed: int, card: str) -> dict:
             "ok": ssd_res["ok"] and rcnn_res["ok"]}
 
 
+# ----------------------------------------------------------------------
+# Phase 14: hybridize() on CUDA graphs (gluon/cached_op.py).  Phases 5, 6,
+# 10 and 13 hybridize and so run on captured graphs; this phase trains the
+# NMT and BERT-base hybridized beside their eager runs of phases 12 and 9,
+# serves BERT-base from captured graphs beside eager dispatch, and runs
+# the host-reading Mask-RCNN hybridized.
+
+HYB_NMT_PASSES = 4           # timed passes (phase 12 times bench_nmt's 8)
+HYB_BERT_STEPS = 5           # timed steps (phase 9 times 10)
+HYB_RCNN_STEPS = 2
+CHECK_STEPS: dict = {}       # phases 9 and 12's check steps, for phase 14
+
+
+def graph_summary(net) -> dict:
+    """``graph_stats()`` of a hybridized block in short: entries, graphs,
+    replays, the eager calls of its entries on the card (the warm call of
+    each mode, and the calls while a shape was unknown: a phase holds
+    both to exact counts, so a call that ran eagerly where it should have
+    replayed fails it), a host-reading block's eager calls, and each
+    graph's mode, replays, capture ms and pool bytes."""
+    st = net.graph_stats()
+    return {"entries": st["entries"], "graphs": st["graphs"],
+            "replays": st["replays"], "warm_calls": st["warm_calls"],
+            "deferred_calls": st["deferred_calls"],
+            "host_reading_eager_calls": st["eager_calls"],
+            "by_graph": [g for e in st["by_entry"] for g in e["graphs"]]}
+
+
+def free_graphs(net) -> None:
+    """Drop ``net``'s cached graphs (their memory pools go with the last
+    reference: the entries and the block refer to each other, hence the
+    collection), then return the cached memory."""
+    net._cached_graph.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def warm_call(run) -> None:
+    """A signature's first, eager call on the card (forward and
+    backward, no update), so that the next call of it replays."""
+    with autograd.record():
+        loss = run()
+    autograd.backward(loss)
+
+
+def _bitwise(a, b) -> bool:
+    return all(torch.equal(x.reshape(-1).view(torch.uint8).cpu(),
+                           y.reshape(-1).view(torch.uint8).cpu())
+               for x, y in zip(a, b))
+
+
+def replay_leaf_check(net, arrays, step, kept: dict) -> dict:
+    """The check step of phase 9 or 12 (``kept``: its batch and its card,
+    CPU fp32 and CPU float64 runs from ``arrays``) replayed from a
+    captured graph of hybridized ``net``: after a warm call of the
+    signature the weights are put back, so the next step captures the
+    entry anew and replays it.  Held by ``leaf_check``'s bounds against
+    the float64 step (the CPU fp32 run the comparator) and against the
+    eager card step (that run the comparator), weights and gradients;
+    the loss within 1e-4 of the CPU's.  Also whether the eager card step
+    is bit for bit reproducible (run again here) and whether the replay
+    is bit for bit the eager step."""
+    dev = gpu(0)
+    after, batch, w_init = kept["after"], kept["batch"], kept["w_init"]
+    net.hybridize(False)
+    load_reference_params(net, arrays, ctx=dev)
+    again = step(net, batch)
+    net.hybridize()
+    load_reference_params(net, arrays, ctx=dev)
+    step(net, batch)                                 # warm
+    load_reference_params(net, arrays, ctx=dev)
+    before = net.graph_stats()["replays"]
+    replay = step(net, batch)
+    replayed = net.graph_stats()["replays"] - before
+    load_reference_params(net, arrays, ctx=dev)
+    zeros = {k: torch.zeros_like(v) for k, v in w_init.items()}
+    card = after["card"]
+    res = {"replayed": replayed,
+           "eager_bitwise_run_to_run": _bitwise(
+               [card[0]] + list(card[1].values()) + list(card[2].values()),
+               [again[0]] + list(again[1].values())
+               + list(again[2].values())),
+           "replay_bitwise_eager": _bitwise(
+               [card[0]] + list(card[1].values()) + list(card[2].values()),
+               [replay[0]] + list(replay[1].values())
+               + list(replay[2].values())),
+           "loss_abs_err_vs_cpu":
+               (replay[0] - after["cpu"][0]).abs().item(),
+           "vs_float64": {
+               "weights": leaf_check(replay[2], after["cpu"][2],
+                                     after["cpu64"][2], w_init),
+               "grads": leaf_check(replay[1], after["cpu"][1],
+                                   after["cpu64"][1], zeros)},
+           "vs_eager": {
+               "weights": leaf_check(replay[2], card[2], after["cpu64"][2],
+                                     w_init),
+               "grads": leaf_check(replay[1], card[1], after["cpu64"][1],
+                                   zeros)}}
+    res["ok"] = (replayed == 1 and res["loss_abs_err_vs_cpu"] <= 1e-4
+                 and all(r["ok"] for part in ("vs_float64", "vs_eager")
+                         for r in res[part].values()))
+    return res
+
+
+def _leaf_brief(check: dict) -> dict:
+    return {k: check[k] for k in ("replayed", "eager_bitwise_run_to_run",
+                                  "replay_bitwise_eager",
+                                  "loss_abs_err_vs_cpu", "ok")} | {
+        f"{part}_{leaves}": {k: check[part][leaves][k] for k in (
+            "ok", "leaves", "failed", "worst_margin")}
+        for part in ("vs_float64", "vs_eager")
+        for leaves in ("weights", "grads")}
+
+
+def nmt_graph_run(seed: int, card: str, eager: dict) -> dict:
+    """(a) phase 12's training run (``bench_nmt``'s schedule at
+    ``HYB_NMT_PASSES`` timed passes) hybridized, from the same weights and
+    batches: one recording entry per bucket; the losses against phase
+    12's eager run of the same steps; and phase 12's check step replayed
+    (``replay_leaf_check``)."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import \
+        transformer_nmt_base
+    net = transformer_nmt_base(vocab_size=NMT_VOCAB, max_length=NMT_MAXLEN)
+    net.initialize(ctx=gpu(0), seed=seed)
+    arrays = {k: v.cpu().numpy() for k, v in _snapshot(net).items()}
+    net.hybridize()
+    train = nmt_train_run(net, seed, HYB_NMT_PASSES)
+    graphs = graph_summary(net)
+    free_graphs(net)
+    check = replay_leaf_check(net, arrays, nmt_check_step,
+                              CHECK_STEPS["nmt"])
+    free_graphs(net)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    ours = train["first_losses"] + train["losses"]
+    theirs = (eager["first_losses"] + eager["losses"])[:len(ours)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ours, theirs))
+    checks = {
+        "one_entry_per_bucket": graphs["entries"] == len(NMT_BUCKETS)
+        and graphs["graphs"] == len(NMT_BUCKETS),
+        "replays": graphs["replays"] == train["steps"] + 1
+        - len(NMT_BUCKETS),
+        "eager_calls": graphs["deferred_calls"] == 0
+        and graphs["warm_calls"] == len(NMT_BUCKETS),
+        "flash_launches": train["flash_launches"]
+        == 2 * NMT_LAYERS * train["steps"],
+        "no_other_kernel": train["other_kernel_launches"] == 0,
+        "finite_losses": all(math.isfinite(v) for v in ours),
+        "losses_vs_eager": rel <= 1e-4,
+        "leaf_check": check["ok"]}
+    return {"card": card, "train": train, "graphs": graphs,
+            "eager_step_ms": eager["step_ms"],
+            "eager_tokens_per_s": eager["tokens_per_s"],
+            "losses_bitwise_eager": ours == theirs,
+            "losses_max_rel_vs_eager": rel, "leaf_check": check,
+            "checks": checks, "ok": all(checks.values())}
+
+
+def bert_graph_run(seed: int, card: str, eager: dict) -> dict:
+    """(b) phase 9's BERT-base pretraining hybridized, from the same
+    weights and batch, in fp32 and under ``amp.init("bfloat16")``, at
+    ``HYB_BERT_STEPS`` timed steps; phase 9's check step replayed."""
+    dev = gpu(0)
+    batch = [torch.as_tensor(a, device=dev)
+             for a in bert_batch(seed, BERT_BATCH, BERT_SEQ)]
+    runs, check = {}, None
+    try:
+        for mode in ("fp32", "amp_bf16"):
+            if mode == "amp_bf16":
+                amp.init("bfloat16")
+            net = bert_base(dropout=0.0)
+            net.initialize(ctx=dev, seed=seed)
+            arrays = {k: v.cpu().numpy() for k, v in _snapshot(net).items()}
+            net.hybridize()
+            runs[mode] = bert_run(net, batch, BERT_WARM + HYB_BERT_STEPS,
+                                  HYB_BERT_STEPS)
+            runs[mode]["graphs"] = graph_summary(net)
+            print(f"bert-base hybridized {mode} on {card}:",
+                  json.dumps(runs[mode]), flush=True)
+            free_graphs(net)
+            if mode == "fp32":
+                check = replay_leaf_check(net, arrays, bert_check_step,
+                                          CHECK_STEPS["bert"])
+                free_graphs(net)
+            del net
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        amp.disable()
+    steps = BERT_WARM + HYB_BERT_STEPS
+    checks = {"leaf_check": check["ok"]}
+    for mode, r in runs.items():
+        g = r["graphs"]
+        n = len(r["losses"])
+        want = eager[mode]["losses"][:n]
+        checks[f"{mode}_graphs"] = (g["entries"] == 1 and g["graphs"] == 1
+                                    and g["replays"] == steps
+                                    and g["warm_calls"] == 1
+                                    and g["deferred_calls"] == 0)
+        checks[f"{mode}_launches"] = (
+            r["flash_launches"] == LAYERS * steps
+            and r["flash_launches_by_dtype"][
+                "float32" if mode == "fp32" else "bfloat16"]
+            == r["flash_launches"] and r["other_kernel_launches"] == 0)
+        checks[f"{mode}_losses_vs_eager"] = max(
+            abs(a - b) / abs(b) for a, b in zip(r["losses"], want)) \
+            <= (1e-4 if mode == "fp32" else BERT_AMP_LOSS_RTOL)
+        r["losses_bitwise_eager"] = r["losses"] == want
+    return {"card": card, "timed_steps": HYB_BERT_STEPS, "runs": runs,
+            "eager": {mode: {k: eager[mode][k] for k in (
+                "step_ms", "sequences_per_s", "tokens_per_s")} | {
+                k: eager[mode]["profile"][k] for k in (
+                    "device_idle_share", "device_busy_ms", "host_launches",
+                    "host_graph_launches")}
+                for mode in runs},
+            "leaf_check": check, "checks": checks,
+            "ok": all(checks.values())}
+
+
+class EagerServer(ModelServer):
+    """``ModelServer`` whose dispatch runs the block's forward eagerly on
+    each batch (the port's ``raw`` before it captured graphs): the
+    yardstick of (c)."""
+
+    def _build_graph(self, block, key, batch):
+        dev = block.device()
+
+        def raw(*arrays):
+            with torch.inference_mode(), autograd.predict_mode():
+                out = block(*[torch.as_tensor(np.asarray(a), device=dev)
+                              for a in arrays])
+            return tuple(out)
+        raw(*[np.zeros((batch,) + tuple(shape), dtype=dt)
+              for shape, dt in key])
+        return raw
+
+
+def serve_requests(net, reqs, server_cls) -> dict:
+    """``reqs`` through a ``server_cls`` over ``net`` with phase 4's
+    buckets and workers, submitted from 4 threads: wall time, requests/s,
+    p50/p99 latency, the results and the server's stats."""
+    srv = server_cls(net, max_batch=BATCH_BUCKETS[-1],
+                     length_buckets=LENGTH_BUCKETS,
+                     batch_buckets=BATCH_BUCKETS,
+                     queue_depth=4 * len(reqs), deadline_ms=0, workers=2,
+                     batch_window_us=5000)
+    results, futs = {}, {}
+    try:
+        t0 = time.monotonic()
+        srv.warmup(*[(np.zeros(n, np.int32), np.zeros(n, np.int32),
+                      np.float32(n)) for n in LENGTH_BUCKETS])
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        srv.start()
+        b0 = srv.stats()["batches"]       # the registry is process-wide
+        zero_counts()
+
+        def client(tid, n_clients=4):
+            mine = range(tid, len(reqs), n_clients)
+            for i in mine:
+                futs[i] = srv.submit(*reqs[i])
+            for i in mine:
+                results[i] = futs[i].result(timeout=600)
+
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.monotonic() - t0
+        launches = flash_attention.launches
+        batches = srv.stats()["batches"] - b0
+    finally:
+        srv.stop()
+    if len(results) != len(reqs):
+        raise AssertionError("requests did not complete")
+    lat = np.array([(futs[i].t_done - futs[i].t_enqueue) * 1e3
+                    for i in range(len(reqs))])
+    return {"warmup_s": warm_s, "wall_s": wall,
+            "requests_per_s": len(reqs) / wall,
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "flash_launches": launches, "batches": batches,
+            "stats": srv.stats(), "results": results}
+
+
+def serve_graph_run(seed: int, card: str) -> dict:
+    """(c) phase 4's 32 requests served from captured ``cached_graph``s
+    and, in the same call, by eager dispatch (``EagerServer``), then from
+    the graphs again: requests/s and p50/p99 of each; the served outputs
+    against a direct forward (<= 1e-3) and the graphs' outputs against
+    eager dispatch's."""
+    dev = gpu(0)
+    net = bert_base(dropout=0.0)
+    net.initialize(ctx=dev, seed=seed)
+    rng = np.random.default_rng(seed)
+    reqs = [(rng.integers(0, VOCAB, n).astype(np.int32),
+             rng.integers(0, 2, n).astype(np.int32), np.float32(n))
+            for n in bucket_lengths(rng, N_REQUESTS)]
+    runs = {"graphs": serve_requests(net, reqs, ModelServer)}
+    graphs = graph_summary(net)
+    runs["eager"] = serve_requests(net, reqs, EagerServer)
+    runs["graphs_again"] = serve_requests(net, reqs, ModelServer)
+    with torch.inference_mode():
+        direct = [net(*[torch.as_tensor(np.asarray(a)[None], device=dev)
+                        for a in reqs[i]]) for i in range(4)]
+    err = max(float(np.abs(a - b[0].cpu().numpy()).max())
+              for i in range(4)
+              for a, b in zip(runs["graphs"]["results"][i], direct[i]))
+    vs_eager = max(float(np.abs(a - b).max())
+                   for i in range(len(reqs))
+                   for a, b in zip(runs["graphs"]["results"][i],
+                                   runs["eager"]["results"][i]))
+    free_graphs(net)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in runs.values():
+        del r["results"]
+    batches = runs["graphs"]["batches"]
+    checks = {
+        "executables": runs["graphs"]["stats"]["executables"]
+        == len(LENGTH_BUCKETS) * len(BATCH_BUCKETS),
+        "replays": graphs["replays"] == batches
+        and graphs["deferred_calls"] == 0
+        and graphs["warm_calls"] == 0,
+        "flash_launches": all(
+            r["flash_launches"] == LAYERS * r["batches"]
+            for r in runs.values()),
+        "vs_direct": err <= 1e-3, "vs_eager_dispatch": vs_eager <= 1e-3}
+    return {"card": card, "requests": N_REQUESTS, "runs": runs,
+            "graphs": graphs, "max_abs_vs_direct": err,
+            "max_abs_vs_eager_dispatch": vs_eager, "checks": checks,
+            "ok": all(checks.values())}
+
+
+def rcnn_graph_run(seed: int, card: str, eager_losses: list) -> dict:
+    """(d) phase 13's Mask-RCNN, hybridized: it reads the host in its
+    forward (``reads_host``), so ``hybridize()`` warns once and each step
+    runs eagerly, counted; its first ``HYB_RCNN_STEPS`` losses against
+    phase 13's eager run from the same weights and batch."""
+    import warnings
+    dev = gpu(0)
+    net = mask_rcnn_resnet18_v1(classes=RCNN_CLASSES)
+    net.initialize(ctx=dev, seed=seed)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", RCNN_OPT)
+    x, boxes, classes, masks = (t.to(dev) for t in
+                                rcnn_batch(seed, RCNN_BATCH))
+    with autograd.predict_mode(), torch.no_grad():
+        net(x[:1])                       # settles the deferred shapes
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        net.hybridize()
+        net.hybridize()
+    warned = sum("reads the host" in str(w.message) for w in caught)
+    lossfn = RCNNLoss.for_net(net)
+    losses = []
+    for _ in range(HYB_RCNN_STEPS):
+        with autograd.record():
+            loss = lossfn(net(x), boxes, classes, masks)
+        autograd.backward(loss)
+        trainer.step(x.shape[0])
+        losses.append(loss.item())
+    eager_calls = net.eager_calls
+    entries = net.graph_stats()["entries"]
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, eager_losses)]
+    checks = {"warned_once": warned == 1,
+              "eager_calls_counted": eager_calls == HYB_RCNN_STEPS
+              and entries == 0,
+              "losses_vs_eager": max(rel) <= 1e-5}
+    return {"card": card, "steps": HYB_RCNN_STEPS, "losses": losses,
+            "eager_losses": eager_losses[:HYB_RCNN_STEPS],
+            "losses_rel_vs_eager": rel,
+            "first_loss_bitwise_eager": losses[0] == eager_losses[0],
+            "warnings": warned,
+            "eager_calls": eager_calls, "checks": checks,
+            "ok": all(checks.values())}
+
+
+class FlashBlock(gluon.HybridBlock):
+    """One flash-attention call as a block, so that ``hybridize()``
+    captures it."""
+
+    def forward(self, q, k, v, vl):
+        return flash_attention(q, k, v, vl)
+
+
+def flash_replay_check(seed: int) -> dict:
+    """The flash kernel replayed from a captured graph against its eager
+    call on the same inputs, bit for bit, at the BERT-base serving shape
+    (B=8, L=512) and the training shape (L=256), fp32 and bf16, with
+    ragged lengths: 3 calls (warm, capture + replay, replay) each, the
+    launches counted once a call."""
+    dev = gpu(0)
+    gen = torch.Generator().manual_seed(seed)
+    rows = []
+    for length in (512, 256):
+        q, k, v, vl = flash_inputs(gen, 8, HEADS, length, length, HEAD_DIM)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [t.to(dev, dtype) for t in (q, k, v)] + [vl.to(dev)]
+            want = flash_attention(*args)
+            block = FlashBlock()
+            block.hybridize()
+            zero_counts()
+            with torch.no_grad():
+                outs = [block(*args) for _ in range(3)]
+            torch.cuda.synchronize()
+            rows.append({
+                "case": f"B=8 H={HEADS} L={length} {_short(dtype)}",
+                "bitwise": all(_bitwise([o], [want]) for o in outs),
+                "replays": block.graph_stats()["replays"],
+                "launches": flash_attention.launches})
+            free_graphs(block)
+    return {"cases": rows, "ok": all(r["bitwise"] and r["replays"] == 2
+                                     and r["launches"] == 3 for r in rows)}
+
+
+def graph_phase(seed: int, card: str, nmt: dict, bert: dict,
+                rcnn: dict) -> dict:
+    """Phase 14: (a) the NMT, (b) BERT-base pretraining, (c) BERT-base
+    served, (d) Mask-RCNN, hybridized; (e) the flash kernel under
+    replay against its eager call, bit for bit."""
+    res = {"nmt": nmt_graph_run(seed, card, nmt["train"])}
+    print(f"nmt hybridized on {card}:", json.dumps(res["nmt"]), flush=True)
+    res["bert"] = bert_graph_run(seed, card, bert)
+    res["serving"] = serve_graph_run(seed, card)
+    print(f"serving from graphs on {card}:", json.dumps(res["serving"]),
+          flush=True)
+    res["rcnn"] = rcnn_graph_run(seed, card, rcnn["train"]["losses"])
+    res["flash"] = flash_replay_check(seed)
+    print(f"flash under replay on {card}:", json.dumps(res["flash"]),
+          flush=True)
+    res["ok"] = all(r["ok"] for r in res.values())
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4190,6 +4770,7 @@ def main() -> int:
           f"{serving['requests_per_s']:.3f} requests/s, peak memory "
           f"{serving['peak_memory_gb']:.3f} GB")
     print(f"stats on {card}:", json.dumps(serving["stats"]))
+    print(f"serving graphs on {card}:", json.dumps(serving["graph_stats"]))
     print(f"profile on {card}:", json.dumps(serving["profile"]))
 
     sgd = sgd_kernel_phase(args.seed)
@@ -4210,6 +4791,13 @@ def main() -> int:
           f"{resnet['peak_memory_gb']:.2f} GB, "
           f"{resnet['launches_per_step']} momentum launches per step")
     print(f"resnet50 on {card}:", json.dumps(resnet), flush=True)
+    for name, g in (("mlp", mlp["graphs"]), ("resnet50", resnet["graphs"])):
+        print(f"{name} graphs on {card}: {g['entries']} entries, "
+              f"{g['replays']} replays, {g['warm_calls']} warm calls, "
+              f"{g['deferred_calls']} deferred-shape calls, "
+              f"capture ms {[r['capture_ms'] for r in g['by_graph']]}, "
+              f"pool bytes {[r['pool_bytes'] for r in g['by_graph']]}",
+              flush=True)
 
     rtc_res = rtc_phase(args.seed)
     print(f"rtc on {card}:", json.dumps(rtc_res), flush=True)
@@ -4329,6 +4917,13 @@ def main() -> int:
             for part in ("weights", "grads")}), flush=True)
         print(f"{name} checks on {card}:", json.dumps(r["checks"]),
               flush=True)
+    for name, g in (("resnet50 bf16 amp", low["resnet50_amp"]["graphs"]),
+                    ("resnet50 bf16 cast", low["resnet50_cast"]["graphs"]),
+                    ("ssd-512", det["ssd"]["graphs"])):
+        print(f"{name} graphs on {card}: {g['entries']} entries, "
+              f"{g['replays']} replays, {g['warm_calls']} warm calls, "
+              f"{g['deferred_calls']} deferred-shape calls",
+              flush=True)
     d = det["ssd"]["detection"]
     print(f"ssd-512 detection on {card}: {d['ms_per_batch']:.3f} ms a batch "
           f"of {d['batch']}, NMS {d['nms_ms']:.3f} ms, "
@@ -4337,6 +4932,46 @@ def main() -> int:
           f"kept {d['kept_per_image']}, vs CPU {d['max_abs_err_vs_cpu']:.3g}",
           flush=True)
 
+    graph = graph_phase(args.seed, card, nmt, bert, det["rcnn"])
+    g = graph["nmt"]
+    print(f"nmt hybridized on {card}: {g['train']['tokens_per_s']:.1f} "
+          f"tokens/s (eager {g['eager_tokens_per_s']:.1f}), step ms by "
+          f"bucket {json.dumps(g['train']['step_ms'])} (eager "
+          f"{json.dumps(g['eager_step_ms'])}), device "
+          f"{json.dumps(g['train']['profile']['device_ms'])}, idle "
+          f"{g['train']['profile']['device_idle_share']:.3f}, host launches "
+          f"{g['train']['profile']['host_launches']} + "
+          f"{g['train']['profile']['host_graph_launches']} graphs a step, "
+          f"graphs {json.dumps({k: v for k, v in g['graphs'].items()})}, "
+          f"losses bitwise eager {g['losses_bitwise_eager']}", flush=True)
+    print(f"nmt replayed leaf check on {card}:",
+          json.dumps(_leaf_brief(g["leaf_check"])), flush=True)
+    for mode, r in graph["bert"]["runs"].items():
+        e = graph["bert"]["eager"][mode]
+        print(f"bert-base hybridized {mode} on {card}: step "
+              f"{r['step_ms']:.3f} ms (eager {e['step_ms']:.3f}), "
+              f"{r['sequences_per_s']:.3f} sequences/s (eager "
+              f"{e['sequences_per_s']:.3f}), idle "
+              f"{r['profile']['device_idle_share']:.3f} (eager "
+              f"{e['device_idle_share']:.3f}), device busy "
+              f"{r['profile']['device_busy_ms']:.3f} ms (eager "
+              f"{e['device_busy_ms']:.3f}), host launches "
+              f"{r['profile']['host_launches']} + "
+              f"{r['profile']['host_graph_launches']} graphs (eager "
+              f"{e['host_launches']}), graphs {json.dumps(r['graphs'])}",
+              flush=True)
+    print(f"bert-base replayed leaf check on {card}:",
+          json.dumps(_leaf_brief(graph["bert"]["leaf_check"])), flush=True)
+    sv = graph["serving"]
+    for name, r in sv["runs"].items():
+        print(f"bert-base served {name} on {card}: "
+              f"{r['requests_per_s']:.3f} requests/s, p50 "
+              f"{r['latency_ms_p50']:.3f} ms, p99 {r['latency_ms_p99']:.3f} "
+              f"ms, {r['batches']} batches, "
+              f"{r['stats']['executables']} executables", flush=True)
+    print(f"graph checks on {card}:", json.dumps(
+        {name: graph[name]["checks"] for name in
+         ("nmt", "bert", "serving", "rcnn")}), flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -4393,6 +5028,13 @@ def main() -> int:
             "bound_by", "bwd_peak_memory_mb", "full_matrix_mb")}
             for r in bert["backward"] + low["backward"] + [nmt_backward]},
         "nmt_train_launches": tr["flash_launches"],
+        "under_replay_bitwise_eager": graph["flash"]["ok"],
+        "hybridized_launches": {
+            "nmt": graph["nmt"]["train"]["flash_launches"],
+            **{f"bert_{mode}": r["flash_launches"]
+               for mode, r in graph["bert"]["runs"].items()},
+            "served_from_graphs": graph["serving"]["runs"]["graphs"][
+                "flash_launches"]},
         "nmt_translate_launches": {
             mode: r["flash_launches"]
             for mode, r in nmt["translate"].items()},
@@ -4460,7 +5102,7 @@ def main() -> int:
          "rtc": rtc_res, "custom_mlp": custom, "bert_train": bert,
          "low_precision": low, "imperative_mlp": imp,
          "nmt": nmt, "lstm_bucketing": lm, "nmt_flash_backward":
-             nmt_backward, "detection": det,
+             nmt_backward, "detection": det, "graphs": graph,
          "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
@@ -4469,7 +5111,7 @@ def main() -> int:
         ("custom-op mlp", custom), ("bert train", bert),
         ("low precision", low), ("imperative mlp", imp), ("nmt", nmt),
         ("lstm bucketing", lm), ("nmt flash backward", nmt_backward),
-        ("detection", det))
+        ("detection", det), ("hybridized graphs", graph))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

@@ -30,31 +30,53 @@ pass thus settles every deferred shape of a model, children in the order
 they run.  A block with unknown shapes and no ``infer_shape`` raises
 ``MXNetError``.
 
-``hybridize()`` records the flag and nothing else: PyTorch runs eagerly,
-in training as in inference.  ``cast(dtype)`` casts every parameter of
-the block and its children (MXNet's ``Block.cast``); the JAX package's
-``HybridBlock.cast`` also drops its cached graphs, and the port keeps
-none to drop: a ``CachedGraph`` holds the block, so its next batch runs
-on the cast parameters.
+``hybridize()`` is MXNet's CachedOp, as the JAX package has it
+(``mxnet_tpu/gluon/block.py:302-500``): the outermost active block keeps
+one entry per input signature in an LRU of ``CACHED_GRAPH_LIMIT`` (32),
+``_cached_graph``, with the JAX package's ``cache_info()`` and its one
+``RuntimeWarning`` once it starts evicting; its children are set inactive
+and run inside its forward.  The key is the inputs' structure (keyword
+names, which optional inputs are None), shapes and dtypes,
+``autograd.is_training()``, the device and the AMP target dtype; within
+an entry, a recording call (``autograd.is_recording()`` and a parameter
+or input that takes a gradient) and a plain call each have their graph,
+as the JAX entry holds a jit and a jitted vjp.  On the card an entry
+warms with one eager call and then replays CUDA graphs of the forward
+and, when recording, the backward (``gluon/cached_op.py``); on the CPU
+its callable is the eager forward.  While a parameter's shape is unknown
+the call runs eagerly.  ``cast(dtype)`` casts every parameter of the
+block and its children (MXNet's ``Block.cast``) and drops the cache; an
+entry whose parameters' storage moved (``Parameter.epoch``: ``set_data``,
+``load_reference_params``) is dropped at its next call and captured
+again.  A block whose forward reads the host (``reads_host``, Mask-RCNN's
+NMS) cannot be captured: ``hybridize()`` warns once and its calls run
+eagerly, counted in ``eager_calls``.  A hybridized call outside
+``record()`` records no autograd node, as in the JAX package.
+
 ``cached_graph(*examples)`` is the serving entry: a :class:`CachedGraph`
-whose ``raw(*arrays)`` copies host arrays to the block's device, runs the
-forward under ``torch.inference_mode()`` and returns device tensors.
+whose ``raw(*arrays)`` copies host arrays into the signature's captured
+inputs, replays its inference graph and returns fresh device tensors.
 """
 from __future__ import annotations
 
+import collections
 import re
 import threading
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 from torch import nn
 
 from .. import autograd
 from ..base import MXNetError
 from ..context import DeviceLike
+from ..contrib.amp import amp as _amp
 from ..ndarray.ndarray import NDArray
 from ..ndarray.register import call_on_tensors
+from . import cached_op
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "CachedGraph"]
@@ -125,9 +147,13 @@ class Block(nn.Module):
             self._deferred_infer(*args)
         if not any(isinstance(a, NDArray) for a in args) and not any(
                 isinstance(a, NDArray) for a in kwargs.values()):
-            return nn.Module.__call__(self, *args, **kwargs)
-        return call_on_tensors(
-            lambda *a, **k: nn.Module.__call__(self, *a, **k), args, kwargs)
+            return self._forward_call(*args, **kwargs)
+        return call_on_tensors(self._forward_call, args, kwargs)
+
+    def _forward_call(self, *args, **kwargs):
+        """The call on tensors: the forward itself (a hybridized block
+        goes through its cache first)."""
+        return nn.Module.__call__(self, *args, **kwargs)
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
@@ -223,47 +249,269 @@ class Block(nn.Module):
         return torch.device("cpu")
 
 
+
+
+class _BoundedCache:
+    """Tiny LRU with the ``functools.lru_cache`` info surface (a copy of
+    the JAX package's, ``mxnet_tpu/ndarray/register.py:41-90``).
+
+    Eviction drops the last reference to an entry, and with it its CUDA
+    graphs and their memory pools."""
+
+    __slots__ = ("maxsize", "_d", "hits", "misses")
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        self._d = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key, default=None):
+        d = self._d
+        try:
+            val = d[key]
+            d.move_to_end(key)
+        except KeyError:
+            # a miss, or a concurrent eviction raced the move_to_end
+            self.misses += 1
+            return default
+        self.hits += 1
+        return val
+
+    def put(self, key, val) -> None:
+        d = self._d
+        d[key] = val
+        try:
+            d.move_to_end(key)
+            if len(d) > self.maxsize:
+                d.popitem(last=False)
+        except KeyError:
+            pass                      # concurrent eviction: already gone
+
+    def values(self):
+        return list(self._d.values())
+
+    def cache_info(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses,
+                "maxsize": self.maxsize, "currsize": len(self._d)}
+
+    def cache_clear(self) -> None:
+        self._d.clear()
+        self.hits = 0
+        self.misses = 0
+
+
+def _leaf_key(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype)
+    try:
+        hash(x)
+    except TypeError:
+        raise MXNetError(f"a hybridized block takes tensors, None and "
+                         f"hashable constants, not {type(x).__name__}")
+    return (type(x).__name__, x)
+
+
 class HybridBlock(Block):
-    """A Block that can be frozen into a :class:`CachedGraph`."""
+    """A Block whose forward ``hybridize()`` turns into cached graphs, one
+    per input signature (see the module docstring)."""
+
+    #: cached graphs kept per block (distinct input signatures), LRU-evicted
+    #: beyond this, as in the JAX package: each entry pins its graphs'
+    #: memory pools.
+    CACHED_GRAPH_LIMIT = 32
+
+    #: a block whose forward reads device values back to the host (a
+    #: data-dependent shape, ``.tolist()``) cannot be captured into a CUDA
+    #: graph; ``hybridize()`` on it warns once and its calls run eagerly,
+    #: counted in ``eager_calls``
+    reads_host = False
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
+        self._cached_graph = _BoundedCache(self.CACHED_GRAPH_LIMIT)
+        self._recompile_warned = False
+        self._host_warned = False
+        self.eager_calls = 0
 
-    def hybridize(self, active: bool = True, **kwargs) -> None:
+    def hybridize(self, active: bool = True, static_alloc: bool = False,
+                  static_shape: bool = False, inline_limit: int = 2,
+                  **kwargs) -> None:
+        """Reset the cache and set every child inactive: only the outermost
+        active block captures, its children run inside its graph.  The
+        other arguments are MXNet's and change nothing here: every
+        signature is captured with its memory held (``static_alloc``) and
+        keyed by its shapes (``static_shape``)."""
         self._active = active
-        super().hybridize(active, **kwargs)
+        self._cached_graph = _BoundedCache(self.CACHED_GRAPH_LIMIT)
+        if active and self.reads_host and not self._host_warned:
+            self._host_warned = True
+            warnings.warn(
+                f"HybridBlock {self.name!r} ({type(self).__name__}) reads "
+                f"the host in its forward and cannot be captured into a "
+                f"CUDA graph; its hybridized calls run eagerly (counted in "
+                f"eager_calls)", RuntimeWarning, stacklevel=2)
+        super().hybridize(False, **kwargs)
+
+    def cast(self, dtype) -> None:
+        self._cached_graph = _BoundedCache(self.CACHED_GRAPH_LIMIT)
+        super().cast(dtype)
+
+    def _forward_call(self, *args, **kwargs):
+        if not self._active or cached_op.inline():
+            return nn.Module.__call__(self, *args, **kwargs)
+        if self.reads_host:
+            self.eager_calls += 1
+            return nn.Module.__call__(self, *args, **kwargs)
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        entry = self._entry(leaves, spec, autograd.is_training())
+        recording = autograd.is_recording() and torch.is_grad_enabled() \
+            and (entry.takes_grad() or any(
+                isinstance(x, torch.Tensor) and x.requires_grad
+                for x in leaves))
+        return entry(leaves, spec, recording)
+
+    def _signature(self, leaves, spec, training: bool):
+        """The cache key: the inputs' structure (keyword names and which
+        optional inputs are None), shapes and dtypes, training mode, the
+        device and the AMP target dtype."""
+        device = next((x.device for x in leaves
+                       if isinstance(x, torch.Tensor)), None)
+        if device is None:
+            device = self.device()
+        return (spec, tuple(_leaf_key(x) for x in leaves), training,
+                device, _amp._target())
+
+    def _entry(self, leaves, spec, training: bool) -> cached_op.CachedOp:
+        """The entry of this signature: made on a miss (with the JAX
+        package's one warning once the cache starts evicting), and made
+        anew, as warm as it was, when its parameters' storage moved."""
+        sig = self._signature(leaves, spec, training)
+        entry = self._cached_graph.get(sig)
+        if entry is not None and not entry.stale():
+            return entry
+        device = sig[3]
+        fresh = cached_op.CachedOp(self, device, entry.warm if entry
+                                   else ())
+        evicting = entry is None and (
+            self._cached_graph.cache_info()["currsize"]
+            >= self.CACHED_GRAPH_LIMIT)
+        self._cached_graph.put(sig, fresh)
+        if evicting and not self._recompile_warned:
+            self._recompile_warned = True
+            warnings.warn(
+                f"HybridBlock {self.name!r} compiled more than "
+                f"{self.CACHED_GRAPH_LIMIT} distinct input "
+                "signatures; oldest executables are now LRU-"
+                "evicted (recompile storm — consider bucketing "
+                "input shapes or raising CACHED_GRAPH_LIMIT)",
+                RuntimeWarning, stacklevel=4)
+        return fresh
+
+    def graph_stats(self) -> dict:
+        """The cache's entries, their graphs (mode, replays, capture ms,
+        pool bytes) and their eager calls (the warm call of each mode on
+        the card, the calls before every shape was known, and the calls
+        on the CPU), and ``eager_calls``, a host-reading block's
+        hybridized calls."""
+        entries = [e.stats() for e in self._cached_graph.values()]
+
+        def total(key):
+            return sum(e[key] for e in entries)
+        return {"entries": len(entries),
+                "graphs": sum(len(e["graphs"]) for e in entries),
+                "replays": sum(g["replays"] for e in entries
+                               for g in e["graphs"]),
+                "warm_calls": total("warm_calls"),
+                "deferred_calls": total("deferred_calls"),
+                "cpu_calls": total("cpu_calls"),
+                "eager_calls": self.eager_calls, "by_entry": entries,
+                "cache": self._cached_graph.cache_info()}
+
+    def _inference_entry(self, args, warmed: bool = False
+                         ) -> cached_op.CachedOp:
+        """The entry of ``args`` in predict mode, its inference graph
+        captured on the card (after a warm eager call, unless ``warmed``
+        says one just ran)."""
+        with autograd.pause(), cached_op._capture_lock:
+            leaves, spec = pytree.tree_flatten((tuple(args), {}))
+            entry = self._entry(leaves, spec, False)
+            mode = ("infer",)
+            if entry.device.type == "cuda" and entry.settled() and \
+                    mode not in entry.graphs:
+                if warmed:
+                    entry.warm.add(mode)
+                elif mode not in entry.warm:
+                    entry(leaves, spec, False)
+                entry.capture(mode, leaves, spec)
+        return entry
 
     def cached_graph(self, *examples) -> "CachedGraph":
-        """Freeze one inference signature for serving: runs the forward
-        once on ``examples`` (host arrays or tensors whose shapes and
-        dtypes define the signature), which also builds any kernel the
-        forward launches, and returns the :class:`CachedGraph`."""
-        graph = CachedGraph(self, self.device())
-        graph.raw(*examples)
-        if graph.device.type == "cuda":
-            torch.cuda.synchronize(graph.device)
-        return graph
+        """Freeze one inference signature for serving (the JAX package's
+        ``cached_graph(entry="forward")``): one call on ``examples`` (host
+        arrays or tensors whose shapes and dtypes define the signature),
+        which settles deferred shapes and builds the kernels, then, on the
+        card, the signature's inference graph captured into the same cache
+        ``hybridize()`` fills, whether or not the block is hybridized.
+        Returns the :class:`CachedGraph`."""
+        dev = self.device()
+        args = [_as_input(v, dev) for v in examples]
+        with torch.no_grad(), autograd.predict_mode():
+            self(*args)
+        entry = self._inference_entry(args, warmed=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return CachedGraph(self, entry, dev)
+
+
+def _as_input(v, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(v if isinstance(v, torch.Tensor)
+                           else np.asarray(v), device=device)
 
 
 class CachedGraph:
-    """Inference-only handle over one block, the entry the serving
-    dispatch calls once per batch."""
+    """Inference-only handle over one signature of a block, the entry the
+    serving dispatch calls once per batch.
 
-    __slots__ = ("_block", "device")
+    ``raw(*arrays)`` copies host arrays (or tensors) into the signature's
+    captured inputs, replays its graph and returns fresh device tensors,
+    without synchronising.  Threads may call it at once: each graph's
+    static buffers are held from the copy in to the copy out, and a
+    replay on another stream waits for the previous one.  Arrays of
+    another signature, or parameters whose storage moved since (``cast``,
+    ``set_data``), resolve the block's entry again (a capture).  On the
+    CPU it runs the forward eagerly, as the block's entry does there.
+    Each calling thread enters ``torch.inference_mode()`` and predict
+    mode itself (they are thread-local)."""
 
-    def __init__(self, block: HybridBlock, device: torch.device):
+    __slots__ = ("_block", "_entry", "device")
+
+    def __init__(self, block: HybridBlock, entry: cached_op.CachedOp,
+                 device: torch.device):
         self._block = block
+        self._entry = entry
         self.device = device
 
     def raw(self, *values) -> Tuple[torch.Tensor, ...]:
-        """Host arrays (or tensors) in, tuple of device tensors out: one
-        forward under ``torch.inference_mode()`` in predict mode, no
-        synchronisation.  Each calling thread enters both modes itself
-        (they are thread-local)."""
         with torch.inference_mode(), autograd.predict_mode():
-            args = [torch.as_tensor(np.asarray(v) if not
-                                    isinstance(v, torch.Tensor) else v,
-                                    device=self.device) for v in values]
-            out = self._block(*args)
+            if self.device.type != "cuda":
+                out = self._block(*[_as_input(v, self.device)
+                                    for v in values])
+            else:
+                host = [_as_input(v, None) if not isinstance(
+                    v, torch.Tensor) else v for v in values]
+                graph = self._graph(host)
+                out = graph.run(host)
         return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+    def _graph(self, host):
+        entry = self._entry
+        graph = entry.graphs.get(("infer",))
+        if graph is None or entry.stale() or any(
+                _leaf_key(s) != _leaf_key(h)
+                for s, h in zip(graph.static, host)):
+            args = [h.to(self.device) for h in host]
+            entry = self._entry = self._block._inference_entry(args)
+            graph = entry.graphs[("infer",)]
+        return graph

@@ -66,7 +66,15 @@ class RPNHead(HybridBlock):
 class FasterRCNN(HybridBlock):
     """Two-stage detector.  Forward returns (cls_pred (B, R, C + 1),
     box_pred (B, R, 4), rois (B * R, 5), rpn_score (B, 2A, H, W),
-    rpn_loc (B, 4A, H, W)), everything the training loss needs."""
+    rpn_loc (B, 4A, H, W)), everything the training loss needs.
+
+    Its forward reads the host (``Proposal``'s greedy NMS takes its keep
+    set with ``.tolist()``), so it cannot be captured into a CUDA graph:
+    ``hybridize()`` warns once and runs it eagerly (``reads_host``); the
+    JAX package's NMS is traceable and its ``hybridize`` jits the whole
+    detector."""
+
+    reads_host = True
 
     def __init__(self, features: HybridBlock, classes: int,
                  rpn_channels: int = 256, roi_size: int = 7,

@@ -49,9 +49,19 @@ inside the same ``nn.Parameter``: the modules that registered it, a
 ``Trainer``'s parameter list and a ``CachedGraph`` all see the new tensor.
 ``set_data`` takes numpy arrays of any dtype, the JAX package's bfloat16
 (``ml_dtypes``) included, by their bits.
+
+Storage epochs: every ``_set`` (initialisation, ``set_data``, ``cast``,
+``load_reference_params``) and every ``grad_req`` change gives the
+parameter a new ``epoch``, drawn from one process-wide counter
+(``last_epoch()`` is its latest value).  A hybridized block's captured
+graph reads its parameters at the addresses they had at capture time, so
+it records the epochs it was captured at and is dropped when one moves on
+(``gluon/block.py``); in-place updates (``Trainer.step``, BatchNorm's
+running statistics) keep the storage and the epoch.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -65,6 +75,41 @@ from ..context import DeviceLike, as_device
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
 
 _GRAD_REQS = ("write", "add", "null")
+_epoch_lock = threading.Lock()
+_last_epoch = 0
+
+
+def _next_epoch() -> int:
+    global _last_epoch
+    with _epoch_lock:
+        _last_epoch += 1
+        return _last_epoch
+
+
+def last_epoch() -> int:
+    """The newest storage epoch handed to any parameter."""
+    return _last_epoch
+
+
+_stand_ins = threading.local()
+
+
+class standing_in:
+    """While open in this thread, ``data()`` of a parameter in ``aliases``
+    (``{id(param): tensor}``) returns its stand-in: a CUDA-graph capture
+    (``gluon/cached_op.py``) runs the forward on leaves of its own that
+    share the parameters' storage, so that the captured backward reaches
+    no parameter's gradient accumulator or hook."""
+
+    def __init__(self, aliases: Dict[int, torch.Tensor]):
+        self._aliases = aliases
+
+    def __enter__(self):
+        self._prev = getattr(_stand_ins, "map", None)
+        _stand_ins.map = self._aliases
+
+    def __exit__(self, *exc):
+        _stand_ins.map = self._prev
 
 
 class DeferredInitializationError(MXNetError):
@@ -105,6 +150,7 @@ class Parameter:
         self._grad_task = None
         self._hooked = False
         self._deferred = None   # (init, device, generator) until resolved
+        self.epoch = _next_epoch()
         self._data = nn.Parameter(
             torch.empty(self.shape if self.shape_known() else (0,),
                         dtype=self.dtype), requires_grad=False)
@@ -121,6 +167,7 @@ class Parameter:
             raise MXNetError(f"grad_req must be one of {_GRAD_REQS}, "
                              f"got {req!r}")
         self._grad_req = req
+        self.epoch = _next_epoch()
         self._data.requires_grad_(req != "null")
         if req == "null":
             self._data.grad = None
@@ -188,6 +235,7 @@ class Parameter:
         self._data.grad = None
         self.fresh = True
         self._initialized = True
+        self.epoch = _next_epoch()
 
     def cast(self, dtype) -> None:
         """Cast to ``dtype`` (MXNet's ``Parameter.cast``): an initialized
@@ -206,6 +254,9 @@ class Parameter:
                     f"a forward pass first")
             raise MXNetError(f"Parameter {self.name!r} has not been "
                              f"initialized; call .initialize()")
+        aliases = getattr(_stand_ins, "map", None)
+        if aliases is not None:
+            return aliases.get(id(self), self._data)
         return self._data
 
     def grad(self) -> torch.Tensor:

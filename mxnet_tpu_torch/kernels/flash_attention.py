@@ -21,7 +21,8 @@ version below, exactly as the TPU kernel has them:
 ``flash_attention`` is the wrapper.  On a CPU tensor it runs the plain
 version; on a CUDA tensor it launches the kernel or raises.  It counts its
 launches in ``flash_attention.launches`` (and, by input dtype, in
-``flash_attention.launches_by_dtype``).  The backward is torch code on
+``flash_attention.launches_by_dtype``), through ``counters.bump``: a
+launch captured into a CUDA graph counts at each replay.  The backward is torch code on
 both devices, as the JAX package's is jnp (a custom VJP over
 ``_chunked_reference``, not a Pallas kernel): it recomputes the
 probabilities one BLOCK_K-key chunk at a time, so neither direction
@@ -30,12 +31,12 @@ keeps an (Lq, Lk) matrix.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
 from ..base import MXNetError
+from . import counters
 
 __all__ = ["flash_attention", "flash_attention_backward",
            "flash_attention_plain"]
@@ -46,7 +47,6 @@ _KERNEL_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1,
                   torch.float16: 2}
 _MAX_BH = 65535         # the kernel's grid.y
-_count_lock = threading.Lock()
 
 
 def _chunk_scores(qs, k_blk, k0, vl_eff, causal, lq, lk):
@@ -204,9 +204,8 @@ def _launch(q, k, v, vl, causal: bool, scale: float) -> torch.Tensor:
     if err != 0:
         raise MXNetError(f"flash_attention kernel launch failed: CUDA "
                          f"error {err}")
-    with _count_lock:
-        flash_attention.launches += 1
-        flash_attention.launches_by_dtype[str(q.dtype)] += 1
+    counters.bump(flash_attention, "launches")
+    counters.bump(flash_attention.launches_by_dtype, str(q.dtype))
     return out
 
 

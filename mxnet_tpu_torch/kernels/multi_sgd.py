@@ -55,12 +55,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
-import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..base import MXNetError
+from . import counters
 
 __all__ = ["multi_sgd", "multi_sgd_mom", "multi_mp_sgd", "multi_mp_sgd_mom",
            "multi_sgd_plain", "multi_sgd_mom_plain", "multi_mp_sgd_plain",
@@ -74,7 +74,6 @@ TILES_PER_SM = 2          # the least tiles per SM a tile size must give
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LOW = (torch.bfloat16, torch.float16)
 SGD, SGD_MOM, MP_SGD, MP_SGD_MOM = range(4)
-_count_lock = threading.Lock()
 
 
 class LaunchPlan(NamedTuple):
@@ -329,8 +328,7 @@ def _launch(wrapper, mode, weights, grads, moms, weights32, s: _Scalars
         if err != 0:
             raise MXNetError(f"{wrapper.__name__} kernel launch failed: "
                              f"CUDA error {err}")
-        with _count_lock:
-            wrapper.launches += 1
+        counters.bump(wrapper, "launches")
 
 
 def _group(name, weights, others, lrs, wds):

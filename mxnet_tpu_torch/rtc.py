@@ -54,12 +54,11 @@ import torch
 
 from .base import MXNetError
 from .context import DeviceLike, as_device
-from .kernels import _nvrtc
+from .kernels import _nvrtc, counters
 
 __all__ = ["CudaModule", "CudaKernel", "PallasModule", "PallasKernel"]
 
 launches = 0                 # every CudaKernel's launches, in total
-_count_lock = threading.Lock()
 
 # C type -> (tensor dtype, ctypes type of a scalar)
 _CPP_TYPES: Dict[str, Tuple[torch.dtype, type]] = {
@@ -176,7 +175,6 @@ class CudaKernel:
                shared_mem: int = 0) -> None:
         """Launch on ``ctx``'s current stream; writes into the tensors in
         ``args``.  Does not synchronise."""
-        global launches
         dev = as_device(ctx)
         if dev.type != "cuda":
             raise MXNetError(f"CudaKernel({self.name}): a CUDA kernel "
@@ -195,9 +193,8 @@ class CudaKernel:
             self._raised[dev.index] = shared_mem
         stream = torch.cuda.current_stream(dev).cuda_stream
         _nvrtc.launch(fn, grid, block, shared_mem, stream, params, dev.index)
-        with _count_lock:
-            self.launches += 1
-            launches += 1
+        counters.bump(self, "launches")
+        counters.bump(globals(), "launches")
 
 
 class CudaModule:

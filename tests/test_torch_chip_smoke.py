@@ -155,6 +155,25 @@ def test_device_ms_retakes_a_trace_that_lost_more_than_allowed(
         chip_smoke.device_ms(lambda: None, 10, lost=1)
 
 
+def test_device_ms_with_a_known_count_takes_the_records_that_arrive(
+        monkeypatch):
+    """``per_call``: a kernel launched a known number of times a call is
+    timed from the records that arrived (their mean times the known
+    count), while at least half arrived; fewer, more than the count, or a
+    second kernel under ``only`` retake the trace and then raise."""
+    _fake_profiler(monkeypatch, [[(320.0, 16, "flash_fwd_kernel")]])
+    assert chip_smoke.device_ms(lambda: None, 20, only="flash_fwd_kernel",
+                                per_call=1) == pytest.approx(0.02)
+    for bad in ([(300.0, 9, "flash_fwd_kernel")],
+                [(300.0, 21, "flash_fwd_kernel")],
+                [(300.0, 20, "flash_fwd_kernel<float"),
+                 (300.0, 20, "flash_fwd_kernel<bf16")]):
+        _fake_profiler(monkeypatch, [bad] * 3)
+        with pytest.raises(AssertionError, match="partial"):
+            chip_smoke.device_ms(lambda: None, 20, only="flash_fwd_kernel",
+                                 per_call=1)
+
+
 def test_train_flash_cases_take_the_training_shape():
     """The flash rows at the training phase's shape: B=8, H=12, L=256,
     D=64, fp32 and bf16, with lengths as ``bert_batch`` draws them."""
@@ -803,3 +822,60 @@ def test_detection_leaf_checks_flag_a_one_percent_gradient_fault(
     name = list(net.collect_params())[leaf]
     for part in ("weights", "grads"):
         assert [r["leaf"] for r in out[part]["failed"]] == [name], part
+
+
+# ---- phase 14 (hybridize on CUDA graphs): what the CPU can check --------
+def test_graph_summary_counts_entries_and_eager_calls():
+    """``graph_summary`` of a hybridized net on the CPU: one entry per
+    signature, its calls all eager (no graph, no warm call: those are
+    the card's), the deferred-shape call counted apart;
+    ``free_graphs`` empties the cache."""
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(4), nn.Dense(2))
+    net.initialize(ctx=cpu())
+    net.hybridize()
+    for n in (3, 3, 5):
+        net(torch.ones(n, 6))
+    g = chip_smoke.graph_summary(net)
+    assert (g["entries"], g["graphs"], g["replays"], g["warm_calls"],
+            g["deferred_calls"]) == (2, 0, 0, 0, 1)
+    chip_smoke.free_graphs(net)
+    assert net.graph_stats()["entries"] == 0
+
+
+def test_replay_leaf_check_rehearses_on_the_cpu(monkeypatch):
+    """``replay_leaf_check`` with the CPU for the card on phase 12's
+    check step of a small NMT: the eager step repeats bit for bit, the
+    hybridized step (eager on the CPU) equals it, both leaf checks pass,
+    and only ``replayed`` (a card's count) reads 0; the weights are put
+    back."""
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    monkeypatch.setattr(chip_smoke, "NMT_VOCAB", 60)
+    net = _small_nmt(4)
+    before = chip_smoke._snapshot(net)
+    arrays = {k: v.numpy() for k, v in before.items()}
+    kept = {}
+    assert chip_smoke.nmt_leaf_check(net, 0, _small_nmt, kept)["ok"]
+    out = chip_smoke.replay_leaf_check(net, arrays, chip_smoke.nmt_check_step,
+                                       kept)
+    assert out["replayed"] == 0 and not out["ok"]
+    assert out["eager_bitwise_run_to_run"] and out["replay_bitwise_eager"]
+    assert all(r["ok"] for part in ("vs_float64", "vs_eager")
+               for r in out[part].values())
+    after = chip_smoke._snapshot(net)
+    assert all(torch.equal(before[k], after[k]) for k in before)
+    brief = chip_smoke._leaf_brief(out)
+    assert brief["vs_eager_grads"]["ok"] and not brief["ok"]
+
+
+def test_host_reading_rcnn_rehearses_on_the_cpu(monkeypatch):
+    """Phase 14 (d) with the toy Mask-RCNN on the CPU: ``hybridize()``
+    warns once, each step is counted as an eager call, no entry is made,
+    and the losses equal phase 13's eager run from the same weights."""
+    _toy_detection(monkeypatch)
+    eager = chip_smoke.rcnn_phase(0, "cpu")["train"]["losses"]
+    out = chip_smoke.rcnn_graph_run(0, "cpu", eager)
+    assert out["ok"], out["checks"]
+    assert out["warnings"] == 1 and out["eager_calls"] == 2
+    assert out["first_loss_bitwise_eager"]

@@ -1130,3 +1130,425 @@ def test_momentum_kernel_at_ssd512_groups_bitwise(card):
     assert multi_sgd_mom.launches - before == -(-len(w) // 4)
     for a, b in zip(wk + mk, w + m):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ------------------------------------------- hybridize() on CUDA graphs
+#
+# Each case runs a hybridized block (one warm eager call per signature
+# and mode, then a captured graph replayed) against an eager twin with the
+# same weights, on the same inputs: bit for bit, since the graph replays
+# the kernels the eager call launches.
+
+def _hyb_mlp(card, seed=3):
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(128, activation="relu", in_units=784),
+            nn.Dense(64, activation="relu", in_units=128),
+            nn.Dense(10, in_units=64))
+    net.initialize(ctx=card, seed=seed)
+    return net
+
+
+def _twins(make, card):
+    """(hybridized, eager) copies of ``make(card)`` with equal weights."""
+    hyb, eager = make(card), make(card)
+    for p, q in zip(hyb.collect_params().values(),
+                    eager.collect_params().values()):
+        q.set_data(p.data().detach().clone())
+    hyb.hybridize()
+    return hyb, eager
+
+
+def _step(net, x, y):
+    from mxnet_tpu_torch import autograd, gluon
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    autograd.backward(loss)
+    return loss.detach(), {k: p.grad().detach().clone()
+                           for k, p in net.collect_params().items()
+                           if p.grad_req != "null"}
+
+
+def _bitwise(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def test_hybridized_mlp_replays_bitwise(card):
+    """Inference and training calls of the 784-128-64-10 MLP: three
+    calls per mode (warm, capture + replay, replay), each bit for bit
+    the eager twin's output, loss and gradients; one entry, two graphs,
+    four replays, two eager calls."""
+    from mxnet_tpu_torch import autograd
+    hyb, eager = _twins(_hyb_mlp, card)
+    g = torch.Generator(device=card).manual_seed(0)
+    for i in range(3):
+        x = torch.randn(64, 784, device=card, generator=g)
+        y = torch.randint(0, 10, (64,), device=card, generator=g).float()
+        with autograd.predict_mode(), torch.no_grad():
+            assert _bitwise(hyb(x), eager(x))
+        (lh, gh), (le, ge) = _step(hyb, x, y), _step(eager, x, y)
+        assert _bitwise(lh, le)
+        for (k, a), b in zip(gh.items(), ge.values()):
+            assert _bitwise(a, b), k
+    stats = hyb.graph_stats()
+    assert (stats["entries"], stats["graphs"], stats["replays"],
+            stats["warm_calls"]) == (1 + 1, 2, 4, 2)
+
+
+def test_deferred_first_step_records_then_captures(card):
+    """A hybridized net with deferred widths whose first call is a
+    training step: the call settles the widths and records, the second
+    is the warm call, the third captures and replays; each step's loss
+    and gradients are bit for bit those of an eager twin with the same
+    seeded weights."""
+    from mxnet_tpu_torch.gluon import nn
+
+    def make():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(64, activation="relu"), nn.Dense(10))
+        net.initialize(ctx=card, seed=6)
+        return net
+    hyb, eager = make(), make()
+    hyb.hybridize()
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(16, 32, device=card, generator=g)
+    y = torch.randint(0, 10, (16,), device=card, generator=g).float()
+    for _ in range(3):
+        (lh, gh), (le, ge) = _step(hyb, x, y), _step(eager, x, y)
+        assert _bitwise(lh, le)
+        for (k, a), b in zip(gh.items(), ge.values()):
+            assert _bitwise(a, b), k
+    stats = hyb.graph_stats()
+    assert (stats["deferred_calls"], stats["warm_calls"],
+            stats["replays"]) == (1, 1, 1)
+
+
+def test_capture_while_the_warm_calls_graph_is_alive(card):
+    """A training loop keeps the previous step's loss (and with it the
+    autograd graph of the warm eager call, the parameters' gradient
+    accumulators included) alive while the next call captures: the
+    capture takes leaves of its own, so it neither reaches those nor
+    fails, and every step's gradients equal the eager twin's."""
+    from mxnet_tpu_torch import autograd, gluon
+    hyb, eager = _twins(_hyb_mlp, card)
+    x = torch.randn(32, 784, device=card)
+    y = torch.randint(0, 10, (32,), device=card).float()
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    for _ in range(3):
+        with autograd.record():
+            loss = lossfn(hyb(x), y)
+            want = lossfn(eager(x), y)
+        autograd.backward(loss)
+        autograd.backward(want)
+        assert _bitwise(loss.detach(), want.detach())
+        for p, q in zip(hyb.collect_params().values(),
+                        eager.collect_params().values()):
+            assert _bitwise(p.grad(), q.grad()), p.name
+    assert hyb.graph_stats()["replays"] == 2
+
+
+def test_hybridized_batchnorm_writes_running_stats_bitwise(card):
+    """Conv2D + BatchNorm + relu: three recording calls write the same
+    running statistics and gradients as the eager twin, bit for bit; in
+    predict mode the replay reads them."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    def make(dev):
+        net = nn.HybridSequential()
+        net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+                nn.BatchNorm(in_channels=8), nn.Activation("relu"))
+        net.initialize(ctx=dev, seed=4)
+        return net
+    hyb, eager = _twins(make, card)
+    g = torch.Generator(device=card).manual_seed(1)
+    for _ in range(3):
+        x = torch.randn(4, 3, 8, 8, device=card, generator=g) * 3 + 1
+        outs = []
+        for net in (hyb, eager):
+            with autograd.record():
+                out = net(x)
+            autograd.backward(out.square().mean())
+            outs.append(out.detach())
+        assert _bitwise(*outs)
+        for p, q in zip(hyb.collect_params().values(),
+                        eager.collect_params().values()):
+            assert _bitwise(p.data().detach(), q.data().detach()), p.name
+            if p.grad_req != "null":
+                assert _bitwise(p.grad(), q.grad()), p.name
+    with autograd.predict_mode(), torch.no_grad():
+        for _ in range(2):
+            assert _bitwise(hyb(x), eager(x))
+    assert hyb.graph_stats()["replays"] == 2 + 1
+
+
+def _small_bert(dev, dropout=0.0):
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import BERTModel
+    net = BERTModel(vocab_size=1000, num_layers=2, units=128,
+                    hidden_size=256, num_heads=2, max_length=64,
+                    dropout=dropout)
+    net.initialize(ctx=dev, seed=5)
+    return net
+
+
+def test_hybridized_flash_block_replays_bitwise_and_counts(card):
+    """A 2-layer BERT (head dim 64: the flash kernel's path): under
+    replay the kernel's outputs, the MLM/NSP loss and every gradient are
+    bit for bit the eager twin's; the launch counters read 2 launches a
+    call (one per layer) under replay as in eager calls, and a capture
+    adds none."""
+    import chip_smoke
+    from mxnet_tpu_torch import autograd
+    hyb, eager = _twins(_small_bert, card)
+    batch = [torch.as_tensor(a, device=card)
+             for a in chip_smoke.bert_batch(0, 2, 40, 1000)]
+    for i in range(3):
+        before = flash_attention.launches
+        by = flash_attention.launches_by_dtype["torch.float32"]
+        res = []
+        for net in (hyb, eager):
+            with autograd.record():
+                loss = chip_smoke.mlm_nsp_loss(*net(*batch[:3]), *batch[3:])
+            autograd.backward(loss)
+            res.append((loss.detach(), [p.grad().clone() for p in
+                                        net.collect_params().values()]))
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before == 2 * 2
+        assert flash_attention.launches_by_dtype["torch.float32"] - by == 4
+        assert _bitwise(res[0][0], res[1][0])
+        for a, b in zip(res[0][1], res[1][1]):
+            assert _bitwise(a, b)
+    stats = hyb.graph_stats()
+    assert stats["replays"] == 2 and stats["warm_calls"] == 1
+
+
+def test_hybridized_outputs_and_gradients_are_fresh(card):
+    """An output held from one replay, and a gradient held from one
+    replayed backward, keep their values through later replays (no
+    aliasing of the graph's buffers); ``grad_req="add"`` over hybridized
+    backwards equals the eager sum, ``"write"`` overwrites."""
+    from mxnet_tpu_torch import autograd
+    hyb, eager = _twins(_hyb_mlp, card)
+    for net in (hyb, eager):
+        first = next(iter(net.collect_params().values()))
+        first.grad_req = "add"
+        first.zero_grad()
+    g = torch.Generator(device=card).manual_seed(2)
+    xs = [torch.randn(16, 784, device=card, generator=g) for _ in range(4)]
+    ys = [torch.randint(0, 10, (16,), device=card, generator=g).float()
+          for _ in range(4)]
+    last = list(hyb.collect_params().values())[-1]
+    held = {}
+    for i in range(4):              # warm, capture + replay, 2 replays
+        with autograd.predict_mode(), torch.no_grad():
+            out = hyb(xs[i])
+        _step(hyb, xs[i], ys[i])
+        _step(eager, xs[i], ys[i])
+        if i == 1:
+            held = {"out": (out, out.clone()),
+                    "grad": (last.grad(), last.grad().clone())}
+    for held_tensor, value in held.values():
+        assert torch.equal(held_tensor, value)
+    for p, q in zip(hyb.collect_params().values(),
+                    eager.collect_params().values()):
+        assert _bitwise(p.grad(), q.grad()), p.name
+    assert hyb.graph_stats()["replays"] == 3 + 3
+
+
+def test_capture_leaves_grad_bookkeeping_alone(card):
+    """A capture's backward reaches no parameter hook: after
+    ``zero_grad`` a capturing forward leaves ``fresh`` set and ``.grad``
+    untouched until the caller's backward."""
+    from mxnet_tpu_torch import autograd, gluon
+    net = _hyb_mlp(card)
+    net.hybridize()
+    x = torch.randn(8, 784, device=card)
+    y = torch.zeros(8, device=card)
+    _step(net, x, y)                               # warm
+    params = list(net.collect_params().values())
+    for p in params:
+        p.zero_grad()
+    before = [p.grad().clone() for p in params]
+    with autograd.record():
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)  # captures
+    assert all(p.fresh for p in params)
+    assert all(torch.equal(p.grad(), b) for p, b in zip(params, before))
+    autograd.backward(loss)
+    assert not any(p.fresh for p in params)
+
+
+def test_hybridized_dropout_is_fresh_per_replay_and_seeded(card):
+    """Dropout (torch's default generator, ``gluon.nn.Dropout``) and
+    ``nd.Dropout`` (the port's per-device generator) draw new masks at
+    every replay, and a reseeded run repeats the same outputs."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+
+    class NdDrop(HybridBlock):
+        def forward(self, x):
+            return nd.Dropout(x, p=0.5)
+
+    def run():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(64, in_units=32), nn.Dropout(0.5), NdDrop())
+        net.initialize(ctx=card, seed=0)
+        net.hybridize()
+        x = torch.ones(8, 32, device=card)
+        outs = []
+        for _ in range(4):
+            with autograd.record():
+                outs.append(net(x).detach())
+        return outs, net.graph_stats()["replays"]
+
+    torch.manual_seed(7)
+    mx_random.seed(7)
+    a, replays = run()
+    assert replays == 3
+    for i in range(1, 4):
+        assert not torch.equal(a[i], a[i - 1])
+    torch.manual_seed(7)
+    mx_random.seed(7)
+    b, _ = run()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_set_data_and_cast_recapture(card):
+    """``set_data`` after the captured calls changes the next output to
+    the eager result on the new weights (the entry is captured anew);
+    ``cast`` drops the cache and the bf16 call follows."""
+    from mxnet_tpu_torch import autograd
+    hyb, eager = _twins(_hyb_mlp, card)
+    x = torch.randn(8, 784, device=card)
+    with autograd.predict_mode(), torch.no_grad():
+        for _ in range(3):
+            first = hyb(x)
+        for p, q in zip(hyb.collect_params().values(),
+                        eager.collect_params().values()):
+            w = p.data().detach() * 0.5
+            p.set_data(w.clone())
+            q.set_data(w.clone())
+        again = hyb(x)
+        assert _bitwise(again, eager(x)) and not torch.equal(again, first)
+        stats = hyb.graph_stats()       # the new entry replays at once
+        assert (stats["entries"], stats["replays"],
+                stats["warm_calls"]) == (1, 1, 0)
+        hyb.cast("bfloat16")
+        eager.cast("bfloat16")
+        assert hyb.graph_stats()["entries"] == 0
+        xb = x.bfloat16()
+        for _ in range(2):
+            out = hyb(xb)
+        assert out.dtype == torch.bfloat16 and _bitwise(out, eager(xb))
+
+
+def test_backward_after_a_later_forward_of_the_signature_raises(card):
+    """The graph keeps one call's activations: a second forward of the
+    signature before the first one's backward makes that backward raise
+    (and the latest one's backward still works)."""
+    from mxnet_tpu_torch import autograd, gluon
+    net = _hyb_mlp(card)
+    net.hybridize()
+    x = torch.randn(8, 784, device=card)
+    y = torch.zeros(8, device=card)
+    _step(net, x, y)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.record():
+        l1 = lossfn(net(x), y)
+        l2 = lossfn(net(x), y)
+    with pytest.raises(MXNetError, match="before this call's backward"):
+        autograd.backward(l1)
+    autograd.backward(l2)
+
+
+def test_host_reading_block_runs_eagerly_and_counts(card):
+    """Mask-RCNN (``reads_host``): ``hybridize()`` warns once, every call
+    runs eagerly and is counted, and the outputs equal the eager net's."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo.rcnn import mask_rcnn_toy
+    net = mask_rcnn_toy(classes=3)
+    net.initialize(ctx=card, seed=0)
+    x = torch.randn(1, 3, 64, 64, device=card)
+    with autograd.predict_mode(), torch.no_grad():
+        want = net(x)
+    with pytest.warns(RuntimeWarning, match="reads the host"):
+        net.hybridize()
+    with autograd.predict_mode(), torch.no_grad():
+        outs = [net(x) for _ in range(3)]
+    assert net.eager_calls == 3 and net.graph_stats()["entries"] == 0
+    for out in outs:
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+
+
+def test_model_server_workers_share_one_captured_bucket(card):
+    """Four ``ModelServer`` workers replay one captured bucket graph; each
+    request's output equals a direct forward of its padded batch row."""
+    import threading
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.serving import ModelServer
+    net = _hyb_mlp(card)
+    rng = np.random.default_rng(0)
+    xs = [rng.standard_normal(784).astype(np.float32) for _ in range(64)]
+    srv = ModelServer(net, max_batch=4, batch_buckets=(4,), workers=4,
+                      deadline_ms=0, batch_window_us=200)
+    assert srv.warmup(xs[0]) == 1
+    before = net.graph_stats()["replays"]
+    results = {}
+    with srv:
+        def client(t):
+            for i in range(t, 64, 4):
+                results[i] = srv.infer(xs[i], timeout=60)
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    batches = srv.stats()["batches"]
+    assert net.graph_stats()["replays"] - before == batches
+    with autograd.predict_mode(), torch.no_grad():
+        for i in range(64):
+            want = net(torch.as_tensor(xs[i][None], device=card))
+            np.testing.assert_allclose(results[i], want[0].cpu().numpy(),
+                                       rtol=0, atol=1e-5)
+
+
+def test_capture_failure_raises(card):
+    """A block that reads the host in its forward and is not marked
+    ``reads_host`` fails its capture with ``MXNetError``.  The generators
+    come out of capture with it: afterwards dropout draws eagerly (torch's
+    default generator and the port's), a hybridized dropout block
+    captures and draws fresh masks, and the block marked ``reads_host``
+    runs eagerly."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.gluon import HybridBlock, nn
+
+    class Reads(HybridBlock):
+        def forward(self, x):
+            return x * float(x.sum().item())
+
+    net = Reads()
+    net.hybridize()
+    x = torch.ones(4, device=card)
+    net(x)                                         # warm: eager
+    with pytest.raises(MXNetError, match="could not be captured"):
+        net(x)
+    ones = torch.ones(64, 32, device=card)
+    assert torch.nn.functional.dropout(ones, 0.5).eq(0).any()
+    with autograd.train_mode():
+        assert nd.Dropout(ones, p=0.5).eq(0).any()
+    drop = nn.HybridSequential()
+    drop.add(nn.Dense(64, in_units=32), nn.Dropout(0.5))
+    drop.initialize(ctx=card, seed=0)
+    drop.hybridize()
+    outs = []
+    for _ in range(4):
+        with autograd.record():
+            outs.append(drop(ones).detach())
+    assert drop.graph_stats()["replays"] == 3
+    for i in range(1, 4):
+        assert not torch.equal(outs[i], outs[i - 1])
+    Reads.reads_host = True
+    assert torch.equal(net(x), x * 4.0) and net.eager_calls == 1
