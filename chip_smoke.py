@@ -8,8 +8,8 @@ kernel's launch count is set to 0 just before each main path (serving,
 MLP, ResNet-50, the custom-op MLP, BERT-base training, phase 10's
 low-precision runs, phase 11's imperative MLP, phase 12's NMT
 training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
-and Mask-RCNN training, and phase 14's hybridized runs) and read just
-after;
+and Mask-RCNN training, phase 14's hybridized runs, and phase 15's
+generation serving) and read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -273,7 +273,36 @@ kernels not at all:
    within 1e-5 of phase 13's; (e) the flash kernel replayed from a
    captured graph against its eager call on the same inputs, bit for
    bit (B=8, L=512 and 256, fp32 and bf16, ragged lengths);
-15. prints one JSON line of kernel measurements (flash: the fp32 and, as
+15. generation serving (``serving.GenerationServer`` over a paged KV
+   cache, ``CausalLM``'s prefill and decode as captured graphs that
+   update one pool in place): (a) ``causal_lm_small`` as ``bench.py``'s
+   generation rows serve it (``bench.py:1122-1300``: 4 slots, KV blocks
+   of 16, 128 blocks, prompt bucket 16, 48 new tokens), 64 requests of
+   4-15 ids drawn from ``--seed`` submitted at once, in the
+   ``interleave`` and ``step`` prefill modes, then again recording each
+   request's logits rows (a digest of each) batched and alone
+   (``slots=1``): tokens/s, TTFT p50/p99 ms, decode step p50/p99 ms;
+   checks every run's tokens and logits bit for bit the alone run's, no
+   KV block allocated or reserved after a run, the pool's ``data_ptr``
+   unchanged and each decode replay copying out the logits alone, one
+   decode graph and one prefill graph a server, and the alone run's
+   every step teacher forced on the CPU (logits within 1e-4, each chosen
+   token within 1e-4 of the CPU's best); (b) the same ``CausalLM`` at
+   config #3's widths (vocabulary 30522, 12 layers, 768 wide, FFN 3072,
+   12 heads, max length 512: 108.9 M parameters), 16 slots, 512 blocks
+   of 16, prompt buckets 64/128/256, 128 new tokens at most: 64 requests
+   of 16-256 prompt ids and 16-128 new tokens, interleaved; the first 8
+   again alone and bit for bit, 2 teacher forced; one profiled decode
+   step (device ms, idle share, the host's launches), capture ms and
+   pool bytes a graph; (a) and (b) launch no kernel of the table (counts
+   set to 0 before (a), read after (b)); (c) a ``ModelRegistry`` holding
+   (a)'s server and a BERT-base ``ModelServer`` (phase 4's model, one
+   length bucket) behind an ``HttpFrontend`` on a localhost port: 8
+   concurrent SSE clients get the tokens of a direct ``submit_generate``,
+   a client that hangs up mid-stream leaves no block allocated, ``predict``
+   returns what ``infer`` does bit for bit (12 flash launches a forward,
+   exact), ``/healthz``, ``/readyz`` and ``/v1/models`` answer 200;
+16. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -290,12 +319,15 @@ from __future__ import annotations
 
 import argparse
 import gc
+import hashlib
+import http.client
 import importlib.util
 import json
 import math
 import os
 import random
 import re
+import socket
 import subprocess
 import sys
 import threading
@@ -324,7 +356,8 @@ from mxnet_tpu_torch.gluon.model_zoo.rcnn import (RCNNLoss,
                                                   mask_rcnn_resnet18_v1)
 from mxnet_tpu_torch.gluon.model_zoo.ssd import (SSDMultiBoxLoss,
                                                  ssd_512_resnet50_v1)
-from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_base
+from mxnet_tpu_torch.gluon.model_zoo.transformer import (CausalLM, bert_base,
+                                                          causal_lm_small)
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 from mxnet_tpu_torch.initializer import Xavier
 from mxnet_tpu_torch.kernels import _build
@@ -339,8 +372,9 @@ from mxnet_tpu_torch.kernels.multi_sgd import (multi_mp_sgd,
                                                multi_sgd_mom_plain,
                                                multi_sgd_plain)
 from mxnet_tpu_torch.observability import registry
-from mxnet_tpu_torch.serving import ModelServer
-from mxnet_tpu_torch.serving.server import readback
+from mxnet_tpu_torch.serving import (GenerationServer, HttpFrontend,
+                                     ModelRegistry, ModelServer)
+from mxnet_tpu_torch.serving.server import DECODE_ROWS, decode_rows, readback
 
 # H100 SXM published peaks (dense): fp32 on the CUDA cores (the softmax
 # kernels' unit); the tensor cores, where the flash kernel computes, in TF32
@@ -4725,6 +4759,545 @@ def graph_phase(seed: int, card: str, nmt: dict, bert: dict,
     return res
 
 
+# ---- phase 15: generation serving ---------------------------------------
+# causal_lm_small served as bench.py's generation rows serve it
+# (bench.py:1122-1300), the same CausalLM at config #3's widths, and the
+# front door (ModelRegistry behind HttpFrontend) on localhost.
+
+GEN_SMALL = {"slots": 4, "kv_block": 16, "kv_blocks": 128,
+             "prompt_buckets": (16,), "max_new_tokens": 48}
+GEN_SMALL_REQUESTS = 64
+GEN_SMALL_PROMPT = (4, 15)            # prompt lengths; ids in 1..249
+GEN_BASE_MODEL = {"vocab_size": VOCAB, "num_layers": LAYERS, "units": 768,
+                  "hidden_size": 3072, "num_heads": HEADS,
+                  "max_length": 512}  # BERT-base's widths (bench.py:392)
+GEN_BASE = {"slots": 16, "kv_block": 16, "kv_blocks": 512,
+            "prompt_buckets": (64, 128, 256), "max_new_tokens": 128}
+GEN_BASE_REQUESTS = 64
+GEN_BASE_PROMPT = (16, 256)
+GEN_BASE_NEW = (16, 128)
+GEN_BASE_BITWISE = 8                  # requests decoded again alone
+GEN_BASE_FORCED = 2                   # of them, teacher forced on the CPU
+GEN_TOL = 1e-4
+HTTP_CLIENTS = 8
+HTTP_NEW_TOKENS = 24
+BERT_PREDICT_LEN = 8
+
+
+class PhaseServer(GenerationServer):
+    """``GenerationServer`` that times each decode iteration (inputs in,
+    replay, readback and the bookkeeping around them) and, for the
+    requests in ``track`` (by submission order), keeps a digest of every
+    logits row its prefill and decode steps read back, and the rows
+    themselves for those in ``keep``: the batched-against-alone and
+    teacher-forcing checks.  A recorded step copies its logits to the
+    host once more; timed runs track nothing."""
+
+    def __init__(self, block, track=(), keep=(), **kw):
+        super().__init__(block, **kw)
+        self.track, self.keep = set(track), set(keep)
+        self.digests = {r: [] for r in self.track}
+        self.rows = {r: [] for r in self.keep}
+        self.step_s = []
+
+    def _prefill(self, entry, req, bucket):
+        if self.track:
+            entry = (_Recorder(entry[0], self, [req]), entry[1])
+        super()._prefill(entry, req, bucket)
+
+    def _decode_graph(self, replays):
+        graph, stages = super()._decode_graph(replays)
+        if self.track:
+            graph = _Recorder(graph, self, None)
+        return graph, stages
+
+    def _decode_step(self):
+        self.replay = 0
+        t0 = time.perf_counter()
+        super()._decode_step()
+        self.step_s.append(time.perf_counter() - t0)
+
+
+class _Recorder:
+    """A graph whose ``raw`` also records each tracked request's logits row
+    (row i belongs to ``reqs[i]``; with ``reqs`` None, a decode step's
+    next replay, whose rows are the next ``DECODE_ROWS`` slots)."""
+
+    def __init__(self, graph, srv, reqs):
+        self.graph, self.srv, self.reqs = graph, srv, reqs
+
+    def raw(self, *args):
+        logits, pool = self.graph.raw(*args)
+        reqs = self.reqs
+        if reqs is None:
+            first = self.srv.replay * DECODE_ROWS
+            self.srv.replay += 1
+            reqs = self.srv._running[first:first + DECODE_ROWS]
+        host = logits[:len(reqs)].cpu().numpy()
+        for row, r in zip(host, reqs):
+            if r is not None and r.rid in self.srv.track:
+                self.srv.digests[r.rid].append(
+                    hashlib.sha1(row.tobytes()).hexdigest())
+                if r.rid in self.srv.keep:
+                    self.srv.rows[r.rid].append(row.copy())
+        return logits, pool
+
+
+def gen_requests(seed: int, n: int, prompt, new=None):
+    """``n`` prompts (lengths in ``prompt``, ids in 1..249) and their
+    ``max_new_tokens`` (in ``new``, or None), drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, 250, int(rng.integers(prompt[0],
+                                                     prompt[1] + 1)))
+               .astype(np.int32) for _ in range(n)]
+    caps = [None] * n if new is None else \
+        [int(c) for c in rng.integers(new[0], new[1] + 1, n)]
+    return prompts, caps
+
+
+def _pct(values, q):
+    return float(np.percentile(values, q)) if len(values) else 0.0
+
+
+def gen_serve(net, prompts, caps, server_kw: dict, mode: str,
+              track=(), keep=()) -> dict:
+    """Every request submitted at once to a warmed ``PhaseServer`` in
+    prefill mode ``mode``: wall time, tokens/s, TTFT and decode-step
+    p50/p99 ms, the tokens, the logits digests and rows recorded, the
+    server's stats and graphs, whether the pool moved."""
+    os.environ["MXTPU_SERVING_PREFILL_MODE"] = mode
+    srv = PhaseServer(net, track=track, keep=keep, queue_depth=4096,
+                      deadline_ms=0, **server_kw)
+    ptr = srv.pool.data_ptr()
+    try:
+        srv.start()
+        t0 = time.monotonic()
+        srv.warmup()
+        warm_s = time.monotonic() - t0
+        srv.step_s.clear()
+        t0 = time.monotonic()
+        reqs = [srv.submit_generate(p, max_new_tokens=c)
+                for p, c in zip(prompts, caps)]
+        tokens = [list(r.result(timeout=600)) for r in reqs]
+        wall = time.monotonic() - t0
+        graphs = srv.graph_stats()      # stop() drops the graphs
+    finally:
+        srv.stop()
+        os.environ.pop("MXTPU_SERVING_PREFILL_MODE", None)
+    n_tokens = sum(len(t) for t in tokens)
+    ttft = [(r.t_first - r.t_enqueue) * 1e3 for r in reqs]
+    step = [s * 1e3 for s in srv.step_s]
+    return {"mode": mode, "slots": srv.decode_slots,
+            "requests": len(reqs), "tokens_generated": n_tokens,
+            "warmup_s": warm_s, "wall_s": wall,
+            "tokens_per_s": n_tokens / wall,
+            "ttft_ms_p50": _pct(ttft, 50), "ttft_ms_p99": _pct(ttft, 99),
+            "decode_step_ms_p50": _pct(step, 50),
+            "decode_step_ms_p99": _pct(step, 99),
+            "decode_steps": len(step), "stats": srv.stats(),
+            "graphs": graphs,
+            "pool_moved": srv.pool.data_ptr() != ptr,
+            "tokens": tokens, "digests": srv.digests, "rows": srv.rows}
+
+
+def teacher_forced(cpu_net, prompts, tokens, rows: dict, tol: float) -> dict:
+    """The card's served logits of each request in ``rows`` replayed on
+    ``cpu_net`` (the same weights on the CPU) by teacher forcing: one full
+    causal forward over the prompt and the generated tokens but the last;
+    every step's logits against the card's (max-abs), and each token the
+    card chose within ``tol`` of the CPU's best logit at that step."""
+    err, shortfall, steps = 0.0, 0.0, 0
+    with torch.no_grad():
+        for rid, card_rows in rows.items():
+            seq = np.concatenate([prompts[rid],
+                                  np.asarray(tokens[rid][:-1], np.int32)])
+            logits = cpu_net(torch.as_tensor(seq[None]))[0].numpy()
+            cpu_rows = logits[len(prompts[rid]) - 1:]
+            card = np.stack(card_rows)
+            if card.shape != cpu_rows.shape:
+                raise AssertionError(f"request {rid}: {card.shape} card "
+                                     f"rows, {cpu_rows.shape} forced")
+            err = max(err, float(np.abs(card - cpu_rows).max()))
+            chosen = np.asarray(tokens[rid])
+            if not np.array_equal(chosen, card.argmax(-1)):
+                raise AssertionError(f"request {rid}: tokens are not the "
+                                     f"argmax of the rows read back")
+            best = cpu_rows.max(-1)
+            shortfall = max(shortfall, float(
+                (best - cpu_rows[np.arange(len(chosen)), chosen]).max()))
+            steps += len(chosen)
+    return {"requests": len(rows), "steps": steps,
+            "logits_max_abs_err": err, "choice_max_shortfall": shortfall,
+            "ok": err <= tol and shortfall <= tol}
+
+
+def gen_checks(runs: dict, forced: dict, logits_bytes: int,
+               on_card: bool) -> dict:
+    """A phase-15 cell's checks from its runs: ``runs["alone"]`` (slots=1)
+    against every other run, tokens and logits digests, for the requests
+    it holds; no KV block allocated or reserved after any run; the pool
+    never moved; each decode replay copied out the logits alone
+    (``logits_bytes``, at the decode rows); on the card, one decode graph
+    and a prefill graph per bucket captured and replayed in each run; the
+    teacher forcing."""
+    alone = runs["alone"]
+    ids = range(len(alone["tokens"]))
+    checks = {
+        "batched_equals_alone_tokens": all(
+            r["tokens"][i] == alone["tokens"][i]
+            for r in runs.values() for i in ids),
+        "batched_equals_alone_logits": all(
+            r["digests"][i] == alone["digests"][i]
+            for r in runs.values() if r["digests"] for i in ids)
+        and sum(bool(r["digests"]) for r in runs.values()) >= 2,
+        "no_block_leaked": all(
+            r["stats"]["kv_blocks_used"] == 0
+            and r["stats"]["kv_blocks_reserved"] == 0
+            for r in runs.values()),
+        "pool_in_place": all(not r["pool_moved"] for r in runs.values())
+        and all(g["copy_bytes"] == logits_bytes
+                for r in runs.values()
+                for d in r["graphs"]["decode"].values()
+                for g in d["graphs"]),
+        "teacher_forcing": forced["ok"]}
+    if on_card:
+        checks["graphs_replayed"] = all(
+            len(r["graphs"]["decode"]) == 1
+            and all(len(e["graphs"]) == 1 and e["graphs"][0]["replays"] > 0
+                    and e["warm_calls"] == 1
+                    for e in r["graphs"]["decode"].values())
+            and all(len(e["graphs"]) == 1
+                    for e in r["graphs"]["prefill"].values())
+            for r in runs.values())
+    return checks
+
+
+def _gen_brief(run: dict) -> dict:
+    """A run without its tokens, digests and rows, for the report."""
+    return {k: v for k, v in run.items()
+            if k not in ("tokens", "digests", "rows")}
+
+
+def _graph_costs(run: dict) -> dict:
+    """Capture ms, pool bytes and bytes copied out of each graph of a
+    run."""
+    return {f"{kind}_{key}": {k: e["graphs"][0][k] for k in
+                              ("capture_ms", "pool_bytes", "copy_bytes",
+                               "replays")}
+            for kind in ("prefill", "decode")
+            for key, e in run["graphs"][kind].items() if e["graphs"]}
+
+
+GEN_CLASSES = ("gemm", "kv_gather_scatter", "copy", "softmax",
+               "layernorm", "other")
+
+
+def _gen_kernel_class(name: str) -> str:
+    name = name.lower()
+    if any(w in name for w in ("gemm", "cutlass", "xmma", "sm90_",
+                               "gemv", "splitk")):
+        return "gemm"
+    if "index" in name or "gather" in name or "scatter" in name:
+        return "kv_gather_scatter"
+    if "copy" in name or "memcpy" in name:
+        return "copy"
+    if "softmax" in name:
+        return "softmax"
+    if "layer_norm" in name or "layernorm" in name:
+        return "layernorm"
+    return "other"
+
+
+def profile_decode_step(srv_net, server_kw: dict, n_iters: int = 5) -> dict:
+    """One decode step of a warmed server's graph under torch.profiler:
+    the step's inputs copied in, the replay, the logits read back (the
+    shapes, and so the work, are the step's at any occupancy).  Device ms
+    (in all and by kernel class), kernels a step, idle share of the
+    step's wall time, and the host's launches a step."""
+    from torch.profiler import ProfilerActivity, profile
+    srv = GenerationServer(srv_net, deadline_ms=0, **server_kw)
+    graph, (stage,) = srv._decode_graph(1)
+
+    def step():
+        logits, _ = graph.raw(*stage.push(), srv.pool)
+        readback([logits])
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n_iters):
+            step()
+        wall_ms = (time.monotonic() - t0) * 1e3 / n_iters
+    busy = device_busy_ms(prof) / n_iters
+    launches = host_launches(prof)
+    classes = dict.fromkeys(GEN_CLASSES, 0.0)
+    kernels = 0
+    for e in prof.key_averages():
+        if _is_kernel(e):
+            classes[_gen_kernel_class(e.key)] += \
+                e.self_device_time_total / 1e3 / n_iters
+            kernels += e.count
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_ms": classes, "kernels": kernels / n_iters,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "host_launches": launches["host_launches"] / n_iters,
+            "host_graph_launches":
+                launches["host_graph_launches"] / n_iters}
+
+
+def _cpu_twin(net, make):
+    """``make()`` on the CPU with ``net``'s weights."""
+    twin = make()
+    load_reference_params(twin, {k: p.data().detach().cpu().numpy()
+                                 for k, p in net.collect_params().items()},
+                          ctx=cpu())
+    return twin
+
+
+def gen_small_cell(seed: int, dev) -> dict:
+    """(a) ``causal_lm_small`` as ``bench.py``'s generation rows serve it:
+    64 requests at once, both prefill modes timed, then recorded batched
+    and alone (slots=1); the alone run's logits teacher forced on the
+    CPU."""
+    net = causal_lm_small()
+    net.initialize(ctx=dev, seed=seed)
+    net.hybridize()
+    prompts, caps = gen_requests(seed + 15, GEN_SMALL_REQUESTS,
+                                 GEN_SMALL_PROMPT)
+    every = range(len(prompts))
+    runs = {mode: gen_serve(net, prompts, caps, GEN_SMALL, mode)
+            for mode in ("interleave", "step")}
+    runs["recorded"] = gen_serve(net, prompts, caps, GEN_SMALL,
+                                 "interleave", track=every)
+    runs["alone"] = gen_serve(net, prompts, caps,
+                              {**GEN_SMALL, "slots": 1}, "interleave",
+                              track=every, keep=every)
+    cpu_net = _cpu_twin(net, causal_lm_small)
+    forced = teacher_forced(cpu_net, prompts, runs["alone"]["tokens"],
+                            runs["alone"]["rows"], GEN_TOL)
+    logits_bytes = decode_rows(GEN_SMALL["slots"]) * 257 * 4
+    checks = gen_checks(runs, forced, logits_bytes, dev.type == "cuda")
+    free_graphs(net)
+    return {"model": "causal_lm_small", "server": GEN_SMALL,
+            "runs": {k: _gen_brief(r) for k, r in runs.items()},
+            "graph_costs": _graph_costs(runs["interleave"]),
+            "teacher_forcing": forced, "checks": checks,
+            "ok": all(checks.values()), "net": net}
+
+
+def gen_base_cell(seed: int, dev) -> dict:
+    """(b) the same ``CausalLM`` at config #3's widths: 64 requests of
+    16-256 prompt ids and 16-128 new tokens at once, interleaved; then
+    recorded batched, the first 8 alone, 2 of them teacher forced."""
+    net = CausalLM(**GEN_BASE_MODEL)
+    net.initialize(ctx=dev, seed=seed)
+    net.hybridize()
+    n_params = sum(p.data().numel() for p in net.collect_params().values())
+    prompts, caps = gen_requests(seed + 16, GEN_BASE_REQUESTS,
+                                 GEN_BASE_PROMPT, GEN_BASE_NEW)
+    few = range(GEN_BASE_BITWISE)
+    runs = {"interleave": gen_serve(net, prompts, caps, GEN_BASE,
+                                    "interleave")}
+    runs["recorded"] = gen_serve(net, prompts, caps, GEN_BASE,
+                                 "interleave", track=few)
+    runs["alone"] = gen_serve(net, prompts[:len(few)], caps[:len(few)],
+                              {**GEN_BASE, "slots": 1}, "interleave",
+                              track=few, keep=range(GEN_BASE_FORCED))
+    profile = profile_decode_step(net, GEN_BASE) \
+        if dev.type == "cuda" else {}
+    cpu_net = _cpu_twin(net, lambda: CausalLM(**GEN_BASE_MODEL))
+    forced = teacher_forced(cpu_net, prompts, runs["alone"]["tokens"],
+                            runs["alone"]["rows"], GEN_TOL)
+    del cpu_net
+    logits_bytes = decode_rows(GEN_BASE["slots"]) * VOCAB * 4
+    checks = gen_checks(runs, forced, logits_bytes, dev.type == "cuda")
+    free_graphs(net)
+    del net
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the least a decode step must read: every weight once and each
+    # row's key/value window (the gather reads it from the pool)
+    window = 2 * LAYERS * decode_rows(GEN_BASE["slots"]) * GEN_BASE[
+        "kv_block"] * -(-(GEN_BASE["prompt_buckets"][-1] + GEN_BASE[
+            "max_new_tokens"]) // GEN_BASE["kv_block"]) * GEN_BASE_MODEL[
+        "units"] * 4
+    return {"model": GEN_BASE_MODEL, "parameters": n_params,
+            "server": GEN_BASE,
+            "decode_step_bytes": {"weights": 4 * n_params,
+                                  "kv_window": window},
+            "decode_step_bound_ms": (4 * n_params + window)
+            / PEAK_BYTES * 1e3,
+            "kv_pool_bytes": 2 * LAYERS * GEN_BASE["kv_blocks"]
+            * GEN_BASE["kv_block"] * GEN_BASE_MODEL["units"] * 4,
+            "runs": {k: _gen_brief(r) for k, r in runs.items()},
+            "graph_costs": _graph_costs(runs["interleave"]),
+            "decode_profile": profile, "teacher_forcing": forced,
+            "checks": checks, "ok": all(checks.values())}
+
+
+def sse_generate(port: int, name: str, prompt, drop_after: int = 0,
+                 **kw) -> list:
+    """One generation streamed over a raw socket: the ``(event, payload)``
+    pairs, or, with ``drop_after``, the tokens seen before the client
+    hangs up after that many."""
+    body = json.dumps(dict(prompt=[int(t) for t in prompt], **kw))
+    s = socket.create_connection(("127.0.0.1", port), timeout=120)
+    buf = b""
+    try:
+        s.sendall((f"POST /v1/models/{name}/generate HTTP/1.1\r\nHost: t"
+                   f"\r\nContent-Type: application/json\r\nContent-Length:"
+                   f" {len(body)}\r\n\r\n{body}").encode())
+        while True:
+            if drop_after and buf.count(b"data:") >= drop_after:
+                break
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    finally:
+        s.close()
+    out = []
+    for part in buf.partition(b"\r\n\r\n")[2].decode().split("\n\n"):
+        event, data = "message", None
+        for line in part.strip().splitlines():
+            if line.startswith("event:"):
+                event = line.partition(":")[2].strip()
+            elif line.startswith("data:"):
+                data = json.loads(line.partition(":")[2])
+        if data is not None:
+            out.append((event, data))
+    return out
+
+
+def http_json(port: int, method: str, path: str, obj=None):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        c.request(method, path, body=None if obj is None else
+                  json.dumps(obj))
+        r = c.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        c.close()
+
+
+def frontdoor_cell(seed: int, dev, lm) -> dict:
+    """(c) a ``ModelRegistry`` holding (a)'s ``GenerationServer`` (over
+    its model) and BERT-base's ``ModelServer`` (phase 4's model and
+    weights, one length bucket) behind an ``HttpFrontend`` on an
+    ephemeral localhost port: 8 concurrent SSE clients against direct
+    ``submit_generate``, a client that hangs up mid-stream, ``predict``
+    against ``infer``, and the GET routes.  BERT-base's flash launches
+    are counted here: 12 a forward."""
+    reg = ModelRegistry()
+    gen = GenerationServer(lm, deadline_ms=0, **GEN_SMALL)
+    reg.load("causal_lm_small", gen, priority=1, warm=True)
+    bert = bert_base(dropout=0.0)
+    bert.initialize(ctx=dev, seed=seed)
+    n = BERT_PREDICT_LEN
+    ms = ModelServer(bert, max_batch=1, length_buckets=(32,),
+                     batch_buckets=(1,), deadline_ms=0, workers=1,
+                     batch_window_us=0)
+    reg.load("bert_base", ms, priority=1, warm=[(
+        np.zeros(n, np.int32), np.zeros(n, np.int32), np.float32(n))])
+    fe = HttpFrontend(reg, port=0, addr="127.0.0.1").start()
+    prompts, _ = gen_requests(seed + 17, HTTP_CLIENTS, GEN_SMALL_PROMPT)
+    try:
+        gets = {path: http_json(fe.port, "GET", path)[0]
+                for path in ("/healthz", "/readyz", "/v1/models")}
+        direct = [gen.generate(p, timeout=120,
+                               max_new_tokens=HTTP_NEW_TOKENS)
+                  for p in prompts]
+        streams = {}
+
+        def client(i):
+            streams[i] = sse_generate(fe.port, "causal_lm_small",
+                                      prompts[i],
+                                      max_new_tokens=HTTP_NEW_TOKENS)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(HTTP_CLIENTS)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        sse_s = time.monotonic() - t0
+        sse_tokens = {i: [d["token"] for e, d in ev if e == "message"]
+                      for i, ev in streams.items()}
+        done = {i: [d["tokens"] for e, d in ev if e == "done"]
+                for i, ev in streams.items()}
+        sse_ok = len(streams) == HTTP_CLIENTS and all(
+            sse_tokens[i] == direct[i] and done[i] == [direct[i]]
+            for i in range(HTTP_CLIENTS))
+        dropped = sse_generate(fe.port, "causal_lm_small", prompts[0],
+                               drop_after=2, max_new_tokens=GEN_SMALL[
+                                   "max_new_tokens"])
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and (
+                gen.stats()["kv_blocks_used"]
+                or gen.stats()["kv_blocks_reserved"]):
+            time.sleep(0.02)
+        after_drop = gen.stats()
+        rng = np.random.default_rng(seed + 18)
+        x = (rng.integers(0, VOCAB, n).astype(np.int32),
+             rng.integers(0, 2, n).astype(np.int32), np.float32(n))
+        zero_counts()
+        b0 = ms.stats()["batches"]
+        status, body = http_json(
+            fe.port, "POST", "/v1/models/bert_base/predict",
+            {"inputs": [x[0].tolist(), x[1].tolist(), float(x[2])],
+             "dtypes": ["int32", "int32", "float32"]})
+        want = ms.infer(*x, timeout=120)
+        batches = ms.stats()["batches"] - b0
+        flash = flash_attention.launches
+        other = other_launches(flash_attention)
+        predict_ok = status == 200 and all(
+            np.array_equal(np.asarray(o, np.float32), w)
+            for o, w in zip(body["outputs"], want))
+    finally:
+        fe.stop(drain=True)
+    free_graphs(bert)
+    del bert
+    checks = {
+        "get_routes": gets == {"/healthz": 200, "/readyz": 200,
+                               "/v1/models": 200},
+        "sse_equals_direct": sse_ok,
+        "disconnect_releases": 0 < len(dropped) < GEN_SMALL[
+            "max_new_tokens"] and after_drop["kv_blocks_used"] == 0
+        and after_drop["kv_blocks_reserved"] == 0,
+        "predict_equals_infer": predict_ok,
+        "bert_flash_launches": flash == LAYERS * batches and batches == 2
+        and other == 0}
+    return {"clients": HTTP_CLIENTS, "sse_s": sse_s, "gets": gets,
+            "dropped_after_tokens": len(dropped),
+            "kv_after_drop": {k: after_drop[k] for k in (
+                "kv_blocks_used", "kv_blocks_reserved")},
+            "bert_predict_batches": batches, "bert_flash_launches": flash,
+            "checks": checks, "ok": all(checks.values())}
+
+
+def generation_phase(seed: int, card: str) -> dict:
+    """Phase 15: (a), (b) and (c) above.  The counts are set to 0 just
+    before (a) and read just after (b): the generation path launches no
+    kernel of the table.  (c) counts BERT-base's flash launches on its
+    own."""
+    dev = gpu(0)
+    zero_counts()
+    small = gen_small_cell(seed, dev)
+    base = gen_base_cell(seed, dev)
+    launches = {w.__name__: w.launches for w in COUNTED}
+    launches["rtc"] = rtc.launches
+    lm = small.pop("net")
+    front = frontdoor_cell(seed, dev, lm)
+    free_graphs(lm)
+    checks = {"no_kernel_launches": sum(launches.values()) == 0}
+    return {"card": card, "small": small, "base": base, "frontdoor": front,
+            "generation_launches": launches, "checks": checks,
+            "ok": all(checks.values()) and small["ok"] and base["ok"]
+            and front["ok"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4972,6 +5545,33 @@ def main() -> int:
     print(f"graph checks on {card}:", json.dumps(
         {name: graph[name]["checks"] for name in
          ("nmt", "bert", "serving", "rcnn")}), flush=True)
+
+    gen = generation_phase(args.seed, card)
+    for cell in ("small", "base"):
+        for name, r in gen[cell]["runs"].items():
+            print(f"generation {cell} {name} on {card}: slots {r['slots']}, "
+                  f"{r['requests']} requests, {r['tokens_per_s']:.1f} "
+                  f"tokens/s, TTFT p50 {r['ttft_ms_p50']:.3f} ms p99 "
+                  f"{r['ttft_ms_p99']:.3f} ms, decode step p50 "
+                  f"{r['decode_step_ms_p50']:.3f} ms p99 "
+                  f"{r['decode_step_ms_p99']:.3f} ms over "
+                  f"{r['decode_steps']} steps, blocks used "
+                  f"{r['stats']['kv_blocks_used']}", flush=True)
+        print(f"generation {cell} graphs on {card}:",
+              json.dumps(gen[cell]["graph_costs"]), flush=True)
+        print(f"generation {cell} teacher forcing on {card}:",
+              json.dumps(gen[cell]["teacher_forcing"]), flush=True)
+    print(f"generation base decode step profile on {card}:",
+          json.dumps(gen["base"]["decode_profile"]), "bytes",
+          json.dumps(gen["base"]["decode_step_bytes"]), "bound ms",
+          gen["base"]["decode_step_bound_ms"], flush=True)
+    print(f"generation front door on {card}:", json.dumps(
+        {k: v for k, v in gen["frontdoor"].items() if k != "checks"}),
+        flush=True)
+    print(f"generation checks on {card}:", json.dumps(
+        {"launches": gen["generation_launches"], **gen["checks"],
+         **{cell: gen[cell]["checks"] for cell in
+            ("small", "base", "frontdoor")}}), flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -5103,6 +5703,7 @@ def main() -> int:
          "low_precision": low, "imperative_mlp": imp,
          "nmt": nmt, "lstm_bucketing": lm, "nmt_flash_backward":
              nmt_backward, "detection": det, "graphs": graph,
+         "generation": gen,
          "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
@@ -5111,7 +5712,8 @@ def main() -> int:
         ("custom-op mlp", custom), ("bert train", bert),
         ("low precision", low), ("imperative mlp", imp), ("nmt", nmt),
         ("lstm bucketing", lm), ("nmt flash backward", nmt_backward),
-        ("detection", det), ("hybridized graphs", graph))
+        ("detection", det), ("hybridized graphs", graph),
+        ("generation serving", gen))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

@@ -1,8 +1,9 @@
 """Foundations: error type, env-var config registry, dtype canonicalisation.
 
-PyTorch counterpart of ``mxnet_tpu/base.py``, cut to what the BERT serving
-and Gluon training paths read: the ``MXTPU_SERVING_*`` request-serving
-knobs, ``MXNET_ATTENTION_KERNEL`` and ``MXNET_OPTIMIZER_AGGREGATION_SIZE``.
+PyTorch counterpart of ``mxnet_tpu/base.py``, cut to what the serving and
+Gluon training paths read: the ``MXTPU_SERVING_*`` request- and
+generation-serving knobs, the ``MXTPU_FRONTEND_*`` front-door knobs,
+``MXNET_ATTENTION_KERNEL`` and ``MXNET_OPTIMIZER_AGGREGATION_SIZE``.
 The registry is a typed view over ``os.environ``, read live on every
 ``get_env`` call.
 """
@@ -86,6 +87,39 @@ register_env("MXTPU_SERVING_BATCH_WINDOW_US", 2000.0, float,
              "Serving: how long the batcher waits for the current shape "
              "bucket to fill before dispatching a partial batch. Read "
              "live per batch.")
+
+register_env("MXTPU_SERVING_KV_BLOCK", 16, int,
+             "Serving: KV-cache block size in token positions; the paging "
+             "granularity of the generation scheduler's block manager "
+             "(serving.kv_cache).")
+register_env("MXTPU_SERVING_KV_BLOCKS", 128, int,
+             "Serving: total KV-cache blocks pre-allocated per generation "
+             "server (block 0 is reserved scratch, so usable capacity is "
+             "one less). Admission to the running batch gates on a "
+             "worst-case block reservation against this pool.")
+register_env("MXTPU_SERVING_DECODE_SLOTS", 4, int,
+             "Serving: running-batch slot count of the iteration-level "
+             "decode scheduler: how many requests decode together in one "
+             "decode step.")
+register_env("MXTPU_SERVING_PREFILL_MODE", "interleave", str,
+             "Serving: 'interleave' admits at most one prompt prefill per "
+             "decode iteration (smooth decode cadence); 'step' prefills "
+             "every admissible queued request before the next decode step "
+             "(fastest drain of a burst). Read live per iteration.")
+register_env("MXTPU_SERVING_MAX_NEW_TOKENS", 64, int,
+             "Serving: default cap on generated tokens per request when "
+             "submit_generate() is not given max_new_tokens; also bounds "
+             "the worst-case KV block reservation.")
+register_env("MXTPU_FRONTEND_PORT", "", str,
+             "Serving: TCP port for the multi-model HTTP frontend "
+             "(serving.HttpFrontend: JSON predict, SSE token streaming). "
+             "Empty (default) binds an ephemeral port; the frontend only "
+             "listens when constructed explicitly.")
+register_env("MXTPU_FRONTEND_PRIORITY", 0, int,
+             "Serving: default priority for models loaded into the "
+             "ModelRegistry without an explicit one (higher = more "
+             "important; models below the registry shed level are 429'd "
+             "at the door).")
 
 
 def compute_dtype(dtype: Any) -> np.dtype:

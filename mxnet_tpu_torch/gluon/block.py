@@ -56,6 +56,13 @@ eagerly, counted in ``eager_calls``.  A hybridized call outside
 ``cached_graph(*examples)`` is the serving entry: a :class:`CachedGraph`
 whose ``raw(*arrays)`` copies host arrays into the signature's captured
 inputs, replays its inference graph and returns fresh device tensors.
+``cached_graph(*examples, entry="prefill"|"decode")`` does the same for a
+block's generation entry, ``hybrid_<entry>`` (the JAX package's
+``mxnet_tpu/gluon/block.py:503-640``): one graph per call (a prefill
+graph per prompt bucket, one decode graph), its device inputs and the
+state it returns (the KV pool) carried in place (``gluon/cached_op.py``).
+Such a graph holds the caller's state, so the handle owns it: it stays
+out of the LRU, and dropping the handle frees it.
 """
 from __future__ import annotations
 
@@ -388,13 +395,13 @@ class HybridBlock(Block):
         package's one warning once the cache starts evicting), and made
         anew, as warm as it was, when its parameters' storage moved."""
         sig = self._signature(leaves, spec, training)
-        entry = self._cached_graph.get(sig)
-        if entry is not None and not entry.stale():
-            return entry
+        cached = self._cached_graph.get(sig)
+        if cached is not None and not cached.stale():
+            return cached
         device = sig[3]
-        fresh = cached_op.CachedOp(self, device, entry.warm if entry
+        fresh = cached_op.CachedOp(self, device, cached.warm if cached
                                    else ())
-        evicting = entry is None and (
+        evicting = cached is None and (
             self._cached_graph.cache_info()["currsize"]
             >= self.CACHED_GRAPH_LIMIT)
         self._cached_graph.put(sig, fresh)
@@ -429,14 +436,17 @@ class HybridBlock(Block):
                 "eager_calls": self.eager_calls, "by_entry": entries,
                 "cache": self._cached_graph.cache_info()}
 
-    def _inference_entry(self, args, warmed: bool = False
+    def _inference_entry(self, args, warmed: bool = False,
+                         own: Optional[cached_op.CachedOp] = None
                          ) -> cached_op.CachedOp:
         """The entry of ``args`` in predict mode, its inference graph
         captured on the card (after a warm eager call, unless ``warmed``
-        says one just ran)."""
+        says one just ran): the cache's entry, or ``own``, an entry that
+        its :class:`CachedGraph` holds outside the cache."""
         with autograd.pause(), cached_op._capture_lock:
             leaves, spec = pytree.tree_flatten((tuple(args), {}))
-            entry = self._entry(leaves, spec, False)
+            entry = own if own is not None else \
+                self._entry(leaves, spec, False)
             mode = ("infer",)
             if entry.device.type == "cuda" and entry.settled() and \
                     mode not in entry.graphs:
@@ -447,22 +457,42 @@ class HybridBlock(Block):
                 entry.capture(mode, leaves, spec)
         return entry
 
-    def cached_graph(self, *examples) -> "CachedGraph":
-        """Freeze one inference signature for serving (the JAX package's
-        ``cached_graph(entry="forward")``): one call on ``examples`` (host
-        arrays or tensors whose shapes and dtypes define the signature),
-        which settles deferred shapes and builds the kernels, then, on the
-        card, the signature's inference graph captured into the same cache
-        ``hybridize()`` fills, whether or not the block is hybridized.
-        Returns the :class:`CachedGraph`."""
+    def cached_graph(self, *examples, entry: str = "forward"
+                     ) -> "CachedGraph":
+        """Freeze one inference signature for serving: one call on
+        ``examples`` (host arrays or tensors whose shapes and dtypes
+        define the signature), which settles deferred shapes and builds
+        the kernels, then, on the card, the signature's inference graph
+        captured into the same cache ``hybridize()`` fills, whether or not
+        the block is hybridized.  ``entry`` names the method: ``"forward"``
+        or a generation entry the block implements, ``"prefill"``
+        (``hybrid_prefill``) or ``"decode"`` (``hybrid_decode``), whose
+        first call is its warm call, eager, on ``examples`` (pass tables
+        that point at scratch: its writes land there), and whose state is
+        carried in place (the module docstring).  A generation entry's
+        graph captures the caller's state tensor, so it is held by the
+        returned handle alone, never by the block's cache: dropping the
+        handle frees the graph and its hold on the state.  Raises
+        ``AttributeError`` for an entry the block lacks.  Returns the
+        :class:`CachedGraph`."""
         dev = self.device()
+        if entry != "forward" and not callable(
+                getattr(self, "hybrid_" + entry, None)):
+            raise AttributeError(
+                f"{type(self).__name__} has no hybrid_{entry}(); a "
+                f"generation-servable block implements hybrid_prefill and "
+                f"hybrid_decode (see gluon.model_zoo.transformer.CausalLM)")
         args = [_as_input(v, dev) for v in examples]
         with torch.no_grad(), autograd.predict_mode():
-            self(*args)
-        entry = self._inference_entry(args, warmed=True)
+            if entry == "forward":
+                self(*args)
+                op = self._inference_entry(args, warmed=True)
+            else:
+                op = self._inference_entry(
+                    args, own=cached_op.CachedOp(self, dev, (), entry))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        return CachedGraph(self, entry, dev)
+        return CachedGraph(self, op, dev, entry)
 
 
 def _as_input(v, device: torch.device) -> torch.Tensor:
@@ -483,27 +513,39 @@ class CachedGraph:
     ``set_data``), resolve the block's entry again (a capture).  On the
     CPU it runs the forward eagerly, as the block's entry does there.
     Each calling thread enters ``torch.inference_mode()`` and predict
-    mode itself (they are thread-local)."""
+    mode itself (they are thread-local).  A generation entry's
+    ``raw(tokens, ..., pool)`` returns ``(logits, pool)``: the pool it was
+    given, updated in place."""
 
-    __slots__ = ("_block", "_entry", "device")
+    __slots__ = ("_block", "_entry", "device", "entry")
 
     def __init__(self, block: HybridBlock, entry: cached_op.CachedOp,
-                 device: torch.device):
+                 device: torch.device, entry_name: str = "forward"):
         self._block = block
         self._entry = entry
         self.device = device
+        self.entry = entry_name
 
     def raw(self, *values) -> Tuple[torch.Tensor, ...]:
         with torch.inference_mode(), autograd.predict_mode():
             if self.device.type != "cuda":
-                out = self._block(*[_as_input(v, self.device)
-                                    for v in values])
+                args = [_as_input(v, self.device) for v in values]
+                if self.entry == "forward":
+                    out = self._block(*args)
+                else:
+                    out = self._entry(*pytree.tree_flatten(
+                        (tuple(args), {})), False)
             else:
                 host = [_as_input(v, None) if not isinstance(
                     v, torch.Tensor) else v for v in values]
                 graph = self._graph(host)
                 out = graph.run(host)
         return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+    def stats(self) -> dict:
+        """The entry's calls and its graphs (``CachedOp.stats``): replays,
+        capture ms, pool bytes, the bytes a replay copies out."""
+        return self._entry.stats()
 
     def _graph(self, host):
         entry = self._entry
@@ -512,6 +554,9 @@ class CachedGraph:
                 _leaf_key(s) != _leaf_key(h)
                 for s, h in zip(graph.static, host)):
             args = [h.to(self.device) for h in host]
-            entry = self._entry = self._block._inference_entry(args)
+            own = None if self.entry == "forward" else cached_op.CachedOp(
+                self._block, self.device, (), self.entry)
+            entry = self._entry = self._block._inference_entry(args,
+                                                               own=own)
             graph = entry.graphs[("infer",)]
         return graph

@@ -47,6 +47,17 @@ the activations of the latest forward replay of its graph, so a second
 forward of the same signature before the first one's backward makes the
 first one's backward raise instead of returning wrong gradients.
 
+A generation entry (``cached_graph(..., entry="prefill"|"decode")``,
+which runs the block's ``hybrid_<entry>`` instead of its forward) carries
+state in place: each of its inputs given as a tensor on the device is
+captured as it is, never cloned, so a replay reads it where it lies and
+copies nothing in for it; an output that is one of those inputs (the KV
+pool the entry updates and returns) is handed back as it is, never copied
+out.  Every graph captured on one pool thus updates that pool, and a
+replay copies out only the other outputs (the logits).  A replay given
+another tensor in a carried input's place raises ``MXNetError``; in
+another captured input's place it is copied into the captured tensor.
+
 A capture that fails raises ``MXNetError``, after taking the generators
 out of capture; nothing falls back to eager.
 On a CPU device an entry's callable is the eager forward: the cache, its
@@ -164,7 +175,8 @@ class _Graph:
         self.static: list = []          # the inputs, flat
         self.outs: list = []            # the outputs, flat
         self.out_spec = None
-        self.out_tensors: List[int] = []
+        self.out_tensors: List[int] = []  # the outputs copied out
+        self.carried: Dict[int, int] = {}  # output -> the input it is
         self.diff: List[int] = []       # outputs that take a gradient
         self.gouts: List[torch.Tensor] = []
         self.grads: list = []           # gradients of params, then inputs
@@ -189,6 +201,12 @@ class _Graph:
         """Copy ``leaves`` in, replay, and return the outputs in the
         forward's structure (fresh tensors)."""
         stream = torch.cuda.current_stream(self.device)
+        for j in self.carried.values():
+            if leaves[j].data_ptr() != self.static[j].data_ptr():
+                raise MXNetError(
+                    f"{self.name}: input {j} is carried in place by the "
+                    f"captured graph; pass the tensor it was captured "
+                    f"with")
         with self.lock:
             if self.done is not None:     # a replay on another stream
                 stream.wait_event(self.done)
@@ -212,11 +230,14 @@ class _Graph:
         flat = list(self.outs)
         for i, o in zip(self.out_tensors, outs):
             flat[i] = o
+        for i, j in self.carried.items():
+            flat[i] = leaves[j]
         return pytree.tree_unflatten(flat, self.out_spec)
 
     def stats(self) -> dict:
         """Mode, replays, capture ms, the pool's bytes, and the bytes a
-        replay copies out (outputs, and gradients when recording)."""
+        replay copies out (outputs, and gradients when recording; not the
+        carried state)."""
         copied = [self.outs[i] for i in self.out_tensors] + \
             [g for g in self.grads if g is not None]
         return {"mode": "train" if self.recording else "infer",
@@ -231,11 +252,13 @@ class CachedOp:
     every shape is known, the storage epoch they were read at, and a graph
     per mode (see the module docstring)."""
 
-    def __init__(self, block, device: torch.device, warm=()):
+    def __init__(self, block, device: torch.device, warm=(),
+                 entry: str = "forward"):
         # weak, so that dropping a block frees its graphs at once, not at
         # a later garbage collection that could fall inside a capture
         self._block = weakref.ref(block)
         self.device = device
+        self.entry = entry          # "forward", or a generation entry
         self.params = None
         self.epoch = 0
         self._seen = -1
@@ -281,10 +304,16 @@ class CachedOp:
             self.block.collect_params().values()
         return any(p._data.requires_grad for p in params)
 
+    def _invoke(self, args, kwargs):
+        """The block's forward, or its ``hybrid_<entry>`` method."""
+        if self.entry == "forward":
+            return nn.Module.__call__(self.block, *args, **kwargs)
+        return getattr(self.block, "hybrid_" + self.entry)(*args, **kwargs)
+
     def eager(self, leaves, spec, recording: bool):
         args, kwargs = pytree.tree_unflatten(leaves, spec)
         with _running(), torch.set_grad_enabled(recording):
-            return nn.Module.__call__(self.block, *args, **kwargs)
+            return self._invoke(args, kwargs)
 
     def __call__(self, leaves, spec, recording: bool):
         if not self.settled():
@@ -317,8 +346,11 @@ class CachedOp:
             existing = self.graphs.get(mode)
             if existing is not None:
                 return existing
+            in_place = self.entry != "forward"
             with torch.no_grad():
                 graph.static = [
+                    x if in_place and isinstance(x, torch.Tensor)
+                    and x.device == dev else
                     x.detach().clone().requires_grad_(
                         recording and x.requires_grad)
                     if isinstance(x, torch.Tensor) else x for x in leaves]
@@ -362,12 +394,17 @@ class CachedOp:
             with torch.cuda.graph(graph.fwd, capture_error_mode="thread_local"):
                 with _running(), torch.set_grad_enabled(recording), \
                         _param.standing_in(aliases):
-                    out = nn.Module.__call__(self.block, *args, **kwargs)
+                    out = self._invoke(args, kwargs)
             graph.fwd_delta = dict(delta)
             delta.clear()
             graph.outs, graph.out_spec = pytree.tree_flatten(out)
+            static = {id(x): j for j, x in enumerate(graph.static)
+                      if isinstance(x, torch.Tensor)}
+            graph.carried = {i: static[id(o)] for i, o in
+                             enumerate(graph.outs) if id(o) in static}
             graph.out_tensors = [i for i, o in enumerate(graph.outs)
-                                 if isinstance(o, torch.Tensor)]
+                                 if isinstance(o, torch.Tensor)
+                                 and i not in graph.carried]
             if not recording:
                 return
             graph.diff = [i for i in graph.out_tensors

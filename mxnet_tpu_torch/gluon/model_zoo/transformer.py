@@ -7,8 +7,10 @@ serving and pretraining paths and the NMT training and translation path:
 ``TransformerDecoderCell``, ``TransformerEncoder``, ``TransformerDecoder``,
 ``TransformerNMT`` with ``translate`` (:238-487), ``BERTEncoder``,
 ``BERTModel`` (with the tied MLM decoder) and the ``bert_base`` /
-``bert_small`` / ``transformer_nmt_base`` configurations, with the same
-parameter names and the same attention-kernel policy: an attention
+``bert_small`` / ``transformer_nmt_base`` configurations, and the
+decoder-only ``CausalLM`` of generation serving (``CausalLMCell``,
+``causal_lm_small``, :682-906) with its paged-KV entries
+``hybrid_prefill`` and ``hybrid_decode``, with the same parameter names and the same attention-kernel policy: an attention
 without an explicit mask takes the flash path (the NMT encoder's
 self-attention and the decoder's cross-attention), a masked one the
 masked-softmax path (the decoder's causal self-attention, whose
@@ -39,7 +41,8 @@ from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "TransformerDecoderCell", "TransformerEncoder",
            "TransformerDecoder", "TransformerNMT", "BERTEncoder",
-           "BERTModel", "bert_base", "bert_small", "transformer_nmt_base"]
+           "BERTModel", "bert_base", "bert_small", "transformer_nmt_base",
+           "CausalLMCell", "CausalLM", "causal_lm_small"]
 
 
 def _masked_softmax(scores, mask):
@@ -520,3 +523,198 @@ def bert_small(vocab_size=1000, **kwargs):
 def transformer_nmt_base(vocab_size=32000, **kwargs):
     return TransformerNMT(vocab_size, num_layers=6, units=512,
                           hidden_size=2048, num_heads=8, **kwargs)
+
+
+def _positions(batch: int, seq: int, device) -> torch.Tensor:
+    """(batch, seq) position ids 0..seq-1 (a broadcast view)."""
+    return torch.arange(seq, device=device).expand(batch, seq)
+
+
+class CausalLMCell(HybridBlock):
+    """Post-LN decoder-only layer.  The generation entries of
+    :class:`CausalLM` reach its children (``qkv``/``proj``/``ln1``/``ffn``/
+    ``ln2``) directly, so the cell is both a causal layer (``forward``)
+    and the parameter container of the paged entries."""
+
+    def __init__(self, units, hidden_size, num_heads, activation="gelu",
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if units % num_heads:
+            raise MXNetError(f"units {units} not divisible by heads "
+                             f"{num_heads}")
+        self._units = units
+        self._heads = num_heads
+        with self.name_scope():
+            self.qkv = Dense(3 * units, flatten=False, in_units=units,
+                             prefix="qkv_")
+            self.proj = Dense(units, flatten=False, in_units=units,
+                              prefix="proj_")
+            self.ln1 = LayerNorm(in_channels=units, prefix="ln1_")
+            self.ffn = PositionwiseFFN(units, hidden_size, 0.0,
+                                       activation, prefix="ffn_")
+            self.ln2 = LayerNorm(in_channels=units, prefix="ln2_")
+
+    def attend(self, x, q, k, v, mask):
+        """The layer body around explicit queries and keys/values: ``x``
+        and ``q`` (B, Sq, U), ``k`` and ``v`` (B, Sk, U) (the pass's own
+        projections, or K/V gathered from the block pool), ``mask``
+        broadcastable to (B*H, Sq, Sk), 1 = keep.  The JAX package's
+        ``attend`` takes no ``q`` and projects it from ``x`` again."""
+        b, sq, sk = x.shape[0], x.shape[1], k.shape[1]
+        h = self._heads
+        d = self._units // h
+
+        def heads(t, n):
+            return t.reshape(b, n, h, d).transpose(1, 2).reshape(b * h, n, d)
+
+        qh, kh = _amp.cast("batch_dot", heads(q, sq), heads(k, sk))
+        att = _masked_softmax(torch.bmm(qh, kh.transpose(1, 2))
+                              * (1.0 / math.sqrt(d)), mask)
+        out = torch.bmm(*_amp.cast("batch_dot", att, heads(v, sk)))
+        out = out.reshape(b, h, sq, d).transpose(1, 2) \
+            .reshape(b, sq, self._units)
+        x = self.ln1(x + self.proj(out))
+        return self.ln2(x + self.ffn(x))
+
+    def forward(self, x, mask=None):
+        q, k, v = self.qkv(x).split(self._units, dim=-1)
+        return self.attend(x, q, k, v, mask)
+
+
+class CausalLM(HybridBlock):
+    """Decoder-only LM with a paged-KV generation contract (the JAX
+    package's, :739-898).  Three entries share one parameter set:
+
+    - ``forward(tokens)``: the full causal pass, (B, S) -> (B, S, V)
+      logits (the JAX package's ``hybrid_forward``);
+    - ``hybrid_prefill(tokens, seq_len, table, pool)``: one prompt (batch
+      1) padded to a length bucket: causal attention within the prompt,
+      every position's K/V written into the request's KV blocks
+      (``table`` maps position // block to a pool block id); returns
+      (the last real position's (1, V) logits, the pool);
+    - ``hybrid_decode(tokens, positions, tables, pool)``: one token per
+      row: write the step's K/V at each row's position, gather each row's
+      whole block list back, attend under a per-row length mask; returns
+      ((rows, V) logits, the pool).
+
+    The pool (:meth:`init_kv_pool`) is one ``(2*num_layers, n_blocks,
+    block, units)`` fp32 tensor on the model's device (K rows even, V rows
+    odd).  The entries write it in place (``index_put_`` at (layer row,
+    block, offset), the JAX package's ``_scatter_set_nd``) and return the
+    same tensor.  Block 0 is scratch (``serving.kv_cache``): empty rows
+    and table tails point at it, and the additive -1e9 mask gives its keys
+    an exact fp32 zero weight, so a row's output depends on its own token,
+    position and table alone.  Token ids, positions and tables arrive as
+    int32 and are widened on the device; out-of-range indices are clipped
+    as the JAX package's ``take``/``pick`` clip them."""
+
+    def __init__(self, vocab_size=257, num_layers=2, units=64,
+                 hidden_size=128, num_heads=4, max_length=256,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
+        self._heads = num_heads
+        self._layers = num_layers
+        self._max_len = max_length
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units,
+                                        prefix="word_embed_")
+            self.pos_embed = Embedding(max_length, units,
+                                       prefix="pos_embed_")
+            self.layers = HybridSequential(prefix="layers_")
+            with self.layers.name_scope():
+                for _ in range(num_layers):
+                    self.layers.add(CausalLMCell(units, hidden_size,
+                                                 num_heads))
+            self.out_proj = Dense(vocab_size, flatten=False,
+                                  in_units=units, use_bias=False,
+                                  prefix="out_")
+            _tie_weight(self.out_proj, self.word_embed)
+
+    def init_kv_pool(self, n_blocks, block_size) -> torch.Tensor:
+        """A zeroed fp32 pool of this model's layout on its device (the JAX
+        package returns a numpy array)."""
+        return torch.zeros((2 * self._layers, int(n_blocks),
+                            int(block_size), self._units),
+                           dtype=torch.float32, device=self.device())
+
+    def _causal(self, b, s, device):
+        pos = torch.arange(s, device=device)
+        return (pos[:, None] >= pos[None, :]).expand(b * self._heads, s, s)
+
+    @staticmethod
+    def _scatter_kv(pool, layer, blocks, offsets, k, v):
+        """Write one layer's K and V rows at (block, offset) per entry, in
+        place; positions past a request's allocation land in scratch block
+        0 (masked, finite, ignored)."""
+        pool[2 * layer].index_put_((blocks, offsets), k)
+        pool[2 * layer + 1].index_put_((blocks, offsets), v)
+
+    def forward(self, tokens):
+        b, s = tokens.shape[0], tokens.shape[1]
+        dev = tokens.device
+        x = self.word_embed(tokens) + self.pos_embed(_positions(b, s, dev))
+        mask = self._causal(b, s, dev)
+        for cell in self.layers:
+            x = cell(x, mask)
+        return self.out_proj(x)
+
+    def hybrid_prefill(self, tokens, seq_len, table, pool):
+        """``tokens`` (1, L) int32 padded to a length bucket, ``seq_len``
+        (1,) int32, ``table`` (1, W) int32 block ids (W = ceil(L/block),
+        tail = scratch), ``pool`` as :meth:`init_kv_pool`.  Returns ((1, V)
+        logits at the last real position, ``pool``)."""
+        l, bs = tokens.shape[1], pool.shape[2]
+        dev = tokens.device
+        x = self.word_embed(tokens) + self.pos_embed(_positions(1, l, dev))
+        mask = self._causal(1, l, dev)
+        pos = torch.arange(l, device=dev)
+        row = table.reshape(-1).long()
+        blocks = row[(pos // bs).clamp_(max=row.shape[0] - 1)]
+        rem = pos % bs
+        for i, cell in enumerate(self.layers):
+            q, k, v = cell.qkv(x).split(self._units, dim=-1)
+            self._scatter_kv(pool, i, blocks, rem, k[0], v[0])
+            x = cell.attend(x, q, k, v, mask)
+        last = x[0].index_select(0, (seq_len.long() - 1).clamp(0, l - 1))
+        return self.out_proj(last), pool
+
+    def hybrid_decode(self, tokens, positions, tables, pool):
+        """One decode step for every row: ``tokens`` (R,) int32,
+        ``positions`` (R,) int32 (each token's position: the sequence
+        length before it), ``tables`` (R, W) int32, ``pool`` as
+        :meth:`init_kv_pool`.  Returns ((R, V) logits, ``pool``).  Every
+        op is row-independent, so a row's logits depend only on its own
+        token, position and table at a given R."""
+        rows, w = tokens.shape[0], tables.shape[1]
+        bs = pool.shape[2]
+        keys = w * bs
+        pos = positions.long()
+        tab = tables.long()
+        x = self.word_embed(tokens) + self.pos_embed(pos)
+        blocks = tab.gather(1, (pos // bs).clamp(0, w - 1)[:, None])[:, 0]
+        rem = pos % bs
+        # per-row prefix mask over the gathered key window: key j visible
+        # iff j <= position (the new token sees itself)
+        keep = torch.arange(keys, device=pos.device)[None, :] \
+            <= pos[:, None]
+        mask = keep[:, None, None, :].expand(rows, self._heads, 1, keys) \
+            .reshape(rows * self._heads, 1, keys)
+        flat = tab.reshape(-1)
+        for i, cell in enumerate(self.layers):
+            q, k, v = cell.qkv(x).split(self._units, dim=-1)
+            self._scatter_kv(pool, i, blocks, rem, k, v)
+            kc = pool[2 * i].index_select(0, flat) \
+                .reshape(rows, keys, self._units)
+            vc = pool[2 * i + 1].index_select(0, flat) \
+                .reshape(rows, keys, self._units)
+            x = cell.attend(x[:, None], q[:, None], kc, vc, mask)[:, 0]
+        return self.out_proj(x), pool
+
+
+def causal_lm_small(vocab_size=257, **kwargs):
+    """Tiny decoder-only LM for tests and the generation-serving rows of
+    ``bench.py``: 2 layers, 64 wide, 4 heads, FFN 128."""
+    kwargs.setdefault("max_length", 256)
+    return CausalLM(vocab_size=vocab_size, num_layers=2, units=64,
+                    hidden_size=128, num_heads=4, **kwargs)

@@ -4,8 +4,8 @@ Counterpart of ``mxnet_tpu/observability/registry.py``, cut to what
 ``ModelServer`` records: get-or-create metrics under namespaced dotted
 names, lock-exact counter increments, and fixed log-scale histograms
 (``bounds[i] = base * growth**i``, 10 buckets per decade by default) whose
-percentiles resolve to one bucket.  Exemplars, snapshots, exporters and
-the multi-host merge are not ported.
+percentiles resolve to one bucket, and ``snapshot()``, every metric in
+one dict.  Exemplars, exporters and the multi-host merge are not ported.
 """
 from __future__ import annotations
 
@@ -36,6 +36,9 @@ class Counter:
         with self._lock:
             self.n += amount
 
+    def read(self) -> int:
+        return self.n
+
 
 class Gauge:
     """Last-write-wins instantaneous value."""
@@ -52,6 +55,9 @@ class Gauge:
 
     @property
     def value(self) -> float:
+        return self._v
+
+    def read(self) -> float:
         return self._v
 
 
@@ -108,6 +114,12 @@ class Histogram:
                                      self.vmax))
             return float(self.vmax)
 
+    def read(self) -> dict:
+        """The aggregate view ``snapshot()`` gives a histogram."""
+        return {"count": self.count, "sum": self.total,
+                "min": self.vmin, "max": self.vmax,
+                "p50": self.percentile(50), "p99": self.percentile(99)}
+
 
 _Metric = Union[Counter, Gauge, Histogram]
 
@@ -145,6 +157,13 @@ class MetricsRegistry:
 
     def histogram(self, name: str, **kwargs) -> Histogram:
         return self._get_or_create(name, Histogram, **kwargs)
+
+    def snapshot(self) -> dict:
+        """Every metric in one dict: counters as ints, gauges as floats,
+        histograms as ``Histogram.read()``'s aggregate."""
+        with self._lock:
+            items = sorted(self._metrics.items())
+        return {name: m.read() for name, m in items}
 
 
 _registry_lock = threading.Lock()

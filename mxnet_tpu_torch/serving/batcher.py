@@ -1,7 +1,7 @@
 """Admission queue + continuous-batching pump for the serving subsystem.
 
-Counterpart of ``mxnet_tpu/serving/batcher.py`` without causal tracing
-and without the generation request type.  The request path::
+Counterpart of ``mxnet_tpu/serving/batcher.py`` without causal tracing.
+The request path::
 
     client -> submit() -> AdmissionQueue -> [batcher thread] -> _Batch
            -> dispatch queue -> [worker threads] -> one CachedGraph call
@@ -16,6 +16,10 @@ and without the generation request type.  The request path::
   head-of-line by shape bucket, waits up to a short window for the bucket
   to fill, and hands assembled batches to a bounded dispatch queue that N
   workers drain, so the next batch forms while the current one runs.
+
+:class:`GenRequest` is the generation scheduler's request
+(``GenerationServer``): greedy tokens out, one a decode step, consumed
+whole (``result``) or as they come (``stream``, the SSE seam).
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ from typing import Callable, List, Optional, Tuple
 
 from ..base import MXNetError
 
-__all__ = ["Request", "AdmissionQueue", "Batcher", "ServingError",
-           "ServerClosed", "ServerOverloaded", "DeadlineExceeded"]
+__all__ = ["Request", "GenRequest", "AdmissionQueue", "Batcher",
+           "ServingError", "ServerClosed", "ServerOverloaded",
+           "DeadlineExceeded", "RequestCancelled"]
 
 
 class ServingError(MXNetError):
@@ -43,6 +48,12 @@ class ServerOverloaded(ServingError):
 
 class DeadlineExceeded(ServingError):
     """The request's deadline expired while it was still queued."""
+
+
+class RequestCancelled(ServingError):
+    """The client walked away (stream disconnect, explicit cancel); the
+    server dropped the request at the next iteration boundary and
+    released its resources."""
 
 
 class Request:
@@ -81,6 +92,92 @@ class Request:
         if self._error is not None:
             raise self._error
         return self._result
+
+
+class GenRequest:
+    """One in-flight generation request for the iteration-level decode
+    scheduler: prompt in, greedy token ids out, one token a decode step.
+
+    ``t_first`` is stamped when the prefill's logits yield token one (the
+    ``serving.ttft_us`` histogram), ``t_done`` when the request leaves the
+    running batch.  Tokens are published by :meth:`push_token`
+    (scheduler side) and consumed whole (:meth:`result`) or as they come
+    (:meth:`stream`).  The publisher never blocks: the token list grows
+    under a condition the consumer waits on, so a slow reader stalls only
+    its own socket, never the decode loop."""
+
+    __slots__ = ("rid", "prompt", "max_new_tokens", "deadline", "eos",
+                 "tokens", "t_enqueue", "t_prefill", "t_first", "t_done",
+                 "pos", "cancelled", "_tcond", "_event", "_error")
+
+    def __init__(self, rid: int, prompt, max_new_tokens: int,
+                 deadline: Optional[float], eos: Optional[int]):
+        self.rid = rid
+        self.prompt = prompt                # 1-D int32 numpy token ids
+        self.max_new_tokens = max_new_tokens
+        self.deadline = deadline            # monotonic seconds, None = none
+        self.eos = eos                      # stop token id, None = run to cap
+        self.tokens: List[int] = []         # generated ids (EOS included)
+        self.t_enqueue = time.monotonic()
+        self.t_prefill = 0.0
+        self.t_first = 0.0
+        self.t_done = 0.0
+        self.pos = 0            # position of the next token to decode
+        self.cancelled = False  # set by cancel(); honoured by the
+        #                         scheduler at the next iteration edge
+        self._tcond = threading.Condition()
+        self._event = threading.Event()
+        self._error: Optional[BaseException] = None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def push_token(self, tok: int) -> None:
+        """Scheduler side: publish one generated token and wake any stream
+        consumer."""
+        with self._tcond:
+            self.tokens.append(tok)
+            self._tcond.notify_all()
+
+    def _wake_stream(self) -> None:
+        """Completion side: wake stream consumers blocked past the last
+        token (called after the done event is set)."""
+        with self._tcond:
+            self._tcond.notify_all()
+
+    def stream(self, timeout: Optional[float] = None):
+        """Yield token ids as the scheduler emits them, ending when the
+        generation finishes.  ``timeout`` bounds each wait for the next
+        token, not the whole generation.  The request's error (deadline,
+        shed, cancel) is raised after every token already emitted has
+        been yielded."""
+        i = 0
+        while True:
+            with self._tcond:
+                while i >= len(self.tokens) and not self._event.is_set():
+                    if not self._tcond.wait(timeout):
+                        raise TimeoutError(
+                            f"generation {self.rid}: no token within "
+                            f"{timeout}s")
+                fresh = self.tokens[i:]
+                finished = self._event.is_set()
+            for tok in fresh:
+                i += 1
+                yield tok
+            if finished and i >= len(self.tokens):
+                if self._error is not None:
+                    raise self._error
+                return
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        """Block until generation finishes; returns the generated token
+        ids (EOS included when hit) or raises the request's error."""
+        if not self._event.wait(timeout):
+            raise TimeoutError(
+                f"generation {self.rid} not completed within {timeout}s")
+        if self._error is not None:
+            raise self._error
+        return self.tokens
 
 
 class AdmissionQueue:

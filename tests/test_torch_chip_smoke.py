@@ -879,3 +879,125 @@ def test_host_reading_rcnn_rehearses_on_the_cpu(monkeypatch):
     assert out["ok"], out["checks"]
     assert out["warnings"] == 1 and out["eager_calls"] == 2
     assert out["first_loss_bitwise_eager"]
+
+
+# -- phase 15: generation serving --------------------------------------------
+
+def _small_generation(monkeypatch):
+    """Phase 15 at toy sizes on the CPU: (b)'s model 2 layers 64 wide,
+    12 requests a cell, BERT-base replaced by a small BERT."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_small
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    monkeypatch.setattr(chip_smoke, "GEN_SMALL_REQUESTS", 12)
+    monkeypatch.setattr(chip_smoke, "GEN_BASE_REQUESTS", 12)
+    monkeypatch.setattr(chip_smoke, "GEN_BASE_MODEL", dict(
+        chip_smoke.GEN_BASE_MODEL, num_layers=2, units=64, hidden_size=128,
+        num_heads=4))
+    monkeypatch.setattr(chip_smoke, "GEN_BASE", dict(
+        chip_smoke.GEN_BASE, slots=4, kv_blocks=64,
+        prompt_buckets=(16, 32), max_new_tokens=16))
+    monkeypatch.setattr(chip_smoke, "GEN_BASE_PROMPT", (4, 32))
+    monkeypatch.setattr(chip_smoke, "GEN_BASE_NEW", (2, 16))
+    monkeypatch.setattr(chip_smoke, "LAYERS", 2)
+    monkeypatch.setattr(chip_smoke, "bert_base", lambda **kw: bert_small(
+        vocab_size=chip_smoke.VOCAB, **kw))
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+
+
+def test_generation_phase_rehearses_on_the_cpu(monkeypatch):
+    """Every check of phase 15 but the captured graphs' and BERT-base's
+    flash launches (none on the CPU) passes at toy sizes: batched equals
+    alone, tokens and logits, in both prefill modes; no block left; the
+    pool in place; teacher forcing; the front door's SSE, disconnect,
+    predict and GET checks; and no kernel launched."""
+    _small_generation(monkeypatch)
+    out = chip_smoke.generation_phase(0, "cpu")
+    assert out["checks"] == {"no_kernel_launches": True}
+    assert all(out["small"]["checks"].values()), out["small"]["checks"]
+    assert all(out["base"]["checks"].values()), out["base"]["checks"]
+    front = dict(out["frontdoor"]["checks"])
+    assert not front.pop("bert_flash_launches")   # no kernel on the CPU
+    assert all(front.values()), front
+    runs = out["small"]["runs"]
+    assert set(runs) == {"interleave", "step", "recorded", "alone"}
+    assert all(r["tokens_generated"] == 12 * 48 for r in runs.values())
+    assert out["small"]["teacher_forcing"]["steps"] == 12 * 48
+    assert out["base"]["teacher_forcing"]["requests"] == 2
+    assert out["base"]["runs"]["alone"]["requests"] == 8
+
+
+@pytest.fixture(scope="module")
+def gen_runs():
+    """A recorded batched run and an alone run of 6 requests through
+    ``causal_lm_small`` on the CPU, and the alone run teacher forced."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import causal_lm_small
+    net = causal_lm_small()
+    net.initialize(ctx=cpu(), seed=0)
+    prompts, caps = chip_smoke.gen_requests(3, 6, (4, 15), (2, 12))
+    kw = dict(chip_smoke.GEN_SMALL, max_new_tokens=12)
+    every = range(6)
+    runs = {"recorded": chip_smoke.gen_serve(net, prompts, caps, kw,
+                                             "step", track=every),
+            "alone": chip_smoke.gen_serve(net, prompts, caps,
+                                          {**kw, "slots": 1}, "interleave",
+                                          track=every, keep=every)}
+    forced = chip_smoke.teacher_forced(net, prompts, runs["alone"]["tokens"],
+                                       runs["alone"]["rows"], 1e-4)
+    return runs, forced
+
+
+def _faulted(gen_runs, fault):
+    import copy
+    runs, forced = copy.deepcopy(gen_runs)
+    rec = runs["recorded"]
+    if fault == "flipped_token":
+        rec["tokens"][3][-1] ^= 1
+    elif fault == "flipped_logit":
+        rec["digests"][2][-1] = "0" * 40
+    elif fault == "leaked_block":
+        rec["stats"]["kv_blocks_used"] = 1
+    elif fault == "copied_pool":
+        rec["pool_moved"] = True
+    elif fault == "pool_copied_out":
+        rec["graphs"]["decode"] = {16: {"graphs": [
+            {"copy_bytes": 16 * 257 * 4 + 4 * 128 * 16 * 64 * 4}]}}
+    elif fault == "teacher_forcing":
+        forced = dict(forced, ok=False)
+    return chip_smoke.gen_checks(runs, forced, 16 * 257 * 4, False)
+
+
+@pytest.mark.parametrize("fault,check", [
+    ("flipped_token", "batched_equals_alone_tokens"),
+    ("flipped_logit", "batched_equals_alone_logits"),
+    ("leaked_block", "no_block_leaked"),
+    ("copied_pool", "pool_in_place"),
+    ("pool_copied_out", "pool_in_place"),
+    ("teacher_forcing", "teacher_forcing")])
+def test_generation_checks_fail_on_an_injected_fault(gen_runs, fault,
+                                                      check):
+    """Phase 15's checks pass the CPU runs and fail exactly the check a
+    fault is for: a flipped token, a logits row that differs from alone,
+    a block left allocated, a pool that moved or was copied out by a
+    decode replay, a teacher-forcing miss."""
+    assert all(chip_smoke.gen_checks(*gen_runs, 16 * 257 * 4,
+                                     False).values())
+    out = _faulted(gen_runs, fault)
+    assert [k for k, v in out.items() if not v] == [check]
+
+
+def test_teacher_forcing_flags_a_drifted_row(gen_runs):
+    """A card row 1e-3 off the CPU's fails the teacher forcing (whose
+    tolerance is 1e-4); the rows as recorded pass it."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import causal_lm_small
+    runs, forced = gen_runs
+    assert forced["ok"] and forced["logits_max_abs_err"] < 1e-5
+    net = causal_lm_small()
+    net.initialize(ctx=cpu(), seed=0)
+    rows = {r: [x.copy() for x in v]
+            for r, v in runs["alone"]["rows"].items()}
+    rows[1][2] = rows[1][2] + 1e-3
+    prompts, _ = chip_smoke.gen_requests(3, 6, (4, 15), (2, 12))
+    out = chip_smoke.teacher_forced(net, prompts, runs["alone"]["tokens"],
+                                    rows, 1e-4)
+    assert not out["ok"] and out["logits_max_abs_err"] > 9e-4

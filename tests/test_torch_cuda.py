@@ -1552,3 +1552,226 @@ def test_capture_failure_raises(card):
         assert not torch.equal(outs[i], outs[i - 1])
     Reads.reads_host = True
     assert torch.equal(net(x), x * 4.0) and net.eager_calls == 1
+
+
+# -- generation serving: prefill and decode graphs over one KV pool -------
+
+def _lm(card, seed=0, **kw):
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import CausalLM
+    kw = {"vocab_size": 257, "num_layers": 2, "units": 64,
+          "hidden_size": 128, "num_heads": 4, **kw}
+    net = CausalLM(**kw)
+    net.initialize(ctx=card, seed=seed)
+    return net
+
+
+def _filled_pool(net, n_blocks, block, seed):
+    """A pool of finite random K/V, as a served pool looks mid-run."""
+    g = torch.Generator().manual_seed(seed)
+    pool = net.init_kv_pool(n_blocks, block)
+    pool.copy_(torch.randn(pool.shape, generator=g))
+    return pool
+
+
+def _decode_state(rows, occupied, width, n_blocks, block, seed):
+    """tokens, positions, tables (int32, host) of a decode step with the
+    first ``occupied`` rows live (distinct blocks each) and the rest
+    empty, pointing at scratch."""
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros(rows, np.int32)
+    positions = np.zeros(rows, np.int32)
+    tables = np.zeros((rows, width), np.int32)
+    free = list(rng.permutation(np.arange(1, n_blocks)))
+    for i in range(occupied):
+        pos = int(rng.integers(0, width * block))
+        tokens[i] = rng.integers(1, 257)
+        positions[i] = pos
+        for j in range(pos // block + 1):
+            tables[i, j] = free.pop()
+    return tokens, positions, tables
+
+
+def test_decode_replay_is_its_eager_step_bitwise(card):
+    """A decode graph's replay gives the eager ``hybrid_decode``'s logits
+    and pool bit for bit (every block but scratch, which the warm call
+    wrote), on a pool of random K/V with 5 of 16 rows live."""
+    net = _lm(card)
+    pool_e = _filled_pool(net, 64, 16, 1)
+    pool_g = pool_e.clone()
+    host = _decode_state(16, 5, 6, 64, 16, 2)
+    zeros = [np.zeros_like(a) for a in host]
+    graph = net.cached_graph(*zeros, pool_g, entry="decode")
+    with torch.inference_mode():
+        want, _ = net.hybrid_decode(
+            *[torch.as_tensor(a, device=card) for a in host], pool_e)
+    got, pool = graph.raw(*host, pool_g)
+    assert pool is pool_g
+    assert _bitwise(got, want)
+    assert _bitwise(pool_g[:, 1:], pool_e[:, 1:])
+    st = graph.stats()
+    assert [g["replays"] for g in st["graphs"]] == [1]
+    assert st["warm_calls"] == 1
+    assert net.graph_stats()["entries"] == 0       # the handle owns it
+
+
+def test_generation_graphs_carry_one_pool_in_place(card):
+    """A prefill and a decode graph over one pool: the pool is captured as
+    it is (its address never changes, each raw returns it), a replay
+    copies out the logits alone, and another pool in its place raises."""
+    net = _lm(card)
+    pool = net.init_kv_pool(16, 16)
+    ptr = pool.data_ptr()
+    pre = net.cached_graph(np.zeros((1, 16), np.int32),
+                           np.zeros((1,), np.int32),
+                           np.zeros((1, 1), np.int32), pool, entry="prefill")
+    dec = net.cached_graph(np.zeros((4,), np.int32), np.zeros((4,), np.int32),
+                           np.zeros((4, 2), np.int32), pool, entry="decode")
+    toks = np.zeros((1, 16), np.int32)
+    toks[0, :5] = [3, 1, 4, 1, 5]
+    logits, out = pre.raw(toks, np.array([5], np.int32),
+                          np.array([[7]], np.int32), pool)
+    assert out is pool and logits.shape == (1, 257)
+    assert bool(pool[:, 7, :5].abs().sum() > 0)      # the prompt's K/V
+    for _ in range(3):
+        logits, out = dec.raw(np.array([9, 0, 0, 0], np.int32),
+                              np.array([5, 0, 0, 0], np.int32),
+                              np.array([[7, 0]] + [[0, 0]] * 3, np.int32),
+                              pool)
+        assert out is pool and pool.data_ptr() == ptr
+    st = [g for h in (pre, dec) for g in h.stats()["graphs"]]
+    assert [g["replays"] for g in st] == [1, 3]
+    assert [g["copy_bytes"] for g in st] == [257 * 4, 4 * 257 * 4]
+    with pytest.raises(MXNetError, match="carried in place"):
+        dec.raw(np.zeros(4, np.int32), np.zeros(4, np.int32),
+                np.zeros((4, 2), np.int32), pool.clone())
+
+
+def test_decode_row_is_bitwise_at_every_slot_count(card):
+    """Row 0's logits at decode_rows(n) rows with n = 1, 3, 4 and 16 rows
+    live (the others hold other requests' state) are bit for bit the same:
+    the decode step's GEMMs keep their shapes and every op is
+    row-independent."""
+    from mxnet_tpu_torch.serving.server import decode_rows
+    net = _lm(card, units=128, num_heads=2, hidden_size=256)
+    rows = {decode_rows(n) for n in (1, 3, 4, 16)}
+    assert rows == {16}
+    base = _filled_pool(net, 96, 16, 3)
+    first = _decode_state(16, 1, 5, 96, 16, 4)
+    outs = []
+    for n in (1, 3, 4, 16):
+        pool = base.clone()
+        tokens, positions, tables = _decode_state(16, n, 5, 96, 16, 5)
+        # row 0 is the same request in every run; its blocks are its own
+        # (the other rows' blocks are drawn apart from them)
+        others = set(first[2][0][first[2][0] > 0].tolist())
+        tables[np.isin(tables, list(others))] = 0
+        tokens[0], positions[0], tables[0] = (first[0][0], first[1][0],
+                                              first[2][0])
+        graph = net.cached_graph(*[np.zeros_like(a) for a in
+                                   (tokens, positions, tables)], pool,
+                                 entry="decode")
+        logits, _ = graph.raw(tokens, positions, tables, pool)
+        outs.append(logits[0].clone())
+    for o in outs[1:]:
+        assert _bitwise(o, outs[0])
+
+
+def test_generation_server_batched_equals_alone_on_card(card, monkeypatch):
+    """``GenerationServer`` on the card: 12 requests at 4 slots (turnover,
+    both prefill modes) give the tokens each gets alone at 1 slot, bit for
+    bit; every KV block returns; the pool never moves."""
+    from mxnet_tpu_torch.serving import GenerationServer
+    net = _lm(card)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 250, int(rng.integers(4, 16)))
+               for _ in range(12)]
+    caps = [int(c) for c in rng.integers(2, 24, 12)]
+
+    def serve(slots, mode):
+        monkeypatch.setenv("MXTPU_SERVING_PREFILL_MODE", mode)
+        srv = GenerationServer(net, slots=slots, kv_block=16, kv_blocks=64,
+                               max_new_tokens=24, prompt_buckets=(16,),
+                               deadline_ms=0)
+        ptr = srv.pool.data_ptr()
+        with srv:
+            srv.warmup()
+            reqs = [srv.submit_generate(p, max_new_tokens=c)
+                    for p, c in zip(prompts, caps)]
+            out = [r.result(timeout=120) for r in reqs]
+        assert srv.stats()["kv_blocks_used"] == 0
+        assert srv.pool.data_ptr() == ptr
+        return out
+
+    alone = serve(1, "interleave")
+    assert serve(4, "interleave") == alone
+    assert serve(4, "step") == alone
+    assert [len(t) for t in alone] == caps
+
+
+def test_generation_server_past_one_decode_graph_on_card(card, monkeypatch):
+    """At 17 slots, 20 requests queued at once in step mode: a decode step
+    replays the one 16-row decode graph twice, no other decode graph is
+    captured, and each request's tokens are bit for bit those it gets
+    alone."""
+    from mxnet_tpu_torch.serving import GenerationServer
+    monkeypatch.setenv("MXTPU_SERVING_PREFILL_MODE", "step")
+    net = _lm(card)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, 250, int(rng.integers(4, 16)))
+               for _ in range(20)]
+    caps = [int(c) for c in rng.integers(2, 24, 20)]
+
+    def serve(slots):
+        srv = GenerationServer(net, slots=slots, kv_block=16, kv_blocks=64,
+                               max_new_tokens=24, prompt_buckets=(16,),
+                               deadline_ms=0)
+        reqs = [srv.submit_generate(p, max_new_tokens=c)
+                for p, c in zip(prompts, caps)]
+        steps = srv.stats()["decode_steps"]
+        srv.warmup()
+        with srv:
+            out = [r.result(timeout=120) for r in reqs]
+            steps = srv.stats()["decode_steps"] - steps
+            st = srv.graph_stats()["decode"]
+        assert srv.stats()["kv_blocks_used"] == 0
+        return out, steps, st
+
+    alone, _, _ = serve(1)
+    batched, steps, st = serve(17)
+    assert batched == alone
+    assert list(st) == [16] and len(st[16]["graphs"]) == 1
+    assert st[16]["graphs"][0]["replays"] > steps
+
+
+def test_generation_server_unload_frees_its_card_memory(card):
+    """``ModelRegistry.unload`` then ``load`` (the reload path of a
+    generation model) leaves nothing behind: once the caller drops the
+    unloaded server, its pool and every graph's memory are freed, the
+    block's cache never held a generation graph, and the card holds after
+    two more reloads what it held after the first (which also made the
+    process's one-time cuBLAS workspaces)."""
+    import gc
+    import weakref
+    from mxnet_tpu_torch.serving import GenerationServer, ModelRegistry
+    net = _lm(card)
+    reg = ModelRegistry()
+
+    def cycle():
+        srv = GenerationServer(net, slots=4, kv_block=16, kv_blocks=64,
+                               max_new_tokens=24, prompt_buckets=(16, 32),
+                               deadline_ms=0)
+        reg.load("lm", srv, warm=True)
+        assert srv.stats()["executables"] == 3
+        assert len(srv.generate(np.arange(1, 9), timeout=120)) == 24
+        pool = weakref.ref(srv.pool)
+        reg.unload("lm")
+        assert srv.stats()["executables"] == 0
+        del srv
+        gc.collect()
+        torch.cuda.synchronize(card)
+        assert pool() is None
+        return torch.cuda.memory_allocated(card)
+
+    base = cycle()
+    assert [cycle(), cycle()] == [base, base]
+    assert net.graph_stats()["entries"] == 0

@@ -203,6 +203,11 @@ def test_port_imports_without_jax():
             "import mxnet_tpu_torch.ndarray.utils\n"
             "import mxnet_tpu_torch.context, mxnet_tpu_torch.engine\n"
             "import mxnet_tpu_torch.random, mxnet_tpu_torch.autograd\n"
+            "import mxnet_tpu_torch.serving.kv_cache\n"
+            "import mxnet_tpu_torch.serving.registry\n"
+            "import mxnet_tpu_torch.serving.frontend\n"
+            "import mxnet_tpu_torch.serving.server\n"
+            "import mxnet_tpu_torch.gluon.cached_op\n"
             "import chip_smoke\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))"
             " for m in sys.modules if sys.modules[m] is not None)\n")
