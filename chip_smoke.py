@@ -8,8 +8,8 @@ kernel's launch count is set to 0 just before each main path (serving,
 MLP, ResNet-50, the custom-op MLP, BERT-base training, phase 10's
 low-precision runs, phase 11's imperative MLP, phase 12's NMT
 training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
-and Mask-RCNN training, phase 14's hybridized runs, and phase 15's
-generation serving) and read just after;
+and Mask-RCNN training, phase 14's hybridized runs, phase 15's
+generation serving, and each part of phase 16) and read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -302,13 +302,48 @@ kernels not at all:
    a client that hangs up mid-stream leaves no block allocated, ``predict``
    returns what ``infer`` does bit for bit (12 flash launches a forward,
    exact), ``/healthz``, ``/readyz`` and ``/v1/models`` answer 200;
-16. prints one JSON line of kernel measurements (flash: the fp32 and, as
+16. the training surface around ``gluon.Trainer`` (fp32, TF32 off): (a)
+   ResNet-50 v1 of phase 6 (same weights and batch) on MXNet's ImageNet
+   recipe: ``sgd`` momentum 0.9, lr 0.05 (0.1 x 128 / 256), wd 1e-4 with
+   ``wd_mult`` 0 on ``collect_params(".*gamma|.*beta|.*bias")``,
+   ``MultiFactorScheduler(step=[6, 9], factor=0.1, warmup_steps=3)``, 12
+   steps: each group's rate equals a CPU copy of the schedule's and its
+   ``wds`` carry the 0 multipliers, 41 momentum launches a step; after
+   step 6 ``save_parameters`` + ``save_states`` to a temporary
+   directory, which a fresh net (another seed), Trainer and schedule
+   load: every weight, momentum and count bit for bit the saving run's;
+   steps 7-12 of both under deterministic cuDNN give equal losses and
+   weights bit for bit (the checkpoint's bytes, save and load ms); (b)
+   BERT-base of phase 9 (same weights and batch, B=8, S=256) pretrained
+   with ``lamb`` (lr 1e-4, wd 0.01, 0 on LayerNorm and biases,
+   ``PolyScheduler(max_update=13, pwr=1, warmup_steps=3)``) and
+   ``gluon.utils.clip_global_norm(grads, 1.0)``, 13 steps (3 warm, 10
+   timed): 12 flash launches a step, one host read a step (the clip's),
+   the rates the schedule's, and phase 9's check step with this update
+   (``leaf_check`` on the 158 leaves, loss within 1e-4); step ms,
+   sequences/s, device ms and host launches beside phase 9's Adam; (c)
+   every optimizer the JAX package registers (``rmsprop`` plain and
+   centered, ``sgd`` with and without momentum; ``sgd``, ``nag``,
+   ``adamw`` and ``lamb`` also with bf16 weights and
+   ``multi_precision``), 5 Trainer steps with a ``CosineScheduler`` on
+   BERT-base's FFN widths (768 x 3072 and back, biases) from gradients
+   drawn from ``--seed``, held against the CPU run of the same (every
+   fp32 weight and every state, the fp32 masters too, within 1e-5 x
+   max(1, |w|)), each bf16 weight its fp32 master rounded, SGD's kernels launched once a step (the mixed
+   path without momentum once a tensor), no other kernel, and no read
+   back in LARS, LBSGD and LAMB (``set_sync_debug_mode("error")`` around
+   their steps, no host read counted); SGLD by its noise's moments over
+   4.7 M elements (mean 0 and std 1 within 5e-3);
+17. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
    under ``nmt_train_launches``, ``nmt_translate_launches`` and
    ``nmt_shapes``; the momentum kernel's phase-13 launches and updates
-   under ``ssd_*`` and ``rcnn_*``; the SGD kernels' bf16/fp16
+   under ``ssd_*`` and ``rcnn_*``; phase 16's launches under
+   ``lamb_train_launches``, ``recipe_resume_launches`` and
+   ``optimizer_zoo_launches`` (the mixed path without momentum's under
+   ``optimizer_zoo_mixed_launches``); the SGD kernels' bf16/fp16
    entries, and the mixed path's own entry beside the unfused route's
    ``before_ms``), the card line, and last ``{"ok": true, "device":
    {...}}``.
@@ -330,6 +365,7 @@ import re
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -348,6 +384,7 @@ from mxnet_tpu_torch import rnn as mx_rnn
 from mxnet_tpu_torch import symbol as mx_sym
 from mxnet_tpu_torch import engine as mx_engine
 from mxnet_tpu_torch import init as mx_init
+from mxnet_tpu_torch import lr_scheduler as mx_lr
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu, gpu
 from mxnet_tpu_torch.contrib import amp
@@ -363,7 +400,7 @@ from mxnet_tpu_torch.initializer import Xavier
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-from mxnet_tpu_torch.ndarray import ops_contrib
+from mxnet_tpu_torch.ndarray import ops_contrib, ops_optimizer
 from mxnet_tpu_torch.kernels.multi_sgd import (multi_mp_sgd,
                                                multi_mp_sgd_mom,
                                                multi_mp_sgd_mom_plain,
@@ -2415,8 +2452,10 @@ def bert_run(net, batch, n_steps: int, timed: int = None) -> dict:
         "adam_states": len(states)}
 
 
-def bert_leaf_check(net, seed: int, keep: dict = None) -> dict:
-    """One Adam step at batch 2, sequence 128 from ``net``'s weights on
+def bert_leaf_check(net, seed: int, keep: dict = None,
+                    step=bert_check_step) -> dict:
+    """One Adam step (or ``step``'s, phase 16's LAMB) at batch 2,
+    sequence 128 from ``net``'s weights on
     the card, on the CPU in fp32 and on the CPU in float64 (the arbiter),
     held leaf by leaf (``leaf_check``, ResNet-50's bounds): the updated
     weights, and the gradients themselves (Adam's first step moves each
@@ -2427,12 +2466,12 @@ def bert_leaf_check(net, seed: int, keep: dict = None) -> dict:
     arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
     batch = bert_batch(seed + 1, *BERT_CHECK)
     card_batch = [torch.as_tensor(a, device=gpu(0)) for a in batch]
-    after = {"card": bert_check_step(net, card_batch)}
+    after = {"card": step(net, card_batch)}
     for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
         model = bert_base(dropout=0.0)
         load_reference_params(model, arrays, ctx=cpu())
-        after[name] = bert_check_step(model.to(dtype),
-                                      [torch.as_tensor(a) for a in batch])
+        after[name] = step(model.to(dtype),
+                           [torch.as_tensor(a) for a in batch])
         del model
     zeros = {k: torch.zeros_like(v) for k, v in w_init.items()}
     loss_err = (after["card"][0] - after["cpu"][0]).abs().item()
@@ -5298,6 +5337,504 @@ def generation_phase(seed: int, card: str) -> dict:
             and front["ok"]}
 
 
+# ---- phase 16: the training surface around gluon.Trainer ---------------
+# ResNet-50 on MXNet's ImageNet recipe with a checkpoint and a resume,
+# BERT-base pretrained with LAMB as GluonNLP does, and every optimizer of
+# the JAX package on BERT-base's Dense widths, each against a CPU run.
+
+SURFACE_NO_WD = ".*gamma|.*beta|.*bias"      # the recipes' wd_mult = 0
+# MXNet's ImageNet recipe at batch 128: lr 0.1 x 128 / 256
+SURFACE_RESNET_OPT = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+SURFACE_RESNET_SCHED = {"step": [6, 9], "factor": 0.1, "warmup_steps": 3,
+                        "warmup_mode": "linear"}
+SURFACE_RESNET_STEPS, SURFACE_RESUME_AT = 12, 6
+SURFACE_BERT_OPT = {"learning_rate": 1e-4, "wd": 0.01}
+SURFACE_BERT_SCHED = {"max_update": 13, "pwr": 1, "warmup_steps": 3}
+SURFACE_BERT_WARM, SURFACE_BERT_TIMED = 3, 10
+SURFACE_CLIP = 1.0
+ZOO_STEPS, ZOO_BATCH, ZOO_WD = 5, 8, 1e-4
+# a warmup step, then the cosine's first half: every rate above 0
+ZOO_SCHED = {"max_update": 2 * ZOO_STEPS, "warmup_steps": 2}
+ZOO_TOL = 1e-5                          # x max(1, |w|)
+SGLD_MOMENT_TOL, SGLD_ELEMENTS = 5e-3, 1 << 20
+# every optimizer the JAX package registers (rmsprop plain and centered,
+# sgd with and without momentum), each at a rate of its own scale
+ZOO = [("sgd", {"learning_rate": 0.1}),
+       ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+       ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+       ("adam", {"learning_rate": 1e-3}),
+       ("adagrad", {"learning_rate": 0.05}),
+       ("rmsprop", {"learning_rate": 1e-3}),
+       ("rmsprop", {"learning_rate": 1e-3, "centered": True}),
+       ("ftrl", {"learning_rate": 0.1}),
+       ("signum", {"learning_rate": 0.01, "wd_lh": 1e-4}),
+       ("adadelta", {"learning_rate": 1.0}),
+       ("adamw", {"learning_rate": 1e-3}),
+       ("lars", {"learning_rate": 0.1}),
+       ("lbsgd", {"learning_rate": 0.1, "momentum": 0.9,
+                  "warmup_strategy": "lars"}),
+       ("ftml", {"learning_rate": 0.0025}),
+       ("lamb", {"learning_rate": 1e-3}),
+       ("adamax", {"learning_rate": 2e-3}),
+       ("nadam", {"learning_rate": 1e-3}),
+       ("dcasgd", {"learning_rate": 0.1, "momentum": 0.9})]
+ZOO_MP = [("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+          ("sgd", {"learning_rate": 0.1}),
+          ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+          ("adamw", {"learning_rate": 1e-3}),
+          ("lamb", {"learning_rate": 1e-3})]
+ZOO_NO_READS = ("lars", "lbsgd", "lamb")
+# the kernel each fp32 / bf16 SGD configuration launches per step
+ZOO_KERNELS = {("sgd", False, False): (multi_sgd, 1),
+               ("sgd", True, False): (multi_sgd_mom, 1),
+               ("sgd", True, True): (multi_mp_sgd_mom, 1),
+               ("sgd", False, True): (multi_mp_sgd, 4)}
+
+
+def _flat(state) -> list:
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [t for s in state for t in _flat(s)]
+    return [state]
+
+
+def schedule_rates(cls, kw: dict, base_lr: float, counts) -> list:
+    """The rates of a fresh CPU copy of a schedule, called at ``counts``
+    in order."""
+    sched = cls(base_lr=base_lr, **kw)
+    return [sched(n) for n in counts]
+
+
+class UpdateSpy:
+    """While open, records the ``lrs`` and ``wds`` of every
+    ``multi_sgd_mom_update`` call (the Trainer's groups)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = ops_optimizer.multi_sgd_mom_update
+
+        def spy(*data, **kwargs):
+            self.calls.append((list(data[-2]), list(data[-1])))
+            return self._orig(*data, **kwargs)
+        ops_optimizer.multi_sgd_mom_update = spy
+        return self
+
+    def __exit__(self, *exc):
+        ops_optimizer.multi_sgd_mom_update = self._orig
+
+
+def resume_mismatches(net_a, tr_a, net_b, tr_b) -> list:
+    """What differs, bit for bit, between two runs: the parameters (every
+    one, BatchNorm's statistics included), each parameter's optimizer
+    state and the update counts."""
+    bad = [k for (k, a), b in zip(net_a.collect_params().items(),
+                                  net_b.collect_params().values())
+           if not torch.equal(a.data(), b.data())]
+    for i, p in enumerate(tr_a._params):
+        sa, sb = _flat(tr_a._states.get(i)), _flat(tr_b._states.get(i))
+        if len(sa) != len(sb) or not all(torch.equal(u, v)
+                                         for u, v in zip(sa, sb)):
+            bad.append(f"state {p.name}")
+    oa, ob = tr_a.optimizer, tr_b.optimizer
+    if (oa.num_update, oa._index_update_count) != \
+            (ob.num_update, ob._index_update_count):
+        bad.append("num_update")
+    return bad
+
+
+def resnet_surface_trainer(net):
+    """``sgd`` on the recipe: momentum 0.9, wd 1e-4 but 0 on BatchNorm
+    and the biases, a multi-factor schedule with a linear warmup."""
+    net.collect_params(SURFACE_NO_WD).setattr("wd_mult", 0.0)
+    sched = mx_lr.MultiFactorScheduler(
+        base_lr=SURFACE_RESNET_OPT["learning_rate"], **SURFACE_RESNET_SCHED)
+    return gluon.Trainer(net.collect_params(), "sgd",
+                         dict(SURFACE_RESNET_OPT, lr_scheduler=sched))
+
+
+def resnet_surface_run(seed: int, card: str) -> dict:
+    """(a) ResNet-50 v1 at batch 128 from phase 6's weights and batch,
+    12 steps; after step 6 a checkpoint, which a fresh net (another
+    seed), Trainer and schedule load and go on from; steps 7-12 of both
+    runs under deterministic cuDNN."""
+    dev = gpu(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(RESNET_BATCH, 3, 224, 224, device=dev, generator=gen)
+    y = torch.randint(0, 1000, (RESNET_BATCH,), device=dev,
+                      generator=gen).float()
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def make(net_seed):
+        net = resnet50_v1(classes=1000)
+        net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=net_seed)
+        return net, resnet_surface_trainer(net)
+
+    def step(net, tr):
+        with autograd.record():
+            loss = lossfn(net(x), y)
+        autograd.backward(loss)
+        tr.step(RESNET_BATCH)
+        return loss.detach().mean()
+
+    net_a, tr_a = make(seed)
+    names = [p.name for p in tr_a._params]
+    want_wd = [0.0 if re.match(SURFACE_NO_WD, n) else
+               SURFACE_RESNET_OPT["wd"] for n in names]
+    torch.cuda.synchronize()
+    zero_counts()
+    spy_a, spy_b = UpdateSpy(), UpdateSpy()
+    t0 = time.monotonic()
+    with spy_a:
+        losses_a = [step(net_a, tr_a) for _ in range(SURFACE_RESUME_AT)]
+    torch.cuda.synchronize()
+    first_wall = time.monotonic() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        params_file, states_file = (os.path.join(tmp, f) for f in
+                                    ("resnet50.params", "resnet50.states"))
+        t0 = time.monotonic()
+        net_a.save_parameters(params_file)
+        tr_a.save_states(states_file)
+        save_ms = (time.monotonic() - t0) * 1e3
+        sizes = {"params": os.path.getsize(params_file),
+                 "states": os.path.getsize(states_file)}
+        net_b, tr_b = make(seed + 1)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        net_b.load_parameters(params_file)
+        tr_b.load_states(states_file)
+        torch.cuda.synchronize()
+        load_ms = (time.monotonic() - t0) * 1e3
+    at_resume = resume_mismatches(net_a, tr_a, net_b, tr_b)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        rest = SURFACE_RESNET_STEPS - SURFACE_RESUME_AT
+        with spy_a:
+            losses_a += [step(net_a, tr_a) for _ in range(rest)]
+        with spy_b:
+            losses_b = [step(net_b, tr_b) for _ in range(rest)]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    launches = multi_sgd_mom.launches
+    other = other_launches(multi_sgd_mom)
+    at_end = resume_mismatches(net_a, tr_a, net_b, tr_b)
+    groups = -(-len(names) // AGG)
+    steps = SURFACE_RESNET_STEPS + len(losses_b)
+    rates = schedule_rates(mx_lr.MultiFactorScheduler, SURFACE_RESNET_SCHED,
+                           SURFACE_RESNET_OPT["learning_rate"],
+                           range(1, SURFACE_RESNET_STEPS + 1))
+
+    def step_rates(spy):
+        per = [spy.calls[i:i + groups] for i in range(0, len(spy.calls),
+                                                      groups)]
+        return ([sorted({lr for c in s for lr in c[0]}) for s in per],
+                [[wd for c in s for wd in c[1]] for s in per])
+    lrs_a, wds_a = step_rates(spy_a)
+    lrs_b, wds_b = step_rates(spy_b)
+    checks = {
+        "momentum_launches": launches == groups * steps and other == 0,
+        "rates_follow_the_schedule":
+            lrs_a == [[r] for r in rates]
+            and lrs_b == [[r] for r in rates[SURFACE_RESUME_AT:]],
+        "no_decay_multipliers": all(w == want_wd for w in wds_a + wds_b),
+        "resume_bitwise": not at_resume,
+        "losses_bitwise": all(torch.equal(a, b) for a, b in zip(
+            losses_a[SURFACE_RESUME_AT:], losses_b)),
+        "final_bitwise": not at_end,
+        "finite_losses": all(math.isfinite(v.item()) for v in losses_a)}
+    return {"card": card, "batch": RESNET_BATCH,
+            "steps": SURFACE_RESNET_STEPS, "resumed_at": SURFACE_RESUME_AT,
+            "launches": launches, "launches_per_step": launches / steps,
+            "expected_launches_per_step": groups,
+            "rates": rates, "no_decay_params": want_wd.count(0.0),
+            "losses": [v.item() for v in losses_a],
+            "resumed_losses": [v.item() for v in losses_b],
+            "first_steps_ms": first_wall / SURFACE_RESUME_AT * 1e3,
+            "checkpoint_bytes": sizes, "save_ms": save_ms,
+            "load_ms": load_ms, "mismatched_at_resume": at_resume[:10],
+            "mismatched_at_end": at_end[:10], "checks": checks,
+            "ok": all(checks.values())}
+
+
+def lamb_trainer(net):
+    """``lamb`` as GluonNLP pretrains BERT: wd 0.01 but 0 on LayerNorm and
+    the biases, a linear warmup and a linear (power 1) decay."""
+    net.collect_params(SURFACE_NO_WD).setattr("wd_mult", 0.0)
+    sched = mx_lr.PolyScheduler(base_lr=SURFACE_BERT_OPT["learning_rate"],
+                                **SURFACE_BERT_SCHED)
+    return gluon.Trainer(net.collect_params(), "lamb",
+                         dict(SURFACE_BERT_OPT, lr_scheduler=sched))
+
+
+def lamb_step(net, trainer, batch):
+    """``autograd.record`` -> MLM + NSP loss -> ``autograd.backward`` ->
+    ``gluon.utils.clip_global_norm`` of the gradients -> ``trainer.step``
+    (in a ``trainer_step`` profiler range); returns the loss and the
+    gradients' norm before the clip."""
+    inputs, segs, vl, labels, weights, nsp_y = batch
+    with autograd.record():
+        loss = mlm_nsp_loss(*net(inputs, segs, vl), labels, weights, nsp_y)
+    autograd.backward(loss)
+    norm = gluon.utils.clip_global_norm(
+        [p.grad() for p in trainer._params], SURFACE_CLIP)
+    with torch.profiler.record_function("trainer_step"):
+        trainer.step(1)
+    return loss.detach(), norm
+
+
+def lamb_check_step(model, batch):
+    """Phase 9's check step with phase 16's LAMB update: the loss, the
+    gradients (before the clip) and the updated weights."""
+    tr = lamb_trainer(model)
+    inputs, segs, vl, labels, weights, nsp_y = batch
+    with autograd.record():
+        loss = mlm_nsp_loss(*model(inputs, segs, vl), labels, weights, nsp_y)
+    autograd.backward(loss)
+    grads = {k: p.grad().detach().clone()
+             for k, p in model.collect_params().items()}
+    gluon.utils.clip_global_norm([p.grad() for p in tr._params],
+                                 SURFACE_CLIP)
+    tr.step(1)
+    return loss.detach().cpu().double(), grads, _snapshot(model)
+
+
+def bert_lamb_run(seed: int, card: str, adam: dict) -> dict:
+    """(b) BERT-base pretraining at B=8, S=256 from phase 9's weights and
+    batch with ``lamb``, the gradients clipped to a global norm of 1:
+    13 steps (3 warm, 10 timed), one profiled step, the check step, and
+    phase 9's Adam numbers (``adam``) beside."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = gpu(0)
+    batch = [torch.as_tensor(a, device=dev)
+             for a in bert_batch(seed, BERT_BATCH, BERT_SEQ)]
+    net = bert_base(dropout=0.0)
+    net.initialize(ctx=dev, seed=seed)
+    check = bert_leaf_check(net, seed, step=lamb_check_step)
+    trainer = lamb_trainer(net)
+    eng = mx_engine.engine()
+    n_steps = SURFACE_BERT_WARM + SURFACE_BERT_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, norms, reads, rates = [], [], [], []
+    for i in range(n_steps):
+        if i == SURFACE_BERT_WARM:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        before = eng.host_reads
+        loss, norm = lamb_step(net, trainer, batch)
+        reads.append(eng.host_reads - before)
+        losses.append(loss)
+        norms.append(norm)
+        rates.append(trainer.learning_rate)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = flash_attention.launches
+    other = other_launches(flash_attention)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        lamb_step(net, trainer, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.monotonic() - t1) * 1e3
+    breakdown = bert_step_classes(prof, prof_wall_ms, len(trainer._params))
+    breakdown["device_ms"]["lamb"] = breakdown["device_ms"].pop("adam")
+    want_rates = schedule_rates(mx_lr.PolyScheduler, SURFACE_BERT_SCHED,
+                                SURFACE_BERT_OPT["learning_rate"],
+                                range(1, n_steps + 1))
+    losses = [v.item() for v in losses]
+    timed = SURFACE_BERT_TIMED
+    checks = {
+        "leaf_check": check["ok"],
+        "flash_launches": launches == LAYERS * n_steps and other == 0,
+        "one_host_read_a_step": reads == [1] * n_steps,
+        "rates_follow_the_schedule": rates == want_rates,
+        "finite_losses": all(math.isfinite(v) for v in losses + norms)}
+    del net, trainer
+    torch.cuda.empty_cache()
+    return {
+        "card": card, "batch": BERT_BATCH, "seq": BERT_SEQ,
+        "steps": n_steps, "timed_steps": timed, "losses": losses,
+        "grad_norms": norms, "rates": rates,
+        "host_reads_per_step": reads, "flash_launches": launches,
+        "flash_launches_per_step": launches / n_steps,
+        "other_kernel_launches": other,
+        "step_ms": wall / timed * 1e3,
+        "sequences_per_s": BERT_BATCH * timed / wall,
+        "peak_memory_gb": peak_gb, "profile": breakdown,
+        "adam": {k: adam[k] for k in ("step_ms", "sequences_per_s")}
+        | {k: adam["profile"][k] for k in (
+            "device_busy_ms", "device_idle_share", "host_launches")},
+        "leaf_check": check, "checks": checks, "ok": all(checks.values())}
+
+
+ZOO_WIDTHS = (768, 3072)                 # BERT-base's units and FFN
+
+
+def zoo_net(dev, seed: int, dtype=None):
+    """Two Dense layers at BERT-base's FFN widths (768 -> 3072 -> 768,
+    with biases): 4.7 M parameters."""
+    units, hidden = ZOO_WIDTHS
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(hidden, in_units=units),
+                nn.Dense(units, in_units=hidden))
+    net.initialize(ctx=dev, seed=seed)
+    if dtype is not None:
+        net.cast(dtype)
+    return net
+
+
+def zoo_steps(net, name: str, kw: dict, grads, check_reads: bool = False):
+    """``ZOO_STEPS`` Trainer steps of ``name`` with a cosine schedule, each
+    from the gradients of ``grads`` (one list a step, on the net's
+    device); with ``check_reads`` each step runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a read back raises).
+    Returns the Trainer, the rates and each step's weights before it."""
+    sched = mx_lr.CosineScheduler(base_lr=kw["learning_rate"],
+                                  **ZOO_SCHED)
+    tr = gluon.Trainer(net.collect_params(), name,
+                       dict(kw, wd=ZOO_WD, lr_scheduler=sched))
+    rates, before = [], []
+    for step_grads in grads:
+        for p, g in zip(tr._params, step_grads):
+            p.grad().copy_(g)
+            p.fresh = False
+        before.append([p.data().detach().clone() for p in tr._params])
+        if check_reads:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            tr.step(ZOO_BATCH)
+        finally:
+            if check_reads:
+                torch.cuda.set_sync_debug_mode("default")
+        rates.append(tr.learning_rate)
+    return tr, rates, before
+
+
+def zoo_error(card_tr, cpu_tr) -> float:
+    """The largest ``|card - cpu| / max(1, |cpu|)`` over every fp32
+    weight and every state of two Trainers' runs (a bf16 weight is held
+    by its fp32 master, a state: rounding masters that differ in their
+    last bit can give weights a bf16 ulp apart)."""
+    worst = 0.0
+    for i, (p, q) in enumerate(zip(card_tr._params, cpu_tr._params)):
+        pairs = list(zip(_flat(card_tr._states.get(i)),
+                         _flat(cpu_tr._states.get(i))))
+        if p.data().dtype == torch.float32:
+            pairs.insert(0, (p.data(), q.data()))
+        for a, b in pairs:
+            a, b = a.detach().float().cpu(), b.detach().float()
+            worst = max(worst, ((a - b).abs()
+                                / b.abs().clamp(min=1.0)).max().item())
+    return worst
+
+
+def sgld_moments(before, after, grads, rates) -> list:
+    """SGLD's noise at each step, ``(w' - w + lr / 2 * (g * rescale + wd
+    * w)) / sqrt(lr)`` over every element (``before``/``after``: the
+    weights around each step): its mean and std."""
+    out = []
+    for w0s, w1s, gs, lr in zip(before, after, grads, rates):
+        noise = torch.cat([((w1 - w0 + lr / 2 * (
+            g / ZOO_BATCH + ZOO_WD * w0)) / math.sqrt(lr)).reshape(-1)
+            for w0, w1, g in zip(w0s, w1s, gs)])
+        out.append({"elements": noise.numel(),
+                    "mean": noise.mean().item(), "std": noise.std().item()})
+    return out
+
+
+def optimizer_zoo_run(seed: int, card: str) -> dict:
+    """(c) Every optimizer the JAX package registers, 5 Trainer steps with
+    a cosine schedule on the Dense stack, on the card and on the CPU from
+    the same weights and gradients: every weight and state within
+    ``ZOO_TOL`` x max(1, |w|); SGLD by its noise's moments; the
+    multi-precision runs' bf16 weights their fp32 masters rounded; the
+    SGD kernels' launches; no read back in LARS, LBSGD and LAMB."""
+    dev = gpu(0)
+    gen = torch.Generator().manual_seed(seed + 16)
+    shapes = [p.shape for p in zoo_net(cpu(), seed).collect_params()
+              .values()]
+    grads = [[torch.randn(s, generator=gen) for s in shapes]
+             for _ in range(ZOO_STEPS)]
+    # the fp32 runs' gradients and the bf16 runs', on the CPU and the card
+    cpu_grads = {False: grads, True: [[g.bfloat16() for g in step]
+                                      for step in grads]}
+    card_grads = {mp: [[g.to(dev) for g in step] for step in gs]
+                  for mp, gs in cpu_grads.items()}
+    eng = mx_engine.engine()
+    rows = []
+    for mp, configs in ((False, ZOO), (True, ZOO_MP)):
+        dtype = torch.bfloat16 if mp else None
+        for name, kw in configs:
+            kw = dict(kw, multi_precision=True) if mp else kw
+            torch.cuda.synchronize()
+            zero_counts()
+            reads = eng.host_reads
+            card_tr, rates, _ = zoo_steps(
+                zoo_net(dev, seed, dtype), name, kw, card_grads[mp],
+                name in ZOO_NO_READS)
+            torch.cuda.synchronize()
+            reads = eng.host_reads - reads
+            counts = {w.__name__: w.launches for w in COUNTED}
+            cpu_tr, cpu_rates, _ = zoo_steps(
+                zoo_net(cpu(), seed, dtype), name, kw, cpu_grads[mp])
+            err = zoo_error(card_tr, cpu_tr)
+            key = (name, kw.get("momentum", 0.0) != 0.0, mp)
+            kernel, per_step = ZOO_KERNELS.get(key, (None, 0))
+            want = {w.__name__: (per_step * ZOO_STEPS if w is kernel else 0)
+                    for w in COUNTED}
+            row = {"optimizer": name, "options": {
+                k: v for k, v in kw.items() if k != "learning_rate"},
+                "learning_rate": kw["learning_rate"],
+                "multi_precision": mp, "max_rel_err": err,
+                "launches": counts, "host_reads": reads,
+                "rates_follow_the_schedule": rates == cpu_rates,
+                "ok": err <= ZOO_TOL and counts == want
+                and rates == cpu_rates
+                and (name not in ZOO_NO_READS or reads == 0)}
+            if mp:
+                row["masters_mismatched"] = masters_mismatched(card_tr)
+                row["ok"] = row["ok"] and not row["masters_mismatched"]
+            rows.append(row)
+            del card_tr, cpu_tr
+    zero_counts()
+    sgld_tr, rates, before = zoo_steps(zoo_net(dev, seed), "sgld",
+                                       {"learning_rate": 0.01},
+                                       card_grads[False])
+    after = before[1:] + [[p.data().detach() for p in sgld_tr._params]]
+    sgld = sgld_moments(before, after, card_grads[False], rates)
+    sgld_ok = all(abs(m["mean"]) <= SGLD_MOMENT_TOL
+                  and abs(m["std"] - 1) <= SGLD_MOMENT_TOL
+                  and m["elements"] >= SGLD_ELEMENTS for m in sgld) \
+        and other_launches() == 0
+    return {"card": card, "steps": ZOO_STEPS, "parameters": sum(
+        math.prod(s) for s in shapes), "rows": rows,
+        "sgld": {"moments": sgld, "ok": sgld_ok},
+        "optimizers": sorted({r["optimizer"] for r in rows} | {"sgld"}),
+        "ok": all(r["ok"] for r in rows) and sgld_ok}
+
+
+def surface_phase(seed: int, card: str, bert: dict) -> dict:
+    """Phase 16: (a) ResNet-50's recipe with a resume, (b) BERT-base with
+    LAMB beside phase 9's Adam, (c) every optimizer; each part's counts
+    set to 0 just before it and read just after."""
+    runs = {"resnet": resnet_surface_run(seed, card)}
+    torch.cuda.empty_cache()
+    runs["bert"] = bert_lamb_run(seed, card, bert["fp32"])
+    runs["zoo"] = optimizer_zoo_run(seed, card)
+    return {**runs, "ok": all(r["ok"] for r in runs.values())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5572,6 +6109,42 @@ def main() -> int:
         {"launches": gen["generation_launches"], **gen["checks"],
          **{cell: gen[cell]["checks"] for cell in
             ("small", "base", "frontdoor")}}), flush=True)
+    surface = surface_phase(args.seed, card, bert)
+    r = surface["resnet"]
+    print(f"resnet50 recipe on {card}: {r['launches_per_step']} momentum "
+          f"launches a step ({r['expected_launches_per_step']} expected), "
+          f"rates {r['rates']}, {r['no_decay_params']} parameters without "
+          f"decay, checkpoint {json.dumps(r['checkpoint_bytes'])} bytes, "
+          f"save {r['save_ms']:.1f} ms, load {r['load_ms']:.1f} ms, checks "
+          f"{json.dumps(r['checks'])}", flush=True)
+    r = surface["bert"]
+    print(f"bert-base lamb on {card}: step {r['step_ms']:.3f} ms (adam "
+          f"{r['adam']['step_ms']:.3f}), {r['sequences_per_s']:.3f} "
+          f"sequences/s (adam {r['adam']['sequences_per_s']:.3f}), device "
+          f"busy {r['profile']['device_busy_ms']:.3f} ms (adam "
+          f"{r['adam']['device_busy_ms']:.3f}), host launches "
+          f"{r['profile']['host_launches']} (adam "
+          f"{r['adam']['host_launches']}), flash launches "
+          f"{r['flash_launches_per_step']} a step, host reads "
+          f"{r['host_reads_per_step']}, losses {r['losses'][0]:.5f} -> "
+          f"{r['losses'][-1]:.5f}", flush=True)
+    print(f"bert-base lamb leaf check on {card}:", json.dumps({
+        "loss_abs_err_vs_cpu": r["leaf_check"]["loss_abs_err_vs_cpu"]} | {
+        part: {k: r["leaf_check"][part][k] for k in
+               ("ok", "leaves", "failed", "cpu_share_median",
+                "worst_margin")}
+        for part in ("weights", "grads")}), flush=True)
+    print(f"bert-base lamb checks on {card}:", json.dumps(r["checks"]),
+          flush=True)
+    for row in surface["zoo"]["rows"]:
+        launched = {k: v for k, v in row["launches"].items() if v}
+        print(f"optimizer {row['optimizer']} "
+              f"{json.dumps(row['options'])} on {card}: max rel err "
+              f"{row['max_rel_err']:.3g}, host reads {row['host_reads']}, "
+              f"launches {json.dumps(launched)}, ok {row['ok']}",
+              flush=True)
+    print(f"optimizer sgld on {card}:", json.dumps(surface["zoo"]["sgld"]),
+          flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -5593,6 +6166,9 @@ def main() -> int:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": sgd_err[name], **timing(t),
                 "shape": f"{t['tensors']} tensors, {t['elements']} fp32"}
+
+    def zoo_launches(name):
+        return sum(r["launches"][name] for r in surface["zoo"]["rows"])
 
     times = sgd["times"]
     fp16_rows = [r for r in rows if r["dtype"] == "float16"]
@@ -5641,15 +6217,20 @@ def main() -> int:
         "nmt_shapes": {r["case"]: {key: r[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for r in rows if r["case"].startswith("nmt")},
+        "lamb_train_launches": surface["bert"]["flash_launches"],
     }, sgd_row("multi_sgd", SGD_TPU, mlp["launches"],
                times["multi_sgd_mlp"])
-        | {"bf16_launches": low["mlp_bf16"]["launches"],
+        | {"optimizer_zoo_launches": zoo_launches("multi_sgd"),
+           "optimizer_zoo_mixed_launches": zoo_launches("multi_mp_sgd"),
+           "bf16_launches": low["mlp_bf16"]["launches"],
            "bf16_max_abs_err": lp_err("sgd", "bfloat16"),
            **timing(bf16_mlp, "bf16_"),
            "fp16_max_abs_err": lp_err("sgd", "float16")},
         sgd_row("multi_sgd_mom", SGD_MOM_TPU, resnet["launches"],
                 times["multi_sgd_mom_resnet50"])
-        | {"amp_bf16_launches": low["resnet50_amp"]["launches"],
+        | {"recipe_resume_launches": surface["resnet"]["launches"],
+           "optimizer_zoo_launches": zoo_launches("multi_sgd_mom"),
+           "amp_bf16_launches": low["resnet50_amp"]["launches"],
            "imperative_launches": imp["launches"],
            **{f"{name}_launches": det[name]["train"]["launches"]
               for name in ("ssd", "rcnn")},
@@ -5672,6 +6253,7 @@ def main() -> int:
          **timing(mixed),
          "shape": f"{mixed['tensors']} tensors, {mixed['elements']} bf16 "
                   f"weights with fp32 masters and momenta",
+         "optimizer_zoo_launches": zoo_launches("multi_mp_sgd_mom"),
          "before_ms": times["unfused_mixed_resnet50"]["ms"],
          "before_launches_per_update":
              times["unfused_mixed_resnet50"]["launches_per_update"]}]
@@ -5703,7 +6285,7 @@ def main() -> int:
          "low_precision": low, "imperative_mlp": imp,
          "nmt": nmt, "lstm_bucketing": lm, "nmt_flash_backward":
              nmt_backward, "detection": det, "graphs": graph,
-         "generation": gen,
+         "generation": gen, "training_surface": surface,
          "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
@@ -5713,7 +6295,7 @@ def main() -> int:
         ("low precision", low), ("imperative mlp", imp), ("nmt", nmt),
         ("lstm bucketing", lm), ("nmt flash backward", nmt_backward),
         ("detection", det), ("hybridized graphs", graph),
-        ("generation serving", gen))
+        ("generation serving", gen), ("training surface", surface))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

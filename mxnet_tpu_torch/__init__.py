@@ -26,12 +26,18 @@ both ways: the Transformer NMT trains through ``gluon.Trainer`` and
 and the Symbol API (``mx.sym``, ``Executor``) drives ``mx.mod.Module`` /
 ``BucketingModule.fit`` over ``mx.rnn`` cells and ``BucketSentenceIter``
 with the metrics, callbacks, checkpoints and the one-process kvstore.
+The training surface around ``gluon.Trainer`` is MXNet's: every optimizer
+of the JAX package with its update ops, ``mx.lr_scheduler``,
+``Block.save_parameters``/``load_parameters`` and
+``Trainer.save_states``/``load_states`` in files either package loads,
+the metrics, initializers and ``gluon.utils``.
 Entry points run on ``gpu(0)`` unless the caller passes ``ctx=cpu()`` or
 opens a ``with mx.cpu():`` scope.
 """
 from . import autograd, base, callback, context, contrib, engine, gluon, \
-    initializer, io, kernels, kvstore, metric, model, module, ndarray, \
-    observability, operator, optimizer, random, rnn, rtc, serving, symbol
+    initializer, io, kernels, kvstore, lr_scheduler, metric, model, module, \
+    ndarray, observability, operator, optimizer, random, rnn, rtc, serving, \
+    symbol
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .convert import load_reference_params
@@ -44,7 +50,7 @@ mod = module
 __all__ = ["Context", "MXNetError", "autograd", "base", "callback",
            "context", "contrib", "cpu", "current_context", "engine", "gpu",
            "gluon", "init", "initializer", "io", "kernels", "kvstore",
-           "load_reference_params", "metric", "mod", "model", "module",
-           "nd", "ndarray", "num_gpus", "observability", "operator",
-           "optimizer", "random", "rnn", "rtc", "serving", "sym",
+           "load_reference_params", "lr_scheduler", "metric", "mod",
+           "model", "module", "nd", "ndarray", "num_gpus", "observability",
+           "operator", "optimizer", "random", "rnn", "rtc", "serving", "sym",
            "symbol"]

@@ -1,9 +1,9 @@
-"""Gluon: Blocks, Parameters, layers, losses, the Trainer and the model
-zoo."""
-from . import loss, model_zoo, nn
+"""Gluon: Blocks, Parameters, layers, losses, the Trainer, the model
+zoo and ``utils``."""
+from . import loss, model_zoo, nn, utils
 from .block import Block, CachedGraph, HybridBlock
-from .parameter import Parameter, ParameterDict
+from .parameter import Constant, Parameter, ParameterDict
 from .trainer import Trainer
 
-__all__ = ["Block", "CachedGraph", "HybridBlock", "Parameter",
-           "ParameterDict", "Trainer", "loss", "model_zoo", "nn"]
+__all__ = ["Block", "CachedGraph", "Constant", "HybridBlock", "Parameter",
+           "ParameterDict", "Trainer", "loss", "model_zoo", "nn", "utils"]

@@ -63,6 +63,14 @@ graph per prompt bucket, one decode graph), its device inputs and the
 state it returns (the KV pool) carried in place (``gluon/cached_op.py``).
 Such a graph holds the caller's state, so the handle owns it: it stays
 out of the LRU, and dropping the handle frees it.
+
+``collect_params(select)`` keeps the parameters whose name the regular
+expression matches from its start, as the reference's ``re.match``.
+``save_parameters``/``load_parameters`` (``mxnet_tpu/gluon/block.py:
+174-200``) name each parameter by its attribute path (``0.weight``) in
+``nd.save``'s format, so a file of either package loads in the other;
+``load_parameters`` falls back to fully prefixed names and raises the
+reference's errors on a missing or an unknown name.
 """
 from __future__ import annotations
 
@@ -97,6 +105,10 @@ def _gen_prefix(hint: str) -> str:
         idx = _naming_counters.get(hint, 0)
         _naming_counters[hint] = idx + 1
     return f"{hint}{idx}_"
+
+
+def _strip(name: str, prefix: str) -> str:
+    return name[len(prefix):] if name.startswith(prefix) else name
 
 
 def _camel_to_snake(name: str) -> str:
@@ -214,15 +226,88 @@ class Block(nn.Module):
                        name: Optional[str] = None) -> None:
         self.add_module(name or str(len(self._modules)), block)
 
-    def collect_params(self) -> ParameterDict:
-        """This block's parameters and its children's, by full name."""
+    def collect_params(self, select: Optional[str] = None) -> ParameterDict:
+        """This block's parameters and its children's, by full name; with
+        ``select``, those whose name the regular expression matches from
+        its start (``".*gamma|.*beta|.*bias"``)."""
         ret = ParameterDict(self._params.prefix)
-        ret.update(self._params)
+        if select is None:
+            ret.update(self._params)
+        else:
+            pat = re.compile(select)
+            for name, p in self._params.items():
+                if pat.match(name):
+                    ret._params[name] = p
         for child in self._modules.values():
             if isinstance(child, Block):
-                for k, v in child.collect_params().items():
+                for k, v in child.collect_params(select).items():
                     ret._params[k] = v
         return ret
+
+    def _collect_params_with_prefix(self, prefix: str = "") \
+            -> Dict[str, Parameter]:
+        """Parameters by attribute path (``0.weight``, ``features.3.
+        running_mean``): ``save_parameters``' names, which do not depend
+        on the process's name counters."""
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: p for key, p in self._reg_params.items()}
+        for name, child in self._modules.items():
+            if isinstance(child, Block):
+                ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename: str,
+                        deduplicate: bool = False) -> None:
+        """``nd.save`` of every parameter by its attribute path (MXNet's
+        ``Block.save_parameters``); with ``deduplicate`` a parameter
+        shared by several blocks is written once, under its first
+        path."""
+        from ..ndarray import utils as nd_utils
+        params = self._collect_params_with_prefix()
+        if deduplicate:
+            seen = set()
+            params = {k: p for k, p in params.items()
+                      if id(p) not in seen and not seen.add(id(p))}
+        nd_utils.save(filename, {name: p.data().detach()
+                                 for name, p in params.items()})
+
+    def load_parameters(self, filename: str, ctx: DeviceLike = None,
+                        allow_missing: bool = False,
+                        ignore_extra: bool = False, cast_dtype: bool = False,
+                        dtype_source: str = "current") -> None:
+        """Set the parameters from a ``save_parameters`` file of either
+        package (a file of fully prefixed names, as ``ParameterDict.save``
+        writes, is matched by name less this block's prefix).  Each value
+        goes in through ``Parameter.set_data``, in the parameter's dtype
+        (``cast_dtype`` with ``dtype_source="saved"`` casts the parameter
+        to the file's dtype first), onto ``ctx`` if given; a hybridized
+        block's graphs then capture again."""
+        from ..ndarray import utils as nd_utils
+        loaded = nd_utils.load(filename, ctx="cpu")
+        params = self._collect_params_with_prefix()
+        if loaded and params and not any(k in params for k in loaded):
+            full = self.collect_params()
+            loaded = {_strip(k, self.prefix): v for k, v in loaded.items()}
+            params = {_strip(k, self.prefix): p for k, p in full.items()}
+        for name, arr in loaded.items():
+            if name not in params:
+                if ignore_extra:
+                    continue
+                raise MXNetError(f"{filename} contains unknown parameter "
+                                 f"{name!r}")
+            p = params[name]
+            if cast_dtype and dtype_source == "saved":
+                p.cast(arr.dtype)
+            p.set_data(arr._data, ctx)
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise MXNetError(f"parameter {name!r} missing from "
+                                     f"{filename}")
+
+    save_params = save_parameters
+    load_params = load_parameters
 
     def initialize(self, init=None, ctx: DeviceLike = None,
                    force_reinit: bool = False, seed: int = 0) -> None:

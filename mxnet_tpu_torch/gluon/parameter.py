@@ -58,6 +58,14 @@ graph reads its parameters at the addresses they had at capture time, so
 it records the epochs it was captured at and is dropped when one moves on
 (``gluon/block.py``); in-place updates (``Trainer.step``, BatchNorm's
 running statistics) keep the storage and the epoch.
+
+``Constant`` (``mxnet_tpu/gluon/parameter.py:218``) holds a value and
+takes no gradient.  ``ParameterDict`` has the reference's
+``zero_grad``, ``reset_ctx``, ``setattr`` (``.setattr("wd_mult", 0.0)``
+on a ``collect_params(select)``), and ``save(strip_prefix=)``/
+``load(allow_missing=, ignore_extra=, restore_prefix=)`` by full name in
+``nd.save``'s format (:317-352), so a file of either package loads in
+the other; a loaded value goes in through ``set_data``.
 """
 from __future__ import annotations
 
@@ -72,7 +80,8 @@ from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
 from ..context import DeviceLike, as_device
 
-__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError"]
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError"]
 
 _GRAD_REQS = ("write", "add", "null")
 _epoch_lock = threading.Lock()
@@ -314,9 +323,43 @@ class Parameter:
         self._deferred = None
         self._set(src.detach().to(device=dev, dtype=self.dtype, copy=True))
 
+    def reset_ctx(self, ctx: DeviceLike) -> None:
+        """Move the data to ``ctx`` (MXNet's ``reset_ctx`` on one
+        device); a deferred parameter goes there when its shape is
+        known."""
+        if self._deferred is not None:
+            init, _, generator = self._deferred
+            self._deferred = (init, as_device(ctx), generator)
+            return
+        if not self._initialized:
+            raise MXNetError(f"Parameter {self.name!r} has not been "
+                             f"initialized; call .initialize()")
+        self._set(self._data.detach().to(as_device(ctx), copy=True))
+
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
                 f"dtype={self.dtype})")
+
+
+class _ConstantInit(init_mod.Initializer):
+    def __init__(self, value: np.ndarray):
+        self.value = value
+
+    def init_weight(self, name, arr, generator):
+        arr.copy_(_from_numpy(self.value))
+
+
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient (MXNet's
+    ``gluon.Constant``); a value that is not a numpy array becomes a
+    float32 one."""
+
+    def __init__(self, name: str, value):
+        if not isinstance(value, np.ndarray):
+            value = np.asarray(value, dtype=np.float32)
+        self.value = value
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_ConstantInit(value))
 
 
 def _from_numpy(arr: np.ndarray) -> torch.Tensor:
@@ -379,6 +422,53 @@ class ParameterDict:
             if k in self._params and self._params[k] is not v:
                 raise MXNetError(f"duplicate parameter name {k!r}")
             self._params[k] = v
+
+    def zero_grad(self) -> None:
+        for p in self._params.values():
+            p.zero_grad()
+
+    def reset_ctx(self, ctx: DeviceLike) -> None:
+        for p in self._params.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name: str, value) -> None:
+        """Set attribute ``name`` (``lr_mult``, ``wd_mult``,
+        ``grad_req``) of every parameter to ``value``."""
+        for p in self._params.values():
+            setattr(p, name, value)
+
+    def save(self, fname: str, strip_prefix: str = "") -> None:
+        """``nd.save`` of every parameter's data by its name, less
+        ``strip_prefix`` where the name starts with it."""
+        from ..ndarray import utils as nd_utils
+        arrays = {}
+        for name, p in self._params.items():
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            arrays[name] = p.data().detach()
+        nd_utils.save(fname, arrays)
+
+    def load(self, fname: str, ctx: DeviceLike = None,
+             allow_missing: bool = False, ignore_extra: bool = False,
+             restore_prefix: str = "") -> None:
+        """Set the parameters from an ``nd.save`` file (names prefixed
+        with ``restore_prefix``), onto ``ctx`` if given; a parameter
+        missing from the file raises unless ``allow_missing``, a name
+        the dict lacks unless ``ignore_extra``."""
+        from ..ndarray import utils as nd_utils
+        loaded = nd_utils.load(fname, ctx="cpu")
+        loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self._params:
+                if name not in loaded:
+                    raise MXNetError(f"parameter {name!r} missing from "
+                                     f"{fname}")
+        for name, val in loaded.items():
+            if name not in self._params:
+                if ignore_extra:
+                    continue
+                raise MXNetError(f"{fname} has unknown parameter {name!r}")
+            self._params[name].set_data(val._data, ctx)
 
     def initialize(self, init=None, ctx: DeviceLike = None,
                    generator: Optional[torch.Generator] = None,

@@ -4,7 +4,9 @@ Counterpart of ``mxnet_tpu/kvstore.py`` for one process: ``init`` keeps
 a copy of each key's value, ``push`` sums the values pushed for a key
 (the replicas of a gradient) and either stores the sum or, with an
 optimizer set (``set_optimizer``), applies the update to the stored
-value; ``pull`` copies the stored value out; ``pushpull`` is both.
+value; ``pull`` copies the stored value out; ``pushpull`` is both;
+``save_optimizer_states``/``load_optimizer_states`` keep the updater's
+states in a file (``gluon.Trainer`` with ``update_on_kvstore``).
 ``local`` and ``device`` are the same store here (one device).  The
 distributed stores (``dist_*``) and ``nccl`` raise: they belong to the
 multi-card slice of the port.
@@ -83,6 +85,24 @@ class KVStore:
     def set_optimizer(self, optimizer) -> None:
         from .optimizer import get_updater
         self._updater = get_updater(optimizer)
+
+    def save_optimizer_states(self, fname: str,
+                              dump_optimizer: bool = False) -> None:
+        """Write the updater's states (``Updater.get_states``)."""
+        if self._updater is None:
+            raise MXNetError("no optimizer set on kvstore")
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer))
+
+    def load_optimizer_states(self, fname: str) -> None:
+        """Read :meth:`save_optimizer_states`' file, the states onto the
+        device of the stored values."""
+        if self._updater is None:
+            raise MXNetError("no optimizer set on kvstore")
+        held = next(iter(self._store.values()), None)
+        with open(fname, "rb") as f:
+            self._updater.set_states(
+                f.read(), None if held is None else held._data.device)
 
 
 def create(name: str = "local") -> KVStore:

@@ -7,7 +7,8 @@ or tensors (and returns tensors), see ``register.py``.  The fluent
 methods (``x.sum(axis)``, ``x.exp()``, ``x.transpose()``, ...) delegate
 to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
 ``_attach_fluent`` :71).  Hand-written frontends: the optimizer updates
-(``ops_optimizer.py``), ``Custom`` (``ops_custom.py``),
+(``ops_optimizer.py``; in place on tensors, MXNet's convention on
+``NDArray``s), ``Custom`` (``ops_custom.py``),
 ``flash_attention`` (``ops_contrib.py``), the draws of ``nd.random``,
 ``waitall``, ``save`` and ``load``.  ``nd.contrib`` holds the
 ``_contrib_*`` ops by their short names (the detection ops of
@@ -16,15 +17,24 @@ to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
 import sys as _sys
 
 from . import (ops_contrib, ops_elemwise, ops_matrix,  # noqa: F401
-               ops_nn, ops_random, ops_reduce)
+               ops_nn, ops_optimizer, ops_random, ops_reduce)
 from . import contrib, random, utils
 from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,
                       ones, zeros)
 from .ops_contrib import flash_attention
 from .ops_custom import Custom
-from .ops_optimizer import (adam_update, mp_sgd_mom_update, mp_sgd_update,
+from .ops_optimizer import (adagrad_update, adam_update, adamw_update,
+                            ftml_update, ftrl_update, group_adagrad_update,
+                            lamb_update_phase1, lamb_update_phase2,
+                            lars_trust, mp_adamw_update,
+                            mp_lamb_update_phase1, mp_lamb_update_phase2,
+                            mp_nag_mom_update, mp_sgd_mom_update,
+                            mp_sgd_update, multi_lars,
                             multi_mp_sgd_mom_update, multi_sgd_mom_update,
-                            multi_sgd_update, sgd_mom_update, sgd_update)
+                            multi_sgd_update, multi_sum_sq, nag_mom_update,
+                            rmsprop_update, rmspropalex_update,
+                            sgd_mom_update, sgd_update, signsgd_update,
+                            signum_update)
 from .register import _registry, get_op, list_ops, make_frontend
 from .utils import load, save
 
@@ -32,6 +42,11 @@ _this = _sys.modules[__name__]
 for _name, _op in list(_registry.items()):
     if not hasattr(_this, _name):
         setattr(_this, _name, make_frontend(_op))
+# the optimizer updates by their ``_contrib_`` names: the hand-written
+# frontends (in place on tensors), as under their short names
+for _name in ("group_adagrad_update", "adamw_update", "mp_adamw_update"):
+    setattr(_this, "_contrib_" + _name, getattr(_this, _name))
+    setattr(contrib, _name, getattr(_this, _name))
 
 _FLUENT_METHODS = (
     "sum", "mean", "prod", "max", "min", "argmax", "argmin", "transpose",
@@ -67,10 +82,8 @@ def waitall() -> None:
     wait_all()
 
 
-__all__ = ["Custom", "NDArray", "adam_update", "arange", "array",
-           "contrib", "empty",
-           "eye", "flash_attention", "full", "get_op", "linspace",
-           "list_ops", "load", "mp_sgd_mom_update", "mp_sgd_update",
-           "multi_mp_sgd_mom_update", "multi_sgd_mom_update",
-           "multi_sgd_update", "ones", "random", "save", "sgd_mom_update",
-           "sgd_update", "utils", "waitall", "zeros"] + sorted(_registry)
+__all__ = sorted({"Custom", "NDArray", "arange", "array", "contrib",
+                  "empty", "eye", "flash_attention", "full", "get_op",
+                  "linspace", "list_ops", "load", "ones", "random", "save",
+                  "utils", "waitall", "zeros"} | set(ops_optimizer.__all__)
+                 | set(_registry))

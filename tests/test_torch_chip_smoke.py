@@ -1001,3 +1001,160 @@ def test_teacher_forcing_flags_a_drifted_row(gen_runs):
     out = chip_smoke.teacher_forced(net, prompts, runs["alone"]["tokens"],
                                     rows, 1e-4)
     assert not out["ok"] and out["logits_max_abs_err"] > 9e-4
+
+
+# -- phase 16: the training surface around gluon.Trainer ----------------------
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test (the CPU's convolutions slow down
+    many times over when tier-1's workers share the cores), restored
+    after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _small_surface(monkeypatch):
+    """Phase 16 at toy sizes on the CPU: the small ResNet at batch 4 on
+    32 x 32 images, a small BERT (vocabulary 1000, 2 layers) at batch 2,
+    sequence 32, 3 steps; (c) on a 96 -> 384 -> 96 stack, SGLD's moments
+    over its 74 K elements within 3e-2."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_small
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    monkeypatch.setattr(chip_smoke, "resnet50_v1", lambda classes: _net())
+    monkeypatch.setattr(chip_smoke, "RESNET_BATCH", 4)
+    monkeypatch.setattr(chip_smoke, "VOCAB", 1000)
+    monkeypatch.setattr(chip_smoke, "bert_base", lambda **kw: bert_small(
+        vocab_size=1000, **kw))
+    monkeypatch.setattr(chip_smoke, "BERT_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "BERT_SEQ", 32)
+    monkeypatch.setattr(chip_smoke, "BERT_CHECK", (2, 16))
+    monkeypatch.setattr(chip_smoke, "SURFACE_BERT_WARM", 1)
+    monkeypatch.setattr(chip_smoke, "SURFACE_BERT_TIMED", 2)
+    monkeypatch.setattr(chip_smoke, "ZOO_WIDTHS", (96, 384))
+    monkeypatch.setattr(chip_smoke, "SGLD_ELEMENTS", 96 * 384 * 2 + 480)
+    monkeypatch.setattr(chip_smoke, "SGLD_MOMENT_TOL", 3e-2)
+    randn = torch.randn
+
+    def small_images(*shape, **kw):
+        if shape[1:] == (3, 224, 224):
+            shape = (shape[0], 3, 32, 32)
+        return randn(*shape, **kw)
+    monkeypatch.setattr(chip_smoke.torch, "randn", small_images)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache",
+                 "set_sync_debug_mode"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+
+
+def test_surface_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
+    """Every check of phase 16 passes at toy sizes but those only the
+    card can meet (kernel launches, host reads, which read 0 on the
+    CPU): the schedule's rates and the 0 multipliers in each group, the
+    resume and steps 7-12 bit for bit, LAMB's leaf check, and every
+    optimizer's CPU run against itself, SGLD's moments."""
+    _small_surface(monkeypatch)
+    adam = {"step_ms": 1.0, "sequences_per_s": 1.0, "profile": {
+        "device_busy_ms": 1.0, "device_idle_share": 0.0,
+        "host_launches": 1}}
+    out = chip_smoke.resnet_surface_run(0, "cpu")
+    card_only = {"momentum_launches"}
+    assert [k for k, v in out["checks"].items() if not v] == \
+        sorted(card_only)
+    assert out["rates"][:4] == pytest.approx([0.05 / 3, 0.1 / 3, 0.05,
+                                              0.05])
+    assert out["checkpoint_bytes"]["states"] > 0
+    out = chip_smoke.bert_lamb_run(0, "cpu", adam)
+    assert [k for k, v in out["checks"].items() if not v] == \
+        ["flash_launches", "one_host_read_a_step"]
+    assert out["host_reads_per_step"] == [0] * 3    # none on the CPU
+    out = chip_smoke.optimizer_zoo_run(0, "cpu")
+    assert out["optimizers"] == sorted(
+        ["sgd", "nag", "adam", "adagrad", "rmsprop", "ftrl", "signum",
+         "adadelta", "adamw", "lars", "lbsgd", "ftml", "lamb", "adamax",
+         "nadam", "sgld", "dcasgd"])
+    assert out["sgld"]["ok"]
+    for row in out["rows"]:
+        assert row["max_rel_err"] == 0.0 and row["rates_follow_the_schedule"]
+        sgd_kernel = row["optimizer"] == "sgd"
+        assert row["ok"] != sgd_kernel, row     # no launch on the CPU
+
+
+@pytest.fixture(scope="module")
+def lamb_steps():
+    """A small BERT's LAMB check step on the CPU in fp32 and float64 and
+    its initial weights."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_small
+    net = bert_small(vocab_size=1000, dropout=0.0)
+    net.initialize(ctx=cpu(), seed=0)
+    init = chip_smoke._snapshot(net)
+    arrays = {k: v.numpy() for k, v in init.items()}
+    batch = [torch.as_tensor(a) for a in
+             chip_smoke.bert_batch(1, 2, 16, vocab=1000)]
+
+    def run(dtype):
+        model = bert_small(vocab_size=1000, dropout=0.0)
+        load_reference_params(model, arrays, ctx=cpu())
+        return chip_smoke.lamb_check_step(model.to(dtype), batch)
+    return init, run, run(torch.float32), run(torch.float64)
+
+
+def test_lamb_leaf_check_flags_a_one_percent_trust_ratio_fault(
+        lamb_steps, monkeypatch):
+    """The LAMB check step passes ``leaf_check`` as the card; with every
+    trust ratio 1 % too large it fails on the weights, and its gradients
+    still pass."""
+    from mxnet_tpu_torch.ndarray import ops_optimizer
+    init, run, cpu32, cpu64 = lamb_steps
+    zeros = {k: torch.zeros_like(v) for k, v in init.items()}
+    assert chip_smoke.leaf_check(cpu32[2], cpu32[2], cpu64[2], init)["ok"]
+    real = ops_optimizer.lamb_update_phase2
+
+    def faulty(weight, g, r1, r2, lr, **kw):
+        return real(weight, g, r1 * 1.01, r2, lr, **kw)
+    monkeypatch.setattr(ops_optimizer, "lamb_update_phase2", faulty)
+    faulted = run(torch.float32)
+    weights = chip_smoke.leaf_check(faulted[2], cpu32[2], cpu64[2], init)
+    assert not weights["ok"] and len(weights["failed"]) > len(init) // 2
+    assert chip_smoke.leaf_check(faulted[1], cpu32[1], cpu64[1],
+                                 zeros)["ok"]
+
+
+def test_resume_check_flags_a_checkpoint_without_one_momentum(tmp_path,
+                                                             one_thread):
+    """``resume_mismatches`` passes a full checkpoint and names the one
+    parameter whose momentum the file lacks."""
+    import pickle
+    from mxnet_tpu_torch import autograd
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((2, 3, 32, 32),
+                                            dtype=np.float32))
+    y = torch.as_tensor(rng.integers(0, 10, 2).astype(np.float32))
+
+    def make(seed):
+        net = _net()
+        net.initialize(Xavier("gaussian", "in", 2), ctx=cpu(), seed=seed)
+        return net, chip_smoke.resnet_surface_trainer(net)
+    net_a, tr_a = make(0)
+    for _ in range(2):
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net_a(x), y)
+        autograd.backward(loss)
+        tr_a.step(2)
+    net_a.save_parameters(str(tmp_path / "a.params"))
+    tr_a.save_states(str(tmp_path / "a.states"))
+    net_b, tr_b = make(1)
+    net_b.load_parameters(str(tmp_path / "a.params"))
+    tr_b.load_states(str(tmp_path / "a.states"))
+    assert chip_smoke.resume_mismatches(net_a, tr_a, net_b, tr_b) == []
+    blob = pickle.loads((tmp_path / "a.states").read_bytes())
+    del blob["states"]["5"]
+    (tmp_path / "b.states").write_bytes(pickle.dumps(blob))
+    net_c, tr_c = make(2)
+    net_c.load_parameters(str(tmp_path / "a.params"))
+    tr_c.load_states(str(tmp_path / "b.states"))
+    assert chip_smoke.resume_mismatches(net_a, tr_a, net_c, tr_c) == [
+        f"state {tr_a._params[5].name}"]

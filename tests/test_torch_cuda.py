@@ -1775,3 +1775,172 @@ def test_generation_server_unload_frees_its_card_memory(card):
     base = cycle()
     assert [cycle(), cycle()] == [base, base]
     assert net.graph_stats()["entries"] == 0
+
+
+# ------------------------- the training surface around gluon.Trainer
+#
+# The optimizers on the card against the same steps on the CPU (every
+# weight and state within 1e-5 x max(1, |w|): the same elementwise
+# operations, norms summed in another order); LARS, LBSGD and LAMB read
+# nothing back; a checkpoint resumed on the card equals the
+# uninterrupted run bit for bit.
+
+def _surface_net(dev, seed=5, dtype=None):
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(96, in_units=64), nn.Dense(32, in_units=96))
+    net.initialize(ctx=dev, seed=seed)
+    if dtype is not None:
+        net.cast(dtype)
+    return net
+
+
+def _surface_steps(net, name, kw, grads, no_reads=False):
+    from mxnet_tpu_torch import gluon, lr_scheduler
+    sched = lr_scheduler.CosineScheduler(max_update=8, warmup_steps=2,
+                                         base_lr=kw["learning_rate"])
+    tr = gluon.Trainer(net.collect_params(), name,
+                       dict(kw, wd=1e-4, lr_scheduler=sched))
+    for step in grads:
+        for p, g in zip(tr._params, step):
+            p.grad().copy_(g)
+            p.fresh = False
+        if no_reads:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            tr.step(4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return tr
+
+
+def _flat_state(state):
+    if state is None:
+        return []
+    if isinstance(state, tuple):
+        return [t for s in state for t in _flat_state(s)]
+    return [state]
+
+
+SURFACE_OPTS = [
+    ("lars", {"learning_rate": 0.1}),
+    ("lbsgd", {"learning_rate": 0.1, "momentum": 0.9,
+               "warmup_strategy": "lars"}),
+    ("lamb", {"learning_rate": 1e-3}),
+    ("lamb", {"learning_rate": 1e-3, "multi_precision": True}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("ftml", {"learning_rate": 0.0025}),
+    ("nadam", {"learning_rate": 1e-3}),
+    ("adamw", {"learning_rate": 1e-3, "multi_precision": True}),
+]
+
+
+@pytest.mark.parametrize("name,kw", SURFACE_OPTS)
+def test_optimizer_on_card_matches_cpu(card, name, kw):
+    """4 Trainer steps on the card and on the CPU from the same weights
+    and gradients; LARS, LBSGD and LAMB under
+    ``set_sync_debug_mode("error")`` (a read back raises) with no host
+    read counted."""
+    from mxnet_tpu_torch import cpu
+    from mxnet_tpu_torch.engine import engine
+    dtype = torch.bfloat16 if kw.get("multi_precision") else None
+    gen = torch.Generator().manual_seed(9)
+    shapes = [p.shape for p in _surface_net(cpu()).collect_params()
+              .values()]
+    grads = [[torch.randn(s, generator=gen).to(dtype or torch.float32)
+              for s in shapes] for _ in range(4)]
+    reads = engine().host_reads
+    card_tr = _surface_steps(_surface_net(card, dtype=dtype), name, kw,
+                             [[g.to(card) for g in s] for s in grads],
+                             no_reads=name in ("lars", "lbsgd", "lamb"))
+    torch.cuda.synchronize()
+    assert engine().host_reads == reads
+    cpu_tr = _surface_steps(_surface_net(cpu(), dtype=dtype), name, kw,
+                            grads)
+    for i, (p, q) in enumerate(zip(card_tr._params, cpu_tr._params)):
+        pairs = [(p.data(), q.data())] + list(zip(
+            _flat_state(card_tr._states[i]), _flat_state(cpu_tr._states[i])))
+        for a, b in pairs:
+            a, b = a.detach().float().cpu(), b.detach().float()
+            assert ((a - b).abs() / b.abs().clamp(min=1.0)).max() <= 1e-5
+        if dtype is not None:
+            assert torch.equal(p.data(), card_tr._states[i][1].to(dtype))
+
+
+def test_clip_global_norm_reads_once_on_card(card):
+    """One host read for the whole list; the norm and the scaled arrays
+    as on the CPU."""
+    from mxnet_tpu_torch.engine import engine
+    from mxnet_tpu_torch.gluon import utils
+    gen = torch.Generator().manual_seed(2)
+    host = [torch.randn(s, generator=gen) for s in [(300, 7), (11,), (5, 5)]]
+    dev = [t.to(card) for t in host]
+    reads = engine().host_reads
+    norm = utils.clip_global_norm(dev, 1.0)
+    assert engine().host_reads - reads == 1
+    assert norm == pytest.approx(utils.clip_global_norm(host, 1.0),
+                                 rel=1e-6)
+    for a, b in zip(dev, host):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-7)
+
+
+def test_resume_on_card_bitwise(card, tmp_path):
+    """SGD with momentum under a multi-factor schedule on a small conv
+    net: steps 1-3, ``save_parameters`` + ``save_states``, a fresh net
+    (another seed) and Trainer load both; steps 4-6 under deterministic
+    cuDNN give the uninterrupted run's losses and weights bit for
+    bit."""
+    from mxnet_tpu_torch import autograd, gluon, lr_scheduler
+    from mxnet_tpu_torch.gluon import nn
+
+    def make(seed):
+        net = nn.HybridSequential()
+        with net.name_scope():
+            net.add(nn.Conv2D(8, 3, in_channels=3), nn.BatchNorm(
+                in_channels=8), nn.Activation("relu"), nn.Flatten(),
+                nn.Dense(10, in_units=8 * 14 * 14))
+        net.initialize(ctx=card, seed=seed)
+        net.collect_params(".*gamma|.*beta|.*bias").setattr("wd_mult", 0.0)
+        sched = lr_scheduler.MultiFactorScheduler(
+            step=[2, 4], factor=0.1, base_lr=0.05, warmup_steps=1)
+        return net, gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4,
+            "lr_scheduler": sched})
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(16, 3, 16, 16, device=card, generator=gen)
+    y = torch.randint(0, 10, (16,), device=card, generator=gen).float()
+
+    def step(net, tr):
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+        autograd.backward(loss)
+        tr.step(16)
+        return loss.detach()
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        full, full_tr = make(0)
+        full_losses = [step(full, full_tr) for _ in range(6)]
+        first, first_tr = make(0)
+        for _ in range(3):
+            step(first, first_tr)
+        first.save_parameters(str(tmp_path / "n.params"))
+        first_tr.save_states(str(tmp_path / "n.states"))
+        resumed, resumed_tr = make(1)
+        resumed.load_parameters(str(tmp_path / "n.params"))
+        resumed_tr.load_states(str(tmp_path / "n.states"))
+        losses = [step(resumed, resumed_tr) for _ in range(3)]
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    assert all(torch.equal(a, b) for a, b in zip(losses, full_losses[3:]))
+    for a, b in zip(resumed.collect_params().values(),
+                    full.collect_params().values()):
+        assert a.data().device == card and torch.equal(a.data(), b.data())
+    for i, s in full_tr._states.items():
+        assert resumed_tr._states[i].device == card
+        assert torch.equal(resumed_tr._states[i], s)

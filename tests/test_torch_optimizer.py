@@ -326,7 +326,9 @@ def test_trainer_kvstore_and_learning_rate():
 def test_optimizer_multipliers_and_schedule():
     """lr/wd multipliers from param_dict (1.0 for an index it lacks), and
     the update count, as the JAX package's Optimizer takes them from
-    gluon's Trainer; no schedule: set_learning_rate sets the rate."""
+    gluon's Trainer; without an lr_scheduler, set_learning_rate sets the
+    rate (schedules: tests/test_torch_training_surface.py); a name that
+    neither package registers is refused."""
     class Param:
         lr_mult, wd_mult = 3.0, 0.0
 
@@ -345,4 +347,4 @@ def test_optimizer_multipliers_and_schedule():
     opt.set_learning_rate(0.1)
     assert opt.learning_rate == opt._get_lr(1) == 0.1
     with pytest.raises(MXNetError, match="unknown optimizer"):
-        optimizer.create("adamax")
+        optimizer.create("nosuch_optimizer")
