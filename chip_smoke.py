@@ -9,7 +9,8 @@ MLP, ResNet-50, the custom-op MLP, BERT-base training, phase 10's
 low-precision runs, phase 11's imperative MLP, phase 12's NMT
 training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
 and Mask-RCNN training, phase 14's hybridized runs, phase 15's
-generation serving, and each part of phase 16) and read just after;
+generation serving, each part of phase 16, and each training run of
+phase 17) and read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -334,7 +335,37 @@ kernels not at all:
    back in LARS, LBSGD and LAMB (``set_sync_debug_mode("error")`` around
    their steps, no host read counted); SGLD by its noise's moments over
    4.7 M elements (mean 0 and std 1 within 5e-3);
-17. prints one JSON line of kernel measurements (flash: the fp32 and, as
+17. the data pipeline: ResNet-50 v1 trained from a RecordIO file.  First
+   line: what the machine offers for JPEG (PIL, ``jpeglib.h``, libjpeg
+   in ``ldconfig``, the cores) and whether the port's native io core
+   built with its decoder; 1,280 images made from ``--seed`` (shorter
+   side 300-500, aspect 1.0-1.5, a 16x12 field upsampled plus noise)
+   are packed under ``build/chip_smoke/`` as JPEG (quality 90) where the
+   core decodes JPEG, else as ``RAWN``, and reused.  (a)
+   ``ImageRecordIter(use_native=True)`` at MXNet's ``train_imagenet``
+   settings (resize 256, random 224 crop and mirror, mean/std, shuffle,
+   one thread per usable core): images/s over 2 epochs, the first
+   batch's checksum and its bits equal to the same iterator's on one
+   thread; (b) the iterator feeding ResNet-50 v1 at batch 128 through
+   ``gluon.Trainer("sgd", momentum=0.9)`` (``split_and_load`` to the
+   card), hybridized, in fp32 and under ``amp.init("bfloat16")``: step
+   ms and images/s against the same model on one resident batch, the
+   iterator's wait and the copy a step, the device idle share of a
+   profiled step each way, 41 momentum launches a step (exact); the
+   first step at batch 2 against the CPU fp32 and float64 steps
+   (``leaf_check``, loss within 1e-4), bf16's first loss within 2e-2 of
+   fp32's; (c) ``gluon.data.DataLoader`` over
+   ``vision.ImageRecordDataset`` (``RandomResizedCrop(224)``, a flip,
+   ``ToTensor``, ``Normalize``; ``num_workers`` the usable cores,
+   ``pin_memory``, ``device_prefetch=2``) feeding the fp32 step: images/s
+   over the epoch, the device stage's metrics, every batch's labels
+   those of the sampler's ``.idx`` keys, batches on the card, host
+   batches pinned, and a resume from ``state_dict()`` after 4 batches
+   bit for bit the uninterrupted epoch (with a fixed resize: numpy's
+   stream cannot be replayed across worker threads); (d) each pipeline
+   alone at 1, 2, 4 and every usable thread, and where the core lacks
+   JPEG the PIL paths over 256 JPEG records;
+18. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -343,7 +374,8 @@ kernels not at all:
    under ``ssd_*`` and ``rcnn_*``; phase 16's launches under
    ``lamb_train_launches``, ``recipe_resume_launches`` and
    ``optimizer_zoo_launches`` (the mixed path without momentum's under
-   ``optimizer_zoo_mixed_launches``); the SGD kernels' bf16/fp16
+   ``optimizer_zoo_mixed_launches``), phase 17's under
+   ``data_pipeline_launches``; the SGD kernels' bf16/fp16
    entries, and the mixed path's own entry beside the unfused route's
    ``before_ms``), the card line, and last ``{"ok": true, "device":
    {...}}``.
@@ -375,7 +407,8 @@ import torch
 import torch.nn.functional as F
 
 from mxnet_tpu_torch import (autograd, gluon, load_reference_params, metric,
-                             nd, operator, rtc)
+                             native, nd, operator, recordio, rtc)
+from mxnet_tpu_torch import io as mx_io
 from mxnet_tpu_torch import callback as mx_callback
 from mxnet_tpu_torch import model as mx_model
 from mxnet_tpu_torch import module as mx_mod
@@ -386,9 +419,11 @@ from mxnet_tpu_torch import engine as mx_engine
 from mxnet_tpu_torch import init as mx_init
 from mxnet_tpu_torch import lr_scheduler as mx_lr
 from mxnet_tpu_torch.base import MXNetError
-from mxnet_tpu_torch.context import cpu, gpu
+from mxnet_tpu_torch.context import as_device, cpu, gpu
 from mxnet_tpu_torch.contrib import amp
 from mxnet_tpu_torch.gluon import nn
+from mxnet_tpu_torch.gluon.data import DataLoader, vision
+from mxnet_tpu_torch.gluon.data.vision import transforms
 from mxnet_tpu_torch.gluon.model_zoo.rcnn import (RCNNLoss,
                                                   mask_rcnn_resnet18_v1)
 from mxnet_tpu_torch.gluon.model_zoo.ssd import (SSDMultiBoxLoss,
@@ -5835,6 +5870,529 @@ def surface_phase(seed: int, card: str, bert: dict) -> dict:
     return {**runs, "ok": all(r["ok"] for r in runs.values())}
 
 
+# ---- phase 17: the data pipeline ------------------------------------------
+
+DATA_IMAGES = 1280                       # 10 batches of 128
+DATA_SHORT = (300, 500)                  # shorter side, as ImageNet's
+DATA_ASPECT = (1.0, 1.5)
+DATA_FIELD = (12, 16)                    # the seeded field, upsampled
+DATA_NOISE = 8.0
+DATA_QUALITY = 90
+DATA_RESIZE = 256
+DATA_CROP = 224
+DATA_MEAN = (123.68, 116.779, 103.939)   # MXNet's train_imagenet recipe
+DATA_STD = (58.393, 57.12, 57.375)
+DATA_EPOCHS = 2                          # (a)'s timed epochs
+DATA_WARM = 2                            # steps before the timed ones
+DATA_RESUME_AT = 4                       # batches before the state_dict
+DATA_JPEG_IMAGES = 256                   # (d)'s PIL-decoded JPEG set
+DATA_SCALING_BATCHES = 2                 # (d)'s batches at each count
+DATA_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def jpeg_probe() -> dict:
+    """What the machine offers for JPEG: PIL, libjpeg's header and
+    libraries, the cores; and whether the port's io core built with its
+    JPEG decoder (``native.has_jpeg``)."""
+    def run(cmd, stdin=None):
+        try:
+            r = subprocess.run(cmd, input=stdin, capture_output=True,
+                               text=True, timeout=60)
+            return r.returncode, r.stdout
+        except (OSError, subprocess.SubprocessError) as e:
+            return -1, str(e)
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    t0 = time.monotonic()
+    core_jpeg = native.has_jpeg()
+    return {
+        "pil": pil,
+        "jpeglib_h": run(["g++", "-E", "-x", "c++", "-"],
+                         "#include <jpeglib.h>\n")[0] == 0,
+        "ldconfig_jpeg": [ln.split("=>")[-1].strip() for ln in
+                          run(["ldconfig", "-p"])[1].splitlines()
+                          if "jpeg" in ln.lower()],
+        "nproc": os.cpu_count(), "usable_cores": len(os.sched_getaffinity(0)),
+        "io_core_jpeg": core_jpeg,
+        "io_core_build_s": time.monotonic() - t0}
+
+
+def phase17_image(seed: int, i: int) -> np.ndarray:
+    """Image ``i`` of the phase: shorter side in ``DATA_SHORT``, aspect in
+    ``DATA_ASPECT`` (landscape or portrait), a seeded 16x12 RGB field
+    upsampled bilinearly plus noise of std ``DATA_NOISE``: smooth enough
+    to compress as photographs do."""
+    g = torch.Generator().manual_seed(seed * 1_000_003 + i)
+    short = int(torch.randint(DATA_SHORT[0], DATA_SHORT[1] + 1, (1,),
+                              generator=g))
+    aspect = DATA_ASPECT[0] + (DATA_ASPECT[1] - DATA_ASPECT[0]) * float(
+        torch.rand((), generator=g))
+    long = int(round(short * aspect))
+    h, w = (short, long) if float(torch.rand((), generator=g)) < 0.5 \
+        else (long, short)
+    field = torch.rand(1, 3, *DATA_FIELD, generator=g) * 255
+    img = F.interpolate(field, size=(h, w), mode="bilinear",
+                        align_corners=False)[0].permute(1, 2, 0)
+    img = img + torch.randn(h, w, 3, generator=g) * DATA_NOISE
+    return img.clamp_(0, 255).round_().to(torch.uint8).numpy()
+
+
+def phase17_records(seed: int, out_dir: Path, jpeg: bool, n: int) -> dict:
+    """``n`` records (label ``i % 1000``) in ``phase17_<seed>_<payload>``
+    ``.rec``/``.idx`` under ``out_dir``, reused when present: JPEG at
+    quality ``DATA_QUALITY`` through ``recordio.pack_img``, else the
+    ``RAWN`` payload ``pack_img`` writes without PIL, both framed by
+    ``MXIndexedRecordIO.write_idx`` as ``tools.im2rec.pack`` frames them.
+    Images are made and encoded on one thread per usable core."""
+    from concurrent.futures import ThreadPoolExecutor
+    payload = "jpeg" if jpeg else "rawn"
+    rec = out_dir / f"phase17_{seed}_{payload}_{n}.rec"
+    idx = rec.with_suffix(".idx")
+    t0 = time.monotonic()
+    made = not (rec.exists() and idx.exists())
+    if made:
+        out_dir.mkdir(parents=True, exist_ok=True)
+
+        def record(i):
+            header = recordio.IRHeader(0, float(i % 1000), i, 0)
+            img = phase17_image(seed, i)
+            if jpeg:
+                return recordio.pack_img(header, img, quality=DATA_QUALITY)
+            return recordio.pack(header, recordio._raw_payload(img))
+
+        tmp_rec, tmp_idx = (p.with_suffix(p.suffix + ".tmp")
+                            for p in (rec, idx))
+        writer = recordio.MXIndexedRecordIO(str(tmp_idx), str(tmp_rec), "w")
+        torch_threads = torch.get_num_threads()
+        torch.set_num_threads(1)       # one core per image, in parallel
+        try:
+            with ThreadPoolExecutor(len(os.sched_getaffinity(0))) as pool:
+                for i, buf in enumerate(pool.map(record, range(n))):
+                    writer.write_idx(i, buf)
+        finally:
+            torch.set_num_threads(torch_threads)
+        writer.close()
+        os.replace(tmp_idx, idx)
+        os.replace(tmp_rec, rec)
+    return {"rec": rec, "idx": idx, "payload": payload, "images": n,
+            "made": made, "make_s": time.monotonic() - t0,
+            "mean_record_bytes": rec.stat().st_size / n}
+
+
+def record_iter(data: dict, threads: int, seed: int, batch: int,
+                native_core: bool = True):
+    """``mx.io.ImageRecordIter`` of MXNet's ImageNet recipe over the
+    phase's records."""
+    return mx_io.ImageRecordIter(
+        str(data["rec"]), (3, DATA_CROP, DATA_CROP), batch,
+        path_imgidx=str(data["idx"]),
+        shuffle=True, rand_crop=True, rand_mirror=True, resize=DATA_RESIZE,
+        mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1], mean_b=DATA_MEAN[2],
+        std_r=DATA_STD[0], std_g=DATA_STD[1], std_b=DATA_STD[2],
+        preprocess_threads=threads, seed=seed, use_native=native_core)
+
+
+def iter_rate(make, epochs: int = 1, batches: int = None) -> dict:
+    """Images/s of an iterator (``ImageRecordIter`` or ``DataLoader``)
+    over ``epochs`` epochs (or its first ``batches``) with nothing
+    consuming it, its first batch (data, labels), and whether it ran on
+    the native core."""
+    it = make()
+    first, n = None, 0
+    t0 = time.monotonic()
+    for _ in range(epochs):
+        for k, b in enumerate(it):
+            data, label = (b.data[0], b.label[0]) if hasattr(b, "data") \
+                else b
+            if first is None:
+                first = (data.asnumpy(), label.asnumpy())
+            n += data.shape[0]
+            if k + 1 == batches:
+                break
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return {"images": n, "s": wall, "images_per_s": n / wall,
+            "first": first,
+            "native": getattr(it, "_native", None) is not None}
+
+
+def batch_digest(a: np.ndarray) -> dict:
+    return {"sum": float(a.astype(np.float64).sum()),
+            "sha256": hashlib.sha256(np.ascontiguousarray(a).tobytes())
+            .hexdigest()[:16]}
+
+
+def fed_run(net, trainer, lossfn, source, steps: int, warm: int = 0,
+            profile_step: bool = False) -> dict:
+    """``warm`` + ``steps`` Trainer steps of ``net`` on the (x, y) pairs
+    that ``source`` yields, ``x``/``y`` on the card.  Times the wait in
+    ``next(source)`` per timed step (for a host iterator it includes the
+    copy to the card), the timed steps' wall time and the whole run's
+    (``all_s``, warm steps included), and with ``profile_step`` one more
+    profiled step's device classes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        t0 = time.monotonic()
+        x, y = next(source)
+        waited = time.monotonic() - t0
+        with autograd.record():
+            loss = lossfn(net(x), y)
+        autograd.backward(loss)
+        with torch.profiler.record_function("trainer_step"):
+            trainer.step(x.shape[0])
+        loss = getattr(loss, "_data", loss)      # NDArray in, NDArray out
+        return loss.detach().float().mean(), waited
+
+    losses, waits = [], []
+    start = time.monotonic()
+    for _ in range(warm):
+        losses.append(step()[0])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        loss, waited = step()
+        losses.append(loss)
+        waits.append(waited)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    out = {"steps": warm + steps, "timed_steps": steps,
+           "all_s": time.monotonic() - start,
+           "next_wait_ms": [w * 1e3 for w in waits]}
+    if steps:
+        out.update(step_ms=wall / steps * 1e3,
+                   images_per_s=RESNET_BATCH * steps / wall,
+                   next_wait_ms_per_step=sum(waits) / steps * 1e3)
+    if profile_step:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            loss, _ = step()
+            losses.append(loss)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t1) * 1e3
+        out["profile"] = _device_classes(prof, wall_ms)
+        out["steps"] += 1
+    out["losses"] = [v.item() for v in losses]
+    return out
+
+
+def from_record_iter(it, dev, waits: list):
+    """(x, y) on the card from a host iterator, copied as MXNet's recipe
+    copies (``gluon.utils.split_and_load``: from pageable memory, so the
+    copy waits for the step before it).  Appends the time each
+    ``next(it)`` blocked (the iterator's own wait) to ``waits``."""
+    src = iter(it)
+    while True:
+        t0 = time.monotonic()
+        try:
+            b = next(src)
+        except StopIteration:
+            return
+        waits.append(time.monotonic() - t0)
+        yield (gluon.utils.split_and_load(b.data[0], [dev])[0],
+               gluon.utils.split_and_load(b.label[0], [dev])[0])
+
+
+def resident(x, y, n: int):
+    for _ in range(n):
+        yield x, y
+
+
+def phase17_net(seed: int, dev):
+    net = resnet50_v1(classes=1000)
+    net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+    net.hybridize()
+    return net
+
+
+def record_train(data: dict, seed: int, threads: int, dev,
+                 bf16: bool = False) -> dict:
+    """(b): ResNet-50 v1 at batch 128 fed by ``ImageRecordIter`` through
+    ``gluon.Trainer("sgd", momentum=0.9)``: one epoch (``DATA_WARM`` warm
+    steps, the rest timed), one profiled step on the next epoch's first
+    batch left resident and one on its second batch from the iterator,
+    then as many steps as the epoch on the resident batch.  Fp32, or with
+    ``bf16`` under ``amp.init("bfloat16")`` (which the caller turns off).
+    The net and its trainer come back for phase (c)."""
+    if bf16:
+        amp.init("bfloat16")
+    net = phase17_net(seed, dev)
+    w_init = _snapshot(net)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", RESNET_OPT)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    groups = -(-len(trainer._params) // AGG)
+    it = record_iter(data, threads, seed, RESNET_BATCH)
+    n_batches = data["images"] // RESNET_BATCH
+    waits = []
+    zero_counts()
+    run = fed_run(net, trainer, lossfn, from_record_iter(it, dev, waits),
+                  n_batches - DATA_WARM, DATA_WARM)
+    timed = waits[DATA_WARM:]
+    run["iter_wait_ms_per_step"] = sum(timed) / len(timed) * 1e3
+    run["copy_and_wait_ms_per_step"] = run["next_wait_ms_per_step"] - \
+        run["iter_wait_ms_per_step"]
+    src = from_record_iter(it, dev, [])
+    x, y = next(src)
+    res_prof = fed_run(net, trainer, lossfn, resident(x, y, 1), 0,
+                       profile_step=True)
+    fed_prof = fed_run(net, trainer, lossfn, src, 0, profile_step=True)
+    src.close()
+    res = fed_run(net, trainer, lossfn, resident(x, y, n_batches),
+                  n_batches - DATA_WARM, DATA_WARM)
+    steps = run["steps"] + res_prof["steps"] + fed_prof["steps"] + \
+        res["steps"]
+    return {"run": run, "resident": res, "profile": fed_prof["profile"],
+            "resident_profile": res_prof["profile"],
+            "launches": multi_sgd_mom.launches, "steps": steps,
+            "launches_per_step": multi_sgd_mom.launches / steps,
+            "expected_launches_per_step": groups,
+            "other_kernel_launches": other_launches(multi_sgd_mom),
+            "graphs": graph_summary(net), "w_init": w_init,
+            "net": net, "trainer": trainer}
+
+
+def phase17_leaf_check(w_init: dict, x: np.ndarray, y: np.ndarray,
+                       dev) -> dict:
+    """The first step on the card at batch ``CPU_CHECK_BATCH`` of the
+    loader's first batch, from the run's initial weights, against the
+    same step on the CPU in fp32 and in float64 (``leaf_check``)."""
+    arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    xb = torch.as_tensor(x[:CPU_CHECK_BATCH])
+    yb = torch.as_tensor(y[:CPU_CHECK_BATCH])
+    after = {}
+    for name, ctx, dtype in (("card", dev, torch.float32),
+                             ("cpu", cpu(), torch.float32),
+                             ("cpu64", cpu(), torch.float64)):
+        model = resnet50_v1(classes=1000)
+        load_reference_params(model, arrays, ctx=ctx)
+        d = as_device(ctx)
+        after[name] = one_step(model.to(dtype), xb.to(d, dtype),
+                               yb.to(d), lossfn)
+    loss_err = {k: (after["card"][0] - after[k][0]).abs().max().item()
+                for k in ("cpu", "cpu64")}
+    leaves = leaf_check(after["card"][1], after["cpu"][1],
+                        after["cpu64"][1], w_init)
+    return {"batch": CPU_CHECK_BATCH, "loss_abs_err": loss_err,
+            "leaves": {k: leaves[k] for k in (
+                "ok", "leaves", "failed", "cpu_share_median",
+                "worst_margin")},
+            "ok": loss_err["cpu"] <= 1e-4 and leaves["ok"]}
+
+
+def loader_dataset(data: dict, train: bool):
+    """``vision.ImageRecordDataset`` over the phase's records with the
+    recipe's transforms: ``RandomResizedCrop(224)`` and a random flip
+    (``train``), or a fixed resize to 224x224 (the resume check: the
+    random transforms draw from numpy's global stream in whichever worker
+    thread runs them, so no run replays them), then ``ToTensor`` and
+    ``Normalize``."""
+    mean = [m / 255 for m in DATA_MEAN]
+    std = [s / 255 for s in DATA_STD]
+    head = [transforms.RandomResizedCrop(DATA_CROP),
+            transforms.RandomFlipLeftRight()] if train else \
+        [transforms.Resize((DATA_CROP, DATA_CROP))]
+    return vision.ImageRecordDataset(str(data["rec"])).transform_first(
+        transforms.Compose(head + [transforms.ToTensor(),
+                                   transforms.Normalize(mean, std)]))
+
+
+def phase17_loader(data: dict, threads: int, train: bool = True,
+                   device_prefetch: int = 2):
+    return DataLoader(loader_dataset(data, train), batch_size=RESNET_BATCH,
+                      shuffle=True, num_workers=threads, pin_memory=True,
+                      device_prefetch=device_prefetch)
+
+
+def loader_train(data: dict, seed: int, threads: int, net, trainer) -> dict:
+    """(c): the fp32 step of (b) fed by ``DataLoader`` over
+    ``ImageRecordDataset`` (pinned batches, the device stage at depth 2),
+    one epoch; every batch's labels against the ``.idx`` order the
+    sampler drew; the resume check; and a pinned-batch check."""
+    reg = registry()
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    before = {k: reg.histogram(k).count for k in (
+        "loader.device_put_us", "loader.consume_wait_us")}
+    loader = phase17_loader(data, threads)
+    np.random.seed(seed)
+    order = np.random.RandomState(seed).permutation(data["images"])
+    labels = []
+
+    def src():
+        for xb, yb in loader:
+            labels.append(yb._data)
+            yield xb, yb
+
+    zero_counts()
+    n_batches = data["images"] // RESNET_BATCH
+    run = fed_run(net, trainer, lossfn, src(), n_batches - 1, 1)
+    # the whole epoch, its first batch's build included: the prefetch
+    # window (num_workers + 2 num_workers batches) holds the whole epoch,
+    # so the timed steps alone can ride on batches built before them
+    run["epoch_images_per_s"] = data["images"] / run["all_s"]
+    launches = multi_sgd_mom.launches
+    other = other_launches(multi_sgd_mom)
+    snap = reg.snapshot()
+    expected = (order % 1000).astype(np.float32).reshape(n_batches, -1)
+    labels_ok = len(labels) == n_batches and all(
+        np.array_equal(a.cpu().numpy(), b) for a, b in zip(labels, expected))
+    stage = {"device_put_us_p50": snap["loader.device_put_us"]["p50"],
+             "device_put_calls": snap["loader.device_put_us"]["count"]
+             - before["loader.device_put_us"],
+             "device_buffer_depth": snap["loader.device_buffer_depth"],
+             "prefetch_depth": snap["loader.prefetch_depth"],
+             "prefetch_capacity": snap["loader.prefetch_capacity"],
+             "consume_wait_us_p50": snap["loader.consume_wait_us"]["p50"]}
+
+    # resume: state after DATA_RESUME_AT batches, restored into a fresh
+    # loader, the rest of the epoch bit for bit
+    np.random.seed(seed)
+    full, state = [], None
+    first = phase17_loader(data, threads, train=False)
+    on_card = True
+    for k, (xb, yb) in enumerate(first):
+        on_card &= xb._data.is_cuda and yb._data.is_cuda
+        full.append((xb._data.cpu(), yb._data.cpu()))
+        if k + 1 == DATA_RESUME_AT:
+            state = first.state_dict()
+    np.random.seed(seed)
+    again = phase17_loader(data, threads, train=False)
+    again.load_state_dict(state)
+    rest = [(xb._data.cpu(), yb._data.cpu()) for xb, yb in again]
+    resume_ok = len(rest) == len(full) - DATA_RESUME_AT and all(
+        _bitwise(a, b) for a, b in zip(rest, full[DATA_RESUME_AT:]))
+    host = iter(phase17_loader(data, 1, train=False, device_prefetch=0))
+    pinned_ok = all(t._data.is_pinned() for t in next(host))
+    host.close()
+    return {"run": run, "launches": launches,
+            "other_kernel_launches": other, "stage": stage,
+            "labels_match_idx": labels_ok, "pinned": pinned_ok,
+            "on_card": on_card, "resume_state": state,
+            "resume_bitwise": resume_ok, "batches": len(labels)}
+
+
+def data_phase(seed: int, card: str, out_dir: Path) -> dict:
+    """Phase 17: ResNet-50 v1 trained from a RecordIO file on the card."""
+    start = time.monotonic()
+    parts, last = {}, [start]
+
+    def lap(name):
+        now = time.monotonic()
+        parts[name] = now - last[0]
+        last[0] = now
+
+    dev = gpu(0)
+    probe = jpeg_probe()
+    cores = probe["usable_cores"]
+    jpeg = probe["io_core_jpeg"] and probe["pil"] is not None
+    data = phase17_records(seed, out_dir, jpeg, DATA_IMAGES)
+    lap("probe_and_records")
+    print(f"data pipeline probe on {card}: {json.dumps(probe)}; records "
+          f"{data['payload']} ("
+          + ("JPEG at quality 90" if jpeg else
+             "RAWN: the io core has no JPEG decoder here")
+          + f"), {data['images']} images, mean record "
+          f"{data['mean_record_bytes']:.0f} bytes, made in "
+          f"{data['make_s']:.1f} s, preprocess threads {cores}",
+          flush=True)
+    threads = (1, 2, 4, cores) if cores > 4 else (1, 2, 4)
+
+    # (a) the iterator alone, two epochs, and its first batch again on one
+    # thread
+    a = iter_rate(lambda: record_iter(data, cores, seed, RESNET_BATCH),
+                  DATA_EPOCHS)
+    one = iter_rate(lambda: record_iter(data, 1, seed, RESNET_BATCH))
+    a_bitwise = all(np.array_equal(u.view(np.uint32), v.view(np.uint32))
+                    for u, v in zip(a["first"], one["first"]))
+    lap("a")
+
+    # (b) fp32 from the iterator against a resident batch, the first step
+    # against the CPU, then (c) the DataLoader on the same net, then (b)
+    # in bf16
+    fp32 = record_train(data, seed, cores, dev)
+    lap("b_fp32")
+    check = phase17_leaf_check(fp32.pop("w_init"), *a["first"], dev)
+    lap("leaf_check")
+    net, trainer = fp32.pop("net"), fp32.pop("trainer")
+    with dev:                    # the device stage copies to the context
+        c = loader_train(data, seed, cores, net, trainer)
+    free_graphs(net)
+    del net, trainer
+    lap("c")
+    try:
+        bf16 = record_train(data, seed, cores, dev, bf16=True)
+        free_graphs(bf16.pop("net"))
+        del bf16["trainer"], bf16["w_init"]
+    finally:
+        amp.disable()
+    lap("b_bf16")
+
+    # (d) the pipelines alone at 1, 2, 4 and every usable thread, over
+    # their first DATA_SCALING_BATCHES batches
+    def rates(make):
+        return {t: iter_rate(lambda: make(t), batches=DATA_SCALING_BATCHES)[
+            "images_per_s"] for t in threads}
+
+    with dev:
+        scaling = {
+            "record_iter_native": rates(lambda t: record_iter(
+                data, t, seed, RESNET_BATCH)),
+            "dataloader": rates(lambda t: phase17_loader(data, t))}
+        if not jpeg and probe["pil"] is not None:
+            # the io core cannot decode JPEG here, PIL can: the Python
+            # paths over a JPEG set, decode included
+            jp = phase17_records(seed, out_dir, True, DATA_JPEG_IMAGES)
+            scaling["jpeg_pil"] = {
+                "images": jp["images"],
+                "mean_record_bytes": jp["mean_record_bytes"],
+                "record_iter_python": rates(lambda t: record_iter(
+                    jp, t, seed, RESNET_BATCH, native_core=False)),
+                "dataloader": rates(lambda t: phase17_loader(jp, t))}
+    lap("d")
+    rel = abs(bf16["run"]["losses"][0] - fp32["run"]["losses"][0]) / \
+        abs(fp32["run"]["losses"][0])
+    checks = {
+        "native_core": a["native"] and one["native"],
+        "first_batch_bitwise_one_thread": a_bitwise,
+        "launches_fp32": fp32["launches"] == fp32[
+            "expected_launches_per_step"] * fp32["steps"]
+        and fp32["other_kernel_launches"] == 0,
+        "launches_bf16": bf16["launches"] == bf16[
+            "expected_launches_per_step"] * bf16["steps"]
+        and bf16["other_kernel_launches"] == 0,
+        "launches_dataloader": c["launches"] == fp32[
+            "expected_launches_per_step"] * c["run"]["steps"]
+        and c["other_kernel_launches"] == 0,
+        "finite_losses": all(math.isfinite(v) for r in (
+            fp32["run"], bf16["run"], c["run"]) for v in r["losses"]),
+        "bf16_first_loss_vs_fp32": rel <= RESNET_AMP_LOSS_RTOL,
+        "leaf_check": check["ok"],
+        "dataloader_labels_match_idx": c["labels_match_idx"],
+        "dataloader_pinned": c["pinned"],
+        "dataloader_on_card": c["on_card"],
+        "dataloader_resume_bitwise": c["resume_bitwise"],
+        "graphs": fp32["graphs"]["entries"] == 1
+        and fp32["graphs"]["deferred_calls"] == 0}
+    for r in (a, one):
+        r["first"] = batch_digest(r.pop("first")[0])
+    return {"card": card, "probe": probe, "payload": data["payload"],
+            "images": data["images"],
+            "mean_record_bytes": data["mean_record_bytes"],
+            "make_s": data["make_s"], "threads": cores,
+            "record_iter": {**a, "one_thread_first": one["first"]},
+            "fp32": fp32, "bf16": bf16, "leaf_check": check,
+            "bf16_first_loss_rel_vs_fp32": rel, "dataloader": c,
+            "scaling": scaling,
+            "launches": fp32["launches"] + bf16["launches"] + c["launches"],
+            "seconds": time.monotonic() - start, "part_seconds": parts,
+            "checks": checks, "ok": all(checks.values())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6145,6 +6703,41 @@ def main() -> int:
               flush=True)
     print(f"optimizer sgld on {card}:", json.dumps(surface["zoo"]["sgld"]),
           flush=True)
+    data = data_phase(args.seed, card, DATA_DIR)
+    rr = data["record_iter"]
+    print(f"data pipeline (a) ImageRecordIter on {card}: "
+          f"{rr['images_per_s']:.1f} images/s over {rr['images']} images "
+          f"({data['threads']} threads, native {rr['native']}), first "
+          f"batch {json.dumps(rr['first'])}, one thread "
+          f"{json.dumps(rr['one_thread_first'])}", flush=True)
+    for name in ("fp32", "bf16"):
+        r = data[name]
+        print(f"data pipeline (b) resnet50 {name} from the record file on "
+              f"{card}: step {r['run']['step_ms']:.3f} ms, "
+              f"{r['run']['images_per_s']:.1f} images/s, iterator wait "
+              f"{r['run']['iter_wait_ms_per_step']:.3f} ms and copy "
+              f"{r['run']['copy_and_wait_ms_per_step']:.3f} ms a step; "
+              f"resident batch step {r['resident']['step_ms']:.3f} ms, "
+              f"{r['resident']['images_per_s']:.1f} images/s; idle "
+              f"{r['profile']['device_idle_share']:.3f} fed, "
+              f"{r['resident_profile']['device_idle_share']:.3f} resident; "
+              f"{r['launches_per_step']} momentum launches a step",
+              flush=True)
+    c = data["dataloader"]
+    print(f"data pipeline (c) DataLoader on {card}: step "
+          f"{c['run']['step_ms']:.3f} ms, {c['run']['images_per_s']:.1f} "
+          f"images/s ({c['run']['epoch_images_per_s']:.1f} over the epoch), "
+          f"loader wait {c['run']['next_wait_ms_per_step']:.3f} ms a step, "
+          f"stage {json.dumps(c['stage'])}, labels match idx "
+          f"{c['labels_match_idx']}, resume bitwise {c['resume_bitwise']}",
+          flush=True)
+    print(f"data pipeline (d) scaling on {card}:",
+          json.dumps(data["scaling"]), flush=True)
+    print(f"data pipeline leaf check on {card}:",
+          json.dumps(data["leaf_check"]), flush=True)
+    print(f"data pipeline checks on {card} ({data['seconds']:.1f} s: "
+          f"{json.dumps(data['part_seconds'])}):",
+          json.dumps(data["checks"]), flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -6229,6 +6822,7 @@ def main() -> int:
         sgd_row("multi_sgd_mom", SGD_MOM_TPU, resnet["launches"],
                 times["multi_sgd_mom_resnet50"])
         | {"recipe_resume_launches": surface["resnet"]["launches"],
+           "data_pipeline_launches": data["launches"],
            "optimizer_zoo_launches": zoo_launches("multi_sgd_mom"),
            "amp_bf16_launches": low["resnet50_amp"]["launches"],
            "imperative_launches": imp["launches"],
@@ -6286,7 +6880,7 @@ def main() -> int:
          "nmt": nmt, "lstm_bucketing": lm, "nmt_flash_backward":
              nmt_backward, "detection": det, "graphs": graph,
          "generation": gen, "training_surface": surface,
-         "kernels": kernels,
+         "data_pipeline": data, "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
@@ -6295,7 +6889,8 @@ def main() -> int:
         ("low precision", low), ("imperative mlp", imp), ("nmt", nmt),
         ("lstm bucketing", lm), ("nmt flash backward", nmt_backward),
         ("detection", det), ("hybridized graphs", graph),
-        ("generation serving", gen), ("training surface", surface))
+        ("generation serving", gen), ("training surface", surface),
+        ("data pipeline", data))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

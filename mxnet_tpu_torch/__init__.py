@@ -31,13 +31,19 @@ of the JAX package with its update ops, ``mx.lr_scheduler``,
 ``Block.save_parameters``/``load_parameters`` and
 ``Trainer.save_states``/``load_states`` in files either package loads,
 the metrics, initializers and ``gluon.utils``.
+The data pipeline is MXNet's: ``mx.recordio`` and ``tools.im2rec``,
+``mx.io.ImageRecordIter`` over the native io core (``native/io_core.cc``,
+host C++), ``mx.image`` and ``mx.nd.image``, the CSV/LibSVM/MNIST
+iterators, and ``gluon.data`` with its datasets, samplers, vision
+transforms and a ``DataLoader`` whose device stage copies pinned batches
+on a side CUDA stream.
 Entry points run on ``gpu(0)`` unless the caller passes ``ctx=cpu()`` or
 opens a ``with mx.cpu():`` scope.
 """
-from . import autograd, base, callback, context, contrib, engine, gluon, \
-    initializer, io, kernels, kvstore, lr_scheduler, metric, model, module, \
-    ndarray, observability, operator, optimizer, random, rnn, rtc, serving, \
-    symbol
+from . import autograd, base, callback, context, contrib, engine, faults, \
+    gluon, image, initializer, io, kernels, kvstore, lr_scheduler, metric, \
+    model, module, ndarray, observability, operator, optimizer, random, \
+    recordio, rnn, rtc, serving, symbol
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .convert import load_reference_params
@@ -48,9 +54,9 @@ sym = symbol
 mod = module
 
 __all__ = ["Context", "MXNetError", "autograd", "base", "callback",
-           "context", "contrib", "cpu", "current_context", "engine", "gpu",
-           "gluon", "init", "initializer", "io", "kernels", "kvstore",
-           "load_reference_params", "lr_scheduler", "metric", "mod",
-           "model", "module", "nd", "ndarray", "num_gpus", "observability",
-           "operator", "optimizer", "random", "rnn", "rtc", "serving", "sym",
-           "symbol"]
+           "context", "contrib", "cpu", "current_context", "engine",
+           "faults", "gpu", "gluon", "image", "init", "initializer", "io",
+           "kernels", "kvstore", "load_reference_params", "lr_scheduler",
+           "metric", "mod", "model", "module", "nd", "ndarray", "num_gpus",
+           "observability", "operator", "optimizer", "random", "recordio",
+           "rnn", "rtc", "serving", "sym", "symbol"]

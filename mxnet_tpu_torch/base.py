@@ -121,6 +121,17 @@ register_env("MXTPU_FRONTEND_PRIORITY", 0, int,
              "important; models below the registry shed level are 429'd "
              "at the door).")
 
+register_env("MXTPU_FAULT_PLAN", "", str,
+             "Deterministic fault-injection schedule, e.g. "
+             "'loader_stall@4:1.5;loader_error@2' (faults.py).")
+register_env("MXTPU_DEVICE_PREFETCH", 0, int,
+             "DataLoader device stage: keep up to N batches in flight on "
+             "the device beyond the one being consumed, each copied from "
+             "(pinned) host memory on a side CUDA stream that the "
+             "consumer's stream waits on.  0 (the default) = off.  The "
+             "device_prefetch= constructor argument overrides; applied "
+             "at each __iter__.")
+
 
 def compute_dtype(dtype: Any) -> np.dtype:
     """The dtype a request input is served in: 64-bit ints and floats map

@@ -12,13 +12,14 @@ to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
 ``flash_attention`` (``ops_contrib.py``), the draws of ``nd.random``,
 ``waitall``, ``save`` and ``load``.  ``nd.contrib`` holds the
 ``_contrib_*`` ops by their short names (the detection ops of
-``ops_contrib.py``).
+``ops_contrib.py``), ``nd.image`` the ``_image_*`` ops
+(``ops_image.py``).
 """
 import sys as _sys
 
-from . import (ops_contrib, ops_elemwise, ops_matrix,  # noqa: F401
-               ops_nn, ops_optimizer, ops_random, ops_reduce)
-from . import contrib, random, utils
+from . import (ops_contrib, ops_elemwise, ops_image,  # noqa: F401
+               ops_matrix, ops_nn, ops_optimizer, ops_random, ops_reduce)
+from . import contrib, image, random, utils
 from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,
                       ones, zeros)
 from .ops_contrib import flash_attention

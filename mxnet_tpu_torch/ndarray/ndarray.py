@@ -494,6 +494,8 @@ def array(source, ctx: DeviceLike = None, dtype=None) -> NDArray:
         dt = source.dtype if dtype is None else torch_dtype(dtype)
         return NDArray(source.detach().to(device=dev, dtype=dt, copy=True))
     npv = np.asarray(source)
+    if any(st < 0 for st in npv.strides):     # a reversed view
+        npv = np.ascontiguousarray(npv)
     if dtype is not None:
         return NDArray(torch.tensor(npv, dtype=torch_dtype(dtype),
                                     device=dev))

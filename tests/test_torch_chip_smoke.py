@@ -1158,3 +1158,61 @@ def test_resume_check_flags_a_checkpoint_without_one_momentum(tmp_path,
     tr_c.load_states(str(tmp_path / "b.states"))
     assert chip_smoke.resume_mismatches(net_a, tr_a, net_c, tr_c) == [
         f"state {tr_a._params[5].name}"]
+
+
+def test_data_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, one_thread):
+    """Phase 17 on the CPU at a toy size (32 records of 40-56 pixels, crop
+    32, batch 8, a small ResNet, one usable core and one intra-op
+    thread), with the io core standing for one built without JPEG, as on
+    the card's machine (``RAWN`` records; (d) runs the PIL paths over a
+    JPEG set): every check but the kernel's launches (0 on CPU tensors),
+    the pinned batches and the batches on the card passes: the native
+    core's first batch bit for bit on one thread, the leaf check against
+    float64, the labels against the ``.idx``, the resume bit for bit."""
+    import json
+    import os
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "resnet50_v1",
+                        lambda classes=1000: resnet.ResNetV1(
+                            resnet.BottleneckV1, [1, 1, 1, 1],
+                            [8, 16, 32, 64, 128], classes=classes))
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: {0})
+    monkeypatch.setattr(chip_smoke.native, "has_jpeg", lambda: False)
+    for name, value in (("DATA_IMAGES", 32), ("DATA_SHORT", (40, 56)),
+                        ("DATA_RESIZE", 36), ("DATA_CROP", 32),
+                        ("RESNET_BATCH", 8), ("DATA_WARM", 1),
+                        ("DATA_RESUME_AT", 2), ("DATA_JPEG_IMAGES", 16),
+                        ("DATA_SCALING_BATCHES", 1)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.data_phase(0, "cpu", tmp_path)
+    assert out["payload"] == "rawn" and "jpeg_pil" in out["scaling"]
+    checks = dict(out["checks"])
+    for name in ("launches_fp32", "launches_bf16", "launches_dataloader",
+                 "dataloader_pinned", "dataloader_on_card"):
+        assert not checks.pop(name), name
+    assert all(checks.values()), checks
+    assert out["dataloader"]["resume_state"]["global"] == 2
+    assert set(out["part_seconds"]) == {"probe_and_records", "a", "b_fp32",
+                                        "leaf_check", "c", "b_bf16", "d"}
+    json.dumps(out)
+
+
+def test_data_phase_jpeg_records_feed_the_native_core(tmp_path,
+                                                      monkeypatch):
+    """Where the io core decodes JPEG, phase 17 packs JPEG records (a
+    smooth image compresses as a photograph does: far below its raw
+    bytes) and reuses them; the recipe's iterator reads them natively."""
+    import numpy as np
+    data = chip_smoke.phase17_records(3, tmp_path, True, 6)
+    again = chip_smoke.phase17_records(3, tmp_path, True, 6)
+    assert data["payload"] == "jpeg" and data["made"] and not again["made"]
+    img = chip_smoke.phase17_image(3, 0)
+    assert 300 <= min(img.shape[:2]) <= 500 and img.dtype == np.uint8
+    assert data["mean_record_bytes"] < img.nbytes / 4
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    rate = chip_smoke.iter_rate(lambda: chip_smoke.record_iter(
+        data, 1, 0, 3))
+    assert rate["native"] and rate["images"] == 6
+    assert rate["first"][0].shape == (3, 3, chip_smoke.DATA_CROP,
+                                      chip_smoke.DATA_CROP)

@@ -1944,3 +1944,84 @@ def test_resume_on_card_bitwise(card, tmp_path):
     for i, s in full_tr._states.items():
         assert resumed_tr._states[i].device == card
         assert torch.equal(resumed_tr._states[i], s)
+
+
+# ---- the data pipeline's device stage (gluon.data.DataLoader) -------------
+
+class _Rows:
+    """Sample i: a 1 M-element fp32 row of ``i + j * 1e-6`` and label i."""
+
+    def __len__(self):
+        return 24
+
+    def __getitem__(self, i):
+        return (np.float32(i) + np.arange(1 << 20, dtype=np.float32) * 1e-6,
+                np.float32(i))
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_device_stage_yields_the_host_batches(card, depth):
+    """Batches of 16 MB copied on the side stream: the consumer reads each
+    at once on its own stream (a missing wait on the copy's event gives a
+    torn batch), then stalls the card, so that later copies land while it
+    still holds earlier batches (a buffer reused under a copy, or a
+    missing ``record_stream``, gives wrong data)."""
+    from mxnet_tpu_torch import gpu
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    ds = _Rows()
+    loader = DataLoader(ds, batch_size=4, num_workers=2, pin_memory=True,
+                        device_prefetch=depth)
+    held, seen = [], []
+    with gpu(0):
+        for x, y in loader:
+            assert x._data.is_cuda and x._data.device == card
+            seen.append((x._data.clone(), y._data.clone()))
+            held.append(x)
+            torch.cuda._sleep(2_000_000)
+            if len(held) > 2:
+                held.pop(0)
+    torch.cuda.synchronize()
+    assert len(seen) == 6
+    for b, (x, y) in enumerate(seen):
+        want = np.stack([ds[i][0] for i in range(4 * b, 4 * b + 4)])
+        assert torch.equal(x.cpu(), torch.as_tensor(want))
+        assert torch.equal(y.cpu(), torch.arange(4 * b, 4 * b + 4,
+                                                 dtype=torch.float32))
+
+
+def test_pin_memory_batches_are_pinned(card):
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.dataloader import default_batchify_fn
+    for fn in (None, lambda s: default_batchify_fn(s)):
+        x, y = next(iter(DataLoader(_Rows(), batch_size=2, num_workers=1,
+                                    pin_memory=True, batchify_fn=fn)))
+        assert x._data.is_pinned() and y._data.is_pinned()
+        assert not x._data.is_cuda
+    x, _ = next(iter(DataLoader(_Rows(), batch_size=2)))
+    assert not x._data.is_pinned()
+
+
+def test_native_record_iter_batches_keep_their_bits_on_the_card(card,
+                                                                 tmp_path):
+    from mxnet_tpu_torch import gluon, gpu, io, recordio
+    rng = np.random.default_rng(0)
+    prefix = str(tmp_path / "r")
+    w = recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(16):
+        img = rng.integers(0, 255, (40 + i, 50, 3), dtype=np.uint8)
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, float(i), i, 0),
+                                     recordio._raw_payload(img)))
+    w.close()
+    it = io.ImageRecordIter(prefix + ".rec", (3, 32, 32), 8,
+                            path_imgidx=prefix + ".idx", shuffle=True,
+                            rand_crop=True, rand_mirror=True, resize=36,
+                            mean_r=120.0, std_r=60.0, use_native=True)
+    n = 0
+    for b in it:
+        host = b.data[0]._data
+        dev = gluon.utils.split_and_load(b.data[0], [gpu(0)])[0]
+        assert dev._data.is_cuda
+        assert torch.equal(dev._data.cpu().view(torch.int32),
+                           host.view(torch.int32))
+        n += 1
+    assert n == 2

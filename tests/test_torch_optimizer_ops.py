@@ -227,8 +227,9 @@ def test_ndarray_form_updates_states_in_place_and_weight_through_out():
 
 
 def test_registry_names_match_the_jax_package():
-    """161 ops; each new one under the JAX package's name and aliases,
-    callable through the registry with MXNet's NDArray convention."""
+    """174 ops (161, and the 13 ``_image_*`` ops of ``nd.image``); each new
+    one under the JAX package's name and aliases, callable through the
+    registry with MXNet's NDArray convention."""
     new = ["nag_mom_update", "mp_nag_mom_update", "ftrl_update",
            "signsgd_update", "signum_update", "rmsprop_update",
            "rmspropalex_update", "adagrad_update",
@@ -238,7 +239,7 @@ def test_registry_names_match_the_jax_package():
            "mp_lamb_update_phase1", "mp_lamb_update_phase2",
            "multi_sum_sq"]
     ours, theirs = set(pnd.list_ops()), set(mx.nd.list_ops())
-    assert len(ours) == 161 and set(new) <= ours and ours <= theirs
+    assert len(ours) == 174 and set(new) <= ours and ours <= theirs
     for alias in ("group_adagrad_update", "adamw_update", "mp_adamw_update"):
         assert pnd.get_op(alias) is pnd.get_op("_contrib_" + alias)
         assert getattr(pnd.contrib, alias) is getattr(pnd, alias)
