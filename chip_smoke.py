@@ -362,9 +362,10 @@ kernels not at all:
    those of the sampler's ``.idx`` keys, batches on the card, host
    batches pinned, and a resume from ``state_dict()`` after 4 batches
    bit for bit the uninterrupted epoch (with a fixed resize: numpy's
-   stream cannot be replayed across worker threads); (d) each pipeline
-   alone at 1, 2, 4 and every usable thread, and where the core lacks
-   JPEG the PIL paths over 256 JPEG records;
+   stream cannot be replayed across worker threads); (d) the loader of
+   (c) alone at 1, 2, 4 and every usable thread, over two batches a
+   worker, beside (a)'s native rates on one thread and on all; and one
+   batch's copy to the idle card, pageable and pinned;
 18. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
@@ -5885,8 +5886,8 @@ DATA_STD = (58.393, 57.12, 57.375)
 DATA_EPOCHS = 2                          # (a)'s timed epochs
 DATA_WARM = 2                            # steps before the timed ones
 DATA_RESUME_AT = 4                       # batches before the state_dict
-DATA_JPEG_IMAGES = 256                   # (d)'s PIL-decoded JPEG set
-DATA_SCALING_BATCHES = 2                 # (d)'s batches at each count
+DATA_SCALING_ROUNDS = 2                  # (d): batches each worker builds
+DATA_COPY_REPS = 3                       # timed copies of one batch
 DATA_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
@@ -5982,8 +5983,7 @@ def phase17_records(seed: int, out_dir: Path, jpeg: bool, n: int) -> dict:
             "mean_record_bytes": rec.stat().st_size / n}
 
 
-def record_iter(data: dict, threads: int, seed: int, batch: int,
-                native_core: bool = True):
+def record_iter(data: dict, threads: int, seed: int, batch: int):
     """``mx.io.ImageRecordIter`` of MXNet's ImageNet recipe over the
     phase's records."""
     return mx_io.ImageRecordIter(
@@ -5992,31 +5992,54 @@ def record_iter(data: dict, threads: int, seed: int, batch: int,
         shuffle=True, rand_crop=True, rand_mirror=True, resize=DATA_RESIZE,
         mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1], mean_b=DATA_MEAN[2],
         std_r=DATA_STD[0], std_g=DATA_STD[1], std_b=DATA_STD[2],
-        preprocess_threads=threads, seed=seed, use_native=native_core)
+        preprocess_threads=threads, seed=seed, use_native=True)
 
 
-def iter_rate(make, epochs: int = 1, batches: int = None) -> dict:
-    """Images/s of an iterator (``ImageRecordIter`` or ``DataLoader``)
-    over ``epochs`` epochs (or its first ``batches``) with nothing
-    consuming it, its first batch (data, labels), and whether it ran on
-    the native core."""
+def iter_rate(make, epochs: int = 1) -> dict:
+    """Images/s of an ``ImageRecordIter`` over ``epochs`` epochs with
+    nothing consuming it, its first batch (data, labels), and whether it
+    ran on the native core."""
     it = make()
     first, n = None, 0
     t0 = time.monotonic()
     for _ in range(epochs):
-        for k, b in enumerate(it):
-            data, label = (b.data[0], b.label[0]) if hasattr(b, "data") \
-                else b
+        for b in it:
             if first is None:
-                first = (data.asnumpy(), label.asnumpy())
-            n += data.shape[0]
-            if k + 1 == batches:
-                break
+                first = (b.data[0].asnumpy(), b.label[0].asnumpy())
+            n += b.data[0].shape[0]
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     return {"images": n, "s": wall, "images_per_s": n / wall,
             "first": first,
             "native": getattr(it, "_native", None) is not None}
+
+
+def copy_ms(x: np.ndarray, dev) -> dict:
+    """Host ms of one batch's copy to the card with nothing else queued:
+    as (b) copies it (``split_and_load`` of a host ``NDArray``, from
+    pageable memory) and from pinned memory (``non_blocking``), the
+    median of ``DATA_COPY_REPS`` copies each."""
+    host = nd.array(x, ctx=cpu())
+
+    def median_ms(copy):
+        times = []
+        for _ in range(DATA_COPY_REPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            copy()
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        return sorted(times)[len(times) // 2]
+
+    out = {"bytes": x.nbytes, "pageable_ms": median_ms(
+        lambda: gluon.utils.split_and_load(host, [dev]))}
+    if as_device(dev).type == "cuda":
+        pinned = torch.from_numpy(x).pin_memory()
+        out["pinned_ms"] = median_ms(
+            lambda: pinned.to(as_device(dev), non_blocking=True))
+    else:
+        out["pinned_ms"] = None
+    return out
 
 
 def batch_digest(a: np.ndarray) -> dict:
@@ -6203,10 +6226,39 @@ def loader_dataset(data: dict, train: bool):
 
 
 def phase17_loader(data: dict, threads: int, train: bool = True,
-                   device_prefetch: int = 2):
+                   device_prefetch: int = 2, sampler=None):
     return DataLoader(loader_dataset(data, train), batch_size=RESNET_BATCH,
-                      shuffle=True, num_workers=threads, pin_memory=True,
+                      shuffle=sampler is None, sampler=sampler,
+                      num_workers=threads, pin_memory=True,
                       device_prefetch=device_prefetch)
+
+
+def loader_scaling(data: dict, threads: int, seed: int) -> dict:
+    """(d) at one thread count: the loader of (c) with nothing consuming
+    it over ``DATA_SCALING_ROUNDS`` x ``threads`` batches, so that every
+    worker builds ``DATA_SCALING_ROUNDS`` batches (a worker builds a whole
+    batch); the sampler draws their records from the file, with repeats
+    where they outnumber its images.  Images/s from the first ``next()``
+    to the last batch (the pool's start-up included), a worker's mean ms
+    to build one batch (``loader.batch_build_us``), and the rate of
+    ``threads`` workers that each take that long (start-up excluded; the
+    in-flight window keeps every worker busy)."""
+    n = DATA_SCALING_ROUNDS * threads
+    order = np.random.RandomState(seed).randint(
+        0, data["images"], n * RESNET_BATCH)
+    build = registry().histogram("loader.batch_build_us")
+    before = (build.count, build.total)
+    loader = phase17_loader(data, threads, sampler=order.tolist())
+    t0 = time.monotonic()
+    batches = sum(1 for _ in loader)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    build_ms = (build.total - before[1]) / max(1, build.count - before[0]) \
+        / 1e3
+    return {"batches": batches, "expected_batches": n,
+            "images_per_s": batches * RESNET_BATCH / wall,
+            "build_ms_per_batch": build_ms,
+            "workers_images_per_s": threads * RESNET_BATCH / build_ms * 1e3}
 
 
 def loader_train(data: dict, seed: int, threads: int, net, trainer) -> dict:
@@ -6302,13 +6354,14 @@ def data_phase(seed: int, card: str, out_dir: Path) -> dict:
           flush=True)
     threads = (1, 2, 4, cores) if cores > 4 else (1, 2, 4)
 
-    # (a) the iterator alone, two epochs, and its first batch again on one
-    # thread
+    # (a) the iterator alone, two epochs, and one epoch again on one
+    # thread; a batch's copy to the idle card, pageable and pinned
     a = iter_rate(lambda: record_iter(data, cores, seed, RESNET_BATCH),
                   DATA_EPOCHS)
     one = iter_rate(lambda: record_iter(data, 1, seed, RESNET_BATCH))
     a_bitwise = all(np.array_equal(u.view(np.uint32), v.view(np.uint32))
                     for u, v in zip(a["first"], one["first"]))
+    copy = copy_ms(a["first"][0], dev)
     lap("a")
 
     # (b) fp32 from the iterator against a resident batch, the first step
@@ -6332,27 +6385,15 @@ def data_phase(seed: int, card: str, out_dir: Path) -> dict:
         amp.disable()
     lap("b_bf16")
 
-    # (d) the pipelines alone at 1, 2, 4 and every usable thread, over
-    # their first DATA_SCALING_BATCHES batches
-    def rates(make):
-        return {t: iter_rate(lambda: make(t), batches=DATA_SCALING_BATCHES)[
-            "images_per_s"] for t in threads}
-
+    # (d) the DataLoader alone at 1, 2, 4 and every usable thread; the
+    # native iterator's rates are (a)'s, on one thread and on all
     with dev:
-        scaling = {
-            "record_iter_native": rates(lambda t: record_iter(
-                data, t, seed, RESNET_BATCH)),
-            "dataloader": rates(lambda t: phase17_loader(data, t))}
-        if not jpeg and probe["pil"] is not None:
-            # the io core cannot decode JPEG here, PIL can: the Python
-            # paths over a JPEG set, decode included
-            jp = phase17_records(seed, out_dir, True, DATA_JPEG_IMAGES)
-            scaling["jpeg_pil"] = {
-                "images": jp["images"],
-                "mean_record_bytes": jp["mean_record_bytes"],
-                "record_iter_python": rates(lambda t: record_iter(
-                    jp, t, seed, RESNET_BATCH, native_core=False)),
-                "dataloader": rates(lambda t: phase17_loader(jp, t))}
+        scaling = {"dataloader": {t: loader_scaling(data, t, seed)
+                                  for t in threads},
+                   "record_iter_native": {
+                       "threads": [1, cores],
+                       "images_per_s": [one["images_per_s"],
+                                        a["images_per_s"]]}}
     lap("d")
     rel = abs(bf16["run"]["losses"][0] - fp32["run"]["losses"][0]) / \
         abs(fp32["run"]["losses"][0])
@@ -6376,6 +6417,9 @@ def data_phase(seed: int, card: str, out_dir: Path) -> dict:
         "dataloader_pinned": c["pinned"],
         "dataloader_on_card": c["on_card"],
         "dataloader_resume_bitwise": c["resume_bitwise"],
+        "dataloader_scaling_batches": all(
+            r["batches"] == r["expected_batches"]
+            for r in scaling["dataloader"].values()),
         "graphs": fp32["graphs"]["entries"] == 1
         and fp32["graphs"]["deferred_calls"] == 0}
     for r in (a, one):
@@ -6384,7 +6428,9 @@ def data_phase(seed: int, card: str, out_dir: Path) -> dict:
             "images": data["images"],
             "mean_record_bytes": data["mean_record_bytes"],
             "make_s": data["make_s"], "threads": cores,
-            "record_iter": {**a, "one_thread_first": one["first"]},
+            "record_iter": {**a, "one_thread_first": one["first"],
+                            "one_thread_images_per_s": one["images_per_s"]},
+            "copy": copy,
             "fp32": fp32, "bf16": bf16, "leaf_check": check,
             "bf16_first_loss_rel_vs_fp32": rel, "dataloader": c,
             "scaling": scaling,
@@ -6709,7 +6755,9 @@ def main() -> int:
           f"{rr['images_per_s']:.1f} images/s over {rr['images']} images "
           f"({data['threads']} threads, native {rr['native']}), first "
           f"batch {json.dumps(rr['first'])}, one thread "
-          f"{json.dumps(rr['one_thread_first'])}", flush=True)
+          f"{json.dumps(rr['one_thread_first'])} at "
+          f"{rr['one_thread_images_per_s']:.1f} images/s; a batch's copy "
+          f"to the idle card {json.dumps(data['copy'])}", flush=True)
     for name in ("fp32", "bf16"):
         r = data[name]
         print(f"data pipeline (b) resnet50 {name} from the record file on "
@@ -6720,7 +6768,11 @@ def main() -> int:
               f"resident batch step {r['resident']['step_ms']:.3f} ms, "
               f"{r['resident']['images_per_s']:.1f} images/s; idle "
               f"{r['profile']['device_idle_share']:.3f} fed, "
-              f"{r['resident_profile']['device_idle_share']:.3f} resident; "
+              f"{r['resident_profile']['device_idle_share']:.3f} resident, "
+              f"profiled memcpy "
+              f"{r['profile']['device_ms']['memcpy']:.3f} ms fed, "
+              f"{r['resident_profile']['device_ms']['memcpy']:.3f} "
+              f"resident; "
               f"{r['launches_per_step']} momentum launches a step",
               flush=True)
     c = data["dataloader"]

@@ -1164,11 +1164,12 @@ def test_data_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, one_thread):
     """Phase 17 on the CPU at a toy size (32 records of 40-56 pixels, crop
     32, batch 8, a small ResNet, one usable core and one intra-op
     thread), with the io core standing for one built without JPEG, as on
-    the card's machine (``RAWN`` records; (d) runs the PIL paths over a
-    JPEG set): every check but the kernel's launches (0 on CPU tensors),
-    the pinned batches and the batches on the card passes: the native
-    core's first batch bit for bit on one thread, the leaf check against
-    float64, the labels against the ``.idx``, the resume bit for bit."""
+    the card's machine (``RAWN`` records): every check but the kernel's
+    launches (0 on CPU tensors), the pinned batches and the batches on the
+    card passes: the native core's first batch bit for bit on one thread,
+    the leaf check against float64, the labels against the ``.idx``, the
+    resume bit for bit, and (d)'s loader yielding two batches a worker at
+    every thread count."""
     import json
     import os
     monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
@@ -1182,11 +1183,14 @@ def test_data_phase_rehearses_on_the_cpu(monkeypatch, tmp_path, one_thread):
     for name, value in (("DATA_IMAGES", 32), ("DATA_SHORT", (40, 56)),
                         ("DATA_RESIZE", 36), ("DATA_CROP", 32),
                         ("RESNET_BATCH", 8), ("DATA_WARM", 1),
-                        ("DATA_RESUME_AT", 2), ("DATA_JPEG_IMAGES", 16),
-                        ("DATA_SCALING_BATCHES", 1)):
+                        ("DATA_RESUME_AT", 2)):
         monkeypatch.setattr(chip_smoke, name, value)
     out = chip_smoke.data_phase(0, "cpu", tmp_path)
-    assert out["payload"] == "rawn" and "jpeg_pil" in out["scaling"]
+    assert out["payload"] == "rawn"
+    assert sorted(out["scaling"]["dataloader"]) == [1, 2, 4]
+    assert all(r["batches"] == 2 * t and r["build_ms_per_batch"] > 0
+               for t, r in out["scaling"]["dataloader"].items())
+    assert out["copy"]["pinned_ms"] is None
     checks = dict(out["checks"])
     for name in ("launches_fp32", "launches_bf16", "launches_dataloader",
                  "dataloader_pinned", "dataloader_on_card"):
@@ -1210,6 +1214,8 @@ def test_data_phase_jpeg_records_feed_the_native_core(tmp_path,
     img = chip_smoke.phase17_image(3, 0)
     assert 300 <= min(img.shape[:2]) <= 500 and img.dtype == np.uint8
     assert data["mean_record_bytes"] < img.nbytes / 4
+    if not chip_smoke.native.has_jpeg():
+        pytest.skip("the io core was built without libjpeg here")
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     rate = chip_smoke.iter_rate(lambda: chip_smoke.record_iter(
         data, 1, 0, 3))

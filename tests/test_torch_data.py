@@ -231,7 +231,9 @@ def test_io_core_without_jpeg_reads_rawn_and_names_the_missing_decoder(
         tmp_path, monkeypatch):
     lib = ctypes.CDLL(str(pnative._build(pnative.NO_JPEG)))
     pnative._bind(lib)
-    assert lib.MXIOHasJpeg() == 0 and pnative.has_jpeg()
+    assert lib.MXIOHasJpeg() == 0
+    # the default core decodes JPEG wherever its libjpeg build exists
+    assert pnative.has_jpeg() == pnative._target(pnative.JPEG_LIBS).exists()
     monkeypatch.setattr(pnative, "load_io", lambda: lib)
     kw = dict(data_shape=(3, 16, 16), batch_size=4, use_native=True,
               seed=1)
