@@ -9,8 +9,8 @@ MLP, ResNet-50, the custom-op MLP, BERT-base training, phase 10's
 low-precision runs, phase 11's imperative MLP, phase 12's NMT
 training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
 and Mask-RCNN training, phase 14's hybridized runs, phase 15's
-generation serving, each part of phase 16, and each training run of
-phase 17) and read just after;
+generation serving, each part of phase 16, each training run of
+phase 17, and each model of phase 18) and read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -366,7 +366,35 @@ kernels not at all:
    (c) alone at 1, 2, 4 and every usable thread, over two batches a
    worker, beside (a)'s native rates on one thread and on all; and one
    batch's copy to the idle card, pageable and pinned;
-18. prints one JSON line of kernel measurements (flash: the fp32 and, as
+18. Gluon's model surface: (a) one constructor of each vision family
+   through ``gluon.model_zoo.vision.get_model`` at 1000 classes
+   (``alexnet``, ``vgg16``, ``resnet50_v2``, ``mobilenet_v2_1_0``,
+   ``densenet121``, ``squeezenet1_1`` at 224 x 224, ``inception_v3`` at
+   299 x 299), weights from ``--seed``, hybridized, batch 32 fp32,
+   ``gluon.Trainer("sgd", lr 0.1, momentum 0.9, wd 1e-4)`` (lr 0.01 for
+   VGG and SqueezeNet, 0.001 for AlexNet, which have no BatchNorm,
+   ``ZOO_FAMILIES``): 3 warm and 5
+   timed steps (step ms, images/s, the momentum kernel's launches a step,
+   exact), one profiled step (device ms by class, idle share, host
+   launches), two predict-mode forwards (the second replayed), the
+   graphs' pool bytes; one batch-2 step from the initial weights eagerly on the
+   card against the CPU in fp32 and float64 (``decision_leaf_check``;
+   the CPU runs take the card's ReLU, ReLU6, max-pool and dropout
+   decisions, ``ZooDecisions``) and the same step replayed from the
+   captured graph bit for bit an eager card step (cuDNN's deterministic
+   algorithms, generators reseeded); (b) MXNet's word language model
+   (``example/gluon/word_language_model``: embedding 650, a 2-layer
+   ``gluon.rnn.LSTM`` of 650 with dropout 0.5, the decoder tied to the
+   embedding, vocabulary 33,278, bptt 35, batch 32, SGD at lr 20 with
+   ``clip_global_norm`` at 0.25 a token), hybridized, the hidden state
+   carried and detached across 3 warm and 10 timed windows of tokens
+   from ``--seed`` (window ms, tokens/s, the plain SGD kernel's launches
+   a window, exact; no cuDNN weight copy), one profiled window; the
+   first window, dropout
+   off, against the CPU in fp32 and float64 (``leaf_check``), and a
+   window replayed from its graph, dropout on, bit for bit the eager
+   card window;
+19. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -376,7 +404,8 @@ kernels not at all:
    ``lamb_train_launches``, ``recipe_resume_launches`` and
    ``optimizer_zoo_launches`` (the mixed path without momentum's under
    ``optimizer_zoo_mixed_launches``), phase 17's under
-   ``data_pipeline_launches``; the SGD kernels' bf16/fp16
+   ``data_pipeline_launches``, phase 18's under ``vision_zoo_launches``
+   and ``word_lm_launches``; the SGD kernels' bf16/fp16
    entries, and the mixed path's own entry beside the unfused route's
    ``before_ms``), the card line, and last ``{"ok": true, "device":
    {...}}``.
@@ -401,6 +430,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -431,6 +461,7 @@ from mxnet_tpu_torch.gluon.model_zoo.ssd import (SSDMultiBoxLoss,
                                                  ssd_512_resnet50_v1)
 from mxnet_tpu_torch.gluon.model_zoo.transformer import (CausalLM, bert_base,
                                                           causal_lm_small)
+from mxnet_tpu_torch.gluon.model_zoo import vision as vision_zoo
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 from mxnet_tpu_torch.initializer import Xavier
 from mxnet_tpu_torch.kernels import _build
@@ -1698,10 +1729,16 @@ def range_kernels(prof, name: str) -> list:
             and any(s <= e.time_range.start <= t for s, t in spans)]
 
 
-def _device_classes(prof, wall_ms, ranges=RESNET_RANGES):
+# phase 18's finer classes, by a word of the kernel's name, tried first
+FINE_CLASSES = (("recurrent", ("rnn", "lstm", "gru_")),
+                ("pool", ("pool",)), ("concat", ("catarray",)),
+                ("dropout", ("dropout", "bernoulli")))
+
+
+def _device_classes(prof, wall_ms, ranges=RESNET_RANGES, fine=False):
     """Device time of one profiled step by kernel class (convolutions and
     GEMMs, BatchNorm, casts, cuDNN's NCHW/NHWC transposes, elementwise,
-    the update, memcpy, other; the
+    the update, memcpy, other; with ``fine`` also ``FINE_CLASSES``; the
     kernels that ran inside a range of ``ranges`` in the class of the
     narrowest such range), and its idle share of the step's wall
     time."""
@@ -1709,6 +1746,8 @@ def _device_classes(prof, wall_ms, ranges=RESNET_RANGES):
                "casts": 0.0, "layout": 0.0, "elementwise": 0.0,
                "update": 0.0, "memcpy": 0.0, "other": 0.0}
     classes.update(dict.fromkeys(ranges.values(), 0.0))
+    if fine:
+        classes.update(dict.fromkeys((c for c, _ in FINE_CLASSES), 0.0))
 
     def by_name(name):
         name = name.lower()
@@ -1716,6 +1755,9 @@ def _device_classes(prof, wall_ms, ranges=RESNET_RANGES):
             return "update"
         if "memcpy" in name or "memset" in name:
             return "memcpy"
+        for cls, words in FINE_CLASSES if fine else ():
+            if any(w in name for w in words):
+                return cls
         if "nchwtonhwc" in name or "nhwctonchw" in name:
             return "layout"
         if any(w in name for w in ("conv", "gemm", "xmma", "cutlass",
@@ -3890,6 +3932,7 @@ RCNN_CHECK = 1
 #: that a CPU run may have decided otherwise than the card
 DECISION_FLIPS = 1e-4
 UPDATE_LOST = 4                         # records a kernel, of 5 calls
+UPDATE_ATTEMPTS = 6                     # traces of an update's timing
 SSD_RANGES = {"batchnorm_stats": "batchnorm_stats",
               "multibox_target": "multibox_target", "ssd_loss": "loss",
               "trainer_step": "update"}
@@ -4070,7 +4113,9 @@ def sgd_update_row(shapes, seed: int, opt: dict, batch: int,
     lost a few of their thousands of records in every take (4-10 of the
     kernel's 260): the kernel's time is read off the step's trace, and
     the other two are kept with up to ``UPDATE_LOST`` records a kernel
-    missing, scaled to whole calls."""
+    missing, scaled to whole calls; one run lost every record of
+    Mask-RCNN's fused-SGD timing in 3 traces running, so each is taken
+    up to ``UPDATE_ATTEMPTS`` times."""
     case = SgdCase(torch.Generator(device=gpu(0)).manual_seed(seed), shapes)
     rescale = 1.0 / batch
     check = check_sgd(case, "sgd_mom", AGG, -1.0, rescale)
@@ -4085,8 +4130,9 @@ def sgd_update_row(shapes, seed: int, opt: dict, batch: int,
     return {"check": check, "ms": update_ms,
             "plain_ms": device_ms(lambda: multi_sgd_mom_plain(
                 w, case.g, m, lrs, wds, opt["momentum"], rescale), 5,
-                lost=UPDATE_LOST),
-            "library_ms": device_ms(lib.step, 5, lost=UPDATE_LOST),
+                attempts=UPDATE_ATTEMPTS, lost=UPDATE_LOST),
+            "library_ms": device_ms(lib.step, 5, attempts=UPDATE_ATTEMPTS,
+                                    lost=UPDATE_LOST),
             "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
             "elements": case.n, "tensors": len(w),
             "launches_per_update": -(-len(w) // AGG)}
@@ -6439,6 +6485,484 @@ def data_phase(seed: int, card: str, out_dir: Path) -> dict:
             "checks": checks, "ok": all(checks.values())}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: Gluon's model surface, the vision zoo and a word language model
+
+# (model, input side, learning rate): 0.1 with momentum 0.9 and wd 1e-4
+# (MXNet's train_imagenet recipe) for the families with BatchNorm; less for
+# those without, which diverge at 0.1 from these weights and this data
+# (AlexNet's and SqueezeNet 1.1's losses reach NaN by the fourth step at
+# batch 32, on the CPU): 0.01, as their published recipes train them, and
+# 0.001 for AlexNet, whose loss also went from 40 to NaN in 8 steps at 0.01
+# on an H100
+ZOO_FAMILIES = (("alexnet", 224, 0.001), ("vgg16", 224, 0.01),
+                ("resnet50_v2", 224, 0.1), ("mobilenet_v2_1_0", 224, 0.1),
+                ("densenet121", 224, 0.1), ("squeezenet1_1", 224, 0.01),
+                ("inception_v3", 299, 0.1))
+ZOO_BATCH = 32
+ZOO_WARM = 3          # the warm (eager) step, the capturing step, one more
+ZOO_TIMED = 5
+ZOO_CHECK = 2         # the leaf check's batch
+WORD_LM = {"vocab": 33278, "emb": 650, "hidden": 650, "layers": 2,
+           "dropout": 0.5, "bptt": 35, "batch": 32}
+WORD_LM_OPT = {"learning_rate": 20.0}
+WORD_LM_CLIP = 0.25
+WORD_LM_WARM = 3
+WORD_LM_TIMED = 10
+CUDNN_COPY_WARNING = "contiguous chunk of memory"
+
+
+class ZooDecisions(Decisions):
+    """``Decisions``, and also the decisions of the rest of the vision
+    zoo: the ReLU6 clamps (``torch.clamp(z, 0, hi)``, recorded as the
+    units it passes and the units it caps), the max pools' arg-max (the
+    CPU runs gather the card's windows' winners) and the dropout masks
+    (``F.dropout`` in training mode, drawn here from a CPU generator
+    seeded with ``seed`` and handed to the CPU runs)."""
+
+    POOLS = (F.max_pool1d, F.max_pool2d, F.max_pool3d)
+
+    def __init__(self, masks=None, seed=0):
+        super().__init__(masks)
+        self._gen = torch.Generator().manual_seed(seed)
+
+    def _take(self):
+        mask = self._forced[self._calls]
+        self._calls += 1
+        return mask
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self.POOLS:
+            out, idx = func(*args, **{**kwargs, "return_indices": True})
+            self.units += idx.numel()
+            if self._forced is None:
+                self.masks.append(idx)
+                return out
+            want = self._take().to(idx.device)
+            self.flips += int((idx != want).sum())
+            return args[0].flatten(2).gather(2, want.flatten(2)) \
+                .view(out.shape)
+        if func is torch.clamp and len(args) == 3 and args[1] == 0 \
+                and args[2] is not None:
+            z, hi = args[0], args[2]
+            own = ((z > 0) & (z < hi), z >= hi)
+            self.units += z.numel()
+            if self._forced is None:
+                self.masks.append(own)
+                return func(*args, **kwargs)
+            mid, top = (m.to(z.device) for m in self._take())
+            self.flips += int(((own[0] != mid) | (own[1] != top)).sum())
+            return z * mid.to(z.dtype) + hi * top.to(z.dtype)
+        if func is F.dropout:
+            x = args[0]
+            p = args[1] if len(args) > 1 else kwargs.get("p", 0.5)
+            training = args[2] if len(args) > 2 else \
+                kwargs.get("training", True)
+            if not training or p == 0:
+                return func(*args, **kwargs)
+            if self._forced is None:
+                mask = torch.rand(x.shape, generator=self._gen) >= p
+                self.masks.append(mask)
+            else:
+                mask = self._take()
+            return x * mask.to(x.device, x.dtype) / (1 - p)
+        return super().__torch_function__(func, types, args, kwargs)
+
+
+def profiled(step) -> dict:
+    """One ``step()`` under torch.profiler: device ms by class
+    (``_device_classes`` with the finer classes), the idle share of its
+    wall time, the top kernels, and the host's kernel and graph
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    res = _device_classes(prof, wall_ms, fine=True)
+    launches = host_launches(prof)
+    res["host_launches"] = launches["host_launches"]
+    res["host_graph_launches"] = launches["host_graph_launches"]
+    return res
+
+
+def zoo_check(net, name: str, w_init: dict, xb, yb, lossfn,
+              seed: int, opt: dict) -> dict:
+    """One SGD step (``opt``) at batch ``ZOO_CHECK`` from the
+    initial weights: eagerly on the card recording its decisions
+    (``ZooDecisions``), and on the CPU in fp32 and float64 taking them,
+    held by ``decision_leaf_check``; then the same step replayed from the
+    hybridized net's captured graph (after a warm call of the signature)
+    against an eager card step, bit for bit (loss, gradients, weights),
+    with cuDNN's deterministic algorithms and every generator reseeded
+    before each step."""
+    dev = gpu(0)
+    arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
+
+    def run(model, x, y):
+        return lambda: lossfn(model(x), y).mean()
+
+    def card_step(reset=True):
+        if reset:
+            load_reference_params(net, arrays, ctx=dev)
+        torch.manual_seed(seed)
+        mx_random.seed(seed)
+        return check_step(net, run(net, xb, yb), opt)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        net.hybridize(False)
+        load_reference_params(net, arrays, ctx=dev)
+        with ZooDecisions(seed=seed) as card:
+            after = {"card": check_step(net, run(net, xb, yb), opt)}
+        eager = card_step()
+        net.hybridize()
+        card_step()                                    # warm
+        before = net.graph_stats()["replays"]
+        replay = card_step()
+        replayed = net.graph_stats()["replays"] - before
+        free_graphs(net)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    flips = {}
+    for nm, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+        model = vision_zoo.get_model(name, classes=1000)
+        load_reference_params(model, arrays, ctx=cpu())
+        with ZooDecisions(card.masks) as forced:
+            after[nm] = check_step(
+                model.to(dtype), run(model, xb.cpu().to(dtype), yb.cpu()),
+                opt)
+        flips[nm] = {"decisions": forced.flips}
+        del model
+    res = decision_leaf_check(after, w_init, flips,
+                              {"decisions": card.units})
+    flat = [[t[0]] + list(t[1].values()) + list(t[2].values())
+            for t in (eager, replay)]
+    res.update(replayed=replayed, replay_bitwise_eager=_bitwise(*flat))
+    res["ok"] = res["ok"] and replayed == 1 and res["replay_bitwise_eager"]
+    return res
+
+
+def zoo_model_run(name: str, size: int, lr: float, seed: int,
+                  card: str) -> dict:
+    """(a) one vision family at ImageNet width (1000 classes), batch
+    ``ZOO_BATCH`` fp32, hybridized, through ``gluon.Trainer("sgd", lr,
+    momentum 0.9, wd 1e-4)``: ``ZOO_WARM`` then ``ZOO_TIMED`` timed steps, the
+    momentum kernel's exact launches, two predict-mode forwards, and
+    ``zoo_check``."""
+    dev = gpu(0)
+    net = vision_zoo.get_model(name, classes=1000)
+    net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+    net.hybridize()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(ZOO_BATCH, 3, size, size, device=dev, generator=gen)
+    y = torch.randint(0, 1000, (ZOO_BATCH,), device=dev,
+                      generator=gen).float()
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    with autograd.predict_mode(), torch.no_grad():
+        net(x[:ZOO_CHECK])                   # settles the deferred shapes
+    w_init = _snapshot(net)
+    params = net.collect_params()
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    opt = dict(RESNET_OPT, learning_rate=lr)
+    trainer = gluon.Trainer(params, "sgd", opt)
+    groups = -(-len(trainable) // AGG)
+
+    def step():
+        with autograd.record():
+            loss = lossfn(net(x), y)
+        autograd.backward(loss)
+        trainer.step(ZOO_BATCH)
+        return loss.detach().mean()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses = [step() for _ in range(ZOO_WARM)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    losses += [step() for _ in range(ZOO_TIMED)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = multi_sgd_mom.launches
+    other = other_launches(multi_sgd_mom)
+    steps = ZOO_WARM + ZOO_TIMED
+    profile = profiled(step)
+    steps += 1
+    train_graphs = graph_summary(net)
+    with autograd.predict_mode(), torch.no_grad():
+        probs = [net(x) for _ in range(2)]
+    torch.cuda.synchronize()
+    graphs = graph_summary(net)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    free_graphs(net)
+    losses = [v.item() for v in losses]
+    check = zoo_check(net, name, w_init, x[:ZOO_CHECK], y[:ZOO_CHECK],
+                      lossfn, seed, opt)
+    train = [g for g in graphs["by_graph"] if g["mode"] == "train"]
+    infer = [g for g in graphs["by_graph"] if g["mode"] == "infer"]
+    checks = {
+        "launches_exact": launches == groups * (steps - 1) and other == 0,
+        "finite_losses": all(math.isfinite(v) for v in losses),
+        "one_train_graph": len(train) == 1 and
+        train[0]["replays"] == steps - 1,
+        "predict_shape": tuple(probs[0].shape) == (ZOO_BATCH, 1000)
+        and all(bool(torch.isfinite(p).all()) for p in probs),
+        "predict_replayed": len(infer) == 1 and infer[0]["replays"] == 1,
+        "predict_replay_bitwise_warm": _bitwise([probs[0]], [probs[1]]),
+        "leaf_check": check["ok"]}
+    res = {
+        "model": name, "input": size, "batch": ZOO_BATCH,
+        "learning_rate": lr,
+        "parameters": sum(p.data().numel() for p in trainable),
+        "trainable_tensors": len(trainable),
+        "step_ms": wall / ZOO_TIMED * 1e3,
+        "images_per_s": ZOO_BATCH * ZOO_TIMED / wall,
+        "launches": launches,
+        "launches_per_step": launches / (steps - 1),
+        "expected_launches_per_step": groups,
+        "other_kernel_launches": other, "losses": losses,
+        "peak_memory_gb": peak_gb, "profile": profile,
+        "pool_bytes": {"train": [g["pool_bytes"] for g in train],
+                       "infer": [g["pool_bytes"] for g in infer]},
+        "capture_ms": [g["capture_ms"] for g in graphs["by_graph"]],
+        "graphs": train_graphs | {"after_predict": graphs["entries"]},
+        "check": {k: check[k] for k in (
+            "loss_abs_err_vs_cpu", "decisions", "flips", "replayed",
+            "replay_bitwise_eager", "ok")} | {
+            part: {k: check[part][k] for k in (
+                "ok", "leaves", "failed", "cpu_share_median",
+                "worst_margin")} for part in ("weights", "grads")},
+        "checks": checks}
+    res["ok"] = all(checks.values())
+    del net, trainer, probs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+class WordLM(gluon.HybridBlock):
+    """MXNet's ``example/gluon/word_language_model`` model: an embedding
+    (uniform in +-0.1), dropout, a multi-layer ``gluon.rnn.LSTM`` with
+    dropout between layers, dropout, and a decoder tied to the embedding
+    (``params=``) unless ``tie`` is False."""
+
+    def __init__(self, vocab, emb, hidden, layers, dropout, tie=True,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._hidden = hidden
+        with self.name_scope():
+            self.drop = nn.Dropout(dropout)
+            self.encoder = nn.Embedding(
+                vocab, emb, weight_initializer=mx_init.Uniform(0.1))
+            self.rnn = gluon.rnn.LSTM(hidden, layers, dropout=dropout,
+                                      input_size=emb)
+            self.decoder = nn.Dense(
+                vocab, in_units=hidden,
+                params=self.encoder.params if tie else None)
+
+    def forward(self, inputs, hidden):
+        emb = self.drop(self.encoder(inputs))
+        output, hidden = self.rnn(emb, hidden)
+        output = self.drop(output)
+        return self.decoder(output.reshape(-1, self._hidden)), hidden
+
+    def begin_state(self, *args, **kwargs):
+        return self.rnn.begin_state(*args, **kwargs)
+
+
+def word_lm_window(net, trainer, x, y, hidden, lossfn, train=True):
+    """One truncated-BPTT window of the example's loop: the hidden state
+    detached, the summed token losses back-propagated, the gradients
+    clipped to ``WORD_LM_CLIP`` per token (``clip_global_norm``), one SGD
+    step over the window's tokens.  Returns the mean loss, the new hidden
+    state, and the gradients before the step."""
+    hidden = [h.detach() for h in hidden]
+    with autograd.record(train_mode=train):
+        out, hidden = net(x, hidden)
+        loss = lossfn(out, y.reshape(-1))
+    autograd.backward(loss)
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    tokens = x.numel()
+    gluon.utils.clip_global_norm([p.grad() for p in params],
+                                 WORD_LM_CLIP * tokens)
+    grads = {p.name: p.grad().detach().clone() for p in params}
+    trainer.step(tokens)
+    return loss.detach().mean(), hidden, grads
+
+
+def word_lm_data(seed: int, windows: int, dev):
+    cfg = WORD_LM
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg["vocab"],
+                        (windows * cfg["bptt"] + 1, cfg["batch"]),
+                        generator=gen).to(dev)
+    return [(ids[i * cfg["bptt"]:(i + 1) * cfg["bptt"]],
+             ids[i * cfg["bptt"] + 1:(i + 1) * cfg["bptt"] + 1].float())
+            for i in range(windows)]
+
+
+def word_lm_build(dropout=None):
+    cfg = WORD_LM
+    return WordLM(cfg["vocab"], cfg["emb"], cfg["hidden"], cfg["layers"],
+                  cfg["dropout"] if dropout is None else dropout)
+
+
+def word_lm_run(seed: int, card: str) -> dict:
+    """(b) the word language model at the example's widths, hybridized:
+    ``WORD_LM_WARM`` then ``WORD_LM_TIMED`` timed windows with the hidden
+    state carried across them; the plain SGD kernel's exact launches; no
+    copy of the weights by cuDNN; the first window (dropout off) against
+    the CPU in fp32 and float64 (``leaf_check``); and a window replayed
+    from the captured graph, dropout on, bit for bit its eager card
+    window, every generator reseeded before each."""
+    dev = gpu(0)
+    cfg = WORD_LM
+    net = word_lm_build()
+    net.initialize(Xavier(), ctx=dev, seed=seed)
+    net.hybridize()
+    w_init = _snapshot(net)
+    arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
+    params = net.collect_params()
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    trainer = gluon.Trainer(params, "sgd", WORD_LM_OPT)
+    groups = -(-len(trainable) // AGG)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    windows = word_lm_data(seed, WORD_LM_WARM + WORD_LM_TIMED, dev)
+    hidden = [h._data for h in net.begin_state(cfg["batch"], ctx=dev)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        zero_counts()
+        for i, (x, y) in enumerate(windows):
+            if i == WORD_LM_WARM:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+            loss, hidden, _ = word_lm_window(net, trainer, x, y, hidden,
+                                             lossfn)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches, other = multi_sgd.launches, other_launches(multi_sgd)
+    copies = [str(w.message) for w in caught
+              if CUDNN_COPY_WARNING in str(w.message)]
+    x, y = windows[-1]
+    profile = profiled(lambda: word_lm_window(net, trainer, x, y, hidden,
+                                              lossfn))
+    graphs = graph_summary(net)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    free_graphs(net)
+    losses = [v.item() for v in losses]
+
+    # the first window, dropout off, on the card (eager) and on the CPU
+    x0, y0 = windows[0]
+    h0 = [torch.zeros_like(h) for h in hidden]
+    after = {}
+    net.hybridize(False)
+    for nm, model, dtype in (("card", net, torch.float32),
+                             ("cpu", None, torch.float32),
+                             ("cpu64", None, torch.float64)):
+        d = dev if model is not None else cpu()
+        if model is None:
+            model = word_lm_build()
+        load_reference_params(model, arrays, ctx=d)
+        model.to(dtype)
+        tr = gluon.Trainer(model.collect_params(), "sgd", WORD_LM_OPT)
+        loss, _, grads = word_lm_window(
+            model, tr, x0.to(d), y0.to(d), [h.to(d, dtype) for h in h0],
+            lossfn, train=False)
+        after[nm] = (loss.cpu().double(), grads, _snapshot(model))
+    zeros = {k: torch.zeros_like(v) for k, v in after["card"][1].items()}
+    loss_err = (after["card"][0] - after["cpu"][0]).abs().item()
+    weights = leaf_check(after["card"][2], after["cpu"][2],
+                         after["cpu64"][2], w_init)
+    grads = leaf_check(after["card"][1], after["cpu"][1],
+                       after["cpu64"][1], zeros)
+
+    # a replayed window, dropout on, against the eager one
+    def card_window():
+        load_reference_params(net, arrays, ctx=dev)
+        torch.manual_seed(seed)
+        mx_random.seed(seed)
+        tr = gluon.Trainer(net.collect_params(), "sgd", WORD_LM_OPT)
+        loss, new_h, g = word_lm_window(net, tr, x0, y0, h0, lossfn)
+        return [loss] + list(new_h) + list(g.values()) + \
+            list(_snapshot(net).values())
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = card_window()
+        net.hybridize()
+        card_window()                                  # warm
+        before = net.graph_stats()["replays"]
+        replay = card_window()
+        replayed = net.graph_stats()["replays"] - before
+        free_graphs(net)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    flat = net.rnn._flat
+    checks = {
+        "launches_exact": launches == groups * len(windows) and other == 0,
+        "finite_losses": all(math.isfinite(v) for v in losses),
+        "no_cudnn_weight_copy": not copies and len(flat) == cfg["layers"],
+        "tied": net.decoder.weight is net.encoder.weight,
+        "one_train_graph": graphs["graphs"] == 1 and
+        graphs["replays"] == len(windows),
+        "first_window_vs_cpu": loss_err <= 1e-4 and weights["ok"]
+        and grads["ok"],
+        "replayed": replayed == 1,
+        "replay_bitwise_eager": _bitwise(eager, replay)}
+    tokens = cfg["bptt"] * cfg["batch"]
+    res = {"config": cfg, "optimizer": WORD_LM_OPT, "clip": WORD_LM_CLIP,
+           "parameters": sum(p.data().numel() for p in trainable),
+           "trainable_tensors": len(trainable),
+           "window_ms": wall / WORD_LM_TIMED * 1e3,
+           "tokens_per_s": tokens * WORD_LM_TIMED / wall,
+           "launches": launches, "launches_per_window": launches /
+           len(windows), "expected_launches_per_window": groups,
+           "other_kernel_launches": other, "losses": losses,
+           "cudnn_weight_copies": len(copies), "peak_memory_gb": peak_gb,
+           "graphs": graphs, "profile": profile,
+           "first_window": {"loss_abs_err_vs_cpu": loss_err,
+                            "weights": {k: weights[k] for k in (
+                                "ok", "leaves", "failed",
+                                "cpu_share_median", "worst_margin")},
+                            "grads": {k: grads[k] for k in (
+                                "ok", "leaves", "failed",
+                                "cpu_share_median", "worst_margin")}},
+           "checks": checks}
+    res["ok"] = all(checks.values())
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def model_surface_phase(seed: int, card: str) -> dict:
+    """Phase 18: every vision family of the zoo (``ZOO_FAMILIES``) and the
+    word language model, each with its counts zeroed just before it."""
+    start = time.monotonic()
+    zoo, seconds = {}, {}
+    for name, size, lr in ZOO_FAMILIES:
+        t0 = time.monotonic()
+        zoo[name] = zoo_model_run(name, size, lr, seed, card)
+        seconds[name] = time.monotonic() - t0
+    t0 = time.monotonic()
+    lm = word_lm_run(seed, card)
+    seconds["word_lm"] = time.monotonic() - t0
+    return {"zoo": zoo, "word_lm": lm,
+            "zoo_launches": sum(r["launches"] for r in zoo.values()),
+            "seconds": time.monotonic() - start, "part_seconds": seconds,
+            "ok": all(r["ok"] for r in zoo.values()) and lm["ok"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6790,6 +7314,34 @@ def main() -> int:
     print(f"data pipeline checks on {card} ({data['seconds']:.1f} s: "
           f"{json.dumps(data['part_seconds'])}):",
           json.dumps(data["checks"]), flush=True)
+    surface18 = model_surface_phase(args.seed, card)
+    for name, r in surface18["zoo"].items():
+        print(f"zoo {name} on {card}: {r['parameters']} parameters, step "
+              f"{r['step_ms']:.3f} ms, {r['images_per_s']:.1f} images/s at "
+              f"batch {r['batch']} ({r['input']}x{r['input']}), "
+              f"{r['launches_per_step']} momentum launches a step "
+              f"({r['expected_launches_per_step']} expected), pool bytes "
+              f"{json.dumps(r['pool_bytes'])}, losses {r['losses'][0]:.4f} "
+              f"-> {r['losses'][-1]:.4f}, peak memory "
+              f"{r['peak_memory_gb']:.2f} GB", flush=True)
+        print(f"zoo {name} profile on {card}:", json.dumps(
+            r["profile"]), flush=True)
+        print(f"zoo {name} checks on {card}:", json.dumps(
+            {"check": r["check"], **r["checks"]}), flush=True)
+    r = surface18["word_lm"]
+    print(f"word lm on {card}: {r['parameters']} parameters, window "
+          f"{r['window_ms']:.3f} ms, {r['tokens_per_s']:.1f} tokens/s, "
+          f"{r['launches_per_window']} sgd launches a window "
+          f"({r['expected_launches_per_window']} expected), cuDNN weight "
+          f"copies {r['cudnn_weight_copies']}, losses {r['losses'][0]:.4f} "
+          f"-> {r['losses'][-1]:.4f}, peak memory "
+          f"{r['peak_memory_gb']:.2f} GB", flush=True)
+    print(f"word lm profile on {card}:", json.dumps(r["profile"]),
+          flush=True)
+    print(f"word lm checks on {card}:", json.dumps(
+        {"first_window": r["first_window"], **r["checks"]}), flush=True)
+    print(f"model surface phase on {card}: {surface18['seconds']:.1f} s",
+          json.dumps(surface18["part_seconds"]), flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -6866,6 +7418,7 @@ def main() -> int:
     }, sgd_row("multi_sgd", SGD_TPU, mlp["launches"],
                times["multi_sgd_mlp"])
         | {"optimizer_zoo_launches": zoo_launches("multi_sgd"),
+           "word_lm_launches": surface18["word_lm"]["launches"],
            "optimizer_zoo_mixed_launches": zoo_launches("multi_mp_sgd"),
            "bf16_launches": low["mlp_bf16"]["launches"],
            "bf16_max_abs_err": lp_err("sgd", "bfloat16"),
@@ -6874,6 +7427,9 @@ def main() -> int:
         sgd_row("multi_sgd_mom", SGD_MOM_TPU, resnet["launches"],
                 times["multi_sgd_mom_resnet50"])
         | {"recipe_resume_launches": surface["resnet"]["launches"],
+           "vision_zoo_launches": {
+               name: r["launches"]
+               for name, r in surface18["zoo"].items()},
            "data_pipeline_launches": data["launches"],
            "optimizer_zoo_launches": zoo_launches("multi_sgd_mom"),
            "amp_bf16_launches": low["resnet50_amp"]["launches"],
@@ -6932,7 +7488,8 @@ def main() -> int:
          "nmt": nmt, "lstm_bucketing": lm, "nmt_flash_backward":
              nmt_backward, "detection": det, "graphs": graph,
          "generation": gen, "training_surface": surface,
-         "data_pipeline": data, "kernels": kernels,
+         "data_pipeline": data, "model_surface": surface18,
+         "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
@@ -6942,7 +7499,7 @@ def main() -> int:
         ("lstm bucketing", lm), ("nmt flash backward", nmt_backward),
         ("detection", det), ("hybridized graphs", graph),
         ("generation serving", gen), ("training surface", surface),
-        ("data pipeline", data))
+        ("data pipeline", data), ("model surface", surface18))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

@@ -5,8 +5,22 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  A Block keeps MXNet's naming
 ``bertmodel0_enc_layers_transformer_encoder_cell0_attn_qkv_weight``) and is
 an ``nn.Module`` underneath: its weights are registered with the module,
 so ``parameters()`` and ``state_dict()`` see them under their attribute
-paths.  Layers write ``forward`` directly in torch ops; there is no ``F``
-namespace and no symbolic mode.
+paths.  The port's layers write ``forward`` directly in torch ops; there is
+no symbolic mode.
+
+``hybrid_forward`` (``mxnet_tpu/gluon/block.py:320-352``, :495-501): a
+``HybridBlock`` subclass that defines ``hybrid_forward(self, F, x, *args,
+**params)`` and no ``forward`` is called as MXNet calls it.  ``F`` is the
+op namespace (``mxnet_tpu_torch.nd``), the inputs arrive as ``NDArray``s
+over the caller's tensors and ``params`` holds the block's registered
+parameters by their short names, as ``NDArray``s over the parameters'
+tensors (no copy; autograd reaches the parameters through them).  Inside
+it the ``NDArray`` ops record exactly when torch's grad mode is on, so a
+block called on tensors inside a model, under ``autograd.record()`` or
+inside a capture differentiates as a tensor ``forward`` would.  Its
+outputs go back to the caller as tensors (and, through ``Block.__call__``,
+as ``NDArray``s to a caller that passed ``NDArray``s); ``hybridize()``
+and deferred shapes treat it as any other forward.
 
 Layers whose behaviour depends on the mode (Dropout, BatchNorm) follow
 MXNet's global ``autograd.is_training()``, which is on only inside
@@ -90,7 +104,7 @@ from ..base import MXNetError
 from ..context import DeviceLike
 from ..contrib.amp import amp as _amp
 from ..ndarray.ndarray import NDArray
-from ..ndarray.register import call_on_tensors
+from ..ndarray.register import call_on_tensors, has_ndarray, unwrap
 from . import cached_op
 from .parameter import Parameter, ParameterDict
 
@@ -127,18 +141,26 @@ class _BlockScope:
 
     @staticmethod
     def create(prefix: Optional[str], params, hint: str):
+        """The block's prefix and its ParameterDict.  Given ``params``
+        (another block's ``.params``), the dict takes that dict's prefix
+        and shares its parameters, as MXNet's name manager does: a
+        ``Dense(..., params=embedding.params)`` ties its weight to the
+        embedding's (the JAX package keeps the block's own prefix, so
+        nothing is shared unless the prefixes agree)."""
         cur = getattr(_BlockScope._current, "value", None)
         if cur is None:
             if prefix is None:
                 prefix = _gen_prefix(hint)
-            return prefix, ParameterDict(prefix, params)
+            return prefix, ParameterDict(
+                params.prefix if params is not None else prefix, params)
         if prefix is None:
             idx = cur._counters.get(hint, 0)
             cur._counters[hint] = idx + 1
             prefix = f"{hint}{idx}_"
         full = cur._block.prefix + prefix
-        return full, ParameterDict(full, params if params is not None
-                                   else cur._block._params._shared)
+        if params is not None:
+            return full, ParameterDict(params.prefix, params)
+        return full, ParameterDict(full, cur._block._params._shared)
 
     def __enter__(self):
         self._old = getattr(_BlockScope._current, "value", None)
@@ -164,8 +186,7 @@ class Block(nn.Module):
     def __call__(self, *args, **kwargs):
         if self._deferred_shapes:
             self._deferred_infer(*args)
-        if not any(isinstance(a, NDArray) for a in args) and not any(
-                isinstance(a, NDArray) for a in kwargs.values()):
+        if not has_ndarray(args, kwargs):
             return self._forward_call(*args, **kwargs)
         return call_on_tensors(self._forward_call, args, kwargs)
 
@@ -450,6 +471,22 @@ class HybridBlock(Block):
         self._cached_graph = _BoundedCache(self.CACHED_GRAPH_LIMIT)
         super().cast(dtype)
 
+    def forward(self, *args, **kwargs):
+        """MXNet's dispatch to ``hybrid_forward(F, *inputs, **params)``
+        (see the module docstring); a subclass that writes ``forward``
+        itself replaces it."""
+        from .. import ndarray as F
+        params = {k: NDArray(p.data()) for k, p in self._reg_params.items()}
+        with autograd._RecordingScope(torch.is_grad_enabled(), None):
+            out = self.hybrid_forward(F, *_to_nd(args), **_to_nd(kwargs),
+                                      **params)
+        return unwrap(out)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__} defines neither forward nor "
+            f"hybrid_forward")
+
     def _forward_call(self, *args, **kwargs):
         if not self._active or cached_op.inline():
             return nn.Module.__call__(self, *args, **kwargs)
@@ -578,6 +615,18 @@ class HybridBlock(Block):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return CachedGraph(self, op, dev, entry)
+
+
+def _to_nd(x):
+    """Tensors (alone, in lists, tuples and dicts) as ``NDArray``s over
+    them."""
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_nd(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_nd(v) for k, v in x.items()}
+    return x
 
 
 def _as_input(v, device: torch.device) -> torch.Tensor:

@@ -1,10 +1,7 @@
 """Gluon layers (``gluon.nn``)."""
-from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
-                           Flatten, HybridSequential, LayerNorm)
-from .conv_layers import (AvgPool2D, Conv2D, Conv2DTranspose,
-                          GlobalAvgPool2D, MaxPool2D)
+from .basic_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _basic
+from .conv_layers import *  # noqa: F401,F403
+from .conv_layers import __all__ as _conv
 
-__all__ = ["Activation", "AvgPool2D", "BatchNorm", "Conv2D",
-           "Conv2DTranspose", "Dense",
-           "Dropout", "Embedding", "Flatten", "GlobalAvgPool2D",
-           "HybridSequential", "LayerNorm", "MaxPool2D"]
+__all__ = sorted(_basic + _conv)

@@ -1,6 +1,8 @@
-"""Core Gluon layers of the BERT serving and the MLP/ResNet training
-paths: HybridSequential, Dense, Activation, Flatten, Dropout, BatchNorm,
-LayerNorm, Embedding.
+"""Core Gluon layers: Sequential, HybridSequential, HybridConcurrent,
+Identity, Dense, Activation, the parametric and fixed activations
+(LeakyReLU, PReLU, ELU, SELU, GELU, Swish), Flatten, Dropout, BatchNorm,
+InstanceNorm, LayerNorm, GroupNorm, Embedding, Lambda, HybridLambda and
+ReflectionPad2D.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the same
 parameter names, shapes (``(units, in_units)`` Dense weights) and defaults
@@ -15,6 +17,11 @@ dtype and LayerNorm its input and parameters to float32; Embedding,
 BatchNorm and the activations keep their input dtype, as in the JAX
 package.  After ``Block.cast`` the layers run in the parameters' dtype
 (the caller casts the input, as in MXNet).
+
+``HybridLambda`` takes a function of ``(F, *inputs)``, ``F`` the op
+namespace (``mxnet_tpu_torch.nd``), or the name of an op; ``Lambda`` a
+function of the inputs or an op's name.  ``RowShardedEmbedding`` waits
+for distribution.
 """
 from __future__ import annotations
 
@@ -24,12 +31,19 @@ import torch
 import torch.nn.functional as F
 
 from ... import autograd
+from ... import ndarray as _nd
+from ... import initializer as _init
 from ...base import MXNetError, torch_dtype
 from ...contrib.amp import amp as _amp
-from ..block import HybridBlock
+from ...ndarray.ops_nn import dropout_maker, groupnorm_maker, \
+    instancenorm_maker, leaky_relu_maker
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "Activation", "Flatten", "Dropout",
-           "BatchNorm", "LayerNorm", "Embedding"]
+__all__ = ["Sequential", "HybridSequential", "HybridConcurrent", "Identity",
+           "Dense", "Activation", "LeakyReLU", "PReLU", "ELU", "SELU",
+           "GELU", "Swish", "Flatten", "Dropout", "BatchNorm",
+           "InstanceNorm", "LayerNorm", "GroupNorm", "Embedding", "Lambda",
+           "HybridLambda", "ReflectionPad2D"]
 
 _ACTIVATIONS = {"relu": F.relu, "sigmoid": torch.sigmoid,
                 "tanh": torch.tanh, "softrelu": F.softplus}
@@ -42,20 +56,58 @@ def _activation(name):
     return _ACTIVATIONS[name]
 
 
-class HybridSequential(HybridBlock):
-    """Stacks blocks; ``forward`` runs them in order."""
+class _Stack:
+    """What the sequential containers share: ``add``, ``len``, indexing
+    and iteration over the children."""
 
     def add(self, *blocks):
         for b in blocks:
             self.register_child(b)
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, i):
+        return list(self._modules.values())[i]
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+
+class Sequential(_Stack, Block):
+    """Stacks blocks; ``forward`` runs them in order (never hybridized)."""
 
     def forward(self, x):
         for child in self._modules.values():
             x = child(x)
         return x
 
-    def __iter__(self):
-        return iter(self._modules.values())
+
+class HybridSequential(_Stack, HybridBlock):
+    """Stacks blocks; ``forward`` runs them in order."""
+
+    def forward(self, x):
+        for child in self._modules.values():
+            x = child(x)
+        return x
+
+
+class HybridConcurrent(_Stack, HybridBlock):
+    """Runs every child on the same input and concatenates the outputs on
+    ``axis`` (the Inception, SqueezeNet and DenseNet branch container)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        return torch.cat([child(x) for child in self._modules.values()],
+                         dim=self.axis)
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
 
 
 class Dense(HybridBlock):
@@ -110,12 +162,85 @@ class Flatten(HybridBlock):
         return x.reshape(x.shape[0], -1)
 
 
-class Dropout(HybridBlock):
-    def __init__(self, rate, prefix=None, params=None):
+class LeakyReLU(HybridBlock):
+    """``x`` where ``x >= 0``, else ``alpha * x``."""
+
+    def __init__(self, alpha, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        self._rate = rate
+        self._fn = leaky_relu_maker("leaky", slope=alpha)
 
     def forward(self, x):
+        return self._fn(x)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope ``alpha`` of shape (1,)
+    (initialized to 0.25)."""
+
+    def __init__(self, alpha_initializer=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn = leaky_relu_maker("prelu")
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(1,),
+                init=alpha_initializer or _init.Constant(0.25))
+
+    def forward(self, x):
+        return self._fn(x, self.alpha.data())
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn = leaky_relu_maker("elu", slope=alpha)
+
+    def forward(self, x):
+        return self._fn(x)
+
+
+class SELU(HybridBlock):
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn = leaky_relu_maker("selu")
+
+    def forward(self, x):
+        return self._fn(x)
+
+
+class GELU(HybridBlock):
+    """The erf form."""
+
+    def forward(self, x):
+        return F.gelu(x)
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)
+
+
+class Dropout(HybridBlock):
+    """Zeroes each unit with probability ``rate`` in training mode and
+    scales the rest by ``1 / (1 - rate)``; with ``axes`` one draw is
+    shared along those axes (the mask then comes from the port's
+    generator, as ``nd.Dropout``'s)."""
+
+    def __init__(self, rate, axes=(), prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = tuple(axes)
+        self._masked = dropout_maker(rate, axes=self._axes) if axes \
+            else None
+
+    def forward(self, x):
+        if self._masked is not None:
+            return self._masked(x)
         return F.dropout(x, self._rate, training=autograd.is_training())
 
 
@@ -218,13 +343,60 @@ class BatchNorm(HybridBlock):
                             self._epsilon)
 
 
-class LayerNorm(HybridBlock):
-    """Normalises over the last axis."""
+class InstanceNorm(HybridBlock):
+    """Normalises each sample's channel (axis 1) over its spatial axes,
+    with per-channel ``gamma`` and ``beta``."""
 
-    def __init__(self, epsilon=1e-5, beta_initializer="zeros",
-                 gamma_initializer="ones", in_channels=0, prefix=None,
-                 params=None):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
+        if axis != 1:
+            raise MXNetError("InstanceNorm: the port takes axis 1 only")
+        self._fn = instancenorm_maker(epsilon)
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                         init=gamma_initializer,
+                                         allow_deferred_init=True)
+            self.beta = self.params.get("beta", shape=(in_channels,),
+                                        init=beta_initializer,
+                                        allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        for p in (self.gamma, self.beta):
+            p._finish_deferred_init((x.shape[1],))
+
+    def forward(self, x):
+        return self._fn(x, self.gamma.data(), self.beta.data())
+
+
+class GroupNorm(HybridBlock):
+    """Normalises each sample over groups of channels; ``gamma`` and
+    ``beta`` are per group, ``(num_groups,)``, as in the JAX package."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn = groupnorm_maker(num_groups, epsilon)
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(num_groups,),
+                                         init=gamma_initializer)
+            self.beta = self.params.get("beta", shape=(num_groups,),
+                                        init=beta_initializer)
+
+    def forward(self, x):
+        return self._fn(x, self.gamma.data(), self.beta.data())
+
+
+class LayerNorm(HybridBlock):
+    """Normalises over ``axis`` (the last by default)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
         self._epsilon = epsilon
         with self.name_scope():
             self.gamma = self.params.get("gamma", shape=(in_channels,),
@@ -236,12 +408,16 @@ class LayerNorm(HybridBlock):
 
     def infer_shape(self, x, *args):
         for p in (self.gamma, self.beta):
-            p._finish_deferred_init((x.shape[-1],))
+            p._finish_deferred_init((x.shape[self._axis],))
 
     def forward(self, x):
         # FP32 under AMP
         x, gamma, beta = _amp.cast("LayerNorm", x, self.gamma.data(),
                                    self.beta.data())
+        ax = self._axis % x.dim()
+        if ax != x.dim() - 1:
+            return F.layer_norm(x.movedim(ax, -1), (x.shape[ax],), gamma,
+                                beta, self._epsilon).movedim(-1, ax)
         return F.layer_norm(x, (x.shape[-1],), gamma, beta, self._epsilon)
 
 
@@ -251,8 +427,12 @@ class Embedding(HybridBlock):
     widened to int64 only for the lookup."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, prefix=None, params=None):
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None):
         super().__init__(prefix=prefix, params=params)
+        if sparse_grad:
+            raise MXNetError("Embedding(sparse_grad=True): the port has no "
+                             "row-sparse gradients; its gradient is dense")
         self._input_dim = input_dim
         with self.name_scope():
             self.weight = self.params.get(
@@ -262,3 +442,54 @@ class Embedding(HybridBlock):
     def forward(self, x):
         ids = x.long().clamp(0, self._input_dim - 1)
         return F.embedding(ids, self.weight.data())
+
+
+class Lambda(Block):
+    """A function of the inputs, or the name of an ``nd`` op, as a
+    block."""
+
+    def __init__(self, function, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn = getattr(_nd, function) if isinstance(function, str) \
+            else function
+
+    def forward(self, *args):
+        return self._fn(*args)
+
+
+class HybridLambda(HybridBlock):
+    """``function(F, *inputs)`` with ``F`` the op namespace, or the op
+    named by ``function`` on the inputs, through ``hybrid_forward``."""
+
+    def __init__(self, function, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn_name = function if isinstance(function, str) else None
+        self._fn = function
+
+    def hybrid_forward(self, F, *args):
+        if self._fn_name is not None:
+            return getattr(F, self._fn_name)(*args)
+        return self._fn(F, *args)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of H and W (NCHW): ``padding`` an int, a
+    4-tuple (left, right, top, bottom) or MXNet's 8-tuple ``pad_width``."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if isinstance(padding, int):
+            padding = (padding,) * 4
+        padding = tuple(padding)
+        if len(padding) == 8:
+            t, b, left, right = padding[4:]
+            padding = (left, right, t, b)
+        if len(padding) != 4:
+            raise MXNetError(
+                "ReflectionPad2D padding must be an int, a 4-tuple (left, "
+                f"right, top, bottom) or an 8-tuple pad_width; got "
+                f"{padding}")
+        self._padding = padding
+
+    def forward(self, x):
+        return F.pad(x, self._padding, mode="reflect")

@@ -57,7 +57,9 @@ parameter a new ``epoch``, drawn from one process-wide counter
 graph reads its parameters at the addresses they had at capture time, so
 it records the epochs it was captured at and is dropped when one moves on
 (``gluon/block.py``); in-place updates (``Trainer.step``, BatchNorm's
-running statistics) keep the storage and the epoch.
+running statistics) keep the storage and the epoch, and so does a value
+set into a parameter that keeps its storage (``keep_storage``: a
+recurrent layer's weights, views of one cuDNN buffer), which is copied in.
 
 ``Constant`` (``mxnet_tpu/gluon/parameter.py:218``) holds a value and
 takes no gradient.  ``ParameterDict`` has the reference's
@@ -159,6 +161,7 @@ class Parameter:
         self._grad_task = None
         self._hooked = False
         self._deferred = None   # (init, device, generator) until resolved
+        self.keeps_storage = False
         self.epoch = _next_epoch()
         self._data = nn.Parameter(
             torch.empty(self.shape if self.shape_known() else (0,),
@@ -239,11 +242,31 @@ class Parameter:
 
     def _set(self, value: torch.Tensor) -> None:
         """Install ``value`` as the data; the old gradient is dropped
-        (``grad()`` reads zeros) and is stale until a backward writes it."""
-        self._data.data = value
+        (``grad()`` reads zeros) and is stale until a backward writes it.
+        A parameter that keeps its storage (``keep_storage``) takes a
+        value of its shape, dtype and device by a copy into it, and its
+        epoch stays."""
         self._data.grad = None
         self.fresh = True
+        cur = self._data
+        if self._initialized and self.keeps_storage and \
+                value.shape == cur.shape and value.dtype == cur.dtype and \
+                value.device == cur.device:
+            with torch.no_grad():
+                cur.copy_(value)
+            return
+        self._data.data = value
         self._initialized = True
+        self.keeps_storage = False
+        self.epoch = _next_epoch()
+
+    def keep_storage(self) -> None:
+        """The storage under the data was replaced in place (a recurrent
+        layer's parameters made views of one buffer for cuDNN,
+        ``gluon/rnn/rnn_layer.py``): a new epoch, and from now on values of
+        the same shape, dtype and device are copied into that storage
+        (``set_data``, ``load_parameters``), so the buffer stays whole."""
+        self.keeps_storage = True
         self.epoch = _next_epoch()
 
     def cast(self, dtype) -> None:

@@ -17,7 +17,7 @@ to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
 """
 import sys as _sys
 
-from . import (ops_contrib, ops_elemwise, ops_image,  # noqa: F401
+from . import (ops_contrib, ops_ctc, ops_elemwise, ops_image,  # noqa: F401
                ops_matrix, ops_nn, ops_optimizer, ops_random, ops_reduce)
 from . import contrib, image, random, utils
 from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,

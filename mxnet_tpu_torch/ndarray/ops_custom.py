@@ -38,7 +38,7 @@ import torch
 from .. import autograd
 from ..base import MXNetError, torch_dtype
 from ..context import DeviceLike, as_device
-from .register import boundary
+from .register import boundary, register_op
 
 __all__ = ["Custom"]
 
@@ -114,3 +114,15 @@ def Custom(*inputs: torch.Tensor, op_type: Optional[str] = None,
                          _out_dtypes(prop, in_dtypes, len(out_shapes))))
     op = prop.create_operator(device, in_shapes, in_dtypes)
     return _CustomNode(op, out_specs, autograd.is_training(), device)(*inputs)
+
+
+def _custom_maker(**kwargs):
+    """The registry's ``Custom`` (the JAX package's
+    ``mxnet_tpu/ndarray/ops_custom.py:128``): the frontend above on the
+    op's tensors, ``op_type`` and the prop's arguments as parameters."""
+    def fn(*tensors):
+        return Custom(*tensors, **kwargs)
+    return fn
+
+
+register_op("Custom", _custom_maker)

@@ -5,7 +5,9 @@ Counterpart of ``mxnet_tpu/ndarray/ops_matrix.py``: ``dot`` :32,
 ``transpose`` :68, ``expand_dims`` :74, ``concat`` :133, ``split`` /
 ``SliceChannel`` :140-148, ``slice`` :159, ``take`` :198, ``Embedding``
 :200-206, ``one_hot`` :231, ``pick`` :235-243, ``broadcast_to`` :285,
-``stop_gradient`` (``BlockGrad``) :434 and ``smooth_l1`` :440-447,
+``stop_gradient`` (``BlockGrad``) :434, ``smooth_l1`` :440-447,
+``pad`` :276, ``SequenceMask`` :322, ``SequenceLast`` :334,
+``SequenceReverse`` :350 and ``moments`` :387,
 with their conventions: ``dot`` contracts the last axis of the
 left input with the first of the right (transposes reverse every axis),
 ``batch_dot`` is a batched matmul, ``slice`` takes None for "from the
@@ -252,6 +254,95 @@ def smooth_l1_maker(scalar=1.0):
     return fn
 
 
+def pad_maker(mode="constant", pad_width=(), constant_value=0.0):
+    """``pad_width`` gives (before, after) for every axis, leading axes
+    first; ``constant`` fills ``constant_value``, ``edge`` repeats the
+    border, ``reflect`` mirrors it (the latter two on the trailing 1-3
+    axes only, as MXNet's op)."""
+    if mode not in ("constant", "edge", "reflect"):
+        raise MXNetError(f"pad: mode {mode!r} not in constant, edge, "
+                         f"reflect")
+    pw = [int(v) for v in pad_width]
+
+    def fn(x):
+        if len(pw) != 2 * x.dim():
+            raise MXNetError(f"pad: pad_width {tuple(pw)} for a "
+                             f"{x.dim()}-d input")
+        first = next((i for i in range(x.dim())
+                      if pw[2 * i] or pw[2 * i + 1]), x.dim())
+        widths = []
+        for i in reversed(range(first, x.dim())):
+            widths += [pw[2 * i], pw[2 * i + 1]]
+        if not widths:
+            return x.clone()
+        if mode == "constant":
+            return torch.nn.functional.pad(x, widths, value=constant_value)
+        return torch.nn.functional.pad(
+            x, widths, mode="replicate" if mode == "edge" else "reflect")
+    return fn
+
+
+def _seq_mask(data, lengths, axis):
+    """(T, N) or (N, T) of ``pos < length``, broadcast over ``data``'s
+    trailing axes; time is ``axis`` (0 or 1) and the batch the other."""
+    t = data.shape[axis]
+    pos = torch.arange(t, device=data.device)
+    lens = lengths.to(data.device).long()
+    mask = pos[:, None] < lens[None, :] if axis == 0 else \
+        pos[None, :] < lens[:, None]
+    return mask.reshape(mask.shape + (1,) * (data.dim() - 2))
+
+
+def sequence_mask_maker(use_sequence_length=False, value=0.0, axis=0):
+    """Steps at or past each sequence's length set to ``value`` (time on
+    ``axis``, 0 or 1, the batch on the other)."""
+    def fn(data, sequence_length=None):
+        if not use_sequence_length:
+            return data.clone()
+        return torch.where(_seq_mask(data, sequence_length, axis), data,
+                           torch.tensor(value, dtype=data.dtype,
+                                        device=data.device))
+    return fn
+
+
+def sequence_last_maker(use_sequence_length=False, axis=0):
+    """Each sequence's last valid step."""
+    def fn(data, sequence_length=None):
+        if not use_sequence_length:
+            return data.select(axis, -1).clone()
+        last = sequence_length.to(data.device).long() - 1
+        batch = torch.arange(data.shape[1 - axis], device=data.device)
+        return data[last, batch] if axis == 0 else data[batch, last]
+    return fn
+
+
+def sequence_reverse_maker(use_sequence_length=False, axis=0):
+    """The time axis (0) reversed, within each sequence's length; the
+    steps past it stay where they are."""
+    def fn(data, sequence_length=None):
+        if not use_sequence_length:
+            return torch.flip(data, (axis,))
+        t = data.shape[0]
+        pos = torch.arange(t, device=data.device)[:, None]
+        lens = sequence_length.to(data.device).long()[None, :]
+        idx = torch.where(pos < lens, lens - 1 - pos, pos)
+        idx = idx.reshape(idx.shape + (1,) * (data.dim() - 2))
+        return torch.take_along_dim(data, idx.expand(data.shape), dim=0)
+    return fn
+
+
+def moments_maker(axes=None, keepdims=False):
+    """Mean and (biased) variance over ``axes`` (all if None)."""
+    dims = tuple(axes) if axes is not None else None
+
+    def fn(x):
+        d = dims if dims is not None else tuple(range(x.dim()))
+        var, mean = torch.var_mean(x, dim=d, keepdim=keepdims,
+                                   correction=0)
+        return mean, var
+    return fn
+
+
 def _register():
     register_op("dot", dot_maker)
     register_op("batch_dot", batch_dot_maker)
@@ -280,6 +371,14 @@ def _register():
     simple_op("stop_gradient", torch.Tensor.detach,
               aliases=("BlockGrad", "block_grad"))
     register_op("smooth_l1", smooth_l1_maker)
+    register_op("pad", pad_maker, aliases=("Pad",))
+    register_op("SequenceMask", sequence_mask_maker,
+                aliases=("sequence_mask",))
+    register_op("SequenceLast", sequence_last_maker,
+                aliases=("sequence_last",))
+    register_op("SequenceReverse", sequence_reverse_maker,
+                aliases=("sequence_reverse",))
+    register_op("moments", moments_maker)
     simple_op("zeros_like", lambda x: torch.zeros_like(
         x, memory_format=torch.contiguous_format))
     simple_op("ones_like", lambda x: torch.ones_like(

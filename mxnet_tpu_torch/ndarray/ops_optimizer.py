@@ -31,9 +31,11 @@ and ``mp_nag_mom_update``, ``ftrl_update``, ``signsgd_update``,
 ``lars_trust`` and ``multi_lars``, ``ftml_update``, LAMB's
 ``lamb_update_phase1``/``_phase2`` and their ``mp_`` forms, and
 ``multi_sum_sq`` (``ops_misc.py:430``); these also stand in the op
-registry.  Their scalar inputs (a learning rate, LARS's trust ratio,
-LAMB's ``r1``/``r2``) may be tensors on the card, which stay there: an
-update composed of them (LARS, LBSGD, LAMB) reads nothing back.
+registry, and so do the SGD family and ``adam_update`` (their registry
+form is their ``NDArray`` form).  Their scalar inputs (a learning rate,
+LARS's trust ratio, LAMB's ``r1``/``r2``) may be tensors on the card,
+which stay there: an update composed of them (LARS, LBSGD, LAMB) reads
+nothing back.
 
 On tensors, every operator writes its outputs into its inputs (weights,
 momenta, fp32 masters) and returns them in the reference's output order:
@@ -692,3 +694,38 @@ def _maker(op):
 
 for _name, _op, _aliases in _REGISTERED:
     register_op(_name, _maker(_op), aliases=_aliases)
+
+
+def _nd_form_maker(op):
+    """The registry's form of an SGD-family or Adam frontend: the
+    frontend's ``NDArray`` form on the op's tensors (the states updated in
+    place, the new weights returned; MXNet's ``optimizer_op.cc``).  The
+    ``mx.nd`` attributes stay the hand-written frontends, and
+    ``gluon.Trainer`` calls the kernel wrappers directly, so the registry
+    is on neither path."""
+    def maker(**kwargs):
+        def fn(*tensors):
+            res = op(*[NDArray(t) for t in tensors], **kwargs)
+            if isinstance(res, (list, tuple)):
+                return [r._data for r in res]
+            return res._data
+        return fn
+    maker.__doc__ = op.__doc__
+    return maker
+
+
+# the SGD family and Adam under the JAX package's names (the multi-tensor
+# ones also under its ``preloaded_`` aliases: the rates arrive as inputs)
+for _name, _op, _aliases in (
+        ("sgd_update", sgd_update, ()),
+        ("sgd_mom_update", sgd_mom_update, ()),
+        ("mp_sgd_update", mp_sgd_update, ()),
+        ("mp_sgd_mom_update", mp_sgd_mom_update, ()),
+        ("adam_update", adam_update, ()),
+        ("multi_sgd_update", multi_sgd_update,
+         ("preloaded_multi_sgd_update",)),
+        ("multi_sgd_mom_update", multi_sgd_mom_update,
+         ("preloaded_multi_sgd_mom_update",)),
+        ("multi_mp_sgd_mom_update", multi_mp_sgd_mom_update,
+         ("preloaded_multi_mp_sgd_mom_update",))):
+    register_op(_name, _nd_form_maker(_op), aliases=_aliases)

@@ -48,7 +48,7 @@ from .ndarray import NDArray
 __all__ = ["Operator", "register_op", "simple_op", "get_op", "list_ops",
            "invoke", "invoke_by_name", "invoke_binary", "make_frontend",
            "split_positional_params", "boundary", "call_on_tensors", "wrap",
-           "write_out"]
+           "unwrap", "has_ndarray", "write_out"]
 
 _registry: Dict[str, "Operator"] = {}
 _engine = _engine_fn()
@@ -301,13 +301,31 @@ def make_frontend(op: Operator) -> Callable:
     return frontend
 
 
+def unwrap(x):
+    """``NDArray``s (alone, or in lists and tuples) as their tensors."""
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (tuple, list)):
+        return type(x)(unwrap(v) for v in x)
+    return x
+
+
+def has_ndarray(args: Sequence, kwargs: Dict[str, Any]) -> bool:
+    """Whether an ``NDArray`` is among ``args`` or ``kwargs``, or in a
+    list or tuple among them (an RNN cell's states)."""
+    def found(v):
+        return isinstance(v, NDArray) or (
+            isinstance(v, (list, tuple)) and any(found(e) for e in v))
+    return any(found(a) for a in args) or any(
+        found(v) for v in kwargs.values())
+
+
 def call_on_tensors(fn: Callable, args: Sequence, kwargs: Dict[str, Any]):
     """``fn`` on the tensors of the ``NDArray``s among ``args`` and
-    ``kwargs`` (under ``no_grad`` unless recording), its results as
-    ``NDArray``s."""
-    targs = [a._data if isinstance(a, NDArray) else a for a in args]
-    tkw = {k: v._data if isinstance(v, NDArray) else v
-           for k, v in kwargs.items()}
+    ``kwargs`` (also inside lists and tuples; under ``no_grad`` unless
+    recording), its results as ``NDArray``s."""
+    targs = [unwrap(a) for a in args]
+    tkw = {k: unwrap(v) for k, v in kwargs.items()}
     if _ag.is_recording():
         return wrap(fn(*targs, **tkw))
     with torch.no_grad():

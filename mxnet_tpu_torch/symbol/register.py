@@ -44,9 +44,23 @@ def num_outputs(opname: str, kwargs: Dict[str, Any], n_inputs: int = 1
     place; the JAX package's returns them as two more outputs)."""
     if opname in ("split", "SliceChannel"):
         return int(kwargs.get("num_outputs", 1))
-    if opname == "BatchNorm" and kwargs.get("output_mean_var"):
+    if opname in ("BatchNorm", "LayerNorm", "GroupNorm") and \
+            kwargs.get("output_mean_var"):
         return 3
+    if opname == "moments":
+        return 2
+    if opname == "RNN" and kwargs.get("state_outputs"):
+        return 3 if kwargs.get("mode", "lstm") == "lstm" else 2
+    stride = _MULTI_STRIDE.get(opname)
+    if stride:
+        return (n_inputs - 2) // stride
     return 1
+
+
+# the multi-tensor updates: inputs a weight (then the rates); their
+# registry form returns the new weights
+_MULTI_STRIDE = {"multi_sgd_update": 2, "multi_sgd_mom_update": 3,
+                 "multi_mp_sgd_mom_update": 4}
 
 
 def apply_op(opname: str, args: List[Symbol], kwargs: Dict[str, Any],

@@ -1222,3 +1222,70 @@ def test_data_phase_jpeg_records_feed_the_native_core(tmp_path,
     assert rate["native"] and rate["images"] == 6
     assert rate["first"][0].shape == (3, 3, chip_smoke.DATA_CROP,
                                       chip_smoke.DATA_CROP)
+
+
+# -- phase 18: Gluon's model surface ----------------------------------------
+
+def test_model_surface_phase_rehearses_on_the_cpu(monkeypatch, one_thread):
+    """Phase 18 at toy sizes on the CPU: every check passes but those only
+    the card can meet (kernel launches, captured graphs and their replays,
+    cuDNN's weight buffer): finite losses, the predict-mode shape, the
+    decision leaf checks against float64, the language model's first
+    window against the CPU, and the tied decoder."""
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "ZOO_FAMILIES", (
+        ("resnet18_v2", 32, 0.1), ("mobilenet_v2_0_25", 32, 0.1),
+        ("squeezenet1_1", 32, 0.01)))
+    monkeypatch.setattr(chip_smoke, "ZOO_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "WORD_LM", dict(
+        chip_smoke.WORD_LM, vocab=50, emb=16, hidden=16, bptt=5, batch=2))
+    out = chip_smoke.model_surface_phase(0, "cpu")
+    card_only = ["launches_exact", "leaf_check", "one_train_graph",
+                 "predict_replayed"]
+    for name, r in out["zoo"].items():
+        assert sorted(k for k, v in r["checks"].items() if not v) == \
+            card_only, name
+        check = r["check"]
+        assert check["replayed"] == 0 and check["weights"]["ok"] and \
+            check["grads"]["ok"] and check["loss_abs_err_vs_cpu"] <= 1e-4
+        assert check["decisions"]["decisions"] > 0
+        assert r["launches"] == 0 and r["expected_launches_per_step"] > 0
+    lm = out["word_lm"]
+    assert sorted(k for k, v in lm["checks"].items() if not v) == [
+        "launches_exact", "no_cudnn_weight_copy", "one_train_graph",
+        "replayed"]
+    assert lm["expected_launches_per_window"] == 3   # 9 tensors, tied
+    assert not out["ok"]
+
+
+def test_zoo_decisions_force_pools_clamps_and_dropout():
+    """``ZooDecisions`` records a max pool's winners, a ReLU6's two masks
+    and a dropout mask on one run and hands them to another: a float64
+    run forced with them gives the fp32 run's output within rounding and
+    counts no flip; forcing another run's masks changes the output."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(4, 3, in_channels=2), nn.MaxPool2D(2),
+            nn.HybridLambda(lambda F, x: F.clip(x, a_min=0.0, a_max=0.1)),
+            nn.Dropout(0.5), nn.Flatten(), nn.Dense(3, in_units=36))
+    net.initialize(ctx=cpu(), seed=0)
+    x = torch.randn(2, 2, 8, 8, generator=torch.Generator().manual_seed(1))
+    with autograd.train_mode():
+        with chip_smoke.ZooDecisions(seed=0) as rec:
+            y32 = net(x)
+        with chip_smoke.ZooDecisions(rec.masks) as forced:
+            y64 = net.to(torch.float64)(x.double())
+        net.to(torch.float32)
+        with chip_smoke.ZooDecisions(seed=5) as other:
+            net(x)
+        with chip_smoke.ZooDecisions(other.masks) as wrong:
+            y_other = net(x)
+    assert len(rec.masks) == 3 and forced.flips == 0
+    torch.testing.assert_close(y64.float(), y32, atol=1e-5, rtol=1e-5)
+    assert not torch.allclose(y_other, y32) and wrong.flips == 0

@@ -2025,3 +2025,188 @@ def test_native_record_iter_batches_keep_their_bits_on_the_card(card,
                            host.view(torch.int32))
         n += 1
     assert n == 2
+
+
+# ------------------------------------------ Gluon's model surface (phase 18)
+
+
+def test_registry_multi_sgd_mom_update_still_launches_once(card):
+    """With the SGD family in the registry, ``nd.multi_sgd_mom_update``
+    (phase 11's update) and the registry's op both launch the momentum
+    kernel once a call."""
+    from mxnet_tpu_torch import gpu, nd
+    from mxnet_tpu_torch.ndarray.register import invoke_by_name
+    ws = [nd.ones((64, 32), ctx=gpu(0)) for _ in range(2)]
+    gs = [nd.ones((64, 32), ctx=gpu(0)) for _ in range(2)]
+    ms = [nd.zeros((64, 32), ctx=gpu(0)) for _ in range(2)]
+    args = [t for w, g, m in zip(ws, gs, ms) for t in (w, g, m)]
+    rates = [nd.array(np.full(2, 0.1, np.float32), ctx=gpu(0)),
+             nd.zeros((2,), ctx=gpu(0))]
+    before = multi_sgd_mom.launches
+    nd.multi_sgd_mom_update(*args, *rates, momentum=0.9, out=ws)
+    assert multi_sgd_mom.launches - before == 1
+    invoke_by_name("multi_sgd_mom_update", args + rates, {"momentum": 0.9})
+    assert multi_sgd_mom.launches - before == 2
+
+
+@pytest.mark.parametrize("kind,bidir", [("LSTM", False), ("GRU", True),
+                                        ("RNN", True)])
+def test_cudnn_rnn_layer_matches_cpu(card, kind, bidir):
+    """cuDNN (TF32 off) against torch's CPU loop: the output and the
+    states within 1e-5, every gradient within 5e-5 (sums over 12 steps of
+    8 samples in another order: 1.6e-5 measured on an H100) of a 2-layer
+    width-64 layer; the weights are one cuDNN buffer a layer, so cuDNN
+    copies nothing (no warning)."""
+    import warnings
+    from mxnet_tpu_torch import autograd, cpu, gluon, load_reference_params
+    rs = np.random.RandomState(5)
+    x = rs.randn(12, 8, 32).astype(np.float32)
+    runs = []
+    for ctx in (card, cpu()):
+        net = getattr(gluon.rnn, kind)(64, num_layers=2, bidirectional=bidir,
+                                       input_size=32)
+        net.initialize(ctx=ctx, seed=3)
+        xs = torch.tensor(x, device=ctx, requires_grad=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with autograd.record():
+                out, states = net(xs, [s._data for s in net.begin_state(
+                    8, ctx=ctx)])
+            autograd.backward([out] + states)
+        assert not [w for w in caught if "contiguous" in str(w.message)]
+        runs.append([out, *states, xs.grad] + [
+            p.grad() for p in net.collect_params().values()])
+    for i, (a, b) in enumerate(zip(*runs)):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(),
+                                   atol=1e-5 if i < 1 + len(states) else 5e-5,
+                                   rtol=1e-4)
+
+
+def test_hybridized_lstm_replays_bitwise_its_eager_step(card):
+    """A hybridized LSTM language model's recording call replays bit for
+    bit the eager call's loss and gradients (cuDNN deterministic); set
+    data keeps the cuDNN buffer (the entry is not captured again)."""
+    import chip_smoke
+    from mxnet_tpu_torch import autograd
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = chip_smoke.WordLM(200, 64, 64, 2, 0.0)
+        net.initialize(ctx=card, seed=1)
+        x = torch.randint(0, 200, (10, 4), device=card)
+        h = [s._data for s in net.begin_state(4, ctx=card)]
+
+        def step():
+            with autograd.record():
+                out, _ = net(x, h)
+                loss = out.square().mean()
+            autograd.backward(loss)
+            return [loss] + [p.grad().clone()
+                             for p in net.collect_params().values()]
+        eager = step()
+        net.hybridize()
+        runs = [step() for _ in range(3)]
+        stats = net.graph_stats()
+        ptrs = [p.data().data_ptr() for p in net.rnn.collect_params()
+                .values()]
+        first = next(iter(net.rnn.collect_params().values()))
+        first.set_data(np.zeros((256, 64), np.float32))
+        assert [p.data().data_ptr() for p in net.rnn.collect_params()
+                .values()] == ptrs
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert stats["replays"] == 2
+    for run in runs:
+        assert all(torch.equal(a, b) for a, b in zip(run, eager))
+
+
+def test_hybridized_lstm_dropout_is_fresh_per_replay_and_seeded(card):
+    """Dropout between the LSTM's layers (the port's generator) draws new
+    masks at each replay, and a reseeded run repeats them."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import random as mx_random
+
+    def run():
+        net = gluon.rnn.LSTM(32, num_layers=2, dropout=0.5, input_size=16)
+        net.initialize(ctx=card, seed=0)
+        net.hybridize()
+        x = torch.ones(6, 4, 16, device=card)
+        outs = []
+        for _ in range(4):
+            with autograd.record():
+                outs.append(net(x).detach())
+        return outs, net.graph_stats()["replays"]
+
+    mx_random.seed(3)
+    a, replays = run()
+    assert replays >= 2
+    for i in range(2, 4):
+        assert not torch.equal(a[i], a[i - 1])
+    mx_random.seed(3)
+    b, _ = run()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_hybridized_hybrid_forward_block_on_card(card):
+    """A block written for the JAX package (``hybrid_forward`` with ``F``
+    and its registered parameters) captures and replays on the card,
+    equal to its eager call bit for bit."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    class FC(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.weight = self.params.get("weight", shape=(8, 12))
+                self.bias = self.params.get("bias", shape=(8,))
+
+        def hybrid_forward(self, F, x, weight, bias):
+            return F.tanh(F.FullyConnected(x.reshape((0, -1)), weight,
+                                           bias, num_hidden=8)) * 2.0
+
+    net = FC()
+    net.initialize(ctx=card, seed=0)
+    x = torch.randn(4, 3, 4, device=card)
+    with autograd.record():
+        want = net(x)
+    autograd.backward(want)
+    grad = net.weight.grad().clone()
+    net.hybridize()
+    for _ in range(3):
+        with autograd.record():
+            got = net(x)
+        autograd.backward(got)
+        assert torch.equal(got, want) and torch.equal(net.weight.grad(),
+                                                      grad)
+    assert net.graph_stats()["replays"] == 2
+
+
+def test_ceil_mode_and_exclusive_pooling_on_card(card):
+    from mxnet_tpu_torch.gluon import nn
+    x = torch.randn(2, 8, 15, 13)
+    for layer in (nn.MaxPool2D(3, 2, ceil_mode=True),
+                  nn.AvgPool2D(3, 2, 1, ceil_mode=True,
+                               count_include_pad=False),
+                  nn.MaxPool3D(2, ceil_mode=True)):
+        xin = x if "3D" not in type(layer).__name__ else x.unsqueeze(2)
+        want = layer(xin)
+        got = layer(xin.to(card))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=1e-6)
+
+
+def test_get_model_builds_each_family_on_the_card_by_default(card):
+    """``initialize()`` without a context places every family on
+    ``gpu(0)``; a forward there gives finite logits."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    for name, size in (("alexnet", 64), ("vgg11", 32), ("resnet18_v2", 32),
+                       ("mobilenet_v2_0_25", 32), ("densenet121", 32),
+                       ("squeezenet1_1", 32), ("inception_v3", 299)):
+        net = vision.get_model(name, classes=10)
+        net.initialize()
+        with autograd.predict_mode(), torch.no_grad():
+            out = net(torch.randn(1, 3, size, size, device=card))
+        assert out.device == card and out.shape == (1, 10)
+        assert bool(torch.isfinite(out).all())
+        assert all(p.device == card
+                   for p in net.collect_params().values())

@@ -186,6 +186,10 @@ def test_port_imports_without_jax():
             "import mxnet_tpu_torch, mxnet_tpu_torch.kernels._build\n"
             "import mxnet_tpu_torch.gluon.model_zoo.transformer\n"
             "import mxnet_tpu_torch.gluon.model_zoo.vision.resnet\n"
+            "import mxnet_tpu_torch.gluon.model_zoo.vision\n"
+            "import mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.gluon.nn\n"
+            "import mxnet_tpu_torch.gluon.loss\n"
+            "import mxnet_tpu_torch.ndarray.ops_ctc\n"
             "import mxnet_tpu_torch.gluon.trainer, mxnet_tpu_torch.optimizer\n"
             "import mxnet_tpu_torch.ndarray.ops_optimizer\n"
             "import mxnet_tpu_torch.kernels.multi_sgd\n"

@@ -234,11 +234,14 @@ def test_pooling_matches_jax(kind, kw):
 
 
 @pytest.mark.parametrize("kind,kw", [
-    ("MaxPool2D", dict(ceil_mode=True)),
-    ("AvgPool2D", dict(count_include_pad=False)),
+    ("MaxPool2D", dict(ceil_mode=True, layout="NHWC")),
+    ("AvgPool2D", dict(count_include_pad=False, layout="NHWC")),
     ("AvgPool2D", dict(ceil_mode=True, layout="NHWC")),
 ], ids=["max-ceil", "avg-exclude-pad", "avg-nhwc"])
 def test_pooling_rejects_unported_options(kind, kw):
+    """Channels-last layouts raise; ``ceil_mode`` and
+    ``count_include_pad=False`` are ported (held against the JAX package
+    in ``tests/test_torch_gluon_layers.py``)."""
     with pytest.raises(MXNetError):
         getattr(nn, kind)(**kw)
 
