@@ -10,7 +10,8 @@ low-precision runs, phase 11's imperative MLP, phase 12's NMT
 training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
 and Mask-RCNN training, phase 14's hybridized runs, phase 15's
 generation serving, each part of phase 16, each training run of
-phase 17, and each model of phase 18) and read just after;
+phase 17, each model of phase 18 and each part of phase 19) and read
+just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -394,7 +395,38 @@ kernels not at all:
    off, against the CPU in fp32 and float64 (``leaf_check``), and a
    window replayed from its graph, dropout on, bit for bit the eager
    card window;
-19. prints one JSON line of kernel measurements (flash: the fp32 and, as
+19. the symbolic AMP and Module surface (``mx.sym`` graphs bound by
+   ``Module``, ``contrib.amp.convert_model``, the registry's
+   ``_contrib_flash_attention``): (a) a BERT-base-width encoder in
+   ``mx.sym`` (12 layers of 768, 12 heads, FFN 3072 with GELU, residual
+   LayerNorms, flash attention on (B*H, 512, 64) with per-sequence
+   lengths, the head ``FullyConnected(2)`` -> ``softmax_cross_entropy``
+   -> ``MakeLoss(normalization="batch")``), batch 8, through ``Module``
+   (``forward_backward`` + SGD momentum ``update``, fp32): 2 warm and 5
+   timed steps, 12 flash launches a forward and none in the backward,
+   exact; one step of a 2-layer copy at batch 2 against the CPU in fp32
+   and float64 (``leaf_check``); (b) its inference graph (hidden states
+   and logits) converted by ``amp.convert_model(..., "bfloat16")`` and
+   bound from the fp32 parameters: the cast nodes inserted, 12 bf16 flash
+   launches, each output within 5e-2 (relative L2) of the fp32 graph's,
+   the forward times; (c) GluonNLP's interleaved attention
+   (``interleaved_matmul_selfatt_qk`` -> softmax -> ``..._valatt``) on a
+   (512, 8, 3 x 768) projection against the flash route, max-abs <= 1e-4;
+   (d) phase 12's LM converted in every bucket through a
+   ``BucketingModule`` for inference: perplexity within 5e-2 (relative)
+   of fp32's over one batch a bucket, and the converted checkpoint
+   (``save_checkpoint(..., remove_amp_cast=True)``) loaded back as saved;
+   (e) config #1's MLP under each of ``LinearRegressionOutput``,
+   ``LogisticRegressionOutput``, ``MAERegressionOutput`` and
+   ``SVMOutput`` through ``Module.fit`` (2 epochs of 640 samples) with a
+   held-out ``score`` that must improve, and one step of each against the
+   CPU (``leaf_check``, the CPU runs taking the card's ReLU decisions);
+   (f) each of the 43 registry ops this slice adds on the card against
+   its CPU run (exact where the op casts, indexes, orders or counts: ties
+   in ``topk``/``sort``/``argsort`` and out-of-range ``gather_nd``
+   indices included), and ``multi_all_finite`` over (a)'s gradients (1
+   clean, 0 with one ``inf``, no host read before the caller's);
+20. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -405,7 +437,8 @@ kernels not at all:
    ``optimizer_zoo_launches`` (the mixed path without momentum's under
    ``optimizer_zoo_mixed_launches``), phase 17's under
    ``data_pipeline_launches``, phase 18's under ``vision_zoo_launches``
-   and ``word_lm_launches``; the SGD kernels' bf16/fp16
+   and ``word_lm_launches``, phase 19's under
+   ``symbolic_module_launches``; the SGD kernels' bf16/fp16
    entries, and the mixed path's own entry beside the unfused route's
    ``before_ms``), the card line, and last ``{"ok": true, "device":
    {...}}``.
@@ -415,6 +448,7 @@ Imports nothing of JAX.  Writes the full report to ``<out>/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import hashlib
 import http.client
@@ -468,6 +502,7 @@ from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 from mxnet_tpu_torch.ndarray import ops_contrib, ops_optimizer
+from mxnet_tpu_torch.ndarray.register import get_op, invoke
 from mxnet_tpu_torch.kernels.multi_sgd import (multi_mp_sgd,
                                                multi_mp_sgd_mom,
                                                multi_mp_sgd_mom_plain,
@@ -3755,11 +3790,12 @@ def unshared_parameters(bmod) -> list:
     return bad
 
 
-def module_to(bmod, dtype) -> None:
-    """Every array of every bucket's executor in ``dtype`` (the buckets
-    share theirs, so each moves once)."""
+def module_to(mod, dtype) -> None:
+    """Every array of a Module's executor, or of every bucket's of a
+    BucketingModule (the buckets share theirs, so each moves once), in
+    ``dtype``."""
     seen = set()
-    for m in bmod.buckets.values():
+    for m in getattr(mod, "buckets", {None: mod}).values():
         exe = m._exec_group.execs[0]
         for arr in exe.arg_arrays + exe.grad_arrays + exe.aux_arrays:
             if arr is not None and id(arr) not in seen:
@@ -3827,7 +3863,8 @@ def lm_phase(seed: int, card: str, out_dir: Path) -> dict:
     lr 0.01, wd 1e-5, ``Perplexity(invalid_label=0)`` as the example
     passes it; the buckets' parameter sharing, the leaf check, the
     checkpoint round trip, step ms per bucket and the host's share of a
-    step."""
+    step; the trained parameters under ``"trained"`` (``arg``, ``aux``),
+    which phase 19 converts."""
     from torch.profiler import ProfilerActivity, profile
     out_dir.mkdir(parents=True, exist_ok=True)
     it = lm_iter(seed, LM_SENTENCES)
@@ -3913,7 +3950,8 @@ def lm_phase(seed: int, card: str, out_dir: Path) -> dict:
                                                "cpu_share_median",
                                                "worst_margin")}
             for part in ("grads", "weights")},
-        "checks": checks, "ok": all(checks.values())}
+        "checks": checks, "ok": all(checks.values()),
+        "trained": {"arg": arg, "aux": aux}}
 
 
 # ----------------------------------------------------------------------
@@ -6963,6 +7001,698 @@ def model_surface_phase(seed: int, card: str) -> dict:
             "ok": all(r["ok"] for r in zoo.values()) and lm["ok"]}
 
 
+# ----------------------------------------------------------------------
+# Phase 19: the symbolic AMP and Module surface: ``mx.sym`` graphs bound
+# by ``Module``, ``contrib.amp.convert_model`` with its cast ops, the
+# registry's ``_contrib_flash_attention``, the Module-era loss heads and
+# the registry ops that ported modules name.  The symbol builders take
+# the ``sym`` namespace, so the CPU tests build the same graph in the
+# JAX package.
+SYM_UNITS, SYM_HEADS, SYM_FFN = 768, 12, 3072      # BERT-base's widths
+SYM_SEQ, SYM_BATCH, SYM_LAYERS = 512, 8, 12
+SYM_CHECK_LAYERS, SYM_CHECK_BATCH = 2, 2           # the leaf check's copy
+SYM_OPT = {"learning_rate": 1e-3, "momentum": 0.9}
+SYM_WARM, SYM_TIMED = 2, 5
+# The bf16 bounds sit about 3 to 10 times above the card's readings
+# (PERF.md, PR 16: 5.2e-3, 1.7e-3 and 9.2e-5; the LM's logits 6.7e-3 in
+# the CPU rehearsal's toy LM); bf16 rounds at 2^-8.
+SYM_BF16_TOL = 1.5e-2        # relative L2 of the bf16-converted outputs
+SYM_ROUTE_TOL = 1e-4         # interleaved route vs the flash route, fp32
+LM_BF16_RTOL = 1e-3          # converted LM's perplexity vs fp32's
+LM_LOGIT_TOL = 1e-2          # converted LM's centred logits, relative L2
+HEAD_OPS = ("LinearRegressionOutput", "LogisticRegressionOutput",
+            "MAERegressionOutput", "SVMOutput")
+HEAD_OPT = {"learning_rate": 0.002, "momentum": 0.9}
+HEAD_SAMPLES, HEAD_HELD_OUT, HEAD_BATCH, HEAD_EPOCHS = 640, 128, 64, 2
+OP_TOL = 1e-5                # card vs CPU, x max(1, max|CPU|), fp32
+
+
+def sym_encoder(sym, layers: int, units: int = None, heads: int = None,
+                ffn: int = None, head: str = "loss"):
+    """A BERT-style encoder in ``sym`` over inputs ``data`` (B, L, units)
+    and ``valid_len`` (B,): per layer an interleaved-free q/k/v projection,
+    ``_contrib_flash_attention`` on (B * heads, L, units / heads) with the
+    per-sequence lengths, the output projection, residual ``LayerNorm``s
+    and a GELU FFN (``LeakyReLU(act_type="gelu")``, in both registries).
+    ``head``: ``"loss"`` (the first token's ``FullyConnected(2)`` ->
+    ``softmax_cross_entropy`` against ``label`` -> ``MakeLoss(
+    normalization="batch")``), ``"infer"`` (the last hidden states and
+    the two logits, grouped).  Widths default to ``SYM_UNITS``,
+    ``SYM_HEADS`` and ``SYM_FFN``."""
+    units, heads, ffn = units or SYM_UNITS, heads or SYM_HEADS, \
+        ffn or SYM_FFN
+    x, vl = sym.var("data"), sym.var("valid_len")
+    d = units // heads
+    for i in range(layers):
+        p = f"enc{i}_"
+        qkv = sym.FullyConnected(x, num_hidden=3 * units, flatten=False,
+                                 name=p + "qkv")
+        qkv = sym.transpose(sym.reshape(qkv, shape=(0, 0, 3 * heads, d),
+                                        name=p + "qkv_heads"),
+                            axes=(0, 2, 1, 3), name=p + "qkv_t")
+        q, k, v = (sym.reshape(t, shape=(-3, 0, 0), name=p + part)
+                   for part, t in zip("qkv", sym.split(
+                       qkv, num_outputs=3, axis=1, name=p + "split")))
+        att = sym._contrib_flash_attention(q, k, v, vl, name=p + "flash")
+        att = sym.reshape(sym.transpose(
+            sym.reshape(att, shape=(-4, -1, heads, 0, 0), name=p + "att_b"),
+            axes=(0, 2, 1, 3), name=p + "att_t"), shape=(0, 0, -3),
+            name=p + "att")
+        att = sym.FullyConnected(att, num_hidden=units, flatten=False,
+                                 name=p + "proj")
+        x = sym.LayerNorm(sym.broadcast_add(x, att, name=p + "res1"),
+                          axis=-1, name=p + "ln1")
+        h = sym.FullyConnected(x, num_hidden=ffn, flatten=False,
+                               name=p + "ffn1")
+        h = sym.LeakyReLU(h, act_type="gelu", name=p + "gelu")
+        h = sym.FullyConnected(h, num_hidden=units, flatten=False,
+                               name=p + "ffn2")
+        x = sym.LayerNorm(sym.broadcast_add(x, h, name=p + "res2"),
+                          axis=-1, name=p + "ln2")
+    cls = sym.slice_axis(x, axis=1, begin=0, end=1, name="first")
+    logits = sym.FullyConnected(cls, num_hidden=2, name="cls")
+    if head == "infer":
+        return sym.Group([x, logits])
+    ce = sym.softmax_cross_entropy(logits, sym.var("label"), name="ce")
+    return sym.MakeLoss(ce, normalization="batch", name="loss")
+
+
+def sym_attention_routes(sym, heads: int = None):
+    """Two graphs of one self-attention over GluonNLP's interleaved
+    projection ``qkv`` (L, B, heads * 3 * D), every key valid: GluonNLP's
+    ``interleaved_matmul_selfatt_qk`` -> ``softmax`` ->
+    ``interleaved_matmul_selfatt_valatt``, and the same heads cut out and
+    put through ``_contrib_flash_attention``; both give (L, B, heads * D).
+    ``heads`` defaults to ``SYM_HEADS``."""
+    heads = heads or SYM_HEADS
+    qkv = sym.var("qkv")
+    att = sym.softmax(sym._contrib_interleaved_matmul_selfatt_qk(
+        qkv, heads=heads, name="qk"), axis=-1, name="att")
+    gluonnlp = sym._contrib_interleaved_matmul_selfatt_valatt(
+        qkv, att, heads=heads, name="valatt")
+    parts = sym.reshape(sym.transpose(
+        sym.reshape(qkv, shape=(0, 0, heads, 3, -1), name="heads"),
+        axes=(1, 2, 3, 0, 4), name="heads_t"), shape=(-3, 0, 0, 0),
+        name="parts")
+    q, k, v = sym.split(parts, num_outputs=3, axis=1, squeeze_axis=True,
+                        name="split")
+    out = sym._contrib_flash_attention(q, k, v, name="flash")
+    flash = sym.reshape(sym.transpose(
+        sym.reshape(out, shape=(-4, -1, heads, 0, 0), name="out_b"),
+        axes=(2, 0, 1, 3), name="out_t"), shape=(0, 0, -3), name="out")
+    return gluonnlp, flash
+
+
+def sym_mlp(sym, head: str):
+    """Config #1's MLP (784-128 relu-64 relu-10) under one of the
+    Module-era output layers, its label the variable ``label``."""
+    x = sym.var("data")
+    for i, n in enumerate((128, 64)):
+        x = sym.Activation(sym.FullyConnected(x, num_hidden=n,
+                                              name=f"fc{i + 1}"),
+                           act_type="relu", name=f"relu{i + 1}")
+    x = sym.FullyConnected(x, num_hidden=10, name="fc3")
+    return getattr(sym, head)(x, sym.var("label"), name="head")
+
+
+def encoder_batch(seed: int, batch: int, seq: int, units: int) -> tuple:
+    """([features (B, L, units) ~ N(0, 1), lengths in [L / 2, L]],
+    [labels 0/1]) as numpy arrays from ``seed``."""
+    g = np.random.default_rng(seed)
+    x = g.standard_normal((batch, seq, units)).astype(np.float32)
+    vl = g.integers(seq // 2, seq + 1, batch).astype(np.float32)
+    y = g.integers(0, 2, batch).astype(np.float32)
+    return [x, vl], [y]
+
+
+def data_batch(arrays: tuple, ctx, dtype=None):
+    """A ``DataBatch`` of (data, label) numpy lists on ``ctx``."""
+    data, label = arrays
+    return mx_io.DataBatch(
+        data=[nd.array(a, ctx=ctx, dtype=dtype) for a in data],
+        label=[nd.array(a, ctx=ctx, dtype=dtype) for a in label])
+
+
+def encoder_module(symbol, ctx, batch: int, seq: int, units: int,
+                   for_training: bool = True):
+    mod = mx_mod.Module(symbol, data_names=("data", "valid_len"),
+                        label_names=("label",) if for_training else (),
+                        context=ctx)
+    mod.bind(data_shapes=[("data", (batch, seq, units)),
+                          ("valid_len", (batch,))],
+             label_shapes=[("label", (batch,))] if for_training else None,
+             for_training=for_training)
+    return mod
+
+
+def module_step(make, ctx, dtype, arg_params, arrays, opt,
+                mode=None) -> tuple:
+    """One ``forward_backward`` + ``update`` (SGD) of a fresh Module
+    (``make(ctx)``) on ``ctx`` in ``dtype`` from ``arg_params``, the
+    forward and backward under ``mode`` (a ``Decisions``; the binding's
+    shape inference stays outside it): its outputs, gradients and updated
+    weights, by name, on the CPU."""
+    mod = make(ctx)
+    mod.init_params(arg_params=arg_params)
+    module_to(mod, dtype)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(opt))
+    batch = data_batch(arrays, ctx, dtype)
+    with mode if mode is not None else contextlib.nullcontext():
+        mod.forward_backward(batch)
+    outs = [o._data.detach().cpu().clone() for o in mod.get_outputs()]
+    grads = {n: g._data.detach().cpu().clone()
+             for n, g in mod._grad_params.items()}
+    mod.update()
+    return outs, grads, {n: a._data.detach().cpu().clone()
+                         for n, a in mod._arg_params.items()}
+
+
+def _brief(check: dict) -> dict:
+    return {k: check[k] for k in ("ok", "leaves", "failed",
+                                  "cpu_share_median", "worst_margin")}
+
+
+def held_step(make, arg_params, arrays, opt, relu: bool = False) -> dict:
+    """The same Module step on the card and on the CPU in fp32 and in
+    float64, held leaf by leaf (``leaf_check``) on the gradients and the
+    updated weights, the card's outputs within 1e-4 (x max(1, max|out|))
+    of the CPU's.  With ``relu`` the CPU runs take the card's ReLU
+    decisions (``Decisions``), float64's own at most ``DECISION_FLIPS``
+    of them."""
+    card = Decisions()
+    runs = {"card": module_step(make, gpu(0), torch.float32, arg_params,
+                                arrays, opt, card if relu else None)}
+    flips = {}
+    for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+        forced = Decisions(card.masks)
+        runs[name] = module_step(make, cpu(), dtype, arg_params, arrays,
+                                 opt, forced if relu else None)
+        flips[name] = forced.flips
+    w0 = {n: arg_params[n]._data.detach().cpu() for n in runs["card"][1]}
+    zeros = {n: torch.zeros_like(t) for n, t in w0.items()}
+    grads = leaf_check(runs["card"][1], runs["cpu"][1], runs["cpu64"][1],
+                       zeros)
+    weights = leaf_check(runs["card"][2], runs["cpu"][2], runs["cpu64"][2],
+                         w0)
+    scale = max(1.0, max(o.abs().max().item() for o in runs["cpu"][0]))
+    out_err = max((a - b).abs().max().item()
+                  for a, b in zip(runs["card"][0], runs["cpu"][0]))
+    return {"output_abs_err_vs_cpu": out_err, "relu_units": card.units,
+            "relu_flips": flips, "grads": _brief(grads),
+            "weights": _brief(weights),
+            "ok": grads["ok"] and weights["ok"] and out_err <= 1e-4 * scale
+            and flips["cpu64"] <= DECISION_FLIPS * max(card.units, 1)}
+
+
+SYM_RANGES = {"flash_attention_backward": "flash_backward"}
+
+
+def profiled_module_step(mod, batch) -> dict:
+    """One more ``forward_backward`` + ``update`` under torch.profiler:
+    device ms by class (the flash backward's torch ops by their range;
+    the flash forward kernel under ``other``), the idle share of the
+    step's wall time, and the host's kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    return _device_classes(prof, wall, SYM_RANGES) | {
+        "host_launches": host_launches(prof)}
+
+
+def encoder_train_run(seed: int) -> dict:
+    """(a): the 12-layer encoder through ``Module`` (``bind`` ->
+    ``init_params`` (N(0, 0.02)) -> ``init_optimizer("sgd", momentum)``
+    -> ``forward_backward`` + ``update``), fp32, ``SYM_WARM`` warm and
+    ``SYM_TIMED`` timed steps; then the leaf check of one step of a
+    ``SYM_CHECK_LAYERS``-layer copy at the same widths.  Returns the
+    trained module too (for (b) and (f))."""
+    mx_random.seed(seed)
+    mod = encoder_module(sym_encoder(mx_sym, SYM_LAYERS), gpu(0),
+                         SYM_BATCH, SYM_SEQ, SYM_UNITS)
+    mod.init_params(initializer=mx_init.Normal(0.02))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SYM_OPT))
+    batch = data_batch(encoder_batch(seed, SYM_BATCH, SYM_SEQ, SYM_UNITS),
+                       gpu(0))
+    torch.cuda.synchronize()
+    zero_counts()
+    losses, fwd_launches = [], []
+    for step in range(SYM_WARM + SYM_TIMED):
+        if step == SYM_WARM:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+        before = flash_attention.launches
+        mod.forward(batch, is_train=True)
+        fwd_launches.append(flash_attention.launches - before)
+        mod.backward()
+        mod.update()
+        losses.append(mod.get_outputs()[0])
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / SYM_TIMED * 1e3
+    launches = flash_attention.launches
+    by_dtype = dict(flash_attention.launches_by_dtype)
+    sgd = {w.__name__: w.launches for w in COUNTED if w is not
+           flash_attention}
+    other = other_launches(flash_attention)
+    profile = profiled_module_step(mod, batch)
+    losses = [float(o.asscalar()) for o in losses]
+    steps = SYM_WARM + SYM_TIMED
+    # the leaf check's copy: the first layers' widths, batch 2
+    mx_random.seed(seed + 1)
+    small = encoder_module(sym_encoder(mx_sym, SYM_CHECK_LAYERS), gpu(0),
+                           SYM_CHECK_BATCH, SYM_SEQ, SYM_UNITS)
+    small.init_params(initializer=mx_init.Normal(0.02))
+    arg, _ = small.get_params()
+    check = held_step(
+        lambda ctx: encoder_module(sym_encoder(mx_sym, SYM_CHECK_LAYERS),
+                                   ctx, SYM_CHECK_BATCH, SYM_SEQ,
+                                   SYM_UNITS),
+        arg, encoder_batch(seed + 2, SYM_CHECK_BATCH, SYM_SEQ, SYM_UNITS),
+        SYM_OPT)
+    checks = {"finite": all(math.isfinite(v) for v in losses),
+              "flash_12_per_forward": fwd_launches == [SYM_LAYERS] * steps,
+              "no_flash_in_backward": launches == SYM_LAYERS * steps,
+              "flash_fp32": by_dtype[str(torch.float32)] == launches,
+              "no_other_kernel": other == 0, "leaf_check": check["ok"]}
+    return {"layers": SYM_LAYERS, "batch": SYM_BATCH, "seq": SYM_SEQ,
+            "params": sum(a.size for a in mod.get_params()[0].values()),
+            "step_ms": step_ms, "steps": steps, "losses": losses,
+            "profile": profile,
+            "flash_launches": launches, "flash_launches_per_forward":
+                fwd_launches, "sgd_kernel_launches": sgd,
+            "other_kernel_launches": other, "check": check,
+            "checks": checks, "ok": all(checks.values()), "module": mod}
+
+
+def _forward_ms(mod, batch, n: int) -> float:
+    mod.forward(batch, is_train=False)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        mod.forward(batch, is_train=False)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) / n * 1e3
+
+
+def amp_encoder_run(seed: int, trained) -> dict:
+    """(b): the trained encoder's inference graph (hidden states and
+    logits) converted by ``amp.convert_model(..., "bfloat16")`` and bound
+    for inference from the fp32 parameters, against the fp32 graph's
+    forward: the inserted cast nodes, the flash launches by dtype, the
+    relative L2 difference of each output, the forward times."""
+    arg, aux = trained.get_params()
+    infer = sym_encoder(mx_sym, SYM_LAYERS, head="infer")
+    conv, carg, caux = amp.convert_model(infer, arg, aux, "bfloat16")
+    ops = [n.op for n in conv._topo()]
+    batch = data_batch(encoder_batch(seed + 3, SYM_BATCH, SYM_SEQ,
+                                     SYM_UNITS), gpu(0))
+    runs = {}
+    for name, symbol, params in (("fp32", infer, arg), ("bf16", conv, carg)):
+        mod = encoder_module(symbol, gpu(0), SYM_BATCH, SYM_SEQ, SYM_UNITS,
+                             for_training=False)
+        mod.init_params(arg_params=params, aux_params=aux)
+        torch.cuda.synchronize()
+        zero_counts()
+        mod.forward(batch, is_train=False)
+        outs = [o._data.float() for o in mod.get_outputs()]
+        torch.cuda.synchronize()
+        runs[name] = {"outs": outs, "launches": flash_attention.launches,
+                      "by_dtype": dict(flash_attention.launches_by_dtype),
+                      "other": other_launches(flash_attention),
+                      "forward_ms": _forward_ms(mod, batch, 5),
+                      "dtypes": [str(o.dtype) for o in mod.get_outputs()]}
+        del mod
+    rel = [((a - b).norm() / b.norm()).item() for a, b in
+           zip(runs["bf16"]["outs"], runs["fp32"]["outs"])]
+    checks = {
+        "bf16_flash": runs["bf16"]["by_dtype"][str(torch.bfloat16)]
+        == SYM_LAYERS == runs["bf16"]["launches"],
+        "fp32_flash": runs["fp32"]["by_dtype"][str(torch.float32)]
+        == SYM_LAYERS == runs["fp32"]["launches"],
+        "no_other_kernel": runs["bf16"]["other"] == runs["fp32"]["other"]
+        == 0,
+        "params_fp32": all(v.dtype == np.float32 for v in carg.values()),
+        "within_bound": all(r <= SYM_BF16_TOL for r in rel),
+        "finite": all(bool(torch.isfinite(o).all())
+                      for o in runs["bf16"]["outs"])}
+    return {"amp_cast_nodes": ops.count("amp_cast"),
+            "amp_multicast_nodes": ops.count("amp_multicast"),
+            "nodes": len(ops), "rel_l2_vs_fp32": rel,
+            "bound": SYM_BF16_TOL,
+            "output_dtypes": runs["bf16"]["dtypes"],
+            "flash_launches_by_dtype": {n: r["by_dtype"]
+                                        for n, r in runs.items()},
+            "forward_ms": {n: r["forward_ms"] for n, r in runs.items()},
+            "checks": checks, "ok": all(checks.values())}
+
+
+def attention_routes_run(seed: int) -> dict:
+    """(c): GluonNLP's interleaved route and the flash route over one
+    (L, B, 3 * 768) projection, every key valid, fp32."""
+    g = np.random.default_rng(seed + 4)
+    qkv = nd.array(g.standard_normal(
+        (SYM_SEQ, SYM_BATCH, 3 * SYM_UNITS)).astype(np.float32), ctx=gpu(0))
+    outs = {}
+    for name, symbol in zip(("interleaved", "flash"),
+                            sym_attention_routes(mx_sym)):
+        zero_counts()
+        exe = symbol.bind(gpu(0), args={"qkv": qkv}, grad_req="null")
+        outs[name] = exe.forward()[0]._data
+        outs[name + "_launches"] = flash_attention.launches
+    torch.cuda.synchronize()
+    err = (outs["interleaved"] - outs["flash"]).abs().max().item()
+    checks = {"within_bound": err <= SYM_ROUTE_TOL,
+              "shape": tuple(outs["flash"].shape)
+              == (SYM_SEQ, SYM_BATCH, SYM_UNITS),
+              "flash_once": outs["flash_launches"] == 1
+              and outs["interleaved_launches"] == 0}
+    return {"max_abs_err": err, "bound": SYM_ROUTE_TOL,
+            "flash_launches": outs["flash_launches"],
+            "interleaved_launches": outs["interleaved_launches"],
+            "checks": checks, "ok": all(checks.values())}
+
+
+def amp_lm_run(seed: int, trained: dict, out_dir: Path) -> dict:
+    """(d): config #4's LM (``lm_sym_gen``) with phase 12's trained weights
+    (``trained``: ``arg`` and ``aux`` as ``lm_phase`` returns them),
+    every bucket's graph converted by ``amp.convert_model``, bound for
+    inference in one ``BucketingModule``: the perplexity over one batch a
+    bucket against the fp32 module's over the same batches, and the
+    logits (the log of the softmax's output, centred over the vocabulary:
+    the logits less their mean) by relative L2 against fp32's; the converted
+    checkpoint (``save_checkpoint(..., remove_amp_cast=True)``) loaded
+    back, its graph and parameters as saved."""
+    arg, aux = trained["arg"], trained["aux"]
+
+    def converted(key):
+        sym, data_names, label_names = lm_sym_gen(key)
+        return amp.convert_model(sym, arg, aux, "bfloat16")[0], \
+            data_names, label_names
+
+    it = lm_iter(seed + 5, 1500)
+    batches = {}
+    for b in it:
+        batches.setdefault(b.bucket_key, b)
+    ppl, casts, logits, rel = {}, {}, {}, {}
+    for name, gen in (("fp32", lm_sym_gen), ("bf16", converted)):
+        bmod = mx_mod.BucketingModule(gen, default_bucket_key=LM_BUCKETS[-1],
+                                      context=gpu(0))
+        shape = (LM_BATCH, LM_BUCKETS[-1])
+        bmod.bind([("data", shape)], [("softmax_label", shape)],
+                  for_training=False)
+        bmod.init_params(arg_params=arg, aux_params=aux)
+        m = metric.Perplexity(ignore_label=0)
+        for key in sorted(batches):
+            bmod.forward(batches[key], is_train=False)
+            bmod.update_metric(m, batches[key].label)
+            z = bmod.get_outputs()[0]._data.float().log()
+            z = z - z.mean(-1, keepdim=True)
+            if name == "fp32":
+                logits[key] = z
+            else:
+                rel[key] = ((z - logits[key]).norm()
+                            / logits[key].norm()).item()
+        ppl[name] = m.get()[1]
+        casts[name] = [n.op for n in gen(LM_BUCKETS[-1])[0]._topo()].count(
+            "amp_cast")
+    sym60 = converted(LM_BUCKETS[-1])[0]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    prefix = str(out_dir / "lm_bf16")
+    mx_model.save_checkpoint(prefix, 0, sym60, arg, aux,
+                             remove_amp_cast=True)
+    sym2, arg2, aux2 = mx_model.load_checkpoint(prefix, 0, ctx=cpu())
+    round_trip = sym2.tojson() == sym60.tojson() and arg.keys() == \
+        arg2.keys() and all(torch.equal(arg[k]._data.cpu(), arg2[k]._data)
+                            for k in arg)
+    for path in (f"{prefix}-symbol.json", f"{prefix}-0000.params"):
+        os.remove(path)
+    gap = abs(ppl["bf16"] - ppl["fp32"]) / ppl["fp32"]
+    checks = {"within_bound": gap <= LM_BF16_RTOL,
+              "logits_within_bound": max(rel.values()) <= LM_LOGIT_TOL,
+              "finite": all(math.isfinite(v) for v in ppl.values())
+              and all(math.isfinite(v) for v in rel.values()),
+              "casts_inserted": casts["bf16"] > 0 == casts["fp32"],
+              "checkpoint_round_trip": round_trip}
+    return {"buckets": sorted(batches), "perplexity": ppl,
+            "rel_gap": gap, "bound": LM_BF16_RTOL,
+            "logits_rel_l2_by_bucket": rel, "logits_bound": LM_LOGIT_TOL,
+            "amp_cast_nodes_at_60": casts["bf16"], "checks": checks,
+            "ok": all(checks.values())}
+
+
+def head_data(seed: int, n: int, head: str) -> tuple:
+    """``n`` seeded 784-feature samples and a label for ``head``: an
+    integer class for ``SVMOutput``, its one-hot row (B, 10) otherwise."""
+    g = np.random.default_rng(seed)
+    centers = g.standard_normal((10, 784)).astype(np.float32)
+    y = g.integers(0, 10, n)
+    x = (centers[y] + g.standard_normal((n, 784)).astype(np.float32))
+    label = y.astype(np.float32) if head == "SVMOutput" else \
+        np.eye(10, dtype=np.float32)[y]
+    return x.astype(np.float32), label
+
+
+def head_module(head: str, ctx):
+    mod = mx_mod.Module(sym_mlp(mx_sym, head), data_names=("data",),
+                        label_names=("label",), context=ctx)
+    label_shape = (HEAD_BATCH,) if head == "SVMOutput" else (HEAD_BATCH, 10)
+    mod.bind(data_shapes=[("data", (HEAD_BATCH, 784))],
+             label_shapes=[("label", label_shape)])
+    return mod
+
+
+def heads_run(seed: int) -> dict:
+    """(e): config #1's MLP under each Module-era output layer through
+    ``Module.fit`` (SGD with momentum, ``HEAD_SAMPLES`` samples, batch
+    ``HEAD_BATCH``, ``HEAD_EPOCHS`` epochs), ``score`` on a held-out set
+    before and after (accuracy for ``SVMOutput``, MSE against the one-hot
+    label otherwise: it must improve), and one step of each from the
+    initial weights held against the CPU."""
+    res = {}
+    for i, head in enumerate(HEAD_OPS):
+        x, y = head_data(seed + 10 + i, HEAD_SAMPLES + HEAD_HELD_OUT, head)
+        train = mx_io.NDArrayIter(x[:HEAD_SAMPLES], y[:HEAD_SAMPLES],
+                                  HEAD_BATCH, label_name="label")
+        held = mx_io.NDArrayIter(x[HEAD_SAMPLES:], y[HEAD_SAMPLES:],
+                                 HEAD_BATCH, label_name="label")
+        metric_name = "acc" if head == "SVMOutput" else "mse"
+        mx_random.seed(seed + 20 + i)
+        mod = head_module(head, gpu(0))
+        mod.init_params(initializer=Xavier())
+        arg0, _ = mod.get_params()
+        before = mod.score(held, metric_name)[0][1]
+        zero_counts()
+        t0 = time.monotonic()
+        mod.fit(train, num_epoch=HEAD_EPOCHS, optimizer="sgd",
+                optimizer_params=dict(HEAD_OPT), eval_metric=metric_name)
+        torch.cuda.synchronize()
+        fit_s = time.monotonic() - t0
+        launches = other_launches()
+        after = mod.score(held, metric_name)[0][1]
+        check = held_step(lambda ctx, h=head: head_module(h, ctx), arg0,
+                          ([x[:HEAD_BATCH]], [y[:HEAD_BATCH]]), HEAD_OPT,
+                          relu=True)
+        improved = after > before if metric_name == "acc" else \
+            after < before
+        res[head] = {"steps": HEAD_EPOCHS * HEAD_SAMPLES // HEAD_BATCH,
+                     "fit_s": fit_s, "metric": metric_name,
+                     "held_out_before": before, "held_out_after": after,
+                     "kernel_launches": launches, "check": check,
+                     "ok": check["ok"] and math.isfinite(after)
+                     and improved}
+    return res
+
+
+def _tie_rules(x: np.ndarray) -> dict:
+    """The JAX package's orders, in numpy: ``topk`` a stable sort of
+    ``-x``; ``argsort`` descending the stable ascending sort flipped."""
+    return {"topk": np.argsort(-x, axis=-1, kind="stable")[..., :3],
+            "argsort": np.flip(np.argsort(x, axis=-1, kind="stable"), -1)}
+
+
+def new_op_cases(g) -> list:
+    """Each of the 43 ops this slice adds, once: (name, inputs as numpy
+    arrays or (array, torch dtype), kwargs, whether to take the gradient
+    of the first input)."""
+    f = lambda *s: g.standard_normal(s).astype(np.float32)  # noqa: E731
+    ties = np.array([[1, 3, 3, 2, 3, 1, 0, 3]] * 4, np.float32)
+    nan = f(3, 4)
+    nan[0, 1] = nan[2, 3] = np.nan
+    labels = g.integers(0, 5, 4).astype(np.float32)
+    d64 = (f(4, 64, 64), f(4, 64, 64), f(4, 64, 64),
+           np.array([64, 40, 17, 1], np.float32))
+    return [
+        ("amp_cast", [f(4, 5)], {"dtype": "bfloat16"}, False),
+        ("amp_multicast", [(f(4,), torch.bfloat16), (f(4,), torch.float16)],
+         {"num_outputs": 2}, False),
+        ("linalg_gemm2", [f(3, 4, 5), f(3, 5, 6)], {"alpha": 0.5}, True),
+        ("shape_array", [f(2, 3, 4)], {}, False),
+        ("size_array", [f(2, 3, 4)], {}, False),
+        ("slice_like", [f(4, 5), f(2, 3)], {}, True),
+        ("_basic_index", [f(4, 5, 6)],
+         {"key": (("__slice__", 1, 3, None), 2)}, True),
+        ("_advanced_index", [f(4, 5), np.array([0, 5, -1, -7], np.float32)],
+         {}, True),
+        ("gather_nd", [f(3, 4), np.array([[0, 5, -1, -9], [1, 9, -2, 2]],
+                                         np.float32)], {}, True),
+        ("scatter_nd", [f(5), np.array([[0, 2, 0, 7, -1]], np.float32)],
+         {"shape": (6,)}, True),
+        ("broadcast_axis", [f(1, 3)], {"axis": 0, "size": 4}, True),
+        ("diag", [f(4, 4)], {"k": 1}, True),
+        ("reshape_like", [f(2, 6), f(3, 4)], {}, True),
+        ("cumsum", [f(3, 4)], {"axis": 1}, True),
+        ("trace", [f(4, 4)], {}, True),
+        ("tril", [f(4, 5)], {"k": 1}, True),
+        ("triu", [f(4, 5)], {"k": -1}, True),
+        ("depth_to_space", [f(1, 8, 2, 3)], {"block_size": 2}, True),
+        ("space_to_depth", [f(1, 2, 4, 6)], {"block_size": 2}, True),
+        ("identity", [f(3, 4)], {}, True),
+        ("norm", [f(4, 5)], {"ord": 2, "axis": 1}, True),
+        ("nansum", [nan], {"axis": 1}, False),
+        ("nanprod", [nan], {"axis": 0}, False),
+        ("argmax_channel", [f(3, 5, 2)], {}, False),
+        ("topk", [ties], {"k": 3, "ret_typ": "both"}, False),
+        ("sort", [ties], {"is_ascend": False}, False),
+        ("argsort", [ties], {"is_ascend": False}, False),
+        ("all_finite", [nan], {}, False),
+        ("multi_all_finite", [f(3, 4), f(5)], {"num_arrays": 2}, False),
+        ("softmax_cross_entropy", [f(4, 5), labels], {}, True),
+        ("LinearRegressionOutput", [f(4, 5), f(4, 5)], {"grad_scale": 2.0},
+         True),
+        ("MAERegressionOutput", [f(4, 5), f(4, 5)], {}, True),
+        ("LogisticRegressionOutput", [f(4, 5), f(4, 5)], {}, True),
+        ("SVMOutput", [f(4, 5), labels], {"margin": 1.0}, True),
+        ("MakeLoss", [f(4, 5)], {"normalization": "valid"}, True),
+        ("SoftmaxActivation", [f(2, 3, 4)], {"mode": "channel"}, True),
+        ("_contrib_interleaved_matmul_selfatt_qk", [f(6, 2, 3 * 2 * 8)],
+         {"heads": 2}, True),
+        ("_contrib_interleaved_matmul_selfatt_valatt",
+         [f(6, 2, 3 * 2 * 8), f(4, 6, 6)], {"heads": 2}, True),
+        ("_contrib_interleaved_matmul_encdec_qk",
+         [f(5, 2, 2 * 8), f(6, 2, 2 * 2 * 8)], {"heads": 2}, True),
+        ("_contrib_interleaved_matmul_encdec_valatt",
+         [f(6, 2, 2 * 2 * 8), f(4, 5, 6)], {"heads": 2}, True),
+        ("softmin", [f(3, 4)], {"axis": -1}, True),
+        ("lars_update", [f(4, 5), f(4, 5)],
+         {"lr": 0.1, "eta": 0.01, "wd": 1e-4}, False),
+        ("_contrib_flash_attention", list(d64), {"scale": 0.125}, True)]
+
+
+def _run_op(name, inputs, kwargs, grad: bool, dev) -> tuple:
+    ts = [torch.as_tensor(a[0]).to(dev, a[1]) if isinstance(a, tuple)
+          else torch.as_tensor(a).to(dev) for a in inputs]
+    if grad:
+        ts[0].requires_grad_()
+    out = invoke(get_op(name), ts, kwargs)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    g = None
+    if grad:
+        g, = torch.autograd.grad(sum(o.float().sum() for o in outs), ts[0])
+    return [o.detach().cpu() for o in outs], g.cpu() if g is not None \
+        else None
+
+
+def new_ops_run(seed: int, grads: list) -> dict:
+    """(f): each new op on the card against its CPU run (and gradient),
+    exact where the op is (casts, shapes, indexing, orders, counts), else
+    within ``OP_TOL``; the tie orders against the JAX package's rules;
+    ``multi_all_finite`` over (a)'s gradients, 1 when clean and 0 with one
+    ``inf`` written in, with no host read until the caller reads it."""
+    g = np.random.default_rng(seed + 30)
+    exact = {"amp_cast", "amp_multicast", "shape_array", "size_array",
+             "slice_like", "_basic_index", "_advanced_index", "gather_nd",
+             "scatter_nd", "broadcast_axis", "diag", "reshape_like",
+             "tril", "triu", "depth_to_space", "space_to_depth",
+             "identity", "argmax_channel", "topk", "sort", "argsort",
+             "all_finite", "multi_all_finite", "MakeLoss"}
+    rows, failed = {}, []
+    zero_counts()
+    flash_before = flash_attention.launches
+    for name, inputs, kwargs, grad in new_op_cases(g):
+        card_out, card_g = _run_op(name, inputs, kwargs, grad, gpu(0))
+        cpu_out, cpu_g = _run_op(name, inputs, kwargs, grad, cpu())
+        pairs = list(zip(card_out, cpu_out)) + (
+            [(card_g, cpu_g)] if grad else [])
+        err = max(((a.double() - b.double()).abs().nan_to_num(0.0).max()
+                   .item() if a.numel() else 0.0) for a, b in pairs)
+        scale = max(1.0, max(b.double().abs().nan_to_num(0.0).max().item()
+                             if b.numel() else 0.0 for _, b in pairs))
+        same = all(a.dtype == b.dtype and a.shape == b.shape
+                   for a, b in pairs)
+        tol = TOL[torch.float32] if name == "_contrib_flash_attention" \
+            else OP_TOL
+        ok = same and (err == 0.0 if name in exact else err <= tol * scale)
+        rows[name] = {"max_abs_err": err, "exact": name in exact,
+                      "dtype": str(card_out[0].dtype), "ok": ok}
+        if name in ("topk", "argsort"):
+            want = _tie_rules(np.asarray(inputs[0]))[name]
+            got = card_out[-1].numpy().astype(np.int64)
+            rows[name]["jax_rule"] = bool(np.array_equal(got, want))
+            ok = ok and rows[name]["jax_rule"]
+        if not ok:
+            failed.append(name)
+    flash_launches = flash_attention.launches - flash_before
+    # multi_all_finite over (a)'s gradients: one host read, the caller's
+    eng = mx_engine.engine()
+    reads0 = eng.host_reads
+    clean = nd.multi_all_finite(*grads, num_arrays=len(grads))
+    reads_before_read = eng.host_reads - reads0
+    clean_v = clean.asscalar()
+    saved = grads[-1]._data.view(-1)[0].clone()
+    grads[-1]._data.view(-1)[0] = math.inf
+    dirty = nd.multi_all_finite(*grads, num_arrays=len(grads))
+    reads_dirty = eng.host_reads - reads0
+    dirty_v = dirty.asscalar()
+    grads[-1]._data.view(-1)[0] = saved
+    finite = {"arrays": len(grads), "clean": clean_v, "with_inf": dirty_v,
+              "host_reads_before_reading": [reads_before_read,
+                                            reads_dirty - 1],
+              "ok": clean_v == 1.0 and dirty_v == 0.0
+              and reads_before_read == 0 and reads_dirty == 1}
+    return {"ops": len(rows), "rows": rows, "failed": failed,
+            "flash_launches": flash_launches, "multi_all_finite": finite,
+            "ok": not failed and len(rows) == 43 and finite["ok"]
+            and flash_launches == 1}
+
+
+def symbolic_phase(seed: int, card: str, out_dir: Path,
+                   lm_trained: dict) -> dict:
+    """Phase 19: (a)-(f), each with the counts zeroed just before it;
+    ``lm_trained`` is phase 12's LM (``lm_phase(...)["trained"]``)."""
+    start = time.monotonic()
+    seconds = {}
+    t0 = time.monotonic()
+    train = encoder_train_run(seed)
+    trained = train.pop("module")
+    seconds["encoder_train"] = time.monotonic() - t0
+    res = {"card": card, "encoder_train": train}
+    for key, fn in (("amp_encoder", lambda: amp_encoder_run(seed, trained)),
+                    ("attention_routes", lambda: attention_routes_run(seed)),
+                    ("amp_lm", lambda: amp_lm_run(seed, lm_trained, out_dir)),
+                    ("heads", lambda: heads_run(seed))):
+        t0 = time.monotonic()
+        res[key] = fn()
+        seconds[key] = time.monotonic() - t0
+    t0 = time.monotonic()
+    grads = [g for g in trained._exec_group.execs[0].grad_arrays
+             if g is not None]
+    res["new_ops"] = new_ops_run(seed, grads)
+    seconds["new_ops"] = time.monotonic() - t0
+    del trained, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(seconds=time.monotonic() - start, part_seconds=seconds)
+    res["ok"] = all(res[k]["ok"] for k in (
+        "encoder_train", "amp_encoder", "attention_routes", "amp_lm",
+        "new_ops")) and all(r["ok"] for r in res["heads"].values())
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7123,6 +7853,7 @@ def main() -> int:
         for part in ("weights", "grads")}), flush=True)
     print(f"nmt checks on {card}:", json.dumps(nmt["checks"]), flush=True)
     lm = lm_phase(args.seed, card, Path(args.out))
+    lm_trained = lm.pop("trained")       # phase 19 converts these weights
     print(f"lstm bucketing on {card}: {lm['samples_per_s']:.1f} samples/s "
           f"over {lm['batches']} batches, step ms by bucket "
           f"{json.dumps(lm['step_ms'])}, host share "
@@ -7342,6 +8073,29 @@ def main() -> int:
         {"first_window": r["first_window"], **r["checks"]}), flush=True)
     print(f"model surface phase on {card}: {surface18['seconds']:.1f} s",
           json.dumps(surface18["part_seconds"]), flush=True)
+    symbolic = symbolic_phase(args.seed, card, Path(args.out), lm_trained)
+    del lm_trained
+    r = symbolic["encoder_train"]
+    print(f"symbolic encoder on {card}: {r['layers']} layers, "
+          f"{r['params']} parameters, Module step {r['step_ms']:.3f} ms at "
+          f"batch {r['batch']} x {r['seq']}, flash launches "
+          f"{r['flash_launches']} ({r['flash_launches_per_forward']} a "
+          f"forward), SGD kernel launches {r['sgd_kernel_launches']}, "
+          f"losses {r['losses'][0]:.5f} -> {r['losses'][-1]:.5f}",
+          flush=True)
+    print(f"symbolic encoder leaf check on {card}:", json.dumps(r["check"]),
+          flush=True)
+    print(f"symbolic encoder profile on {card}:", json.dumps(r["profile"]),
+          flush=True)
+    for key in ("amp_encoder", "attention_routes", "amp_lm"):
+        print(f"symbolic {key} on {card}:", json.dumps(symbolic[key]),
+              flush=True)
+    for name, r in symbolic["heads"].items():
+        print(f"module head {name} on {card}:", json.dumps(r), flush=True)
+    print(f"new ops on {card}:", json.dumps(symbolic["new_ops"]),
+          flush=True)
+    print(f"symbolic phase on {card}: {symbolic['seconds']:.1f} s",
+          json.dumps(symbolic["part_seconds"]), flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -7415,6 +8169,13 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for r in rows if r["case"].startswith("nmt")},
         "lamb_train_launches": surface["bert"]["flash_launches"],
+        "symbolic_module_launches": {
+            "encoder_fp32": symbolic["encoder_train"]["flash_launches"],
+            "amp_bf16_inference": symbolic["amp_encoder"][
+                "flash_launches_by_dtype"]["bf16"][str(torch.bfloat16)],
+            "attention_routes": symbolic["attention_routes"][
+                "flash_launches"],
+            "new_ops": symbolic["new_ops"]["flash_launches"]},
     }, sgd_row("multi_sgd", SGD_TPU, mlp["launches"],
                times["multi_sgd_mlp"])
         | {"optimizer_zoo_launches": zoo_launches("multi_sgd"),
@@ -7431,6 +8192,11 @@ def main() -> int:
                name: r["launches"]
                for name, r in surface18["zoo"].items()},
            "data_pipeline_launches": data["launches"],
+           "symbolic_module_launches": {
+               "encoder": symbolic["encoder_train"]["sgd_kernel_launches"][
+                   "multi_sgd_mom"],
+               "heads": sum(r["kernel_launches"] for r in
+                            symbolic["heads"].values())},
            "optimizer_zoo_launches": zoo_launches("multi_sgd_mom"),
            "amp_bf16_launches": low["resnet50_amp"]["launches"],
            "imperative_launches": imp["launches"],
@@ -7489,7 +8255,7 @@ def main() -> int:
              nmt_backward, "detection": det, "graphs": graph,
          "generation": gen, "training_surface": surface,
          "data_pipeline": data, "model_surface": surface18,
-         "kernels": kernels,
+         "symbolic": symbolic, "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
@@ -7499,7 +8265,8 @@ def main() -> int:
         ("lstm bucketing", lm), ("nmt flash backward", nmt_backward),
         ("detection", det), ("hybridized graphs", graph),
         ("generation serving", gen), ("training surface", surface),
-        ("data pipeline", data), ("model surface", surface18))
+        ("data pipeline", data), ("model surface", surface18),
+        ("symbolic", symbolic))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

@@ -1,8 +1,8 @@
 """Automatic mixed precision (reference: python/mxnet/contrib/amp/amp.py).
 
 Counterpart of ``mxnet_tpu/contrib/amp/amp.py`` (``init``/``disable``/
-``active``, ``init_trainer``, ``scale_loss``, ``unscale`` and
-``convert_hybrid_block``).  The JAX package inserts casts through a hook on
+``active``, ``init_trainer``, ``scale_loss``, ``unscale``,
+``convert_symbol``, ``convert_model`` and ``convert_hybrid_block``).  The JAX package inserts casts through a hook on
 its single op-dispatch funnel; the port has no such funnel, so each op
 function of the port whose name is in :mod:`.lists` calls :func:`cast` on
 its inputs, and that one helper holds the policy:
@@ -27,14 +27,26 @@ with ``Trainer(..., {"multi_precision": True})`` (MXNet's recipe).  Under
 ``init("float16")`` the flash kernel takes fp16 q/k/v on the card, and
 ``init_trainer``'s ``DynamicLossScaler`` (initial scale 2**16) with
 ``scale_loss`` and ``unscale`` skips a step whose gradients overflowed
-and halves the scale.  ``convert_symbol``/``convert_model`` are not
-ported: there is no Symbol.
+and halves the scale.
+
+``convert_symbol`` rewrites a Symbol for inference in low precision, as
+MXNet 1.x's does: every input of an ``LP16_OPS`` node passes through an
+``amp_cast`` to the target dtype (a node ``{input}_amp_lp``), every input
+of an ``FP32_OPS`` node through one to float32 (``{input}_amp_f32``), and
+the inputs of a ``WIDEST_TYPE_CASTS`` node with more than one input
+through one ``amp_multicast`` (``{node}_amp_widest``) to their widest
+dtype; nodes named in ``excluded_sym_names`` keep their inputs.  The node
+names and order are the JAX package's (:140-186), so one Symbol converts
+to the same graph in both packages.  ``convert_model`` converts the
+symbol and keeps the fp32 parameters as they are: the casts make the
+low-precision copies at each forward.  Process-wide AMP is not involved:
+a converted graph casts through its own nodes.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -44,7 +56,8 @@ from . import lists
 from .loss_scaler import DynamicLossScaler
 
 __all__ = ["init", "disable", "active", "cast", "init_trainer",
-           "scale_loss", "unscale", "convert_hybrid_block"]
+           "scale_loss", "unscale", "convert_symbol", "convert_model",
+           "convert_hybrid_block"]
 
 _TARGETS = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 _LP16 = frozenset(lists.LP16_OPS)
@@ -153,6 +166,56 @@ def unscale(trainer) -> bool:
         for p in trainer._params:
             p.fresh = True
     return overflow
+
+
+def convert_symbol(sym, target_dtype: str = "bfloat16",
+                   target_dtype_ops: Optional[List[str]] = None,
+                   fp32_ops: Optional[List[str]] = None,
+                   widest_dtype_ops: Optional[List[str]] = None,
+                   excluded_sym_names: Optional[List[str]] = None):
+    """``sym`` with ``amp_cast``/``amp_multicast`` nodes inserted
+    (reference: amp.convert_symbol; see the module docstring).  The op
+    lists default to :mod:`.lists`."""
+    from ...symbol.symbol import Symbol, _Node
+    _check_target(target_dtype)
+    lp16 = _LP16 if target_dtype_ops is None else set(target_dtype_ops)
+    fp32 = _FP32 if fp32_ops is None else set(fp32_ops)
+    widest = _WIDEST if widest_dtype_ops is None else set(widest_dtype_ops)
+    excluded = set(excluded_sym_names or ())
+
+    def casted(entry, dtype, tag):
+        node, idx = entry
+        return (_Node("amp_cast", f"{node.name}_amp_{tag}", {"dtype": dtype},
+                      [(node, idx)]), 0)
+
+    mapping = {}
+    for node in sym._topo():
+        if node.is_var:
+            mapping[id(node)] = node
+            continue
+        inputs = [(mapping[id(p)], i) for p, i in node.inputs]
+        if node.name not in excluded:
+            if node.op in lp16:
+                inputs = [casted(e, target_dtype, "lp") for e in inputs]
+            elif node.op in fp32:
+                inputs = [casted(e, "float32", "f32") for e in inputs]
+            elif node.op in widest and len(inputs) > 1:
+                multi = _Node("amp_multicast", f"{node.name}_amp_widest",
+                              {"num_outputs": len(inputs)}, inputs,
+                              num_outputs=len(inputs))
+                inputs = [(multi, i) for i in range(len(inputs))]
+        mapping[id(node)] = _Node(node.op, node.name, dict(node.attrs),
+                                  inputs, node.num_outputs)
+    return Symbol([(mapping[id(n)], i) for n, i in sym._heads])
+
+
+def convert_model(sym, arg_params, aux_params,
+                  target_dtype: str = "bfloat16", **kwargs):
+    """``(convert_symbol(sym, ...), arg_params, aux_params)``: a
+    Module-style checkpoint for low-precision inference (reference:
+    amp.convert_model), its parameters kept fp32 as masters."""
+    return convert_symbol(sym, target_dtype, **kwargs), arg_params, \
+        aux_params
 
 
 @contextlib.contextmanager

@@ -32,7 +32,7 @@ from ... import autograd
 from ... import ndarray as nd
 from ...base import MXNetError, get_env
 from ...contrib.amp import amp as _amp
-from ...ndarray import flash_attention
+from ...kernels.flash_attention import flash_attention
 from ...ndarray.ndarray import NDArray
 from ...ndarray.register import get_op
 from ..block import HybridBlock

@@ -24,9 +24,12 @@ BatchEndParam = collections.namedtuple(
 
 
 def save_checkpoint(prefix: str, epoch: int, symbol, arg_params: Dict,
-                    aux_params: Dict) -> None:
+                    aux_params: Dict, remove_amp_cast: bool = True) -> None:
     """Write ``prefix-symbol.json`` (unless ``symbol`` is None) and
-    ``prefix-%04d.params``."""
+    ``prefix-%04d.params``.  ``remove_amp_cast`` is taken and, as the JAX
+    package does (``mxnet_tpu/model.py:25-31``), not acted on: a graph
+    converted by ``amp.convert_model`` is written with its casts, so it
+    loads back converted, in either package."""
     if symbol is not None:
         symbol.save(f"{prefix}-symbol.json")
     save_dict = {f"arg:{k}": v for k, v in (arg_params or {}).items()}

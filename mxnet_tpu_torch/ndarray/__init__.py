@@ -9,7 +9,8 @@ to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
 ``_attach_fluent`` :71).  Hand-written frontends: the optimizer updates
 (``ops_optimizer.py``; in place on tensors, MXNet's convention on
 ``NDArray``s), ``Custom`` (``ops_custom.py``),
-``flash_attention`` (``ops_contrib.py``), the draws of ``nd.random``,
+``flash_attention`` (the ``_contrib_flash_attention`` op with its
+inputs by keyword), the draws of ``nd.random``,
 ``waitall``, ``save`` and ``load``.  ``nd.contrib`` holds the
 ``_contrib_*`` ops by their short names (the detection ops of
 ``ops_contrib.py``), ``nd.image`` the ``_image_*`` ops
@@ -18,11 +19,11 @@ to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
 import sys as _sys
 
 from . import (ops_contrib, ops_ctc, ops_elemwise, ops_image,  # noqa: F401
-               ops_matrix, ops_nn, ops_optimizer, ops_random, ops_reduce)
+               ops_matrix, ops_misc, ops_nn, ops_optimizer, ops_random,
+               ops_reduce, ops_tail)
 from . import contrib, image, random, utils
 from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,
                       ones, zeros)
-from .ops_contrib import flash_attention
 from .ops_custom import Custom
 from .ops_optimizer import (adagrad_update, adam_update, adamw_update,
                             ftml_update, ftrl_update, group_adagrad_update,
@@ -36,10 +37,23 @@ from .ops_optimizer import (adagrad_update, adam_update, adamw_update,
                             rmsprop_update, rmspropalex_update,
                             sgd_mom_update, sgd_update, signsgd_update,
                             signum_update)
-from .register import _registry, get_op, list_ops, make_frontend
+from .register import _registry, get_op, invoke, list_ops, make_frontend
 from .utils import load, save
 
 _this = _sys.modules[__name__]
+
+
+def flash_attention(q, k, v, valid_len=None, causal=False, scale=None,
+                    out=None, name=None):
+    """``mx.nd.flash_attention``: the ``_contrib_flash_attention`` op, its
+    inputs positional or by keyword.  NDArrays in give NDArrays out
+    (recorded under ``autograd.record()``); tensors in give tensors, with
+    torch's grad mode as the caller set it."""
+    inputs = [q, k, v] + ([] if valid_len is None else [valid_len])
+    return invoke(get_op("_contrib_flash_attention"), inputs,
+                  {"causal": causal, "scale": scale}, out=out)
+
+
 for _name, _op in list(_registry.items()):
     if not hasattr(_this, _name):
         setattr(_this, _name, make_frontend(_op))

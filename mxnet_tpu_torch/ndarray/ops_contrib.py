@@ -2,13 +2,17 @@
 
 Counterpart of ``mxnet_tpu/ndarray/ops_contrib.py``:
 
-- ``flash_attention`` (:964-1006) is the kernel wrapper itself, which
-  takes the op's signature ``flash_attention(q, k, v, valid_len=None,
-  causal=False, scale=None)``.  It is differentiable in q, k and v on
-  both devices: the forward is the CUDA kernel on the card (its plain
-  version on the CPU), the backward a chunked torch function
-  (``kernels.flash_attention_backward``), as the JAX package's is a custom
-  VJP in jnp.  On ``NDArray``s it returns an ``NDArray``.
+- ``_contrib_flash_attention`` (alias ``flash_attention``, :964-1006) is
+  the registry op over the kernel wrapper
+  (``kernels.flash_attention.flash_attention``): inputs q, k, v and an
+  optional fourth ``valid_len``, parameters ``causal`` and ``scale``.
+  On a CUDA tensor it launches the hand-written kernel (or raises), on a
+  CPU tensor it runs the plain version.  It is differentiable in q, k
+  and v on both devices through the wrapper's autograd Function: the
+  kernel forward and a chunked torch backward
+  (``kernels.flash_attention_backward``), as the JAX package's is a
+  custom VJP in jnp; ``valid_len`` takes no gradient.  So ``mx.sym`` and
+  ``Module`` reach the kernel through it.
 - The detection ops, registered under their ``_contrib_`` names and
   MXNet's aliases (``nd.contrib.<name>``, ``nd.<alias>``):
   ``MultiBoxPrior`` (:25-60), ``box_iou`` (:63-94), ``box_nms``
@@ -48,7 +52,7 @@ import torch
 from ..kernels.flash_attention import flash_attention
 from .register import register_op
 
-__all__ = ["flash_attention", "base_anchors", "rpn_anchors", "greedy_keep",
+__all__ = ["flash_attention_maker", "base_anchors", "rpn_anchors", "greedy_keep",
            "nms_stats", "NMS_CHECK_EVERY"]
 
 #: Jacobi passes between two convergence checks (each check is one host
@@ -552,7 +556,19 @@ def box_encode_maker(**_ignored):
     return fn
 
 
+def flash_attention_maker(causal=False, scale=None):
+    """On ``meta`` tensors (``Symbol.infer_shape``) the output's shape,
+    without a computation."""
+    def fn(q, k, v, valid_len=None):
+        if q.is_meta:
+            return torch.empty_like(q)
+        return flash_attention(q, k, v, valid_len, causal, scale)
+    return fn
+
+
 def _register():
+    register_op("_contrib_flash_attention", flash_attention_maker,
+                aliases=("flash_attention",))
     register_op("_contrib_MultiBoxPrior", multibox_prior_maker,
                 aliases=("MultiBoxPrior", "multibox_prior"))
     register_op("_contrib_box_iou", box_iou_maker, aliases=("box_iou",))

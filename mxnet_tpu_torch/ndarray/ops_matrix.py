@@ -7,19 +7,43 @@ Counterpart of ``mxnet_tpu/ndarray/ops_matrix.py``: ``dot`` :32,
 :200-206, ``one_hot`` :231, ``pick`` :235-243, ``broadcast_to`` :285,
 ``stop_gradient`` (``BlockGrad``) :434, ``smooth_l1`` :440-447,
 ``pad`` :276, ``SequenceMask`` :322, ``SequenceLast`` :334,
-``SequenceReverse`` :350 and ``moments`` :387,
+``SequenceReverse`` :350 and ``moments`` :387, and ``linalg_gemm2`` :52,
+``amp_cast``/``amp_multicast`` :108-120, ``shape_array``/``size_array``
+:121-124, ``slice_like`` :177, ``_basic_index`` :183,
+``_advanced_index`` :190, ``gather_nd`` :214, ``scatter_nd`` :223,
+``broadcast_axis`` :302, ``diag`` :360, ``reshape_like`` :375,
+``cumsum`` :394, ``trace``/``tril``/``triu`` :400-412,
+``depth_to_space``/``space_to_depth`` :422-432 and ``identity`` :438,
 with their conventions: ``dot`` contracts the last axis of the
 left input with the first of the right (transposes reverse every axis),
 ``batch_dot`` is a batched matmul, ``slice`` takes None for "from the
 edge", indices may arrive as floats and are truncated, ``broadcast_to``
 keeps a dim given as 0, ``split`` returns one array for
 ``num_outputs=1`` and a tuple otherwise, ``Embedding`` clips its ids into
-``[0, input_dim - 1]``.  ``dot`` and ``batch_dot`` are torch's matmul:
-the JAX package computes them outside any Pallas kernel.  Every op
+``[0, input_dim - 1]``.  ``dot``, ``batch_dot`` and ``linalg_gemm2`` are
+torch's matmul: the JAX package computes them outside any Pallas kernel.
+
+The indexing ops follow the JAX package's gathers and scatters, not
+torch's (whose out-of-range index is a device-side assert on the card):
+``gather_nd`` and ``_advanced_index`` wrap a negative index once (``-1``
+is the last) and then clamp it into range, and an entry whose index was
+out of range passes no gradient (the JAX gather's transpose drops it);
+``scatter_nd`` wraps a
+negative index once and drops an update still out of range, and where
+indices repeat the last update wins (the JAX package's result on the
+CPU; here on either device, by a max over the update's position, so
+the card's order of writes does not decide).  ``shape_array`` and
+``size_array`` are int32, as the JAX package's (MXNet's are int64).
+``amp_cast`` casts every input, integers too, as the JAX op does;
+``amp_multicast`` casts its inputs to their promoted dtype (bfloat16
+with float16 gives float32).  ``depth_to_space``/``space_to_depth``
+take MXNet's DCR channel order.  Every op
 returns a new array, never a view of its input (MXNet's ops copy; only
 ``NDArray.reshape`` and basic slicing alias).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -112,6 +136,25 @@ def cast_maker(dtype="float32"):
     return fn
 
 
+def amp_multicast_maker(num_outputs=1):
+    def fn(*xs):
+        widest = xs[0].dtype
+        for x in xs[1:]:
+            widest = torch.promote_types(widest, x.dtype)
+        return tuple(x.to(widest, copy=True) for x in xs)
+    return fn
+
+
+def linalg_gemm2_maker(transpose_a=False, transpose_b=False, alpha=1.0):
+    def fn(a, b):
+        if transpose_a:
+            a = a.transpose(-1, -2)
+        if transpose_b:
+            b = b.transpose(-1, -2)
+        return alpha * torch.matmul(a, b)
+    return fn
+
+
 def concat_maker(dim=1, num_args=None):
     def fn(*xs):
         return torch.cat(xs, dim=dim)
@@ -152,6 +195,104 @@ def slice_axis_maker(axis=0, begin=0, end=None):
         idx = [slice(None)] * x.dim()
         idx[axis % x.dim()] = slice(begin, end)
         return _fresh(x[tuple(idx)], x)
+    return fn
+
+
+def slice_like_maker(axes=()):
+    def fn(x, like):
+        idx = [slice(None)] * x.dim()
+        for a in (axes if axes else range(x.dim())):
+            idx[a % x.dim()] = slice(0, like.shape[a % x.dim()])
+        return _fresh(x[tuple(idx)], x)
+    return fn
+
+
+def _thaw_key(key):
+    """An index key as the JAX package's ``_freeze_key`` stores it (a
+    slice as ``("__slice__", start, stop, step)``) made usable again."""
+    if isinstance(key, tuple):
+        if len(key) == 4 and key[0] == "__slice__":
+            return slice(key[1], key[2], key[3])
+        return tuple(_thaw_key(k) for k in key)
+    return key
+
+
+def basic_index_maker(key=None):
+    k = _thaw_key(key)
+
+    def fn(x):
+        return _fresh(x[k], x).contiguous()
+    return fn
+
+
+def _in_range(idx: torch.Tensor, n: int):
+    """Integer indices into an axis of ``n``: a negative one wrapped once,
+    then clamped into ``[0, n - 1]`` (the JAX package's gather), and
+    whether each was in range before the clamp."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx.clamp(0, n - 1), (idx >= 0) & (idx < n)
+
+
+def _gathered(out: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``out`` whose entries gathered by an out-of-range index pass no
+    gradient (the JAX package's gather transposes to a scatter-add that
+    drops them)."""
+    valid = valid.reshape(valid.shape + (1,) * (out.dim() - valid.dim()))
+    return torch.where(valid, out, out.detach())
+
+
+def advanced_index_maker():
+    def fn(x, idx):
+        rows, valid = _in_range(idx, x.shape[0])
+        return _gathered(x[rows], valid)
+    return fn
+
+
+def gather_nd_maker():
+    def fn(data, indices):
+        parts = [_in_range(indices[i], data.shape[i])
+                 for i in range(indices.shape[0])]
+        valid = parts[0][1]
+        for _, v in parts[1:]:
+            valid = valid & v
+        return _gathered(data[tuple(p for p, _ in parts)], valid)
+    return fn
+
+
+def scatter_nd_maker(shape=None):
+    """``data`` written at ``indices`` into zeros of ``shape``; where
+    indices repeat, the last update wins, and an update out of range
+    (after one wrap of a negative index) is dropped."""
+    shp = tuple(int(s) for s in shape)
+
+    def fn(data, indices):
+        m = indices.shape[0]
+        lin = torch.zeros(indices.shape[1:], dtype=torch.long,
+                          device=data.device)
+        ok = torch.ones(indices.shape[1:], dtype=torch.bool,
+                        device=data.device)
+        for i in range(m):
+            idx = indices[i].long()
+            idx = torch.where(idx < 0, idx + shp[i], idx)
+            ok &= (idx >= 0) & (idx < shp[i])
+            lin = lin * shp[i] + idx
+        rest = math.prod(shp[m:])
+        lin, ok = lin.reshape(-1), ok.reshape(-1)
+        vals = data.reshape(lin.numel(), rest)
+        n_out = math.prod(shp[:m])
+        # the last update of each target: the largest position aimed at it
+        pos = torch.arange(lin.numel(), device=data.device)
+        last = torch.full((n_out + 1,), -1, dtype=torch.long,
+                          device=data.device)
+        tgt = torch.where(ok, lin, n_out)
+        last.scatter_reduce_(0, tgt, pos, reduce="amax")
+        # losers and dropped updates land on a spare row, cut off after:
+        # the shapes stay static (no mask, no host read)
+        tgt = torch.where(ok & (last[tgt] == pos), tgt, n_out)
+        out = torch.zeros((n_out + 1, rest), dtype=data.dtype,
+                          device=data.device)
+        return out.index_put((tgt,), vals)[:n_out].reshape(shp)
     return fn
 
 
@@ -218,6 +359,18 @@ def broadcast_to_maker(shape=()):
 def broadcast_like_maker(lhs_axes=None, rhs_axes=None):
     def fn(x, like):
         return _fresh(x.expand(like.shape).contiguous(), x)
+    return fn
+
+
+def broadcast_axis_maker(axis=(), size=()):
+    axes = axis if isinstance(axis, (tuple, list)) else (axis,)
+    sizes = size if isinstance(size, (tuple, list)) else (size,)
+
+    def fn(x):
+        tgt = list(x.shape)
+        for a, n in zip(axes, sizes):
+            tgt[a % x.dim()] = n
+        return _fresh(x.expand(tgt).contiguous(), x)
     return fn
 
 
@@ -343,6 +496,78 @@ def moments_maker(axes=None, keepdims=False):
     return fn
 
 
+def diag_maker(k=0, axis1=0, axis2=1):
+    def fn(x):
+        if x.dim() == 1:
+            return torch.diag(x, k)
+        return torch.diagonal(x, offset=k, dim1=axis1, dim2=axis2).clone(
+            memory_format=torch.contiguous_format)
+    return fn
+
+
+def reshape_like_maker(lhs_begin=None, lhs_end=None, rhs_begin=None,
+                       rhs_end=None):
+    """``lhs``'s dims ``[lhs_begin, lhs_end)`` replaced by ``rhs``'s
+    ``[rhs_begin, rhs_end)`` (all of both when no range is given)."""
+    def fn(lhs, rhs):
+        lb = 0 if lhs_begin is None else lhs_begin % (lhs.dim() + 1)
+        le = lhs.dim() if lhs_end is None else lhs_end % (lhs.dim() + 1)
+        rb = 0 if rhs_begin is None else rhs_begin % (rhs.dim() + 1)
+        re = rhs.dim() if rhs_end is None else rhs_end % (rhs.dim() + 1)
+        shape = lhs.shape[:lb] + rhs.shape[rb:re] + lhs.shape[le:]
+        return _fresh(lhs.reshape(shape), lhs)
+    return fn
+
+
+def cumsum_maker(axis=None, dtype=None):
+    dt = None if dtype is None else torch_dtype(dtype)
+
+    def fn(x):
+        out = torch.cumsum(x.reshape(-1) if axis is None else x,
+                           dim=0 if axis is None else axis)
+        return out if dt is None else out.to(dt)
+    return fn
+
+
+def trace_maker(offset=0, axis1=0, axis2=1):
+    def fn(x):
+        return torch.diagonal(x, offset=offset, dim1=axis1,
+                              dim2=axis2).sum(-1)
+    return fn
+
+
+def tril_maker(k=0):
+    def fn(x):
+        return torch.tril(x, k)
+    return fn
+
+
+def triu_maker(k=0):
+    def fn(x):
+        return torch.triu(x, k)
+    return fn
+
+
+def depth_to_space_maker(block_size=1):
+    def fn(x):
+        b, c, h, w = x.shape
+        bs = block_size
+        y = x.reshape(b, bs, bs, c // (bs * bs), h, w)
+        y = y.permute(0, 3, 4, 1, 5, 2)
+        return y.reshape(b, c // (bs * bs), h * bs, w * bs)
+    return fn
+
+
+def space_to_depth_maker(block_size=1):
+    def fn(x):
+        b, c, h, w = x.shape
+        bs = block_size
+        y = x.reshape(b, c, h // bs, bs, w // bs, bs)
+        y = y.permute(0, 3, 5, 1, 2, 4)
+        return y.reshape(b, c * bs * bs, h // bs, w // bs)
+    return fn
+
+
 def _register():
     register_op("dot", dot_maker)
     register_op("batch_dot", batch_dot_maker)
@@ -353,17 +578,31 @@ def _register():
     register_op("flatten", flatten_maker, aliases=("Flatten",))
     register_op("swapaxes", swapaxes_maker, aliases=("SwapAxis",))
     register_op("cast", cast_maker, aliases=("Cast",))
+    register_op("amp_cast", cast_maker)
+    register_op("amp_multicast", amp_multicast_maker)
+    register_op("linalg_gemm2", linalg_gemm2_maker)
+    simple_op("shape_array", lambda x: torch.tensor(
+        tuple(x.shape), dtype=torch.int32, device=x.device))
+    simple_op("size_array", lambda x: torch.tensor(
+        [x.numel()], dtype=torch.int32, device=x.device))
     register_op("concat", concat_maker, aliases=("Concat",))
     register_op("stack", stack_maker)
     register_op("split", split_maker, aliases=("SliceChannel",))
     register_op("slice", slice_maker)
     register_op("slice_axis", slice_axis_maker)
+    register_op("slice_like", slice_like_maker)
+    register_op("_basic_index", basic_index_maker)
+    register_op("_advanced_index", advanced_index_maker)
+    register_op("gather_nd", gather_nd_maker)
+    register_op("scatter_nd", scatter_nd_maker)
     register_op("take", take_maker)
     register_op("Embedding", embedding_maker, aliases=("embedding",))
     register_op("one_hot", one_hot_maker)
     register_op("pick", pick_maker)
     register_op("broadcast_to", broadcast_to_maker)
     register_op("broadcast_like", broadcast_like_maker)
+    register_op("broadcast_axis", broadcast_axis_maker,
+                aliases=("broadcast_axes",))
     register_op("tile", tile_maker)
     register_op("repeat", repeat_maker)
     register_op("reverse", reverse_maker, aliases=("flip",))
@@ -379,6 +618,15 @@ def _register():
     register_op("SequenceReverse", sequence_reverse_maker,
                 aliases=("sequence_reverse",))
     register_op("moments", moments_maker)
+    register_op("diag", diag_maker)
+    register_op("reshape_like", reshape_like_maker)
+    register_op("cumsum", cumsum_maker, aliases=("_np_cumsum",))
+    register_op("trace", trace_maker)
+    register_op("tril", tril_maker)
+    register_op("triu", triu_maker)
+    register_op("depth_to_space", depth_to_space_maker)
+    register_op("space_to_depth", space_to_depth_maker)
+    simple_op("identity", lambda x: x.clone(), aliases=("_copy",))
     simple_op("zeros_like", lambda x: torch.zeros_like(
         x, memory_format=torch.contiguous_format))
     simple_op("ones_like", lambda x: torch.ones_like(

@@ -1,6 +1,6 @@
 """Neural-network operators: ``FullyConnected``, ``Convolution``,
 ``Deconvolution``, ``Pooling``, ``Activation``, ``LeakyReLU``,
-``softmax``/``log_softmax``, ``SoftmaxOutput``, ``BatchNorm``,
+``softmax``/``log_softmax``/``softmin``, ``SoftmaxOutput``, ``BatchNorm``,
 ``LayerNorm``, ``GroupNorm``, ``LRN``, ``InstanceNorm``,
 ``L2Normalization``, ``Dropout``, ``UpSampling``, ``BilinearResize2D``,
 the legacy ``_v1`` names and the fused ``RNN``.
@@ -9,7 +9,7 @@ Counterpart of ``mxnet_tpu/ndarray/ops_nn.py``: FullyConnected :24-33
 (``flatten``, ``no_bias``), Convolution :60-84 (NCW/NCHW/NCDHW data, OI..
 weights), Pooling :118-187 (max/avg/sum, ``global_pool``,
 ``pooling_convention`` valid/full, ``count_include_pad``), Activation
-:191-200, softmax :226-242, log_softmax :244-250, SoftmaxOutput :262-303,
+:191-200, softmax :226-242, log_softmax :244-250, softmin :252-257, SoftmaxOutput :262-303,
 BatchNorm :306-331, Dropout :437-448, and the rest of the file: Deconvolution
 :115, LeakyReLU :223, LayerNorm :359, GroupNorm :383, LRN :405,
 InstanceNorm :417, L2Normalization :434, UpSampling and BilinearResize2D
@@ -206,6 +206,20 @@ def log_softmax_maker(axis=-1, temperature: Optional[float] = None,
         data, = _amp.cast("log_softmax", data)
         xs = data / temperature if temperature else data
         res = torch.log_softmax(xs, dim=axis)
+        return res if out_dt is None else res.to(out_dt)
+    return fn
+
+
+def softmin_maker(axis=-1, temperature: Optional[float] = None, dtype=None):
+    """``softmax(-data / temperature)`` over ``axis``; ``dtype``, if given,
+    is the output dtype (MXNet's; the JAX op ignores it).  Under AMP the
+    input is cast to float32 (an ``FP32_OPS`` op)."""
+    out_dt = None if dtype is None else torch_dtype(dtype)
+
+    def fn(data):
+        data, = _amp.cast("softmin", data)
+        xs = data / temperature if temperature else data
+        res = torch.softmax(-xs, dim=axis)
         return res if out_dt is None else res.to(out_dt)
     return fn
 
@@ -613,6 +627,7 @@ def _register():
     register_op("LeakyReLU", leaky_relu_maker, aliases=("leaky_relu",))
     register_op("softmax", softmax_maker)
     register_op("log_softmax", log_softmax_maker)
+    register_op("softmin", softmin_maker)
     register_op("SoftmaxOutput", softmax_output_maker,
                 aliases=("softmax_output",))
     register_op("BatchNorm", batchnorm_maker, aliases=("batch_norm",))

@@ -95,6 +95,19 @@ def _host(x) -> List[float]:
     return [float(x)]
 
 
+def _one(x, op: str, what: str) -> float:
+    """A rate given as one number, or an array of one element, as a host
+    float; a many-element array raises (MXNet's ``lr`` and ``wd`` are
+    scalar attributes)."""
+    t = _t(x)
+    n = t.numel() if isinstance(t, torch.Tensor) else \
+        len(t) if isinstance(t, (list, tuple)) else 1
+    if n != 1:
+        raise MXNetError(f"{op}: {what} must be one number, got {n} "
+                         f"elements")
+    return _host(t)[0]
+
+
 def _same(a, b: torch.Tensor) -> bool:
     a = _t(a)
     return (a.data_ptr() == b.data_ptr() and a.shape == b.shape
@@ -113,7 +126,10 @@ def _on_ndarrays(n_states: int, n_host: int = 1):
                 return fn(*args, **kwargs)
             k = 2 + n_states
             tensors = [_t(a) for a in args[:k]]
-            scalars = [_host(a)[0] for a in args[k:k + n_host]]
+            scalars = [_one(a, fn.__name__, "lr")
+                       for a in args[k:k + n_host]]
+            if isinstance(kwargs.get("wd"), (NDArray, torch.Tensor)):
+                kwargs["wd"] = _one(kwargs["wd"], fn.__name__, "wd")
             outs = None if out is None else \
                 (list(out) if isinstance(out, (list, tuple)) else [out])
             w = tensors[0]

@@ -1,19 +1,33 @@
-"""Reductions: ``sum``, ``mean``, ``prod``, ``max``, ``min``, ``argmax``
-and ``argmin``.
+"""Reductions and orderings: ``sum``, ``mean``, ``prod``, ``nansum``,
+``nanprod``, ``max``, ``min``, ``norm``, ``argmax``, ``argmin``,
+``argmax_channel``, ``topk``, ``sort`` and ``argsort``.
 
 Counterpart of ``mxnet_tpu/ndarray/ops_reduce.py`` (``_make_reduce``
-:33-47; ``sum``/``mean`` :52-54, ``max`` :58, ``argmax`` :82), with its
+:33-47; ``sum``/``mean`` :52-54, ``nansum``/``nanprod`` :56-57, ``max``
+:58, ``norm`` :62-74, ``argmax`` :82, ``argmax_channel`` :94, ``topk``
+:98-120, ``sort`` :122-127, ``argsort`` :129-136), with its
 conventions: ``axis`` is an int, a tuple or None (every axis),
 ``exclude=True`` reduces over every axis *except* those given, and an
-fp16/bf16 input of ``sum``/``mean`` accumulates in float32 and returns
-its own dtype (``MXNET_SAFE_ACCUMULATION``).  ``argmax``/``argmin``
-return the indices as float32 (MXNet's convention).  Under AMP ``sum``
-and ``mean`` are ``FP32_OPS``: the input is cast to float32 first.
+fp16/bf16 input of ``sum``/``mean``/``nansum`` (and ``norm``)
+accumulates in float32 and returns its own dtype
+(``MXNET_SAFE_ACCUMULATION``; ``norm``'s ``out_dtype`` if given).
+``argmax``/``argmin``/``argmax_channel`` return the indices as float32
+(MXNet's convention), ``topk``/``argsort`` in ``dtype``.  Under AMP
+``sum`` and ``mean`` are ``FP32_OPS``: the input is cast to float32
+first.
+
+Ties are ordered as the JAX package orders them, by stable sorts only
+(``torch.topk``'s order of equal values on the card is unspecified):
+``topk`` is a stable sort of ``x`` ascending, or of ``-x`` descending, so
+equal values come lowest index first either way; ``sort``/``argsort``
+descending is the stable ascending sort flipped, so there equal values
+come highest index first.
 """
 from __future__ import annotations
 
 import torch
 
+from ..base import MXNetError, torch_dtype
 from ..contrib.amp import amp as _amp
 from .register import register_op
 
@@ -67,18 +81,97 @@ def _arg(fn):
     return maker
 
 
+def _nanprod(x, dim=None, keepdim=False):
+    return _prod(torch.nan_to_num(x, nan=1.0), dim, keepdim)
+
+
+def norm_maker(ord=2, axis=None, out_dtype=None, keepdims=False):
+    """The L1 (``ord=1``) or L2 norm over ``axis`` (every axis if None),
+    accumulated in float32 for fp16/bf16 input."""
+    if ord not in (1, 2):
+        raise MXNetError(f"norm: ord {ord!r} not in (1, 2)")
+    out_dt = None if out_dtype is None else torch_dtype(out_dtype)
+
+    def fn(x):
+        axes = _axes(x, axis, False)
+        acc = x.float() if x.dtype in _LOW else x
+        dims = axes if axes is not None else tuple(range(x.dim()))
+        if ord == 1:
+            r = acc.abs().sum(dim=dims, keepdim=keepdims)
+        else:
+            r = acc.square().sum(dim=dims, keepdim=keepdims).sqrt()
+        return r.to(out_dt or x.dtype)
+    return fn
+
+
+def argmax_channel_maker():
+    def fn(x):
+        return torch.argmax(x, dim=1).float()
+    return fn
+
+
+def _stable_argsort(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.sort(x, dim=dim, stable=True).indices
+
+
+def topk_maker(axis=-1, k=1, ret_typ="indices", is_ascend=False,
+               dtype="float32"):
+    if ret_typ not in ("indices", "value", "both", "mask"):
+        raise MXNetError(f"topk: ret_typ {ret_typ!r} not in indices, "
+                         f"value, both, mask")
+    dt = torch_dtype(dtype)
+
+    def fn(x):
+        ax = axis % x.dim()
+        key = x if is_ascend else -x
+        idx = _stable_argsort(key, ax).narrow(ax, 0, k)
+        if ret_typ == "mask":
+            return torch.zeros_like(x).scatter_(ax, idx, 1)
+        vals = torch.take_along_dim(x, idx, dim=ax)
+        if ret_typ == "value":
+            return vals
+        if ret_typ == "indices":
+            return idx.to(dt)
+        return vals, idx.to(dt)
+    return fn
+
+
+def sort_maker(axis=-1, is_ascend=True):
+    def fn(x):
+        r = torch.sort(x, dim=axis, stable=True).values
+        return r if is_ascend else torch.flip(r, (axis,))
+    return fn
+
+
+def argsort_maker(axis=-1, is_ascend=True, dtype="float32"):
+    dt = torch_dtype(dtype)
+
+    def fn(x):
+        r = _stable_argsort(x, axis)
+        return (r if is_ascend else torch.flip(r, (axis,))).to(dt)
+    return fn
+
+
 def _register():
     register_op("sum", _make_reduce("sum", torch.sum, acc32=True, amp=True),
                 aliases=("sum_axis",))
     register_op("mean", _make_reduce("mean", torch.mean, acc32=True,
                                      amp=True))
     register_op("prod", _make_reduce("prod", _prod))
+    register_op("nansum", _make_reduce("nansum", torch.nansum,
+                                       acc32=True))
+    register_op("nanprod", _make_reduce("nanprod", _nanprod))
+    register_op("norm", norm_maker)
     register_op("max", _make_reduce("max", torch.amax),
                 aliases=("max_axis",))
     register_op("min", _make_reduce("min", torch.amin),
                 aliases=("min_axis",))
     register_op("argmax", _arg(torch.argmax))
     register_op("argmin", _arg(torch.argmin))
+    register_op("argmax_channel", argmax_channel_maker)
+    register_op("topk", topk_maker)
+    register_op("sort", sort_maker)
+    register_op("argsort", argsort_maker)
 
 
 _register()

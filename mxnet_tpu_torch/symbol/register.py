@@ -6,8 +6,9 @@ convention (``split_positional_params``), so ``mx.sym.X`` and ``mx.nd.X``
 stay in lockstep.  The tensor inputs an op declares and the caller leaves
 out become variables named ``{node name}_{input}``
 (``mx.sym.FullyConnected(data=d, num_hidden=8, name="fc")`` grows
-``fc_weight`` and ``fc_bias``); BatchNorm's moving statistics become
-auxiliary states.
+``fc_weight`` and ``fc_bias``; ``RNN`` its ``parameters`` and states,
+``LeakyReLU(act_type="prelu")`` its ``gamma``); the moving statistics
+of ``BatchNorm`` and ``BatchNorm_v1`` become auxiliary states.
 """
 from __future__ import annotations
 
@@ -22,18 +23,33 @@ __all__ = ["apply_op", "num_outputs"]
 _OP_INPUTS: Dict[str, List[str]] = {
     "FullyConnected": ["data", "weight", "bias"],
     "Convolution": ["data", "weight", "bias"],
+    "Deconvolution": ["data", "weight", "bias"],
     "BatchNorm": ["data", "gamma", "beta", "moving_mean", "moving_var"],
+    "BatchNorm_v1": ["data", "gamma", "beta", "moving_mean",
+                     "moving_var"],
     "LayerNorm": ["data", "gamma", "beta"],
+    "InstanceNorm": ["data", "gamma", "beta"],
     "Embedding": ["data", "weight"],
+    "LeakyReLU": ["data", "gamma"],
+    "RNN": ["data", "parameters", "state", "state_cell"],
     "SoftmaxOutput": ["data", "label"],
 }
-_OP_AUX = {"BatchNorm": ("moving_mean", "moving_var")}
+_OP_AUX = {"BatchNorm": ("moving_mean", "moving_var"),
+           "BatchNorm_v1": ("moving_mean", "moving_var")}
 
 
 def _needed_inputs(opname: str, kwargs: Dict[str, Any]) -> List[str]:
+    """The declared inputs a node of ``opname`` takes: no bias with
+    ``no_bias``, a LeakyReLU's ``gamma`` only for ``prelu``, an RNN's
+    ``state_cell`` only for an LSTM (the JAX package's rules)."""
     names = _OP_INPUTS[opname]
-    if opname in ("FullyConnected", "Convolution") and kwargs.get("no_bias"):
+    if opname in ("FullyConnected", "Convolution", "Deconvolution") and \
+            kwargs.get("no_bias"):
         names = names[:2]
+    if opname == "LeakyReLU" and kwargs.get("act_type", "leaky") != "prelu":
+        names = names[:1]
+    if opname == "RNN" and kwargs.get("mode") != "lstm":
+        names = names[:3]
     return names
 
 
@@ -49,6 +65,10 @@ def num_outputs(opname: str, kwargs: Dict[str, Any], n_inputs: int = 1
         return 3
     if opname == "moments":
         return 2
+    if opname == "topk" and kwargs.get("ret_typ") == "both":
+        return 2
+    if opname == "amp_multicast":
+        return int(kwargs.get("num_outputs", n_inputs))
     if opname == "RNN" and kwargs.get("state_outputs"):
         return 3 if kwargs.get("mode", "lstm") == "lstm" else 2
     stride = _MULTI_STRIDE.get(opname)

@@ -27,7 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
 
 __all__ = ["Symbol", "var", "Variable", "Group", "load", "load_json"]
 
@@ -312,16 +312,22 @@ class Symbol:
     def infer_type(self, *args, **kwargs):
         """The JAX package's forward dtype pass: variable dtypes from the
         hints (positional or by name) or ``__dtype__`` (default float32),
-        the Cast family fixes its dtype, argmax/argmin/one_hot give
-        float32, everything else promotes (floats decide)."""
+        the Cast family (``amp_cast`` too) fixes its dtype, argmax/argmin/
+        one_hot give float32, shape_array/size_array int32, argsort its
+        ``dtype`` (float32), everything else promotes (floats decide;
+        ``amp_multicast`` gives each output the promoted dtype).  The pass
+        runs in torch dtypes; it returns them as ``NDArray.dtype`` does
+        (numpy's; bfloat16 numpy's where ``ml_dtypes`` is loaded, else
+        ``torch.bfloat16``)."""
+        from ..ndarray.ndarray import _np_dtype
         order = self._topo()
         var_nodes = [n for n in order if n.is_var]
         arg_names = [n.name for n in var_nodes if not n.attrs.get("__aux__")]
         aux_names = [n.name for n in var_nodes if n.attrs.get("__aux__")]
-        seeded: Dict[str, np.dtype] = {}
+        seeded: Dict[str, torch.dtype] = {}
         for n, t in zip(arg_names, args):
             if t is not None:
-                seeded[n] = np.dtype(t)
+                seeded[n] = torch_dtype(t)
         all_inputs = {n.name for n in var_nodes}
         for k, v in kwargs.items():
             if k not in all_inputs:
@@ -329,46 +335,47 @@ class Symbol:
                     f"infer_type got unknown argument {k!r}; inputs are "
                     f"{sorted(all_inputs)}")
             if v is not None:
-                seeded[k] = np.dtype(v)
+                seeded[k] = torch_dtype(v)
 
-        def parse_dt(v, default="float32"):
+        def parse_dt(v):
             try:
-                return np.dtype(v)
-            except TypeError:
-                return np.dtype(default)
+                return torch_dtype(v)
+            except (MXNetError, TypeError):
+                return torch.float32
 
-        fixed = {"argmax": np.dtype(np.float32),
-                 "argmin": np.dtype(np.float32),
-                 "one_hot": np.dtype(np.float32)}
-        dtypes: Dict[Tuple[int, int], np.dtype] = {}
-        name_to_dt: Dict[str, np.dtype] = {}
+        fixed = {"argmax": torch.float32, "argmin": torch.float32,
+                 "one_hot": torch.float32, "shape_array": torch.int32,
+                 "size_array": torch.int32, "argsort": torch.float32}
+        dtypes: Dict[Tuple[int, int], torch.dtype] = {}
+        name_to_dt: Dict[str, torch.dtype] = {}
         for node in order:
             if node.is_var:
                 dt = seeded.get(node.name)
                 if dt is None:
                     declared = node.attrs.get("__dtype__")
-                    dt = parse_dt(declared) if declared \
-                        else np.dtype(np.float32)
+                    dt = parse_dt(declared) if declared else torch.float32
                 dtypes[(id(node), 0)] = dt
                 name_to_dt[node.name] = dt
                 continue
             in_dts = [dtypes[(id(p), i)] for p, i in node.inputs]
             if node.op in ("Cast", "cast", "amp_cast") or \
-                    (node.op == "one_hot" and node.attrs.get("dtype")):
+                    (node.op in ("one_hot", "argsort") and
+                     node.attrs.get("dtype")):
                 out_dt = parse_dt(node.attrs.get("dtype", "float32"))
             elif node.op in fixed:
                 out_dt = fixed[node.op]
             elif in_dts:
-                floats = [d for d in in_dts if d.kind == "f"]
-                out_dt = in_dts[0] if len(in_dts) == 1 else \
-                    np.result_type(*(floats or in_dts))
+                floats = [d for d in in_dts if d.is_floating_point]
+                out_dt, *rest = floats or in_dts
+                for d in rest:
+                    out_dt = torch.promote_types(out_dt, d)
             else:
-                out_dt = np.dtype(np.float32)
+                out_dt = torch.float32
             for i in range(node.num_outputs):
                 dtypes[(id(node), i)] = out_dt
-        return ([name_to_dt[n] for n in arg_names],
-                [dtypes[(id(n), i)] for n, i in self._heads],
-                [name_to_dt[n] for n in aux_names])
+        return ([_np_dtype(name_to_dt[n]) for n in arg_names],
+                [_np_dtype(dtypes[(id(n), i)]) for n, i in self._heads],
+                [_np_dtype(name_to_dt[n]) for n in aux_names])
 
     # -- binding -----------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
@@ -483,8 +490,8 @@ def _infer_missing(sym: Symbol, known: Dict[str, Tuple[int, ...]]
                 shapes[(id(node), 0)] = tuple(known[node.name])
             continue
         in_shapes = [shapes.get((id(p), i)) for p, i in node.inputs]
-        unknown = [(p, pos) for pos, ((p, _), s) in
-                   enumerate(zip(node.inputs, in_shapes))
+        unknown = [(p, pos) for pos, (p, s) in
+                   enumerate(zip(_through_casts(node), in_shapes))
                    if s is None and p.is_var]
         if unknown:
             _infer_node_params(node, in_shapes, unknown, out)
@@ -507,8 +514,23 @@ def _infer_missing(sym: Symbol, known: Dict[str, Tuple[int, ...]]
     return out
 
 
+def _through_casts(node: _Node) -> List[_Node]:
+    """The nodes feeding ``node``, each seen through a chain of one-input
+    casts (``amp_cast``, ``cast``): an AMP-converted graph wraps its
+    parameters in casts, and the shape rules apply to the variable
+    underneath (the JAX package's ``_infer_missing``)."""
+    feeds = []
+    for p, _ in node.inputs:
+        while p.op in ("amp_cast", "cast", "Cast") and len(p.inputs) == 1:
+            p = p.inputs[0][0]
+        feeds.append(p)
+    return feeds
+
+
 def _infer_node_params(node: _Node, in_shapes, unknown, out) -> None:
-    """Parameter-shape rules of the common layers (weight/bias/γ/β)."""
+    """Parameter-shape rules of the common layers (weight/bias/γ/β, the
+    RNN's packed parameters and zero states)."""
+    from ..ndarray.ops_nn import RNN_GATES, rnn_param_size
     a = node.attrs
     data = in_shapes[0]
     if data is None:
@@ -522,16 +544,20 @@ def _infer_node_params(node: _Node, in_shapes, unknown, out) -> None:
                 out[p.name] = (nh, in_units)
             elif pos == 2:
                 out[p.name] = (nh,)
-    elif node.op == "Convolution":
+    elif node.op in ("Convolution", "Deconvolution"):
         nf, k = int(a.get("num_filter")), tuple(a.get("kernel"))
         ng = int(a.get("num_group", 1))
         for p, pos in unknown:
             if pos == 1:
-                out[p.name] = (nf, data[1] // ng) + k
+                out[p.name] = (nf, data[1] // ng) + k \
+                    if node.op == "Convolution" else (data[1], nf // ng) + k
             elif pos == 2:
                 out[p.name] = (nf,)
-    elif node.op in ("BatchNorm", "LayerNorm"):
-        axis = int(a.get("axis", 1 if node.op == "BatchNorm" else -1))
+    elif node.op in ("BatchNorm", "BatchNorm_v1", "LayerNorm",
+                     "InstanceNorm"):
+        # InstanceNorm's gamma and beta are per channel, axis 1 (MXNet's;
+        # the JAX package's rule reads the last axis)
+        axis = int(a.get("axis", -1 if node.op == "LayerNorm" else 1))
         for p, _ in unknown:
             out[p.name] = (data[axis % len(data)],)
     elif node.op == "Embedding":
@@ -539,6 +565,19 @@ def _infer_node_params(node: _Node, in_shapes, unknown, out) -> None:
             if pos == 1:
                 out[p.name] = (int(a.get("input_dim")),
                                int(a.get("output_dim")))
+    elif node.op == "RNN":
+        mode = a.get("mode", "lstm")
+        if len(data) != 3 or a.get("state_size") is None or \
+                mode not in RNN_GATES:
+            return
+        h, layers = int(a.get("state_size")), int(a.get("num_layers", 1))
+        dirs = 2 if a.get("bidirectional") else 1
+        for p, pos in unknown:
+            if pos == 1:
+                out[p.name] = (rnn_param_size(mode, layers, data[2], h,
+                                              bool(a.get("bidirectional"))),)
+            elif pos in (2, 3):
+                out[p.name] = (dirs * layers, data[1], h)
 
 
 def var(name: str, **kwargs) -> Symbol:

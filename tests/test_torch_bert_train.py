@@ -31,6 +31,8 @@ from mxnet_tpu_torch import autograd, cpu, gluon, load_reference_params, nd
 from mxnet_tpu_torch.contrib import amp
 from mxnet_tpu_torch.contrib.amp import amp as amp_policy
 from mxnet_tpu_torch.gluon.model_zoo import transformer as port_tf
+from mxnet_tpu_torch.kernels.flash_attention import \
+    flash_attention as flash_kernel
 
 B, S, VOCAB, STEPS, LR = 2, 32, 1000, 3, 1e-4
 REF_PREFIX = "bertmodel98_"
@@ -275,10 +277,10 @@ def test_record_without_train_mode_takes_masked_softmax(monkeypatch):
     load_reference_params(port, {k: p.data().asnumpy() for k, p in
                                  ref.collect_params().items()}, ctx=cpu())
     xs = [torch.as_tensor(a) for a in _batch(1)]
-    before = nd.flash_attention.launches
+    before = flash_kernel.launches
     with autograd.record(train_mode=False):
         got = [o.detach().numpy() for o in port(*xs[:3])]
-    assert calls == [] and nd.flash_attention.launches == before
+    assert calls == [] and flash_kernel.launches == before
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, atol=1e-5)
     # outside record and training, the same block takes the flash path

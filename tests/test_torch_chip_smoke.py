@@ -1289,3 +1289,102 @@ def test_zoo_decisions_force_pools_clamps_and_dropout():
     assert len(rec.masks) == 3 and forced.flips == 0
     torch.testing.assert_close(y64.float(), y32, atol=1e-5, rtol=1e-5)
     assert not torch.allclose(y_other, y32) and wrong.flips == 0
+
+
+def test_symbolic_builders_give_one_graph_in_either_namespace():
+    """Phase 19's builders take the ``sym`` namespace: the port's and the
+    JAX package's give the same graph JSON (encoder with and without its
+    loss head, both attention routes, the MLP under each output layer)."""
+    import mxnet_tpu as mx
+    import mxnet_tpu_torch as mt
+    kw = dict(units=64, heads=2, ffn=128)
+    graphs = [
+        lambda s: chip_smoke.sym_encoder(s, 2, **kw),
+        lambda s: chip_smoke.sym_encoder(s, 1, head="infer", **kw),
+        lambda s: s.Group(list(chip_smoke.sym_attention_routes(s, 2)))]
+    graphs += [lambda s, h=h: chip_smoke.sym_mlp(s, h)
+               for h in chip_smoke.HEAD_OPS]
+    for build in graphs:
+        assert build(mt.sym).tojson() == build(mx.sym).tojson()
+
+
+def _small_symbolic(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name, value in (("SYM_UNITS", 64), ("SYM_HEADS", 2),
+                        ("SYM_FFN", 128), ("SYM_SEQ", 16),
+                        ("SYM_BATCH", 2), ("SYM_LAYERS", 2),
+                        ("SYM_WARM", 1), ("SYM_TIMED", 1),
+                        ("LM_VOCAB", 50), ("LM_EMB", 16),
+                        ("LM_HIDDEN", 16), ("HEAD_SAMPLES", 128),
+                        ("HEAD_HELD_OUT", 64)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_symbolic_phase_rehearses_on_the_cpu(monkeypatch, tmp_path,
+                                             one_thread):
+    """Phase 19 at toy widths on the CPU: every check passes but those
+    only the card can meet (the flash kernel's launches): the encoder's
+    Module steps and leaf check, the converted encoder within its bound of
+    fp32, both attention routes, the converted LM and its checkpoint, each
+    head, the 43 ops (the CPU against itself) and ``multi_all_finite``."""
+    _small_symbolic(monkeypatch)
+    from mxnet_tpu_torch import random as mx_random
+    mx_random.seed(0)
+    lm = chip_smoke.lm_module(cpu(), chip_smoke.LM_BUCKETS[-1])
+    lm.init_params(initializer=Xavier())
+    arg, aux = lm.get_params()
+    out = chip_smoke.symbolic_phase(0, "cpu", tmp_path,
+                                    {"arg": arg, "aux": aux})
+    train = out["encoder_train"]
+    assert sorted(k for k, v in train["checks"].items() if not v) == [
+        "flash_12_per_forward", "no_flash_in_backward"]
+    assert train["check"]["ok"] and train["flash_launches"] == 0
+    amp = out["amp_encoder"]
+    assert sorted(k for k, v in amp["checks"].items() if not v) == [
+        "bf16_flash", "fp32_flash"]
+    assert amp["amp_cast_nodes"] == 2 * 18 + 3
+    assert amp["amp_multicast_nodes"] == 2 * 2
+    routes = out["attention_routes"]
+    assert routes["checks"]["within_bound"]
+    assert routes["flash_launches"] == routes["interleaved_launches"] == 0
+    assert out["amp_lm"]["ok"]
+    assert set(out["amp_lm"]["logits_rel_l2_by_bucket"]) == set(
+        chip_smoke.LM_BUCKETS)
+    assert all(r["ok"] for r in out["heads"].values())
+    ops = out["new_ops"]
+    assert ops["ops"] == 43 and ops["failed"] == []
+    finite = ops["multi_all_finite"]
+    assert finite["clean"] == 1.0 and finite["with_inf"] == 0.0
+    assert ops["flash_launches"] == 0     # host reads: counted on the card
+    assert not out["ok"]
+
+
+def test_head_step_check_flags_a_one_percent_gradient_fault(monkeypatch):
+    """``held_step`` on a head's Module step: a 1 % fault in the card
+    run's output-layer gradient fails the gradient and weight checks."""
+    from mxnet_tpu_torch.ndarray import ops_misc
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    head = "LinearRegressionOutput"
+    x, y = chip_smoke.head_data(1, chip_smoke.HEAD_BATCH, head)
+    mod = chip_smoke.head_module(head, cpu())
+    mod.init_params(initializer=Xavier())
+    arg, _ = mod.get_params()
+    make = lambda ctx: chip_smoke.head_module(head, ctx)  # noqa: E731
+    clean = chip_smoke.held_step(make, arg, ([x], [y]),
+                                 chip_smoke.HEAD_OPT, relu=True)
+    assert clean["ok"]
+    real, calls = ops_misc._OutputLayer.backward, []
+
+    def faulty(ctx, head_grad):
+        grads = real(ctx, head_grad)
+        calls.append(1)
+        return (grads[0] * 1.01,) + grads[1:] if len(calls) == 1 \
+            else grads
+    monkeypatch.setattr(ops_misc._OutputLayer, "backward",
+                        staticmethod(faulty))
+    bad = chip_smoke.held_step(make, arg, ([x], [y]), chip_smoke.HEAD_OPT,
+                               relu=True)
+    assert len(calls) == 3 and not bad["ok"]
+    assert not bad["grads"]["ok"] and not bad["weights"]["ok"]

@@ -2210,3 +2210,107 @@ def test_get_model_builds_each_family_on_the_card_by_default(card):
         assert bool(torch.isfinite(out).all())
         assert all(p.device == card
                    for p in net.collect_params().values())
+
+
+# ---- the symbolic AMP and Module surface -------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_registry_flash_op_launches_the_kernel(card, dtype):
+    """``_contrib_flash_attention`` through the registry on the card: one
+    kernel launch a call, forward and q/k/v gradients against autograd
+    through the plain version (run in fp32 on the same inputs), within
+    ``TOL`` x max(1, max|grad|) for the gradients."""
+    from mxnet_tpu_torch import autograd, nd
+    g = torch.Generator().manual_seed(16)
+    q, k, v = (torch.randn(2 * 12, 96, 64, generator=g).to(card, dtype)
+               for _ in range(3))
+    vl = torch.tensor([96.0, 41.0], device=card)
+    head = torch.randn(2 * 12, 96, 64, generator=g).to(card, dtype)
+    arrays = [nd.NDArray(t.clone()) for t in (q, k, v)]
+    for a in arrays:
+        a.attach_grad()
+    before = flash_attention.launches
+    with autograd.record():
+        out = nd.flash_attention(*arrays, valid_len=nd.NDArray(vl),
+                                 scale=0.125)
+    out.backward(nd.NDArray(head))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = flash_attention_plain(*leaves, vl.repeat_interleave(12), False,
+                                0.125)
+    ref.backward(head.float())
+    tol = TOL[dtype]
+    assert (out._data.float() - ref).abs().max().item() <= tol
+    for a, leaf in zip(arrays, leaves):
+        scale = max(1.0, leaf.grad.abs().max().item())
+        assert (a.grad._data.float() - leaf.grad).abs().max().item() <= \
+            tol * scale
+
+
+def test_tie_orders_on_card_match_the_cpu(card):
+    """``topk``, ``sort`` and ``argsort`` with ties: the card's orders are
+    the CPU's, bit for bit (stable sorts only), and the JAX package's
+    rules (``topk`` lowest index first, ``argsort`` descending highest)."""
+    from mxnet_tpu_torch import nd
+    x = torch.tensor([[1, 3, 3, 2, 3, 1, 0, 3]] * 3 + [[2] * 8],
+                     dtype=torch.float32).repeat(64, 1)
+    for name, kw in (("topk", {"k": 3, "ret_typ": "both"}),
+                     ("topk", {"k": 4, "is_ascend": True}),
+                     ("topk", {"k": 3, "ret_typ": "mask"}),
+                     ("sort", {"is_ascend": False}),
+                     ("argsort", {"is_ascend": False}),
+                     ("argsort", {})):
+        got = getattr(nd, name)(x.to(card), **kw)
+        want = getattr(nd, name)(x, **kw)
+        got = got if isinstance(got, list) else [got]
+        want = want if isinstance(want, list) else [want]
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), (name, kw)
+    top = nd.topk(x.to(card), k=3).cpu().long()
+    assert torch.equal(top[0], torch.tensor([1, 2, 4]))
+    desc = nd.argsort(x.to(card), is_ascend=False).cpu().long()
+    assert torch.equal(desc[0], torch.tensor([7, 4, 2, 1, 3, 5, 0, 6]))
+
+
+def test_gather_nd_clamps_out_of_range_indices_on_card(card):
+    """Out-of-range ``gather_nd``/``_advanced_index`` indices are clamped
+    (no device-side assert), as the JAX package's gathers; the gradient
+    skips them; ``scatter_nd`` keeps the last of repeated updates."""
+    from mxnet_tpu_torch import nd
+    data = torch.arange(12.0).reshape(3, 4)
+    idx = torch.tensor([[0.0, 5, -1, -9, 2], [1, 9, -2, 2, 100]])
+    for dev in (card, torch.device("cpu")):
+        d = data.to(dev).requires_grad_()
+        out = nd.gather_nd(d, idx.to(dev))
+        out.sum().backward()
+        torch.cuda.synchronize()
+        assert out.cpu().tolist() == [1.0, 11.0, 10.0, 2.0, 11.0]
+        assert d.grad.cpu().flatten().nonzero().flatten().tolist() == \
+            [1, 10]
+        rows = nd.get_op("_advanced_index").get_fn({})(
+            d.detach(), torch.tensor([0.0, 7, -1, -8], device=dev))
+        assert rows[:, 0].cpu().tolist() == [0.0, 8.0, 8.0, 0.0]
+    upd = torch.arange(1.0, 9.0)
+    pos = torch.tensor([[3.0, 1, 3, 3, 1, 0, 3, 1]])
+    got = nd.scatter_nd(upd.to(card), pos.to(card), shape=(4,))
+    assert got.cpu().tolist() == [6.0, 8.0, 0.0, 7.0]
+
+
+def test_multi_all_finite_reads_nothing_back_on_card(card):
+    """``multi_all_finite`` over NDArrays on the card answers a 1-element
+    float32 array there: no host read until the caller reads it; 1 clean,
+    0 with one ``inf``."""
+    from mxnet_tpu_torch import engine, nd
+    eng = engine.engine()
+    arrays = [nd.NDArray(torch.randn(n, device=card)) for n in (5, 1000,
+                                                                 77)]
+    before = eng.host_reads
+    ok = nd.multi_all_finite(*arrays, num_arrays=3)
+    assert eng.host_reads == before
+    assert ok.context.device_type == "gpu" and ok.shape == (1,)
+    assert ok.asscalar() == 1.0 and eng.host_reads == before + 1
+    arrays[1]._data[500] = math.inf
+    bad = nd.multi_all_finite(*arrays, num_arrays=3)
+    assert eng.host_reads == before + 1
+    assert bad.asscalar() == 0.0

@@ -129,17 +129,22 @@ def test_fp16_input(name, seed, shape, causal, vl):
 
 
 def test_op_signature_and_launch_count_on_cpu():
-    """The op is the kernel wrapper, with the op's argument order (q, k, v,
+    """``nd.flash_attention`` is the registry op ``_contrib_flash_attention``
+    over the kernel wrapper, with the op's argument order (q, k, v,
     valid_len, causal, scale); the CPU path runs the plain version and
     never counts a kernel launch."""
-    assert op_flash is flash_attention
+    from mxnet_tpu_torch.ndarray import get_op
+    assert op_flash is not flash_attention
+    assert get_op("flash_attention").name == "_contrib_flash_attention"
     rs = np.random.RandomState(5)
     q, k, v = (torch.from_numpy(a) for a in _qkv(rs, 4, 10, 10, 8))
     vl = torch.tensor([10.0, 4.0])
     before = flash_attention.launches
     a = flash_attention(q, k, v, vl, True, 0.5)
     b = flash_attention_plain(q, k, v, vl.repeat_interleave(2), True, 0.5)
+    c = op_flash(q, k, v, vl, True, 0.5)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(c, b, rtol=0, atol=0)
     assert flash_attention.launches == before
 
 
