@@ -10,8 +10,8 @@ low-precision runs, phase 11's imperative MLP, phase 12's NMT
 training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
 and Mask-RCNN training, phase 14's hybridized runs, phase 15's
 generation serving, each part of phase 16, each training run of
-phase 17, each model of phase 18 and each part of phase 19) and read
-just after;
+phase 17, each model of phase 18 and each part of phases 19 and 20) and
+read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -426,7 +426,26 @@ kernels not at all:
    in ``topk``/``sort``/``argsort`` and out-of-range ``gather_nd``
    indices included), and ``multi_all_finite`` over (a)'s gradients (1
    clean, 0 with one ``inf``, no host read before the caller's);
-20. prints one JSON line of kernel measurements (flash: the fp32 and, as
+20. MXNet's export seam (fp32, TF32 off): (a) ResNet-50 v1 (config #2)
+   at batch 128 trained 3 steps through ``gluon.Trainer("sgd", momentum
+   0.9)``: 41 momentum-kernel launches a step, exact; one weight and one
+   gradient read through ``Parameter.data()``/``grad()`` as ``NDArray``s
+   on the card, bit for bit the parameters' tensors; ``export`` to
+   ``<out>/export_phase/`` (every parameter under ``arg:``; the parameter
+   files are removed when the phase ends); (b)
+   ``SymbolBlock.imports`` on the card, its forward on a seeded batch of
+   128 at 224 x 224 against the Gluon forward of (a) (eager); (c)
+   ``ModelServer.from_exported`` serving 64 single-image requests over
+   batch buckets 1, 8 and 32 twice, the second round timed (requests/s,
+   p50/p99; the first replays each graph for the first time), every
+   answer against the Gluon forward of its image; (d) ``model.load_checkpoint`` and a
+   ``Module`` bound for inference on the same files against the Gluon
+   forward; (b)-(d) within ``EXPORT_TOL`` of ``max(1, max |logit|)`` and
+   launching none of the port's kernels; (e) config #1's MLP exported and
+   served by ``from_exported`` (64 requests), its served logits through
+   the ``softmax_rtc`` custom op on ``NDArray``s: one rtc launch, within
+   ``SOFTMAX_TOL`` of the plain softmax;
+21. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -438,10 +457,10 @@ kernels not at all:
    ``optimizer_zoo_mixed_launches``), phase 17's under
    ``data_pipeline_launches``, phase 18's under ``vision_zoo_launches``
    and ``word_lm_launches``, phase 19's under
-   ``symbolic_module_launches``; the SGD kernels' bf16/fp16
-   entries, and the mixed path's own entry beside the unfused route's
-   ``before_ms``), the card line, and last ``{"ok": true, "device":
-   {...}}``.
+   ``symbolic_module_launches``, phase 20's under ``export_launches``;
+   the SGD kernels' bf16/fp16 entries, and the mixed path's own entry
+   beside the unfused route's ``before_ms``), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Writes the full report to ``<out>/chip_smoke.json``.
 """
@@ -735,31 +754,36 @@ def rtc_modules() -> dict:
 
 
 class SoftmaxRtc(operator.CustomOp):
-    """Softmax output layer: the rtc kernels on a CUDA tensor, their plain
-    versions on a CPU tensor."""
+    """Softmax output layer on MXNet's custom-op surface: ``in_data``,
+    ``out_data`` and the gradients arrive as ``NDArray``s, which the rtc
+    kernels take as they are on the card; on the CPU the plain versions
+    run and ``assign`` writes their result."""
 
     def forward(self, is_train, req, in_data, out_data, aux):
         x, y = in_data[0], out_data[0]
         if req[0] == "null":
             return
-        if x.device.type == "cpu":
-            self.assign(y, req[0], softmax_plain(x))
+        if x.context.device_type == "cpu":
+            self.assign(y, req[0], softmax_plain(torch.as_tensor(
+                x.asnumpy())))
             return
         n, c = x.shape
         rtc_modules()["softmax_fwd"].launch(
-            [x, y, c, REQ_CODE[req[0]]], x.device, (n, 1, 1),
+            [x, y, c, REQ_CODE[req[0]]], x.context, (n, 1, 1),
             (softmax_threads(c), 1, 1))
 
     def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
         label, y, dx = in_data[1], out_data[0], in_grad[0]
         if req[0] == "null":
             return
-        if y.device.type == "cpu":
-            self.assign(dx, req[0], softmax_bwd_plain(y, label))
+        if y.context.device_type == "cpu":
+            self.assign(dx, req[0], softmax_bwd_plain(
+                torch.as_tensor(y.asnumpy()),
+                torch.as_tensor(label.asnumpy())))
             return
         n, c = y.shape
         rtc_modules()["softmax_bwd"].launch(
-            [label, y, dx, c, REQ_CODE[req[0]]], y.device, (n, 1, 1),
+            [label, y, dx, c, REQ_CODE[req[0]]], y.context, (n, 1, 1),
             (softmax_threads(c), 1, 1))
 
 
@@ -1723,7 +1747,7 @@ def mlp_phase(seed: int, dtype: str = "float32"):
     launches = multi_sgd.launches
     other = other_launches(multi_sgd)
     losses = [v.item() for v in losses]
-    dtypes = {_short(p.data().dtype) for p in net.collect_params().values()}
+    dtypes = {_short(p._tensor().dtype) for p in net.collect_params().values()}
     graphs = graph_summary(net)
     free_graphs(net)
     return {"steps": MLP_STEPS, "batch": MLP_BATCH, "dtype": dtype,
@@ -1835,7 +1859,7 @@ def _device_classes(prof, wall_ms, ranges=RESNET_RANGES, fine=False):
 
 
 def _snapshot(net):
-    return {k: p.data().detach().clone()
+    return {k: p._tensor().detach().clone()
             for k, p in net.collect_params().items()}
 
 
@@ -1941,14 +1965,14 @@ def resnet_phase(seed: int, card: str):
     with autograd.record():
         loss = lossfn(net(x), y)
     autograd.backward(loss)
-    grads = {p.name: p.grad().clone() for p in trainable}
+    grads = {p.name: p._grad_tensor().clone() for p in trainable}
     results = []
     for agg in (AGG, 0):
         with torch.no_grad():
             for k, p in params.items():
-                p.data().copy_(w0[k])
+                p._tensor().copy_(w0[k])
         for p in trainable:
-            p.grad().copy_(grads[p.name])
+            p._grad_tensor().copy_(grads[p.name])
             p.fresh = False
         tr = gluon.Trainer(params, "sgd", RESNET_OPT)
         tr.optimizer.aggregate_num = agg
@@ -2238,7 +2262,7 @@ def custom_mlp_phase(seed: int):
             for k, v in _snapshot(mlp_net(dev, seed=seed)).items()}
 
     def grads(net):
-        return [p.grad().detach().clone()
+        return [p._grad_tensor().detach().clone()
                 for p in net.collect_params().values()]
 
     def run(custom: bool):
@@ -2406,7 +2430,7 @@ def bert_check_step(model, batch):
     with autograd.record():
         loss = mlm_nsp_loss(*model(inputs, segs, vl), labels, weights, nsp_y)
     autograd.backward(loss)
-    grads = {k: p.grad().detach().clone()
+    grads = {k: p._grad_tensor().detach().clone()
              for k, p in model.collect_params().items()}
     tr.step(1)
     return loss.detach().cpu().double(), grads, _snapshot(model)
@@ -2559,7 +2583,7 @@ def bert_run(net, batch, n_steps: int, timed: int = None) -> dict:
         "flash_launches": launches, "flash_launches_by_dtype": by_dtype,
         "other_kernel_launches": other, "peak_memory_gb": peak_gb,
         "profile": bert_step_classes(prof, prof_wall_ms, len(params)),
-        "param_dtypes": sorted({_short(p.data().dtype)
+        "param_dtypes": sorted({_short(p._tensor().dtype)
                                 for p in params.values()}),
         "adam_state_dtypes": sorted({_short(t.dtype) for t in states}),
         "adam_states": len(states)}
@@ -2799,7 +2823,7 @@ def masters_mismatched(trainer) -> list:
     bits = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
     bad = []
     for i, p in enumerate(trainer._params):
-        w, w32 = p.data(), trainer._states[i][1]
+        w, w32 = p._tensor(), trainer._states[i][1]
         if not torch.equal(w.view(bits[w.dtype]),
                            w32.to(w.dtype).view(bits[w.dtype])):
             bad.append(p.name)
@@ -2890,7 +2914,7 @@ def resnet_lp_run(seed: int, recipe: str, fp32_losses: list) -> dict:
         update = update_range_check(prof, "multi_sgd_kernel", groups)
         states = [t for st in trainer._states.values()
                   for t in (st if isinstance(st, tuple) else (st,))]
-        param_dtypes = sorted({_short(p.data().dtype)
+        param_dtypes = sorted({_short(p._tensor().dtype)
                                for p in params.values()})
         graphs = graph_summary(net)
         free_graphs(net)
@@ -2995,7 +3019,7 @@ def bert_fp16_run(seed: int, fp32_first_loss: float) -> dict:
             torch.cuda.synchronize()
             prof_wall_ms = (time.monotonic() - t1) * 1e3
         states = [t for st in trainer._states.values() for t in st]
-        param_dtypes = sorted({_short(p.data().dtype)
+        param_dtypes = sorted({_short(p._tensor().dtype)
                                for p in params.values()})
     finally:
         amp.disable()
@@ -3426,7 +3450,7 @@ def nmt_check_step(model, batch):
     with autograd.record():
         loss = nmt_loss(model, src, tgt, lab)
     autograd.backward(loss)
-    grads = {k: p.grad().detach().clone()
+    grads = {k: p._grad_tensor().detach().clone()
              for k, p in model.collect_params().items()}
     tr.step(src.shape[0])
     return loss.detach().cpu().double(), grads, _snapshot(model)
@@ -4054,7 +4078,7 @@ def check_step(model, run, opt):
     with autograd.record():
         loss = run()
     autograd.backward(loss)
-    grads = {k: p.grad().detach().clone() for k, p in params.items()
+    grads = {k: p._grad_tensor().detach().clone() for k, p in params.items()
              if p.grad_req != "null"}
     tr.step(1)
     return loss.detach().cpu().double(), grads, _snapshot(model)
@@ -4714,16 +4738,50 @@ class EagerServer(ModelServer):
         return raw
 
 
+def serve_round(srv, reqs) -> dict:
+    """Each of ``reqs`` (one request's inputs, a tuple) through the
+    started ``srv``, submitted from 4 threads: wall time, requests/s,
+    p50/p99 latency (enqueue to result), the batches dispatched and the
+    results in order."""
+    results, futs = {}, {}
+    b0 = srv.stats()["batches"]           # the registry is process-wide
+
+    def client(tid, n_clients=4):
+        mine = range(tid, len(reqs), n_clients)
+        for i in mine:
+            futs[i] = srv.submit(*reqs[i])
+        for i in mine:
+            results[i] = futs[i].result(timeout=600)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.monotonic() - t0
+    if len(results) != len(reqs):
+        raise AssertionError("requests did not complete")
+    lat = np.array([(futs[i].t_done - futs[i].t_enqueue) * 1e3
+                    for i in range(len(reqs))])
+    return {"wall_s": wall, "requests_per_s": len(reqs) / wall,
+            "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "batches": srv.stats()["batches"] - b0,
+            "results": [results[i] for i in range(len(reqs))]}
+
+
 def serve_requests(net, reqs, server_cls) -> dict:
     """``reqs`` through a ``server_cls`` over ``net`` with phase 4's
-    buckets and workers, submitted from 4 threads: wall time, requests/s,
-    p50/p99 latency, the results and the server's stats."""
+    buckets and workers (``serve_round``): wall time, requests/s,
+    p50/p99 latency, the results, the flash launches and the server's
+    stats."""
     srv = server_cls(net, max_batch=BATCH_BUCKETS[-1],
                      length_buckets=LENGTH_BUCKETS,
                      batch_buckets=BATCH_BUCKETS,
                      queue_depth=4 * len(reqs), deadline_ms=0, workers=2,
                      batch_window_us=5000)
-    results, futs = {}, {}
     try:
         t0 = time.monotonic()
         srv.warmup(*[(np.zeros(n, np.int32), np.zeros(n, np.int32),
@@ -4731,38 +4789,13 @@ def serve_requests(net, reqs, server_cls) -> dict:
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
         srv.start()
-        b0 = srv.stats()["batches"]       # the registry is process-wide
         zero_counts()
-
-        def client(tid, n_clients=4):
-            mine = range(tid, len(reqs), n_clients)
-            for i in mine:
-                futs[i] = srv.submit(*reqs[i])
-            for i in mine:
-                results[i] = futs[i].result(timeout=600)
-
-        t0 = time.monotonic()
-        threads = [threading.Thread(target=client, args=(t,))
-                   for t in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(900)
-        wall = time.monotonic() - t0
+        run = serve_round(srv, reqs)
         launches = flash_attention.launches
-        batches = srv.stats()["batches"] - b0
     finally:
         srv.stop()
-    if len(results) != len(reqs):
-        raise AssertionError("requests did not complete")
-    lat = np.array([(futs[i].t_done - futs[i].t_enqueue) * 1e3
-                    for i in range(len(reqs))])
-    return {"warmup_s": warm_s, "wall_s": wall,
-            "requests_per_s": len(reqs) / wall,
-            "latency_ms_p50": float(np.percentile(lat, 50)),
-            "latency_ms_p99": float(np.percentile(lat, 99)),
-            "flash_launches": launches, "batches": batches,
-            "stats": srv.stats(), "results": results}
+    return {"warmup_s": warm_s, **run, "flash_launches": launches,
+            "stats": srv.stats()}
 
 
 def serve_graph_run(seed: int, card: str) -> dict:
@@ -5208,7 +5241,7 @@ def profile_decode_step(srv_net, server_kw: dict, n_iters: int = 5) -> dict:
 def _cpu_twin(net, make):
     """``make()`` on the CPU with ``net``'s weights."""
     twin = make()
-    load_reference_params(twin, {k: p.data().detach().cpu().numpy()
+    load_reference_params(twin, {k: p._tensor().detach().cpu().numpy()
                                  for k, p in net.collect_params().items()},
                           ctx=cpu())
     return twin
@@ -5252,7 +5285,7 @@ def gen_base_cell(seed: int, dev) -> dict:
     net = CausalLM(**GEN_BASE_MODEL)
     net.initialize(ctx=dev, seed=seed)
     net.hybridize()
-    n_params = sum(p.data().numel() for p in net.collect_params().values())
+    n_params = sum(p._tensor().numel() for p in net.collect_params().values())
     prompts, caps = gen_requests(seed + 16, GEN_BASE_REQUESTS,
                                  GEN_BASE_PROMPT, GEN_BASE_NEW)
     few = range(GEN_BASE_BITWISE)
@@ -5552,7 +5585,7 @@ def resume_mismatches(net_a, tr_a, net_b, tr_b) -> list:
     state and the update counts."""
     bad = [k for (k, a), b in zip(net_a.collect_params().items(),
                                   net_b.collect_params().values())
-           if not torch.equal(a.data(), b.data())]
+           if not torch.equal(a._tensor(), b._tensor())]
     for i, p in enumerate(tr_a._params):
         sa, sb = _flat(tr_a._states.get(i)), _flat(tr_b._states.get(i))
         if len(sa) != len(sb) or not all(torch.equal(u, v)
@@ -5703,7 +5736,7 @@ def lamb_step(net, trainer, batch):
         loss = mlm_nsp_loss(*net(inputs, segs, vl), labels, weights, nsp_y)
     autograd.backward(loss)
     norm = gluon.utils.clip_global_norm(
-        [p.grad() for p in trainer._params], SURFACE_CLIP)
+        [p._grad_tensor() for p in trainer._params], SURFACE_CLIP)
     with torch.profiler.record_function("trainer_step"):
         trainer.step(1)
     return loss.detach(), norm
@@ -5717,9 +5750,9 @@ def lamb_check_step(model, batch):
     with autograd.record():
         loss = mlm_nsp_loss(*model(inputs, segs, vl), labels, weights, nsp_y)
     autograd.backward(loss)
-    grads = {k: p.grad().detach().clone()
+    grads = {k: p._grad_tensor().detach().clone()
              for k, p in model.collect_params().items()}
-    gluon.utils.clip_global_norm([p.grad() for p in tr._params],
+    gluon.utils.clip_global_norm([p._grad_tensor() for p in tr._params],
                                  SURFACE_CLIP)
     tr.step(1)
     return loss.detach().cpu().double(), grads, _snapshot(model)
@@ -5827,9 +5860,9 @@ def zoo_steps(net, name: str, kw: dict, grads, check_reads: bool = False):
     rates, before = [], []
     for step_grads in grads:
         for p, g in zip(tr._params, step_grads):
-            p.grad().copy_(g)
+            p._grad_tensor().copy_(g)
             p.fresh = False
-        before.append([p.data().detach().clone() for p in tr._params])
+        before.append([p._tensor().detach().clone() for p in tr._params])
         if check_reads:
             torch.cuda.set_sync_debug_mode("error")
         try:
@@ -5850,8 +5883,8 @@ def zoo_error(card_tr, cpu_tr) -> float:
     for i, (p, q) in enumerate(zip(card_tr._params, cpu_tr._params)):
         pairs = list(zip(_flat(card_tr._states.get(i)),
                          _flat(cpu_tr._states.get(i))))
-        if p.data().dtype == torch.float32:
-            pairs.insert(0, (p.data(), q.data()))
+        if p._tensor().dtype == torch.float32:
+            pairs.insert(0, (p._tensor(), q._tensor()))
         for a, b in pairs:
             a, b = a.detach().float().cpu(), b.detach().float()
             worst = max(worst, ((a - b).abs()
@@ -5931,7 +5964,7 @@ def optimizer_zoo_run(seed: int, card: str) -> dict:
     sgld_tr, rates, before = zoo_steps(zoo_net(dev, seed), "sgld",
                                        {"learning_rate": 0.01},
                                        card_grads[False])
-    after = before[1:] + [[p.data().detach() for p in sgld_tr._params]]
+    after = before[1:] + [[p._tensor().detach() for p in sgld_tr._params]]
     sgld = sgld_moments(before, after, card_grads[False], rates)
     sgld_ok = all(abs(m["mean"]) <= SGLD_MOMENT_TOL
                   and abs(m["std"] - 1) <= SGLD_MOMENT_TOL
@@ -6756,7 +6789,7 @@ def zoo_model_run(name: str, size: int, lr: float, seed: int,
     res = {
         "model": name, "input": size, "batch": ZOO_BATCH,
         "learning_rate": lr,
-        "parameters": sum(p.data().numel() for p in trainable),
+        "parameters": sum(p._tensor().numel() for p in trainable),
         "trainable_tensors": len(trainable),
         "step_ms": wall / ZOO_TIMED * 1e3,
         "images_per_s": ZOO_BATCH * ZOO_TIMED / wall,
@@ -6827,9 +6860,9 @@ def word_lm_window(net, trainer, x, y, hidden, lossfn, train=True):
     params = [p for p in net.collect_params().values()
               if p.grad_req != "null"]
     tokens = x.numel()
-    gluon.utils.clip_global_norm([p.grad() for p in params],
+    gluon.utils.clip_global_norm([p._grad_tensor() for p in params],
                                  WORD_LM_CLIP * tokens)
-    grads = {p.name: p.grad().detach().clone() for p in params}
+    grads = {p.name: p._grad_tensor().detach().clone() for p in params}
     trainer.step(tokens)
     return loss.detach().mean(), hidden, grads
 
@@ -6959,7 +6992,7 @@ def word_lm_run(seed: int, card: str) -> dict:
         "replay_bitwise_eager": _bitwise(eager, replay)}
     tokens = cfg["bptt"] * cfg["batch"]
     res = {"config": cfg, "optimizer": WORD_LM_OPT, "clip": WORD_LM_CLIP,
-           "parameters": sum(p.data().numel() for p in trainable),
+           "parameters": sum(p._tensor().numel() for p in trainable),
            "trainable_tensors": len(trainable),
            "window_ms": wall / WORD_LM_TIMED * 1e3,
            "tokens_per_s": tokens * WORD_LM_TIMED / wall,
@@ -7693,6 +7726,223 @@ def symbolic_phase(seed: int, card: str, out_dir: Path,
     return res
 
 
+# ----------------------------------------------------------------------
+# Phase 20: MXNet's export seam on the card.  ResNet-50 v1 trained a few
+# steps, Parameter.data()/grad() read as NDArrays, HybridBlock.export,
+# SymbolBlock.imports, ModelServer.from_exported and load_checkpoint +
+# Module over the same files; then config #1's MLP exported and served,
+# its served logits through the softmax_rtc custom op on NDArrays.
+
+EXPORT_STEPS = 3
+EXPORT_REQUESTS = 64
+EXPORT_BUCKETS = (1, 8, 32)            # batch buckets; the largest is 32
+# the logits' bound against the Gluon forward, x max(1, max |logit|): 12x
+# the largest reading on an H100 (8.1e-7, served at batches 32 and 8)
+EXPORT_TOL = 1e-5
+EXPORT_DIR = "export_phase"
+
+
+def _rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """Max-abs difference over ``max(1, max |ref|)``."""
+    a, ref = a.float().cpu(), ref.float().cpu()
+    return (a - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+
+def serve_exported(srv, images: np.ndarray) -> dict:
+    """Every row of ``images`` as one request through ``srv`` (started
+    here, after ``warmup`` of every batch bucket), in two rounds
+    (``serve_round``): the first replays each bucket's graph for the
+    first time; the second is timed.  Its figures, with its answers
+    stacked, and the first round's wall time and latencies."""
+    reqs = [(img,) for img in images]
+    try:
+        t0 = time.monotonic()
+        srv.warmup(images[0])
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        srv.start()
+        first = serve_round(srv, reqs)
+        timed = serve_round(srv, reqs)
+        executables = srv.stats()["executables"]
+    finally:
+        srv.stop()
+    del first["results"]
+    answers = torch.as_tensor(np.stack(timed.pop("results")))
+    return timed | {"warmup_s": warm_s, "executables": executables,
+                    "first_round": first, "answers": answers}
+
+
+def export_phase(seed: int, card: str, out_dir: Path) -> dict:
+    """Phase 20 (a)-(e); the counts are zeroed just before each part."""
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    start = time.monotonic()
+    dev = gpu(0)
+    path = out_dir / EXPORT_DIR
+    path.mkdir(parents=True, exist_ok=True)
+    checks, res = {}, {"card": card}
+
+    # (a) three momentum-SGD steps, the NDArray reads, export
+    net = resnet50_v1(classes=1000)
+    net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    x = torch.randn(RESNET_BATCH, 3, 224, 224, device=dev, generator=gen)
+    y = torch.randint(0, 1000, (RESNET_BATCH,), device=dev,
+                      generator=gen).float()
+    xe = torch.randn(RESNET_BATCH, 3, 224, 224, device=dev, generator=gen)
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "sgd", RESNET_OPT)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    torch.cuda.synchronize()
+    zero_counts()
+    losses = []
+    for _ in range(EXPORT_STEPS):
+        with autograd.record():
+            loss = lossfn(net(x), y)
+        autograd.backward(loss)
+        trainer.step(RESNET_BATCH)
+        losses.append(loss.detach().mean())
+    torch.cuda.synchronize()
+    launches = multi_sgd_mom.launches
+    expected = -(-len(trainable) // AGG) * EXPORT_STEPS
+    checks["a_launches"] = launches == expected and \
+        other_launches(multi_sgd_mom) == 0
+    losses = [v.item() for v in losses]
+    checks["a_losses_finite"] = all(math.isfinite(v) for v in losses)
+    w_param, g_param = net.features[0].weight, net.output.weight
+    w, g = w_param.data(), g_param.grad()
+    checks["a_ndarray_reads"] = (
+        isinstance(w, nd.NDArray) and isinstance(g, nd.NDArray)
+        and w.context == dev and g.context == dev
+        and _bitwise([w._data.detach()], [w_param._tensor().detach()])
+        and _bitwise([g._data], [g_param._grad_tensor()])
+        and np.array_equal(w.asnumpy(), w_param._tensor().detach().cpu()
+                           .numpy())
+        and w_param.list_ctx() == [dev])
+    t0 = time.monotonic()
+    sym_file, param_file = net.export(str(path / "resnet50_v1"))
+    export_s = time.monotonic() - t0
+    arg_keys = [k for k in nd.load(param_file, ctx=cpu())]
+    checks["a_export_keys"] = len(arg_keys) == len(params) and all(
+        k.startswith("arg:") for k in arg_keys)
+    with torch.no_grad(), autograd.predict_mode():
+        ref = net(xe)
+    torch.cuda.synchronize()
+    res["train"] = {
+        "batch": RESNET_BATCH, "steps": EXPORT_STEPS, "losses": losses,
+        "launches": launches, "expected_launches": expected,
+        "trainable_params": len(trainable),
+        "ndarray_reads": {"weight": w_param.name, "grad": g_param.name,
+                          "dtype": str(w.dtype), "context": str(w.context)},
+        "export_s": export_s, "param_entries": len(arg_keys),
+        "files_bytes": {f: os.path.getsize(f)
+                        for f in (sym_file, param_file)}}
+    del trainer, g, w
+    gc.collect()
+
+    # (b) SymbolBlock.imports on the card, its forward vs the Gluon one
+    zero_counts()
+    t0 = time.monotonic()
+    sb = SymbolBlock.imports(sym_file, "data", param_file, ctx=dev)
+    import_s = time.monotonic() - t0
+    with torch.no_grad(), autograd.predict_mode():
+        imported = sb(xe)
+    torch.cuda.synchronize()
+    imp_err = _rel_err(imported, ref)
+    checks["b_imported"] = imp_err <= EXPORT_TOL and \
+        sb.collect_params()[w_param.name]._tensor().device == dev and \
+        bool(torch.isfinite(imported).all())
+    res["imported"] = {
+        "import_s": import_s, "max_abs_err": (imported - ref).abs().max()
+        .item(), "rel_err": imp_err, "ref_max_abs": ref.abs().max().item(),
+        "params": len(sb.collect_params()),
+        "arguments": len(mx_sym.load(sym_file).list_arguments())}
+
+    # (c) ModelServer.from_exported: 64 single-image requests
+    srv = ModelServer.from_exported(
+        sym_file, "data", param_file, ctx=dev, max_batch=EXPORT_BUCKETS[-1],
+        batch_buckets=EXPORT_BUCKETS, queue_depth=4 * EXPORT_REQUESTS,
+        deadline_ms=0, workers=2, batch_window_us=5000)
+    images = xe[:EXPORT_REQUESTS].cpu().numpy()
+    served = serve_exported(srv, images)
+    answers = served.pop("answers")
+    serve_err = _rel_err(answers, ref[:EXPORT_REQUESTS])
+    served_vs_imported = _rel_err(answers, imported[:EXPORT_REQUESTS])
+    checks["c_served"] = serve_err <= EXPORT_TOL and \
+        served["executables"] == len(EXPORT_BUCKETS)
+    res["served"] = served | {
+        "requests": EXPORT_REQUESTS, "batch_buckets": list(EXPORT_BUCKETS),
+        "rel_err": serve_err, "rel_err_vs_imported": served_vs_imported,
+        "graphs": srv._block.graph_stats()["graphs"]}
+    del srv
+    gc.collect()
+
+    # (d) load_checkpoint + Module for inference on the same files
+    symbol, arg, aux = mx_model.load_checkpoint(str(path / "resnet50_v1"),
+                                                0, ctx=dev)
+    mod = mx_mod.Module(symbol, data_names=["data"], label_names=None,
+                        context=dev)
+    mod.bind(data_shapes=[("data", tuple(xe.shape))], for_training=False)
+    mod.set_params(arg, aux, allow_extra=True)
+    mod.forward(mx_io.DataBatch([nd.NDArray(xe)]), is_train=False)
+    out = mod.get_outputs()[0]._data
+    torch.cuda.synchronize()
+    mod_err = _rel_err(out, ref)
+    checks["d_module"] = mod_err <= EXPORT_TOL and len(aux) == 0 and \
+        len(arg) == len(params)
+    res["module"] = {"rel_err": mod_err,
+                     "rel_err_vs_imported": _rel_err(out, imported),
+                     "bitwise_imported": _bitwise([out], [imported]),
+                     "arg_params": len(arg), "aux_params": len(aux)}
+    checks["bcd_no_kernels"] = other_launches() == 0
+    del mod, arg, aux, sb, imported, out, net, x, xe, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) config #1's MLP exported and served; its logits through the
+    # softmax_rtc custom op, on NDArrays
+    mlp = mlp_net(dev, seed=seed)
+    mlp_sym, mlp_params = mlp.export(str(path / "mlp"))
+    rng = np.random.RandomState(seed + 20)
+    feats = rng.standard_normal((EXPORT_REQUESTS, 784)).astype(np.float32)
+    with torch.no_grad(), autograd.predict_mode():
+        mlp_ref = mlp(torch.as_tensor(feats, device=dev))
+    srv = ModelServer.from_exported(
+        mlp_sym, "data", mlp_params, ctx=dev, max_batch=EXPORT_BUCKETS[-1],
+        batch_buckets=EXPORT_BUCKETS, queue_depth=4 * EXPORT_REQUESTS,
+        deadline_ms=0, workers=2, batch_window_us=5000)
+    mlp_served = serve_exported(srv, feats)
+    logits = mlp_served.pop("answers")
+    mlp_err = _rel_err(logits, mlp_ref)
+    labels = rng.randint(0, 10, EXPORT_REQUESTS).astype(np.float32)
+    rtc_modules()
+    zero_counts()
+    probs = nd.Custom(nd.array(logits.numpy(), ctx=dev),
+                      nd.array(labels, ctx=dev), op_type="softmax_rtc")
+    torch.cuda.synchronize()
+    rtc_launches = {k: _RTC[k].launches for k in ("softmax_fwd",
+                                                  "softmax_bwd")}
+    rtc_err = (probs._data.cpu() - softmax_plain(logits)).abs().max().item()
+    checks["e_mlp_served"] = mlp_err <= EXPORT_TOL and \
+        mlp_served["executables"] == len(EXPORT_BUCKETS)
+    checks["e_rtc_on_ndarrays"] = isinstance(probs, nd.NDArray) and \
+        rtc_launches == {"softmax_fwd": 1, "softmax_bwd": 0} and \
+        rtc_err <= SOFTMAX_TOL and \
+        sum(w.launches for w in COUNTED) == 0
+    res["mlp"] = mlp_served | {"rel_err": mlp_err,
+                               "rtc_launches": rtc_launches,
+                               "rtc_max_abs_err": rtc_err}
+    del srv, mlp
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the parameter files (ResNet-50's 102 MB) go; the graphs stay
+    for f in (param_file, mlp_params):
+        os.remove(f)
+    res.update(checks=checks, seconds=time.monotonic() - start,
+               ok=all(checks.values()))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8096,6 +8346,18 @@ def main() -> int:
           flush=True)
     print(f"symbolic phase on {card}: {symbolic['seconds']:.1f} s",
           json.dumps(symbolic["part_seconds"]), flush=True)
+    export = export_phase(args.seed, card, Path(args.out))
+    r = export["served"]
+    print(f"exported resnet50 served on {card}: {r['requests']} requests, "
+          f"{r['requests_per_s']:.3f} requests/s, p50 "
+          f"{r['latency_ms_p50']:.3f} ms, p99 {r['latency_ms_p99']:.3f} ms, "
+          f"{r['batches']} batches over buckets {r['batch_buckets']}, "
+          f"vs gluon {r['rel_err']:.3g}", flush=True)
+    for key in ("train", "imported", "served", "module", "mlp"):
+        print(f"export {key} on {card}:", json.dumps(export[key]),
+              flush=True)
+    print(f"export checks on {card} ({export['seconds']:.1f} s):",
+          json.dumps(export["checks"]), flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -8198,6 +8460,7 @@ def main() -> int:
                "heads": sum(r["kernel_launches"] for r in
                             symbolic["heads"].values())},
            "optimizer_zoo_launches": zoo_launches("multi_sgd_mom"),
+           "export_launches": export["train"]["launches"],
            "amp_bf16_launches": low["resnet50_amp"]["launches"],
            "imperative_launches": imp["launches"],
            **{f"{name}_launches": det[name]["train"]["launches"]
@@ -8240,6 +8503,7 @@ def main() -> int:
             "shape": f"timed at {t['shape'][0]}x{t['shape'][1]} fp32; "
                      f"100x10 on the main path",
             "compile_ms": rtc_res["compile_ms"]["softmax"],
+            "export_launches": export["mlp"]["rtc_launches"][name],
             "host_us_per_launch":
                 rtc_res["host_us_per_launch"]["softmax_fwd_100x10"]})
     elapsed = time.monotonic() - start
@@ -8255,7 +8519,7 @@ def main() -> int:
              nmt_backward, "detection": det, "graphs": graph,
          "generation": gen, "training_surface": surface,
          "data_pipeline": data, "model_surface": surface18,
-         "symbolic": symbolic, "kernels": kernels,
+         "symbolic": symbolic, "export": export, "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
@@ -8266,7 +8530,7 @@ def main() -> int:
         ("detection", det), ("hybridized graphs", graph),
         ("generation serving", gen), ("training surface", surface),
         ("data pipeline", data), ("model surface", surface18),
-        ("symbolic", symbolic))
+        ("symbolic", symbolic), ("export", export))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

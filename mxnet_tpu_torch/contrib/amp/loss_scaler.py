@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ...ndarray.register import unwrap
+
 __all__ = ["LossScaler", "DynamicLossScaler", "StaticLossScaler"]
 
 
@@ -20,7 +22,7 @@ class LossScaler:
         """True if any gradient element is non-finite.  Elementwise: a
         finite fp16 gradient can SUM to inf, which must not count.  One
         host read for all the gradients."""
-        finite = [torch.isfinite(g).all() for p in params
+        finite = [torch.isfinite(unwrap(g)).all() for p in params
                   for g in p.list_grad()]
         if not finite:
             return False

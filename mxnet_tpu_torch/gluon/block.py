@@ -5,8 +5,23 @@ Counterpart of ``mxnet_tpu/gluon/block.py``.  A Block keeps MXNet's naming
 ``bertmodel0_enc_layers_transformer_encoder_cell0_attn_qkv_weight``) and is
 an ``nn.Module`` underneath: its weights are registered with the module,
 so ``parameters()`` and ``state_dict()`` see them under their attribute
-paths.  The port's layers write ``forward`` directly in torch ops; there is
-no symbolic mode.
+paths.  The port's layers write ``forward`` directly in torch ops: that
+is the eager path and the one ``hybridize()`` captures.
+
+Symbolic mode (``mxnet_tpu/gluon/block.py:324-329``): a ``HybridBlock``
+called on a ``Symbol`` runs its ``hybrid_forward(F, x, *args, **params)``
+with ``F = mxnet_tpu_torch.symbol`` and each registered parameter as its
+``Parameter.var()``, and returns the ``Symbol`` of its output; a container
+passes the ``Symbol`` down to its children, so a model called on
+``mx.sym.var("data")`` gives its whole graph, op for op the JAX
+package's.  The port's layers and the vision zoo's blocks keep a
+``hybrid_forward`` beside their torch ``forward`` for that (the JAX
+package's bodies); a block without one raises ``MXNetError`` naming
+itself.  ``export(path, epoch)`` writes that graph and every parameter
+(``path-symbol.json``, ``path-%04d.params`` with ``arg:`` keys, as the
+JAX package's ``mxnet_tpu/gluon/block.py:666-681``), and
+``SymbolBlock.imports`` loads such a pair (:749-782) and runs it through
+the symbol executor.
 
 ``hybrid_forward`` (``mxnet_tpu/gluon/block.py:320-352``, :495-501): a
 ``HybridBlock`` subclass that defines ``hybrid_forward(self, F, x, *args,
@@ -106,9 +121,10 @@ from ..contrib.amp import amp as _amp
 from ..ndarray.ndarray import NDArray
 from ..ndarray.register import call_on_tensors, has_ndarray, unwrap
 from . import cached_op
+from ..symbol.symbol import Group, Symbol
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "CachedGraph"]
+__all__ = ["Block", "HybridBlock", "CachedGraph", "SymbolBlock"]
 
 _naming_counter_lock = threading.Lock()
 _naming_counters: Dict[str, int] = {}
@@ -184,6 +200,8 @@ class Block(nn.Module):
         self.training = False
 
     def __call__(self, *args, **kwargs):
+        if any(isinstance(a, Symbol) for a in args):
+            return self._symbol_call(*args, **kwargs)
         if self._deferred_shapes:
             self._deferred_infer(*args)
         if not has_ndarray(args, kwargs):
@@ -194,6 +212,11 @@ class Block(nn.Module):
         """The call on tensors: the forward itself (a hybridized block
         goes through its cache first)."""
         return nn.Module.__call__(self, *args, **kwargs)
+
+    def _symbol_call(self, *args, **kwargs):
+        """The call on ``Symbol``s: a plain block's ``forward`` (a
+        ``Sequential`` runs its children on them)."""
+        return self.forward(*args, **kwargs)
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
@@ -290,7 +313,7 @@ class Block(nn.Module):
             seen = set()
             params = {k: p for k, p in params.items()
                       if id(p) not in seen and not seen.add(id(p))}
-        nd_utils.save(filename, {name: p.data().detach()
+        nd_utils.save(filename, {name: p._tensor().detach()
                                  for name, p in params.items()})
 
     def load_parameters(self, filename: str, ctx: DeviceLike = None,
@@ -476,7 +499,8 @@ class HybridBlock(Block):
         (see the module docstring); a subclass that writes ``forward``
         itself replaces it."""
         from .. import ndarray as F
-        params = {k: NDArray(p.data()) for k, p in self._reg_params.items()}
+        params = {k: NDArray(p._tensor())
+                  for k, p in self._reg_params.items()}
         with autograd._RecordingScope(torch.is_grad_enabled(), None):
             out = self.hybrid_forward(F, *_to_nd(args), **_to_nd(kwargs),
                                       **params)
@@ -486,6 +510,33 @@ class HybridBlock(Block):
         raise NotImplementedError(
             f"{type(self).__name__} defines neither forward nor "
             f"hybrid_forward")
+
+    def _symbol_call(self, x, *args, **kwargs):
+        """``hybrid_forward`` with ``F = symbol`` and the parameters as
+        their ``var()``s (``mxnet_tpu/gluon/block.py:324-329``)."""
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            raise MXNetError(
+                f"{type(self).__name__} has no symbolic body "
+                f"(hybrid_forward) and cannot be called on a Symbol")
+        from .. import symbol as F
+        params = {k: p.var() for k, p in self._reg_params.items()}
+        return self.hybrid_forward(F, x, *args, **kwargs, **params)
+
+    def export(self, path: str, epoch: int = 0) -> Tuple[str, str]:
+        """Write this block's graph on one input ``data`` to
+        ``path-symbol.json`` and every parameter's data to
+        ``path-%04d.params`` under ``arg:<name>`` (BatchNorm's running
+        statistics too: they are arguments of the graph, as in the JAX
+        package); returns the two paths."""
+        from ..ndarray import utils as nd_utils
+        out = self(Symbol.var("data"))
+        sym_file = f"{path}-symbol.json"
+        out.save(sym_file)
+        params_file = f"{path}-{epoch:04d}.params"
+        nd_utils.save(params_file, {
+            f"arg:{name}": p._tensor().detach()
+            for name, p in self.collect_params().items()})
+        return sym_file, params_file
 
     def _forward_call(self, *args, **kwargs):
         if not self._active or cached_op.inline():
@@ -694,3 +745,67 @@ class CachedGraph:
                                                                own=own)
             graph = entry.graphs[("infer",)]
         return graph
+
+
+class SymbolBlock(HybridBlock):
+    """A block over a ``Symbol`` graph and its parameters (MXNet's
+    ``gluon.SymbolBlock``; the JAX package's ``mxnet_tpu/gluon/block.py:
+    749-782``): ``outputs`` the graph, ``inputs`` the variables the
+    caller feeds, ``params`` a ``name -> NDArray`` dict of the rest.
+
+    Each entry of ``params`` becomes a :class:`Parameter` of that name
+    (``grad_req="null"``: the JAX package's imported arrays take no
+    gradient) on the array's device; ``collect_params()`` lists them.
+    ``forward`` feeds the inputs and the parameters' tensors to the graph
+    and runs it through the symbol executor (``Symbol.compile``: the
+    registry's ops on torch tensors), and returns one output, or a list
+    of several.  It is a ``HybridBlock``, as MXNet's is (the JAX class is
+    a plain ``Block``), so ``hybridize()`` and ``cached_graph()`` capture
+    its forward into CUDA graphs on the card, as for any other block.
+    Calling it on a ``Symbol`` raises (no symbolic body, as in the JAX
+    package).  ``imports`` loads an ``export``ed pair."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="symbolblock_", params=None)
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(outputs)
+        inputs = inputs if isinstance(inputs, (list, tuple)) else [inputs]
+        self._input_names = [s.name for s in inputs]
+        self._run = outputs.compile()
+        for name, value in (params or {}).items():
+            value = value._data if isinstance(value, NDArray) \
+                else torch.as_tensor(np.asarray(value))
+            p = Parameter(name, grad_req="null", shape=tuple(value.shape),
+                          dtype=value.dtype)
+            p.set_data(value, value.device)
+            self._params._params[name] = p
+            self._reg_params[name] = p
+            # nn.Module's keys take no dots; MXNet's names may
+            self._parameters[name.replace(".", "_")] = p._data
+
+    @staticmethod
+    def imports(symbol_file: str, input_names,
+                param_file: Optional[str] = None,
+                ctx: DeviceLike = None) -> "SymbolBlock":
+        """A ``SymbolBlock`` over an exported pair: the graph of
+        ``symbol_file``, ``input_names`` (a name or a list) as its inputs,
+        and the arrays of ``param_file`` (``arg:``/``aux:`` prefixes
+        dropped) on ``ctx`` (the current context, ``gpu(0)`` unless the
+        caller is in another)."""
+        from ..ndarray import utils as nd_utils
+        from ..symbol import load
+        params = {}
+        if param_file:
+            for k, v in nd_utils.load(param_file, ctx=ctx).items():
+                params[k.split(":", 1)[1] if ":" in k else k] = v
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        return SymbolBlock(load(symbol_file),
+                           [Symbol.var(n) for n in input_names], params)
+
+    def forward(self, *args):
+        feed = dict(zip(self._input_names, args))
+        for name, p in self._reg_params.items():
+            feed[name] = p._tensor()
+        outs = self._run(feed)
+        return outs[0] if len(outs) == 1 else list(outs)

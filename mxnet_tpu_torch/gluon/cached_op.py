@@ -23,7 +23,7 @@ which inputs take a gradient.  On a CUDA device:
   one ``torch.autograd.Function`` (:class:`_Replay`) whose forward
   replays the forward graph and whose backward replays the backward
   graph.  The captured forward reads leaves of its own that share the
-  parameters' storage (``Parameter.data()`` returns them while it runs),
+  parameters' storage (``Parameter._tensor()`` returns them while it runs),
   and the backward graph computes the gradients with respect to those;
   the parameters themselves are inputs of the Function, so their
   gradients reach ``.grad`` through autograd as in an eager call, and

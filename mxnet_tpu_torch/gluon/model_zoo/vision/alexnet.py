@@ -41,6 +41,9 @@ class AlexNet(HybridBlock):
     def forward(self, x):
         return self.output(self.features(x))
 
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
+
 
 def alexnet(pretrained=False, ctx=None, **kwargs):
     return finish(AlexNet(**kwargs), pretrained, ctx)

@@ -51,6 +51,9 @@ class _DenseLayer(HybridBlock):
     def forward(self, x):
         return torch.cat([x, self.body(x)], dim=1)
 
+    def hybrid_forward(self, F, x):
+        return F.concat(x, self.body(x), dim=1)
+
 
 def _make_dense_block(num_layers, bn_size, growth_rate, dropout,
                       stage_index):
@@ -98,6 +101,9 @@ class DenseNet(HybridBlock):
             self.output = nn.Dense(classes)
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

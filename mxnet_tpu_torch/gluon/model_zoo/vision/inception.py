@@ -114,6 +114,12 @@ class _InceptionE(HybridBlock):
         return torch.cat([self.b0(x), self.b1_a(y1), self.b1_b(y1),
                           self.b2_a(y2), self.b2_b(y2), self.b3(x)], dim=1)
 
+    def hybrid_forward(self, F, x):
+        y1 = self.b1_stem(x)
+        y2 = self.b2_stem(x)
+        return F.concat(self.b0(x), self.b1_a(y1), self.b1_b(y1),
+                        self.b2_a(y2), self.b2_b(y2), self.b3(x), dim=1)
+
 
 class Inception3(HybridBlock):
     def __init__(self, classes=1000, **kwargs):
@@ -145,6 +151,9 @@ class Inception3(HybridBlock):
             self.output = nn.Dense(classes)
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

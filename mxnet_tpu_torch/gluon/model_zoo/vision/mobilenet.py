@@ -55,6 +55,9 @@ class LinearBottleneck(HybridBlock):
         out = self.out(x)
         return out + x if self.use_shortcut else out
 
+    def hybrid_forward(self, F, x):
+        return self.forward(x)
+
 
 class MobileNet(HybridBlock):
     def __init__(self, multiplier=1.0, classes=1000, **kwargs):
@@ -77,6 +80,9 @@ class MobileNet(HybridBlock):
             self.output = nn.Dense(classes)
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 
@@ -111,6 +117,9 @@ class MobileNetV2(HybridBlock):
                                 nn.Flatten())
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

@@ -5,10 +5,13 @@ Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py``: the same
 blocks, stage widths, stride placement and creation order, so
 ``collect_params()`` names match the JAX package's and
 ``load_reference_params`` carries weights and BatchNorm running statistics
-across.  The JAX blocks leave ``in_channels`` to deferred shape inference;
-here every layer is given its channel count.  Data is NCHW (``layout``
-"NHWC" raises).  ``pretrained=True`` raises, as the JAX package's
-``get_resnet`` does (no download); ``ctx`` initializes the net there.
+across.  Each block's ``hybrid_forward`` is the JAX block's body
+(``mxnet_tpu/gluon/model_zoo/vision/resnet.py:53-230``), which a call on a
+``Symbol`` (``export``) runs.  The JAX blocks leave ``in_channels`` to
+deferred shape inference; here every layer is given its channel count.
+Data is NCHW (``layout`` "NHWC" raises).  ``pretrained=True`` raises, as
+the JAX package's ``get_resnet`` does (no download); ``ctx`` initializes
+the net there.
 """
 from __future__ import annotations
 
@@ -54,6 +57,13 @@ class BasicBlockV1(HybridBlock):
         residual = x if self.downsample is None else self.downsample(x)
         return (residual + self.body(x)).relu()
 
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(residual + x, act_type="relu")
+
 
 class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
@@ -77,6 +87,13 @@ class BottleneckV1(HybridBlock):
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
         return (self.body(x) + residual).relu()
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
 
 
 class BasicBlockV2(HybridBlock):
@@ -102,6 +119,14 @@ class BasicBlockV2(HybridBlock):
             residual = self.downsample(x)
         x = self.conv2(self.bn2(self.conv1(x)).relu())
         return x + residual
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = F.Activation(self.bn2(self.conv1(x)), act_type="relu")
+        return self.conv2(x) + residual
 
 
 class BottleneckV2(HybridBlock):
@@ -132,6 +157,15 @@ class BottleneckV2(HybridBlock):
             residual = self.downsample(x)
         x = self.bn2(self.conv1(x)).relu()
         x = self.bn3(self.conv2(x)).relu()
+        return self.conv3(x) + residual
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = F.Activation(self.bn2(self.conv1(x)), act_type="relu")
+        x = F.Activation(self.bn3(self.conv2(x)), act_type="relu")
         return self.conv3(x) + residual
 
 
@@ -187,6 +221,9 @@ class ResNetV1(HybridBlock):
     def forward(self, x):
         return self.output(self.features(x))
 
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
+
 
 class ResNetV2(HybridBlock):
     """A BN of the input (no scale, no shift), the v1 stem, the stages of
@@ -217,6 +254,9 @@ class ResNetV2(HybridBlock):
             self.output = nn.Dense(classes, in_units=width)
 
     def forward(self, x):
+        return self.output(self.features(x))
+
+    def hybrid_forward(self, F, x):
         return self.output(self.features(x))
 
 

@@ -68,6 +68,9 @@ class SqueezeNet(HybridBlock):
     def forward(self, x):
         return self.output(self.features(x))
 
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
+
 
 def squeezenet1_0(pretrained=False, ctx=None, **kwargs):
     return finish(SqueezeNet("1.0", **kwargs), pretrained, ctx)

@@ -56,6 +56,9 @@ class VGG(HybridBlock):
     def forward(self, x):
         return self.output(self.features(x))
 
+    def hybrid_forward(self, F, x):
+        return self.output(self.features(x))
+
 
 def get_vgg(num_layers, pretrained=False, ctx=None, **kwargs):
     if num_layers not in vgg_spec:

@@ -2,7 +2,9 @@
 Identity, Dense, Activation, the parametric and fixed activations
 (LeakyReLU, PReLU, ELU, SELU, GELU, Swish), Flatten, Dropout, BatchNorm,
 InstanceNorm, LayerNorm, GroupNorm, Embedding, Lambda, HybridLambda and
-ReflectionPad2D.
+ReflectionPad2D.  Each hybrid layer's ``forward`` is its eager path (in
+torch ops) and its ``hybrid_forward`` the JAX package's body, op for op,
+which runs on ``Symbol``s (``Block`` symbolic mode, ``export``).
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``, with the same
 parameter names, shapes (``(units, in_units)`` Dense weights) and defaults
@@ -91,6 +93,9 @@ class HybridSequential(_Stack, HybridBlock):
             x = child(x)
         return x
 
+    def hybrid_forward(self, F, x):
+        return self.forward(x)
+
 
 class HybridConcurrent(_Stack, HybridBlock):
     """Runs every child on the same input and concatenates the outputs on
@@ -104,9 +109,16 @@ class HybridConcurrent(_Stack, HybridBlock):
         return torch.cat([child(x) for child in self._modules.values()],
                          dim=self.axis)
 
+    def hybrid_forward(self, F, x):
+        return F.concat(*[child(x) for child in self._modules.values()],
+                        dim=self.axis)
+
 
 class Identity(HybridBlock):
     def forward(self, x):
+        return x
+
+    def hybrid_forward(self, F, x):
         return x
 
 
@@ -121,6 +133,7 @@ class Dense(HybridBlock):
         super().__init__(prefix=prefix, params=params)
         self._units = units
         self._flatten = flatten
+        self._act_type = activation
         self._act = _activation(activation) if activation else None
         with self.name_scope():
             self.weight = self.params.get(
@@ -138,10 +151,21 @@ class Dense(HybridBlock):
         if self._flatten:
             x = x.reshape(x.shape[0], -1)
         # FullyConnected: LP16 under AMP
-        x, w, b = _amp.cast("FullyConnected", x, self.weight.data(),
-                            None if self.bias is None else self.bias.data())
+        x, w, b = _amp.cast("FullyConnected", x, self.weight._tensor(),
+                            None if self.bias is None else self.bias._tensor())
         out = F.linear(x, w, b)
         return out if self._act is None else self._act(out)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        if bias is None:
+            out = F.FullyConnected(x, weight, num_hidden=self._units,
+                                   no_bias=True, flatten=self._flatten)
+        else:
+            out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   no_bias=False, flatten=self._flatten)
+        if self._act_type:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
 
 
 class Activation(HybridBlock):
@@ -149,10 +173,14 @@ class Activation(HybridBlock):
 
     def __init__(self, activation, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
+        self._act_type = activation
         self._act = _activation(activation)
 
     def forward(self, x):
         return self._act(x)
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
 
 
 class Flatten(HybridBlock):
@@ -161,16 +189,23 @@ class Flatten(HybridBlock):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 
+    def hybrid_forward(self, F, x):
+        return F.flatten(x)
+
 
 class LeakyReLU(HybridBlock):
     """``x`` where ``x >= 0``, else ``alpha * x``."""
 
     def __init__(self, alpha, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
         self._fn = leaky_relu_maker("leaky", slope=alpha)
 
     def forward(self, x):
         return self._fn(x)
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
 
 
 class PReLU(HybridBlock):
@@ -186,16 +221,23 @@ class PReLU(HybridBlock):
                 init=alpha_initializer or _init.Constant(0.25))
 
     def forward(self, x):
-        return self._fn(x, self.alpha.data())
+        return self._fn(x, self.alpha._tensor())
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
 
 
 class ELU(HybridBlock):
     def __init__(self, alpha=1.0, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
         self._fn = leaky_relu_maker("elu", slope=alpha)
 
     def forward(self, x):
         return self._fn(x)
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
 
 
 class SELU(HybridBlock):
@@ -206,12 +248,18 @@ class SELU(HybridBlock):
     def forward(self, x):
         return self._fn(x)
 
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
 
 class GELU(HybridBlock):
     """The erf form."""
 
     def forward(self, x):
         return F.gelu(x)
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")
 
 
 class Swish(HybridBlock):
@@ -223,6 +271,9 @@ class Swish(HybridBlock):
 
     def forward(self, x):
         return x * torch.sigmoid(self._beta * x)
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
 
 
 class Dropout(HybridBlock):
@@ -242,6 +293,9 @@ class Dropout(HybridBlock):
         if self._masked is not None:
             return self._masked(x)
         return F.dropout(x, self._rate, training=autograd.is_training())
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes)
 
 
 class BatchNorm(HybridBlock):
@@ -324,9 +378,9 @@ class BatchNorm(HybridBlock):
         return self._normalize(x.movedim(ax, 1)).movedim(1, ax)
 
     def _normalize(self, x):
-        gamma = self.gamma.data() if self._scale else None
-        beta = self.beta.data()
-        r_mean, r_var = self.running_mean.data(), self.running_var.data()
+        gamma = self.gamma._tensor() if self._scale else None
+        beta = self.beta._tensor()
+        r_mean, r_var = self.running_mean._tensor(), self.running_var._tensor()
         if not (autograd.is_training() and not self._use_global_stats):
             return F.batch_norm(x, r_mean, r_var, gamma, beta, False, 0.0,
                                 self._epsilon)
@@ -342,6 +396,17 @@ class BatchNorm(HybridBlock):
         return F.batch_norm(x, None, None, gamma, beta, True, 0.0,
                             self._epsilon)
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        # one output: the port's BatchNorm op updates the statistics in
+        # place (the JAX op returns them as two more)
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           eps=self._epsilon, momentum=self._momentum,
+                           fix_gamma=not self._scale,
+                           use_global_stats=self._use_global_stats,
+                           axis=self._axis,
+                           _training=autograd.is_training()
+                           and not self._use_global_stats)
+
 
 class InstanceNorm(HybridBlock):
     """Normalises each sample's channel (axis 1) over its spatial axes,
@@ -353,6 +418,7 @@ class InstanceNorm(HybridBlock):
         super().__init__(prefix=prefix, params=params)
         if axis != 1:
             raise MXNetError("InstanceNorm: the port takes axis 1 only")
+        self._epsilon = epsilon
         self._fn = instancenorm_maker(epsilon)
         with self.name_scope():
             self.gamma = self.params.get("gamma", shape=(in_channels,),
@@ -367,7 +433,10 @@ class InstanceNorm(HybridBlock):
             p._finish_deferred_init((x.shape[1],))
 
     def forward(self, x):
-        return self._fn(x, self.gamma.data(), self.beta.data())
+        return self._fn(x, self.gamma._tensor(), self.beta._tensor())
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
 
 
 class GroupNorm(HybridBlock):
@@ -378,6 +447,7 @@ class GroupNorm(HybridBlock):
                  beta_initializer="zeros", gamma_initializer="ones",
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
+        self._num_groups, self._epsilon = num_groups, epsilon
         self._fn = groupnorm_maker(num_groups, epsilon)
         with self.name_scope():
             self.gamma = self.params.get("gamma", shape=(num_groups,),
@@ -386,7 +456,11 @@ class GroupNorm(HybridBlock):
                                         init=beta_initializer)
 
     def forward(self, x):
-        return self._fn(x, self.gamma.data(), self.beta.data())
+        return self._fn(x, self.gamma._tensor(), self.beta._tensor())
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
 
 
 class LayerNorm(HybridBlock):
@@ -412,13 +486,17 @@ class LayerNorm(HybridBlock):
 
     def forward(self, x):
         # FP32 under AMP
-        x, gamma, beta = _amp.cast("LayerNorm", x, self.gamma.data(),
-                                   self.beta.data())
+        x, gamma, beta = _amp.cast("LayerNorm", x, self.gamma._tensor(),
+                                   self.beta._tensor())
         ax = self._axis % x.dim()
         if ax != x.dim() - 1:
             return F.layer_norm(x.movedim(ax, -1), (x.shape[ax],), gamma,
                                 beta, self._epsilon).movedim(-1, ax)
         return F.layer_norm(x, (x.shape[-1],), gamma, beta, self._epsilon)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
 
 
 class Embedding(HybridBlock):
@@ -433,7 +511,7 @@ class Embedding(HybridBlock):
         if sparse_grad:
             raise MXNetError("Embedding(sparse_grad=True): the port has no "
                              "row-sparse gradients; its gradient is dense")
-        self._input_dim = input_dim
+        self._input_dim, self._output_dim = input_dim, output_dim
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
@@ -441,7 +519,11 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         ids = x.long().clamp(0, self._input_dim - 1)
-        return F.embedding(ids, self.weight.data())
+        return F.embedding(ids, self.weight._tensor())
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim, sparse_grad=False)
 
 
 class Lambda(Block):
@@ -493,3 +575,8 @@ class ReflectionPad2D(HybridBlock):
 
     def forward(self, x):
         return F.pad(x, self._padding, mode="reflect")
+
+    def hybrid_forward(self, F, x):
+        left, right, t, b = self._padding
+        return F.pad(x, mode="reflect",
+                     pad_width=(0, 0, 0, 0, t, b, left, right))

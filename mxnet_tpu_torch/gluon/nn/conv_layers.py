@@ -19,6 +19,12 @@ and zeros for average; ``ceil_mode=True`` is the ``full`` convention (the
 last partial window counts); an average divides by the whole window
 unless ``count_include_pad=False``, which divides by the window's cells
 inside the input.  Channels-last layouts (NHWC) raise ``MXNetError``.
+
+Each layer's ``hybrid_forward`` is the JAX layer's, with its op
+attributes (``kernel``, ``stride``, ``dilate``, ``pad``, ``num_filter``,
+``num_group``, ``no_bias``, ``adj``; the pools' ``kernel``, ``stride``,
+``pad``, ``pool_type``, ``global_pool``, ``pooling_convention``), for the
+symbolic mode of ``gluon/block.py``.
 """
 from __future__ import annotations
 
@@ -71,6 +77,14 @@ class _Conv(HybridBlock):
         self._kw = dict(stride=_tuple(strides, n), padding=_tuple(padding, n),
                         dilation=_tuple(dilation, n), groups=groups,
                         **{k: _tuple(v, n) for k, v in extra.items()})
+        # the JAX layer's op attributes, for the symbolic body
+        self._sym_kw = {"kernel": self._kernel, "stride": self._kw["stride"],
+                        "dilate": self._kw["dilation"],
+                        "pad": self._kw["padding"], "num_filter": channels,
+                        "num_group": groups, "no_bias": not use_bias}
+        if "output_padding" in self._kw:
+            self._sym_kw["adj"] = self._kw["output_padding"]
+        self._act_type = activation
         self._act = _activation(activation) if activation else None
         with self.name_scope():
             self.weight = self.params.get(
@@ -90,10 +104,20 @@ class _Conv(HybridBlock):
 
     def forward(self, x):
         # Convolution / Deconvolution: LP16 under AMP
-        x, w, b = _amp.cast(self._op, x, self.weight.data(),
-                            None if self.bias is None else self.bias.data())
+        x, w, b = _amp.cast(self._op, x, self.weight._tensor(),
+                            None if self.bias is None else self.bias._tensor())
         out = self._fn(x, w, b, **self._kw)
         return out if self._act is None else self._act(out)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        op = getattr(F, self._op)
+        if bias is None:
+            out = op(x, weight, **self._sym_kw)
+        else:
+            out = op(x, weight, bias, **self._sym_kw)
+        if self._act_type:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
 
 
 def _conv(n, transpose):
@@ -144,21 +168,29 @@ class _Pooling(HybridBlock):
     parameters."""
 
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
-                 pool_type, count_include_pad=True, layout="NCHW",
+                 pool_type, count_include_pad=None, layout="NCHW",
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         n = len(pool_size)
         _channels_first(layout, n)
-        self._fn = pooling_maker(
-            kernel=pool_size,
-            stride=_tuple(strides, n) if strides is not None else pool_size,
-            pad=_tuple(padding, n), pool_type=pool_type,
-            global_pool=global_pool,
-            pooling_convention="full" if ceil_mode else "valid",
-            count_include_pad=count_include_pad)
+        # the JAX layer's op attributes (``count_include_pad`` only where
+        # the layer takes it: the average pools)
+        self._sym_kw = {
+            "kernel": pool_size,
+            "stride": _tuple(strides, n) if strides is not None
+            else pool_size,
+            "pad": _tuple(padding, n), "pool_type": pool_type,
+            "global_pool": global_pool,
+            "pooling_convention": "full" if ceil_mode else "valid"}
+        if count_include_pad is not None:
+            self._sym_kw["count_include_pad"] = count_include_pad
+        self._fn = pooling_maker(**self._sym_kw)
 
     def forward(self, x):
         return self._fn(x)
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, **self._sym_kw)
 
 
 def _pool(n, pool_type):

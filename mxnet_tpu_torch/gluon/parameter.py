@@ -7,6 +7,15 @@ that tensor's ``.data`` in place, so every module that registered it (a
 tied weight is registered by two) sees the change, and a weight shared by
 two blocks gets one gradient.
 
+The public surface is MXNet's (``mxnet_tpu/gluon/parameter.py:137-213``):
+``data()``, ``list_data()``, ``grad()`` and ``list_grad()`` return
+``NDArray``s over the parameter's storage, so ``p.data()[:] = x`` is what
+the next forward reads, and ``grad()`` reads the buffer the latest
+backward wrote (it looks the buffer up at each use); ``list_ctx()`` gives
+the one context, ``var()`` a ``Symbol`` variable of the parameter's name
+and shape.  The port's layers read the ``nn.Parameter`` itself through
+``_tensor()`` and its gradient through ``_grad_tensor()``.
+
 Deferred initialization (MXNet's, as ``mxnet_tpu/gluon/parameter.py``
 :50-125 runs it): a parameter made with ``allow_deferred_init=True`` may
 have 0 (unknown) dimensions.  ``initialize()`` then records the
@@ -80,7 +89,8 @@ from torch import nn
 
 from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
-from ..context import DeviceLike, as_device
+from ..context import Context, DeviceLike, as_device, context_of
+from ..ndarray.ndarray import NDArray
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
@@ -106,11 +116,11 @@ _stand_ins = threading.local()
 
 
 class standing_in:
-    """While open in this thread, ``data()`` of a parameter in ``aliases``
-    (``{id(param): tensor}``) returns its stand-in: a CUDA-graph capture
-    (``gluon/cached_op.py``) runs the forward on leaves of its own that
-    share the parameters' storage, so that the captured backward reaches
-    no parameter's gradient accumulator or hook."""
+    """While open in this thread, ``_tensor()`` of a parameter in
+    ``aliases`` (``{id(param): tensor}``) returns its stand-in: a
+    CUDA-graph capture (``gluon/cached_op.py``) runs the forward on leaves
+    of its own that share the parameters' storage, so that the captured
+    backward reaches no parameter's gradient accumulator or hook."""
 
     def __init__(self, aliases: Dict[int, torch.Tensor]):
         self._aliases = aliases
@@ -278,7 +288,9 @@ class Parameter:
         if self._initialized:
             self._set(self._data.detach().to(self.dtype, copy=True))
 
-    def data(self) -> nn.Parameter:
+    def _tensor(self) -> nn.Parameter:
+        """The data as the port's layers read it: the ``nn.Parameter``
+        (its stand-in while a capture runs, ``standing_in``)."""
         if not self._initialized:
             if self._deferred is not None:
                 raise DeferredInitializationError(
@@ -291,9 +303,9 @@ class Parameter:
             return aliases.get(id(self), self._data)
         return self._data
 
-    def grad(self) -> torch.Tensor:
+    def _grad_tensor(self) -> torch.Tensor:
         """The gradient buffer (zeros before the first backward)."""
-        data = self.data()
+        data = self._tensor()
         if self._grad_req == "null":
             raise MXNetError(
                 f"Parameter {self.name!r} has grad_req='null'; no gradient")
@@ -301,8 +313,41 @@ class Parameter:
             data.grad = torch.zeros_like(data)
         return data.grad
 
-    def list_grad(self) -> List[torch.Tensor]:
+    def _check_ctx(self, ctx) -> None:
+        if ctx is not None and as_device(ctx) != self._data.device:
+            raise MXNetError(
+                f"Parameter {self.name!r} not initialized on {ctx}; it "
+                f"lives on {context_of(self._data.device)}")
+
+    def data(self, ctx: DeviceLike = None) -> NDArray:
+        """The data as an ``NDArray`` over the parameter's storage: a write
+        into it (``data()[:] = x``) is what the next forward reads."""
+        data = self._tensor()
+        self._check_ctx(ctx)
+        return NDArray(data)
+
+    def list_data(self) -> List[NDArray]:
+        return [self.data()]
+
+    def list_ctx(self) -> List[Context]:
+        self._tensor()
+        return [context_of(self._data.device)]
+
+    def grad(self, ctx: DeviceLike = None) -> NDArray:
+        """The gradient buffer as an ``NDArray`` (zeros before the first
+        backward) that reads the buffer at every use: after the next
+        backward it holds that backward's gradient."""
+        self._grad_tensor()
+        self._check_ctx(ctx)
+        return _GradArray(self)
+
+    def list_grad(self) -> List[NDArray]:
         return [self.grad()]
+
+    def var(self):
+        """A ``Symbol`` variable of this parameter's name and shape."""
+        from ..symbol import Symbol
+        return Symbol.var(self.name, shape=self.shape)
 
     def zero_grad(self) -> None:
         if self._grad_req == "null" or not self._initialized:
@@ -328,6 +373,8 @@ class Parameter:
         device, a deferred one goes where ``initialize`` said, and one
         never initialized to the default context.  A shape still unknown
         is taken from ``value``."""
+        if isinstance(value, NDArray):
+            value = value._data
         src = value if isinstance(value, torch.Tensor) \
             else _from_numpy(np.asarray(value))
         if not self.accepts_shape(src.shape):
@@ -362,6 +409,23 @@ class Parameter:
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
                 f"dtype={self.dtype})")
+
+
+class _GradArray(NDArray):
+    """``Parameter.grad()``: an ``NDArray`` whose tensor is the
+    parameter's gradient buffer as it is at each use.  A ``"write"``
+    backward may hand its gradient over as a new tensor (the parameter's
+    hook drops the old one, ``Parameter._on_grad``), so the array looks
+    it up instead of holding one."""
+
+    __slots__ = ("_param",)
+
+    def __init__(self, param: "Parameter"):
+        self._param = param
+
+    @property
+    def _data(self) -> torch.Tensor:
+        return self._param._grad_tensor()
 
 
 class _ConstantInit(init_mod.Initializer):
@@ -468,7 +532,7 @@ class ParameterDict:
         for name, p in self._params.items():
             if strip_prefix and name.startswith(strip_prefix):
                 name = name[len(strip_prefix):]
-            arrays[name] = p.data().detach()
+            arrays[name] = p._tensor().detach()
         nd_utils.save(fname, arrays)
 
     def load(self, fname: str, ctx: DeviceLike = None,

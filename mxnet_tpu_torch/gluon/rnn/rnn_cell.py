@@ -159,10 +159,10 @@ class _GatedCell(RecurrentCell):
             (self._gates * self._hidden_size, x.shape[-1]))
 
     def _projections(self, x, h):
-        return (torch.nn.functional.linear(x, self.i2h_weight.data(),
-                                           self.i2h_bias.data()),
-                torch.nn.functional.linear(h, self.h2h_weight.data(),
-                                           self.h2h_bias.data()))
+        return (torch.nn.functional.linear(x, self.i2h_weight._tensor(),
+                                           self.i2h_bias._tensor()),
+                torch.nn.functional.linear(h, self.h2h_weight._tensor(),
+                                           self.h2h_bias._tensor()))
 
 
 class RNNCell(_GatedCell):

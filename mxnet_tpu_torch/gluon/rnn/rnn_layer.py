@@ -145,7 +145,7 @@ class _RNNLayer(HybridBlock):
         elif isinstance(states, torch.Tensor):
             states = [states]
         self._flatten()
-        layers = [[p.data() for p in params] for params in self._by_layer]
+        layers = [[p._tensor() for p in params] for params in self._by_layer]
         outs = rnn_run(self._mode, inputs, layers, states[0],
                        states[1] if self._mode == "lstm" else None,
                        self._dir == 2,

@@ -112,7 +112,7 @@ class Trainer:
         if self._update_on_kvstore:
             self._kvstore.set_optimizer(self._optimizer)
             self._kvstore.init(list(range(len(self._params))),
-                               [NDArray(p.data().detach())
+                               [NDArray(p._tensor().detach())
                                 for p in self._params])
         self._kv_initialized = True
 
@@ -138,10 +138,10 @@ class Trainer:
             live = list(self._live(ignore_stale_grad))
             keys = [i for i, _ in live]
             if keys:
-                self._kvstore.push(keys, [NDArray(p.grad())
+                self._kvstore.push(keys, [NDArray(p._grad_tensor())
                                           for _, p in live])
             for i, param in live:
-                self._kvstore.pull(i, out=NDArray(param.data().detach()))
+                self._kvstore.pull(i, out=NDArray(param._tensor().detach()))
                 param.fresh = True
             return
         self.allreduce_grads()
@@ -172,7 +172,7 @@ class Trainer:
             group.clear()
 
         for i, param in self._live(ignore_stale_grad):
-            data = param.data()
+            data = param._tensor()
             if i not in self._states:
                 self._states[i] = \
                     self._optimizer.create_state_multi_precision(i, data)
@@ -183,12 +183,12 @@ class Trainer:
                     f"optimizer state was made for "
                     f"{self._state_dtypes[i]}: cast before the first step")
             if use_multi:
-                group.append((i, data, param.grad(), self._states[i]))
+                group.append((i, data, param._grad_tensor(), self._states[i]))
                 if len(group) >= agg:
                     flush()
             else:
                 self._optimizer.update_multi_precision(
-                    i, data, param.grad(), self._states[i])
+                    i, data, param._grad_tensor(), self._states[i])
             # the next backward writes a fresh gradient
             param.fresh = True
         flush()
@@ -224,7 +224,7 @@ class Trainer:
         for i, param in enumerate(self._params):
             if str(i) not in blob["states"]:
                 continue
-            data = param.data()
+            data = param._tensor()
             fresh = self._optimizer.create_state_multi_precision(i, data)
             self._states[i] = opt_mod.states_from_np(
                 blob["states"][str(i)], data.device, fresh)

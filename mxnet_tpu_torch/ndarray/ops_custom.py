@@ -24,7 +24,11 @@ they run inline, as the JAX package's eager path does.  Semantics:
   reached gets a zero gradient, as in MXNet.
 
 On ``NDArray`` inputs the op runs on their tensors and returns
-``NDArray``s (``register.boundary``); the user's operator sees tensors.
+``NDArray``s (``register.boundary``).  The user's operator sees
+``in_data``, ``out_data``, ``out_grad`` and ``in_grad`` as ``NDArray``s
+over the tensors of the call, as MXNet's and the JAX package's do
+(``mxnet_tpu/operator.py:92-128``): ``assign`` into one writes the
+output or the gradient, and ``nd`` ops and ``rtc`` launches take them.
 
 The registry of props (``register`` in ``mxnet_tpu_torch/operator.py``
 fills it) lives here, beside the op that looks names up in it.
@@ -38,6 +42,7 @@ import torch
 from .. import autograd
 from ..base import MXNetError, torch_dtype
 from ..context import DeviceLike, as_device
+from .ndarray import NDArray
 from .register import boundary, register_op
 
 __all__ = ["Custom"]
@@ -57,6 +62,12 @@ def _out_dtypes(prop, in_dtypes: List[torch.dtype],
             for i in range(n_out)]
 
 
+def _wrap(tensors) -> List[NDArray]:
+    """The user's view of a callback's arrays: ``NDArray``s over the
+    tensors themselves, so what the op writes lands in them."""
+    return [NDArray(t) for t in tensors]
+
+
 class _CustomNode(autograd.Function):
     """One call of a custom op: the user's operator between torch's
     forward and backward."""
@@ -73,7 +84,7 @@ class _CustomNode(autograd.Function):
         outs = [torch.zeros(shape, dtype=dt, device=self._device)
                 for shape, dt in self._out_specs]
         self._op.forward(is_train=self._is_train, req=["write"] * len(outs),
-                         in_data=list(ins), out_data=outs, aux=[])
+                         in_data=_wrap(ins), out_data=_wrap(outs), aux=[])
         self.save_for_backward(*ins, *outs)
         self._n_in = len(ins)
         return tuple(outs) if len(outs) > 1 else outs[0]
@@ -83,8 +94,9 @@ class _CustomNode(autograd.Function):
         outs = list(self.saved_tensors[self._n_in:])
         in_grads = [torch.zeros_like(x) for x in ins]
         self._op.backward(req=["write"] * len(in_grads),
-                          out_grad=list(out_grads), in_data=ins,
-                          out_data=outs, in_grad=in_grads, aux=[])
+                          out_grad=_wrap(out_grads), in_data=_wrap(ins),
+                          out_data=_wrap(outs), in_grad=_wrap(in_grads),
+                          aux=[])
         return tuple(in_grads)
 
 

@@ -34,7 +34,10 @@ b_ih, b_hh)`` and gate orders (LSTM i, f, g, o; GRU r, z, n with
   (1 - ``momentum``) * batch), as MXNet does; otherwise it uses the
   moving statistics.  It returns ``out`` (and the batch mean and
   variance with ``output_mean_var``).  The JAX op returns ``(out,
-  new_mean, new_var)`` and mutates nothing;
+  new_mean, new_var)`` and mutates nothing.  ``_training``, the mode a
+  Gluon ``BatchNorm`` recorded when it was called on a ``Symbol`` (an
+  exported graph has it False), replaces ``autograd.is_training()``, as
+  in the JAX op;
 - ``Dropout`` is the identity outside training mode (unless
   ``mode="always"``); its mask comes from the device's generator
   (``mx.random``).
@@ -274,14 +277,16 @@ def softmax_output_maker(grad_scale=1.0, ignore_label=-1, multi_output=False,
 
 def batchnorm_maker(eps=1e-3, momentum=0.9, fix_gamma=True,
                     use_global_stats=False, output_mean_var=False, axis=1,
-                    cudnn_off=None):
+                    cudnn_off=None, _training=None):
     def fn(x, gamma, beta, moving_mean, moving_var):
         ax = axis % x.dim()
         dims = tuple(i for i in range(x.dim()) if i != ax)
         shape = [1] * x.dim()
         shape[ax] = x.shape[ax]
         g = torch.ones_like(gamma) if fix_gamma else gamma
-        if autograd.is_training() and not use_global_stats:
+        training = autograd.is_training() if _training is None \
+            else bool(_training)
+        if training and not use_global_stats:
             var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
             with torch.no_grad():
                 moving_mean.mul_(momentum).add_(

@@ -6,7 +6,7 @@ surface.  A ``CustomOpProp`` subclass describes an op (arguments, outputs,
 shapes, dtypes, ``need_top_grad``) and makes its operator; ``register``
 files it under a name; ``Custom(*inputs, op_type=name, **kwargs)`` (the
 same function as ``mx.nd.Custom``, ``ndarray/ops_custom.py``) runs it.  The
-operator's ``forward``/``backward`` receive tensors and write their
+operator's ``forward``/``backward`` receive ``NDArray``s and write their
 results with ``assign``.  Its callbacks may launch kernels compiled at run
 time (``mxnet_tpu_torch.rtc``).
 """
@@ -17,6 +17,7 @@ from typing import Callable, List
 import torch
 
 from .base import MXNetError
+from .ndarray.ndarray import NDArray
 from .ndarray.ops_custom import Custom, _registry
 
 __all__ = ["CustomOp", "CustomOpProp", "register", "get_all_registered",
@@ -27,12 +28,17 @@ class CustomOp:
     """The user's operator: ``forward`` and ``backward`` write their
     outputs with :meth:`assign`."""
 
-    def assign(self, dst: torch.Tensor, req: str, src) -> None:
-        """Write ``src`` into ``dst`` as ``req`` asks: ``"write"`` and
-        ``"inplace"`` overwrite, ``"add"`` accumulates, ``"null"`` (or
+    def assign(self, dst, req: str, src) -> None:
+        """Write ``src`` (an ``NDArray``, a tensor or a host array) into
+        ``dst`` (an ``NDArray`` or a tensor) as ``req`` asks: ``"write"``
+        and ``"inplace"`` overwrite, ``"add"`` accumulates, ``"null"`` (or
         None) leaves ``dst`` alone."""
         if req in ("null", None):
             return
+        if isinstance(dst, NDArray):
+            dst = dst._data
+        if isinstance(src, NDArray):
+            src = src._data
         src = torch.as_tensor(src, device=dst.device)
         if req == "add":
             dst.add_(src)

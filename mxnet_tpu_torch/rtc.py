@@ -26,13 +26,14 @@ upstream MXNet 1.x's ``mx.rtc``:
   ``int64_t``.  Anything else is refused.
 - ``CudaKernel.launch(args, ctx, grid_dims, block_dims, shared_mem=0)``
   checks every argument against the signature before any driver call
-  (tensor or number, dtype, device ``ctx``, contiguous), then launches on
+  (an array, ``NDArray`` or tensor, or a number; dtype, device ``ctx``,
+  contiguous), then launches on
   ``torch.cuda.current_stream(ctx)`` without synchronising.  A launch
   asking for more than 48 KB of dynamic shared memory raises the kernel's
   limit first (``cuFuncSetAttribute``).  A driver error raises
   ``MXNetError`` with the driver's text.
 
-Launches write in place into the tensors passed, as upstream's did.  The
+Launches write in place into the arrays passed, as upstream's did.  The
 JAX package's ``PallasKernel.launch`` returns a new array instead, only
 because TPU buffers are immutable.
 
@@ -55,6 +56,7 @@ import torch
 from .base import MXNetError
 from .context import DeviceLike, as_device
 from .kernels import _nvrtc, counters
+from .ndarray.ndarray import NDArray
 
 __all__ = ["CudaModule", "CudaKernel", "PallasModule", "PallasKernel"]
 
@@ -155,9 +157,12 @@ class CudaKernel:
             if not arg.is_tensor:
                 storage.append(_scalar(arg, value, i))
                 continue
+            if isinstance(value, NDArray):
+                value = value._data
             if not isinstance(value, torch.Tensor):
-                raise MXNetError(f"argument {i} ({arg.text}) takes a "
-                                 f"tensor, got {type(value).__name__}")
+                raise MXNetError(f"argument {i} ({arg.text}) takes an "
+                                 f"NDArray or a tensor, got "
+                                 f"{type(value).__name__}")
             if value.dtype != arg.dtype:
                 raise MXNetError(f"argument {i} ({arg.text}) takes "
                                  f"{arg.dtype}, got {value.dtype}")

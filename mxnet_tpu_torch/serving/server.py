@@ -33,8 +33,16 @@ Knobs (``base.register_env``): ``MXTPU_SERVING_MAX_BATCH``,
 ``MXTPU_SERVING_DECODE_SLOTS``, ``MXTPU_SERVING_PREFILL_MODE``,
 ``MXTPU_SERVING_MAX_NEW_TOKENS``.
 
-Not ported yet: causal tracing, the flight recorder, the stack sampler,
-the progress watchdog and ``from_exported``.
+``ModelServer.from_exported`` serves an exported graph and its
+parameters (``HybridBlock.export``) through ``SymbolBlock.imports``, as the
+JAX package's (``mxnet_tpu/serving/server.py:222-231``).  A ``SymbolBlock``
+is a ``HybridBlock``, so its batch buckets are captured graphs over the
+same page-locked staging as any other block's; a ``Block`` that is not
+hybrid (the JAX server jits it, ``_freeze_generic``) is served the same
+way, inside a ``HybridBlock`` whose forward calls it.
+
+Not ported yet: causal tracing, the flight recorder, the stack sampler
+and the progress watchdog.
 """
 from __future__ import annotations
 
@@ -49,7 +57,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, compute_dtype, get_env
-from ..gluon.block import HybridBlock
+from ..gluon.block import Block, HybridBlock, SymbolBlock
 from ..observability.registry import registry
 from .batcher import (AdmissionQueue, Batcher, DeadlineExceeded,
                       GenRequest, Request, RequestCancelled, ServerClosed,
@@ -99,8 +107,29 @@ def _host(x) -> np.ndarray:
     return a.astype(cd) if a.dtype != cd else a
 
 
+class _Hybrid(HybridBlock):
+    """A ``Block`` that is not hybrid, as a ``HybridBlock`` whose forward
+    calls it, so that ``cached_graph`` captures it."""
+
+    def __init__(self, block: Block):
+        super().__init__(prefix=block.prefix)
+        self.block = block
+
+    def forward(self, *args):
+        return self.block(*args)
+
+
+def _servable(block) -> HybridBlock:
+    if isinstance(block, HybridBlock):
+        return block
+    if isinstance(block, Block):
+        return _Hybrid(block)
+    raise MXNetError(f"ModelServer serves a gluon Block, got "
+                     f"{type(block).__name__}")
+
+
 class ModelServer:
-    """Continuous-batching inference server over one HybridBlock.
+    """Continuous-batching inference server over one Block.
 
     Requests are single samples without the batch dimension; the server
     pads them into bucketed batches and runs one forward per batch on the
@@ -120,10 +149,7 @@ class ModelServer:
                  batch_buckets: Optional[Sequence[int]] = None,
                  batch_window_us: Optional[float] = None,
                  unpad_outputs: bool = True):
-        if not isinstance(block, HybridBlock):
-            raise MXNetError(f"ModelServer serves a HybridBlock, got "
-                             f"{type(block).__name__}")
-        self._block = block
+        self._block = _servable(block)
         self.unpad_outputs = unpad_outputs
         self.max_batch = int(get_env(MAX_BATCH_ENV) if max_batch is None
                              else max_batch)
@@ -187,6 +213,17 @@ class ModelServer:
         self._drain_down = False
         self._rid = itertools.count()
         self._prev_sigterm = None
+
+    @classmethod
+    def from_exported(cls, symbol_file: str, input_names,
+                      param_file: Optional[str] = None, ctx=None, **kw
+                      ) -> "ModelServer":
+        """Serve an exported pair (``HybridBlock.export``): the graph and
+        parameters through ``SymbolBlock.imports`` on ``ctx`` (the card
+        unless the caller asks for another), ``kw`` as for the
+        constructor."""
+        return cls(SymbolBlock.imports(symbol_file, input_names,
+                                       param_file, ctx=ctx), **kw)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "ModelServer":
@@ -344,9 +381,7 @@ class ModelServer:
         and the whole graph dict at once.  In-flight batches hold the old
         graph and complete on it; no request drops.  Returns the number of
         graphs in the new set."""
-        if not isinstance(new_block, HybridBlock):
-            raise MXNetError(f"ModelServer serves a HybridBlock, got "
-                             f"{type(new_block).__name__}")
+        new_block = _servable(new_block)
         staged: Dict[Tuple, object] = {}
         for gk in list(self._graphs):
             staged[gk] = self._build_graph(new_block, gk[0], gk[1])

@@ -279,18 +279,21 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the shapes of some
         inputs (positional in ``list_arguments`` order, or by name),
-        the variables' declared ``__shape__`` and the parameter-shape
-        rules of the common layers; raises ``MXNetError`` if an input's
-        shape stays unknown."""
+        the variables' declared ``__shape__`` (without a 0) and the
+        parameter-shape rules of the common layers; raises ``MXNetError``
+        if an input's shape stays unknown."""
         known: Dict[str, Tuple[int, ...]] = {}
         for n, s in zip(self.list_arguments(), args):
             if s is not None:
                 known[n] = tuple(s)
         known.update({k: tuple(v) for k, v in kwargs.items()})
         for node in self._topo():
-            if node.is_var and node.name not in known and \
-                    node.attrs.get("__shape__"):
-                known[node.name] = tuple(node.attrs["__shape__"])
+            declared = node.attrs.get("__shape__") if node.is_var else None
+            # a 0 is an unknown dimension (a deferred Gluon parameter's
+            # var()), left to the layer rules, as in MXNet
+            if declared and all(d > 0 for d in declared) and \
+                    node.name not in known:
+                known[node.name] = tuple(declared)
         missing = [n for n in self.list_inputs() if n not in known]
         if missing:
             known.update(_infer_missing(self, known))

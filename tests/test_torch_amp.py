@@ -103,8 +103,8 @@ def test_amp_training_converges_params_stay_fp32():
     assert ours[-1] < ours[0]
     np.testing.assert_allclose(ours, theirs, rtol=2e-2)
     for p in net.collect_params().values():
-        assert p.data().dtype == torch.float32       # masters stay fp32
-        assert p.grad().dtype == torch.float32
+        assert p._tensor().dtype == torch.float32       # masters stay fp32
+        assert p._grad_tensor().dtype == torch.float32
 
 
 def test_amp_dense_matches_reference_eager():
@@ -273,4 +273,4 @@ def test_layers_cast_by_the_policy_and_gradients_stay_fp32():
     autograd.backward(out.sum())
     for p in list(conv.collect_params().values()) + \
             list(ln.collect_params().values()):
-        assert p.data().dtype == p.grad().dtype == torch.float32
+        assert p._tensor().dtype == p._grad_tensor().dtype == torch.float32

@@ -54,7 +54,7 @@ def test_param_names_mirror_reference_and_decoder_is_tied():
     assert "mlm_out_bias" in ours and "mlm_out_weight" not in ours
     assert port.mlm_decoder.weight is port.word_embed.weight
     np.testing.assert_array_equal(
-        port.mlm_decoder.weight.data().detach().numpy(),
+        port.mlm_decoder.weight._tensor().detach().numpy(),
         ref.collect_params()[ref.prefix + "word_embed_weight"]
         .data().asnumpy())
 
@@ -163,7 +163,7 @@ def test_load_reference_params_rejects_mismatch():
     with pytest.raises(MXNetError, match="shape"):
         load_reference_params(port, bad, ctx=cpu())
     # a mismatch anywhere loads nothing
-    assert not (port.word_embed.weight.data() == 1).all()
+    assert not (port.word_embed.weight._tensor() == 1).all()
 
 
 def test_load_reference_params_places_on_ctx(monkeypatch):
@@ -186,7 +186,7 @@ def test_load_reference_params_places_on_ctx(monkeypatch):
     load_reference_params(fresh, arrays)
     assert asked == [None]
     np.testing.assert_array_equal(
-        fresh.qkv.weight.data().detach().numpy(),
+        fresh.qkv.weight._tensor().detach().numpy(),
         arrays[REF_ATTN + "qkv_weight"])
 
 
@@ -200,9 +200,9 @@ def test_seeded_init_is_reproducible_and_follows_reference_rules():
     b.initialize(ctx="cpu", seed=7)
     for pa, pb in zip(a.collect_params().values(),
                       b.collect_params().values()):
-        torch.testing.assert_close(pa.data(), pb.data(), rtol=0, atol=0)
+        torch.testing.assert_close(pa._tensor(), pb._tensor(), rtol=0, atol=0)
     params = a.collect_params()
-    w = params[a.prefix + "word_embed_weight"].data()
+    w = params[a.prefix + "word_embed_weight"]._tensor()
     assert w.abs().max() <= 0.07 and w.std() > 0.03
-    assert not params[a.prefix + "nsp_bias"].data().any()
-    assert (params[a.prefix + "embed_ln_gamma"].data() == 1).all()
+    assert not params[a.prefix + "nsp_bias"]._tensor().any()
+    assert (params[a.prefix + "embed_ln_gamma"]._tensor() == 1).all()

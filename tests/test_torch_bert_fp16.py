@@ -158,8 +158,9 @@ def _port_run(init):
             with amp.scale_loss(loss, tr) as scaled:
                 autograd.backward(scaled)
             scale = tr._amp_loss_scaler.loss_scale
-            grads = by_name(lambda p: (p.grad() / scale).numpy())
-            grad_dtypes = {str(p.grad().dtype) for p in params.values()}
+            grads = by_name(lambda p: (p._grad_tensor() / scale).numpy())
+            grad_dtypes = {str(p._grad_tensor().dtype)
+                           for p in params.values()}
             skip = amp.unscale(tr)
             if not skip:
                 tr.step(1)
@@ -168,7 +169,7 @@ def _port_run(init):
                 "scale": tr._amp_loss_scaler.loss_scale, "grads": grads,
                 "grad_dtypes": grad_dtypes,
                 "mlm_dtype": str(mlm.dtype).replace("torch.", ""),
-                "weights": by_name(lambda p: p.data().detach().numpy()
+                "weights": by_name(lambda p: p._tensor().detach().numpy()
                                    .copy())})
         states = {str(t.dtype) for st in tr._states.values() for t in st}
     finally:

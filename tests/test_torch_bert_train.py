@@ -155,7 +155,7 @@ def _port_run(init, bf16: bool, steps=STEPS):
             casts.append(None)              # the first forward ends
             autograd.backward(loss)
             if grads is None:
-                grads = by_name(lambda p: p.grad().detach().clone())
+                grads = by_name(lambda p: p._grad_tensor().detach().clone())
                 mlm_dtype = str(mlm.dtype).replace("torch.", "")
             tr.step(1)
             losses.append(loss.item())
@@ -163,7 +163,7 @@ def _port_run(init, bf16: bool, steps=STEPS):
                         for t in st}
     finally:
         amp.disable()
-    final = by_name(lambda p: p.data().detach().clone())
+    final = by_name(lambda p: p._tensor().detach().clone())
     return {"losses": losses, "mlm_dtype": mlm_dtype,
             "grads": {k: g.numpy() for k, g in grads.items()},
             "grad_dtypes": {str(g.dtype) for g in grads.values()},

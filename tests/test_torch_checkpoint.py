@@ -77,7 +77,7 @@ def _jax_step(net, trainer, x, y):
 def _assert_equal_nets(port, ref, atol=0.0):
     for (k, p), q in zip(ref.collect_params().items(),
                          port.collect_params().values()):
-        np.testing.assert_allclose(q.data().detach().numpy(),
+        np.testing.assert_allclose(q._tensor().detach().numpy(),
                                    p.data().asnumpy(), rtol=0, atol=atol,
                                    err_msg=k)
 
@@ -124,7 +124,7 @@ def test_load_parameters_errors_and_options(tmp_path):
     weights = [(a, b) for a, b in zip(loose.collect_params().values(),
                                       small.collect_params().values())
                if a.name.endswith("weight")]
-    assert [torch.equal(a.data(), b.data()) for a, b in weights] == \
+    assert [torch.equal(a._tensor(), b._tensor()) for a, b in weights] == \
         [True, False]
 
 
@@ -169,7 +169,7 @@ def test_collect_params_select_setattr_and_constant():
     assert const.grad_req == jconst.grad_req == "null"
     const.initialize(ctx=cpu())
     jconst.initialize()
-    np.testing.assert_array_equal(const.data().numpy(),
+    np.testing.assert_array_equal(const._tensor().numpy(),
                                   jconst.data().asnumpy())
     assert gluon.Trainer([const], "sgd")._params == []
     port.collect_params().zero_grad()
@@ -215,7 +215,7 @@ def test_resume_equals_uninterrupted_run_bitwise(tmp_path, name, kw):
         assert torch.equal(a, b)
     for a, b in zip(resumed.collect_params().values(),
                     full.collect_params().values()):
-        assert torch.equal(a.data(), b.data())
+        assert torch.equal(a._tensor(), b._tensor())
     for i, s in full_tr._states.items():
         got, want = resumed_tr._states[i], s
         for a, b in zip(got if isinstance(got, tuple) else [got],
@@ -256,7 +256,7 @@ def test_save_states_cross_loads_both_ways(tmp_path, name, kw):
     _train_port(port, ptr, data[:2])
     ptr.save_states(str(tmp_path / "port.states"))
     for k, p in ref.collect_params().items():       # copies: no aliasing
-        p.set_data(mx.nd.array(port.collect_params()[k].data().detach()
+        p.set_data(mx.nd.array(port.collect_params()[k]._tensor().detach()
                                .numpy().copy()))
     jtr = mx.gluon.Trainer(ref.collect_params(), name, kw)
     jtr.load_states(str(tmp_path / "port.states"))
@@ -302,12 +302,12 @@ def test_update_on_kvstore_and_compression(tmp_path):
     _train_port(kv, ktr, data[:2])
     for a, b in zip(local.collect_params().values(),
                     kv.collect_params().values()):
-        torch.testing.assert_close(a.data(), b.data(), rtol=0, atol=1e-6)
+        torch.testing.assert_close(a._tensor(), b._tensor(), rtol=0, atol=1e-6)
     with pytest.raises(MXNetError, match="update_on_kvstore"):
         ktr.allreduce_grads()
     ktr.save_states(str(tmp_path / "kv.states"))
     again = _port()
-    load_reference_params(again, {k: p.data().detach().numpy() for k, p in
+    load_reference_params(again, {k: p._tensor().detach().numpy() for k, p in
                                   kv.collect_params().items()}, ctx=cpu())
     atr = gluon.Trainer(again.collect_params(), "sgd", kw,
                         kvstore="local", update_on_kvstore=True)
@@ -316,7 +316,7 @@ def test_update_on_kvstore_and_compression(tmp_path):
     _train_port(again, atr, data[2:])
     for a, b in zip(again.collect_params().values(),
                     kv.collect_params().values()):
-        assert torch.equal(a.data(), b.data())
+        assert torch.equal(a._tensor(), b._tensor())
     with pytest.raises(MXNetError, match="requires a kvstore"):
         gluon.Trainer(kv.collect_params(), "sgd", kvstore=None,
                       update_on_kvstore=True)

@@ -44,7 +44,7 @@ def steps():
         model = model.to(dtype)
         if fault is not None:          # an index: prefixes differ by net
             params = list(model.collect_params().values())
-            params[fault].data().register_hook(lambda g: g * 1.01)
+            params[fault]._tensor().register_hook(lambda g: g * 1.01)
         return chip_smoke.one_step(model, x.to(dtype), y,
                                    gluon.loss.SoftmaxCrossEntropyLoss())
 

@@ -178,7 +178,7 @@ def _bert_step(dev, bf16):
         with autograd.record():
             loss = chip_smoke.mlm_nsp_loss(*net(*batch[:3]), *batch[3:])
         autograd.backward(loss)
-        grads = {k: p.grad().detach().cpu().clone()
+        grads = {k: p._grad_tensor().detach().cpu().clone()
                  for k, p in net.collect_params().items()}
         tr.step(1)
     finally:
@@ -213,7 +213,7 @@ def test_load_reference_params_defaults_to_the_card(card):
         MultiHeadAttention
     src = MultiHeadAttention(64, 4)
     src.initialize(ctx="cpu", seed=2)
-    arrays = {k: p.data().detach().numpy()
+    arrays = {k: p._tensor().detach().numpy()
               for k, p in src.collect_params().items()}
     net = MultiHeadAttention(64, 4)
     load_reference_params(net, arrays)
@@ -554,7 +554,7 @@ def test_train_step_on_card_matches_cpu(card):
     src = _small_resnet()
     src.initialize(initializer.Xavier("gaussian", "in", 2), ctx="cpu",
                    seed=3)
-    arrays = {k: p.data().detach().numpy()
+    arrays = {k: p._tensor().detach().numpy()
               for k, p in src.collect_params().items()}
     rs = np.random.RandomState(0)
     x = rs.randn(4, 3, 32, 32).astype(np.float32)
@@ -573,7 +573,7 @@ def test_train_step_on_card_matches_cpu(card):
         autograd.backward(loss)
         tr.step(4)
         out.append([loss.detach().cpu().numpy()] +
-                   [p.data().detach().cpu().numpy()
+                   [p._tensor().detach().cpu().numpy()
                     for p in net.collect_params().values()])
     for a, b in zip(*out):
         np.testing.assert_allclose(a, b, atol=1e-4)
@@ -889,7 +889,7 @@ def test_nmt_train_step_on_card_matches_cpu(card):
     1e-6."""
     import chip_smoke
     src = _small_nmt(torch.device("cpu"))
-    arrays = {k: p.data().detach().numpy()
+    arrays = {k: p._tensor().detach().numpy()
               for k, p in src.collect_params().items()}
     batch = chip_smoke.nmt_data(0, 2, (24,), 500)[24]
     res, masks = [], None
@@ -917,7 +917,7 @@ def test_nmt_translate_on_card_matches_cpu(card):
     import chip_smoke
     from mxnet_tpu_torch import nd
     src = _small_nmt(torch.device("cpu"))
-    arrays = {k: p.data().detach().numpy()
+    arrays = {k: p._tensor().detach().numpy()
               for k, p in src.collect_params().items()}
     x = np.random.RandomState(1).randint(3, 500, (3, 9))
     for beam in (1, 2):
@@ -1097,8 +1097,8 @@ def test_deferred_initialization_on_the_card(card):
     twin(x)
     for p, q, t in zip(net.collect_params().values(),
                        twin.collect_params().values(), tensors):
-        assert p.data() is t and p.data().device == card
-        assert torch.equal(p.data().cpu(), q.data())
+        assert p._tensor() is t and p._tensor().device == card
+        assert torch.equal(p._tensor().cpu(), q._tensor())
     before = multi_sgd_mom.launches
     with autograd.record():
         loss = net(x.to(card)).square().mean()
@@ -1154,7 +1154,7 @@ def _twins(make, card):
     hyb, eager = make(card), make(card)
     for p, q in zip(hyb.collect_params().values(),
                     eager.collect_params().values()):
-        q.set_data(p.data().detach().clone())
+        q.set_data(p._tensor().detach().clone())
     hyb.hybridize()
     return hyb, eager
 
@@ -1164,7 +1164,7 @@ def _step(net, x, y):
     with autograd.record():
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
     autograd.backward(loss)
-    return loss.detach(), {k: p.grad().detach().clone()
+    return loss.detach(), {k: p._grad_tensor().detach().clone()
                            for k, p in net.collect_params().items()
                            if p.grad_req != "null"}
 
@@ -1244,7 +1244,7 @@ def test_capture_while_the_warm_calls_graph_is_alive(card):
         assert _bitwise(loss.detach(), want.detach())
         for p, q in zip(hyb.collect_params().values(),
                         eager.collect_params().values()):
-            assert _bitwise(p.grad(), q.grad()), p.name
+            assert _bitwise(p._grad_tensor(), q._grad_tensor()), p.name
     assert hyb.graph_stats()["replays"] == 2
 
 
@@ -1274,9 +1274,9 @@ def test_hybridized_batchnorm_writes_running_stats_bitwise(card):
         assert _bitwise(*outs)
         for p, q in zip(hyb.collect_params().values(),
                         eager.collect_params().values()):
-            assert _bitwise(p.data().detach(), q.data().detach()), p.name
+            assert _bitwise(p._tensor().detach(), q._tensor().detach()), p.name
             if p.grad_req != "null":
-                assert _bitwise(p.grad(), q.grad()), p.name
+                assert _bitwise(p._grad_tensor(), q._grad_tensor()), p.name
     with autograd.predict_mode(), torch.no_grad():
         for _ in range(2):
             assert _bitwise(hyb(x), eager(x))
@@ -1311,7 +1311,7 @@ def test_hybridized_flash_block_replays_bitwise_and_counts(card):
             with autograd.record():
                 loss = chip_smoke.mlm_nsp_loss(*net(*batch[:3]), *batch[3:])
             autograd.backward(loss)
-            res.append((loss.detach(), [p.grad().clone() for p in
+            res.append((loss.detach(), [p._grad_tensor().clone() for p in
                                         net.collect_params().values()]))
         torch.cuda.synchronize()
         assert flash_attention.launches - before == 2 * 2
@@ -1347,12 +1347,12 @@ def test_hybridized_outputs_and_gradients_are_fresh(card):
         _step(eager, xs[i], ys[i])
         if i == 1:
             held = {"out": (out, out.clone()),
-                    "grad": (last.grad(), last.grad().clone())}
+                    "grad": (last._grad_tensor(), last._grad_tensor().clone())}
     for held_tensor, value in held.values():
         assert torch.equal(held_tensor, value)
     for p, q in zip(hyb.collect_params().values(),
                     eager.collect_params().values()):
-        assert _bitwise(p.grad(), q.grad()), p.name
+        assert _bitwise(p._grad_tensor(), q._grad_tensor()), p.name
     assert hyb.graph_stats()["replays"] == 3 + 3
 
 
@@ -1369,11 +1369,12 @@ def test_capture_leaves_grad_bookkeeping_alone(card):
     params = list(net.collect_params().values())
     for p in params:
         p.zero_grad()
-    before = [p.grad().clone() for p in params]
+    before = [p._grad_tensor().clone() for p in params]
     with autograd.record():
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)  # captures
     assert all(p.fresh for p in params)
-    assert all(torch.equal(p.grad(), b) for p, b in zip(params, before))
+    assert all(torch.equal(p._grad_tensor(), b)
+               for p, b in zip(params, before))
     autograd.backward(loss)
     assert not any(p.fresh for p in params)
 
@@ -1426,7 +1427,7 @@ def test_set_data_and_cast_recapture(card):
             first = hyb(x)
         for p, q in zip(hyb.collect_params().values(),
                         eager.collect_params().values()):
-            w = p.data().detach() * 0.5
+            w = p._tensor().detach() * 0.5
             p.set_data(w.clone())
             q.set_data(w.clone())
         again = hyb(x)
@@ -1804,7 +1805,7 @@ def _surface_steps(net, name, kw, grads, no_reads=False):
                        dict(kw, wd=1e-4, lr_scheduler=sched))
     for step in grads:
         for p, g in zip(tr._params, step):
-            p.grad().copy_(g)
+            p._grad_tensor().copy_(g)
             p.fresh = False
         if no_reads:
             torch.cuda.set_sync_debug_mode("error")
@@ -1859,13 +1860,13 @@ def test_optimizer_on_card_matches_cpu(card, name, kw):
     cpu_tr = _surface_steps(_surface_net(cpu(), dtype=dtype), name, kw,
                             grads)
     for i, (p, q) in enumerate(zip(card_tr._params, cpu_tr._params)):
-        pairs = [(p.data(), q.data())] + list(zip(
+        pairs = [(p._tensor(), q._tensor())] + list(zip(
             _flat_state(card_tr._states[i]), _flat_state(cpu_tr._states[i])))
         for a, b in pairs:
             a, b = a.detach().float().cpu(), b.detach().float()
             assert ((a - b).abs() / b.abs().clamp(min=1.0)).max() <= 1e-5
         if dtype is not None:
-            assert torch.equal(p.data(), card_tr._states[i][1].to(dtype))
+            assert torch.equal(p._tensor(), card_tr._states[i][1].to(dtype))
 
 
 def test_clip_global_norm_reads_once_on_card(card):
@@ -1940,7 +1941,8 @@ def test_resume_on_card_bitwise(card, tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(losses, full_losses[3:]))
     for a, b in zip(resumed.collect_params().values(),
                     full.collect_params().values()):
-        assert a.data().device == card and torch.equal(a.data(), b.data())
+        assert a._tensor().device == card and \
+            torch.equal(a._tensor(), b._tensor())
     for i, s in full_tr._states.items():
         assert resumed_tr._states[i].device == card
         assert torch.equal(resumed_tr._states[i], s)
@@ -2075,7 +2077,7 @@ def test_cudnn_rnn_layer_matches_cpu(card, kind, bidir):
             autograd.backward([out] + states)
         assert not [w for w in caught if "contiguous" in str(w.message)]
         runs.append([out, *states, xs.grad] + [
-            p.grad() for p in net.collect_params().values()])
+            p._grad_tensor() for p in net.collect_params().values()])
     for i, (a, b) in enumerate(zip(*runs)):
         np.testing.assert_allclose(a.detach().cpu().numpy(),
                                    b.detach().numpy(),
@@ -2101,17 +2103,17 @@ def test_hybridized_lstm_replays_bitwise_its_eager_step(card):
                 out, _ = net(x, h)
                 loss = out.square().mean()
             autograd.backward(loss)
-            return [loss] + [p.grad().clone()
+            return [loss] + [p._grad_tensor().clone()
                              for p in net.collect_params().values()]
         eager = step()
         net.hybridize()
         runs = [step() for _ in range(3)]
         stats = net.graph_stats()
-        ptrs = [p.data().data_ptr() for p in net.rnn.collect_params()
+        ptrs = [p._tensor().data_ptr() for p in net.rnn.collect_params()
                 .values()]
         first = next(iter(net.rnn.collect_params().values()))
         first.set_data(np.zeros((256, 64), np.float32))
-        assert [p.data().data_ptr() for p in net.rnn.collect_params()
+        assert [p._tensor().data_ptr() for p in net.rnn.collect_params()
                 .values()] == ptrs
     finally:
         torch.backends.cudnn.deterministic = False
@@ -2170,14 +2172,14 @@ def test_hybridized_hybrid_forward_block_on_card(card):
     with autograd.record():
         want = net(x)
     autograd.backward(want)
-    grad = net.weight.grad().clone()
+    grad = net.weight._grad_tensor().clone()
     net.hybridize()
     for _ in range(3):
         with autograd.record():
             got = net(x)
         autograd.backward(got)
-        assert torch.equal(got, want) and torch.equal(net.weight.grad(),
-                                                      grad)
+        assert torch.equal(got, want) and \
+            torch.equal(net.weight._grad_tensor(), grad)
     assert net.graph_stats()["replays"] == 2
 
 
@@ -2314,3 +2316,43 @@ def test_multi_all_finite_reads_nothing_back_on_card(card):
     bad = nd.multi_all_finite(*arrays, num_arrays=3)
     assert eng.host_reads == before + 1
     assert bad.asscalar() == 0.0
+
+
+def test_exported_resnet_imported_and_served_on_card(card, tmp_path):
+    """A small ResNet v1 exported on the card, imported by
+    ``SymbolBlock.imports`` and served by ``ModelServer.from_exported``
+    (captured graphs over batch buckets 1 and 4): both held against the
+    Gluon forward of the same images, 1e-4 of ``max(1, max |logit|)``
+    (cuDNN may pick other algorithms at other batch sizes)."""
+    from mxnet_tpu_torch import autograd, gpu
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from mxnet_tpu_torch.initializer import Xavier
+    from mxnet_tpu_torch.serving import ModelServer
+    net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                          [8, 16, 32, 64, 128], classes=10)
+    net.initialize(Xavier("gaussian", "in", 2), ctx=gpu(0), seed=0)
+    x = torch.randn(6, 3, 32, 32, generator=torch.Generator()
+                    .manual_seed(0))
+    with torch.no_grad(), autograd.predict_mode():
+        ref = net(x.to(card)).cpu()
+    sym_file, param_file = net.export(str(tmp_path / "small"))
+    imported = SymbolBlock.imports(sym_file, "data", param_file)
+    first = next(iter(imported.collect_params().values()))
+    assert first._tensor().device == card
+    with torch.no_grad(), autograd.predict_mode():
+        out = imported(x.to(card)).cpu()
+    scale = max(1.0, ref.abs().max().item())
+    assert (out - ref).abs().max().item() <= 1e-4 * scale
+    srv = ModelServer.from_exported(sym_file, "data", param_file,
+                                    max_batch=4, batch_buckets=(1, 4),
+                                    deadline_ms=0)
+    try:
+        srv.warmup(x[0].numpy())
+        srv.start()
+        answers = [srv.infer(x[i].numpy(), timeout=120) for i in range(6)]
+    finally:
+        srv.stop()
+    assert srv._block.graph_stats()["graphs"] == 2
+    got = torch.as_tensor(np.stack(answers))
+    assert (got - ref).abs().max().item() <= 1e-4 * scale

@@ -533,7 +533,7 @@ def test_softmax_rtc_head_trains_like_jax():
     for (k, p), (kq, q) in zip(ref.collect_params().items(),
                                port.collect_params().items()):
         assert k[len(ref.prefix):] == kq[len(port.prefix):]
-        np.testing.assert_allclose(q.data().detach().numpy(),
+        np.testing.assert_allclose(q._tensor().detach().numpy(),
                                    p.data().asnumpy(), atol=1e-5, err_msg=k)
 
 

@@ -41,7 +41,7 @@ def _np(x):
 def _check_params(ref, port):
     for p, q in zip(ref.collect_params().values(),
                     port.collect_params().values()):
-        np.testing.assert_allclose(_np(q.data()), p.data().asnumpy(),
+        np.testing.assert_allclose(_np(q._tensor()), p.data().asnumpy(),
                                    atol=TOL, rtol=TOL, err_msg=p.name)
 
 

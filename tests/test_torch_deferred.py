@@ -85,13 +85,13 @@ def test_first_forward_settles_and_fills_every_shape():
     net.initialize(ctx=cpu(), seed=1)
     params = list(net.collect_params().values())
     with pytest.raises(DeferredInitializationError):
-        params[0].data()
+        params[0]._tensor()
     out = net(torch.randn(2, 3, 6, 6))
     assert out.shape == (2, 10)
     assert [p.shape for p in params] == [
         (8, 3, 3, 3), (8,), (8,), (8,), (8,), (8,), (8, 4, 2, 2), (4,),
         (10, 4 * 12 * 12), (10,), (10,), (10,)]
-    assert all(torch.isfinite(p.data()).all() for p in params)
+    assert all(torch.isfinite(p._tensor()).all() for p in params)
 
 
 def test_trainer_built_before_the_first_forward_steps_resolved_tensors():
@@ -105,14 +105,14 @@ def test_trainer_built_before_the_first_forward_steps_resolved_tensors():
     with autograd.record():
         loss = net(x).square().mean()
     autograd.backward(loss)
-    before = {k: p.data().detach().clone()
+    before = {k: p._tensor().detach().clone()
               for k, p in net.collect_params().items()}
     trainer.step(1)
     for (k, p), t in zip(net.collect_params().items(), tensors):
-        assert p.data() is t                     # the same nn.Parameter
+        assert p._tensor() is t                     # the same nn.Parameter
         assert any(t is q for q in net.parameters())
-        assert not torch.equal(p.data(), before[k])
-        assert p.data().shape == before[k].shape
+        assert not torch.equal(p._tensor(), before[k])
+        assert p._tensor().shape == before[k].shape
 
 
 def test_tied_deferred_weight_resolves_once():
@@ -123,10 +123,10 @@ def test_tied_deferred_weight_resolves_once():
     first.initialize(ctx=cpu(), seed=0)
     x = torch.randn(2, 3)
     first(x)
-    w = first.weight.data()
+    w = first.weight._tensor()
     assert tuple(w.shape) == (4, 3)
     second(x)
-    assert second.weight.data() is w
+    assert second.weight._tensor() is w
     np.testing.assert_array_equal(first(x).detach(), second(x).detach())
 
 
@@ -148,7 +148,7 @@ def test_same_seed_same_weights_and_forward_order_does_not_matter():
         return net, a, b
 
     def weights(net):
-        return [p.data().detach().clone()
+        return [p._tensor().detach().clone()
                 for p in net.collect_params().values()]
 
     one, _, _ = build()
@@ -192,7 +192,7 @@ def test_a_block_that_cannot_infer_raises():
                                          allow_deferred_init=True)
 
         def forward(self, x):
-            return x * self.w.data()
+            return x * self.w._tensor()
 
     blk = Scale()
     blk.initialize(ctx=cpu())

@@ -367,13 +367,13 @@ def test_ssd_toy_forward_loss_and_step_match_jax():
     for p, q in zip(ref.collect_params().values(),
                     port.collect_params().values()):
         if p.grad_req != "null":
-            np.testing.assert_allclose(q.grad().numpy(),
+            np.testing.assert_allclose(q._grad_tensor().numpy(),
                                        p.grad().asnumpy(), **TOL)
     jtr.step(x.shape[0])
     trainer.step(x.shape[0])
     for p, q in zip(ref.collect_params().values(),
                     port.collect_params().values()):
-        np.testing.assert_allclose(q.data().detach().numpy(),
+        np.testing.assert_allclose(q._tensor().detach().numpy(),
                                    p.data().asnumpy(), **TOL)
     with autograd.predict_mode():
         anchors, cls, box = port(torch.tensor(x))
@@ -432,8 +432,8 @@ def test_mask_rcnn_toy_matches_jax_and_float64():
               if _downstream(k, ref.prefix)]
     assert len(shared) == 16        # 4 Dense, 3 convs, 1 transposed conv
     for p, q in shared:
-        np.testing.assert_allclose(q.grad().numpy(), p.grad().asnumpy(),
-                                   **TOL)
+        np.testing.assert_allclose(q._grad_tensor().numpy(),
+                                   p.grad().asnumpy(), **TOL)
     # every gradient against the port's own float64 autograd
     port64 = rcnn.mask_rcnn_toy(classes=3)
     load_reference_params(port64, init, ctx=cpu())
@@ -446,13 +446,13 @@ def test_mask_rcnn_toy_matches_jax_and_float64():
     autograd.backward(l64)
     for q, q64 in zip(port.collect_params().values(),
                       port64.collect_params().values()):
-        g, g64 = q.grad().double(), q64.grad()
+        g, g64 = q._grad_tensor().double(), q64._grad_tensor()
         assert (g - g64).abs().max() <= 1e-5 * max(1.0, g64.abs().max())
     # one step: the downstream weights as the JAX package's
     jtr.step(x.shape[0])
     trainer.step(x.shape[0])
     for p, q in shared:
-        np.testing.assert_allclose(q.data().detach().numpy(),
+        np.testing.assert_allclose(q._tensor().detach().numpy(),
                                    p.data().asnumpy(), **TOL)
 
 

@@ -231,7 +231,7 @@ def test_hybrid_forward_block_runs_unchanged(make, shape, ints):
             with autograd.record():
                 port(nd.array(x)).sum().backward()
             for p, q in zip(port.collect_params().values(), ref_p):
-                np.testing.assert_allclose(p.grad().numpy(),
+                np.testing.assert_allclose(p._grad_tensor().numpy(),
                                            q.grad().asnumpy(), **TOL)
 
 
@@ -264,8 +264,8 @@ def test_hybrid_forward_sees_views_and_settles_deferred_shapes():
         x = torch.randn(2, 7)
         out = net(x)
         assert out.shape == (2, 3) and net.weight.shape == (3, 7)
-        assert seen["x"] is x and seen["w"] is net.weight.data()
-        torch.testing.assert_close(out, x @ net.weight.data().T)
+        assert seen["x"] is x and seen["w"] is net.weight._tensor()
+        torch.testing.assert_close(out, x @ net.weight._tensor().T)
 
 
 def test_hybrid_forward_records_as_torch_grad_mode_says():
@@ -277,7 +277,7 @@ def test_hybrid_forward_records_as_torch_grad_mode_says():
     net.initialize(ctx=cpu())
     x = torch.randn(2, 12, requires_grad=True)
     net(x).sum().backward()
-    assert x.grad is not None and net.weight.data().grad is not None
+    assert x.grad is not None and net.weight._tensor().grad is not None
     with mt.cpu():
         out = net(nd.array(np.ones((2, 12), np.float32)))
     assert not out._data.requires_grad
@@ -456,8 +456,8 @@ def _layer_case(make, arrays, tol=TOL, infer=False):
     for p, q in zip(port.collect_params().values(),
                     ref.collect_params().values()):
         if q.grad_req != "null":
-            np.testing.assert_allclose(p.grad().numpy(), q.grad().asnumpy(),
-                                       **tol)
+            np.testing.assert_allclose(p._grad_tensor().numpy(),
+                                       q.grad().asnumpy(), **tol)
 
 
 def _nn(name, *args, **kw):

@@ -35,7 +35,7 @@ def _arrays(net):
 
 
 def _port_arrays(net):
-    return {k: p.data().detach().numpy()
+    return {k: p._tensor().detach().numpy()
             for k, p in net.collect_params().items()}
 
 
@@ -55,7 +55,7 @@ def _grads(net):
 
 
 def _check_grads(port, ref, tol=TOL):
-    ours = [g.numpy() for g in _grads(port)]
+    ours = [g.asnumpy() for g in _grads(port)]
     theirs = [g.asnumpy() for g in _grads(ref)]
     assert len(ours) == len(theirs)
     for a, b in zip(ours, theirs):
@@ -373,7 +373,7 @@ def test_params_ties_the_decoder_unlike_jax():
         with autograd.record():
             out, _ = port(x, h)
         out.backward()
-        grad = port.encoder.weight.grad().numpy()
+        grad = port.encoder.weight._grad_tensor().numpy()
     # the decoder's use reaches every row, the embedding's only the
     # rows it looked up: rows never looked up still get a gradient
     assert np.abs(grad[20:]).sum() > 0

@@ -133,9 +133,9 @@ def test_hybridized_batchnorm_running_stats_match_jax():
             port(torch.from_numpy(x))
         for jp, pp in ((ref.running_mean, port.running_mean),
                        (ref.running_var, port.running_var)):
-            np.testing.assert_allclose(_np(pp.data()), jp.data().asnumpy(),
+            np.testing.assert_allclose(_np(pp._tensor()), jp.data().asnumpy(),
                                        atol=1e-6)
-        stats.append(_np(port.running_mean.data()).copy())
+        stats.append(_np(port.running_mean._tensor()).copy())
     assert not np.allclose(stats[0], stats[1])
 
 
@@ -470,7 +470,8 @@ def test_deferred_first_step_records_then_replays_as_jax():
         np.testing.assert_allclose(_np(pl), jl.asnumpy(), atol=1e-5)
         for (name, jp), pp in zip(ref.collect_params().items(),
                                   port.collect_params().values()):
-            np.testing.assert_allclose(_np(pp.grad()), jp.grad().asnumpy(),
+            np.testing.assert_allclose(_np(pp._grad_tensor()),
+                                       jp.grad().asnumpy(),
                                        atol=1e-5, err_msg=name)
         jt.step(4)
         pt.step(4)

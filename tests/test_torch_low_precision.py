@@ -258,32 +258,33 @@ def test_parameter_cast_keeps_grad_req_and_drops_the_gradient():
                                   ref.collect_params().items()}, ctx=cpu())
     dense.bias.grad_req = "add"
     ref.bias.grad_req = "add"
-    tensor = dense.weight.data()
+    tensor = dense.weight._tensor()
     with autograd.record():
         loss = dense(torch.from_numpy(x)).sum()
     autograd.backward(loss)
-    assert dense.weight.grad().abs().sum() > 0
+    assert dense.weight._grad_tensor().abs().sum() > 0
     dense.cast("bfloat16")
     ref.cast("bfloat16")
     for (k, jp), p in zip(ref.collect_params().items(),
                           dense.collect_params().values()):
         assert p.dtype == torch.bfloat16 and str(jp.dtype) == "bfloat16"
         assert p.grad_req == jp.grad_req
-        assert torch.equal(p.data().float(),
+        assert torch.equal(p._tensor().float(),
                            torch.from_numpy(_f(jp.data().asnumpy())).float())
-        assert not p.grad().any() and p.grad().dtype == torch.bfloat16
-    assert dense.weight.data() is tensor
+        assert not p._grad_tensor().any() and \
+            p._grad_tensor().dtype == torch.bfloat16
+    assert dense.weight._tensor() is tensor
     assert dict(dense.named_parameters())["weight"].dtype == torch.bfloat16
     assert dense.bias.grad_req == "add" and dense.weight.fresh
     with autograd.record():
         loss = dense(torch.from_numpy(x).bfloat16()).float().sum()
     autograd.backward(loss)
-    assert dense.weight.grad().dtype == torch.bfloat16
-    assert dense.weight.grad().abs().sum() > 0
+    assert dense.weight._grad_tensor().dtype == torch.bfloat16
+    assert dense.weight._grad_tensor().abs().sum() > 0
     late = gluon.Parameter("late", shape=(2,))
     late.cast("float16")
     late.initialize(ctx=cpu())
-    assert late.data().dtype == torch.float16
+    assert late._tensor().dtype == torch.float16
 
 
 def test_block_cast_matches_jax_and_the_hybridized_graph_follows():
@@ -320,7 +321,7 @@ def test_block_cast_matches_jax_and_the_hybridized_graph_follows():
     for jp, p in zip(ref.collect_params().values(),
                      port.collect_params().values()):
         assert str(jp.grad().dtype) == "bfloat16"
-        assert p.grad().dtype == torch.bfloat16
+        assert p._grad_tensor().dtype == torch.bfloat16
 
 
 def test_trainer_refuses_a_state_made_before_a_cast():
@@ -384,12 +385,12 @@ def test_batchnorm_on_bf16_activations_matches_jax(params):
                 <= 2 * _ulp(np.abs(want).max(), "bfloat16")).all(), train
     for k in ("running_mean", "running_var"):
         jp, p = ref.collect_params()["batch_norm98_" + k], getattr(port, k)
-        assert str(p.data().dtype) == f"torch.{params}" == \
+        assert str(p._tensor().dtype) == f"torch.{params}" == \
             f"torch.{jp.data().dtype}"
         want = _f(jp.data().asnumpy())
         tol = 2 * _ulp(want, "bfloat16") if params == "bfloat16" \
             else 1e-6 * np.abs(want)
-        assert (np.abs(_f(p.data()) - want) <= tol).all(), k
+        assert (np.abs(_f(p._tensor()) - want) <= tol).all(), k
 
 
 def test_batchnorm_cast_float16_keeps_fp32_parameters_as_mxnet():
@@ -414,15 +415,15 @@ def test_batchnorm_cast_float16_keeps_fp32_parameters_as_mxnet():
     ref.cast("float16")
     assert {str(p.dtype) for p in ref.collect_params().values()} == \
         {"float16"}
-    assert {p.data().dtype for p in port.collect_params().values()} == \
+    assert {p._tensor().dtype for p in port.collect_params().values()} == \
         {torch.float32}
-    assert dense.weight.data().dtype == torch.float16
+    assert dense.weight._tensor().dtype == torch.float16
     with mx.autograd.record():
         jy = ref(mx.nd.array(x).astype("float16"))
     with autograd.record():
         py = port(torch.from_numpy(x).half())
     assert py.dtype == torch.float16
-    assert port.running_mean.data().dtype == torch.float32
+    assert port.running_mean._tensor().dtype == torch.float32
     want = _f(jy.asnumpy())
     assert (np.abs(_f(py) - want)
             <= 2 * _ulp(np.abs(want).max(), "float16")).all()
@@ -504,7 +505,7 @@ def _port_resnet_step(recipe, init, dtype=None):
     try:
         params = net.collect_params()
         names = [k[len(net.prefix):] for k in params]
-        loaded = {n: p.data().detach().clone() for n, p in
+        loaded = {n: p._tensor().detach().clone() for n, p in
                   zip(names, params.values())}
         tr = gluon.Trainer(params, "sgd", opt)
         with autograd.record():
@@ -517,7 +518,7 @@ def _port_resnet_step(recipe, init, dtype=None):
     trainable = [n for n, p in zip(names, params.values())
                  if p.grad_req != "null"]
     return {"loaded": loaded, "loss": _f(loss), "loss_dtype": loss.dtype,
-            "final": {n: p.data().detach().clone() for n, p in
+            "final": {n: p._tensor().detach().clone() for n, p in
                       zip(names, params.values())},
             "states": {trainable[i]: st for i, st in tr._states.items()}}
 

@@ -126,10 +126,10 @@ def test_one_adam_step_matches(ref_run):
         loss = loss_fn(net(src, tgt), lab).mean()
     autograd.backward(loss)
     grads = _by_name(params, net.prefix,
-                     lambda p: p.grad().detach().clone().numpy())
+                     lambda p: p._grad_tensor().detach().clone().numpy())
     tr.step(B)
     final = _by_name(params, net.prefix,
-                     lambda p: p.data().detach().numpy())
+                     lambda p: p._tensor().detach().numpy())
     assert abs(loss.item() - ref_run["loss"]) <= TOL * abs(ref_run["loss"])
     assert grads.keys() == ref_run["grads"].keys()
     for k, g in ref_run["grads"].items():
@@ -201,8 +201,8 @@ def test_relu_ffn_and_unknown_activation():
     x = torch.randn(2, 3, 8)
     want = torch.nn.functional.linear(
         torch.relu(torch.nn.functional.linear(
-            x, ffn.ffn1.weight.data(), ffn.ffn1.bias.data())),
-        ffn.ffn2.weight.data(), ffn.ffn2.bias.data())
+            x, ffn.ffn1.weight._tensor(), ffn.ffn1.bias._tensor())),
+        ffn.ffn2.weight._tensor(), ffn.ffn2.bias._tensor())
     torch.testing.assert_close(ffn(x), want)
     with pytest.raises(MXNetError):
         port_tf.PositionwiseFFN(8, 16, activation="swishy")

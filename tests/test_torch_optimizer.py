@@ -201,16 +201,16 @@ def test_sgd_update_multi_matches_per_tensor(momentum, mp):
                           clip_gradient=0.8, multi_precision=mp,
                           rescale_grad=0.5) for _ in nets]
     idx = list(range(len(grads)))
-    states = [[o.create_state_multi_precision(i, p.data())
+    states = [[o.create_state_multi_precision(i, p._tensor())
                for i, p in zip(idx, ps)] for o, ps in zip(opts, params)]
     with torch.no_grad():
         for _ in range(2):
-            opts[0].update_multi(idx, [p.data() for p in params[0]], grads,
+            opts[0].update_multi(idx, [p._tensor() for p in params[0]], grads,
                                  states[0])
             for i, p, g, s in zip(idx, params[1], grads, states[1]):
-                opts[1].update_multi_precision(i, p.data(), g, s)
+                opts[1].update_multi_precision(i, p._tensor(), g, s)
     for a, b in zip(*params):
-        torch.testing.assert_close(a.data(), b.data(), rtol=0, atol=0)
+        torch.testing.assert_close(a._tensor(), b._tensor(), rtol=0, atol=0)
     assert opts[0].num_update == opts[1].num_update == 2
 
 
@@ -275,7 +275,7 @@ def test_trainer_matches_jax_with_lr_and_wd_mult(trainer_kw):
                                    atol=1e-6)
     for (k, p), q in zip(ref0.collect_params().items(),
                          port.collect_params().values()):
-        np.testing.assert_allclose(q.data().detach().numpy(),
+        np.testing.assert_allclose(q._tensor().detach().numpy(),
                                    p.data().asnumpy(), atol=1e-6,
                                    err_msg=k)
 

@@ -56,13 +56,13 @@ def test_backward_seeds_ones_and_takes_head_grads():
     p = gluon.Parameter("w", shape=(3,))
     p.set_data(np.array([1.0, 2.0, 3.0], np.float32), ctx=cpu())
     with autograd.record():
-        y = p.data() * p.data()              # a per-element "loss" vector
+        y = p._tensor() * p._tensor()          # a per-element "loss" vector
     autograd.backward(y)
-    np.testing.assert_allclose(_np(p.grad()), [2.0, 4.0, 6.0])
+    np.testing.assert_allclose(_np(p._grad_tensor()), [2.0, 4.0, 6.0])
     with autograd.record():
-        y = p.data() * 2.0
+        y = p._tensor() * 2.0
     autograd.backward([y], [torch.tensor([1.0, 0.0, -1.0])])
-    np.testing.assert_allclose(_np(p.grad()), [2.0, 0.0, -2.0])
+    np.testing.assert_allclose(_np(p._grad_tensor()), [2.0, 0.0, -2.0])
     with pytest.raises(MXNetError, match="not connected"):
         autograd.backward(torch.ones(3))
 
@@ -81,12 +81,12 @@ def test_grad_req_over_two_backwards(req):
     p = _quad_param(req)
     for scale in (3.0, 5.0):
         with autograd.record():
-            loss = (p.data() * p.data()).sum() * scale
+            loss = (p._tensor() * p._tensor()).sum() * scale
         autograd.backward(loss)
     want = {"write": 10.0, "add": 16.0}[req] * np.array([1.0, -2.0])
-    np.testing.assert_allclose(_np(p.grad()), want)
+    np.testing.assert_allclose(_np(p._grad_tensor()), want)
     p.zero_grad()
-    np.testing.assert_allclose(_np(p.grad()), [0.0, 0.0])
+    np.testing.assert_allclose(_np(p._grad_tensor()), [0.0, 0.0])
     assert p.fresh
 
 
@@ -109,17 +109,17 @@ def test_grad_req_add_matches_jax():
         autograd.backward(pl)
     for p, q in zip(ref.collect_params().values(),
                     port.collect_params().values()):
-        np.testing.assert_allclose(_np(q.grad()), p.grad().asnumpy(),
+        np.testing.assert_allclose(_np(q._grad_tensor()), p.grad().asnumpy(),
                                    rtol=1e-5)
 
 
 def test_grad_req_null_has_no_gradient():
     p = _quad_param("null")
-    assert not p.data().requires_grad
+    assert not p._tensor().requires_grad
     with pytest.raises(MXNetError, match="null"):
-        p.grad()
+        p._grad_tensor()
     p.grad_req = "write"
-    assert p.data().requires_grad
+    assert p._tensor().requires_grad
     with pytest.raises(MXNetError, match="grad_req"):
         p.grad_req = "sometimes"
 
@@ -135,11 +135,11 @@ def test_trainer_refuses_a_stale_write_gradient():
         loss = net(x).sum()
     autograd.backward(loss)
     tr.step(1)
-    before = _np(net.weight.data()).copy()
+    before = _np(net.weight._tensor()).copy()
     with pytest.raises(MXNetError, match="has not been updated"):
         tr.step(1)                      # the gradient was consumed
     tr.step(1, ignore_stale_grad=True)  # skips every parameter
-    np.testing.assert_array_equal(_np(net.weight.data()), before)
+    np.testing.assert_array_equal(_np(net.weight._tensor()), before)
 
 
 def test_shared_parameter_gets_one_gradient():
@@ -153,21 +153,22 @@ def test_shared_parameter_gets_one_gradient():
     with autograd.record():
         loss = (a(x) + b(x)).sum()
     autograd.backward(loss)
-    twice = _np(a.weight.grad()).copy()
+    twice = _np(a.weight._grad_tensor()).copy()
     with autograd.record():
         loss = a(x).sum()
     autograd.backward(loss)
-    np.testing.assert_allclose(twice, 2 * _np(a.weight.grad()), rtol=1e-6)
+    np.testing.assert_allclose(twice, 2 * _np(a.weight._grad_tensor()),
+                               rtol=1e-6)
 
 
 def test_load_reference_params_resets_gradients():
     p = _quad_param("write")
     with autograd.record():
-        loss = p.data().sum()
+        loss = p._tensor().sum()
     autograd.backward(loss)
     assert not p.fresh
     p.set_data(np.zeros(2, np.float32))
-    assert p.fresh and not _np(p.grad()).any()
+    assert p.fresh and not _np(p._grad_tensor()).any()
 
 
 # ------------------------------------------------------------ initializers
@@ -185,8 +186,8 @@ def test_xavier_and_normal_statistics():
     assert abs(w.std().item() - 0.5) < 5e-3
     bn = nn.BatchNorm(in_channels=4)
     bn.initialize(initializer.Xavier(), ctx=cpu())
-    assert (_np(bn.running_var.data()) == 1).all()
-    assert not _np(bn.running_mean.data()).any()
+    assert (_np(bn.running_var._tensor()) == 1).all()
+    assert not _np(bn.running_mean._tensor()).any()
     with pytest.raises(MXNetError):
         initializer.Xavier(factor_type="sideways")
 
@@ -284,7 +285,7 @@ def test_batchnorm_matches_jax_in_train_and_predict(kw):
                                    rtol=1e-4, atol=1e-4)
     for (k, p), q in zip(ref.collect_params().items(),
                          port.collect_params().values()):
-        np.testing.assert_allclose(_np(q.data()), p.data().asnumpy(),
+        np.testing.assert_allclose(_np(q._tensor()), p.data().asnumpy(),
                                    atol=1e-5, err_msg=k)
     want = ref(mx.nd.array(x)).asnumpy()           # predict mode
     with torch.no_grad():
@@ -415,7 +416,7 @@ def _check_params(ref, port, atol, rtol=0.0):
     pp = list(port.collect_params().items())
     for (k, p), (kq, q) in zip(ref.collect_params().items(), pp):
         assert k[len(ref.prefix):] == kq[len(port.prefix):]
-        np.testing.assert_allclose(_np(q.data()), p.data().asnumpy(),
+        np.testing.assert_allclose(_np(q._tensor()), p.data().asnumpy(),
                                    atol=atol, rtol=rtol, err_msg=k)
 
 
@@ -473,7 +474,7 @@ def test_small_resnet_loads_reference_weights_and_running_stats(
     ours = fresh.collect_params()
     for k in loaded:
         name = fresh.prefix + k[len(ref.prefix):]
-        np.testing.assert_array_equal(_np(ours[name].data()), loaded[k])
+        np.testing.assert_array_equal(_np(ours[name]._tensor()), loaded[k])
 
 
 def test_small_resnet_trains_like_jax(small_resnets):

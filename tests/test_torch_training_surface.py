@@ -342,7 +342,7 @@ def test_trainer_with_lr_scheduler_matches_jax(opt_name, opt_kw, sched):
     assert rates[1] == rates[0] and len(set(rates[0])) > 1
     for (k, p), q in zip(ref.collect_params().items(),
                          port.collect_params().values()):
-        np.testing.assert_allclose(q.data().detach().numpy(),
+        np.testing.assert_allclose(q._tensor().detach().numpy(),
                                    p.data().asnumpy(), atol=1e-6,
                                    err_msg=k)
 
