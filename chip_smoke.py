@@ -10,8 +10,8 @@ low-precision runs, phase 11's imperative MLP, phase 12's NMT
 training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
 and Mask-RCNN training, phase 14's hybridized runs, phase 15's
 generation serving, each part of phase 16, each training run of
-phase 17, each model of phase 18 and each part of phases 19 and 20) and
-read just after;
+phase 17, each model of phase 18, each part of phases 19 and 20, and
+phase 21) and read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -445,7 +445,46 @@ kernels not at all:
    served by ``from_exported`` (64 requests), its served logits through
    the ``softmax_rtc`` custom op on ``NDArray``s: one rtc launch, within
    ``SOFTMAX_TOL`` of the plain softmax;
-21. prints one JSON line of kernel measurements (flash: the fp32 and, as
+21. the rest of the op files (``ops_tail``, ``ops_misc``, the draws of
+   ``ops_random``, ``ops_linalg``, ``ops_spatial``; fp32 unless said, TF32
+   off): (a) each of the slice's 113 deterministic ops (``SLICE_OPS``) on
+   the card against its CPU run on the same inputs, the forward and the
+   gradient of the outputs' sum where the op is differentiable, at the
+   sizes that run them: a BERT-base activation (8 x 512 x 768) for the
+   elementwise, special and shape ops, BERT-base's attention scores for
+   the masked softmaxes, 64 SPD matrices of 256 x 256 for linalg (fp32 and
+   float64; ``syevd`` on a spectrum 1, 2, ..., 256), ResNet-50's input
+   (128 x 3 x 224 x 224) for the spatial ops
+   (the CPU runs taking the card's sampler floors, ``SamplerDecisions``)
+   and its stage-2 activation (128 x 256 x 56 x 56) for
+   ``im2col``/``col2im``; exact where the op copies, tests, indexes, counts
+   or creates, else within its family's ``SLICE_TOL``; prints the number
+   of ops checked; (b) 2**22 draws of every ``_random_*``/``_sample_*``
+   form (each parameter row of a ``_sample_*`` draw its own): mean and
+   variance within 6 standard errors of the exact values, a reseed
+   repeating every draw bit for bit, ``_shuffle`` a permutation,
+   ``_sample_multinomial``'s frequencies its probabilities, and a normal,
+   a gamma and a Poisson draw inside a hybridized block, fresh at each
+   replay of its captured graph and repeated after a reseed; (c) a spatial
+   transformer (Jaderberg et al. 2015: a ``Dense(6)`` over the pooled
+   input, weight 0, bias the affine of scale 0.9 and rotation 10 degrees,
+   then ``SpatialTransformer`` at 224 x 224; its rate 1e-4 of the base,
+   as Jaderberg et al. set it) in front of ResNet-50 v1
+   (config #2), batch 128: one batch-2 step from the initial weights on
+   the card against the CPU in fp32 and float64 (``decision_leaf_check``,
+   the CPU runs taking the card's ReLU, max-pool and sampler-floor
+   decisions; the loc net's gradient held on its own), then 3 eager and 3
+   hybridized steps of ``autograd.record`` -> ``backward`` ->
+   ``Trainer("sgd", momentum 0.9)``: finite losses, the momentum kernel's
+   launches exact (one per group of 4 trainable tensors a step); (d) a
+   batched Gaussian-process likelihood as MXNet's ``linalg_*`` docs write
+   it (16 problems of 1024 points in 8 dimensions, an RBF kernel plus
+   noise, ``linalg_potrf`` -> ``linalg_trsm`` -> ``linalg_sumlogdiag``),
+   20 Adam steps on its length scale, signal and noise through autograd,
+   in float64 and fp32 on the card, held against the same fit in float64
+   on the CPU: the card's float64 fit within 1e-12 (relative), its fp32
+   fit within 2e-5; (a), (b) and (d) launch no kernel of the table;
+22. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -457,7 +496,8 @@ kernels not at all:
    ``optimizer_zoo_mixed_launches``), phase 17's under
    ``data_pipeline_launches``, phase 18's under ``vision_zoo_launches``
    and ``word_lm_launches``, phase 19's under
-   ``symbolic_module_launches``, phase 20's under ``export_launches``;
+   ``symbolic_module_launches``, phase 20's under ``export_launches``,
+   phase 21's under ``op_slice_launches``;
    the SGD kernels' bf16/fp16 entries, and the mixed path's own entry
    beside the unfused route's ``before_ms``), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -520,7 +560,7 @@ from mxnet_tpu_torch.initializer import Xavier
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-from mxnet_tpu_torch.ndarray import ops_contrib, ops_optimizer
+from mxnet_tpu_torch.ndarray import ops_contrib, ops_optimizer, ops_spatial
 from mxnet_tpu_torch.ndarray.register import get_op, invoke
 from mxnet_tpu_torch.kernels.multi_sgd import (multi_mp_sgd,
                                                multi_mp_sgd_mom,
@@ -6064,8 +6104,11 @@ def phase17_records(seed: int, out_dir: Path, jpeg: bool, n: int) -> dict:
     quality ``DATA_QUALITY`` through ``recordio.pack_img``, else the
     ``RAWN`` payload ``pack_img`` writes without PIL, both framed by
     ``MXIndexedRecordIO.write_idx`` as ``tools.im2rec.pack`` frames them.
-    Images are made and encoded on one thread per usable core."""
-    from concurrent.futures import ThreadPoolExecutor
+    Images are made and encoded one after another on the calling thread
+    (torch's own threads inside each op): a pool of threads running torch
+    ops while ``torch.set_num_threads`` changed left oneMKL's threaded LU
+    (``torch.linalg.inv`` on the CPU, phase 21) hanging later in the same
+    process (torch 2.11.0+cu128)."""
     payload = "jpeg" if jpeg else "rawn"
     rec = out_dir / f"phase17_{seed}_{payload}_{n}.rec"
     idx = rec.with_suffix(".idx")
@@ -6073,25 +6116,15 @@ def phase17_records(seed: int, out_dir: Path, jpeg: bool, n: int) -> dict:
     made = not (rec.exists() and idx.exists())
     if made:
         out_dir.mkdir(parents=True, exist_ok=True)
-
-        def record(i):
-            header = recordio.IRHeader(0, float(i % 1000), i, 0)
-            img = phase17_image(seed, i)
-            if jpeg:
-                return recordio.pack_img(header, img, quality=DATA_QUALITY)
-            return recordio.pack(header, recordio._raw_payload(img))
-
         tmp_rec, tmp_idx = (p.with_suffix(p.suffix + ".tmp")
                             for p in (rec, idx))
         writer = recordio.MXIndexedRecordIO(str(tmp_idx), str(tmp_rec), "w")
-        torch_threads = torch.get_num_threads()
-        torch.set_num_threads(1)       # one core per image, in parallel
-        try:
-            with ThreadPoolExecutor(len(os.sched_getaffinity(0))) as pool:
-                for i, buf in enumerate(pool.map(record, range(n))):
-                    writer.write_idx(i, buf)
-        finally:
-            torch.set_num_threads(torch_threads)
+        for i in range(n):
+            header = recordio.IRHeader(0, float(i % 1000), i, 0)
+            img = phase17_image(seed, i)
+            writer.write_idx(i, recordio.pack_img(
+                header, img, quality=DATA_QUALITY) if jpeg else
+                recordio.pack(header, recordio._raw_payload(img)))
         writer.close()
         os.replace(tmp_idx, idx)
         os.replace(tmp_rec, rec)
@@ -7943,6 +7976,899 @@ def export_phase(seed: int, card: str, out_dir: Path) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# Phase 21: the rest of the op files on the card.  (a) every deterministic
+# op of the slice against its CPU run at realistic sizes, (b) the draws'
+# moments, reseeding, shuffle, multinomial and a draw inside a captured
+# graph, (c) a spatial transformer in front of ResNet-50 v1 (config #2)
+# trained at batch 128, (d) a batched Gaussian-process likelihood fitted
+# through linalg_potrf, linalg_trsm and linalg_sumlogdiag in fp64 and fp32.
+
+# the deterministic ops of ops_tail (44), ops_misc (46), ops_linalg (17)
+# and ops_spatial (6) this slice ports; the draws of ops_random (19)
+SLICE_OPS = (
+    "erfc", "bessel_i0", "bessel_i1", "bessel_i0e", "bessel_i1e", "erfcinv",
+    "polygamma", "gammainc", "gammaincc", "zeta", "gelu", "log_sigmoid",
+    "mish", "silu", "hard_swish", "isnan", "isinf", "isfinite", "isposinf",
+    "isneginf", "copysign", "gcd", "lcm", "heaviside", "ldexp", "logaddexp",
+    "interp", "nan_to_num", "cumprod", "logsumexp", "bincount", "digitize",
+    "searchsorted", "ediff1d", "trapz", "einsum", "roll", "rot90",
+    "tensordot", "vander", "meshgrid", "kron", "masked_softmax",
+    "masked_log_softmax",
+    "add_n", "IdentityAttachKLSparseReg", "_random_pdf_uniform",
+    "_random_pdf_normal", "_random_pdf_gamma", "_random_pdf_exponential",
+    "_random_pdf_poisson", "_random_pdf_negative_binomial",
+    "_random_pdf_generalized_negative_binomial", "_random_pdf_dirichlet",
+    "_contrib_fft", "_contrib_ifft", "_contrib_boolean_mask",
+    "_contrib_arange_like", "_contrib_quadratic",
+    "_contrib_gradientmultiplier", "Crop", "im2col", "col2im", "histogram",
+    "choose_element_0index", "fill_element_0index", "split_v2",
+    "_contrib_hawkesll", "_square_sum", "_hypot", "_hypot_scalar",
+    "_logical_and", "_logical_or", "_logical_xor", "_zeros", "_ones",
+    "_full", "_arange", "_linspace", "_eye", "_slice_assign",
+    "_slice_assign_scalar", "_onehot_encode", "_scatter_set_nd", "_copyto",
+    "_set_value", "_identity_with_attr_like_rhs", "_rnn_param_concat",
+    "round_ste", "sign_ste",
+    "linalg_gemm", "linalg_potrf", "linalg_potri", "linalg_trsm",
+    "linalg_trmm", "linalg_syrk", "linalg_gelqf", "linalg_sumlogdiag",
+    "linalg_extractdiag", "linalg_makediag", "linalg_extracttrian",
+    "linalg_maketrian", "linalg_inverse", "linalg_det", "linalg_slogdet",
+    "linalg_syevd", "khatri_rao",
+    "GridGenerator", "BilinearSampler", "SpatialTransformer", "batch_take",
+    "_ravel_multi_index", "_unravel_index")
+SLICE_DRAWS = (
+    "_random_gamma", "_random_exponential", "_random_poisson",
+    "_random_negative_binomial", "_random_generalized_negative_binomial",
+    "_random_uniform_like", "_random_normal_like", "_random_gamma_like",
+    "_random_exponential_like", "_random_poisson_like", "_sample_uniform",
+    "_sample_normal", "_sample_gamma", "_sample_exponential",
+    "_sample_poisson", "_sample_negative_binomial",
+    "_sample_generalized_negative_binomial", "_sample_multinomial",
+    "_shuffle")
+OP_ACT = (8, 512, 768)          # a BERT-base activation
+OP_SCORES = (8, 12, 512, 512)   # BERT-base's attention scores
+OP_SPD = (64, 256)              # 64 SPD matrices of 256 x 256
+OP_IMG = (128, 3, 224, 224)     # ResNet-50's input
+OP_COL = (128, 256, 56, 56)     # ResNet-50's stage-2 activation
+OP_ROWS = 1024                  # MLM rows over the vocabulary
+OP_CLASSES = 1000
+# card vs CPU by family (``_pair_err``): each output element by element
+# (|card - CPU| / max(1, |CPU|)), or, for the families in SLICE_SCALED
+# and for every gradient (a sum over the outputs an input reaches), the
+# largest |card - CPU| over max(1, max |CPU|); "cancel": the gradient of a
+# sum of log-softmax rows is 1 - n p, n ~ 410 kept keys, whose fp32
+# rounding the CPU's own fp32 run already shows 8.9e-5 from float64.  Set
+# 4-40x above an H100's largest readings: elementwise 9.9e-7, special
+# 2.7e-5, contraction 1.7e-6, cancel 1.2e-4, linalg fp32 2.1e-4, float64
+# 2.8e-14, spatial 5.5e-7
+SLICE_TOL = {"exact": 0.0, "elementwise": 1e-5, "special": 1e-4,
+             "contraction": 1e-5, "cancel": 5e-4, "linalg32": 1e-3,
+             "linalg64": 1e-12, "spatial": 1e-5}
+SLICE_SCALED = ("contraction", "linalg32", "linalg64", "spatial")
+DRAWS = 1 << 22
+DRAW_SIGMAS = 6.0
+STN_BATCH, STN_SIZE, STN_STEPS, STN_HYBRID_STEPS = 128, 224, 3, 3
+STN_CHECK = 2
+STN_SCALE, STN_DEGREES = 0.9, 10.0
+STN_LOC_LR_MULT = 1e-4      # the loc net's rate, of the base (Jaderberg et al.)
+STN_BODY = "resnet50_v1"
+GP = {"problems": 16, "points": 1024, "dims": 8, "steps": 20, "lr": 0.05,
+      "init": (0.0, 0.0, math.log(0.3))}   # log length, signal, noise
+GP_TOL64, GP_TOL32 = 1e-12, 2e-5      # card vs the CPU's float64 fit
+
+
+def _launch_total() -> int:
+    return sum(w.launches for w in COUNTED) + rtc.launches
+
+
+class SamplerDecisions(ZooDecisions):
+    """``ZooDecisions``, and the spatial sampler's floors
+    (``ops_spatial.bilinear_sample``'s ``torch.floor`` calls): recorded on
+    one run and handed to another, where a floor of its own that differs
+    counts as a flip.  A sample point within rounding of a pixel's edge
+    can floor either way on two devices; the value is continuous there,
+    its gradient in the grid is not."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not torch.floor:
+            return super().__torch_function__(func, types, args, kwargs)
+        own = func(*args, **kwargs)
+        self.units += own.numel()
+        if self._forced is None:
+            self.masks.append(own.detach())     # a floor's gradient is 0
+            return own
+        want = self._take().to(own.device, own.dtype)
+        self.flips += int((own != want).sum())
+        return want
+
+
+def _orthogonal(g, b: int, n: int) -> torch.Tensor:
+    q, r = torch.linalg.qr(torch.randn(b, n, n, generator=g,
+                                       dtype=torch.float64))
+    return q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[:, None]
+
+
+def slice_spd(g, b: int, n: int) -> torch.Tensor:
+    """``b`` SPD matrices ``Q diag(l) Q^T`` in float64, eigenvalues
+    ``exp(linspace(-1, 1, n))`` scaled by up to 1 %: determinant near 1,
+    condition number near e**2, eigenvalues apart."""
+    q = _orthogonal(g, b, n)
+    lam = torch.exp(torch.linspace(-1.0, 1.0, n, dtype=torch.float64)) * (
+        1 + 0.01 * torch.rand(b, n, generator=g, dtype=torch.float64))
+    return (q * lam[:, None]) @ q.transpose(1, 2)
+
+
+def stn_affine() -> list:
+    """The STN's starting affine: scale ``STN_SCALE``, rotation
+    ``STN_DEGREES``."""
+    a = math.radians(STN_DEGREES)
+    c, s = STN_SCALE * math.cos(a), STN_SCALE * math.sin(a)
+    return [c, -s, 0.0, s, c, 0.0]
+
+
+def _blind_pair(outs):
+    """``sum(w * w) + sum(W * U**2)`` of ``syevd``'s ``(U, w)`` (or
+    ``gelqf``'s ``(Q, L)``): blind to each eigenvector's sign."""
+    u, w = outs
+    weight = torch.linspace(0.5, 1.5, u.numel(), dtype=u.dtype,
+                            device=u.device).reshape(u.shape)
+    return (weight * u * u).sum() + (w * w).sum()
+
+
+def _aligned(outs, ref):
+    """``outs`` of ``syevd``/``gelqf`` with each row of the first (column
+    of ``gelqf``'s second) flipped to ``ref``'s sign."""
+    sign = torch.sign((outs[0] * ref[0]).sum(-1, keepdim=True))
+    second = outs[1] if outs[1].dim() < outs[0].dim() else \
+        outs[1] * sign.transpose(-1, -2)
+    return [outs[0] * sign, second]
+
+
+def slice_op_cases(seed: int) -> list:
+    """One case of each op in ``SLICE_OPS`` (the linalg ops in fp32 and in
+    float64) at the sizes of the models that run them: (row, op, inputs
+    as CPU tensors, kwargs, family, gradient: False, True (the first
+    input), an input's index, or a function of the outputs)."""
+    g = torch.Generator().manual_seed(seed + 21)
+    f = lambda *s: torch.randn(s, generator=g)  # noqa: E731
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(  # noqa: E731
+        s, generator=g)
+    ints = lambda lo, hi, *s: torch.randint(  # noqa: E731
+        lo, hi, s, generator=g, dtype=torch.int32)
+    b, s, h = OP_ACT
+    act, act2 = f(*OP_ACT), f(*OP_ACT)
+    odd = act.clone()
+    flat = odd.view(-1)
+    flat[::97], flat[::89], flat[::83] = math.nan, math.inf, -math.inf
+    holes = act.clone()
+    holes.view(-1)[::7] = 0.0
+    rows = act.reshape(b * s, h)
+    counts = ints(0, 8, *OP_ACT).float()
+    par = lambda lo, hi: u(lo, hi, b, s)  # noqa: E731
+    expo = -torch.log(torch.rand(b * s // 4, 8, 16, generator=g))
+    simplex = expo / expo.sum(-1, keepdim=True)      # Dirichlet(1, ..., 1)
+    img = f(*OP_IMG)
+    theta = torch.tensor(stn_affine()) + 0.02 * f(OP_IMG[0], 6)
+    grid = ops_spatial.affine_grid(theta, *OP_IMG[2:])
+    col_in = f(*OP_COL)
+    cols = get_op("im2col").get_fn({"kernel": (3, 3), "pad": (1, 1)})(
+        col_in)
+    logits = f(OP_ROWS, VOCAB)
+    labels = ints(0, VOCAB, OP_ROWS).float()
+    n_ev = 128
+    hawkes = [u(0.2, 1.0, 256, 8), u(0.1, 0.5, 8), u(0.5, 2.0, 8),
+              u(0.0, 0.5, 256, 8), u(0.01, 0.2, 256, n_ev),
+              ints(0, 8, 256, n_ev).float(), ints(n_ev // 2, n_ev + 1,
+                                                  256).float(),
+              u(12.0, 20.0, 256)]
+    n_set = min(1000, b * s * h // 2)
+    scatter_at = torch.randperm(b * s * h, generator=g)[:n_set]
+    scatter_idx = torch.stack(torch.unravel_index(scatter_at, OP_ACT)) \
+        .float()
+    E, S, C, X, P = ("elementwise", "special", "contraction", "exact",
+                     "spatial")
+    cases = [
+        ("erfc", [act], {}, E, True),
+        ("bessel_i0", [2 * act], {}, S, True),
+        ("bessel_i1", [2 * act], {}, S, True),
+        ("bessel_i0e", [2 * act], {}, S, True),
+        ("bessel_i1e", [2 * act], {}, S, True),
+        ("erfcinv", [u(0.05, 1.95, *OP_ACT)], {}, S, True),
+        ("polygamma", [u(0.5, 3, *OP_ACT)], {"n": 1}, S, True),
+        ("gammainc", [u(0.5, 3, *OP_ACT), u(0.1, 3, *OP_ACT)], {}, S, True),
+        ("gammaincc", [u(0.5, 3, *OP_ACT), u(0.1, 3, *OP_ACT)], {}, S,
+         True),
+        ("zeta", [u(1.5, 4, *OP_ACT), u(0.5, 3, *OP_ACT)], {}, S, True),
+        ("gelu", [act], {"approximation": "tanh"}, E, True),
+        ("log_sigmoid", [4 * act], {}, E, True),
+        ("mish", [4 * act], {}, E, True),
+        ("silu", [4 * act], {}, E, True),
+        ("hard_swish", [4 * act], {}, E, True),
+        ("isnan", [odd], {}, X, False),
+        ("isinf", [odd], {}, X, False),
+        ("isfinite", [odd], {}, X, False),
+        ("isposinf", [odd], {}, X, False),
+        ("isneginf", [odd], {}, X, False),
+        ("copysign", [act, act2], {}, X, True),
+        ("gcd", [ints(-1000, 1000, *OP_ACT), ints(1, 1000, *OP_ACT)], {}, X,
+         False),
+        ("lcm", [ints(-1000, 1000, *OP_ACT), ints(1, 1000, *OP_ACT)], {}, X,
+         False),
+        ("heaviside", [holes, act2], {}, X, 1),
+        ("ldexp", [act, u(-3, 3, *OP_ACT)], {}, E, True),
+        ("logaddexp", [act, act2], {}, E, True),
+        ("interp", [act, torch.sort(u(-3, 3, 1000)).values, f(1000)], {}, E,
+         True),
+        ("nan_to_num", [odd], {}, X, True),
+        ("cumprod", [u(0.99, 1.01, *OP_ACT)], {"axis": -1}, C, True),
+        ("logsumexp", [act], {"axis": -1}, C, True),
+        ("bincount", [ints(0, VOCAB, b * s)], {}, X, False),
+        ("digitize", [act, torch.linspace(-3, 3, 101)], {}, X, False),
+        ("searchsorted", [torch.linspace(-3, 3, 101), act], {}, X, False),
+        ("ediff1d", [act], {}, E, True),
+        ("trapz", [act], {"dx": 0.5}, C, True),
+        ("einsum", [act, f(h, h) / math.sqrt(h)],
+         {"subscripts": "bsh,hk->bsk"}, C, True),
+        ("roll", [act], {"shift": 7, "axis": 1}, X, True),
+        ("rot90", [act], {"axes": (1, 2)}, X, True),
+        ("tensordot", [act, f(h, h) / math.sqrt(h)], {"axes": 1}, C, True),
+        ("vander", [u(-1, 1, h)], {"N": 8}, C, True),
+        ("meshgrid", [f(s), f(h)], {}, X, True),
+        ("kron", [f(64, 64), f(12, 12)], {}, C, True),
+        ("masked_softmax", [f(*OP_SCORES) / 8, (u(0, 1, b, 1, 1, s) > 0.2)
+                            .float()], {}, E, True),
+        ("masked_log_softmax", [f(*OP_SCORES) / 8,
+                                (u(0, 1, b, 1, 1, s) > 0.2).float()], {},
+         "cancel", True),
+        ("add_n", [act, act2, holes], {}, E, True),
+        ("IdentityAttachKLSparseReg", [rows],
+         {"sparseness_target": 0.1, "penalty": 1e-3}, E, True),
+        ("_random_pdf_uniform", [u(-1, 1, *OP_ACT), par(-1.5, -1.0),
+                                 par(1.0, 2.0)], {}, S, 1),
+        ("_random_pdf_normal", [act, par(-1, 1), par(0.5, 2)],
+         {"is_log": True}, S, True),
+        ("_random_pdf_gamma", [u(0.1, 3, *OP_ACT), par(0.5, 3),
+                               par(0.5, 2)], {}, S, True),
+        ("_random_pdf_exponential", [u(0.1, 3, *OP_ACT), par(0.5, 2)], {},
+         S, True),
+        ("_random_pdf_poisson", [counts, par(0.5, 4)], {"is_log": True}, S,
+         1),
+        ("_random_pdf_negative_binomial", [counts, par(1, 4),
+                                           par(0.2, 0.8)], {}, S, 1),
+        ("_random_pdf_generalized_negative_binomial",
+         [counts, par(1, 4), par(0.2, 1.5)], {"is_log": True}, S, 1),
+        ("_random_pdf_dirichlet", [simplex, u(0.5, 3, b * s // 4, 16)], {},
+         S, True),
+        ("_contrib_fft", [rows], {}, C, True),
+        ("_contrib_ifft", [f(b * s, 2 * h)], {}, C, True),
+        ("_contrib_boolean_mask", [rows, (u(0, 1, b * s) > 0.3).float()],
+         {}, X, True),
+        ("_contrib_arange_like", [act], {"axis": 1}, X, False),
+        ("_contrib_quadratic", [act], {"a": 0.5, "b": -1.0, "c": 2.0}, E,
+         True),
+        ("_contrib_gradientmultiplier", [act], {"scalar": -0.5}, X, True),
+        ("Crop", [img], {"h_w": (200, 200), "center_crop": True}, X, True),
+        ("im2col", [col_in], {"kernel": (3, 3), "pad": (1, 1)}, X, True),
+        ("col2im", [cols], {"output_size": OP_COL[2:], "kernel": (3, 3),
+                            "pad": (1, 1)}, C, True),
+        ("histogram", [act], {"bin_cnt": 20}, E, False),
+        ("choose_element_0index", [logits, labels], {}, X, True),
+        ("fill_element_0index", [logits, f(OP_ROWS), labels], {}, X, True),
+        ("split_v2", [act], {"sections": 12, "axis": -1}, X, True),
+        ("_contrib_hawkesll", hawkes, {}, E, True),
+        ("_square_sum", [act], {"axis": -1}, C, True),
+        ("_hypot", [act, act2], {}, E, True),
+        ("_hypot_scalar", [act, torch.tensor(1.5)], {}, E, True),
+        ("_logical_and", [holes, act2], {}, X, False),
+        ("_logical_or", [holes, torch.zeros(OP_ACT)], {}, X, False),
+        ("_logical_xor", [holes, act2], {}, X, False),
+        ("_zeros", [], {"shape": OP_ACT}, X, False),
+        ("_ones", [], {"shape": OP_ACT, "dtype": "int32"}, X, False),
+        ("_full", [], {"shape": OP_ACT, "value": 2.5}, X, False),
+        ("_arange", [], {"start": 0.0, "stop": float(VOCAB)}, X, False),
+        ("_linspace", [], {"start": -1.0, "stop": 1.0, "num": STN_SIZE}, X,
+         False),
+        ("_eye", [], {"N": h}, X, False),
+        ("_slice_assign", [act, act2[:, :s // 2]],
+         {"begin": (None, s // 2), "end": (None, s)}, X, True),
+        ("_slice_assign_scalar", [act],
+         {"begin": (0, 0), "end": (b, s), "step": (1, 2), "scalar": 0.0}, X,
+         True),
+        ("_onehot_encode", [ints(0, OP_CLASSES, OP_IMG[0]).float(),
+                            torch.zeros(OP_IMG[0], OP_CLASSES)], {}, X,
+         False),
+        ("_scatter_set_nd", [act, f(n_set), scatter_idx], {}, X, False),
+        ("_copyto", [act], {}, X, True),
+        ("_set_value", [act], {"src": 3.0}, X, False),
+        ("_identity_with_attr_like_rhs", [act, act2], {}, X, True),
+        ("_rnn_param_concat", [f(2600, 650), f(2600, 650), f(2600),
+                               f(2600)], {"num_args": 4}, X, True),
+        ("round_ste", [3 * act], {}, X, True),
+        ("sign_ste", [holes], {}, X, True),
+        ("GridGenerator", [theta], {"target_shape": OP_IMG[2:]}, P, True),
+        ("BilinearSampler", [img, grid], {}, P, 1),
+        ("SpatialTransformer", [img, theta], {"target_shape": OP_IMG[2:]},
+         P, 1),
+        ("batch_take", [f(OP_IMG[0], OP_CLASSES),
+                        ints(0, OP_CLASSES, OP_IMG[0]).float()], {}, X,
+         True),
+        ("_ravel_multi_index", [torch.stack([ints(0, s, 100000),
+                                             ints(0, h, 100000)]).float()],
+         {"shape": (s, h)}, X, False),
+        ("_unravel_index", [ints(0, s * h, 100000).float()],
+         {"shape": (s, h)}, X, False)]
+    cases = [(name, name) + tuple(rest) for name, *rest in cases]
+    nb, n = OP_SPD
+    for dt, fam in ((torch.float32, "linalg32"), (torch.float64,
+                                                  "linalg64")):
+        spd = slice_spd(g, nb, n)
+        low = torch.linalg.cholesky(spd)
+        # eigenvalues 1, 2, ..., n: an eigenvector moves by rounding over
+        # the gap to its neighbours, and so does syevd's gradient
+        q = _orthogonal(g, nb, n)
+        spread = (q * torch.arange(1, n + 1, dtype=torch.float64)) @ \
+            q.transpose(1, 2)
+        rnd = lambda *s: torch.randn(s, generator=g,  # noqa: E731
+                                     dtype=torch.float64) / math.sqrt(n)
+        tag = "" if dt == torch.float32 else ":float64"
+        lin = [
+            ("linalg_gemm", [rnd(nb, n, n), rnd(nb, n, n), rnd(nb, n, n)],
+             {"transpose_b": True, "alpha": 0.5, "beta": -1.0}, True),
+            ("linalg_potrf", [spd], {}, True),
+            ("linalg_potri", [low], {}, True),
+            ("linalg_trsm", [low, rnd(nb, n, 64)], {}, True),
+            ("linalg_trmm", [low, rnd(nb, n, 64)], {"transpose": True},
+             True),
+            ("linalg_syrk", [rnd(nb, n // 2, n)], {}, True),
+            ("linalg_gelqf", [rnd(nb, n // 2, n)], {}, _blind_pair),
+            ("linalg_sumlogdiag", [spd], {}, True),
+            ("linalg_extractdiag", [spd], {"offset": 1}, True),
+            ("linalg_makediag", [rnd(nb, n)], {}, True),
+            ("linalg_extracttrian", [spd], {}, True),
+            ("linalg_maketrian", [rnd(nb, n * (n + 1) // 2)], {}, True),
+            ("linalg_inverse", [spd], {}, True),
+            ("linalg_det", [spd], {}, True),
+            ("linalg_slogdet", [spd], {}, True),
+            ("linalg_syevd", [spread], {}, _blind_pair),
+            ("khatri_rao", [rnd(n, 64), rnd(n // 2, 64)], {}, True)]
+        exact = ("linalg_extractdiag", "linalg_makediag",
+                 "linalg_extracttrian", "linalg_maketrian")
+        cases += [(name + tag, name, [t.to(dt) for t in ins], kw,
+                   "exact" if name in exact else fam, grad)
+                  for name, ins, kw, grad in lin]
+    return cases
+
+
+def _slice_run(op, inputs, kwargs, grad, dev, decisions=None):
+    """``op`` on ``inputs`` moved to ``dev`` (``ctx=dev`` for an op
+    without inputs): the outputs and, if asked, the gradient, where they
+    were computed."""
+    ts = [t.to(dev) for t in inputs]
+    wrt = grad if isinstance(grad, int) and not isinstance(grad, bool) \
+        else 0
+    if grad is not False:
+        ts[wrt] = ts[wrt].detach().requires_grad_()
+    if not inputs:
+        kwargs = dict(kwargs, ctx=dev)
+    with decisions if decisions is not None else contextlib.nullcontext():
+        out = invoke(get_op(op), ts, kwargs)
+    outs = [o._data if isinstance(o, nd.NDArray) else o for o in (
+        out if isinstance(out, (list, tuple)) else [out])]
+    dg = None
+    if grad is not False:
+        total = grad(outs) if callable(grad) else sum(
+            o.sum(dtype=torch.float64) for o in outs
+            if o.is_floating_point())
+        dg, = torch.autograd.grad(total, ts[wrt])
+    return [o.detach() for o in outs], dg
+
+
+def _pair_err(a: torch.Tensor, b: torch.Tensor, scaled: bool) -> float:
+    """``a`` against the reference ``b``: the largest ``|a - b|`` over
+    ``max(1, max |b|)`` (``scaled``: a sum's error goes with its terms,
+    not with its result) or the largest ``|a - b| / max(1, |b|)``; in
+    chunks (the largest outputs are GBs).  NaNs and infinities must sit
+    in the same places, integers must be equal (else inf)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return math.inf
+    if torch.equal(a, b):
+        return 0.0
+    if not a.is_floating_point():
+        return math.inf
+    err, scale = 0.0, 1.0
+    for x, y in zip(a.reshape(-1).split(1 << 26), b.reshape(-1).split(
+            1 << 26)):
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+        if not bool((same | (torch.isfinite(x) & torch.isfinite(y))).all()):
+            return math.inf
+        d = torch.where(same, torch.zeros_like(x), (x - y).abs())
+        if scaled:
+            fin = torch.isfinite(y)
+            if bool(fin.any()):
+                scale = max(scale, y[fin].abs().max().item())
+        else:
+            d = d / y.abs().clamp(min=1.0)
+        err = max(err, d.max().item() if d.numel() else 0.0)
+    return err / scale if scaled else err
+
+
+def slice_ops_run(seed: int) -> dict:
+    """(a): each case of ``slice_op_cases`` on the card and on the CPU; the
+    spatial cases' CPU runs take the card's floors (``SamplerDecisions``).
+    Exact families must agree bit for bit, the others within
+    ``SLICE_TOL``."""
+    dev = gpu(0)
+    rows, failed = {}, []
+    cases = slice_op_cases(seed)
+    names = {op for _, op, *_ in cases}
+    before = _launch_total()
+    t0 = time.monotonic()
+    for row, op, inputs, kwargs, fam, grad in cases:
+        t1 = time.monotonic()
+        rec = SamplerDecisions() if fam == "spatial" else None
+        card_out, card_g = _slice_run(op, inputs, kwargs, grad, dev, rec)
+        forced = SamplerDecisions(rec.masks) if rec is not None else None
+        cpu_out, cpu_g = _slice_run(op, inputs, kwargs, grad, cpu(), forced)
+        # compared where the card's results lie (the largest are GBs)
+        place = card_out[0].device
+        cpu_out = [o.to(place) for o in cpu_out]
+        if op in ("linalg_syevd", "linalg_gelqf"):
+            card_out = _aligned(card_out, cpu_out)
+        errs = [_pair_err(a, b, fam in SLICE_SCALED)
+                for a, b in zip(card_out, cpu_out)]
+        grad_err = _pair_err(card_g, cpu_g.to(place), True) \
+            if card_g is not None else None
+        tol = SLICE_TOL[fam]
+        gtol = SLICE_TOL["elementwise"] if fam == "exact" else tol
+        ok = len(card_out) == len(cpu_out) and all(
+            e <= tol for e in errs) and (grad_err is None or grad_err <= gtol)
+        rows[row] = {"family": fam, "max_err": max(errs),
+                     "grad_err": grad_err, "tol": tol,
+                     "shape": list(card_out[0].shape),
+                     "dtype": str(card_out[0].dtype).replace("torch.", ""),
+                     "seconds": time.monotonic() - t1, "ok": ok}
+        if forced is not None:
+            rows[row]["decisions"] = {"floors": rec.units,
+                                      "flips": forced.flips}
+            ok = ok and forced.flips <= DECISION_FLIPS * max(rec.units, 1)
+            rows[row]["ok"] = ok
+        if not ok:
+            failed.append(row)
+        del card_out, cpu_out, card_g, cpu_g
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = {fam: max((r["max_err"] for r in rows.values()
+                       if r["family"] == fam), default=0.0)
+             for fam in SLICE_TOL}
+    worst_grad = {fam: max((r["grad_err"] or 0.0 for r in rows.values()
+                            if r["family"] == fam), default=0.0)
+                  for fam in SLICE_TOL}
+    launches = _launch_total() - before
+    return {"ops": len(names), "cases": len(rows), "rows": rows,
+            "failed": failed, "worst_by_family": worst,
+            "worst_grad_by_family": worst_grad, "launches": launches,
+            "seconds": time.monotonic() - t0,
+            "ok": not failed and names == set(SLICE_OPS)
+            and launches == 0}
+
+
+def _moments(x: torch.Tensor, mean: float, var: float) -> dict:
+    """The sample mean and variance against the exact values, each in
+    standard errors (the variance's from the sample's fourth central
+    moment); computed in float64 where the draws lie."""
+    x = x.reshape(-1).double()
+    m, v = x.mean(), x.var(correction=0)
+    m4 = ((x - m) ** 4).mean()
+    n = x.numel()
+    se_m, se_v = math.sqrt(var / n), math.sqrt(max((m4 - v * v).item(),
+                                                   1e-300) / n)
+    zm, zv = abs(m.item() - mean) / se_m, abs(v.item() - var) / se_v
+    return {"mean": m.item(), "var": v.item(), "z_mean": zm, "z_var": zv,
+            "ok": zm <= DRAW_SIGMAS and zv <= DRAW_SIGMAS}
+
+
+class NoiseBlock(gluon.HybridBlock):
+    """``x`` plus a normal, a gamma and a Poisson draw of its shape."""
+
+    def hybrid_forward(self, F, x):
+        return x + F.random.normal_like(x) + F.random.gamma_like(
+            x, alpha=2.0) + F.random.poisson_like(x, lam=3.0)
+
+
+def slice_draws_run(seed: int) -> dict:
+    """(b): ``DRAWS`` draws of every ``_random_*``/``_sample_*`` form on
+    the card, their moments within ``DRAW_SIGMAS`` standard errors of the
+    exact values (each row of a ``_sample_*`` draw its own), a reseed
+    repeating every draw bit for bit (another seed not), ``_shuffle`` a
+    permutation, ``_sample_multinomial``'s frequencies its probabilities;
+    then the draws of ``NoiseBlock`` hybridized: fresh at each replay,
+    repeated after a reseed."""
+    dev = gpu(0)
+    t0 = time.monotonic()
+    r = nd.random
+    n, half = DRAWS, DRAWS // 2
+    like = nd.zeros((n,), ctx=dev)
+
+    def vec(*v):
+        return nd.array(np.array(v, np.float32), ctx=dev)
+
+    # name, draw (an NDArray on the card), exact mean(s) and variance(s)
+    scalar = [
+        ("_random_gamma", lambda: r.gamma(2.5, 1.5, shape=(n,), ctx=dev),
+         3.75, 5.625),
+        ("_random_gamma(0.5)", lambda: r.gamma(0.5, 2.0, shape=(n,),
+                                               ctx=dev), 1.0, 2.0),
+        ("_random_exponential", lambda: r.exponential(2.0, shape=(n,),
+                                                      ctx=dev), 2.0, 4.0),
+        ("_random_poisson", lambda: r.poisson(3.5, shape=(n,), ctx=dev),
+         3.5, 3.5),
+        ("_random_negative_binomial", lambda: r.negative_binomial(
+            3, 0.4, shape=(n,), ctx=dev), 4.5, 11.25),
+        ("_random_generalized_negative_binomial",
+         lambda: r.generalized_negative_binomial(2.0, 0.5, shape=(n,),
+                                                 ctx=dev), 2.0, 4.0),
+        ("_random_uniform_like", lambda: r.uniform_like(like, -1.0, 3.0),
+         1.0, 16 / 12),
+        ("_random_normal_like", lambda: r.normal_like(like, 2.0, 3.0), 2.0,
+         9.0),
+        ("_random_gamma_like", lambda: r.gamma_like(like, 2.5, 1.5), 3.75,
+         5.625),
+        ("_random_exponential_like", lambda: r.exponential_like(like, 0.5),
+         2.0, 4.0),
+        ("_random_poisson_like", lambda: r.poisson_like(like, 3.5), 3.5,
+         3.5)]
+    per_row = [
+        ("_sample_uniform", lambda: r.sample_uniform(
+            vec(-1, 0), vec(3, 1), shape=(half,)), (1.0, 0.5),
+         (16 / 12, 1 / 12)),
+        ("_sample_normal", lambda: r.sample_normal(
+            vec(2, -1), vec(3, 0.5), shape=(half,)), (2.0, -1.0),
+         (9.0, 0.25)),
+        ("_sample_gamma", lambda: r.sample_gamma(
+            vec(2.5, 0.5), vec(1.5, 2.0), shape=(half,)), (3.75, 1.0),
+         (5.625, 2.0)),
+        ("_sample_exponential", lambda: r.sample_exponential(
+            vec(0.5, 2.0), shape=(half,)), (2.0, 0.5), (4.0, 0.25)),
+        ("_sample_poisson", lambda: r.sample_poisson(
+            vec(3.5, 0.7), shape=(half,)), (3.5, 0.7), (3.5, 0.7)),
+        ("_sample_negative_binomial", lambda: r.sample_negative_binomial(
+            vec(3, 1), vec(0.4, 0.7), shape=(half,)), (4.5, 3 / 7),
+         (11.25, 0.3 / 0.49)),
+        ("_sample_generalized_negative_binomial",
+         lambda: r.sample_generalized_negative_binomial(
+             vec(2.0, 0.5), vec(0.5, 1.5), shape=(half,)), (2.0, 0.5),
+         (4.0, 0.875))]
+    probs = torch.tensor([[0.05, 0.15, 0.3, 0.5, 0.0],
+                          [0.2, 0.2, 0.2, 0.2, 0.2]], device=dev)
+
+    def all_draws():
+        out = [fn()._data for _, fn, *_ in scalar + per_row]
+        out.append(r.multinomial(nd.NDArray(probs), shape=(half,))._data)
+        out.append(r.shuffle(nd.arange(n, ctx=dev))._data)
+        return out
+
+    before = _launch_total()
+    mx_random.seed(seed + 21)
+    first = all_draws()
+    mx_random.seed(seed + 21)
+    again = all_draws()
+    mx_random.seed(seed + 22)
+    other = all_draws()
+    torch.cuda.synchronize()
+    reseed_same = _bitwise(first, again)
+    reseed_other = [not torch.equal(a, b) for a, b in zip(first, other)]
+    moments = {}
+    for (name, _, mean, var), x in zip(scalar, first):
+        moments[name] = _moments(x, mean, var)
+    for (name, _, means, vars_), x in zip(per_row, first[len(scalar):]):
+        moments[name] = [_moments(x[i], means[i], vars_[i])
+                         for i in range(2)]
+    draws = first[-2]
+    freq = torch.stack([torch.bincount(draws[i].long(), minlength=5)
+                        for i in range(2)]).double() / half
+    p = probs.double()
+    se = torch.sqrt(p * (1 - p) / half).clamp(min=1e-12)
+    z = ((freq - p).abs() / se).max().item()
+    shuffled = first[-1]
+    perm = torch.equal(torch.sort(shuffled).values, nd.arange(
+        n, ctx=dev)._data) and not torch.equal(shuffled, nd.arange(
+            n, ctx=dev)._data)
+    launches = _launch_total() - before
+    del first, again, other
+
+    # a draw inside a captured graph
+    block = NoiseBlock()
+    block.initialize(ctx=dev)
+    block.hybridize()
+    x = nd.zeros((1 << 16,), ctx=dev)
+    mx_random.seed(seed + 23)
+    calls = [block(x)._data.clone() for _ in range(4)]
+    mx_random.seed(seed + 23)
+    repeat = [block(x)._data.clone() for _ in range(4)]
+    torch.cuda.synchronize()
+    stats = block.graph_stats()
+    graph = {"replays": stats["replays"], "graphs": stats["graphs"],
+             "fresh": all(not torch.equal(a, b)
+                          for a, b in zip(calls, calls[1:])),
+             "reseed_repeats": _bitwise(calls, repeat),
+             "mean": calls[-1].double().mean().item()}
+    on_card = as_device(gpu(0)).type == "cuda"
+    graph["ok"] = graph["fresh"] and graph["reseed_repeats"] and (
+        not on_card or graph["replays"] >= 4) and abs(
+        graph["mean"] - 5.0) < 0.1
+    free_graphs(block)
+    checks = {
+        "moments": all(m["ok"] for v in moments.values()
+                       for m in (v if isinstance(v, list) else [v])),
+        "reseed_bitwise": reseed_same, "other_seed_differs":
+            all(reseed_other), "multinomial": z <= DRAW_SIGMAS,
+        "shuffle_permutes": perm, "captured_draws": graph["ok"],
+        "no_kernel_launches": launches == 0}
+    return {"draws_each": n, "forms": len(scalar) + len(per_row) + 2,
+            "moments": moments, "multinomial_z": z, "graph": graph,
+            "checks": checks, "seconds": time.monotonic() - t0,
+            "ok": all(checks.values())}
+
+
+class STN(gluon.HybridBlock):
+    """Jaderberg et al. 2015's spatial transformer in front of a
+    classifier: a ``Dense(6)`` over the pooled input gives each image's
+    affine, ``SpatialTransformer`` resamples the image at ``size`` x
+    ``size`` with it, the body classifies the result."""
+
+    def __init__(self, body, size: int):
+        super().__init__()
+        self.size = size
+        with self.name_scope():
+            self.loc = nn.Dense(6, in_units=3)
+            self.body = body
+
+    def hybrid_forward(self, F, x):
+        theta = self.loc(F.mean(x, axis=(2, 3)))
+        return self.body(F.SpatialTransformer(
+            x, theta, target_shape=(self.size, self.size)))
+
+
+def stn_build(dev, seed: int = 0, arrays=None):
+    """The STN over ``STN_BODY`` (1000 classes); weights from ``seed``
+    (Xavier, the loc net's weight 0 and its bias ``stn_affine()``) or
+    ``arrays``; the loc net learns at ``STN_LOC_LR_MULT`` of the rate."""
+    body = vision_zoo.get_model(STN_BODY, classes=1000) \
+        if isinstance(STN_BODY, str) else STN_BODY()
+    net = STN(body, STN_SIZE)
+    net.loc.collect_params().setattr("lr_mult", STN_LOC_LR_MULT)
+    if arrays is not None:
+        load_reference_params(net, arrays, ctx=dev)
+        return net
+    net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+    net.loc.weight.set_data(nd.zeros((6, 3), ctx=dev))
+    net.loc.bias.set_data(nd.array(np.array(stn_affine(), np.float32),
+                                   ctx=dev))
+    return net
+
+
+def stn_check(net, w_init: dict, xb, yb, seed: int, loc: list) -> dict:
+    """One SGD-momentum step of ``net`` (on the card, at its initial
+    weights ``w_init``) at batch ``STN_CHECK``, recording its ReLU,
+    max-pool and sampler-floor decisions (``SamplerDecisions``), against
+    the same step on the CPU in fp32 and float64 taking them:
+    ``decision_leaf_check``, the loc net's gradient and update among the
+    leaves (``loc``, their names), which are also reported, and held, on
+    their own."""
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
+    with SamplerDecisions(seed=seed) as card:
+        after = {"card": check_step(
+            net, lambda: lossfn(net(xb), yb).mean(), RESNET_OPT)}
+    flips = {}
+    for nm, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+        model = stn_build(cpu(), arrays=arrays).to(dtype)
+        xc = xb.cpu().to(dtype)
+        with SamplerDecisions(card.masks) as forced:
+            after[nm] = check_step(model, lambda: lossfn(
+                model(xc), yb.cpu()).mean(), RESNET_OPT)
+        flips[nm] = {"decisions": forced.flips}
+        del model
+    res = decision_leaf_check(after, w_init, flips,
+                              {"decisions": card.units})
+    names = list(w_init)
+    grads = [list(after[k][1].values()) for k in ("card", "cpu", "cpu64")]
+    res["loc"] = {}
+    for name in loc:
+        i = names.index(name)
+        card_g, cpu_g, ref = (g[i].double().cpu() for g in grads)
+        share = [(t - ref).norm().item() / max(ref.norm().item(), 1e-30)
+                 for t in (card_g, cpu_g)]
+        res["loc"][name] = {"grad_share": share[0], "cpu_share": share[1],
+                            "limit": LEAF_K * share[1] + LEAF_FLOOR,
+                            "card_grad": card_g.reshape(-1).tolist()}
+    res["ok"] = res["ok"] and all(r["grad_share"] <= r["limit"]
+                                  for r in res["loc"].values())
+    return res
+
+
+def stn_run(seed: int) -> dict:
+    """(c): the STN + ``STN_BODY`` at batch ``STN_BATCH`` fp32: the check
+    step, ``STN_STEPS`` eager steps of ``autograd.record`` ->
+    ``SoftmaxCrossEntropyLoss`` -> ``backward`` -> ``Trainer("sgd",
+    momentum 0.9)``, then ``STN_HYBRID_STEPS`` hybridized (the warm call,
+    the capture, replays): finite losses, the momentum kernel's launches
+    exact (one per group of ``AGG`` trainable tensors a step, the check
+    step's too)."""
+    dev = gpu(0)
+    t0 = time.monotonic()
+    gen = torch.Generator(device=as_device(dev)).manual_seed(seed + 21)
+    x = torch.randn(STN_BATCH, 3, STN_SIZE, STN_SIZE, device=as_device(dev),
+                    generator=gen)
+    y = torch.randint(0, 1000, (STN_BATCH,), device=as_device(dev),
+                      generator=gen).float()
+    net = stn_build(dev, seed)
+    w_init = _snapshot(net)
+    trainable = [p for p in net.collect_params().values()
+                 if p.grad_req != "null"]
+    groups = -(-len(trainable) // AGG)
+    before, others = multi_sgd_mom.launches, other_launches(multi_sgd_mom)
+    check = stn_check(net, w_init, x[:STN_CHECK], y[:STN_CHECK], seed,
+                      [net.loc.weight.name, net.loc.bias.name])
+    load_reference_params(net, {k: v.cpu().numpy()
+                                for k, v in w_init.items()}, ctx=dev)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", RESNET_OPT)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, step_ms = [], []
+    for i in range(STN_STEPS + STN_HYBRID_STEPS):
+        if i == STN_STEPS:
+            net.hybridize()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        with autograd.record():
+            loss = lossfn(net(x), y)
+        autograd.backward(loss)
+        trainer.step(STN_BATCH)
+        losses.append(loss.detach().mean())
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t1) * 1e3)
+    launches = multi_sgd_mom.launches - before
+    expected = groups * (STN_STEPS + STN_HYBRID_STEPS + 1)
+    stats = graph_summary(net)
+    losses = [v.item() for v in losses]
+    with torch.no_grad():
+        theta = net.loc(x.mean(dim=(2, 3))).detach().cpu()
+    free_graphs(net)
+    on_card = as_device(dev).type == "cuda"
+    checks = {"losses_finite": all(math.isfinite(v) for v in losses),
+              "launches_exact": launches == expected
+              and other_launches(multi_sgd_mom) == others,
+              "leaf_check": check["ok"],
+              "replayed": not on_card or stats["replays"] >= 2}
+    return {"batch": STN_BATCH, "size": STN_SIZE, "body": str(STN_BODY),
+            "trainable_params": len(trainable), "losses": losses,
+            "step_ms": step_ms, "launches": launches,
+            "expected_launches": expected, "graphs": stats,
+            "theta_mean": theta.mean(0).tolist(), "check": check,
+            "checks": checks, "seconds": time.monotonic() - t0,
+            "ok": all(checks.values())}
+
+
+def gp_data(seed: int):
+    """``GP``'s problems: points uniform in the unit cube, targets a smooth
+    function of them plus noise (float64, on the CPU)."""
+    g = torch.Generator().manual_seed(seed + 24)
+    b, n, d = GP["problems"], GP["points"], GP["dims"]
+    x = torch.rand(b, n, d, generator=g, dtype=torch.float64)
+    w = torch.randn(b, d, 1, generator=g, dtype=torch.float64)
+    y = torch.sin(3 * x @ w) + 0.1 * torch.randn(b, n, 1, generator=g,
+                                                 dtype=torch.float64)
+    return x, y
+
+
+def gp_nll(params, x, y):
+    """The negative log marginal likelihood of each problem, through
+    ``nd``'s linalg ops: ``K = s^2 exp(-|xi - xj|^2 / (2 l^2)) + n^2 I``,
+    ``L = potrf(K)``, ``a = trsm(L, y)``, ``a^T a / 2 + sumlogdiag(L) +
+    n/2 log 2 pi``; ``params`` the logs of ``l``, ``s``, ``n``."""
+    ell, sf, sn = (params[i].exp() for i in range(3))
+    sq = (x * x).sum(-1)
+    d2 = (sq[:, :, None] + sq[:, None, :]
+          - 2 * nd.batch_dot(x, x, transpose_b=True)).clamp(min=0)
+    eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+    k = sf * sf * torch.exp(-d2 / (2 * ell * ell)) + sn * sn * eye
+    low = nd.linalg_potrf(k)
+    alpha = nd.linalg_trsm(low, y)
+    return 0.5 * (alpha * alpha).sum((1, 2)) + nd.linalg_sumlogdiag(low) \
+        + 0.5 * x.shape[1] * math.log(2 * math.pi)
+
+
+def gp_fit(x, y, dev, dtype) -> dict:
+    """``GP["steps"]`` Adam steps on the mean NLL over the problems (lr
+    ``GP["lr"]``), autograd through ``gp_nll``: the NLL before each step
+    and the parameters after it."""
+    x, y = x.to(dev, dtype), y.to(dev, dtype)
+    params = torch.tensor(GP["init"], dtype=dtype, device=as_device(dev))
+    m, v = torch.zeros_like(params), torch.zeros_like(params)
+    nll, path = [], []
+    for t in range(1, GP["steps"] + 1):
+        params.requires_grad_()
+        loss = gp_nll(params, x, y).mean()
+        g, = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            step = GP["lr"] * (m / (1 - 0.9 ** t)) / (
+                torch.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
+            params = params.detach() - step
+        nll.append(loss.detach())
+        path.append(params.clone())
+    return {"nll": torch.stack(nll).double().cpu(),
+            "params": torch.stack(path).double().cpu()}
+
+
+def _dev_from(run, ref) -> float:
+    """Largest deviation of a fit from the reference fit, relative:
+    ``|a - b| / max(1, |b|)`` over the NLLs and the parameters."""
+    return max(((run[k] - ref[k]).abs() / ref[k].abs().clamp(min=1.0))
+               .max().item() for k in ("nll", "params"))
+
+
+def gp_run(seed: int) -> dict:
+    """(d): ``GP`` fitted on the card in float64 and in fp32, and on the
+    CPU in float64 (the reference): the card's float64 fit within
+    ``GP_TOL64`` of the CPU's, its fp32 fit within ``GP_TOL32``; the NLL
+    falls."""
+    t0 = time.monotonic()
+    x, y = gp_data(seed)
+    before = _launch_total()
+    fits = {}
+    for name, dev, dtype in (("card64", gpu(0), torch.float64),
+                             ("card32", gpu(0), torch.float32),
+                             ("cpu64", cpu(), torch.float64)):
+        t1 = time.monotonic()
+        fits[name] = gp_fit(x, y, dev, dtype)
+        fits[name]["seconds"] = time.monotonic() - t1
+    ref = fits["cpu64"]
+    dev64 = _dev_from(fits["card64"], ref)
+    dev32 = _dev_from(fits["card32"], ref)
+    launches = _launch_total() - before
+    checks = {"fp64_within": dev64 <= GP_TOL64,
+              "fp32_within": dev32 <= GP_TOL32,
+              "nll_falls": all(f["nll"][-1] < f["nll"][0]
+                               for f in fits.values()),
+              "finite": all(bool(torch.isfinite(f["nll"]).all())
+                            for f in fits.values()),
+              "no_kernel_launches": launches == 0}
+    return {"problems": GP["problems"], "points": GP["points"],
+            "dims": GP["dims"], "steps": GP["steps"],
+            "nll_first_last": {k: [f["nll"][0].item(), f["nll"][-1].item()]
+                               for k, f in fits.items()},
+            "params_last": {k: f["params"][-1].tolist()
+                            for k, f in fits.items()},
+            "fit_seconds": {k: f["seconds"] for k, f in fits.items()},
+            "card64_dev": dev64, "card32_dev": dev32, "checks": checks,
+            "seconds": time.monotonic() - t0, "ok": all(checks.values())}
+
+
+def op_slice_phase(seed: int, card: str) -> dict:
+    """Phase 21 (a)-(d): every count set to 0 just before the phase and
+    read just after it (each part also checks its own launches): the
+    momentum kernel launched by (c) alone, exactly, no other kernel."""
+    start = time.monotonic()
+    zero_counts()
+    res = {"card": card}
+    for key, fn in (("ops", slice_ops_run), ("draws", slice_draws_run),
+                    ("stn", stn_run), ("gp", gp_run)):
+        res[key] = fn(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = multi_sgd_mom.launches
+    res["other_launches"] = other_launches(multi_sgd_mom)
+    res.update(seconds=time.monotonic() - start, ok=all(
+        res[k]["ok"] for k in ("ops", "draws", "stn", "gp"))
+        and res["launches"] == res["stn"]["expected_launches"]
+        and res["other_launches"] == 0)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8358,6 +9284,35 @@ def main() -> int:
               flush=True)
     print(f"export checks on {card} ({export['seconds']:.1f} s):",
           json.dumps(export["checks"]), flush=True)
+    slice21 = op_slice_phase(args.seed, card)
+    r = slice21["ops"]
+    print(f"phase 21 ops on {card}: {r['ops']} ops checked in "
+          f"{r['cases']} cases ({r['seconds']:.1f} s), failed "
+          f"{r['failed']}, worst by family {json.dumps(r['worst_by_family'])}"
+          f", gradients {json.dumps(r['worst_grad_by_family'])}",
+          flush=True)
+    print(f"phase 21 op rows on {card}:", json.dumps(r["rows"]), flush=True)
+    r = slice21["draws"]
+    print(f"phase 21 draws on {card}: {r['forms']} forms of {r['draws_each']}"
+          f" draws ({r['seconds']:.1f} s):", json.dumps(r["checks"]),
+          json.dumps(r["moments"]), json.dumps(r["graph"]), flush=True)
+    r = slice21["stn"]
+    print(f"phase 21 stn + {r['body']} on {card}: batch {r['batch']}, "
+          f"losses {r['losses']}, step ms {r['step_ms']}, momentum "
+          f"launches {r['launches']} (expected {r['expected_launches']})",
+          json.dumps(r["checks"]), flush=True)
+    print(f"phase 21 stn check on {card}:", json.dumps(
+        {k: r["check"][k] for k in ("loss_abs_err_vs_cpu", "decisions",
+                                    "flips", "loc", "ok")}), flush=True)
+    r = slice21["gp"]
+    print(f"phase 21 gp on {card}: {r['problems']} problems of "
+          f"{r['points']} points, card64 dev {r['card64_dev']:.3g}, card32 "
+          f"dev {r['card32_dev']:.3g} (limits {GP_TOL64}, {GP_TOL32})",
+          json.dumps(r["nll_first_last"]), json.dumps(r["checks"]),
+          json.dumps(r["fit_seconds"]), flush=True)
+    print(f"phase 21 on {card}: {slice21['seconds']:.1f} s, momentum "
+          f"launches {slice21['launches']}, other launches "
+          f"{slice21['other_launches']}", flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -8461,6 +9416,7 @@ def main() -> int:
                             symbolic["heads"].values())},
            "optimizer_zoo_launches": zoo_launches("multi_sgd_mom"),
            "export_launches": export["train"]["launches"],
+           "op_slice_launches": slice21["launches"],
            "amp_bf16_launches": low["resnet50_amp"]["launches"],
            "imperative_launches": imp["launches"],
            **{f"{name}_launches": det[name]["train"]["launches"]
@@ -8519,7 +9475,8 @@ def main() -> int:
              nmt_backward, "detection": det, "graphs": graph,
          "generation": gen, "training_surface": surface,
          "data_pipeline": data, "model_surface": surface18,
-         "symbolic": symbolic, "export": export, "kernels": kernels,
+         "symbolic": symbolic, "export": export, "op_slice": slice21,
+         "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
     failed += [f"{name} phase" for name, ph in (
@@ -8530,7 +9487,7 @@ def main() -> int:
         ("detection", det), ("hybridized graphs", graph),
         ("generation serving", gen), ("training surface", surface),
         ("data pipeline", data), ("model surface", surface18),
-        ("symbolic", symbolic), ("export", export))
+        ("symbolic", symbolic), ("export", export), ("op slice", slice21))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

@@ -481,14 +481,28 @@ class HybridBlock(Block):
         keyed by its shapes (``static_shape``)."""
         self._active = active
         self._cached_graph = _BoundedCache(self.CACHED_GRAPH_LIMIT)
-        if active and self.reads_host and not self._host_warned:
-            self._host_warned = True
-            warnings.warn(
-                f"HybridBlock {self.name!r} ({type(self).__name__}) reads "
-                f"the host in its forward and cannot be captured into a "
-                f"CUDA graph; its hybridized calls run eagerly (counted in "
-                f"eager_calls)", RuntimeWarning, stacklevel=2)
+        if active and self.reads_host:
+            self._warn_host("")
         super().hybridize(False, **kwargs)
+
+    def _warn_host(self, why: str) -> None:
+        if self._host_warned:
+            return
+        self._host_warned = True
+        warnings.warn(
+            f"HybridBlock {self.name!r} ({type(self).__name__}) reads "
+            f"the host in its forward{why} and cannot be captured into a "
+            f"CUDA graph; its hybridized calls run eagerly (counted in "
+            f"eager_calls)", RuntimeWarning, stacklevel=3)
+
+    def found_host_read(self, op: str) -> None:
+        """An eager call of this hybridized block read the host (``op``,
+        see ``ndarray.register.host_read``): from now on it is treated as
+        a block that sets ``reads_host``: one warning, then every call
+        runs eagerly, counted in ``eager_calls``."""
+        self.reads_host = True
+        self._cached_graph = _BoundedCache(self.CACHED_GRAPH_LIMIT)
+        self._warn_host(f" ({op})")
 
     def cast(self, dtype) -> None:
         self._cached_graph = _BoundedCache(self.CACHED_GRAPH_LIMIT)

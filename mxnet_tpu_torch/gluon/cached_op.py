@@ -79,6 +79,7 @@ from torch import nn
 from .. import random as _random
 from ..base import MXNetError
 from ..kernels import counters
+from ..ndarray.register import host_reads
 from . import parameter as _param
 
 __all__ = ["CachedOp", "inline"]
@@ -311,9 +312,19 @@ class CachedOp:
         return getattr(self.block, "hybrid_" + self.entry)(*args, **kwargs)
 
     def eager(self, leaves, spec, recording: bool):
+        """The block's forward run eagerly.  If it read values back to the
+        host (an op that calls ``register.host_read``: ``boolean_mask``,
+        ``bincount``, an unranged ``histogram``), the block is marked
+        ``reads_host`` (``HybridBlock.found_host_read``), so no graph of
+        it is ever captured."""
         args, kwargs = pytree.tree_unflatten(leaves, spec)
+        reads = host_reads()[0]
         with _running(), torch.set_grad_enabled(recording):
-            return self._invoke(args, kwargs)
+            out = self._invoke(args, kwargs)
+        count, name = host_reads()
+        if count != reads:
+            self.block.found_host_read(name)
+        return out
 
     def __call__(self, leaves, spec, recording: bool):
         if not self.settled():

@@ -8,19 +8,24 @@ methods (``x.sum(axis)``, ``x.exp()``, ``x.transpose()``, ...) delegate
 to the frontends with the array as first input (``_FLUENT_METHODS`` :57,
 ``_attach_fluent`` :71).  Hand-written frontends: the optimizer updates
 (``ops_optimizer.py``; in place on tensors, MXNet's convention on
-``NDArray``s), ``Custom`` (``ops_custom.py``),
+``NDArray``s), ``Custom`` (``ops_custom.py``), ``split_v2`` (sections or indices
+positional) and ``_set_value`` (``out=`` only),
 ``flash_attention`` (the ``_contrib_flash_attention`` op with its
-inputs by keyword), the draws of ``nd.random``,
+inputs by keyword), the draws of ``nd.random`` (also flat:
+``nd.random_gamma``, ``nd.sample_normal``, ``nd.shuffle``, ...),
 ``waitall``, ``save`` and ``load``.  ``nd.contrib`` holds the
 ``_contrib_*`` ops by their short names (the detection ops of
-``ops_contrib.py``), ``nd.image`` the ``_image_*`` ops
+``ops_contrib.py``, ``fft``, ``boolean_mask``, ...), ``nd.image`` the
+``_image_*`` ops
 (``ops_image.py``).
 """
 import sys as _sys
 
+import numpy as np
+
 from . import (ops_contrib, ops_ctc, ops_elemwise, ops_image,  # noqa: F401
-               ops_matrix, ops_misc, ops_nn, ops_optimizer, ops_random,
-               ops_reduce, ops_tail)
+               ops_linalg, ops_matrix, ops_misc, ops_nn, ops_optimizer,
+               ops_random, ops_reduce, ops_spatial, ops_tail)
 from . import contrib, image, random, utils
 from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,
                       ones, zeros)
@@ -37,6 +42,7 @@ from .ops_optimizer import (adagrad_update, adam_update, adamw_update,
                             rmsprop_update, rmspropalex_update,
                             sgd_mom_update, sgd_update, signsgd_update,
                             signum_update)
+from ..base import MXNetError
 from .register import _registry, get_op, invoke, list_ops, make_frontend
 from .utils import load, save
 
@@ -53,6 +59,45 @@ def flash_attention(q, k, v, valid_len=None, causal=False, scale=None,
     return invoke(get_op("_contrib_flash_attention"), inputs,
                   {"causal": causal, "scale": scale}, out=out)
 
+
+def split_v2(ary, indices_or_sections=None, axis=0, squeeze_axis=False,
+             **kwargs):
+    """MXNet's ``nd.split_v2``: ``indices_or_sections`` an int (equal
+    sections) or split indices (a leading 0, the raw op's segment start,
+    is accepted); ``sections=``/``indices=`` work too."""
+    if indices_or_sections is not None:
+        if isinstance(indices_or_sections, (int, np.integer)):
+            kwargs["sections"] = int(indices_or_sections)
+        else:
+            kwargs["indices"] = tuple(indices_or_sections)
+    out = kwargs.pop("out", None)
+    kwargs.pop("name", None)
+    kwargs.setdefault("axis", axis)
+    kwargs.setdefault("squeeze_axis", squeeze_axis)
+    return invoke(get_op("split_v2"), [ary], kwargs, out=out)
+
+
+def _set_value(src=0.0, out=None, **kwargs):
+    """MXNet's C-API form: fill ``out`` with ``src`` (no other input)."""
+    if out is None:
+        raise MXNetError("_set_value requires out=")
+    return invoke(get_op("_set_value"), [out], {"src": float(src)}, out=out)
+
+
+# the flat forms of ``nd.random`` (JAX :161-180): MXNet's frontends, which
+# take scalar or array parameters, before the registry's own
+for _name in ("uniform", "normal", "randint", "gamma", "exponential",
+              "poisson", "negative_binomial"):
+    setattr(_this, "random_" + _name, getattr(random, _name))
+for _name in ("sample_uniform", "sample_normal", "sample_gamma",
+              "sample_exponential", "sample_poisson",
+              "sample_negative_binomial",
+              "sample_generalized_negative_binomial", "shuffle",
+              "uniform_like", "normal_like", "gamma_like",
+              "exponential_like", "poisson_like", "randint_like", "normal",
+              "uniform"):
+    setattr(_this, _name, getattr(random, _name))
+sample_multinomial = random.multinomial
 
 for _name, _op in list(_registry.items()):
     if not hasattr(_this, _name):

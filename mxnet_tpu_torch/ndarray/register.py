@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import functools
 import inspect
+import threading
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -48,7 +49,8 @@ from .ndarray import NDArray
 __all__ = ["Operator", "register_op", "simple_op", "get_op", "list_ops",
            "invoke", "invoke_by_name", "invoke_binary", "make_frontend",
            "split_positional_params", "boundary", "call_on_tensors", "wrap",
-           "unwrap", "has_ndarray", "write_out"]
+           "unwrap", "has_ndarray", "write_out", "add_alias", "host_read",
+           "host_reads"]
 
 _registry: Dict[str, "Operator"] = {}
 _engine = _engine_fn()
@@ -98,11 +100,30 @@ class Operator:
         return fn
 
 
+def _no_grad_maker(maker: Callable) -> Callable:
+    """``maker`` whose fns run under ``torch.no_grad()``."""
+    @functools.wraps(maker)
+    def make(**kwargs):
+        fn = maker(**kwargs)
+
+        def run(*args):
+            with torch.no_grad():
+                return fn(*args)
+        return run
+    return make
+
+
 def register_op(name: str, maker: Callable = None, *,
-                aliases: Sequence[str] = (), doc: str = ""):
+                aliases: Sequence[str] = (), doc: str = "",
+                differentiable: bool = True):
     """Register an operator; usable directly or as a decorator on the
-    maker.  A name registered twice raises."""
+    maker.  A name registered twice raises.  The outputs of an op
+    registered ``differentiable=False`` take no gradient (its fns run
+    under ``torch.no_grad()``), as the JAX package records no tape node
+    for it."""
     def do(mk):
+        if not differentiable:
+            mk = _no_grad_maker(mk)
         op = Operator(name, mk, aliases, doc or (mk.__doc__ or ""))
         for n in (name,) + tuple(aliases):
             if n in _registry:
@@ -119,6 +140,42 @@ def register_op(name: str, maker: Callable = None, *,
 def simple_op(name: str, fn: Callable, **kw) -> None:
     """Register an op without parameters."""
     register_op(name, lambda: fn, **kw)
+
+
+def add_alias(existing: str, *aliases: str) -> None:
+    """More names for a registered op (``mxnet_tpu/ndarray/register.py``
+    :239)."""
+    op = get_op(existing)
+    for n in aliases:
+        if n in _registry:
+            raise MXNetError(f"operator name {n!r} is already registered "
+                             f"(by {_registry[n].name!r})")
+        _registry[n] = op
+    op.aliases = op.aliases + tuple(aliases)
+
+
+_host = threading.local()
+
+
+def host_read(name: str, *tensors: torch.Tensor) -> None:
+    """Called by an op whose output shape depends on its input's values
+    (``_contrib_boolean_mask``, ``bincount``, ``histogram`` without a
+    range) before it reads them back to the host.  On ``meta`` tensors
+    (shape inference, which has no values) it raises ``MXNetError``
+    naming the op; otherwise the read is counted on this thread
+    (``host_reads``), which tells a hybridized block that its forward
+    cannot be captured into a CUDA graph (``gluon/cached_op.py``)."""
+    if any(t.device.type == "meta" for t in tensors):
+        raise MXNetError(f"{name}: the output's shape depends on the "
+                         f"input's values; it cannot be inferred from "
+                         f"shapes alone")
+    _host.reads = getattr(_host, "reads", 0) + 1
+    _host.last = name
+
+
+def host_reads():
+    """(count, last op name) of ``host_read`` calls on this thread."""
+    return getattr(_host, "reads", 0), getattr(_host, "last", None)
 
 
 def get_op(name: str) -> Operator:

@@ -8,8 +8,11 @@ generator, ``seed(s, ctx=gpu(0))`` that device's alone.  Draws are
 reproducible under a seed; they are not equal to the JAX package's
 ``jax.random`` streams (a threefry key split per draw), nor to MXNet's.
 
-``uniform``, ``normal``, ``randn`` and ``randint`` are the draws of
-``mx.nd.random``, re-exported as MXNet's ``mx.random`` does.
+The draws of ``mx.nd.random`` (``uniform``, ``normal``, ``randn``,
+``randint``, ``exponential``, ``gamma``, ``poisson``,
+``negative_binomial``, ``generalized_negative_binomial``,
+``multinomial``, ``shuffle``, ``bernoulli``) are re-exported, as MXNet's
+``mx.random`` does (the JAX module's ``__getattr__`` :79).
 """
 from __future__ import annotations
 
@@ -20,7 +23,10 @@ import torch
 
 from .context import DeviceLike, as_device
 
-__all__ = ["seed", "generator", "uniform", "normal", "randn", "randint"]
+__all__ = ["seed", "generator", "uniform", "normal", "randn", "randint",
+           "exponential", "gamma", "poisson", "negative_binomial",
+           "generalized_negative_binomial", "multinomial", "shuffle",
+           "bernoulli"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -57,21 +63,15 @@ def generator(ctx: DeviceLike = None) -> torch.Generator:
     return gen
 
 
-def uniform(*args, **kwargs):
-    from .ndarray import random as _r
-    return _r.uniform(*args, **kwargs)
+_DRAWS = ("uniform", "normal", "randn", "randint", "exponential", "gamma",
+          "poisson", "negative_binomial", "generalized_negative_binomial",
+          "multinomial", "shuffle", "bernoulli")
 
 
-def normal(*args, **kwargs):
-    from .ndarray import random as _r
-    return _r.normal(*args, **kwargs)
-
-
-def randn(*args, **kwargs):
-    from .ndarray import random as _r
-    return _r.randn(*args, **kwargs)
-
-
-def randint(*args, **kwargs):
-    from .ndarray import random as _r
-    return _r.randint(*args, **kwargs)
+def __getattr__(name):
+    # MXNet's mx.random re-exports the draws of mx.nd.random (JAX :79);
+    # looked up lazily (ndarray.random imports this module)
+    if name in _DRAWS:
+        from .ndarray import random as _ndrandom
+        return getattr(_ndrandom, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

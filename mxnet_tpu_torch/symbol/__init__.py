@@ -2,11 +2,13 @@
 
 Counterpart of ``mxnet_tpu/symbol/``: ``Symbol``, ``var``/``Variable``,
 ``Group``, ``load``/``load_json`` and one frontend per registry op
-(``mx.sym.FullyConnected``, ``mx.sym.split``, ...).  ``symbol.contrib``
-(control flow) and ``symbol.random`` are not ported.
+(``mx.sym.FullyConnected``, ``mx.sym.split``, ...) and ``sym.random``
+(draws as graph nodes).  ``symbol.contrib`` (control flow) is not
+ported.
 """
 import sys as _sys
 
+from . import random  # noqa: F401  (mx.sym.random)
 from .executor import Executor
 from .register import _attach_frontends
 from .symbol import Group, Symbol, Variable, load, load_json, var
@@ -17,4 +19,4 @@ register_input_type(Symbol)
 _attach_frontends(_sys.modules[__name__])
 
 __all__ = ["Executor", "Group", "Symbol", "Variable", "load", "load_json",
-           "var"]
+           "random", "var"]

@@ -55,11 +55,24 @@ def _needed_inputs(opname: str, kwargs: Dict[str, Any]) -> List[str]:
 
 def num_outputs(opname: str, kwargs: Dict[str, Any], n_inputs: int = 1
                 ) -> int:
-    """Outputs of one node of ``opname`` with attributes ``kwargs``.
+    """Outputs of one node of ``opname`` with attributes ``kwargs`` (the
+    JAX package's rules, ``mxnet_tpu/symbol/register.py:49-90``).
     BatchNorm has one (the port's op updates its moving statistics in
     place; the JAX package's returns them as two more outputs)."""
     if opname in ("split", "SliceChannel"):
         return int(kwargs.get("num_outputs", 1))
+    if opname == "split_v2":
+        if kwargs.get("sections"):
+            return int(kwargs["sections"])
+        from ..ndarray.ops_misc import normalize_split_indices
+        return len(normalize_split_indices(kwargs.get("indices", ()))) + 1
+    if opname == "meshgrid":
+        return n_inputs
+    if opname in ("_contrib_hawkesll", "linalg_gelqf", "linalg_slogdet",
+                  "linalg_syevd"):
+        return 2
+    if opname == "_sample_multinomial" and kwargs.get("get_prob"):
+        return 2
     if opname in ("BatchNorm", "LayerNorm", "GroupNorm") and \
             kwargs.get("output_mean_var"):
         return 3

@@ -1388,3 +1388,74 @@ def test_head_step_check_flags_a_one_percent_gradient_fault(monkeypatch):
                                relu=True)
     assert len(calls) == 3 and not bad["ok"]
     assert not bad["grads"]["ok"] and not bad["weights"]["ok"]
+
+
+def _small_slice(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name, value in (("OP_ACT", (2, 8, 12)), ("OP_SCORES", (2, 3, 8, 8)),
+                        ("OP_SPD", (3, 16)), ("OP_IMG", (2, 3, 20, 24)),
+                        ("OP_COL", (2, 4, 8, 8)), ("OP_ROWS", 6),
+                        ("VOCAB", 50), ("OP_CLASSES", 10),
+                        ("DRAWS", 1 << 14), ("STN_BATCH", 2),
+                        ("STN_SIZE", 32)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "STN_BODY", lambda: resnet.ResNetV1(
+        resnet.BottleneckV1, [1, 1], [8, 16, 32], classes=1000))
+    monkeypatch.setattr(chip_smoke, "GP", dict(
+        chip_smoke.GP, problems=2, points=64, dims=3, steps=5))
+
+
+def test_op_slice_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 21 at toy sizes on the CPU (the STN in front of a 2-stage
+    ResNet, the GP at 64 points): every check passes but the one only the
+    card can meet (the momentum kernel's launches, 0 here): all 113 ops of
+    the slice against themselves (the sampler's floors handed over with no
+    flip), the draws' moments, reseeding and captured draws, the STN's
+    decision leaf check with the loc net's gradient, the GP fits."""
+    _small_slice(monkeypatch)
+    out = chip_smoke.op_slice_phase(0, "cpu")
+    ops = out["ops"]
+    assert ops["ok"] and ops["ops"] == len(chip_smoke.SLICE_OPS) == 113
+    assert ops["cases"] == 113 + 17 and not ops["failed"]
+    spatial = [r for r in ops["rows"].values() if "decisions" in r]
+    assert len(spatial) == 3 and all(r["decisions"]["flips"] == 0
+                                     for r in spatial)
+    assert ops["rows"]["BilinearSampler"]["decisions"]["floors"] > 0
+    assert ops["rows"]["SpatialTransformer"]["decisions"]["floors"] > 0
+    assert out["draws"]["ok"] and out["draws"]["forms"] == 20
+    stn = out["stn"]
+    assert sorted(k for k, v in stn["checks"].items() if not v) == [
+        "launches_exact"]
+    assert stn["launches"] == 0 and stn["expected_launches"] == \
+        7 * -(-stn["trainable_params"] // chip_smoke.AGG)
+    assert stn["check"]["ok"] and len(stn["check"]["loc"]) == 2
+    assert stn["check"]["decisions"]["decisions"] > 0
+    assert out["gp"]["ok"] and out["gp"]["card64_dev"] == 0.0
+    assert out["launches"] == out["other_launches"] == 0 and not out["ok"]
+
+
+def test_stn_check_flags_a_one_percent_loc_gradient_fault(monkeypatch):
+    """``stn_check`` with the "card" run's loc-net weight gradient 1 %
+    off fails that leaf's own check and the leaf check of the gradients;
+    clean, it passes."""
+    _small_slice(monkeypatch)
+    rng = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 3, 32, 32, generator=rng)
+    y = torch.tensor([3.0, 7.0])
+
+    def check(fault):
+        net = chip_smoke.stn_build(cpu(), seed=0)
+        w_init = chip_smoke._snapshot(net)
+        loc = [net.loc.weight.name, net.loc.bias.name]
+        if fault:
+            net.loc.weight._tensor().register_hook(lambda g: g * 1.01)
+        return chip_smoke.stn_check(net, w_init, x, y, 0, loc), loc
+
+    clean, _ = check(False)
+    assert clean["ok"]
+    bad, loc = check(True)
+    assert not bad["ok"] and not bad["grads"]["ok"]
+    assert bad["loc"][loc[0]]["grad_share"] > bad["loc"][loc[0]]["limit"]
+    assert bad["loc"][loc[1]]["grad_share"] <= bad["loc"][loc[1]]["limit"]

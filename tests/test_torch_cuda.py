@@ -2356,3 +2356,24 @@ def test_exported_resnet_imported_and_served_on_card(card, tmp_path):
     assert srv._block.graph_stats()["graphs"] == 2
     got = torch.as_tensor(np.stack(answers))
     assert (got - ref).abs().max().item() <= 1e-4 * scale
+
+
+def test_op_slice_sweep_and_draws_on_card(card, monkeypatch):
+    """Phase 21's (a) and (b) of ``chip_smoke.py`` at a small size on the
+    card: each of the slice's 113 deterministic ops against its CPU run
+    (the families' ``SLICE_TOL``, the sampler's floors handed to the
+    CPU), and the draws' moments, reseeding, shuffle, multinomial and a
+    captured draw; no kernel of the table launched."""
+    import chip_smoke
+    for name, value in (("OP_ACT", (2, 64, 96)), ("OP_SCORES", (2, 4, 64,
+                                                                64)),
+                        ("OP_SPD", (8, 64)), ("OP_IMG", (4, 3, 48, 56)),
+                        ("OP_COL", (4, 16, 14, 14)), ("OP_ROWS", 32),
+                        ("OP_CLASSES", 100), ("DRAWS", 1 << 18)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    ops = chip_smoke.slice_ops_run(0)
+    assert ops["ops"] == 113 and not ops["failed"], ops["failed"]
+    assert ops["launches"] == 0
+    draws = chip_smoke.slice_draws_run(0)
+    assert draws["ok"], draws["checks"]
+    assert draws["graph"]["replays"] >= 4
