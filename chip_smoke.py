@@ -11,7 +11,7 @@ training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
 and Mask-RCNN training, phase 14's hybridized runs, phase 15's
 generation serving, each part of phase 16, each training run of
 phase 17, each model of phase 18, each part of phases 19 and 20, and
-phase 21) and read just after;
+phases 21 and 22) and read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -484,7 +484,37 @@ kernels not at all:
    in float64 and fp32 on the card, held against the same fit in float64
    on the CPU: the card's float64 fit within 1e-12 (relative), its fp32
    fit within 2e-5; (a), (b) and (d) launch no kernel of the table;
-22. prints one JSON line of kernel measurements (flash: the fp32 and, as
+22. control flow, the rest of Symbol/Module and of detection (fp32, TF32
+   off): (a) ``ops_contrib``'s last ops (``CONTRIB_OPS``) on the card
+   against their CPU runs, forward and gradient, at the sizes of their
+   models (R-FCN's res5 and score maps at 600 x 1000 with 300 rois, Fast
+   R-CNN's VGG-16 conv5_3 with 128 rois an image, FlowNetC's correlation
+   of 441 displacements, SSD-512's matcher, compact bilinear pooling's
+   count sketch, PSPNet's pyramid pooling, BERT-base's tables and
+   activations; the sampling ops' CPU runs taking the card's floors), the
+   peak memory of the sampling ops; ``_sample_unique_zipfian`` and
+   ``rand_zipfian`` (8192 of 793,471 classes: distinct, a moment, a
+   reseed bit for bit); ``_foreach``/``_while_loop``/``_cond`` in ``sym``
+   and ``nd`` (a 1024-wide tanh RNN over 50 steps of batch 64 with a
+   captured weight) against the CPU's fp32 and float64 runs
+   (``leaf_check``); (b) a deformable R-FCN (Dai et al. 2017: ResNet-101
+   to stride 16, res5 of ``gluon.contrib.cnn.DeformableConvolution``
+   bottlenecks, position-sensitive ``DeformablePSROIPooling`` heads) at
+   600 x 1000 with 300 rois, 128 sampled: a check step against the CPU
+   in fp32 and float64 (``decision_leaf_check``), 3 eager and 3
+   hybridized ``Trainer("sgd", momentum 0.9)`` steps, the momentum
+   kernel's launches exact; (c) an RNN NMT at Sockeye 1.x's widths built
+   from this slice's cells (a bidirectional ``FusedRNNCell`` encoder, an
+   ``LSTMCell`` -> ``DropoutCell`` -> ``ResidualCell(LSTMCell)`` decoder
+   with MLP attention under ``sym.contrib.foreach``, a ``_cond`` length
+   mask) through ``BucketingModule`` (a check step, one Adam step in each
+   of 5 buckets), as a ``SequentialModule`` (the same outputs and
+   gradients), with a ``Monitor`` through ``fit`` against the CPU's, the
+   fused encoder against ``unfuse()``, greedy translation by
+   ``while_loop`` saved and loaded bit for bit, the name and attribute
+   scopes; (d) ``mx.model.FeedForward`` fitting the MLP for 2 epochs,
+   ``predict`` and ``score`` against the same run through ``Module``;
+23. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -497,7 +527,8 @@ kernels not at all:
    ``data_pipeline_launches``, phase 18's under ``vision_zoo_launches``
    and ``word_lm_launches``, phase 19's under
    ``symbolic_module_launches``, phase 20's under ``export_launches``,
-   phase 21's under ``op_slice_launches``;
+   phase 21's under ``op_slice_launches``, phase 22's under
+   ``control_flow_detection_launches``;
    the SGD kernels' bf16/fp16 entries, and the mixed path's own entry
    beside the unfused route's ``before_ms``), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -532,6 +563,7 @@ import torch.nn.functional as F
 
 from mxnet_tpu_torch import (autograd, gluon, load_reference_params, metric,
                              native, nd, operator, recordio, rtc)
+import mxnet_tpu_torch as mxt
 from mxnet_tpu_torch import io as mx_io
 from mxnet_tpu_torch import callback as mx_callback
 from mxnet_tpu_torch import model as mx_model
@@ -7238,21 +7270,24 @@ def _brief(check: dict) -> dict:
                                   "cpu_share_median", "worst_margin")}
 
 
-def held_step(make, arg_params, arrays, opt, relu: bool = False) -> dict:
+def held_step(make, arg_params, arrays, opt, relu: bool = False,
+              decisions=None) -> dict:
     """The same Module step on the card and on the CPU in fp32 and in
     float64, held leaf by leaf (``leaf_check``) on the gradients and the
     updated weights, the card's outputs within 1e-4 (x max(1, max|out|))
     of the CPU's.  With ``relu`` the CPU runs take the card's ReLU
-    decisions (``Decisions``), float64's own at most ``DECISION_FLIPS``
-    of them."""
-    card = Decisions()
+    decisions (``Decisions``), or those of the ``decisions`` class,
+    float64's own at most ``DECISION_FLIPS`` of them."""
+    kind = decisions or Decisions
+    held = relu or decisions is not None
+    card = kind()
     runs = {"card": module_step(make, gpu(0), torch.float32, arg_params,
-                                arrays, opt, card if relu else None)}
+                                arrays, opt, card if held else None)}
     flips = {}
     for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
-        forced = Decisions(card.masks)
+        forced = kind(card.masks)
         runs[name] = module_step(make, cpu(), dtype, arg_params, arrays,
-                                 opt, forced if relu else None)
+                                 opt, forced if held else None)
         flips[name] = forced.flips
     w0 = {n: arg_params[n]._data.detach().cpu() for n in runs["card"][1]}
     zeros = {n: torch.zeros_like(t) for n, t in w0.items()}
@@ -8393,14 +8428,15 @@ def _pair_err(a: torch.Tensor, b: torch.Tensor, scaled: bool) -> float:
     return err / scale if scaled else err
 
 
-def slice_ops_run(seed: int) -> dict:
-    """(a): each case of ``slice_op_cases`` on the card and on the CPU; the
-    spatial cases' CPU runs take the card's floors (``SamplerDecisions``).
-    Exact families must agree bit for bit, the others within
-    ``SLICE_TOL``."""
+def slice_ops_run(seed: int, cases_fn=slice_op_cases,
+                  ops=SLICE_OPS) -> dict:
+    """(a): each case of ``cases_fn`` (``slice_op_cases``) on the card and
+    on the CPU; the spatial cases' CPU runs take the card's floors
+    (``SamplerDecisions``).  Exact families must agree bit for bit, the
+    others within ``SLICE_TOL``; every op of ``ops`` must be checked."""
     dev = gpu(0)
     rows, failed = {}, []
-    cases = slice_op_cases(seed)
+    cases = cases_fn(seed)
     names = {op for _, op, *_ in cases}
     before = _launch_total()
     t0 = time.monotonic()
@@ -8450,7 +8486,7 @@ def slice_ops_run(seed: int) -> dict:
             "failed": failed, "worst_by_family": worst,
             "worst_grad_by_family": worst_grad, "launches": launches,
             "seconds": time.monotonic() - t0,
-            "ok": not failed and names == set(SLICE_OPS)
+            "ok": not failed and names == set(ops)
             and launches == 0}
 
 
@@ -8866,6 +8902,1152 @@ def op_slice_phase(seed: int, card: str) -> dict:
         res[k]["ok"] for k in ("ops", "draws", "stn", "gp"))
         and res["launches"] == res["stn"]["expected_launches"]
         and res["other_launches"] == 0)
+    return res
+
+
+# ---- phase 22: control flow, the rest of Symbol/Module, the rest of
+# detection --------------------------------------------------------------
+
+CONTRIB_OPS = (
+    "_contrib_DeformableConvolution", "_contrib_PSROIPooling",
+    "_contrib_DeformablePSROIPooling", "ROIPooling", "Correlation",
+    "_contrib_bipartite_matching", "_contrib_count_sketch",
+    "_contrib_AdaptiveAvgPooling2D", "_contrib_index_copy",
+    "_contrib_index_array", "_contrib_allclose", "_contrib_getnnz",
+    "_contrib_div_sqrt_dim", "_contrib_backward_gradientmultiplier")
+DEFORM_IN = (1, 512, 38, 63)    # R-FCN's res5 at 600 x 1000 (stride 16)
+ROIPOOL_IN = (2, 512, 38, 50)   # Fast R-CNN's VGG-16 conv5_3 at 600 x 800
+ROIPOOL_ROIS = 128              # rois an image
+FLOW_IN = (8, 256, 48, 64)      # FlowNetC's conv3 at 384 x 512, batch 8
+FLOW_CORR = {"kernel_size": 1, "max_displacement": 20, "stride1": 1,
+             "stride2": 2, "pad_size": 20}
+MATCH_IN = (32, 50, 5630)       # 50 ground truths x the port's SSD-512
+SKETCH_IN, SKETCH_OUT = (12544, 2048), 16000   # compact bilinear pooling
+PSP_IN = (8, 2048, 60, 60)      # PSPNet's pyramid pooling input
+TABLE, COPY_ROWS = (30522, 768), 4096
+OP_HEADS = (8, 12, 512, 64)     # BERT-base's per-head activations
+ZIPF_RANGE, ZIPF_SAMPLED = 793471, 8192
+ZIPF_SIGMAS = 6.0
+CF = {"steps": 50, "batch": 64, "hidden": 1024}   # the loops' sizes
+
+
+def _rois(g, n: int, height: int, width: int, batch: int = 1):
+    """``n`` rois [b, x1, y1, x2, y2] in an image of ``height`` x
+    ``width`` pixels, sides 1/16 to 1/2 of the image's."""
+    lo = torch.rand(n, 2, generator=g) * torch.tensor([width, height]) * 0.6
+    size = (torch.rand(n, 2, generator=g) * 0.44 + 0.06) * torch.tensor(
+        [width, height])
+    b = torch.randint(0, batch, (n, 1), generator=g).float()
+    return torch.cat([b, lo, lo + size], 1)
+
+
+def contrib_op_cases(seed: int) -> list:
+    """Each op of ``CONTRIB_OPS`` at the size its model runs it: (row, op,
+    inputs, kwargs, family, gradient input or False), as
+    ``slice_op_cases``."""
+    g = torch.Generator().manual_seed(seed + 22)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+    n, c, h, w = DEFORM_IN
+    dg, gs, cls = RFCN["dg"], RFCN["group"], RFCN["classes"]
+    x, off = r(*DEFORM_IN), r(n, 2 * 9 * dg, h, w) * 2.0
+    wt = r(c, c, 3, 3) * math.sqrt(2.0 / (c * 9))
+    dconv = {"kernel": (3, 3), "dilate": (2, 2), "pad": (2, 2),
+             "num_filter": c, "num_deformable_group": dg, "no_bias": True}
+    cases = [(f"deformable_conv {name}", "_contrib_DeformableConvolution",
+              [x, off, wt], dconv, "spatial", i)
+             for i, name in enumerate(("data", "offset", "weight"))]
+    fmap = r(n, gs * gs * cls, h, w)
+    rois = _rois(g, RFCN["rois"], h * 16, w * 16)
+    ps = {"spatial_scale": 1 / 16, "output_dim": cls, "pooled_size": gs,
+          "group_size": gs}
+    dps = dict(ps, part_size=gs, sample_per_part=RFCN["samples"],
+               trans_std=RFCN["trans_std"])
+    trans = r(RFCN["rois"], 2, gs, gs)
+    cases += [
+        ("psroi_pooling", "_contrib_PSROIPooling", [fmap, rois], ps,
+         "spatial", 0),
+        ("deformable_psroi data", "_contrib_DeformablePSROIPooling",
+         [fmap, rois, trans], dps, "spatial", 0),
+        ("deformable_psroi trans", "_contrib_DeformablePSROIPooling",
+         [fmap, rois, trans], dps, "spatial", 2),
+        ("deformable_psroi no_trans", "_contrib_DeformablePSROIPooling",
+         [fmap, rois], dict(dps, no_trans=True), "spatial", 0)]
+    vgg = r(*ROIPOOL_IN)
+    rois2 = _rois(g, ROIPOOL_IN[0] * ROIPOOL_ROIS, ROIPOOL_IN[2] * 16,
+                  ROIPOOL_IN[3] * 16, batch=ROIPOOL_IN[0])
+    cases.append(("roi_pooling", "ROIPooling", [vgg, rois2],
+                  {"pooled_size": (7, 7), "spatial_scale": 1 / 16}, "exact",
+                  0))
+    cases.append(("correlation", "Correlation", [r(*FLOW_IN), r(*FLOW_IN)],
+                  FLOW_CORR, "contraction", 0))
+    cases.append(("bipartite_matching", "_contrib_bipartite_matching",
+                  [torch.rand(*MATCH_IN, generator=g)], {"threshold": 0.5},
+                  "exact", False))
+    cases.append(("count_sketch", "_contrib_count_sketch", [
+        r(*SKETCH_IN), torch.randint(0, SKETCH_OUT, (1, SKETCH_IN[1]),
+                                     generator=g).float(),
+        torch.randint(0, 2, (1, SKETCH_IN[1]), generator=g).float() * 2 - 1],
+        {"out_dim": SKETCH_OUT}, "contraction", False))
+    psp = r(*PSP_IN)
+    cases += [(f"adaptive_avg_pool {s}", "_contrib_AdaptiveAvgPooling2D",
+               [psp], {"output_size": s}, "contraction", 0)
+              for s in (1, 2, 3, 6)]
+    table, new = r(*TABLE), r(COPY_ROWS, TABLE[1])
+    rows = torch.randperm(TABLE[0], generator=g)[:COPY_ROWS].float()
+    cases += [("index_copy old", "_contrib_index_copy", [table, rows, new],
+               {}, "exact", 0),
+              ("index_copy new", "_contrib_index_copy", [table, rows, new],
+               {}, "exact", 2)]
+    act, heads = r(*OP_ACT), r(*OP_HEADS)
+    cases += [
+        ("index_array", "_contrib_index_array", [act], {}, "exact", False),
+        ("index_array axes", "_contrib_index_array", [act],
+         {"axes": (0, 2)}, "exact", False),
+        ("allclose", "_contrib_allclose", [act, act + 1e-9 * r(*OP_ACT)],
+         {}, "exact", False),
+        ("getnnz", "_contrib_getnnz", [act.clamp(min=0)], {}, "exact",
+         False),
+        ("getnnz axis", "_contrib_getnnz", [act.clamp(min=0)], {"axis": 2},
+         "exact", False),
+        ("div_sqrt_dim", "_contrib_div_sqrt_dim", [heads], {},
+         "elementwise", 0),
+        ("backward_gradientmultiplier",
+         "_contrib_backward_gradientmultiplier", [heads], {"scalar": -0.1},
+         "exact", 0)]
+    return cases
+
+
+def contrib_ops_run(seed: int) -> dict:
+    """(a) the ops of ``CONTRIB_OPS`` on the card against the CPU
+    (``slice_ops_run``'s comparison; the sampling ops' CPU runs take the
+    card's floors), and the peak memory of the sampling ops' card runs."""
+    peaks = {}
+    for row, op, inputs, kwargs, fam, grad in contrib_op_cases(seed):
+        if fam != "spatial" or grad not in (0, False):
+            continue
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _slice_run(op, inputs, kwargs, grad, gpu(0), SamplerDecisions())
+        torch.cuda.synchronize()
+        peaks[row] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    res = slice_ops_run(seed, contrib_op_cases, CONTRIB_OPS)
+    res["peak_mb_forward_backward"] = peaks
+    return res
+
+
+def zipf_run(seed: int) -> dict:
+    """``_sample_unique_zipfian`` and ``rand_zipfian`` at
+    ``ZIPF_SAMPLED`` classes of ``ZIPF_RANGE`` on the card: distinct
+    classes in range, a reseed repeating the draw bit for bit, and a
+    moment: the sum of ``log(c + 1)`` over the classes drawn against its
+    expectation for that many draws with replacement
+    (``sum_c log(c + 1) (1 - (1 - p_c)^T)``, ``p_c = log((c + 2) / (c +
+    1)) / log(range_max + 1)``), within ``ZIPF_SIGMAS`` of its standard
+    deviation; ``rand_zipfian``'s expected counts by their formula."""
+    dev = gpu(0)
+    kw = {"range_max": ZIPF_RANGE, "shape": (1, ZIPF_SAMPLED), "ctx": dev}
+    mx_random.seed(seed + 22)
+    s1, t1 = nd._sample_unique_zipfian(**kw)
+    mx_random.seed(seed + 22)
+    s2, t2 = nd._sample_unique_zipfian(**kw)
+    a = s1.asnumpy()[0]
+    tries = int(t1.asnumpy()[0])
+    c = np.arange(ZIPF_RANGE, dtype=np.float64)
+    p = np.log((c + 2) / (c + 1)) / np.log(ZIPF_RANGE + 1.0)
+    q = -np.expm1(tries * np.log1p(-p))           # P(c among T draws)
+    f = np.log(c + 1)
+    mean, sd = (f * q).sum(), math.sqrt((f * f * q * (1 - q)).sum())
+    got = float(np.log(a.astype(np.float64) + 1).sum())
+    true = nd.array(np.array([0, 10, 1000, 100000], np.float32), ctx=dev)
+    mx_random.seed(seed + 23)
+    samples, exp_true, exp_sampled = nd.contrib.rand_zipfian(
+        true, ZIPF_SAMPLED, ZIPF_RANGE)
+    mx_random.seed(seed + 23)
+    _, t3 = nd._sample_unique_zipfian(**kw)
+    n3 = float(t3.asnumpy()[0])
+    tv = np.array([0, 10, 1000, 100000], np.float64)
+    sv = samples.asnumpy().astype(np.float64)
+    form = lambda v: np.log((v + 2) / (v + 1)) / np.log(  # noqa: E731
+        ZIPF_RANGE + 1.0) * n3
+    counts_err = max(
+        np.abs(exp_true.asnumpy() - form(tv)).max() / form(tv).max(),
+        np.abs(exp_sampled.asnumpy() - form(sv)).max() / form(sv).max())
+    checks = {
+        "distinct": len(set(a.tolist())) == ZIPF_SAMPLED,
+        "in_range": int(a.min()) >= 0 and int(a.max()) < ZIPF_RANGE,
+        "tries_at_least_classes": tries >= ZIPF_SAMPLED,
+        "reseed_bitwise": bool(torch.equal(s1._data, s2._data)
+                               and torch.equal(t1._data, t2._data)),
+        "moment": bool(abs(got - mean) <= ZIPF_SIGMAS * sd),
+        "expected_counts": bool(counts_err <= 1e-6),
+        "on_device": s1._data.device.type == as_device(dev).type}
+    return {"tries": tries, "log_sum": got, "log_sum_expected": float(mean),
+            "sigmas": float((got - mean) / sd), "expected_counts_rel_err":
+            float(counts_err), "checks": checks, "ok": all(checks.values())}
+
+
+def _cf_graphs(sym, limit: float):
+    """The three loops of (a) in ``mx.sym`` over a captured ``(H, H)``
+    weight ``w``: a tanh RNN by ``foreach``, a growing state by
+    ``while_loop`` (stopping where its abs-sum passes ``limit``), and a
+    ``cond`` on the sign of ``p``."""
+    h = CF["hidden"]
+    w = sym.var("w")
+
+    def fc(x):
+        return sym.FullyConnected(x, weight=w, num_hidden=h, no_bias=True)
+    data, s0 = sym.var("data"), sym.var("s0")
+    outs, fin = sym.contrib.foreach(
+        lambda x, st: (sym.tanh(fc(st[0]) + x), [sym.tanh(fc(st[0]) + x)]),
+        data, [s0])
+    v = sym.var("v")
+    wo, wf = sym.contrib.while_loop(
+        lambda x: sym.sum(sym.abs(x)) < limit,
+        lambda x: (sym.tanh(fc(x)), [x * 1.1 + 0.01]), [v],
+        max_iterations=CF["steps"])
+    p, a = sym.var("p"), sym.var("a")
+    c = sym.contrib.cond(sym.sum(p) > 0.0, lambda: sym.tanh(fc(a)),
+                         lambda: fc(a) * 0.5)
+    return {"foreach": sym.Group([outs, fin[0]]),
+            "while_loop": sym.Group([wo, wf[0]]), "cond": c}
+
+
+def _cf_sym_run(graph, feed: dict, ctx, dtype) -> dict:
+    """Forward (training) and backward with heads of ones: the outputs and
+    every argument's gradient, by name, on the CPU."""
+    shapes = {k: tuple(v.shape) for k, v in feed.items()}
+    exe = graph.simple_bind(ctx, **shapes)
+    for k, v in feed.items():
+        exe.arg_dict[k]._data = v.to(as_device(ctx), dtype)
+        exe.grad_dict[k]._data = exe.grad_dict[k]._data.to(dtype)
+    outs = exe.forward(is_train=True)
+    exe.backward([nd.ones(o.shape, ctx=ctx, dtype=dtype) for o in outs])
+    res = {f"out{i}": o._data.detach().cpu() for i, o in enumerate(outs)}
+    res.update({f"grad {k}": g._data.detach().cpu()
+                for k, g in exe.grad_dict.items()})
+    return res
+
+
+def _cf_nd_run(feed: dict, ctx, dtype, limit: float) -> dict:
+    """The same three loops through ``nd.contrib`` under
+    ``autograd.record()``."""
+    arr = {k: nd.array(v.numpy(), ctx=ctx, dtype=dtype)
+           for k, v in feed.items()}
+    for a in arr.values():
+        a.attach_grad()
+    h, w = CF["hidden"], arr["w"]
+
+    def fc(x):
+        return nd.FullyConnected(x, w, num_hidden=h, no_bias=True)
+    with autograd.record():
+        outs, fin = nd.contrib.foreach(
+            lambda x, st: (nd.tanh(fc(st[0]) + x), [nd.tanh(fc(st[0]) + x)]),
+            arr["data"], [arr["s0"]])
+        wo, wf = nd.contrib.while_loop(
+            lambda x: nd.sum(nd.abs(x)) < limit,
+            lambda x: (nd.tanh(fc(x)), [x * 1.1 + 0.01]), [arr["v"]],
+            max_iterations=CF["steps"])
+        c = nd.contrib.cond(nd.sum(arr["p"]) > 0.0,
+                            lambda: nd.tanh(fc(arr["a"])),
+                            lambda: fc(arr["a"]) * 0.5)
+        loss = sum(nd.sum(t) for t in (outs, fin[0], wo, wf[0], c))
+    loss.backward()
+    res = {"foreach": outs, "final": fin[0], "while": wo,
+           "while_final": wf[0], "cond": c}
+    res = {k: v._data.detach().cpu() for k, v in res.items()}
+    res.update({f"grad {k}": a.grad._data.detach().cpu()
+                for k, a in arr.items()})
+    return res
+
+
+def control_flow_run(seed: int) -> dict:
+    """(a) ``_foreach``/``_while_loop``/``_cond`` in ``sym`` (bound by
+    ``simple_bind``) and in ``nd`` (recording) at ``CF``'s sizes (a
+    1024-wide tanh RNN over 50 steps of batch 64, its weight captured by
+    the body), on the card and on the CPU in fp32 and float64: every
+    output and gradient held by ``leaf_check``'s bounds."""
+    g = torch.Generator().manual_seed(seed + 220)
+    t, b, h = CF["steps"], CF["batch"], CF["hidden"]
+    feed = {"data": torch.randn(t, b, h, generator=g) * 0.5,
+            "s0": torch.zeros(b, h),
+            "w": torch.randn(h, h, generator=g) / math.sqrt(h),
+            "v": torch.randn(b, h, generator=g) * 0.01,
+            "p": torch.ones(1),
+            "a": torch.randn(b, h, generator=g)}
+    # the loop stops half a step's growth from either side of the limit
+    limit = float(feed["v"].double().abs().sum()) * 1.1 ** 20.5
+    res, ok = {}, True
+    for name in ("foreach", "while_loop", "cond"):
+        graph = _cf_graphs(mx_sym, limit)[name]
+        args = graph.list_arguments()
+        sub = {k: feed[k] for k in args}
+        runs = [_cf_sym_run(graph, sub, ctx, dt) for ctx, dt in (
+            (gpu(0), torch.float32), (cpu(), torch.float32),
+            (cpu(), torch.float64))]
+        zeros = {k: torch.zeros_like(v) for k, v in runs[2].items()}
+        check = leaf_check(*runs, zeros)
+        res[f"sym {name}"] = _brief(check)
+        ok = ok and check["ok"]
+    runs = [_cf_nd_run(feed, ctx, dt, limit) for ctx, dt in (
+        (gpu(0), torch.float32), (cpu(), torch.float32),
+        (cpu(), torch.float64))]
+    zeros = {k: torch.zeros_like(v) for k, v in runs[2].items()}
+    check = leaf_check(*runs, zeros)
+    res["nd"] = _brief(check)
+    steps = int((runs[0]["while"].abs().sum((1, 2)) > 0).sum())
+    res["while_loop_steps"] = steps
+    res["ok"] = ok and check["ok"] and 0 < steps < CF["steps"]
+    return res
+
+
+# ---- phase 22 (b): deformable R-FCN (Dai et al. 2017, section 4) --------
+
+RFCN = {"size": (600, 1000), "classes": 21, "group": 7, "rois": 300,
+        "sampled": 128, "fg": 32, "gt": 3, "dg": 4, "trans_std": 0.1,
+        "samples": 4, "c4": 1024, "c5": 2048, "new": 1024}
+RFCN_BODY = "resnet101_v1"
+RFCN_STEPS, RFCN_HYBRID_STEPS = 3, 3
+#: the bounding-box regression targets' scale (Fast R-CNN's)
+RFCN_BOX_STD = (0.1, 0.1, 0.2, 0.2)
+
+
+class DeformBottleneck(gluon.HybridBlock):
+    """Deformable ConvNets' res5 bottleneck: 1x1 conv, BN, relu, a 3x3
+    ``DeformableConvolution`` (dilation 2, ``RFCN["dg"]`` deformable
+    groups), BN, relu, 1x1 conv, BN, plus the shortcut, relu."""
+
+    def __init__(self, channels: int, in_channels: int, **kwargs):
+        super().__init__(**kwargs)
+        mid = channels // 4
+        with self.name_scope():
+            self.conv1 = nn.Conv2D(mid, 1, use_bias=False,
+                                   in_channels=in_channels)
+            self.bn1 = nn.BatchNorm(in_channels=mid)
+            self.conv2 = gluon.contrib.cnn.DeformableConvolution(
+                mid, 3, padding=2, dilation=2,
+                num_deformable_group=RFCN["dg"], use_bias=False,
+                in_channels=mid)
+            self.bn2 = nn.BatchNorm(in_channels=mid)
+            self.conv3 = nn.Conv2D(channels, 1, use_bias=False,
+                                   in_channels=mid)
+            self.bn3 = nn.BatchNorm(in_channels=channels)
+            self.down = None
+            if in_channels != channels:
+                self.down = nn.HybridSequential(prefix="down_")
+                self.down.add(nn.Conv2D(channels, 1, use_bias=False,
+                                        in_channels=in_channels),
+                              nn.BatchNorm(in_channels=channels))
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + (x if self.down is None else self.down(x)))
+
+
+class RFCNHead(gluon.HybridBlock):
+    """Position-sensitive score maps for ``classes`` and class-agnostic
+    boxes, each pooled by ``DeformablePSROIPooling`` with offsets from a
+    ``no_trans`` pooling and a fully connected layer (zero at first), and
+    averaged over the bins (R-FCN's voting)."""
+
+    def __init__(self, classes: int, group: int, in_channels: int,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.classes, self.group = classes, group
+        k = group * group
+        with self.name_scope():
+            self.cls = nn.Conv2D(k * classes, 1, in_channels=in_channels)
+            self.bbox = nn.Conv2D(k * 8, 1, in_channels=in_channels)
+            self.cls_off = nn.Dense(2 * k, in_units=k * classes,
+                                    weight_initializer="zeros")
+            self.bbox_off = nn.Dense(2 * k, in_units=k * 8,
+                                     weight_initializer="zeros")
+
+    def _pool(self, fmap, rois, dim, offsets):
+        kw = {"spatial_scale": 1 / 16, "output_dim": dim,
+              "group_size": self.group, "pooled_size": self.group,
+              "part_size": self.group, "sample_per_part": RFCN["samples"]}
+        plain = nd.contrib.DeformablePSROIPooling(fmap, rois, no_trans=True,
+                                                  **kw)
+        trans = offsets(plain.reshape(plain.shape[0], -1)).reshape(
+            -1, 2, self.group, self.group)
+        pooled = nd.contrib.DeformablePSROIPooling(
+            fmap, rois, trans, trans_std=RFCN["trans_std"], **kw)
+        return pooled.mean(dim=(2, 3))
+
+    def forward(self, feat, rois):
+        return (self._pool(self.cls(feat), rois, self.classes, self.cls_off),
+                self._pool(self.bbox(feat), rois, 8, self.bbox_off))
+
+
+class RFCNNet(gluon.HybridBlock):
+    """``RFCN_BODY``'s features to stride 16 (``RFCN["c4"]`` channels),
+    res5 as three deformable bottlenecks at stride 1 (``RFCN["c5"]``), a
+    1x1 conv to ``RFCN["new"]`` channels and relu, the R-FCN head."""
+
+    def __init__(self, body, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.body = nn.HybridSequential(prefix="body_")
+            for i in range(7):       # the stem and stages 1-3 (stride 16)
+                self.body.add(body.features[i])
+            self.res5 = nn.HybridSequential(prefix="res5_")
+            c4, c5 = RFCN["c4"], RFCN["c5"]
+            with self.res5.name_scope():
+                for i in range(3):
+                    self.res5.add(DeformBottleneck(
+                        c5, c4 if i == 0 else c5, prefix=f"unit{i}_"))
+            self.new1 = nn.Conv2D(RFCN["new"], 1, in_channels=c5)
+            self.head = RFCNHead(RFCN["classes"], RFCN["group"],
+                                 RFCN["new"])
+
+    def forward(self, x, rois):
+        feat = F.relu(self.new1(self.res5(self.body(x))))
+        return self.head(feat, rois)
+
+
+def rfcn_build(dev, seed: int = 0, arrays=None):
+    """The R-FCN over ``RFCN_BODY`` (1000 classes, whose classifier goes
+    unused); weights Xavier from ``seed`` (the offset branches zero), or
+    ``arrays``."""
+    body = vision_zoo.get_model(RFCN_BODY, classes=1000) \
+        if isinstance(RFCN_BODY, str) else RFCN_BODY()
+    net = RFCNNet(body)
+    if arrays is not None:
+        load_reference_params(net, arrays, ctx=dev)
+        return net
+    net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+    return net
+
+
+def rfcn_data(seed: int):
+    """One 600 x 1000 image, ``RFCN["rois"]`` rois jittered about
+    ``RFCN["gt"]`` seeded ground-truth boxes (the RPN's stand-in), and
+    the sampled rois' targets: up to ``RFCN["fg"]`` of the
+    ``RFCN["sampled"]`` with IoU >= 0.5 (their box's class and its
+    regression target, Fast R-CNN's parametrisation), the rest
+    background (IoU < 0.5)."""
+    rng = np.random.default_rng(seed + 22)
+    height, width = RFCN["size"]
+    x = rng.standard_normal((1, 3, height, width), dtype=np.float32)
+    gt = []
+    for _ in range(RFCN["gt"]):
+        w, h = rng.uniform(width / 10, width / 2.5), \
+            rng.uniform(height / 8, height / 2)
+        x1, y1 = rng.uniform(0, width - w), rng.uniform(0, height - h)
+        gt.append([x1, y1, x1 + w, y1 + h])
+    gt = np.array(gt)
+    cls = rng.integers(1, RFCN["classes"], RFCN["gt"])
+    n_near = RFCN["rois"] * 2 // 3
+    pick = rng.integers(0, RFCN["gt"], n_near)
+    wh = gt[pick, 2:] - gt[pick, :2]
+    near = gt[pick] + rng.normal(0, 0.15, (n_near, 4)) * np.concatenate(
+        [wh, wh], 1)
+    far_lo = rng.uniform(0, 1, (RFCN["rois"] - n_near, 2)) * [width * .8,
+                                                            height * .8]
+    far = np.concatenate([far_lo, far_lo + rng.uniform(
+        0.05, 0.5, (RFCN["rois"] - n_near, 2)) * [width, height]], 1)
+    boxes = np.concatenate([near, far])
+    boxes[:, 0::2] = boxes[:, 0::2].clip(0, width - 1)
+    boxes[:, 1::2] = boxes[:, 1::2].clip(0, height - 1)
+    boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2] + 4)
+    tl = np.maximum(boxes[:, None, :2], gt[None, :, :2])
+    br = np.minimum(boxes[:, None, 2:], gt[None, :, 2:])
+    inter = np.prod((br - tl).clip(min=0), 2)
+    area = lambda b: np.prod(b[..., 2:] - b[..., :2], -1)  # noqa: E731
+    iou = inter / (area(boxes)[:, None] + area(gt)[None] - inter)
+    best, arg = iou.max(1), iou.argmax(1)
+    fg = np.flatnonzero(best >= 0.5)
+    bg = np.flatnonzero(best < 0.5)
+    fg = rng.permutation(fg)[:RFCN["fg"]]
+    bg = rng.permutation(bg)[:RFCN["sampled"] - len(fg)]
+    idx = np.concatenate([fg, bg])
+    labels = np.where(best[idx] >= 0.5, cls[arg[idx]], 0)
+    g = gt[arg[idx]]
+    b = boxes[idx]
+    bw, bh = b[:, 2] - b[:, 0] + 1, b[:, 3] - b[:, 1] + 1
+    gw, gh = g[:, 2] - g[:, 0] + 1, g[:, 3] - g[:, 1] + 1
+    target = np.stack([(g[:, 0] + gw / 2 - b[:, 0] - bw / 2) / bw,
+                       (g[:, 1] + gh / 2 - b[:, 1] - bh / 2) / bh,
+                       np.log(gw / bw), np.log(gh / bh)], 1) / RFCN_BOX_STD
+    rois = np.concatenate([np.zeros((len(boxes), 1)), boxes], 1)
+    return {"x": torch.as_tensor(x),
+            "rois": torch.as_tensor(rois.astype(np.float32)),
+            "idx": torch.as_tensor(idx.astype(np.int64)),
+            "labels": torch.as_tensor(labels.astype(np.float32)),
+            "targets": torch.as_tensor(target.astype(np.float32)),
+            "fg": len(fg)}
+
+
+def rfcn_loss(net, data: dict, lossfn):
+    """Softmax cross-entropy over the classes of the sampled rois plus
+    smooth L1 of the foreground rois' class-agnostic box (the second
+    four of the eight outputs), over the sampled count."""
+    scores, boxes = net(data["x"], data["rois"])
+    idx = data["idx"]
+    cls = lossfn(scores[idx], data["labels"]).mean()
+    fg = (data["labels"] > 0).to(boxes.dtype)[:, None]
+    diff = (boxes[idx][:, 4:] - data["targets"]) * fg
+    box = torch.where(diff.abs() < 1, 0.5 * diff * diff,
+                      diff.abs() - 0.5).sum() / idx.shape[0]
+    return cls + box
+
+
+def rfcn_check(net, w_init: dict, data: dict, seed: int) -> dict:
+    """One SGD-momentum step from the initial weights on the card at
+    phase 6's rate (``RESNET_OPT``: at R-FCN's 1e-3 a BatchNorm scale
+    moves ~2e-5, a few of fp32's steps at 1.0, so its updated value
+    would test the rounding, not the step), recording its ReLU, max-pool
+    and sampling-floor decisions (``SamplerDecisions``), against the same
+    step on the CPU in fp32 and float64 taking them:
+    ``decision_leaf_check``; the peak memory of the card's step."""
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with SamplerDecisions(seed=seed) as card:
+        after = {"card": check_step(net, lambda: rfcn_loss(
+            net, data, lossfn), RESNET_OPT)}
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flips = {}
+    for name, dtype in (("cpu", torch.float32), ("cpu64", torch.float64)):
+        model = rfcn_build(cpu(), arrays=arrays).to(dtype)
+        host = {k: v.cpu().to(dtype) if isinstance(v, torch.Tensor)
+                and v.is_floating_point() else v.cpu()
+                if isinstance(v, torch.Tensor) else v
+                for k, v in data.items()}
+        with SamplerDecisions(card.masks) as forced:
+            after[name] = check_step(model, lambda: rfcn_loss(
+                model, host, lossfn), RESNET_OPT)
+        flips[name] = {"decisions": forced.flips}
+        del model
+    res = decision_leaf_check(after, w_init, flips, {"decisions": card.units})
+    res["peak_memory_gb"] = peak
+    return res
+
+
+def rfcn_run(seed: int) -> dict:
+    """(b) the check step, ``RFCN_STEPS`` eager steps of
+    ``autograd.record`` -> loss -> ``backward`` -> ``Trainer("sgd",
+    momentum 0.9)``, then ``RFCN_HYBRID_STEPS`` hybridized: finite
+    losses, the momentum kernel's launches exact (one per group of
+    ``AGG`` trainable tensors a step, the check step's too), the
+    hybridized steps replayed."""
+    dev = gpu(0)
+    t0 = time.monotonic()
+    data = {k: v.to(as_device(dev)) if isinstance(v, torch.Tensor) else v
+            for k, v in rfcn_data(seed).items()}
+    net = rfcn_build(dev, seed)
+    w_init = _snapshot(net)
+    trainable = [p for p in net.collect_params().values()
+                 if p.grad_req != "null"]
+    groups = -(-len(trainable) // AGG)
+    before, others = multi_sgd_mom.launches, other_launches(multi_sgd_mom)
+    check = rfcn_check(net, w_init, data, seed)
+    load_reference_params(net, {k: v.cpu().numpy()
+                                for k, v in w_init.items()}, ctx=dev)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", RCNN_OPT)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    losses, step_ms = [], []
+    for i in range(RFCN_STEPS + RFCN_HYBRID_STEPS):
+        if i == RFCN_STEPS:
+            net.hybridize()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        with autograd.record():
+            loss = rfcn_loss(net, data, lossfn)
+        autograd.backward(loss)
+        trainer.step(1)
+        losses.append(loss.detach())
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t1) * 1e3)
+    launches = multi_sgd_mom.launches - before
+    expected = groups * (RFCN_STEPS + RFCN_HYBRID_STEPS + 1)
+    stats = graph_summary(net)
+    losses = [v.item() for v in losses]
+    free_graphs(net)
+    on_card = as_device(dev).type == "cuda"
+    checks = {"losses_finite": all(math.isfinite(v) for v in losses),
+              "launches_exact": launches == expected
+              and other_launches(multi_sgd_mom) == others,
+              "leaf_check": check["ok"],
+              "replayed": not on_card or stats["replays"] >= 2}
+    return {"size": list(RFCN["size"]), "body": str(RFCN_BODY),
+            "rois": RFCN["rois"], "sampled": RFCN["sampled"],
+            "foreground": data["fg"], "trainable_params": len(trainable),
+            "losses": losses, "step_ms": step_ms, "launches": launches,
+            "expected_launches": expected, "graphs": stats,
+            "check": {k: check[k] for k in (
+                "loss_abs_err_vs_cpu", "decisions", "flips",
+                "peak_memory_gb", "ok")} | {
+                part: _brief(check[part]) for part in ("weights", "grads")},
+            "checks": checks, "seconds": time.monotonic() - t0,
+            "ok": all(checks.values())}
+
+
+# ---- phase 22 (c): a Sockeye-width RNN NMT in mx.sym ---------------------
+
+#: Sockeye 1.x's RNN model (``sockeye/arguments.py``): --num-embed 512,
+#: --rnn-num-hidden 1024 (the encoder's bidirectional layer 512 a
+#: direction), LSTM, MLP attention of --rnn-attention-num-hidden = 1024,
+#: --rnn-residual-connections with two decoder layers, dropout 0.1,
+#: --bucket-width 10 up to 50, batch 64, vocabularies of 32,000
+NMT22 = {"vocab": 32000, "embed": 512, "enc": 512, "dec": 1024, "att": 1024,
+         "dropout": 0.1, "batch": 64, "buckets": (10, 20, 30, 40, 50)}
+NMT22_BOS, NMT22_EOS = 1, 2
+NMT22_OPT = {"learning_rate": 2e-4}            # Adam, Sockeye's default
+NMT22_CHECK_OPT = {"learning_rate": 0.1}       # the check step's SGD
+NMT22_TRANSLATE = 50                           # while_loop's max_iterations
+
+
+def nmt22_params(pkg, w: dict) -> dict:
+    """The decoder's weight variables, with their shapes (shape inference
+    does not look inside a loop's body) and the LSTM cells' parameters
+    (``RNNParams``, the forget gate's bias initialised to 1)."""
+    sym, rnn = pkg.sym, pkg.rnn
+    e, he, hd, a = w["embed"], 2 * w["enc"], w["dec"], w["att"]
+    lstm_bias = json.dumps(["lstmbias", {"forget_bias": 1.0}])
+    cells = []
+    for i, n_in in enumerate((e + he, hd)):
+        p = rnn.RNNParams(f"dec{i}_")
+        p.get("i2h_weight", shape=(4 * hd, n_in))
+        p.get("h2h_weight", shape=(4 * hd, hd))
+        p.get("i2h_bias", shape=(4 * hd,), __init__=lstm_bias)
+        p.get("h2h_bias", shape=(4 * hd,))
+        cells.append(p)
+    return {"cells": cells,
+            "att_q": sym.var("att_q_weight", shape=(a, hd)),
+            "att_v": sym.var("att_v_weight", shape=(1, a)),
+            "out_w": sym.var("dec_out_weight", shape=(hd, hd + he)),
+            "out_b": sym.var("dec_out_bias", shape=(hd,))}
+
+
+def nmt22_encoder(pkg, length: int, w: dict):
+    """Source embedding, one bidirectional ``FusedRNNCell`` layer, and the
+    attention's length mask picked by a ``_cond`` (a bias of -1e9 on
+    padding where the batch has any, else zeros): ``(enc, bias)``."""
+    sym, rnn = pkg.sym, pkg.rnn
+    src = sym.var("src")
+    emb = sym.Embedding(src, sym.var("src_embed_weight", shape=(
+        w["vocab"], w["embed"])), input_dim=w["vocab"],
+        output_dim=w["embed"], name="src_embed")
+    cell = rnn.FusedRNNCell(w["enc"], bidirectional=True, prefix="enc_",
+                            input_size=w["embed"])
+    enc, _ = cell.unroll(length, emb, layout="NTC", merge_outputs=True)
+    mask = sym.clip(src, 0.0, 1.0)
+    bias = sym.contrib.cond(sym.min(mask) < 0.5,
+                            lambda: (mask - 1.0) * 1e9, lambda: mask * 0.0,
+                            name="length_mask")
+    return enc, bias
+
+
+def nmt22_step(pkg, x, states, enc, enc_proj, bias, p: dict, w: dict,
+               dropout: float):
+    """One decoder step (Sockeye's RNN decoder with input feeding): the
+    embedding and the last attention context into ``LSTMCell`` ->
+    ``DropoutCell`` -> ``ResidualCell(LSTMCell)``, MLP attention over the
+    encoder states, a tanh hidden layer: ``(hidden, new states)``."""
+    sym, rnn = pkg.sym, pkg.rnn
+    h0, c0, h1, c1, ctx = states
+    cell0 = rnn.LSTMCell(w["dec"], prefix="dec0_", params=p["cells"][0])
+    cell1 = rnn.ResidualCell(rnn.LSTMCell(w["dec"], prefix="dec1_",
+                                          params=p["cells"][1]))
+    drop = rnn.DropoutCell(dropout, prefix="dec_drop_")
+    o0, (h0, c0) = cell0(sym.concat(x, ctx, dim=1), [h0, c0])
+    o0, _ = drop(o0, [])
+    o1, (h1, c1) = cell1(o0, [h1, c1])
+    q = sym.FullyConnected(o1, weight=p["att_q"], num_hidden=w["att"],
+                           no_bias=True)
+    e = sym.tanh(sym.broadcast_add(enc_proj, sym.expand_dims(q, axis=1)))
+    score = sym.reshape(sym.FullyConnected(
+        e, weight=p["att_v"], num_hidden=1, no_bias=True, flatten=False),
+        shape=(0, -1))
+    att = sym.softmax(score + bias, axis=1)
+    ctx = sym.sum(sym.broadcast_mul(enc, sym.expand_dims(att, axis=2)),
+                  axis=1)
+    hid = sym.tanh(sym.FullyConnected(sym.concat(o1, ctx, dim=1),
+                                      weight=p["out_w"], bias=p["out_b"],
+                                      num_hidden=w["dec"]))
+    return hid, [h0, c0, h1, c1, ctx]
+
+
+def _nmt22_start(pkg, enc, w):
+    """The attention's projection of the encoder states and the decoder's
+    initial states (Sockeye's ``--rnn-decoder-state-init``: a tanh layer
+    over the encoder's mean state; zero cells and context)."""
+    sym = pkg.sym
+    he = 2 * w["enc"]
+    enc_proj = sym.FullyConnected(
+        enc, sym.var("att_enc_weight", shape=(w["att"], he)),
+        num_hidden=w["att"], no_bias=True, flatten=False, name="att_enc")
+    mean = sym.mean(enc, axis=1)
+    h = sym.tanh(sym.FullyConnected(
+        mean, sym.var("dec_init_weight", shape=(w["dec"], he)),
+        sym.var("dec_init_bias", shape=(w["dec"],)), num_hidden=w["dec"],
+        name="dec_init"))
+    return enc_proj, [h, h * 0.0, h, h * 0.0, mean * 0.0]
+
+
+def nmt22_decoder(pkg, enc, bias, tgt, length: int, w: dict):
+    """The decoder over the target embeddings by ``sym.contrib.foreach``
+    (the encoder states a free input of the body), the output layer to
+    the vocabulary and ``SoftmaxOutput`` ignoring label 0."""
+    sym = pkg.sym
+    p = nmt22_params(pkg, w)
+    enc_proj, init = _nmt22_start(pkg, enc, w)
+    emb = sym.Embedding(tgt, sym.var("tgt_embed_weight", shape=(
+        w["vocab"], w["embed"])), input_dim=w["vocab"],
+        output_dim=w["embed"], name="tgt_embed")
+    outs, _ = sym.contrib.foreach(
+        lambda x, st: nmt22_step(pkg, x, st, enc, enc_proj, bias, p, w,
+                                 w["dropout"]),
+        sym.swapaxes(emb, dim1=0, dim2=1), init, name="decoder")
+    hid = sym.reshape(sym.swapaxes(outs, dim1=0, dim2=1),
+                      shape=(-1, w["dec"]))
+    logits = sym.FullyConnected(
+        hid, sym.var("logits_weight", shape=(w["vocab"], w["dec"])),
+        sym.var("logits_bias", shape=(w["vocab"],)), num_hidden=w["vocab"],
+        name="logits")
+    return sym.SoftmaxOutput(logits, sym.reshape(sym.var("label"),
+                                                 shape=(-1,)),
+                             ignore_label=0, use_ignore=True, name="softmax")
+
+
+def nmt22_sym(pkg, length: int, w: dict = None):
+    """The whole model at bucket ``length`` (source and target)."""
+    w = w or NMT22
+    enc, bias = nmt22_encoder(pkg, length, w)
+    return nmt22_decoder(pkg, enc, bias, pkg.sym.var("tgt"), length, w)
+
+
+def nmt22_stages(pkg, length: int, w: dict = None):
+    """The model as two stages for ``SequentialModule``: the encoder
+    (data ``src``, ``tgt``; outputs the encoder states, the attention
+    bias and ``tgt`` passed on) and the decoder (data ``enc``, ``bias``,
+    ``tgt``; label ``label``)."""
+    w = w or NMT22
+    sym = pkg.sym
+    enc, bias = nmt22_encoder(pkg, length, w)
+    first = sym.Group([enc, bias, sym.BlockGrad(sym.var("tgt"))])
+    second = nmt22_decoder(pkg, sym.var("enc"), sym.var("bias"),
+                           sym.var("tgt"), length, w)
+    return first, second
+
+
+def nmt22_translate_sym(pkg, length: int, w: dict = None,
+                        steps: int = NMT22_TRANSLATE):
+    """Greedy translation by ``sym.contrib.while_loop``: from ``BOS``,
+    each step's arg-max token until every sentence has given ``EOS`` (or
+    ``steps``); the tokens (``steps``, batch), 0 after a sentence ended.
+    The weights are the training graph's (the same names)."""
+    w = w or NMT22
+    sym = pkg.sym
+    p = nmt22_params(pkg, w)
+    enc, bias = nmt22_encoder(pkg, length, w)
+    enc_proj, init = _nmt22_start(pkg, enc, w)
+    v = w["vocab"]
+    emb_w = sym.var("tgt_embed_weight", shape=(v, w["embed"]))
+    logit_w = sym.var("logits_weight", shape=(v, w["dec"]))
+    logit_b = sym.var("logits_bias", shape=(v,))
+    tok0 = sym.sum(bias * 0.0, axis=1) + float(NMT22_BOS)
+
+    def body(tok, done, h0, c0, h1, c1, ctx):
+        x = sym.Embedding(tok, weight=emb_w, input_dim=w["vocab"],
+                          output_dim=w["embed"])
+        hid, st = nmt22_step(pkg, x, [h0, c0, h1, c1, ctx], enc, enc_proj,
+                             bias, p, w, 0.0)
+        logits = sym.FullyConnected(hid, weight=logit_w, bias=logit_b,
+                                    num_hidden=w["vocab"])
+        nxt = sym.argmax(logits, axis=1) * (1.0 - done)
+        done = sym.maximum(done, sym.broadcast_equal(
+            nxt, sym.ones_like(nxt) * float(NMT22_EOS)))
+        return nxt, [nxt, done] + st
+
+    tokens, _ = sym.contrib.while_loop(
+        lambda tok, done, *st: sym.sum(1.0 - done) > 0.0, body,
+        [tok0, tok0 * 0.0] + init, max_iterations=steps, name="translate")
+    return tokens
+
+
+def nmt22_batch(rng, length: int, w: dict, batch: int):
+    """A batch at bucket ``length``: source sentences of ``length - 9``
+    to ``length - 1`` tokens (ids from 3, 0 pads), the target their
+    reverse then ``EOS``, the decoder's input ``BOS`` then the target."""
+    src = np.zeros((batch, length), np.float32)
+    tgt = np.zeros((batch, length), np.float32)
+    label = np.zeros((batch, length), np.float32)
+    for i, n in enumerate(rng.integers(max(1, length - 9), length, batch)):
+        s = rng.integers(3, w["vocab"], n)
+        src[i, :n] = s
+        label[i, :n], label[i, n] = s[::-1], NMT22_EOS
+        tgt[i, 0], tgt[i, 1:n + 1] = NMT22_BOS, s[::-1]
+    return mx_io.DataBatch(
+        data=[nd.array(src, ctx=cpu()), nd.array(tgt, ctx=cpu())],
+        label=[nd.array(label, ctx=cpu())], bucket_key=length,
+        provide_data=[mx_io.DataDesc("src", (batch, length)),
+                      mx_io.DataDesc("tgt", (batch, length))],
+        provide_label=[mx_io.DataDesc("label", (batch, length))])
+
+
+def nmt22_module(ctx, w: dict, batch: int, buckets):
+    """A ``BucketingModule`` of ``nmt22_sym`` over ``buckets`` (the
+    longest the default), bound and initialised (Uniform(0.1))."""
+    def gen(length):
+        return nmt22_sym(mxt, length, w), ("src", "tgt"), ("label",)
+    key = max(buckets)
+    mod = mx_mod.BucketingModule(gen, default_bucket_key=key, context=ctx)
+    mod.bind([("src", (batch, key)), ("tgt", (batch, key))],
+             [("label", (batch, key))])
+    mod.init_params(mx_init.Uniform(0.1))
+    return mod
+
+
+class _Batches(mx_io.DataIter):
+    """A ``DataIter`` over a list of batches."""
+
+    def __init__(self, batches):
+        super().__init__(batches[0].data[0].shape[0])
+        self._batches, self._i = batches, 0
+        self.provide_data = batches[0].provide_data
+        self.provide_label = batches[0].provide_label
+
+    def reset(self):
+        self._i = 0
+
+    def next(self):
+        if self._i >= len(self._batches):
+            raise StopIteration
+        self._i += 1
+        return self._batches[self._i - 1]
+
+
+def _to(batch, ctx):
+    return mx_io.DataBatch(
+        data=[a.as_in_context(ctx) for a in batch.data],
+        label=[a.as_in_context(ctx) for a in batch.label],
+        bucket_key=batch.bucket_key, provide_data=batch.provide_data,
+        provide_label=batch.provide_label)
+
+
+def _grads(mod) -> dict:
+    """name -> a copy of the gradient, over every stage of a module."""
+    mods = getattr(mod, "_modules", None) or [mod]
+    out = {}
+    for m in mods:
+        m = getattr(m, "_curr_module", None) or m
+        out.update({n: g._data.detach().clone()
+                    for n, g in m._grad_params.items() if g is not None})
+    return out
+
+
+def nmt22_sequential(ctx, w: dict, batch: int, length: int, arg, aux):
+    """The model as a ``SequentialModule`` of an encoder ``Module`` and a
+    decoder ``Module`` (``take_labels``), bound at ``length`` and set to
+    ``arg``."""
+    first, second = nmt22_stages(mxt, length, w)
+    seq = mx_mod.SequentialModule()
+    seq.add(mx_mod.Module(first, data_names=("src", "tgt"),
+                          label_names=None, context=ctx))
+    seq.add(mx_mod.Module(second, data_names=("enc", "bias", "tgt"),
+                          label_names=("label",), context=ctx),
+            take_labels=True)
+    seq.bind([("src", (batch, length)), ("tgt", (batch, length))],
+             [("label", (batch, length))])
+    seq.init_params(arg_params=arg, aux_params=aux)
+    return seq
+
+
+def nmt22_check(w: dict, arg: dict, batch) -> dict:
+    """The check step at the batch's bucket: ``held_step`` (card, CPU fp32
+    and float64 from ``arg``; the CPU runs taking the card's dropout
+    masks, ``DropoutDecisions``)."""
+    length = batch.bucket_key
+
+    def make(ctx):
+        mod = mx_mod.Module(nmt22_sym(mxt, length, w),
+                            data_names=("src", "tgt"),
+                            label_names=("label",), context=ctx)
+        mod.bind(batch.provide_data, batch.provide_label)
+        return mod
+    arrays = ([a.asnumpy() for a in batch.data],
+              [a.asnumpy() for a in batch.label])
+    return held_step(make, arg, arrays, NMT22_CHECK_OPT,
+                     decisions=DropoutDecisions)
+
+
+class DropoutDecisions(Decisions):
+    """``Decisions`` of the ``Dropout`` op's masks: each
+    ``Tensor.bernoulli_`` is recorded, or, given ``masks``, its result
+    replaced by the recorded mask (``flips`` stays 0: a draw has no
+    decision of its own to compare)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not torch.Tensor.bernoulli_:
+            return super().__torch_function__(func, types, args, kwargs)
+        out = func(*args, **kwargs)
+        self.units += out.numel()
+        if self._forced is None:
+            self.masks.append(out.detach().cpu().clone())
+            return out
+        mask = self._forced[self._calls]
+        self._calls += 1
+        return out.copy_(mask.to(out.device, out.dtype))
+
+
+def nmt22_run(seed: int, w: dict = None) -> dict:
+    """(c) the NMT of ``nmt22_sym`` at ``NMT22``'s widths, batch
+    ``w["batch"]``: the check step (``nmt22_check``) at the shortest
+    bucket; one Adam step in every bucket (step ms); the same step as a
+    ``SequentialModule`` (outputs and gradients against the single
+    module's); a ``Monitor(".*weight")`` through ``fit`` (one SGD step)
+    on one batch against the CPU's; the encoder's fused output against ``unfuse()``'s
+    cells; greedy translation by ``while_loop`` (saved and loaded back:
+    bit for bit); ``mx.name.Prefix`` and ``mx.AttrScope`` on the
+    graph."""
+    w = w or NMT22
+    dev = gpu(0)
+    t0 = time.monotonic()
+    rng = np.random.default_rng(seed + 22)
+    bsz, buckets = w["batch"], w["buckets"]
+    batches = {b: nmt22_batch(rng, b, w, bsz) for b in buckets}
+    mx_random.seed(seed)
+    mod = nmt22_module(dev, w, bsz, buckets)
+    arg, aux = mod.get_params()
+    res, checks = {"params": int(sum(v.size for v in arg.values()))}, {}
+    res["check"] = nmt22_check(w, arg, batches[buckets[0]])
+    checks["leaf_check"] = res["check"]["ok"]
+    # the SequentialModule against the single module, at the shortest bucket
+    b = _to(batches[buckets[0]], dev)
+    single = mx_mod.Module(nmt22_sym(mxt, buckets[0], w),
+                           data_names=("src", "tgt"), label_names=("label",),
+                           context=dev)
+    single.bind(b.provide_data, b.provide_label)
+    single.init_params(arg_params=arg, aux_params=aux)
+    seq = nmt22_sequential(dev, w, bsz, buckets[0], arg, aux)
+    outs = {}
+    for name, m in (("single", single), ("sequential", seq)):
+        mx_random.seed(seed + 5)            # the same dropout masks
+        m.forward_backward(b)
+        outs[name] = (m.get_outputs()[0]._data.detach().clone(), _grads(m))
+    (o1, g1), (o2, g2) = outs["single"], outs["sequential"]
+    scale = max(v.abs().max().item() for v in g1.values())
+    res["sequential"] = {
+        "output_max_abs_err": (o1 - o2).abs().max().item(),
+        "grad_max_abs_err": max((g1[k] - g2[k]).abs().max().item()
+                                for k in g1),
+        "grad_scale": scale, "params": len(g2)}
+    checks["sequential_matches"] = (
+        sorted(g1) == sorted(g2)
+        and res["sequential"]["output_max_abs_err"] <= 1e-6
+        and res["sequential"]["grad_max_abs_err"] <= 1e-5 * scale)
+    del single, seq, outs
+    # one Adam step in every bucket
+    mod.init_optimizer(optimizer="adam", optimizer_params=dict(NMT22_OPT))
+    step_ms, losses = {}, {}
+    for key in buckets:
+        bb = _to(batches[key], dev)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        mod.forward_backward(bb)
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms[key] = (time.monotonic() - t1) * 1e3
+        prob = mod.get_outputs()[0]._data
+        lab = bb.label[0]._data.reshape(-1).long()
+        keep = lab > 0
+        losses[key] = -torch.log(prob[keep, lab[keep]].clamp(min=1e-30)) \
+            .mean().item()
+    res["step_ms"], res["losses"] = step_ms, losses
+    checks["losses_finite"] = all(math.isfinite(v) for v in losses.values())
+    trained, trained_aux = mod.get_params()
+    # Monitor through fit on one batch, card against CPU (the CPU's fit
+    # taking the card's dropout masks), by SGD: Adam's first step moves
+    # each weight by its rate whatever the gradient's size, so a gradient
+    # that is zero up to rounding would part the two runs' weights by
+    # twice the rate at random
+    stats, masks = {}, None
+    for name, ctx in (("card", dev), ("cpu", cpu())):
+        m = mx_mod.BucketingModule(
+            lambda n: (nmt22_sym(mxt, n, w), ("src", "tgt"), ("label",)),
+            default_bucket_key=buckets[0], context=ctx)
+        mon = mxt.Monitor(interval=1, pattern=".*weight")
+        rows = []
+        mon.toc_print = lambda mon=mon, rows=rows: rows.extend(mon.toc())
+        with DropoutDecisions(masks) as drops:
+            m.fit(_Batches([_to(batches[buckets[0]], ctx)]), num_epoch=1,
+                  arg_params=trained, aux_params=trained_aux,
+                  optimizer="sgd", optimizer_params=dict(NMT22_CHECK_OPT),
+                  monitor=mon, eval_metric=metric.Perplexity(ignore_label=0))
+        masks = drops.masks
+        mon.uninstall()
+        stats[name] = {n: float(s) for _, n, s in rows}
+    errs = {n: abs(stats["card"][n] - stats["cpu"][n]) / max(
+        1e-12, abs(stats["cpu"][n])) for n in stats["cpu"]}
+    res["monitor"] = {"stats": len(stats["card"]),
+                      "max_rel_err_vs_cpu": max(errs.values(), default=0.0)}
+    checks["monitor"] = (sorted(stats["card"]) == sorted(stats["cpu"])
+                         and len(stats["card"]) > 0
+                         and res["monitor"]["max_rel_err_vs_cpu"] <= 1e-4)
+    # the fused encoder against unfuse()'s cells
+    cell = mx_rnn.FusedRNNCell(w["enc"], bidirectional=True, prefix="enc_",
+                               input_size=w["embed"])
+    x = mx_sym.var("data")
+    fused, _ = cell.unroll(buckets[0], x, merge_outputs=True)
+    unfused, _ = cell.unfuse().unroll(buckets[0], x, merge_outputs=True)
+    emb = torch.randn(bsz, buckets[0], w["embed"],
+                      generator=torch.Generator().manual_seed(seed))
+    feed = {"data": nd.array(emb.numpy(), ctx=dev),
+            "enc_parameters": trained["enc_parameters"].as_in_context(dev)}
+    y1 = fused.eval(**feed)[0]._data
+    cells = cell.unpack_weights(feed)
+    y2 = unfused.eval(**{k: v.as_in_context(dev) for k, v in cells.items()
+                         })[0]._data
+    res["unfuse_max_abs_err"] = (y1 - y2).abs().max().item()
+    checks["unfuse_matches"] = res["unfuse_max_abs_err"] <= 1e-5 * max(
+        1.0, y1.abs().max().item())
+    # greedy translation by while_loop, saved and loaded back
+    tr = nmt22_translate_sym(mxt, buckets[0], w)
+    loaded = mx_sym.load_json(tr.tojson())
+    feed = {k: trained[k].as_in_context(dev) for k in tr.list_arguments()
+            if k in trained}
+    feed["src"] = batches[buckets[0]].data[0].as_in_context(dev)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    toks = tr.eval(**feed)[0]._data
+    torch.cuda.synchronize()
+    translate_ms = (time.monotonic() - t1) * 1e3
+    again = loaded.eval(**feed)[0]._data
+    ended = toks == NMT22_EOS
+    after = torch.cumsum(ended.long(), 0) - ended.long() > 0
+    res["translate"] = {"ms": translate_ms, "steps": NMT22_TRANSLATE,
+                        "tokens": list(toks.shape),
+                        "ended": int(ended.any(0).sum())}
+    checks["translate_valid"] = bool(
+        (toks >= 0).all() and (toks < w["vocab"]).all()
+        and (toks[after] == 0).all())
+    checks["loaded_bitwise"] = bool(torch.equal(toks, again))
+    # the name and attribute scopes stamp the graph
+    with mxt.name.Prefix("nmt_"), mxt.AttrScope(ctx_group="decoder"):
+        scoped = mx_sym.FullyConnected(mx_sym.var("h"), num_hidden=4)
+        plain = mx_sym.FullyConnected(mx_sym.var("h"), num_hidden=4,
+                                      name="given")
+    checks["scopes"] = (scoped.name.startswith("nmt_fullyconnected")
+                        and plain.name == "given"
+                        and scoped.attr("ctx_group") == "decoder"
+                        and "nmt_fullyconnected" in scoped.list_arguments(
+                        )[1] and mx_sym.var("z").attr("ctx_group") is None)
+    res.update(checks=checks, seconds=time.monotonic() - t0,
+               ok=all(checks.values()))
+    return res
+
+
+# ---- phase 22 (d): mx.model.FeedForward ----------------------------------
+
+FF = {"samples": 2000, "held_out": 500, "batch": 100, "epochs": 2,
+      "opt": {"learning_rate": 0.1, "momentum": 0.9}}
+
+
+def ff_sym():
+    """Config #1's MLP in ``mx.sym``: 784-128 relu - 64 relu - 10,
+    ``SoftmaxOutput`` (label ``softmax_label``)."""
+    x = mx_sym.var("data")
+    for i, n in enumerate((128, 64)):
+        x = mx_sym.Activation(mx_sym.FullyConnected(
+            x, num_hidden=n, name=f"fc{i + 1}"), act_type="relu")
+    return mx_sym.SoftmaxOutput(mx_sym.FullyConnected(
+        x, num_hidden=10, name="fc3"), name="softmax")
+
+
+def ff_data(seed: int):
+    """784-feature samples of 10 classes (a class's mean plus noise),
+    ``FF["samples"]`` to train on and ``FF["held_out"]`` held out."""
+    rng = np.random.default_rng(seed + 220)
+    means = rng.standard_normal((10, 784)).astype(np.float32)
+    n = FF["samples"] + FF["held_out"]
+    y = rng.integers(0, 10, n).astype(np.float32)
+    x = means[y.astype(int)] + 2.0 * rng.standard_normal(
+        (n, 784)).astype(np.float32)
+    return (x[:FF["samples"]], y[:FF["samples"]]), \
+        (x[FF["samples"]:], y[FF["samples"]:])
+
+
+def feedforward_run(seed: int) -> dict:
+    """(d) ``FeedForward`` fits the MLP for ``FF["epochs"]`` epochs on the
+    card (SGD with momentum, batch 100, Xavier from ``seed``), then
+    ``predict``s and ``score``s the held-out samples; the same run
+    through ``Module.fit``/``score`` from the same seed must reach the
+    same accuracy, with the same kernel launches."""
+    dev = gpu(0)
+    t0 = time.monotonic()
+    (x, y), (xt, yt) = ff_data(seed)
+    res = {}
+    for name in ("feedforward", "module"):
+        train = mx_io.NDArrayIter(x, y, batch_size=FF["batch"])
+        mx_random.seed(seed)
+        before = multi_sgd_mom.launches
+        t1 = time.monotonic()
+        if name == "feedforward":
+            model = mx_model.FeedForward(
+                ff_sym(), ctx=dev, num_epoch=FF["epochs"], optimizer="sgd",
+                initializer=Xavier(), numpy_batch_size=FF["batch"],
+                **FF["opt"])
+            model.fit(train)
+            prob = model.predict(xt)
+            acc = model.score(xt, yt)
+        else:
+            mod = mx_mod.Module(ff_sym(), context=dev)
+            mod.fit(train, num_epoch=FF["epochs"], optimizer="sgd",
+                    optimizer_params=dict(FF["opt"]), initializer=Xavier())
+            held = mx_io.NDArrayIter(xt, yt, batch_size=FF["batch"])
+            acc = dict(mod.score(held, "acc"))["accuracy"]
+            prob = mod.predict(held).asnumpy()
+        res[name] = {"accuracy": float(acc),
+                     "predict_accuracy": float((prob.argmax(1) == yt).mean()),
+                     "launches": multi_sgd_mom.launches - before,
+                     "seconds": time.monotonic() - t1}
+    ff, mo = res["feedforward"], res["module"]
+    checks = {"accuracy_matches_module":
+              abs(ff["accuracy"] - mo["accuracy"]) <= 1e-9,
+              "predict_matches_score":
+              abs(ff["predict_accuracy"] - ff["accuracy"]) <= 1e-9,
+              "learned": ff["accuracy"] > 0.5,
+              "launches_match": ff["launches"] == mo["launches"]}
+    res.update(checks=checks, seconds=time.monotonic() - t0,
+               launches=ff["launches"] + mo["launches"],
+               ok=all(checks.values()))
+    return res
+
+
+def slice22_phase(seed: int, card: str) -> dict:
+    """Phase 22 (a)-(d): every count set to 0 just before the phase and
+    read just after it: the momentum kernel launched by (b) and (d)
+    alone, no other kernel."""
+    start = time.monotonic()
+    zero_counts()
+    res, seconds = {"card": card}, {}
+    for key, fn in (("ops", contrib_ops_run), ("zipf", zipf_run),
+                    ("control_flow", control_flow_run), ("rfcn", rfcn_run),
+                    ("nmt", nmt22_run), ("feedforward", feedforward_run)):
+        t0 = time.monotonic()
+        res[key] = fn(seed)
+        seconds[key] = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = multi_sgd_mom.launches
+    res["other_launches"] = other_launches(multi_sgd_mom)
+    res.update(part_seconds=seconds, seconds=time.monotonic() - start,
+               ok=all(res[k]["ok"] for k in seconds)
+               and res["launches"] == res["rfcn"]["expected_launches"]
+               + res["feedforward"]["launches"]
+               and res["other_launches"] == 0)
     return res
 
 
@@ -9313,6 +10495,44 @@ def main() -> int:
     print(f"phase 21 on {card}: {slice21['seconds']:.1f} s, momentum "
           f"launches {slice21['launches']}, other launches "
           f"{slice21['other_launches']}", flush=True)
+    slice22 = slice22_phase(args.seed, card)
+    r = slice22["ops"]
+    print(f"phase 22 ops on {card}: {r['ops']} ops checked in "
+          f"{r['cases']} cases ({r['seconds']:.1f} s), failed "
+          f"{r['failed']}, worst by family {json.dumps(r['worst_by_family'])}"
+          f", gradients {json.dumps(r['worst_grad_by_family'])}, peak MB "
+          f"{json.dumps(r['peak_mb_forward_backward'])}", flush=True)
+    print(f"phase 22 op rows on {card}:", json.dumps(r["rows"]), flush=True)
+    print(f"phase 22 zipfian on {card}:", json.dumps(slice22["zipf"]),
+          flush=True)
+    print(f"phase 22 control flow on {card}:",
+          json.dumps(slice22["control_flow"]), flush=True)
+    r = slice22["rfcn"]
+    print(f"phase 22 deformable r-fcn + {r['body']} on {card}: "
+          f"{r['size'][0]}x{r['size'][1]}, {r['rois']} rois ({r['sampled']} "
+          f"sampled, {r['foreground']} foreground), losses {r['losses']}, "
+          f"step ms {r['step_ms']}, momentum launches {r['launches']} "
+          f"(expected {r['expected_launches']}), graphs "
+          f"{json.dumps({k: r['graphs'][k] for k in ('entries', 'graphs', 'replays')})}",
+          json.dumps(r["checks"]), flush=True)
+    print(f"phase 22 r-fcn check on {card}:", json.dumps(r["check"]),
+          flush=True)
+    r = slice22["nmt"]
+    print(f"phase 22 rnn nmt on {card}: {r['params']} parameters, step ms "
+          f"by bucket {json.dumps(r['step_ms'])}, losses "
+          f"{json.dumps(r['losses'])}, sequential "
+          f"{json.dumps(r['sequential'])}, monitor {json.dumps(r['monitor'])}"
+          f", unfuse max abs err {r['unfuse_max_abs_err']:.3g}, translate "
+          f"{json.dumps(r['translate'])}", json.dumps(r["checks"]),
+          flush=True)
+    print(f"phase 22 nmt check on {card}:", json.dumps(r["check"]),
+          flush=True)
+    r = slice22["feedforward"]
+    print(f"phase 22 feedforward on {card}:", json.dumps(r), flush=True)
+    print(f"phase 22 on {card}: {slice22['seconds']:.1f} s "
+          f"{json.dumps(slice22['part_seconds'])}, momentum launches "
+          f"{slice22['launches']}, other launches "
+          f"{slice22['other_launches']}", flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -9417,6 +10637,9 @@ def main() -> int:
            "optimizer_zoo_launches": zoo_launches("multi_sgd_mom"),
            "export_launches": export["train"]["launches"],
            "op_slice_launches": slice21["launches"],
+           "control_flow_detection_launches": {
+               "rfcn": slice22["rfcn"]["launches"],
+               "feedforward": slice22["feedforward"]["launches"]},
            "amp_bf16_launches": low["resnet50_amp"]["launches"],
            "imperative_launches": imp["launches"],
            **{f"{name}_launches": det[name]["train"]["launches"]
@@ -9475,7 +10698,7 @@ def main() -> int:
              nmt_backward, "detection": det, "graphs": graph,
          "generation": gen, "training_surface": surface,
          "data_pipeline": data, "model_surface": surface18,
-         "symbolic": symbolic, "export": export, "op_slice": slice21,
+         "symbolic": symbolic, "export": export, "op_slice": slice21, "slice22": slice22,
          "kernels": kernels,
          "elapsed_s": elapsed}, indent=1))
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
@@ -9487,7 +10710,8 @@ def main() -> int:
         ("detection", det), ("hybridized graphs", graph),
         ("generation serving", gen), ("training surface", surface),
         ("data pipeline", data), ("model surface", surface18),
-        ("symbolic", symbolic), ("export", export), ("op slice", slice21))
+        ("symbolic", symbolic), ("export", export), ("op slice", slice21),
+        ("control flow and detection", slice22))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

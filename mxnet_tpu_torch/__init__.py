@@ -40,23 +40,28 @@ on a side CUDA stream.
 Entry points run on ``gpu(0)`` unless the caller passes ``ctx=cpu()`` or
 opens a ``with mx.cpu():`` scope.
 """
-from . import autograd, base, callback, context, contrib, engine, faults, \
-    gluon, image, initializer, io, kernels, kvstore, lr_scheduler, metric, \
-    model, module, ndarray, observability, operator, optimizer, random, \
-    recordio, rnn, rtc, serving, symbol
+from . import attribute, autograd, base, callback, context, contrib, \
+    engine, faults, gluon, image, initializer, io, kernels, kvstore, \
+    lr_scheduler, metric, model, module, monitor, name, ndarray, \
+    observability, operator, optimizer, random, recordio, rnn, rtc, \
+    serving, symbol
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .convert import load_reference_params
+from .monitor import Monitor
 
 nd = ndarray
 init = initializer
 sym = symbol
 mod = module
 
-__all__ = ["Context", "MXNetError", "autograd", "base", "callback",
+__all__ = ["AttrScope", "Context", "MXNetError", "Monitor", "attribute",
+           "autograd", "base", "callback",
            "context", "contrib", "cpu", "current_context", "engine",
            "faults", "gpu", "gluon", "image", "init", "initializer", "io",
            "kernels", "kvstore", "load_reference_params", "lr_scheduler",
-           "metric", "mod", "model", "module", "nd", "ndarray", "num_gpus",
+           "metric", "mod", "model", "module", "monitor", "name", "nd",
+           "ndarray", "num_gpus",
            "observability", "operator", "optimizer", "random", "recordio",
            "rnn", "rtc", "serving", "sym", "symbol"]

@@ -14,7 +14,11 @@ left to carry is MXNet's interface:
   current stream of the tensor's device;
 - the counts of waits and of host reads (``NDArray.asnumpy``/
   ``asscalar``, and the optimizer frontends' reads of a learning-rate
-  array on the card), in ``stats()``.
+  array on the card), in ``stats()``;
+- the dispatch listeners (``add_listener``; ``mx.monitor.Monitor`` is
+  one), called with each registry op's name and outputs.  ``hooked`` is
+  false while there is no listener and the engine is not naive, and the
+  registry's dispatch then makes no call here at all.
 
 The JAX package's bulked dispatch (``_BulkSegment``, the deferral of op
 runs into one fused XLA program) has no counterpart: each op is one or
@@ -41,6 +45,8 @@ class Engine:
         self.is_naive = self._type == "NaiveEngine"
         self.waits = 0
         self.host_reads = 0
+        self._listeners = []
+        self.hooked = self.is_naive
 
     @property
     def engine_type(self) -> str:
@@ -50,10 +56,25 @@ class Engine:
         self.wait_all()
         self._type = name
         self.is_naive = name == "NaiveEngine"
+        self.hooked = self.is_naive or bool(self._listeners)
 
-    def on_op(self, outputs) -> None:
-        """Run after each op of the registry: under NaiveEngine, wait for
-        the op's device."""
+    def add_listener(self, fn) -> None:
+        """Call ``fn(op_name, outputs, dispatch_us)`` after each op of the
+        registry (``dispatch_us`` is 0.0: the JAX package's measured
+        dispatch time is not kept)."""
+        self._listeners.append(fn)
+        self.hooked = True
+
+    def remove_listener(self, fn) -> None:
+        if fn in self._listeners:
+            self._listeners.remove(fn)
+        self.hooked = self.is_naive or bool(self._listeners)
+
+    def on_op(self, name: str, outputs) -> None:
+        """Run after each op of the registry while ``hooked``: the
+        listeners, then, under NaiveEngine, a wait for the op's device."""
+        for fn in list(self._listeners):
+            fn(name, outputs, 0.0)
         if self.is_naive:
             for t in outputs:
                 if isinstance(t, torch.Tensor) and t.is_cuda:

@@ -5,8 +5,10 @@ Counterpart of ``mxnet_tpu/module/base_module.py``: the epoch loop
 (forward, backward, update, metric, batch and epoch callbacks,
 validation) every Symbol-era script drives, over the subclass surface
 (``bind``, ``init_params``, ``init_optimizer``, ``forward``,
-``backward``, ``update``, ``get_outputs``, ``update_metric``).  The JAX
-package's ``monitor`` is not ported (``fit`` refuses one).
+``backward``, ``update``, ``get_outputs``, ``update_metric``).
+``fit(monitor=)`` installs an ``mx.monitor.Monitor`` on the module's
+executors (``install_monitor``) and wraps each batch's forward, backward
+and update in its ``tic`` and ``toc_print``.
 """
 from __future__ import annotations
 
@@ -95,6 +97,10 @@ class BaseModule:
     def update_metric(self, eval_metric, labels):
         raise NotImplementedError
 
+    def install_monitor(self, mon) -> None:
+        """Install ``mon`` on the module's executors."""
+        mon.install()
+
     # ------------------------------------------------------------------ #
     # generic conveniences (reference: base_module.py)                   #
     # ------------------------------------------------------------------ #
@@ -171,8 +177,6 @@ class BaseModule:
         callbacks, a ``score`` on ``eval_data``, ``train_data.reset()``."""
         if num_epoch is None:
             raise MXNetError("fit() requires num_epoch")
-        if monitor is not None:
-            raise MXNetError("fit(monitor=...): Monitor is not ported")
         optimizer_params = optimizer_params or {"learning_rate": 0.01}
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
@@ -186,13 +190,19 @@ class BaseModule:
         eval_metric = _as_metric(eval_metric)
         validation_metric = _as_metric(validation_metric) \
             if validation_metric is not None else eval_metric
+        if monitor is not None:
+            self.install_monitor(monitor)
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
+                if monitor is not None:
+                    monitor.toc_print()
                 self.update_metric(eval_metric, data_batch.label)
                 if batch_end_callback is not None:
                     param = BatchEndParam(epoch=epoch, nbatch=nbatch,

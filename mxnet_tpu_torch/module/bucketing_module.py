@@ -166,6 +166,13 @@ class BucketingModule(BaseModule):
     def update_metric(self, eval_metric, labels) -> None:
         self._curr_module.update_metric(eval_metric, labels)
 
+    def get_input_grads(self, merge_multi_context=True):
+        return self._curr_module.get_input_grads(merge_multi_context)
+
+    def install_monitor(self, mon) -> None:
+        """On the master's executor: every bucket binds its arrays."""
+        self._buckets[self._default_bucket_key].install_monitor(mon)
+
     def save_checkpoint(self, prefix: str, epoch: int,
                         save_optimizer_states: bool = False) -> None:
         self._buckets[self._default_bucket_key].save_checkpoint(

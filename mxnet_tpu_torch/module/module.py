@@ -259,6 +259,19 @@ class Module(BaseModule):
     def get_outputs(self, merge_multi_context=True):
         return self._exec_group.get_outputs(merge_multi_context)
 
+    def get_input_grads(self, merge_multi_context=True) -> List[NDArray]:
+        """The gradients of the data inputs from the last backward (bound
+        with ``inputs_need_grad``)."""
+        if not self.inputs_need_grad:
+            raise MXNetError("get_input_grads requires bind("
+                             "inputs_need_grad=True)")
+        exe = self._exec_group.execs[0]
+        return [exe.grad_dict[n] for n in self._data_names]
+
+    def install_monitor(self, mon) -> None:
+        for exe in self._exec_group.execs:
+            mon.install_to_executor(exe)
+
     def update_metric(self, eval_metric, labels) -> None:
         self._exec_group.update_metric(eval_metric, labels)
 

@@ -23,9 +23,10 @@ import sys as _sys
 
 import numpy as np
 
-from . import (ops_contrib, ops_ctc, ops_elemwise, ops_image,  # noqa: F401
-               ops_linalg, ops_matrix, ops_misc, ops_nn, ops_optimizer,
-               ops_random, ops_reduce, ops_spatial, ops_tail)
+from . import (ops_contrib, ops_control_flow, ops_ctc,  # noqa: F401
+               ops_elemwise, ops_image, ops_linalg, ops_matrix, ops_misc,
+               ops_nn, ops_optimizer, ops_random, ops_reduce, ops_spatial,
+               ops_tail)
 from . import contrib, image, random, utils
 from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,
                       ones, zeros)

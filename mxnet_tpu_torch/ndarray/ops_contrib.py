@@ -46,8 +46,13 @@ scatter on the CPU), by a max over the ground-truth index.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError
 
 from ..kernels.flash_attention import flash_attention
 from .register import register_op
@@ -566,6 +571,458 @@ def flash_attention_maker(causal=False, scale=None):
     return fn
 
 
+# ---- the sampling ops of Deformable ConvNets and R-FCN -------------------
+#
+# Each gathers from ``data`` through a flat index (``index_select``, whose
+# backward is an ``index_add``: atomic on the card) at sample points whose
+# floors are ``torch.floor`` calls, so a run can be handed another's
+# decisions.  ``rois`` take no gradient: the JAX ops reach them only
+# through floors and clamps.  Divisions are by 0-d tensors (``_num``):
+# CUDA divides by a Python number as a multiplication by its reciprocal,
+# the CPU does not, and a sample point would then differ in its last bit
+# between the two.  The 0-d tensors are made by a fill on the device,
+# never copied from the host, so a CUDA graph can capture the ops.
+
+def _num(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
+def _flat_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``data.reshape(-1)[idx]`` as an ``index_select``."""
+    return data.reshape(-1).index_select(0, idx.reshape(-1)).reshape(
+        idx.shape)
+
+
+def deformable_psroi_maker(spatial_scale=1.0, output_dim=1, group_size=1,
+                           pooled_size=7, part_size=0, sample_per_part=1,
+                           trans_std=0.0, no_trans=False):
+    """JAX ``ops_contrib.py:346-455``: each roi's bins at ``sample_per_part``
+    squared points (no half-sample centring), shifted by ``trans`` (per
+    class, (x, y) pairs, scaled by ``trans_std`` and the roi's size),
+    bilinear, averaged over the points inside the image."""
+    ps, gs = int(pooled_size), int(group_size)
+    pt = int(part_size) or ps
+    sp = max(int(sample_per_part), 1)
+    d_out = int(output_dim)
+
+    def fn(data, rois, *trans_opt):
+        b, c, h, w = data.shape
+        dev, dt = data.device, data.dtype
+        trans = trans_opt[0] if trans_opt and not no_trans else None
+        rois = rois.detach().to(dt)
+        r = rois.shape[0]
+        gi = torch.clamp(torch.arange(ps, device=dev) * gs // ps, 0, gs - 1)
+        pi = torch.clamp(torch.arange(ps, device=dev) * pt // ps, 0, pt - 1)
+
+        def c_round(v):                   # C's round() for v >= 0
+            return torch.floor(v + 0.5)
+        x1 = c_round(rois[:, 1]) * spatial_scale - 0.5
+        y1 = c_round(rois[:, 2]) * spatial_scale - 0.5
+        x2 = (c_round(rois[:, 3]) + 1.0) * spatial_scale - 0.5
+        y2 = (c_round(rois[:, 4]) + 1.0) * spatial_scale - 0.5
+        rw = (x2 - x1).clamp(min=0.1)
+        rh = (y2 - y1).clamp(min=0.1)
+        bin_h, bin_w = rh / _num(ps, rh), rw / _num(ps, rw)
+        sub_h, sub_w = bin_h / _num(sp, rh), bin_w / _num(sp, rw)
+        if trans is not None:
+            n_cls = trans.shape[1] // 2
+            per_cls = max(d_out // max(n_cls, 1), 1)
+            cls_of = torch.arange(d_out, device=dev) // per_cls
+            part = trans[:, :, pi[:, None], pi[None, :]]   # (R, 2n, ps, ps)
+            dx = (part[:, 0::2] * trans_std * rw[:, None, None, None]
+                  )[:, cls_of]                             # (R, D, ps, ps)
+            dy = (part[:, 1::2] * trans_std * rh[:, None, None, None]
+                  )[:, cls_of]
+        else:
+            dx = dy = torch.zeros((r, 1, 1, 1), dtype=dt, device=dev)
+        iy = torch.arange(ps, dtype=dt, device=dev)
+        off = torch.arange(sp, dtype=dt, device=dev)
+        col = (slice(None), None, None, None, None)
+        # (R, D|1, ps, ps, sp) sample coordinates
+        ys = (y1[col] + iy[:, None, None] * bin_h[col] + dy[..., None]
+              + off * sub_h[col])
+        xs = (x1[col] + iy[None, :, None] * bin_w[col] + dx[..., None]
+              + off * sub_w[col])
+        ysb, xsb = ys[..., :, None], xs[..., None, :]      # (.., sp, sp)
+        valid = ((ysb > -0.5) & (ysb < h - 0.5) &
+                 (xsb > -0.5) & (xsb < w - 0.5))
+        yc = ysb.clamp(0.0, h - 1.0)
+        xc = xsb.clamp(0.0, w - 1.0)
+        y0, x0 = torch.floor(yc), torch.floor(xc)
+        ly, lx = yc - y0, xc - x0
+        y0i, x0i = y0.long(), x0.long()
+        y1i = (y0i + 1).clamp(max=h - 1)
+        x1i = (x0i + 1).clamp(max=w - 1)
+        ch = (torch.arange(d_out, device=dev)[:, None, None] * gs
+              + gi[:, None]) * gs + gi[None, :]            # (D, ps, ps)
+        plane = ((rois[:, 0].long()[:, None, None, None] * c
+                  + ch) * h)[..., None, None]              # (R,D,ps,ps,1,1)
+        full = plane.shape[:4] + (sp, sp)
+
+        def at(yi, xi):
+            return _flat_gather(data, ((plane + yi) * w + xi).expand(full))
+        vals = (at(y0i, x0i) * (1 - ly) * (1 - lx) + at(y0i, x1i) * (1 - ly)
+                * lx + at(y1i, x0i) * ly * (1 - lx) + at(y1i, x1i) * ly * lx)
+        vmask = valid.to(dt).expand(full)
+        count = vmask.sum((-1, -2)).clamp(min=1.0)
+        return (vals * vmask).sum((-1, -2)) / count
+    return fn
+
+
+def roi_pooling_maker(pooled_size=(7, 7), spatial_scale=1.0):
+    """JAX :457-493: the max over each bin's pixels (``round`` to even
+    corners, bins of at least one pixel; a bin outside the image is
+    -inf); the gradient goes to the arg-max (split among equal maxima, as
+    ``jnp.max``'s).  Separable: the max over each x-bin's columns, then
+    over each y-bin's rows, ``ROI_POOL_CHUNK`` rois at a time."""
+    ph, pw = (int(v) for v in _astuple(pooled_size))
+
+    def bins(lo, size, n, pixels, dev, dt):
+        p = torch.arange(n, dtype=dt, device=dev)
+        b0 = lo[:, None] + torch.floor(p * size[:, None] / _num(n, size))
+        b1 = lo[:, None] + torch.ceil((p + 1) * size[:, None]
+                                      / _num(n, size))
+        b1 = torch.maximum(b1, b0 + 1)
+        pos = torch.arange(pixels, dtype=dt, device=dev)
+        return (pos >= b0[..., None]) & (pos < b1[..., None])  # (R, n, P)
+
+    def fn(data, rois):
+        _, c, h, w = data.shape
+        dev, dt = data.device, data.dtype
+        rois = rois.detach().to(dt)
+        x1, y1, x2, y2 = (torch.round(rois[:, i] * spatial_scale)
+                          for i in range(1, 5))
+        rw = (x2 - x1 + 1).clamp(min=1.0)
+        rh = (y2 - y1 + 1).clamp(min=1.0)
+        my = bins(y1, rh, ph, h, dev, dt)
+        mx = bins(x1, rw, pw, w, dev, dt)
+        neg = _num(-math.inf, data)
+        outs = []
+        for s in range(0, rois.shape[0], ROI_POOL_CHUNK):
+            img = data[rois[s:s + ROI_POOL_CHUNK, 0].long()]   # (r,C,H,W)
+            cols = torch.where(mx[s:s + ROI_POOL_CHUNK, None, None],
+                               img[:, :, :, None], neg).amax(-1)  # (r,C,H,pw)
+            rows = torch.where(my[s:s + ROI_POOL_CHUNK, None, :, :, None],
+                               cols[:, :, None], neg).amax(3)  # (r,C,ph,pw)
+            outs.append(rows)
+        return torch.cat(outs) if outs else data.new_zeros((0, c, ph, pw))
+    return fn
+
+
+#: rois a ``ROIPooling`` pass reduces at once (its masked copies are
+#: chunk x C x H x W x bins)
+ROI_POOL_CHUNK = 16
+
+
+def bipartite_matching_maker(threshold=0.5, is_ascend=False, topk=-1):
+    """JAX :632-668: greedy matching of (B, N, M) scores, ``min(N, M)``
+    (or ``topk``) rounds of the global arg-max (first on ties); a pair at
+    or above ``threshold`` is matched, and its row and column leave the
+    game either way.  Returns the rows' columns (B, N) and the columns'
+    rows (B, M), -1 where unmatched."""
+    def fn(data):
+        bsz, n, m = data.shape
+        steps = min(n, m) if topk <= 0 else min(int(topk), n, m)
+        sgn = -1.0 if is_ascend else 1.0
+        s = (data * sgn).detach().clone()
+        thr = threshold * sgn
+        rows = torch.full((bsz, n), -1.0, dtype=data.dtype,
+                          device=data.device)
+        cols = torch.full((bsz, m), -1.0, dtype=data.dtype,
+                          device=data.device)
+        bi = torch.arange(bsz, device=data.device)
+        for _ in range(steps):
+            flat = s.reshape(bsz, -1).argmax(1)
+            i, j = flat // m, flat % m
+            ok = s[bi, i, j] >= thr
+            rows[bi, i] = torch.where(ok, j.to(rows.dtype), rows[bi, i])
+            cols[bi, j] = torch.where(ok, i.to(cols.dtype), cols[bi, j])
+            s[bi, i, :] = -math.inf
+            s[bi, :, j] = -math.inf
+        return rows, cols
+    return fn
+
+
+# ---- the long tail (correlation.cc, index_copy.cc, count_sketch.cc, ...) --
+
+def correlation_maker(kernel_size=1, max_displacement=1, stride1=1,
+                      stride2=1, pad_size=0, is_multiply=True):
+    """JAX :715-762: FlowNet's cost volume, (n, D*D, oh, ow) with ``D =
+    2 * (max_displacement // stride2) + 1``: for each displacement the
+    mean over the k x k window and the channels of ``p1 * p2`` shifted
+    (or ``|p1 - p2|``), one displacement at a time."""
+    k, md = int(kernel_size), int(max_displacement)
+    s1, s2, pad = int(stride1), int(stride2), int(pad_size)
+    rad = (k - 1) // 2
+    border = md + rad
+    grid = md // s2
+
+    def fn(data1, data2):
+        n, c, h, w = data1.shape
+        p1 = F.pad(data1, (pad, pad, pad, pad))
+        p2 = F.pad(data2, (pad, pad, pad, pad))
+        out_h = math.ceil((h + 2 * pad - 2 * border) / s1)
+        out_w = math.ceil((w + 2 * pad - 2 * border) / s1)
+        eh, ew = (out_h - 1) * s1 + k, (out_w - 1) * s1 + k
+        lo = border - rad
+        a = p1[:, :, lo:lo + eh, lo:lo + ew]
+        maps = []
+        for dy in range(-grid, grid + 1):
+            for dx in range(-grid, grid + 1):
+                y0, x0 = lo + dy * s2, lo + dx * s2
+                b = p2[:, :, y0:y0 + eh, x0:x0 + ew]
+                q = a * b if is_multiply else (a - b).abs()
+                if k > 1 or s1 > 1:
+                    q = F.avg_pool2d(q, k, s1, divisor_override=1)
+                maps.append(q.sum(1) / _num(k * k * c, q))
+        return torch.stack(maps, 1)
+    return fn
+
+
+def index_copy_maker():
+    """JAX :764-770: ``old.at[idx].set(new)``: rows of ``new`` over rows
+    of ``old`` (negative indices from the end, the last of repeated
+    indices wins, out-of-range rows are dropped)."""
+    def fn(old, idx, new):
+        n = old.shape[0]
+        i = idx.reshape(-1).long()
+        i = torch.where(i < 0, i + n, i)
+        ok = (i >= 0) & (i < n)
+        tgt = torch.where(ok, i, n)
+        pos = torch.arange(i.numel(), device=old.device)
+        last = torch.full((n + 1,), -1, dtype=torch.long, device=old.device)
+        last.scatter_reduce_(0, tgt, pos, reduce="amax")
+        tgt = torch.where(ok & (last[tgt] == pos), tgt, n)
+        spare = torch.cat([old, old.new_zeros((1,) + old.shape[1:])])
+        return spare.index_put((tgt,), new.to(old.dtype))[:n]
+    return fn
+
+
+def count_sketch_maker(out_dim=None, processing_batch_size=32):
+    """JAX :772-788: ``out[:, h[j]] += s[j] * data[:, j]``."""
+    if out_dim is None:
+        raise MXNetError("count_sketch requires out_dim")
+    od = int(out_dim)
+
+    def fn(data, h, s):
+        signed = data * s.reshape(-1).to(data.dtype)
+        out = data.new_zeros((data.shape[0], od))
+        return out.index_add_(1, h.reshape(-1).long(), signed)
+    return fn
+
+
+def adaptive_avg_pool_maker(output_size=1):
+    """JAX :800-825: each output cell the mean of rows ``[i h / oh,
+    ceil((i + 1) h / oh))`` and the like columns."""
+    size = _astuple(output_size)
+    oh, ow = (int(size[0]), int(size[-1]))
+
+    def fn(data):
+        return F.adaptive_avg_pool2d(data, (oh, ow))
+    return fn
+
+
+def psroi_pooling_maker(spatial_scale=1.0, output_dim=1, pooled_size=7,
+                        group_size=0):
+    """JAX :827-865: each bin the mean of a fixed 2 x 2 grid of nearest
+    pixels (the JAX package's, not MXNet's whole-bin average) of its
+    position-sensitive channel ``(d * gs + i') * gs + j'``.  Only the
+    selected channels are gathered (JAX samples all C and then selects:
+    the same values)."""
+    ps = int(pooled_size)
+    gs = int(group_size) if group_size else ps
+    sr = 2
+
+    def fn(data, rois):
+        _, c, h, w = data.shape
+        dev, dt = data.device, data.dtype
+        rois = rois.detach().to(dt)
+        x1, y1, x2, y2 = (rois[:, i] * spatial_scale for i in range(1, 5))
+        rw = (x2 - x1).clamp(min=0.1)
+        rh = (y2 - y1).clamp(min=0.1)
+        i = torch.arange(ps * sr, dtype=dt, device=dev)
+        sy = y1[:, None] + (i + 0.5) * rh[:, None] / _num(ps * sr, rh)
+        sx = x1[:, None] + (i + 0.5) * rw[:, None] / _num(ps * sr, rw)
+        yi = torch.floor(sy).clamp(0, h - 1).long().reshape(-1, ps, sr)
+        xi = torch.floor(sx).clamp(0, w - 1).long().reshape(-1, ps, sr)
+        g = torch.arange(ps, device=dev) * gs // ps
+        ch = (torch.arange(output_dim, device=dev)[:, None, None] * gs
+              + g[:, None]) * gs + g[None, :]              # (D, ps, ps)
+        plane = (rois[:, 0].long()[:, None, None, None] * c + ch) * h
+        idx = ((plane[..., None, None] + yi[:, None, :, None, :, None])
+               * w + xi[:, None, None, :, None, :])       # (R,D,ps,ps,sr,sr)
+        return _flat_gather(data, idx).mean((-1, -2))
+    return fn
+
+
+def deformable_conv_maker(kernel=(3, 3), stride=(1, 1), dilate=(1, 1),
+                          pad=(0, 0), num_filter=1, num_group=1,
+                          num_deformable_group=1, no_bias=False, workspace=0,
+                          layout=None):
+    """JAX :869-948: a bilinear im2col at the kernel taps moved by
+    ``offset`` (laid out (dg, K, [y, x], OH, OW); a corner outside the
+    image reads 0), then one matrix product with the weights."""
+    kh, kw = (int(v) for v in _astuple(kernel))
+    sh, sw = (int(v) for v in _astuple(stride))
+    dh, dw = (int(v) for v in _astuple(dilate))
+    ph, pw = (int(v) for v in _astuple(pad))
+    dg, ng = int(num_deformable_group), int(num_group)
+
+    def fn(data, offset, weight, *maybe_bias):
+        n, c, h, w = data.shape
+        dev, dt = data.device, data.dtype
+        oh = (h + 2 * ph - (dh * (kh - 1) + 1)) // sh + 1
+        ow = (w + 2 * pw - (dw * (kw - 1) + 1)) // sw + 1
+        kk, cg = kh * kw, c // dg
+        tap = torch.arange(kk, device=dev)
+        base_y = ((torch.arange(oh, device=dev) * sh - ph)[None, :, None]
+                  + (tap // kw * dh)[:, None, None]).to(dt)   # (K, OH, 1)
+        base_x = ((torch.arange(ow, device=dev) * sw - pw)[None, None, :]
+                  + (tap % kw * dw)[:, None, None]).to(dt)    # (K, 1, OW)
+        off = offset.reshape(n, dg, kk, 2, oh, ow)
+        # rows of a (N * H * W, C) view; a corner an index_select of them
+        rows = data.permute(0, 2, 3, 1).reshape(n * h * w, c)
+        img = (torch.arange(n, device=dev) * (h * w))[:, None, None, None]
+        cols = []
+        for g in range(dg):
+            yy = base_y + off[:, g, :, 0]                 # (N, K, OH, OW)
+            xx = base_x + off[:, g, :, 1]
+            y0, x0 = torch.floor(yy), torch.floor(xx)
+            ly, lx = (yy - y0)[..., None], (xx - x0)[..., None]
+            rows_g = rows[:, g * cg:(g + 1) * cg]
+
+            def at(yi, xi):
+                valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+                idx = img + yi.clamp(0, h - 1).long() * w \
+                    + xi.clamp(0, w - 1).long()
+                vals = rows_g.index_select(0, idx.reshape(-1)).reshape(
+                    idx.shape + (cg,))
+                return vals * valid[..., None].to(dt)
+            cols.append(at(y0, x0) * (1 - ly) * (1 - lx)
+                        + at(y0, x0 + 1) * (1 - ly) * lx
+                        + at(y0 + 1, x0) * ly * (1 - lx)
+                        + at(y0 + 1, x0 + 1) * ly * lx)   # (N,K,OH,OW,Cg)
+        col = torch.cat(cols, -1).permute(0, 2, 3, 4, 1)  # (N,OH,OW,C,K)
+        col = col.reshape(n, oh * ow, ng, c // ng * kk)
+        wmat = weight.reshape(ng, num_filter // ng, c // ng * kk)
+        out = torch.einsum("npgk,gok->ngop", col, wmat).reshape(
+            n, num_filter, oh, ow)
+        if maybe_bias and not no_bias:
+            out = out + maybe_bias[0][None, :, None, None]
+        return out
+    return fn
+
+
+def index_array_maker(axes=None):
+    """JAX :950-963: each element's index along ``axes`` (all by default)
+    in a last axis, int32 (MXNet's is int64; the JAX package's int32)."""
+    def fn(data):
+        sel = tuple(axes) if axes is not None else tuple(range(data.dim()))
+        grids = torch.meshgrid(*[torch.arange(s, device=data.device)
+                                 for s in data.shape], indexing="ij")
+        return torch.stack([grids[a] for a in sel], -1).to(torch.int32)
+    return fn
+
+
+def allclose_maker(rtol=1e-5, atol=1e-8, equal_nan=False):
+    """JAX :1009-1017: 1.0 if every pair is close, else 0.0, shape (1,),
+    on the device (no host read)."""
+    def fn(a, b):
+        a, b = torch.broadcast_tensors(a, b.to(a.dtype))
+        return torch.isclose(a, b, rtol=float(rtol), atol=float(atol),
+                             equal_nan=bool(equal_nan)).all().to(
+            torch.float32).reshape(1)
+    return fn
+
+
+def getnnz_maker(axis=None):
+    """JAX :1020-1029: the count of non-zeros (int32, the JAX package's
+    32-bit mode), over ``axis`` or all."""
+    def fn(data):
+        nz = (data != 0).to(torch.int32)
+        return nz.sum(dtype=torch.int32) if axis is None else \
+            nz.sum(int(axis), dtype=torch.int32)
+    return fn
+
+
+def div_sqrt_dim_maker():
+    """JAX :1033-1040: ``data / sqrt(data.shape[-1])``."""
+    def fn(data):
+        return data / torch.sqrt(_num(data.shape[-1], data))
+    return fn
+
+
+def zipf_candidates(n: int, range_max: int, gen, dev) -> torch.Tensor:
+    """``n`` draws with replacement of Zipf(``range_max``) by the inverse
+    CDF ``floor(exp(u log(range_max + 1))) - 1``, ``u`` from ``gen``."""
+    u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+    c = torch.exp(u * math.log(range_max + 1.0)).long() - 1
+    return c.clamp(0, range_max - 1)
+
+
+def _first_unique(draws: torch.Tensor, want: int):
+    """The first ``want`` distinct values of ``draws`` in order of first
+    appearance, and how many draws it took; None if fewer appear."""
+    order = torch.argsort(draws, stable=True)
+    s = draws[order]
+    first_sorted = torch.ones_like(s, dtype=torch.bool)
+    first_sorted[1:] = s[1:] != s[:-1]
+    first = torch.zeros_like(first_sorted).index_put_(
+        (order,), first_sorted)
+    seen = torch.cumsum(first.to(torch.long), 0)
+    if int(seen[-1]) < want:
+        return None
+    tries = int(torch.searchsorted(seen, torch.tensor(
+        [want], device=seen.device))[0]) + 1
+    return draws[:tries][first[:tries]], tries
+
+
+def sample_unique_zipfian_maker(range_max=None, shape=None, ctx=None):
+    """JAX :1047-1093: per row of ``shape`` = (rows, n), ``n`` distinct
+    classes of Zipf(``range_max``) in order of first draw, and the draws
+    it took, both int64.  The draws come from the device's generator
+    (``mx.random.seed`` covers them) in blocks of at least ``2 n``; whether
+    a block sufficed is read on the host, as the JAX op's rejection loop
+    runs there."""
+    from ..context import as_device
+    from .register import host_read
+    rm = int(range_max)
+    shp = tuple(int(s) for s in shape)
+    if shp[1] > rm:
+        raise MXNetError(f"_sample_unique_zipfian: cannot draw {shp[1]} "
+                         f"unique candidates from range_max={rm}")
+
+    def fn():
+        from .. import random as _random
+        dev = as_device(ctx)
+        if dev.type == "meta":
+            return (torch.empty(shp, dtype=torch.long, device=dev),
+                    torch.empty(shp[:1], dtype=torch.long, device=dev))
+        gen = _random.generator(dev)
+        out, tries = [], []
+        for _ in range(shp[0]):
+            draws = zipf_candidates(2 * shp[1], rm, gen, dev)
+            while True:
+                host_read("_sample_unique_zipfian", draws)
+                got = _first_unique(draws, shp[1])
+                if got is not None:
+                    break
+                draws = torch.cat([draws, zipf_candidates(
+                    draws.numel(), rm, gen, dev)])
+            out.append(got[0])
+            tries.append(got[1])
+        return (torch.stack(out), torch.tensor(tries, dtype=torch.long,
+                                               device=dev))
+    return fn
+
+
+def backward_gradmult_maker(scalar=1.0):
+    """JAX :1096-1102: ``x * scalar``."""
+    def fn(x):
+        return x * _num(scalar, x)
+    return fn
+
+
 def _register():
     register_op("_contrib_flash_attention", flash_attention_maker,
                 aliases=("flash_attention",))
@@ -585,6 +1042,34 @@ def _register():
                 aliases=("box_decode",))
     register_op("_contrib_box_encode", box_encode_maker,
                 aliases=("box_encode",))
+
+    register_op("_contrib_DeformablePSROIPooling", deformable_psroi_maker,
+                aliases=("DeformablePSROIPooling",))
+    register_op("ROIPooling", roi_pooling_maker)
+    register_op("_contrib_bipartite_matching", bipartite_matching_maker,
+                aliases=("bipartite_matching",))
+    register_op("Correlation", correlation_maker, aliases=("correlation",))
+    register_op("_contrib_index_copy", index_copy_maker,
+                aliases=("index_copy",))
+    register_op("_contrib_count_sketch", count_sketch_maker,
+                aliases=("count_sketch",), differentiable=False)
+    register_op("_contrib_AdaptiveAvgPooling2D", adaptive_avg_pool_maker,
+                aliases=("AdaptiveAvgPooling2D",))
+    register_op("_contrib_PSROIPooling", psroi_pooling_maker,
+                aliases=("PSROIPooling",))
+    register_op("_contrib_DeformableConvolution", deformable_conv_maker,
+                aliases=("DeformableConvolution",))
+    register_op("_contrib_index_array", index_array_maker,
+                aliases=("index_array",), differentiable=False)
+    register_op("_contrib_allclose", allclose_maker, aliases=("allclose",),
+                differentiable=False)
+    register_op("_contrib_getnnz", getnnz_maker, differentiable=False)
+    register_op("_contrib_div_sqrt_dim", div_sqrt_dim_maker,
+                aliases=("div_sqrt_dim",))
+    register_op("_sample_unique_zipfian", sample_unique_zipfian_maker,
+                differentiable=False)
+    register_op("_contrib_backward_gradientmultiplier",
+                backward_gradmult_maker)
 
 
 _register()

@@ -250,8 +250,8 @@ def invoke(op: Operator, inputs: Sequence, kwargs: Dict[str, Any],
     else:
         res = fn(*args)
     multi = isinstance(res, (tuple, list))
-    if _engine.is_naive:
-        _engine.on_op(res if multi else (res,))
+    if _engine.hooked:
+        _engine.on_op(op.name, res if multi else (res,))
     if out is not None:
         return write_out(res, out)
     if wrapped:

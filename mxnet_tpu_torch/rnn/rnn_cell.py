@@ -1,5 +1,7 @@
 """Symbolic RNN cells: ``RNNParams``, ``BaseRNNCell``, ``RNNCell``,
-``LSTMCell``, ``GRUCell`` and ``SequentialRNNCell``.
+``LSTMCell``, ``GRUCell``, ``FusedRNNCell``, ``SequentialRNNCell`` and the
+modifier cells ``DropoutCell``, ``ResidualCell`` and
+``BidirectionalCell``.
 
 Counterpart of ``mxnet_tpu/rnn/rnn_cell.py``.  A cell builds Symbol
 graphs: ``cell(inputs, states)`` appends one step, ``cell.unroll(T,
@@ -9,18 +11,28 @@ LSTM; r, z, o for the GRU).  ``LSTMCell``'s ``forget_bias`` is applied
 at initialisation (an ``__init__`` attribute on the bias variable that
 ``Module.init_params`` reads), never at run time.  Without a
 ``begin_state``, ``unroll`` makes the zero states in the graph from the
-first step's input, so they need no binding.  The cells over the fused
-``RNN`` op (``FusedRNNCell``) and the modifier cells (``DropoutCell``,
-``ResidualCell``, ``BidirectionalCell``) are not ported.
+first step's input, so they need no binding.
+
+``FusedRNNCell.unroll`` is one ``RNN`` node (cuDNN on the card) over one
+packed parameter vector, laid out as the JAX package's and cuDNN's: per
+layer, per direction, ``i2h_weight``, ``h2h_weight``, ``i2h_bias``,
+``h2h_bias``, gates in the order above; ``unpack_weights`` and
+``pack_weights`` convert between it and the per-cell weights of
+``unfuse()``'s cells (named ``{prefix}l{layer}_``/``r{layer}_``).  A
+``SequentialRNNCell`` holding a cell that cannot step (``FusedRNNCell``,
+``BidirectionalCell``) unrolls layer by layer, as MXNet 1.x's does (the
+JAX package's steps every cell and raises there).
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 from ..base import MXNetError
 
 __all__ = ["RNNParams", "BaseRNNCell", "RNNCell", "LSTMCell", "GRUCell",
-           "SequentialRNNCell"]
+           "FusedRNNCell", "SequentialRNNCell", "BidirectionalCell",
+           "DropoutCell", "ResidualCell"]
 
 
 def _sym():
@@ -99,6 +111,13 @@ class BaseRNNCell:
                 state = _sym().var(name, shape=info["shape"])
             states.append(state)
         return states
+
+    # -- weights (the fused op's interchange) -------------------------------
+    def unpack_weights(self, args: dict) -> dict:
+        return dict(args)
+
+    def pack_weights(self, args: dict) -> dict:
+        return dict(args)
 
     # -- unroll ------------------------------------------------------------
     def _normalize_inputs(self, length: int, inputs, layout: str):
@@ -257,8 +276,167 @@ class GRUCell(BaseRNNCell):
         return next_h, [next_h]
 
 
+class FusedRNNCell(BaseRNNCell):
+    """The whole sequence in one ``RNN`` node (JAX :281-472)."""
+
+    def __init__(self, num_hidden: int, num_layers: int = 1,
+                 mode: str = "lstm", bidirectional: bool = False,
+                 dropout: float = 0.0, prefix: Optional[str] = None,
+                 params=None, forget_bias: float = 1.0,
+                 get_next_state: bool = False, input_size: int = 0):
+        if prefix is None:
+            prefix = f"{mode}_"
+        super().__init__(prefix=prefix, params=params)
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._dropout = dropout
+        self._get_next_state = get_next_state
+        kw = {}
+        if input_size:
+            from ..ndarray.ops_nn import rnn_param_size
+            kw["shape"] = (rnn_param_size(mode, num_layers, input_size,
+                                          num_hidden, bidirectional),)
+        self._param = self.params.get("parameters", **kw)
+
+    @property
+    def _dirs(self) -> int:
+        return 2 if self._bidirectional else 1
+
+    @property
+    def state_info(self):
+        info = {"shape": (self._dirs * self._num_layers, 0,
+                          self._num_hidden), "__layout__": "LNC"}
+        return [info, dict(info)] if self._mode == "lstm" else [info]
+
+    def __call__(self, inputs, states):
+        raise MXNetError("FusedRNNCell cannot step; use unroll()")
+
+    def unroll(self, length: int, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        sym = _sym()
+        if isinstance(inputs, (list, tuple)):
+            inputs = sym.stack(*inputs, axis=layout.find("T"))
+        if layout == "NTC":                  # the RNN op takes TNC
+            inputs = sym.swapaxes(inputs, dim1=0, dim2=1)
+        if begin_state is None:
+            # zero states (L * D, N, H) made in the graph from the data
+            col = sym.zeros_like(sym.slice_axis(sym.slice_axis(
+                inputs, axis=0, begin=0, end=1), axis=2, begin=0, end=1))
+            zero = sym.broadcast_to(col, shape=(
+                self._dirs * self._num_layers, 0, self._num_hidden))
+            begin_state = [zero] * len(self.state_info)
+        kwargs = {"state": begin_state[0]}
+        if self._mode == "lstm":
+            kwargs["state_cell"] = begin_state[1]
+        out = sym.RNN(data=inputs, parameters=self._param,
+                      state_size=self._num_hidden,
+                      num_layers=self._num_layers, mode=self._mode,
+                      bidirectional=self._bidirectional, p=self._dropout,
+                      state_outputs=True, name=f"{self._prefix}rnn",
+                      **kwargs)
+        seq = out[0]
+        if layout == "NTC":
+            seq = sym.swapaxes(seq, dim1=0, dim2=1)
+        states = [out[1]] + ([out[2]] if self._mode == "lstm" else [])
+        if merge_outputs is False:
+            split = sym.split(seq, num_outputs=length,
+                              axis=layout.find("T"), squeeze_axis=True)
+            seq = [split] if length == 1 else \
+                [split[i] for i in range(length)]
+        return seq, (states if self._get_next_state else [])
+
+    def _slices(self, input_size: int):
+        """(cell prefix, name, shape, offset) of each piece of the packed
+        vector, and its length."""
+        from ..ndarray.ops_nn import RNN_GATES
+        g, h = RNN_GATES[self._mode], self._num_hidden
+        out, offset, layer_in = [], 0, input_size
+        for layer in range(self._num_layers):
+            for d in range(self._dirs):
+                cp = f"{self._prefix}{'lr'[d]}{layer}_"
+                for nm, shape in (("i2h_weight", (g * h, layer_in)),
+                                  ("h2h_weight", (g * h, h)),
+                                  ("i2h_bias", (g * h,)),
+                                  ("h2h_bias", (g * h,))):
+                    out.append((cp, nm, shape, offset))
+                    offset += math.prod(shape)
+            layer_in = h * self._dirs
+        return out, offset
+
+    def _input_size(self, total: int) -> int:
+        """Layer 0's input size from the packed vector's length."""
+        from ..ndarray.ops_nn import RNN_GATES
+        g, h = RNN_GATES[self._mode], self._num_hidden
+        rest = sum(self._dirs * (g * h * h * self._dirs + g * h * h
+                                 + 2 * g * h)
+                   for _ in range(1, self._num_layers))
+        first = self._dirs * (g * h * h + 2 * g * h)
+        size, rem = divmod(total - rest - first, self._dirs * g * h)
+        if rem or size <= 0:
+            raise MXNetError(f"packed parameter length {total} does not "
+                             f"match mode={self._mode} layers="
+                             f"{self._num_layers} hidden={self._num_hidden}")
+        return size
+
+    def unpack_weights(self, args: dict) -> dict:
+        """``{prefix}parameters`` split into ``unfuse()``'s cells'
+        weights (views of one copy, where the vector was)."""
+        from ..ndarray import NDArray
+        key = f"{self._prefix}parameters"
+        if key not in args:
+            return dict(args)
+        args = dict(args)
+        packed = args.pop(key)
+        flat = (packed._data if isinstance(packed, NDArray) else
+                packed).detach().reshape(-1).clone()
+        slices, _ = self._slices(self._input_size(flat.numel()))
+        for cp, nm, shape, offset in slices:
+            args[cp + nm] = NDArray(
+                flat[offset:offset + math.prod(shape)].view(shape))
+        return args
+
+    def pack_weights(self, args: dict) -> dict:
+        """The inverse of ``unpack_weights``."""
+        import torch
+        from ..ndarray import NDArray
+        probe = f"{self._prefix}l0_i2h_weight"
+        if probe not in args:
+            return dict(args)
+        args = dict(args)
+        slices, _ = self._slices(args[probe].shape[-1])
+        parts = []
+        for cp, nm, _, _ in slices:
+            a = args.pop(cp + nm)
+            parts.append((a._data if isinstance(a, NDArray) else
+                          a).detach().reshape(-1))
+        args[f"{self._prefix}parameters"] = NDArray(torch.cat(parts))
+        return args
+
+    def unfuse(self) -> "SequentialRNNCell":
+        """The unfused cells that compute the same thing."""
+        make = {"rnn_relu": lambda p: RNNCell(self._num_hidden, "relu", p),
+                "rnn_tanh": lambda p: RNNCell(self._num_hidden, "tanh", p),
+                "lstm": lambda p: LSTMCell(self._num_hidden, p),
+                "gru": lambda p: GRUCell(self._num_hidden, p)}[self._mode]
+        stack = SequentialRNNCell()
+        for i in range(self._num_layers):
+            if self._bidirectional:
+                stack.add(BidirectionalCell(
+                    make(f"{self._prefix}l{i}_"),
+                    make(f"{self._prefix}r{i}_"),
+                    output_prefix=f"{self._prefix}bi_l{i}_"))
+            else:
+                stack.add(make(f"{self._prefix}l{i}_"))
+            if self._dropout > 0 and i != self._num_layers - 1:
+                stack.add(DropoutCell(self._dropout,
+                                      prefix=f"{self._prefix}_dropout{i}_"))
+        return stack
+
+
 class SequentialRNNCell(BaseRNNCell):
-    """Stack of cells applied in order each step."""
+    """Cells applied in order each step."""
 
     def __init__(self, params=None):
         super().__init__(prefix="", params=params)
@@ -284,3 +462,122 @@ class SequentialRNNCell(BaseRNNCell):
             next_states.extend(st)
             p += n
         return inputs, next_states
+
+    def unroll(self, length: int, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        if not any(isinstance(c, (FusedRNNCell, BidirectionalCell))
+                   for c in self._cells):
+            return super().unroll(length, inputs, begin_state, layout,
+                                  merge_outputs)
+        self.reset()
+        states, p, last = [], 0, len(self._cells) - 1
+        for i, cell in enumerate(self._cells):
+            n = len(cell.state_info)
+            inputs, st = cell.unroll(
+                length, inputs,
+                None if begin_state is None else begin_state[p:p + n],
+                layout, merge_outputs if i == last else None)
+            states.extend(st)
+            p += n
+        return inputs, states
+
+    def unpack_weights(self, args):
+        for c in self._cells:
+            args = c.unpack_weights(args)
+        return args
+
+    def pack_weights(self, args):
+        for c in self._cells:
+            args = c.pack_weights(args)
+        return args
+
+
+class DropoutCell(BaseRNNCell):
+    """Dropout on each step's output (JAX :523-539)."""
+
+    def __init__(self, dropout: float, prefix: str = "dropout_",
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._dropout = dropout
+
+    @property
+    def state_info(self):
+        return []
+
+    def __call__(self, inputs, states):
+        if self._dropout > 0:
+            inputs = _sym().Dropout(inputs, p=self._dropout)
+        return inputs, states
+
+
+class ResidualCell(BaseRNNCell):
+    """The base cell's output plus the step's input (JAX :541-563)."""
+
+    def __init__(self, base_cell: BaseRNNCell):
+        super().__init__(prefix=base_cell._prefix, params=base_cell._params)
+        self.base_cell = base_cell
+        base_cell._modified = True
+
+    @property
+    def state_info(self):
+        return self.base_cell.state_info
+
+    def begin_state(self, func=None, **kwargs):
+        self.base_cell._modified = False
+        st = self.base_cell.begin_state(func=func, **kwargs)
+        self.base_cell._modified = True
+        return st
+
+    def __call__(self, inputs, states):
+        out, states = self.base_cell(inputs, states)
+        return out + inputs, states
+
+
+class BidirectionalCell(BaseRNNCell):
+    """One cell forward and one backward over the sequence, each step's
+    outputs concatenated (JAX :565-613; unroll only)."""
+
+    def __init__(self, l_cell: BaseRNNCell, r_cell: BaseRNNCell,
+                 params=None, output_prefix: str = "bi_"):
+        super().__init__(prefix="", params=params)
+        self._l_cell = l_cell
+        self._r_cell = r_cell
+        self._output_prefix = output_prefix
+
+    @property
+    def state_info(self):
+        return self._l_cell.state_info + self._r_cell.state_info
+
+    def begin_state(self, func=None, **kwargs):
+        return (self._l_cell.begin_state(func=func, **kwargs) +
+                self._r_cell.begin_state(func=func, **kwargs))
+
+    def __call__(self, inputs, states):
+        raise MXNetError("BidirectionalCell cannot step; use unroll()")
+
+    def unroll(self, length: int, inputs, begin_state=None, layout="NTC",
+               merge_outputs=None):
+        self.reset()
+        sym = _sym()
+        seq = self._normalize_inputs(length, inputs, layout)
+        if begin_state is None:
+            begin_state = self.begin_state(batch_ref=seq[0])
+        nl = len(self._l_cell.state_info)
+        l_out, l_states = self._unroll_one(self._l_cell, seq,
+                                           begin_state[:nl])
+        r_out, r_states = self._unroll_one(self._r_cell, seq[::-1],
+                                           begin_state[nl:])
+        outputs = [sym.concat(lo, ro, dim=1,
+                              name=f"{self._output_prefix}t{t}")
+                   for t, (lo, ro) in enumerate(zip(l_out, r_out[::-1]))]
+        if merge_outputs:
+            outputs = sym.stack(*outputs, axis=layout.find("T"))
+        return outputs, l_states + r_states
+
+    @staticmethod
+    def _unroll_one(cell, seq, states):
+        outs = []
+        for x in seq:
+            o, states = cell(x, states)
+            outs.append(o)
+        return outs, states

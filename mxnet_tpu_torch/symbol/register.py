@@ -15,7 +15,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 from ..base import MXNetError
-from .symbol import Symbol, _Node, _auto_name
+from .symbol import Symbol, _Node
 
 __all__ = ["apply_op", "num_outputs"]
 
@@ -84,6 +84,22 @@ def num_outputs(opname: str, kwargs: Dict[str, Any], n_inputs: int = 1
         return int(kwargs.get("num_outputs", n_inputs))
     if opname == "RNN" and kwargs.get("state_outputs"):
         return 3 if kwargs.get("mode", "lstm") == "lstm" else 2
+    if opname in ("_foreach", "_while_loop"):
+        from ..ndarray.ops_control_flow import names_of
+        states = "state_names" if opname == "_foreach" else "loop_names"
+        return int(kwargs.get("n_outs", 1)) + len(names_of(kwargs.get(
+            states, ())))
+    if opname == "_cond":
+        return int(kwargs.get("n_outs", 1))
+    if opname == "Custom":
+        from ..ndarray.ops_custom import _registry as props
+        prop = props.get(kwargs.get("op_type"))
+        if prop is None:
+            return 1
+        user = {k: v for k, v in kwargs.items()
+                if k not in ("op_type", "_training")
+                and not (k.startswith("__") and k.endswith("__"))}
+        return len(prop(**user).list_outputs())
     stride = _MULTI_STRIDE.get(opname)
     if stride:
         return (n_inputs - 2) // stride
@@ -99,15 +115,19 @@ _MULTI_STRIDE = {"multi_sgd_update": 2, "multi_sgd_mom_update": 3,
 def apply_op(opname: str, args: List[Symbol], kwargs: Dict[str, Any],
              name: Optional[str] = None) -> Symbol:
     """One node of ``opname`` over the Symbols ``args`` (and those among
-    ``kwargs``), named ``name`` or ``{op}{counter}``."""
+    ``kwargs``), named ``name`` or by the current ``mx.name`` manager
+    (``{op}{counter}`` by default), with the current ``mx.AttrScope``'s
+    attributes."""
+    from .. import attribute, name as _name
     from ..ndarray.register import get_op
     canonical = get_op(opname).name
     tensor_kwargs = {k: v for k, v in kwargs.items()
                      if isinstance(v, Symbol)}
-    attrs = {k: v for k, v in kwargs.items()
-             if not isinstance(v, Symbol) and k != "name"}
-    node_name = name or kwargs.get("name") or \
-        _auto_name(canonical.lower().lstrip("_"))
+    attrs = attribute.current().get(
+        {k: v for k, v in kwargs.items()
+         if not isinstance(v, Symbol) and k != "name"})
+    node_name = _name.current().get(name or kwargs.get("name"),
+                                    canonical.lower().lstrip("_"))
     if canonical in _OP_INPUTS:
         inputs = []
         pos = list(args)

@@ -77,7 +77,8 @@ class Symbol:
     # -- construction ------------------------------------------------------
     @staticmethod
     def var(name: str, shape=None, dtype=None, **kwargs) -> "Symbol":
-        attrs: Dict[str, Any] = {}
+        from .. import attribute
+        attrs: Dict[str, Any] = attribute.current().get()
         if shape is not None:
             attrs["__shape__"] = tuple(shape)
         if dtype is not None:
@@ -594,14 +595,22 @@ def Group(symbols: Sequence[Symbol]) -> Symbol:
     return Symbol([h for s in symbols for h in s._heads])
 
 
+_SUBGRAPH_ATTRS = ("subgraph", "cond_subgraph", "body_subgraph",
+                   "then_subgraph", "else_subgraph")
+
+
 def load_json(json_str: str) -> Symbol:
     data = json.loads(json_str)
     nodes: List[_Node] = []
     for entry in data["nodes"]:
         attrs = {k: _parse_attr(v) for k, v in entry.get("attrs", {}).items()}
         if entry["op"] in ("_foreach", "_while_loop", "_cond"):
-            raise MXNetError(f"symbol op {entry['op']!r} (control flow) is "
-                             f"not ported")
+            # a subgraph is nested JSON, as the JAX package writes it
+            from ..ndarray.ops_control_flow import SubgraphAttr
+            for key in _SUBGRAPH_ATTRS:
+                if isinstance(attrs.get(key), dict):
+                    attrs[key] = SubgraphAttr(
+                        load_json(json.dumps(attrs[key])))
         inputs = [(nodes[i], oi) for i, oi, *_ in entry.get("inputs", [])]
         op = None if entry["op"] == "null" else entry["op"]
         nodes.append(_Node(op, entry["name"], attrs, inputs))

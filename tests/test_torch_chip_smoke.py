@@ -1459,3 +1459,78 @@ def test_stn_check_flags_a_one_percent_loc_gradient_fault(monkeypatch):
     assert not bad["ok"] and not bad["grads"]["ok"]
     assert bad["loc"][loc[0]]["grad_share"] > bad["loc"][loc[0]]["limit"]
     assert bad["loc"][loc[1]]["grad_share"] <= bad["loc"][loc[1]]["limit"]
+
+
+def _small_slice22(monkeypatch):
+    """Phase 22 at toy sizes on the CPU."""
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    for name, value in (
+            ("DEFORM_IN", (1, 16, 5, 6)), ("ROIPOOL_IN", (2, 8, 6, 7)),
+            ("ROIPOOL_ROIS", 4), ("FLOW_IN", (2, 4, 8, 10)),
+            ("FLOW_CORR", {"kernel_size": 1, "max_displacement": 4,
+                           "stride1": 1, "stride2": 2, "pad_size": 4}),
+            ("MATCH_IN", (3, 5, 40)), ("SKETCH_IN", (6, 20)),
+            ("SKETCH_OUT", 12), ("PSP_IN", (2, 4, 12, 12)),
+            ("TABLE", (50, 8)), ("COPY_ROWS", 7), ("OP_ACT", (2, 8, 12)),
+            ("OP_HEADS", (2, 3, 8, 4)), ("ZIPF_RANGE", 5000),
+            ("ZIPF_SAMPLED", 200), ("CF", {"steps": 8, "batch": 3,
+                                           "hidden": 16}),
+            ("RFCN", dict(chip_smoke.RFCN, size=(64, 96), rois=20,
+                          sampled=12, fg=4, c4=64, c5=64, new=32, classes=5,
+                          group=3, samples=2)),
+            ("RFCN_STEPS", 1), ("RFCN_HYBRID_STEPS", 1),
+            ("NMT22", {"vocab": 60, "embed": 8, "enc": 6, "dec": 10,
+                       "att": 7, "dropout": 0.1, "batch": 4,
+                       "buckets": (5, 8)}),
+            ("NMT22_TRANSLATE", 6),
+            ("FF", dict(chip_smoke.FF, samples=400, held_out=100))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "RFCN_BODY", lambda: resnet.ResNetV1(
+        resnet.BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128],
+        classes=1000))
+
+
+def test_control_flow_detection_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 22 at toy sizes on the CPU (an R-FCN over a 4-stage toy
+    ResNet at 64 x 96, the NMT 10 wide): every check passes but the one
+    only the card can meet (the momentum kernel's launches, 0 here): the
+    14 ops against themselves (floors handed over, none flipped), the
+    zipfian draws, the loops against float64, the R-FCN's decision leaf
+    check, the NMT's check step, SequentialModule, Monitor, unfuse,
+    translation and scopes, FeedForward against Module."""
+    _small_slice22(monkeypatch)
+    out = chip_smoke.slice22_phase(0, "cpu")
+    ops = out["ops"]
+    assert ops["ok"] and ops["ops"] == len(chip_smoke.CONTRIB_OPS) == 14
+    assert all(r["decisions"]["flips"] == 0 for r in ops["rows"].values()
+               if "decisions" in r)
+    assert set(ops["peak_mb_forward_backward"]) == {
+        "deformable_conv data", "psroi_pooling", "deformable_psroi data",
+        "deformable_psroi no_trans"}
+    for key in ("zipf", "control_flow", "nmt", "feedforward"):
+        assert out[key]["ok"], (key, out[key].get("checks"))
+    rfcn = out["rfcn"]
+    assert sorted(k for k, v in rfcn["checks"].items() if not v) == [
+        "launches_exact"]
+    assert rfcn["expected_launches"] == \
+        3 * -(-rfcn["trainable_params"] // chip_smoke.AGG)
+    assert rfcn["check"]["ok"] and rfcn["check"]["decisions"][
+        "decisions"] > 0
+    assert out["launches"] == out["other_launches"] == 0 and not out["ok"]
+
+
+def test_phase_22_is_wired_into_main():
+    """``main()`` runs phase 22 after phase 21, fails on it, and carries
+    its momentum-kernel launches to the kernels line."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("op_slice_phase(") < src.index("slice22_phase(")
+    assert '("control flow and detection", slice22)' in src
+    assert '"control_flow_detection_launches"' in src
+    assert 'slice22["rfcn"]["launches"]' in src
+    assert 'slice22["feedforward"]["launches"]' in src
+    assert '"slice22": slice22' in src

@@ -2377,3 +2377,96 @@ def test_op_slice_sweep_and_draws_on_card(card, monkeypatch):
     draws = chip_smoke.slice_draws_run(0)
     assert draws["ok"], draws["checks"]
     assert draws["graph"]["replays"] >= 4
+
+
+def test_control_flow_detection_ops_on_card(card, monkeypatch):
+    """Phase 22 (a) of ``chip_smoke.py`` at small sizes on the card: the
+    14 contrib ops against their CPU runs (the sampling ops taking the
+    card's floors), the zipfian sampler and the three loops in ``sym``
+    and ``nd`` against the CPU's fp32 and float64 runs."""
+    import chip_smoke
+    for name, value in (
+            ("DEFORM_IN", (1, 64, 10, 12)), ("ROIPOOL_IN", (2, 16, 10, 12)),
+            ("ROIPOOL_ROIS", 8), ("FLOW_IN", (2, 16, 12, 16)),
+            ("MATCH_IN", (4, 10, 300)), ("SKETCH_IN", (64, 256)),
+            ("SKETCH_OUT", 500), ("PSP_IN", (2, 32, 24, 24)),
+            ("TABLE", (500, 32)), ("COPY_ROWS", 64),
+            ("OP_ACT", (2, 16, 32)), ("OP_HEADS", (2, 4, 16, 8)),
+            ("CF", {"steps": 12, "batch": 8, "hidden": 64})):
+        monkeypatch.setattr(chip_smoke, name, value)
+    ops = chip_smoke.contrib_ops_run(0)
+    assert ops["ok"] and not ops["failed"], ops["failed"]
+    assert chip_smoke.zipf_run(0)["ok"]
+    cf = chip_smoke.control_flow_run(0)
+    assert cf["ok"], cf
+
+
+def test_hybridized_host_reading_loop_runs_eagerly_on_card(card):
+    """A hybridized block calling ``nd.contrib.while_loop`` (a host read)
+    warns once and runs eagerly on the card, equal to its eager call."""
+    import warnings
+    from mxnet_tpu_torch import gluon, nd
+
+    class Loop(gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            outs, _ = F.contrib.while_loop(
+                lambda v: F.sum(v) < 4.0, lambda v: (v * 2.0, [v + 1.0]),
+                [x], max_iterations=5)
+            return outs
+    net = Loop()
+    x = nd.array(np.array([0.5, 0.25], np.float32), ctx="cuda")
+    eager = net(x).asnumpy()
+    net.hybridize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        outs = [net(x) for _ in range(3)]
+    assert sum("reads the host" in str(w.message) for w in seen) == 1
+    assert all(o._data.is_cuda for o in outs)
+    for o in outs:
+        np.testing.assert_array_equal(o.asnumpy(), eager)
+
+
+def test_symbolic_loops_replay_from_a_captured_graph(card):
+    """``sym.contrib.while_loop`` and ``cond`` read nothing on the host: a
+    hybridized ``SymbolBlock`` over them captures one graph and its
+    replays equal the eager call."""
+    from mxnet_tpu_torch import gluon, nd, sym
+    x, w = sym.var("data"), sym.var("w")
+    outs, _ = sym.contrib.while_loop(
+        lambda v: sym.sum(sym.abs(v)) < 50.0,
+        lambda v: (sym.tanh(v * w), [v * 1.5 + 0.1]), [x],
+        max_iterations=12)
+    out = sym.contrib.cond(sym.sum(x) > 0.0, lambda: outs * 2.0,
+                           lambda: outs)
+    net = gluon.SymbolBlock(out, [x], {"w": nd.array(
+        np.array([0.5, -1.0, 1.5, 2.0], np.float32), ctx="cuda")})
+    xs = nd.array(np.linspace(0.1, 0.4, 4, dtype=np.float32), ctx="cuda")
+    eager = net(xs).asnumpy()
+    net.hybridize()
+    got = [net(xs).asnumpy() for _ in range(3)]
+    assert net.graph_stats()["replays"] >= 1
+    for g in got:
+        np.testing.assert_array_equal(g, eager)
+
+
+def test_control_flow_detection_models_on_card(card, monkeypatch):
+    """Phase 22 (b)-(d) at small sizes on the card: the deformable R-FCN
+    (toy ResNet, 160 x 192) with its decision leaf check, exact momentum
+    launches and replays; the NMT (32 wide) with every check; FeedForward
+    against Module."""
+    import chip_smoke
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    monkeypatch.setattr(chip_smoke, "RFCN", dict(
+        chip_smoke.RFCN, size=(160, 192), rois=40, sampled=24, fg=8,
+        c4=64, c5=128, new=64, classes=5, group=3, samples=2))
+    monkeypatch.setattr(chip_smoke, "RFCN_BODY", lambda: resnet.ResNetV1(
+        resnet.BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128],
+        classes=1000))
+    monkeypatch.setattr(chip_smoke, "NMT22", {
+        "vocab": 200, "embed": 16, "enc": 16, "dec": 32, "att": 24,
+        "dropout": 0.1, "batch": 8, "buckets": (5, 10)})
+    rfcn = chip_smoke.rfcn_run(0)
+    assert rfcn["ok"], rfcn["checks"]
+    nmt = chip_smoke.nmt22_run(0)
+    assert nmt["ok"], nmt["checks"]
+    assert chip_smoke.feedforward_run(0)["ok"]

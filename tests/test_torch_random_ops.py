@@ -27,15 +27,6 @@ SIGMAS = 6.0
 
 # the JAX package's ops that the port does not have yet, by file
 NOT_PORTED = {
-    "ops_contrib": {
-        "Correlation", "ROIPooling", "_contrib_AdaptiveAvgPooling2D",
-        "_contrib_DeformableConvolution", "_contrib_DeformablePSROIPooling",
-        "_contrib_PSROIPooling", "_contrib_allclose",
-        "_contrib_backward_gradientmultiplier",
-        "_contrib_bipartite_matching", "_contrib_count_sketch",
-        "_contrib_div_sqrt_dim", "_contrib_getnnz", "_contrib_index_array",
-        "_contrib_index_copy", "_sample_unique_zipfian"},
-    "ops_control_flow": {"_cond", "_foreach", "_while_loop"},
     "ops_quantization": {
         "_contrib_dequantize", "_contrib_quantize", "_contrib_quantize_v2",
         "_contrib_quantized_conv", "_contrib_quantized_fully_connected",
@@ -47,17 +38,17 @@ NOT_PORTED = {
 
 
 def test_registry_has_377_jax_ops_and_lacks_exactly_28():
-    """377 ops, each a JAX op; the 28 missing are those of
-    ``ops_contrib`` (15), ``ops_control_flow`` (3), ``ops_quantization``
-    (7) and ``ops_sldwin`` (3), each from that file."""
+    """The registry's census (the name is the one it had at 377 ops):
+    395 ops, each a JAX op; the 10 missing are those of
+    ``ops_quantization`` (7) and ``ops_sldwin`` (3), each from that
+    file."""
     from mxnet_tpu.ndarray.register import get_op as jax_op
     ours, theirs = set(mt.nd.list_ops()), set(mx.nd.list_ops())
-    assert len(ours) == 377 and ours <= theirs
+    assert len(ours) == 395 and ours <= theirs
     missing = theirs - ours
     assert missing == set().union(*NOT_PORTED.values())
     assert {n: len(v) for n, v in NOT_PORTED.items()} == {
-        "ops_contrib": 15, "ops_control_flow": 3, "ops_quantization": 7,
-        "ops_sldwin": 3}
+        "ops_quantization": 7, "ops_sldwin": 3}
     for name, ops in NOT_PORTED.items():
         for op in ops:
             assert jax_op(op).maker.__module__.endswith(name), op
