@@ -37,14 +37,19 @@ host C++), ``mx.image`` and ``mx.nd.image``, the CSV/LibSVM/MNIST
 iterators, and ``gluon.data`` with its datasets, samplers, vision
 transforms and a ``DataLoader`` whose device stage copies pinned batches
 on a side CUDA stream.
+Observability and tuning are the JAX package's: the metrics registry with
+Prometheus and JSONL export, causal tracing with W3C ``traceparent``,
+the flight recorder, the stack sampler, the progress watchdog,
+``mx.profiler`` (op events, spans and ``torch.profiler``'s device trace
+on one timeline) and the ``tuning`` controllers.
 Entry points run on ``gpu(0)`` unless the caller passes ``ctx=cpu()`` or
 opens a ``with mx.cpu():`` scope.
 """
 from . import attribute, autograd, base, callback, context, contrib, \
     engine, faults, gluon, image, initializer, io, kernels, kvstore, \
     lr_scheduler, metric, model, module, monitor, name, ndarray, \
-    observability, operator, optimizer, random, recordio, rnn, rtc, \
-    serving, symbol
+    observability, operator, optimizer, profiler, random, recordio, rnn, \
+    rtc, serving, symbol, tuning
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -63,5 +68,15 @@ __all__ = ["AttrScope", "Context", "MXNetError", "Monitor", "attribute",
            "kernels", "kvstore", "load_reference_params", "lr_scheduler",
            "metric", "mod", "model", "module", "monitor", "name", "nd",
            "ndarray", "num_gpus",
-           "observability", "operator", "optimizer", "random", "recordio",
-           "rnn", "rtc", "serving", "sym", "symbol"]
+           "observability", "operator", "optimizer", "profiler", "random",
+           "recordio", "rnn", "rtc", "serving", "sym", "symbol", "tuning"]
+
+# opt-in exporters and sampler, as the JAX package starts them at import:
+# a Prometheus /metrics endpoint when MXTPU_METRICS_PORT is set, a JSONL
+# snapshot writer when MXTPU_METRICS_JSONL is set, the stack sampler when
+# MXTPU_PROF_SAMPLE_HZ > 0 (the servers' constructors probe it again)
+if base.get_env("MXTPU_METRICS_PORT") or \
+        base.get_env("MXTPU_METRICS_JSONL"):
+    observability.export.maybe_start_from_env()
+if base.get_env("MXTPU_PROF_SAMPLE_HZ"):
+    observability.sampler.maybe_start_from_env()

@@ -3,7 +3,11 @@
 PyTorch counterpart of ``mxnet_tpu/base.py``, cut to what the serving and
 Gluon training paths read: the ``MXTPU_SERVING_*`` request- and
 generation-serving knobs, the ``MXTPU_FRONTEND_*`` front-door knobs,
-``MXNET_ATTENTION_KERNEL`` and ``MXNET_OPTIMIZER_AGGREGATION_SIZE``.
+``MXNET_ATTENTION_KERNEL``, ``MXNET_OPTIMIZER_AGGREGATION_SIZE``, and the
+observability and self-tuning knobs (``MXTPU_METRICS_*``,
+``MXTPU_FLIGHT_*``, ``MXTPU_TRACE*``, ``MXTPU_PROF_*``,
+``MXTPU_DEBUG_ENDPOINTS``, ``MXTPU_WATCHDOG_*``, ``MXTPU_STACKS_SIGNAL``,
+``MXTPU_TUNE_*``) under the JAX package's names.
 The registry is a typed view over ``os.environ``, read live on every
 ``get_env`` call.
 """
@@ -16,7 +20,8 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "register_env", "get_env", "compute_dtype",
+__all__ = ["MXNetError", "register_env", "get_env", "list_env",
+           "compute_dtype",
            "torch_dtype"]
 
 
@@ -38,10 +43,18 @@ _env_registry: Dict[str, _EnvEntry] = {}
 _env_lock = threading.Lock()
 
 
+def _parse_bool(v: Any) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() in ("1", "true", "yes", "on")
+
+
 def register_env(name: str, default: Any, typ: Callable = str,
                  help: str = "") -> None:
     """Register an ``MXNET_*``/``MXTPU_*`` environment variable with a typed
-    default."""
+    default (a ``bool`` knob reads "1", "true", "yes" and "on" as true)."""
+    if typ is bool:
+        typ = _parse_bool
     with _env_lock:
         _env_registry[name] = _EnvEntry(name, default, typ, help)
 
@@ -60,6 +73,11 @@ def get_env(name: str, default: Any = None) -> Any:
         return entry.typ(raw)
     except (TypeError, ValueError):
         return entry.default
+
+
+def list_env() -> Dict[str, Any]:
+    """Every registered env var with its current effective value."""
+    return {k: get_env(k) for k in sorted(_env_registry)}
 
 
 register_env("MXNET_ATTENTION_KERNEL", "auto", str,
@@ -131,6 +149,96 @@ register_env("MXTPU_DEVICE_PREFETCH", 0, int,
              "consumer's stream waits on.  0 (the default) = off.  The "
              "device_prefetch= constructor argument overrides; applied "
              "at each __iter__.")
+
+register_env("MXTPU_METRICS_PORT", "", str,
+             "Serve the Prometheus /metrics endpoint on this port "
+             "(unset = no HTTP server).")
+register_env("MXTPU_METRICS_JSONL", "", str,
+             "Append periodic registry snapshots to this JSONL path "
+             "(unset = no writer).")
+register_env("MXTPU_METRICS_INTERVAL", 60.0, float,
+             "Seconds between JSONL metric snapshots.")
+register_env("MXTPU_METRICS_AGGREGATE", False, bool,
+             "Serve the host-labeled fleet view from /metrics (the local "
+             "host alone until the cross-host gather is ported).")
+register_env("MXTPU_FLIGHT_STEPS", 256, int,
+             "Crash flight-recorder ring capacity (0 disables).")
+register_env("MXTPU_FLIGHT_PATH", "", str,
+             "Crash flight-recorder dump file "
+             "(default <tmpdir>/mxtpu_flight_<pid>.json).")
+register_env("MXTPU_FRONTEND_SLO_MS", 0.0, float,
+             "Serving: default per-model p99 latency SLO in ms for models "
+             "loaded without an explicit slo_ms, the budget the "
+             "SloController defends (0 = no SLO, never watched).")
+register_env("MXTPU_TUNE_SLO", True, bool,
+             "Self-tuning: enable the SloController (sheds the lowest "
+             "priority first and scales the violator's dispatch workers "
+             "when a model's socket-to-socket p99 exceeds its SLO).")
+register_env("MXTPU_TUNE_DECODE_SLOTS", False, bool,
+             "Self-tuning: enable the DecodeSlotController (hill-climbs "
+             "a GenerationServer's decode slots on interval tokens/s).  "
+             "Off by default: attach it to a server explicitly.")
+register_env("MXTPU_TUNE_INTERVAL", 2.0, float,
+             "Self-tuning: seconds between the controller timer thread's "
+             "ticks.")
+register_env("MXTPU_TUNE_DRY_RUN", False, bool,
+             "Self-tuning: compute and record every controller decision "
+             "(tuning.* metrics and flight records) but apply nothing.")
+register_env("MXTPU_TUNE_PREFETCH", True, bool,
+             "Self-tuning: enable the PrefetchController (the DataLoader "
+             "prefetch depth from the loader.prefetch_depth gauge).")
+register_env("MXTPU_TUNE_BATCH_WINDOW", True, bool,
+             "Self-tuning: enable the BatchWindowController "
+             "(MXTPU_SERVING_BATCH_WINDOW_US from serving.queue_depth and "
+             "the serving.request_us p99).")
+register_env("MXTPU_TUNE_DEVICE_PREFETCH", True, bool,
+             "Self-tuning: enable the DevicePrefetchController (the "
+             "DataLoader device-prefetch depth from the "
+             "loader.device_put_us tail).")
+register_env("MXTPU_TRACE", False, bool,
+             "Causal tracing: record request span trees with W3C trace "
+             "and span ids (observability.tracing) and attach trace-id "
+             "exemplars to every histogram bucket.  Off (the default): "
+             "the instrumented paths pay one memoized env probe.")
+register_env("MXTPU_TRACE_SAMPLE", 1, int,
+             "Causal tracing head sampling: start a new root trace for 1 "
+             "in N decisions (children of a sampled trace are always "
+             "recorded).")
+register_env("MXTPU_TRACE_RING", 2048, int,
+             "Causal tracing: capacity of the in-memory ring of completed "
+             "spans.")
+register_env("MXTPU_TRACE_JSONL", "", str,
+             "Causal tracing: append completed spans to this JSONL path "
+             "(size-rotated, ~64 spans a write).  Unset disables the "
+             "stream.")
+register_env("MXTPU_PROF_SAMPLE_HZ", 0.0, float,
+             "Stack-sampling profiler: walk every thread's frames this "
+             "many times a second into collapsed-stack counts in rotating "
+             "windows.  0 (the default) = off.")
+register_env("MXTPU_PROF_WINDOW_SECS", 60.0, float,
+             "Stack sampler: seconds of samples a profile window holds "
+             "before it rotates into the ring.")
+register_env("MXTPU_PROF_WINDOWS", 8, int,
+             "Stack sampler: how many rotated profile windows to keep.")
+register_env("MXTPU_DEBUG_ENDPOINTS", False, bool,
+             "Serve /debug/stacks, /debug/profile, /debug/flight, "
+             "/debug/trace/<id> and /debug/vars from the HttpFrontend and "
+             "the MXTPU_METRICS_PORT exporter.  Off (the default) = those "
+             "paths 404; they need no auth, so enable them only on "
+             "trusted networks.")
+register_env("MXTPU_WATCHDOG_FACTOR", 0.0, float,
+             "Progress watchdog: flag a heartbeat touchpoint (the serving "
+             "dispatch workers, the decode loop) silent for FACTOR x its "
+             "recent p99 interval, then write one postmortem.  0 (the "
+             "default) = off.")
+register_env("MXTPU_WATCHDOG_ACTION", "dump", str,
+             "Progress watchdog action on a stall: 'dump' (write the "
+             "postmortem, keep running) or 'term' (dump, then SIGTERM "
+             "the process).")
+register_env("MXTPU_STACKS_SIGNAL", "SIGQUIT", str,
+             "Signal that dumps all-thread stacks and the flight rings "
+             "next to the flight path without killing the process; empty "
+             "disables it.")
 
 
 def compute_dtype(dtype: Any) -> np.dtype:

@@ -2,14 +2,15 @@
 ``module_checkpoint``.
 
 Counterpart of ``mxnet_tpu/callback.py``.  ``Speedometer`` logs samples
-per second and the metric every ``frequent`` batches, over the host's
-clock (the JAX package times the window through its tracing spans, which
-are not ported), and keeps the last reading in ``speeds``.
+per second and the metric every ``frequent`` batches and keeps the last
+reading in ``speeds``.  Its window is an ``observability.trace`` span
+(``callback.speed_window_us``), as in the JAX package, so the same number
+is a histogram on the metrics endpoint and a block on ``mx.profiler``'s
+timeline.
 """
 from __future__ import annotations
 
 import logging
-import time
 
 __all__ = ["Speedometer", "do_checkpoint", "module_checkpoint"]
 
@@ -24,9 +25,15 @@ class Speedometer:
         self.frequent = frequent
         self.auto_reset = auto_reset
         self.init = False
-        self.tic = 0.0
         self.last_count = 0
         self.speeds = []
+        self._window = None           # open span over the current window
+
+    def _restart_window(self) -> None:
+        from .observability.trace import span
+        self._window = span("callback.speed_window_us",
+                            args={"frequent": self.frequent})
+        self._window.__enter__()
 
     def __call__(self, param) -> None:
         count = param.nbatch
@@ -35,12 +42,15 @@ class Speedometer:
         self.last_count = count
         if not self.init:
             self.init = True
-            self.tic = time.perf_counter()
+            self._restart_window()
             return
         if count % self.frequent:
             return
-        speed = self.frequent * self.batch_size / \
-            (time.perf_counter() - self.tic)
+        win, self._window = self._window, None
+        if win is None:
+            return
+        win.__exit__(None, None, None)
+        speed = self.frequent * self.batch_size / (win.duration_us / 1e6)
         self.speeds.append(speed)
         msg, args = "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec", \
             [param.epoch, count, speed]
@@ -51,7 +61,7 @@ class Speedometer:
             if self.auto_reset:
                 param.eval_metric.reset()
         logging.info(msg, *args)
-        self.tic = time.perf_counter()
+        self._restart_window()
 
 
 def do_checkpoint(prefix: str, period: int = 1):

@@ -15,10 +15,13 @@ left to carry is MXNet's interface:
 - the counts of waits and of host reads (``NDArray.asnumpy``/
   ``asscalar``, and the optimizer frontends' reads of a learning-rate
   array on the card), in ``stats()``;
-- the dispatch listeners (``add_listener``; ``mx.monitor.Monitor`` is
-  one), called with each registry op's name and outputs.  ``hooked`` is
-  false while there is no listener and the engine is not naive, and the
-  registry's dispatch then makes no call here at all.
+- the dispatch listeners (``add_listener``; ``mx.monitor.Monitor`` and
+  ``mx.profiler`` are two), called with each registry op's name, its
+  outputs and its host dispatch time in µs (the time to queue the op's
+  kernels, not their device time, as the JAX package's is the time to
+  dispatch to XLA).  ``hooked`` is false while there is no listener and
+  the engine is not naive, and the registry's dispatch then makes no
+  call here at all (and reads no clock).
 
 The JAX package's bulked dispatch (``_BulkSegment``, the deferral of op
 runs into one fused XLA program) has no counterpart: each op is one or
@@ -60,8 +63,7 @@ class Engine:
 
     def add_listener(self, fn) -> None:
         """Call ``fn(op_name, outputs, dispatch_us)`` after each op of the
-        registry (``dispatch_us`` is 0.0: the JAX package's measured
-        dispatch time is not kept)."""
+        registry (``dispatch_us``: the host time the op took to queue)."""
         self._listeners.append(fn)
         self.hooked = True
 
@@ -70,11 +72,11 @@ class Engine:
             self._listeners.remove(fn)
         self.hooked = self.is_naive or bool(self._listeners)
 
-    def on_op(self, name: str, outputs) -> None:
+    def on_op(self, name: str, outputs, dispatch_us: float = 0.0) -> None:
         """Run after each op of the registry while ``hooked``: the
         listeners, then, under NaiveEngine, a wait for the op's device."""
         for fn in list(self._listeners):
-            fn(name, outputs, 0.0)
+            fn(name, outputs, dispatch_us)
         if self.is_naive:
             for t in outputs:
                 if isinstance(t, torch.Tensor) and t.is_cuda:

@@ -38,7 +38,10 @@ Metrics, in the registry under the JAX package's names: histograms
 ``loader.device_put_us`` (microseconds), counters ``loader.batches`` and
 ``loader.worker_retries``, gauges ``loader.prefetch_depth``,
 ``loader.prefetch_capacity`` and ``loader.device_buffer_depth``;
-``consume_trace()`` drains the consumer's wait since the last call.
+``consume_trace()`` drains the consumer's wait since the last call.  The
+three histograms are ``observability.trace`` spans, as in the JAX package,
+so a batch build, a consumer wait and a device put also land on
+``mx.profiler``'s timeline and, inside a traced region, in the trace.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from ...context import as_device, cpu
 from ...faults import TransientFault, active_plan, retry_call
 from ...ndarray import NDArray, array as nd_array
 from ...observability.registry import registry as _metrics_registry
+from ...observability.trace import span as _span
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
 
 # worker failures worth retrying: injected faults and flaky I/O; a broken
@@ -97,10 +101,6 @@ def set_device_prefetch_override(depth: Optional[int]) -> None:
 
 def device_prefetch_override() -> Optional[int]:
     return _device_prefetch_override
-
-
-def _now_us() -> float:
-    return time.perf_counter() * 1e6
 
 
 def _leaves(batch):
@@ -243,13 +243,14 @@ class DataLoader:
         self._g_capacity = reg.gauge(
             "loader.prefetch_capacity",
             help="prefetch queue capacity of the most recent __iter__")
-        self._h_build = reg.histogram(
+        # the spans observe into these (registered here for their help)
+        reg.histogram(
             "loader.batch_build_us",
             help="time a worker took to build one batch")
-        self._h_wait = reg.histogram(
+        reg.histogram(
             "loader.consume_wait_us",
             help="time the consumer blocked waiting for the next batch")
-        self._h_device_put = reg.histogram(
+        reg.histogram(
             "loader.device_put_us",
             help="device stage: host time to enqueue one batch's copies "
                  "(the copies themselves run on the side stream)")
@@ -334,15 +335,17 @@ class DataLoader:
         return len(range(s, n, k))
 
     def _make_batch(self, indices, batch_idx=None):
-        t0 = _now_us()
-        samples = [self._dataset[i] for i in indices]
-        if self._batchify_fn is None:
-            batch = default_batchify_fn(samples, self._pin_memory)
-        else:
-            batch = self._batchify_fn(samples)
-            if self._pin_memory and torch.cuda.is_available():
-                batch = _pin(batch)
-        self._h_build.observe(_now_us() - t0)
+        # the batch id rides to the chrome-trace timeline as event args
+        with _span("loader.batch_build_us",
+                   args=None if batch_idx is None
+                   else {"batch": batch_idx}):
+            samples = [self._dataset[i] for i in indices]
+            if self._batchify_fn is None:
+                batch = default_batchify_fn(samples, self._pin_memory)
+            else:
+                batch = self._batchify_fn(samples)
+                if self._pin_memory and torch.cuda.is_available():
+                    batch = _pin(batch)
         self._c_batches.inc()
         return batch
 
@@ -414,15 +417,13 @@ class DataLoader:
         # them
         try:
             while True:
-                t0 = _now_us()
-                try:
-                    batch = next(src)
-                except StopIteration:
-                    break
-                end = _now_us()
-                self._h_wait.observe(end - t0)
-                self._trace_wait_us += end - t0
-                self._trace_wait_end = end
+                with _span("loader.consume_wait_us") as sp:
+                    try:
+                        batch = next(src)
+                    except StopIteration:
+                        break
+                self._trace_wait_us += sp.duration_us
+                self._trace_wait_end = sp.t_end * 1e6
                 self._cursor_batch += 1
                 yield batch
         finally:
@@ -460,17 +461,15 @@ class DataLoader:
 
         try:
             for item in src:
-                t0 = _now_us()
-                if side is None:
-                    placed, event = put(item), None
-                else:
-                    with torch.cuda.stream(side):
-                        placed = put(item)
-                        event = torch.cuda.Event()
-                        event.record(side)
-                took = _now_us() - t0
-                self._h_device_put.observe(took)
-                self._trace_devput_us += took
+                with _span("loader.device_put_us") as dsp:
+                    if side is None:
+                        placed, event = put(item), None
+                    else:
+                        with torch.cuda.stream(side):
+                            placed = put(item)
+                            event = torch.cuda.Event()
+                            event.record(side)
+                self._trace_devput_us += dsp.duration_us
                 buf.append((placed, event))
                 if len(buf) > depth:
                     self._g_device_depth.set(len(buf) - 1)

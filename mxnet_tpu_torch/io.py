@@ -19,7 +19,6 @@ import os
 import queue as _queue
 import struct
 import threading
-import time
 from typing import List, Optional, Sequence
 
 import numpy as _np
@@ -28,6 +27,7 @@ from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray, array as nd_array
 from .observability.registry import registry as _metrics_registry
+from .observability.trace import span as _span
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "MNISTIter", "ImageRecordIter", "PrefetchingIter", "ResizeIter",
@@ -685,12 +685,9 @@ class ImageRecordIter(DataIter):
             raise StopIteration
         # the consumer's wait: near zero when decode keeps ahead of the
         # step, large when the pipeline sets the pace
-        t0 = time.perf_counter()
-        item = self._out.get()
-        reg = _metrics_registry()
-        reg.histogram("io.record_batch_wait_us").observe(
-            (time.perf_counter() - t0) * 1e6)
-        reg.counter("io.record_batches").inc()
+        with _span("io.record_batch_wait_us"):
+            item = self._out.get()
+        _metrics_registry().counter("io.record_batches").inc()
         if isinstance(item[0], str) and item[0] == "__error__":
             raise MXNetError(
                 f"ImageRecordIter pipeline failed: {item[1]!r}") \

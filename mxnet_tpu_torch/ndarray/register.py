@@ -35,6 +35,7 @@ from __future__ import annotations
 import functools
 import inspect
 import threading
+from time import perf_counter
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -244,14 +245,17 @@ def invoke(op: Operator, inputs: Sequence, kwargs: Dict[str, Any],
         args = [_tensor(a, dev) if isinstance(a, (np.ndarray, list))
                 else a for a in args]
     fn = op.get_fn(kwargs)
+    hooked = _engine.hooked
+    t0 = perf_counter() if hooked else 0.0
     if wrapped and not _ag.is_recording():
         with torch.no_grad():
             res = fn(*args)
     else:
         res = fn(*args)
     multi = isinstance(res, (tuple, list))
-    if _engine.hooked:
-        _engine.on_op(op.name, res if multi else (res,))
+    if hooked:
+        _engine.on_op(op.name, res if multi else (res,),
+                      (perf_counter() - t0) * 1e6)
     if out is not None:
         return write_out(res, out)
     if wrapped:

@@ -1,7 +1,6 @@
 """Admission queue + continuous-batching pump for the serving subsystem.
 
-Counterpart of ``mxnet_tpu/serving/batcher.py`` without causal tracing.
-The request path::
+Counterpart of ``mxnet_tpu/serving/batcher.py``.  The request path::
 
     client -> submit() -> AdmissionQueue -> [batcher thread] -> _Batch
            -> dispatch queue -> [worker threads] -> one CachedGraph call
@@ -28,6 +27,7 @@ import time
 from typing import Callable, List, Optional, Tuple
 
 from ..base import MXNetError
+from ..observability import tracing as _tracing
 
 __all__ = ["Request", "GenRequest", "AdmissionQueue", "Batcher",
            "ServingError", "ServerClosed", "ServerOverloaded",
@@ -57,12 +57,18 @@ class RequestCancelled(ServingError):
 
 
 class Request:
-    """One in-flight inference request: inputs, lifecycle timestamps, and a
-    one-shot completion event."""
+    """One in-flight inference request: inputs, lifecycle timestamps (the
+    flight-recorder record), and a one-shot completion event.
+
+    ``trace`` is the request's causal-tracing root span (None when tracing
+    is off or head sampling dropped it): opened at submit, finished at
+    completion, and the parent every batch the request rides links back
+    to.  A contextvar cannot cross the submit -> batcher -> worker thread
+    hops, so the request object is the context carrier on this path."""
 
     __slots__ = ("rid", "inputs", "key", "deadline", "batch_size",
                  "t_enqueue", "t_assemble", "t_dispatch", "t_done",
-                 "_event", "_result", "_error")
+                 "trace", "_event", "_result", "_error")
 
     def __init__(self, rid: int, inputs: Tuple, key: Tuple,
                  deadline: Optional[float]):
@@ -75,6 +81,7 @@ class Request:
         self.t_assemble = 0.0
         self.t_dispatch = 0.0
         self.t_done = 0.0
+        self.trace = None
         self._event = threading.Event()
         self._result = None
         self._error: Optional[BaseException] = None
@@ -104,11 +111,15 @@ class GenRequest:
     (scheduler side) and consumed whole (:meth:`result`) or as they come
     (:meth:`stream`).  The publisher never blocks: the token list grows
     under a condition the consumer waits on, so a slow reader stalls only
-    its own socket, never the decode loop."""
+    its own socket, never the decode loop.  ``trace`` is the causal-tracing
+    root opened at submit (None when tracing is off or sampled out): the
+    request carries it across the submit -> scheduler hop, and every
+    decode step the request rides links back to it."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "deadline", "eos",
-                 "tokens", "t_enqueue", "t_prefill", "t_first", "t_done",
-                 "pos", "cancelled", "_tcond", "_event", "_error")
+                 "tokens", "trace", "t_enqueue", "t_prefill", "t_first",
+                 "t_done", "pos", "cancelled", "_tcond", "_event",
+                 "_error")
 
     def __init__(self, rid: int, prompt, max_new_tokens: int,
                  deadline: Optional[float], eos: Optional[int]):
@@ -118,6 +129,7 @@ class GenRequest:
         self.deadline = deadline            # monotonic seconds, None = none
         self.eos = eos                      # stop token id, None = run to cap
         self.tokens: List[int] = []         # generated ids (EOS included)
+        self.trace = None
         self.t_enqueue = time.monotonic()
         self.t_prefill = 0.0
         self.t_first = 0.0
@@ -277,14 +289,16 @@ class AdmissionQueue:
 
 class _Batch:
     """One assembled, padded batch headed for a single graph call.
+    ``trace`` carries the assembly span across the dispatch-queue hop (the
+    dispatch span's parent); None when no member request is traced.
     Padding is carried split: ``slots_padded`` (empty batch slots) vs
     ``tokens_padded`` (padded sequence positions in occupied slots)."""
 
     __slots__ = ("key", "batch", "arrays", "requests", "real",
-                 "slots_padded", "tokens_padded")
+                 "slots_padded", "tokens_padded", "trace")
 
     def __init__(self, key, batch, arrays, requests, real, slots_padded,
-                 tokens_padded):
+                 tokens_padded, trace=None):
         self.key = key
         self.batch = batch
         self.arrays = arrays
@@ -292,6 +306,7 @@ class _Batch:
         self.real = real
         self.slots_padded = slots_padded
         self.tokens_padded = tokens_padded
+        self.trace = trace
 
 
 class Batcher:
@@ -348,11 +363,38 @@ class Batcher:
             self._out.put(batch)
 
     def _assemble(self, requests: List[Request]) -> _Batch:
-        """Stamp the assembly time and pad-and-stack via the bucketer."""
+        """Stamp the assembly time and pad-and-stack via the bucketer.
+
+        Causal tracing: when any member request carries a trace, the
+        assembly gets a ``serving.assemble`` span parented on the first
+        traced request and linked to every other traced member (one batch,
+        many causes).  Tracing off: every ``r.trace`` is None and the
+        tracer is not touched."""
+        sp = parent_req = None
+        for r in requests:
+            if r.trace is not None:
+                sp = _tracing.tracer().begin(
+                    "serving.assemble", parent=r.trace, activate=False)
+                parent_req = r
+                break
         t = time.monotonic()
         for r in requests:
             r.t_assemble = t
-        arrays, bsz, real, slots_pad, tokens_pad = \
-            self._bucketer.assemble(requests)
+        try:
+            arrays, bsz, real, slots_pad, tokens_pad = \
+                self._bucketer.assemble(requests)
+        except BaseException as exc:
+            # a poison batch still records its assembly span
+            if sp is not None:
+                sp.annotate(error=type(exc).__name__)
+                sp.finish()
+            raise
+        if sp is not None:
+            for r in requests:
+                if r.trace is not None and r is not parent_req:
+                    sp.link(r.trace)
+            sp.annotate(batch=bsz, real=real, slots_padded=slots_pad,
+                        tokens_padded=tokens_pad)
+            sp.finish()
         return _Batch(requests[0].key, bsz, arrays, requests, real,
-                      slots_pad, tokens_pad)
+                      slots_pad, tokens_pad, trace=sp)

@@ -26,15 +26,22 @@ Contracts:
 - **admission**: the registry's priority gate runs before the model's
   own admission queue; both reject as HTTP 429 with a JSON body naming
   the reason;
+- **trace stitching**: a W3C ``traceparent`` request header becomes the
+  parent of the request's ``serving.request``/``serving.generate`` root
+  (one trace from the caller's socket to the dispatch span); the response
+  echoes the root's ``traceparent`` (with ``MXTPU_TRACE`` on and the
+  request sampled);
+- **introspection**: ``GET /debug/*`` (stacks, an on-demand profile, the
+  flight rings, a trace by id, the knobs) is the shared
+  ``observability.export.debug_route``, behind ``MXTPU_DEBUG_ENDPOINTS``
+  (without it every ``/debug`` path answers 404);
 - **graceful shutdown**: ``stop()`` (or SIGTERM via
-  :meth:`HttpFrontend.install_sigterm`) closes the listener, then drains
+  :meth:`HttpFrontend.install_sigterm`, which also installs the
+  ``MXTPU_STACKS_SIGNAL`` stack dump) closes the listener, then drains
   every registered server.
 
-Not ported yet: W3C ``traceparent`` parenting (the header is accepted and
-ignored) and the ``/debug`` routes (they answer 404), which wait for the
-tracing port.
-
-Knobs: ``MXTPU_FRONTEND_PORT``, ``MXTPU_FRONTEND_PRIORITY``.
+Knobs: ``MXTPU_FRONTEND_PORT``, ``MXTPU_FRONTEND_PRIORITY``,
+``MXTPU_FRONTEND_SLO_MS``, ``MXTPU_DEBUG_ENDPOINTS``.
 """
 from __future__ import annotations
 
@@ -49,6 +56,10 @@ from typing import Optional
 import numpy as np
 
 from ..base import get_env
+from ..observability import tracing as _tracing
+from ..observability.export import debug_route as _debug_route
+from ..observability.watchdog import install_stack_signal, \
+    uninstall_stack_signal
 from .batcher import (DeadlineExceeded, RequestCancelled, ServerClosed,
                       ServerOverloaded, ServingError)
 from .buckets import NoBucketError
@@ -114,11 +125,14 @@ class _Handler(BaseHTTPRequestHandler):
                 break
             n -= len(chunk)
 
-    def _send_json(self, code: int, obj: dict) -> None:
+    def _send_json(self, code: int, obj: dict,
+                   extra_headers=()) -> None:
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in extra_headers:
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
@@ -127,10 +141,24 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(code, {"error": type(exc).__name__,
                                "detail": str(exc), "status": code})
 
+    def _remote_ctx(self):
+        """The caller's W3C trace context, if the header carries one."""
+        return _tracing.parse_traceparent(
+            self.headers.get("traceparent"))
+
     # -- GET -----------------------------------------------------------
     def do_GET(self):  # noqa: N802 — BaseHTTPRequestHandler contract
-        path = self.path.partition("?")[0]
-        if path == "/healthz":
+        path, _, query = self.path.partition("?")
+        dbg = _debug_route(path, query)
+        if dbg is not None:
+            # the shared /debug/* surface, knob-gated and pre-encoded
+            status, ctype, body = dbg
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        elif path == "/healthz":
             self._send_json(200, {"ok": True})
         elif path == "/readyz":
             fe = self._fe
@@ -147,7 +175,7 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._send_json(404, {"error": "NotFound", "status": 404,
                                   "detail": "try /v1/models, /healthz, "
-                                            "/readyz"})
+                                            "/readyz, /debug"})
 
     # -- POST ----------------------------------------------------------
     def do_POST(self):  # noqa: N802 — BaseHTTPRequestHandler contract
@@ -194,17 +222,25 @@ class _Handler(BaseHTTPRequestHandler):
             dt = dtypes[i] if dtypes else payload.get("dtype")
             arrays.append(np.asarray(v, dtype=dt) if dt else np.asarray(v))
         entry.c_requests.inc()
-        req = entry.server.submit(*arrays,
-                                  deadline_ms=payload.get("deadline_ms"))
+        # the caller's context (when given) parents the request root the
+        # server opens at submit
+        with _tracing.activate(self._remote_ctx()):
+            req = entry.server.submit(
+                *arrays, deadline_ms=payload.get("deadline_ms"))
         result = req.result(timeout=float(payload.get("timeout_s", 60.0)))
         rows = result if isinstance(result, tuple) else (result,)
         dur_us = (time.monotonic() - t0) * 1e6
-        entry.h_request.observe(dur_us)
+        trace_id = None if req.trace is None else req.trace.trace_id
+        entry.h_request.observe(dur_us, trace_id=trace_id)
         entry.c_done.inc()
+        headers = []
+        if req.trace is not None:
+            headers.append(("traceparent", req.trace.traceparent))
         self._send_json(200, {"model": entry.name, "rid": req.rid,
                               "outputs": [r.tolist() for r in rows],
                               "shapes": [list(r.shape) for r in rows],
-                              "us": round(dur_us, 1)})
+                              "us": round(dur_us, 1)},
+                        extra_headers=headers)
 
     # -- generate (SSE) ------------------------------------------------
     def _generate(self, entry, payload: dict) -> None:
@@ -217,7 +253,8 @@ class _Handler(BaseHTTPRequestHandler):
         if payload.get("eos") is not None:
             kw["eos"] = int(payload["eos"])
         entry.c_requests.inc()
-        req = entry.server.submit_generate(payload["prompt"], **kw)
+        with _tracing.activate(self._remote_ctx()):
+            req = entry.server.submit_generate(payload["prompt"], **kw)
         # SSE: a close-delimited stream (no Content-Length), flushed per
         # token; TCP_NODELAY so each event leaves the host at once
         try:
@@ -229,6 +266,8 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
         self.send_header("Connection", "close")
+        if req.trace is not None:
+            self.send_header("traceparent", req.trace.traceparent)
         self.close_connection = True
         self.end_headers()
         timeout = float(payload.get("timeout_s", 60.0))
@@ -236,7 +275,10 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             for tok in req.stream(timeout=timeout):
                 if n == 0:
-                    entry.h_ttft.observe((time.monotonic() - t0) * 1e6)
+                    trace_id = None if req.trace is None \
+                        else req.trace.trace_id
+                    entry.h_ttft.observe((time.monotonic() - t0) * 1e6,
+                                         trace_id=trace_id)
                 self._write_event(
                     f'data: {{"token": {int(tok)}, "index": {n}}}\n\n')
                 n += 1
@@ -257,7 +299,8 @@ class _Handler(BaseHTTPRequestHandler):
                 pass
             return
         dur_us = (time.monotonic() - t0) * 1e6
-        entry.h_request.observe(dur_us)
+        trace_id = None if req.trace is None else req.trace.trace_id
+        entry.h_request.observe(dur_us, trace_id=trace_id)
         entry.c_done.inc()
         self._write_event(
             "event: done\ndata: "
@@ -275,6 +318,9 @@ class _Handler(BaseHTTPRequestHandler):
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
     allow_reuse_address = True
+    #: the listen backlog: ``socketserver``'s default of 5 resets the
+    #: connections of a burst of clients (69 of 96 connecting at once)
+    request_queue_size = 128
 
 
 class HttpFrontend:
@@ -298,6 +344,7 @@ class HttpFrontend:
         self._httpd.frontend = self
         self._thread: Optional[threading.Thread] = None
         self._prev_sigterm = None
+        self._stack_signal = False
         self.draining = False
         if start:
             self.start()
@@ -339,10 +386,18 @@ class HttpFrontend:
     def install_sigterm(self) -> None:
         """Chain a SIGTERM handler that stops the frontend gracefully
         (listener down, every model drained), then calls the previous
-        handler; the drain runs on a non-daemon thread of its own."""
+        handler; the drain runs on a non-daemon thread of its own.  The
+        ``MXTPU_STACKS_SIGNAL`` stack dump rides along: a wedged drain is
+        when an operator wants ``kill -QUIT``.  From the main thread."""
+        self._stack_signal = install_stack_signal()
         self._prev_sigterm = _install_sigterm(self, "mxtpu-frontend")
 
     def uninstall_sigterm(self) -> None:
+        """Put back the SIGTERM handler (and the stack signal's) that
+        :meth:`install_sigterm` replaced."""
         if self._prev_sigterm is not None:
             signal.signal(signal.SIGTERM, self._prev_sigterm)
             self._prev_sigterm = None
+        if self._stack_signal:
+            uninstall_stack_signal()
+            self._stack_signal = False

@@ -7,7 +7,7 @@ name -> server binding and what hangs off it:
   ``serving.model.<name>.*`` (socket-to-socket request latency, admits,
   429s, sheds, TTFT for generation models); the model label is carried
   in the metric name;
-- **priorities and load shedding**: each model carries an integer
+- **priorities, SLOs and load shedding**: each model carries an integer
   priority (higher = more important).  The registry holds one *shed
   level*; a request for a model whose priority is below it is rejected
   at the door with :class:`ServerOverloaded` (HTTP 429) before it
@@ -17,7 +17,9 @@ name -> server binding and what hangs off it:
   ``swap()`` is the rolling blue/green weight swap
   (:meth:`ModelServer.swap_block`): no request drops.
 
-Knob: ``MXTPU_FRONTEND_PRIORITY`` (default model priority).
+Knobs: ``MXTPU_FRONTEND_PRIORITY`` (default model priority),
+``MXTPU_FRONTEND_SLO_MS`` (default per-model p99 SLO in ms, the budget the
+``tuning.SloController`` defends; 0 = none).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ __all__ = ["ModelEntry", "ModelRegistry", "UnknownModel",
            "MODEL_METRIC_PREFIX"]
 
 PRIORITY_ENV = "MXTPU_FRONTEND_PRIORITY"
+SLO_MS_ENV = "MXTPU_FRONTEND_SLO_MS"
 
 #: metric-name namespace of the per-model metrics
 MODEL_METRIC_PREFIX = "serving.model."
@@ -59,12 +62,14 @@ class ModelEntry:
     ``serving.request_us`` measures enqueue to done, this what the client
     saw, which is what an SLO is written against)."""
 
-    def __init__(self, name: str, server, *, priority: int):
+    def __init__(self, name: str, server, *, priority: int,
+                 slo_ms: float):
         self.name = name
         self.server = server
         self.kind = ("generate" if isinstance(server, GenerationServer)
                      else "predict")
         self.priority = int(priority)
+        self.slo_ms = float(slo_ms)
         self.status = "loading"
         self.loaded_at = time.time()
         self.swaps = 0
@@ -101,6 +106,7 @@ class ModelEntry:
             "kind": self.kind,
             "status": self.status,
             "priority": self.priority,
+            "slo_ms": self.slo_ms,
             "swaps": self.swaps,
             "stats": self.server.stats(),
         }
@@ -128,7 +134,8 @@ class ModelRegistry:
 
     # -- lifecycle -----------------------------------------------------
     def load(self, name: str, server, *, priority: Optional[int] = None,
-             start: bool = True, warm=None) -> ModelEntry:
+             slo_ms: Optional[float] = None, start: bool = True,
+             warm=None) -> ModelEntry:
         """Register (and by default start) a server under ``name``.
 
         ``warm`` builds graphs before the model goes ready: for a
@@ -140,7 +147,10 @@ class ModelRegistry:
                 f"model name {name!r} must match {_NAME_OK.pattern}")
         if priority is None:
             priority = int(get_env(PRIORITY_ENV))
-        entry = ModelEntry(name, server, priority=priority)
+        if slo_ms is None:
+            slo_ms = float(get_env(SLO_MS_ENV))
+        entry = ModelEntry(name, server, priority=priority,
+                           slo_ms=slo_ms)
         with self._lock:
             if name in self._models:
                 raise ServingError(
@@ -220,12 +230,14 @@ class ModelRegistry:
 
     def set_shed_level(self, level: int) -> None:
         """Requests for models with ``priority < level`` are 429'd at
-        the door.  0 sheds nothing."""
+        the door (the SloController's shedding actuator).  0 sheds
+        nothing."""
         self._shed_level = max(0, int(level))
         self._g_shed.set(self._shed_level)
 
     def priorities(self) -> List[int]:
-        """Distinct priorities resident, ascending (the shed ladder)."""
+        """Distinct priorities resident, ascending (the SloController's
+        shed ladder)."""
         return sorted({e.priority for e in self.entries()})
 
     def admit(self, entry: ModelEntry) -> None:

@@ -7,7 +7,7 @@ Counterpart of ``mxnet_tpu/serving/server.py``.  ``ModelServer``::
                 (padding-length buckets, the BERT idiom)
              -> dispatch workers: one CachedGraph.raw call per batch and
                 one batched device->host readback
-             -> per-request results and metrics
+             -> per-request results, metrics, flight-recorder records
 
 Metrics (process-global registry): ``serving.request_us`` and
 ``serving.dispatch_us`` histograms, the ``serving.queue_depth`` gauge, and
@@ -41,8 +41,29 @@ same page-locked staging as any other block's; a ``Block`` that is not
 hybrid (the JAX server jits it, ``_freeze_generic``) is served the same
 way, inside a ``HybridBlock`` whose forward calls it.
 
-Not ported yet: causal tracing, the flight recorder, the stack sampler
-and the progress watchdog.
+Causal tracing (``MXTPU_TRACE``, ``observability.tracing``), as the JAX
+package has it: ``submit`` opens a ``serving.request`` root (head-sampled;
+a W3C parent the front door activated becomes its parent), the batcher a
+``serving.assemble`` span linking the batch's requests, a dispatch worker
+``serving.dispatch`` and ``serving.readback`` children, and ``_finish``
+closes the root and puts its trace id on ``serving.request_us`` as an
+exemplar (passed explicitly: no contextvar crosses into the workers).  A
+worker holds its dispatch span as its active context while it runs the
+batch (the JAX package begins it without activating it), so the stack
+sampler tags the worker's frames with the batch's trace.
+The span boundaries are the JAX package's, and the same asynchrony holds:
+a replayed graph returns once it is queued, so ``serving.dispatch`` closes
+before the card has worked, and the device time lands in
+``serving.readback`` (the stream synchronise of :func:`readback`).  With
+tracing off ``req.trace`` is None and the tracer is never touched.  A
+generation opens ``serving.generate`` with ``serving.prefill`` and
+``serving.decode_step`` children (a step linking its other requests).
+
+Every completed request also lands in the flight recorder's request ring
+(``observability.flight``), the dispatch workers and the decode loop beat
+the watchdog's ``serving.dispatch`` and ``serving.decode`` touchpoints
+(``observability.watchdog``), and a server's construction starts the
+stack sampler when ``MXTPU_PROF_SAMPLE_HZ`` asks for it.
 """
 from __future__ import annotations
 
@@ -58,7 +79,12 @@ import torch
 
 from ..base import MXNetError, compute_dtype, get_env
 from ..gluon.block import Block, HybridBlock, SymbolBlock
+from ..observability import tracing as _tracing
+from ..observability.flight import recorder as _flight_recorder
 from ..observability.registry import registry
+from ..observability.sampler import maybe_start_from_env as \
+    _maybe_start_sampler
+from ..observability.watchdog import touchpoint as _touchpoint
 from .batcher import (AdmissionQueue, Batcher, DeadlineExceeded,
                       GenRequest, Request, RequestCancelled, ServerClosed,
                       ServerOverloaded)
@@ -78,6 +104,16 @@ KV_BLOCKS_ENV = "MXTPU_SERVING_KV_BLOCKS"
 DECODE_SLOTS_ENV = "MXTPU_SERVING_DECODE_SLOTS"
 PREFILL_MODE_ENV = "MXTPU_SERVING_PREFILL_MODE"
 MAX_NEW_ENV = "MXTPU_SERVING_MAX_NEW_TOKENS"
+
+
+def _key_str(key: Tuple) -> str:
+    """Compact bucket tag for records: ``32:int32|32:int32`` (dtype
+    included, so buckets differing only in dtype stay apart)."""
+    parts = []
+    for shape, dt in key:
+        parts.append(("x".join(str(s) for s in shape) or "scalar")
+                     + ":" + str(dt))
+    return "|".join(parts)
 
 
 def _live_window_s() -> float:
@@ -148,7 +184,7 @@ class ModelServer:
                  pad_axis: int = 0,
                  batch_buckets: Optional[Sequence[int]] = None,
                  batch_window_us: Optional[float] = None,
-                 unpad_outputs: bool = True):
+                 unpad_outputs: bool = True, flight=None):
         self._block = _servable(block)
         self.unpad_outputs = unpad_outputs
         self.max_batch = int(get_env(MAX_BATCH_ENV) if max_batch is None
@@ -196,6 +232,7 @@ class ModelServer:
         self._c_slots_padded = reg.counter(
             "serving.slots_padded",
             help="empty batch slots dispatched (batch-bucket waste)")
+        self._flight = _flight_recorder() if flight is None else flight
         self._admission = AdmissionQueue(self.queue_depth,
                                          gauge=self._g_depth)
         self._out: _queue.Queue = _queue.Queue(
@@ -213,6 +250,12 @@ class ModelServer:
         self._drain_down = False
         self._rid = itertools.count()
         self._prev_sigterm = None
+        # the watchdog's heartbeat: one beat per worker-loop iteration
+        # (idle pops included, so only a wedged dispatch goes silent),
+        # thresholded on the dispatch histogram's recent p99
+        self._tp_dispatch = _touchpoint("serving.dispatch",
+                                        hist="serving.dispatch_us")
+        _maybe_start_sampler()
 
     @classmethod
     def from_exported(cls, symbol_file: str, input_names,
@@ -305,10 +348,21 @@ class ModelServer:
         ms = self.deadline_ms if deadline_ms is None else float(deadline_ms)
         deadline = (time.monotonic() + ms / 1e3) if ms > 0 else None
         req = Request(next(self._rid), arrs, key, deadline)
+        # the causal-tracing root: one trace per request, head-sampled at
+        # admission, finished in _finish on a worker thread
+        req.trace = _tracing.tracer().begin(
+            "serving.request", activate=False,
+            args={"rid": req.rid, "bucket": _key_str(key)})
         try:
             self._admission.submit(req)
-        except ServerOverloaded:
-            self._c_rej_429.inc()
+        except BaseException as exc:
+            # admission refused the request: nobody downstream will
+            # finish its span, so close it first
+            if req.trace is not None:
+                req.trace.annotate(error=type(exc).__name__)
+                req.trace.finish()
+            if isinstance(exc, ServerOverloaded):
+                self._c_rej_429.inc()
             raise
         self._c_requests.inc()
         return req
@@ -431,7 +485,9 @@ class ModelServer:
 
     # -- dispatch (hot path) -------------------------------------------------
     def _worker_loop(self) -> None:
+        tp = self._tp_dispatch
         while True:
+            tp.beat()
             try:
                 batch = self._out.get(timeout=0.25)
             except _queue.Empty:
@@ -450,11 +506,36 @@ class ModelServer:
 
     def _dispatch_batch(self, graph, batch) -> None:
         """One forward for the whole bucket, one batched device->host
-        readback, then per-request fan-out."""
-        t0 = time.monotonic()
-        for req in batch.requests:
-            req.t_dispatch = t0
-        outs = readback(graph(*batch.arrays))
+        readback, then per-request fan-out.  The ``serving.dispatch`` span
+        (a child of the batch's assembly span) closes when the forward is
+        queued; the card's time lands in its ``serving.readback`` child."""
+        sp = None if batch.trace is None else _tracing.tracer().begin(
+            "serving.dispatch", parent=batch.trace, activate=False,
+            args={"batch": batch.batch, "bucket": _key_str(batch.key)})
+        rb = None
+        try:
+            t0 = time.monotonic()
+            for req in batch.requests:
+                req.t_dispatch = t0
+            # the dispatch span is this worker's active context while it
+            # runs, so the stack sampler tags the worker's frames with the
+            # batch's trace (activate(None) is a no-op)
+            with _tracing.activate(sp):
+                flat = graph(*batch.arrays)
+                rb = None if sp is None else _tracing.tracer().begin(
+                    "serving.readback", parent=sp, activate=False)
+                outs = readback(flat)
+        except BaseException as exc:
+            # a failed batch still records its dispatch span
+            if sp is not None:
+                sp.annotate(error=type(exc).__name__)
+                if rb is not None:
+                    rb.finish()
+                sp.finish()
+            raise
+        if rb is not None:
+            rb.finish()
+            sp.finish()
         self._h_dispatch.observe((time.monotonic() - t0) * 1e6)
         self._c_batches.inc()
         self._c_real.inc(batch.real)
@@ -492,14 +573,34 @@ class ModelServer:
         return tuple(out)
 
     def _finish(self, req: Request, result=None, error=None) -> None:
-        """Complete one request: latency histogram, counters, wake the
-        client."""
+        """Complete one request: its trace, latency histogram, counters,
+        flight record; wake the client."""
         req.t_done = time.monotonic()
         req._result = result
         req._error = error
+        dur_us = (req.t_done - req.t_enqueue) * 1e6
+        trace_id = None
+        if req.trace is not None:
+            trace_id = req.trace.trace_id
+            if error is not None:
+                req.trace.annotate(error=type(error).__name__)
+            req.trace.finish()
         if error is None:
-            self._h_request.observe((req.t_done - req.t_enqueue) * 1e6)
+            # the explicit trace_id puts the exemplar on this request's
+            # trace (no contextvar crosses the worker-thread hop)
+            self._h_request.observe(dur_us, trace_id=trace_id)
             self._c_done.inc()
+        self._flight.record_request(
+            request_id=req.rid,
+            enqueue=round(req.t_enqueue, 6),
+            assemble=round(req.t_assemble, 6),
+            dispatch=round(req.t_dispatch, 6),
+            done=round(req.t_done, 6),
+            bucket=_key_str(req.key),
+            batch_size=req.batch_size,
+            us=round(dur_us, 1),
+            trace_id=trace_id,
+            ok=error is None)
         req._event.set()
 
     def _expire(self, req: Request) -> None:
@@ -510,7 +611,7 @@ class ModelServer:
 
     def _fail(self, req: Request, error: BaseException) -> None:
         """Assembly-failure path: same accounting as every other
-        completion."""
+        completion (flight record, timestamps), with an error."""
         self._finish(req, error=error)
 
 
@@ -585,8 +686,8 @@ class _Staging:
 class GenerationServer:
     """Iteration-level (token-level continuous-batching) decode scheduler
     over a paged KV cache, the JAX package's ``GenerationServer``
-    (``mxnet_tpu/serving/server.py:663-1348``) without its tracing,
-    flight records, sampler and watchdog.
+    (``mxnet_tpu/serving/server.py:663-1348``), its tracing, flight
+    records, sampler and watchdog touchpoint included.
 
     The schedulable unit is one decode step:
 
@@ -624,7 +725,7 @@ class GenerationServer:
                  deadline_ms: Optional[float] = None,
                  max_new_tokens: Optional[int] = None,
                  prompt_buckets: Sequence[int] = (16, 32, 64),
-                 eos: Optional[int] = None):
+                 eos: Optional[int] = None, flight=None):
         for need in ("hybrid_prefill", "hybrid_decode", "init_kv_pool"):
             if not callable(getattr(block, need, None)):
                 raise MXNetError(
@@ -682,6 +783,7 @@ class GenerationServer:
                  "first tokens included)")
         self._c_steps = reg.counter(
             "serving.decode_steps", help="decode iterations dispatched")
+        self._flight = _flight_recorder() if flight is None else flight
         self._queue: List[GenRequest] = []
         self._running: List[Optional[GenRequest]] = [None] * self._slots
         self._lock = threading.Condition()
@@ -697,6 +799,12 @@ class GenerationServer:
         self._abort = False
         self._rid = itertools.count()
         self._prev_sigterm = None
+        # the watchdog's heartbeat: bumped every scheduler iteration and
+        # inside the idle wait, thresholded on the decode step's recent
+        # p99 (a wedged step goes silent, an idle scheduler never does)
+        self._tp_decode = _touchpoint("serving.decode",
+                                      hist="serving.decode_step_us")
+        _maybe_start_sampler()
 
     # -- lifecycle ----------------------------------------------------
     def start(self) -> "GenerationServer":
@@ -799,17 +907,27 @@ class GenerationServer:
         deadline = (time.monotonic() + ms / 1e3) if ms > 0 else None
         req = GenRequest(next(self._rid), arr, mnt, deadline,
                          self.eos if eos is None else eos)
-        with self._lock:
-            if self._closed:
-                raise ServerClosed("server is shut down")
-            if len(self._queue) >= self.queue_depth:
-                self._c_rej_429.inc()
-                raise ServerOverloaded(
-                    f"admission queue full ({self.queue_depth} deep) — "
-                    f"retry with backoff (429)")
-            self._queue.append(req)
-            self._g_depth.set(len(self._queue))
-            self._lock.notify_all()
+        req.trace = _tracing.tracer().begin(
+            "serving.generate", activate=False,
+            args={"rid": req.rid, "prompt": plen, "max_new": mnt})
+        try:
+            with self._lock:
+                if self._closed:
+                    raise ServerClosed("server is shut down")
+                if len(self._queue) >= self.queue_depth:
+                    self._c_rej_429.inc()
+                    raise ServerOverloaded(
+                        f"admission queue full ({self.queue_depth} deep) "
+                        f"— retry with backoff (429)")
+                self._queue.append(req)
+                self._g_depth.set(len(self._queue))
+                self._lock.notify_all()
+        except BaseException as exc:
+            # rejected before entering the pipeline: close its span here
+            if req.trace is not None:
+                req.trace.annotate(error=type(exc).__name__)
+                req.trace.finish()
+            raise
         self._c_requests.inc()
         return req
 
@@ -946,12 +1064,15 @@ class GenerationServer:
 
     # -- the scheduler loop --------------------------------------------
     def _run(self) -> None:
+        tp = self._tp_decode
         while True:
+            tp.beat()
             with self._lock:
                 while (not self._queue
                        and not any(r is not None for r in self._running)
                        and not self._closed):
                     self._lock.wait(0.1)
+                    tp.beat()   # an idle scheduler keeps beating
                 if self._abort:
                     shed, self._queue = self._queue, []
                     run = [r for r in self._running if r is not None]
@@ -1026,6 +1147,9 @@ class GenerationServer:
         prompt's K/V into the request's blocks, emits the first token (the
         TTFT point) and seats the request in a running slot."""
         graph, stage = entry
+        sp = None if req.trace is None else _tracing.tracer().begin(
+            "serving.prefill", parent=req.trace, activate=False,
+            args={"bucket": bucket})
         plen = len(req.prompt)
         try:
             table = self._kv.ensure(req.rid, plen)
@@ -1038,12 +1162,21 @@ class GenerationServer:
             logits, _ = graph.raw(*stage.push(), self._pool)
             tok = int(readback([logits])[0][0].argmax())
         except BaseException as exc:  # the request fails and releases
-            self._finish_gen(req, error=_as_error(exc))   # its blocks
+            if sp is not None:            # its blocks
+                sp.annotate(error=type(exc).__name__)
+                sp.finish()
+            self._finish_gen(req, error=_as_error(exc))
             if not isinstance(exc, Exception):
                 raise
             return
         req.t_first = time.monotonic()
-        self._h_ttft.observe((req.t_first - req.t_enqueue) * 1e6)
+        # the span closes at the TTFT point: prep, replay and the first
+        # token's readback
+        if sp is not None:
+            sp.finish()
+        trace_id = None if req.trace is None else req.trace.trace_id
+        self._h_ttft.observe((req.t_first - req.t_enqueue) * 1e6,
+                             trace_id=trace_id)
         req.push_token(tok)
         req.pos = plen          # the new token decodes at position plen
         self._c_tokens.inc()
@@ -1070,6 +1203,18 @@ class GenerationServer:
         last = occupied[-1][0]
         graph, stages = self._decode_graph(last // DECODE_ROWS + 1)
         stages = stages[:last // DECODE_ROWS + 1]
+        sp = None
+        for _, r in occupied:
+            if r.trace is not None:
+                sp = _tracing.tracer().begin(
+                    "serving.decode_step", parent=r.trace,
+                    activate=False,
+                    args={"occupied": len(occupied),
+                          "slots": self._slots})
+                for _, o in occupied:
+                    if o.trace is not None and o is not r:
+                        sp.link(o.trace)
+                break
         try:
             # zeroed every step, so empty slots, padded rows and table
             # tails land in the scratch block, never a live request's
@@ -1091,7 +1236,10 @@ class GenerationServer:
             logits[-1] = logits[-1][:last % DECODE_ROWS + 1]
             lg = readback(logits)
         except BaseException as exc:  # the batch fails and releases
-            with self._lock:              # its blocks
+            if sp is not None:            # its blocks
+                sp.annotate(error=type(exc).__name__)
+                sp.finish()
+            with self._lock:
                 for i, _ in occupied:
                     self._running[i] = None
             for _, r in occupied:
@@ -1099,7 +1247,12 @@ class GenerationServer:
             if not isinstance(exc, Exception):
                 raise
             return
-        self._h_step.observe((time.monotonic() - t0) * 1e6)
+        trace_id = None if sp is None else sp.trace_id
+        # the step span measures the replays and the batched readback
+        if sp is not None:
+            sp.finish()
+        self._h_step.observe((time.monotonic() - t0) * 1e6,
+                             trace_id=trace_id)
         self._c_steps.inc()
         finished = []
         for i, r in occupied:
@@ -1129,9 +1282,28 @@ class GenerationServer:
             self._tables.pop(req.rid, None)
         req.t_done = time.monotonic()
         req._error = error
+        dur_us = (req.t_done - req.t_enqueue) * 1e6
+        trace_id = None
+        if req.trace is not None:
+            trace_id = req.trace.trace_id
+            if error is not None:
+                req.trace.annotate(error=type(error).__name__)
+            req.trace.annotate(tokens=len(req.tokens))
+            req.trace.finish()
         if error is None:
-            self._h_request.observe((req.t_done - req.t_enqueue) * 1e6)
+            self._h_request.observe(dur_us, trace_id=trace_id)
             self._c_done.inc()
+        self._flight.record_request(
+            request_id=req.rid,
+            enqueue=round(req.t_enqueue, 6),
+            assemble=round(req.t_prefill, 6),
+            dispatch=round(req.t_first, 6),
+            done=round(req.t_done, 6),
+            bucket=f"gen:{len(req.prompt)}+{len(req.tokens)}",
+            batch_size=self._slots,
+            us=round(dur_us, 1),
+            trace_id=trace_id,
+            ok=error is None)
         req._event.set()
         req._wake_stream()
 

@@ -119,7 +119,8 @@ def test_device_ms_leaves_out_the_sentinel(monkeypatch):
 
 
 def test_device_ms_never_reports_zero(monkeypatch):
-    _fake_profiler(monkeypatch, [[], [0.0], []])
+    _fake_profiler(monkeypatch, [[], [0.0]] + [[]] * (
+        chip_smoke.TRACE_ATTEMPTS - 2))
     with pytest.raises(AssertionError, match="no device time"):
         chip_smoke.device_ms(lambda: None, 2)
 
@@ -150,7 +151,8 @@ def test_device_ms_retakes_a_trace_that_lost_more_than_allowed(
                                  [(300.0, 20, "bmm"), (50.0, 19, "copy")]])
     assert chip_smoke.device_ms(lambda: None, 10, lost=1) == \
         pytest.approx((300.0 + 50.0 * 20 / 19) / 10 / 1e3)
-    _fake_profiler(monkeypatch, [[(300.0, 18, "bmm")]] * 3)
+    _fake_profiler(monkeypatch, [[(300.0, 18, "bmm")]]
+                   * chip_smoke.TRACE_ATTEMPTS)
     with pytest.raises(AssertionError, match="partial"):
         chip_smoke.device_ms(lambda: None, 10, lost=1)
 
@@ -168,10 +170,30 @@ def test_device_ms_with_a_known_count_takes_the_records_that_arrive(
                 [(300.0, 21, "flash_fwd_kernel")],
                 [(300.0, 20, "flash_fwd_kernel<float"),
                  (300.0, 20, "flash_fwd_kernel<bf16")]):
-        _fake_profiler(monkeypatch, [bad] * 3)
+        _fake_profiler(monkeypatch, [bad] * chip_smoke.TRACE_ATTEMPTS)
         with pytest.raises(AssertionError, match="partial"):
             chip_smoke.device_ms(lambda: None, 20, only="flash_fwd_kernel",
                                  per_call=1)
+
+
+def test_kernel_ms_falls_back_to_cuda_events_when_every_trace_is_lossy(
+        monkeypatch):
+    """Where each trace of a timing lost records, ``kernel_ms`` gives the
+    CUDA-event time instead, and notes it; a whole trace is used as
+    ``device_ms`` uses it, with nothing noted."""
+    monkeypatch.setattr(chip_smoke, "EVENT_FALLBACKS", [])
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, iters: 0.5)
+    _fake_profiler(monkeypatch, [[(300.0, 18, "bmm")]]
+                   * chip_smoke.TRACE_ATTEMPTS)
+    seen = {}
+    assert chip_smoke.kernel_ms(lambda: None, 10, kernels=seen,
+                                lost=1) == 0.5
+    assert seen == {}
+    (fell,) = chip_smoke.EVENT_FALLBACKS
+    assert fell["event_ms"] == 0.5 and "partial" in fell["trace"]
+    _fake_profiler(monkeypatch, [[(300.0, 2, "bmm")]])
+    assert chip_smoke.kernel_ms(lambda: None, 2) == 0.15
+    assert len(chip_smoke.EVENT_FALLBACKS) == 1
 
 
 def test_train_flash_cases_take_the_training_shape():
@@ -550,9 +572,24 @@ def test_launch_ms_orders_launches_and_retakes_partial_traces(monkeypatch):
 
 
 def test_launch_ms_raises_after_partial_traces(monkeypatch):
-    _fake_event_profiler(monkeypatch, [[("multi_sgd_kernel", 0, 1.0)]] * 5)
+    _fake_event_profiler(monkeypatch, [[("multi_sgd_kernel", 0, 1.0)]]
+                         * chip_smoke.TRACE_ATTEMPTS)
     with pytest.raises(AssertionError, match="saw 1"):
         chip_smoke.launch_ms(lambda: None, 2, 1, "multi_sgd_kernel")
+
+
+def test_launch_ms_times_each_launch_by_events_after_partial_traces(
+        monkeypatch):
+    """Given a callable per launch, ``launch_ms`` times each by CUDA
+    events where every trace lost a launch, and notes it."""
+    monkeypatch.setattr(chip_smoke, "EVENT_FALLBACKS", [])
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, iters: fn())
+    _fake_event_profiler(monkeypatch, [[("multi_sgd_kernel", 0, 1.0)]]
+                         * chip_smoke.TRACE_ATTEMPTS)
+    assert chip_smoke.launch_ms(lambda: None, 2, 1, "multi_sgd_kernel",
+                                each=[lambda: 0.25, lambda: 0.5]) \
+        == [0.25, 0.5]
+    assert chip_smoke.EVENT_FALLBACKS[0]["event_ms"] == [0.25, 0.5]
 
 
 def test_launch_bins_sum_each_bin_beside_its_bound():
@@ -1534,3 +1571,188 @@ def test_phase_22_is_wired_into_main():
     assert 'slice22["rfcn"]["launches"]' in src
     assert 'slice22["feedforward"]["launches"]' in src
     assert '"slice22": slice22' in src
+
+
+def _small_observability(monkeypatch):
+    """Phase 23 at toy sizes on the CPU: a small BERT, five short length
+    buckets, (e)'s generation model 2 layers 64 wide, a few requests a
+    round, one untimed round of each tracing setting, no SLO rounds
+    (their verdict rests on the card's latencies, and nothing here
+    asserts it), and (f) in this process (the child process reruns the
+    script at full size)."""
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import bert_small
+    monkeypatch.setattr(chip_smoke, "gpu", lambda i=0: cpu())
+    monkeypatch.setattr(chip_smoke, "bert_base",
+                        lambda **kw: bert_small(**kw))
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "slo_cell",
+                        lambda seed, fe, models: {"ok": None})
+    monkeypatch.setattr(chip_smoke, "in_child", lambda task, seed, out:
+                        chip_smoke.CHILD_TASKS[task](seed, out))
+    for name, value in (
+            ("VOCAB", 1000), ("LAYERS", 2),
+            ("LENGTH_BUCKETS", (16, 20, 24, 28, 32)),
+            ("OBS_REQUESTS", 16), ("OBS_COST_REQUESTS", 4),
+            ("OBS_COST_SECONDS", 0.0), ("OBS_COST_REPEATS", 1),
+            ("OBS_LM_REQUESTS", 2),
+            ("OBS_OVERLOAD", {"clients": 8, "requests": 16, "length": 32}),
+            ("OBS_QUIET", {"clients": 1, "requests": 4, "length": 16}),
+            ("GEN_BASE_MODEL", dict(vocab_size=257, num_layers=2, units=64,
+                                    hidden_size=128, num_heads=4,
+                                    max_length=256)),
+            ("GEN_BASE", {"slots": 16, "kv_block": 16, "kv_blocks": 128,
+                          "prompt_buckets": (16, 32),
+                          "max_new_tokens": 128}),
+            ("GEN_BASE_PROMPT", (4, 30)), ("OBS_SLOT_NEW", (4, 10)),
+            ("OBS_SLOT_REQUESTS", 6), ("OBS_SLOT_ROUNDS", 2),
+            ("OBS_PROFILE_FORWARDS", 1), ("OBS_PROFILE_SHAPE", (2, 16))):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+#: phase 23's checks that only the card can meet: no kernel runs on the
+#: CPU, and there an op's reduction order follows the thread pool's split,
+#: which moves when the two dispatch workers run ops at once (like batches
+#: then differ in the last bits; bit for bit with one worker,
+#: ``tests/test_torch_serving_trace.py``).  And those whose verdict rests
+#: on the host's timing (the SLO's latencies, the sampler catching a
+#: worker mid-dispatch), which the tuning and observability parity tests
+#: hold on synthetic streams
+OBS_CARD_ONLY = {"flash_12_a_forward", "flash_launches_12_a_forward",
+                 "kernel_events", "logits_tracing_on_off_bitwise"}
+OBS_TIMED = {"slo", "workers_tagged_by_trace"}
+
+
+def test_observability_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
+    """Every check of phase 23 but the card's and the timed ones passes at
+    toy sizes: the span trees under the callers' spans, the echoed trace
+    ids, the Chrome trace, the scraped ``requests_done`` and p99 exemplar,
+    the per-model family, the JSONL lines, ``/debug`` on and off, a round
+    of each tracing setting summarised; the held dispatch
+    flagged once with its postmortem, re-armed, the flight dump on an
+    exception; the decode-slot rounds bit for bit; the profiler's ops and
+    rows."""
+    _small_observability(monkeypatch)
+    out = chip_smoke.observability_phase(0, "cpu", tmp_path)
+    front = {k: v for k, v in out["front_door"]["checks"].items()
+             if k not in OBS_CARD_ONLY | OBS_TIMED}
+    assert all(front.values()), (front, out["front_door"]["trees"])
+    assert out["front_door"]["flash"]["launches"] == 0
+    cost = out["front_door"]["cost"]
+    assert set(cost["by_setting"]) == {"off", "sample_1", "sample_8"}
+    assert all(c["rounds"] == 1 and c["requests"] == 4
+               for c in cost["by_setting"].values())
+    assert out["front_door"]["bitwise_cost"]["compared"] >= 0
+    assert out["watchdog"]["ok"], out["watchdog"]["checks"]
+    assert out["decode_slots"]["ok"], out["decode_slots"]["checks"]
+    prof = {k: v for k, v in out["profiler"]["checks"].items()
+            if k not in OBS_CARD_ONLY}
+    assert all(prof.values()), prof
+    assert out["launches"] == 0 and not out["ok"]
+    assert not list(tmp_path.glob("phase23_profile*"))
+
+
+def test_phase_23_is_wired_into_main():
+    """``main()`` runs phase 23 after phase 22, fails on it, and carries
+    its flash launches to the kernels line."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index("slice22_phase(") < src.index("observability_phase(")
+    assert '("observability", obs)' in src
+    assert '"observability_flash_launches": obs["launches"]' in src
+    assert '"observability": obs' in src
+
+
+def test_cost_summary_medians_ranges_and_resolution():
+    """Tracing's cost per setting: the median and range of each metric
+    over its rounds, the traced settings against the untraced medians
+    (requests/s and CPU ms a request), and whether the untraced rounds'
+    own range of each is inside 5 %."""
+    def r(rps, p50=10.0, p99=20.0, cpu=2.0):
+        return {"requests_per_s": rps, "latency_ms_p50": p50,
+                "latency_ms_p99": p99, "cpu_ms_per_request": cpu,
+                "requests": 100}
+    rounds = [("off", r(100.0)), ("sample_1", r(95.0, cpu=2.2)),
+              ("off", r(102.0, cpu=2.05)),
+              ("sample_1", r(97.0, p99=30.0, cpu=2.3)), ("off", r(101.0)),
+              ("sample_1", r(96.0, cpu=2.2))]
+    out = chip_smoke.cost_summary(rounds)
+    off, s1 = out["by_setting"]["off"], out["by_setting"]["sample_1"]
+    assert off["rounds"] == 3 and off["requests"] == 300
+    assert off["requests_per_s"]["median"] == 101.0
+    assert (off["requests_per_s"]["min"], off["requests_per_s"]["max"]) \
+        == (100.0, 102.0)
+    assert s1["latency_ms_p99"]["median"] == 20.0
+    assert s1["latency_ms_p99"]["values"] == [20.0, 30.0, 20.0]
+    assert abs(out["off_range_pct"] - 2 / 101 * 100) < 1e-9
+    assert out["resolves_5pct"]
+    assert abs(out["vs_off_pct"]["sample_1"] - (96 / 101 - 1) * 100) < 1e-9
+    assert s1["cpu_ms_per_request"]["median"] == 2.2
+    assert abs(out["cpu_off_range_pct"] - 0.05 / 2.0 * 100) < 1e-9
+    assert out["cpu_resolves_5pct"]
+    assert abs(out["cpu_vs_off_pct"]["sample_1"] - 10.0) < 1e-9
+    wide = chip_smoke.cost_summary(rounds + [("off", r(90.0, cpu=2.5))])
+    assert not wide["resolves_5pct"] and not wide["cpu_resolves_5pct"]
+    assert chip_smoke.cost_summary([]) == {"by_setting": {}}
+
+
+def test_child_task_reports_or_fails(monkeypatch, tmp_path):
+    """A measurement of ``CHILD_TASKS`` (phase 23 (f), phase 12's NMT
+    flash backward) runs in a fresh process of the script with its flag,
+    whose report is read back; a child that exits non-zero fails with its
+    error's tail.  ``main`` takes both there."""
+    import subprocess
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        if "--seed" in cmd and cmd[cmd.index("--seed") + 1] == "7":
+            (tmp_path / "phase23_profiler.json").write_text(
+                '{"ok": true}')
+            return subprocess.CompletedProcess(cmd, 0, "", "")
+        return subprocess.CompletedProcess(cmd, 1, "", "no card")
+    monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    out = chip_smoke.in_child("phase23_profiler", 7, tmp_path)
+    assert out["ok"] is True and out["child_s"] >= 0
+    cmd = calls[0]
+    assert cmd[1].endswith("chip_smoke.py")
+    assert cmd[-2:] == [chip_smoke.CHILD_FLAG, "phase23_profiler"]
+    with pytest.raises(AssertionError, match="no card"):
+        chip_smoke.in_child("phase23_profiler", 8, tmp_path)
+    assert set(chip_smoke.CHILD_TASKS) == {"phase23_profiler",
+                                           "nmt_flash_backward"}
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert "CHILD_TASKS[args.child](args.seed, out)" in src
+    assert 'in_child("nmt_flash_backward", args.seed' in src
+    assert 'in_child("phase23_profiler"' in inspect.getsource(
+        chip_smoke.observability_phase)
+
+
+def test_trace_trees_flag_a_broken_chain():
+    """The tree check passes a well-formed request and fails each link of
+    the chain taken away, and a wrong echoed trace id."""
+    tid, caller = "a" * 32, "c" * 16
+    spans = [
+        {"name": "serving.request", "trace_id": tid, "span_id": "r1",
+         "parent_id": caller},
+        {"name": "serving.request", "trace_id": "b" * 32, "span_id": "r2",
+         "parent_id": "d" * 16},
+        {"name": "serving.assemble", "trace_id": tid, "span_id": "a1",
+         "parent_id": "r1", "links": [["b" * 32, "r2"]]},
+        {"name": "serving.dispatch", "trace_id": tid, "span_id": "d1",
+         "parent_id": "a1"},
+        {"name": "serving.readback", "trace_id": tid, "span_id": "b1",
+         "parent_id": "d1"}]
+    callers = [(tid, caller), ("b" * 32, "d" * 16)]
+    resp = {0: {"traceparent": f"00-{tid}-r1-01"},
+            1: {"traceparent": f"00-{'b' * 32}-r2-01"}}
+    good = chip_smoke.trace_trees(spans, callers, resp)
+    assert good["ok"] and good["linked"] == 1
+    for drop in range(2, 5):
+        bad = chip_smoke.trace_trees(spans[:drop] + spans[drop + 1:],
+                                     callers, resp)
+        assert bad["n_bad"] == 2, drop
+    wrong = {**resp, 1: {"traceparent": f"00-{'e' * 32}-r2-01"}}
+    assert chip_smoke.trace_trees(spans, callers, wrong)["bad"] == [
+        (1, "root")]

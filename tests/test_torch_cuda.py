@@ -2470,3 +2470,51 @@ def test_control_flow_detection_models_on_card(card, monkeypatch):
     nmt = chip_smoke.nmt22_run(0)
     assert nmt["ok"], nmt["checks"]
     assert chip_smoke.feedforward_run(0)["ok"]
+
+
+def test_observability_phase_on_card(card, monkeypatch, tmp_path):
+    """Phase 23 of ``chip_smoke.py`` at a small size on the card: a
+    2-layer BERT 128 wide (head width 64, the flash kernel's) behind the
+    front door, traced: the span trees, the echoed trace ids, the flash
+    kernel 2 times a forward, the logits bit for bit with tracing on and
+    off, the metrics endpoint, ``/debug`` with the dispatch workers'
+    frames tagged by trace, the held dispatch's postmortem, the flight
+    dump, the decode-slot rounds bit for bit, and the profiler's device
+    trace (the flash kernel 2 times a forward, by CUPTI's records and by
+    the wrapper's count).  The SLO controller's
+    verdict rests on the card's latencies at full size: the phase holds
+    it there; its decisions on a synthetic stream are held on the CPU."""
+    import chip_smoke
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import BERTModel
+    monkeypatch.setattr(chip_smoke, "bert_base", lambda **kw: BERTModel(
+        vocab_size=1000, num_layers=2, units=128, hidden_size=256,
+        num_heads=2, **kw))
+    # (f) in this process: the child would rerun the script at full size
+    monkeypatch.setattr(chip_smoke, "in_child", lambda task, seed, out:
+                        chip_smoke.CHILD_TASKS[task](seed, out))
+    for name, value in (
+            ("VOCAB", 1000), ("LAYERS", 2),
+            ("LENGTH_BUCKETS", (32, 64, 96, 128, 160)),
+            ("OBS_REQUESTS", 16), ("OBS_COST_REQUESTS", 16),
+            ("OBS_COST_SECONDS", 0.5), ("OBS_COST_REPEATS", 1),
+            ("OBS_LM_REQUESTS", 2),
+            ("OBS_OVERLOAD", {"clients": 8, "requests": 24, "length": 160}),
+            ("OBS_QUIET", {"clients": 1, "requests": 6, "length": 16}),
+            ("GEN_BASE_MODEL", dict(vocab_size=257, num_layers=2, units=64,
+                                    hidden_size=128, num_heads=4,
+                                    max_length=256)),
+            ("GEN_BASE", {"slots": 16, "kv_block": 16, "kv_blocks": 128,
+                          "prompt_buckets": (16, 32),
+                          "max_new_tokens": 128}),
+            ("GEN_BASE_PROMPT", (4, 30)), ("OBS_SLOT_NEW", (8, 24)),
+            ("OBS_SLOT_REQUESTS", 8), ("OBS_SLOT_ROUNDS", 3),
+            ("OBS_PROFILE_FORWARDS", 2), ("OBS_PROFILE_SHAPE", (2, 64))):
+        monkeypatch.setattr(chip_smoke, name, value)
+    out = chip_smoke.observability_phase(0, "card", tmp_path)
+    front = {k: v for k, v in out["front_door"]["checks"].items()
+             if k != "slo"}
+    assert all(front.values()), (front, out["front_door"]["trees"])
+    assert out["front_door"]["flash"]["per_forward"] == 2
+    assert out["watchdog"]["ok"], out["watchdog"]["checks"]
+    assert out["decode_slots"]["ok"], out["decode_slots"]["checks"]
+    assert out["profiler"]["ok"], out["profiler"]

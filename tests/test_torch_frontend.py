@@ -2,8 +2,10 @@
 ``HttpFrontend`` (JSON predict, SSE token streaming, ``/v1/models``,
 ``/healthz``, ``/readyz``), the registry's priority gate, the blue/green
 weight swap, ``set_workers`` and SIGTERM draining; the counterparts of
-``tests/test_frontend.py``'s tests, less W3C ``traceparent`` stitching, the
-SLO controller and Prometheus rendering, which the port does not have yet.
+``tests/test_frontend.py``'s tests.  W3C ``traceparent`` stitching and the
+``/debug`` routes are held in ``tests/test_torch_serving_trace.py``, the
+SLO controller in ``tests/test_torch_tuning.py`` and the Prometheus text in
+``tests/test_torch_observability.py``.
 
 Concurrent HTTP clients must get exactly the floats ``submit()`` returns;
 an SSE stream carries exactly the tokens ``generate()`` returns; a client
@@ -83,11 +85,16 @@ def _post(port, path, obj, headers=None, timeout=60.0):
 
 
 def _get(port, path, timeout=30.0):
+    """(status, the JSON body; or the text of a plain-text one, as the
+    ``/debug`` routes' 404 is)."""
     c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         c.request("GET", path)
         r = c.getresponse()
-        return r.status, json.loads(r.read())
+        body = r.read()
+        if (r.getheader("Content-Type") or "").startswith("text/plain"):
+            return r.status, body.decode()
+        return r.status, json.loads(body)
     finally:
         c.close()
 

@@ -212,6 +212,16 @@ def test_port_imports_without_jax():
             "import mxnet_tpu_torch.serving.frontend\n"
             "import mxnet_tpu_torch.serving.server\n"
             "import mxnet_tpu_torch.gluon.cached_op\n"
+            "import mxnet_tpu_torch.observability.registry\n"
+            "import mxnet_tpu_torch.observability.trace\n"
+            "import mxnet_tpu_torch.observability.tracing\n"
+            "import mxnet_tpu_torch.observability.flight\n"
+            "import mxnet_tpu_torch.observability.export\n"
+            "import mxnet_tpu_torch.observability.sampler\n"
+            "import mxnet_tpu_torch.observability.watchdog\n"
+            "import mxnet_tpu_torch.tuning\n"
+            "import mxnet_tpu_torch.tuning.controllers\n"
+            "import mxnet_tpu_torch.profiler\n"
             "import chip_smoke\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.'))"
             " for m in sys.modules if sys.modules[m] is not None)\n")
