@@ -11,7 +11,8 @@ training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
 and Mask-RCNN training, phase 14's hybridized runs, phase 15's
 generation serving, each part of phase 16, each training run of
 phase 17, each model of phase 18, each part of phases 19 and 20,
-phases 21 and 22, and phase 23's traced round) and read just after;
+phases 21 and 22, phase 23's traced round, and phase 24 and its
+Longformer fit) and read just after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -540,14 +541,33 @@ kernels not at all:
    released; a forced exception dumps the flight recorder with the served
    requests; (e) an overload round past BERT-base's SLO makes
    ``SloController`` shed the generation model (429) and double
-   BERT-base's workers, quiet rounds un-shed it; ``DecodeSlotController``
+   BERT-base's workers, quiet rounds un-shed it on the tick it is due;
+   ``DecodeSlotController``
    ticks over rounds of the 16-slot generation at BERT-base's widths,
    each round's tokens bit for bit those at 16 fixed slots; (f)
    ``mx.profiler`` with ``profile_all=True`` around 3 eager BERT-base
    forwards and an ``nd`` MLP step: the op events, the card's kernels
    (the flash kernel 12 times a forward) and ``dumps()``'s rows, and what
    ``torch.profiler`` shows of one replayed forward (reported);
-24. prints one JSON line of kernel measurements (flash: the fp32 and, as
+24. int8 and Longformer: (a) ResNet-50 v1 at 224 x 224, calibrated
+   (``calib_mode="entropy"``, 2 batches of 4 seeded images), its 53
+   convolutions and Dense swapped by ``quantize_net``, 32 requests served
+   through ``ModelServer``'s captured graphs (against the eager int8
+   forward); each quantized layer's int32 accumulator on the card's own
+   int8 input bit for bit the CPU's; the card's int8 logits against a CPU
+   int8 run given the card's roundings (``RoundDecisions``); the int8 and
+   fp32 forwards timed at batch 32 and their logits' gap reported; (b)
+   the sliding-window score and context ops, forward and gradients, at
+   B=1, L=4096, 12 heads of 64 and w=256 against their direct-gather
+   plain version, with the memory each keeps for its backward;
+   Longformer-base (12 x 768, FFN 3072, 12 heads, w=256) with a
+   Dense(50265) head trained 3 steps at B=1, L=4096 through
+   ``Estimator.fit`` (``StoppingHandler``, ``CheckpointHandler``,
+   ``LoggingHandler``), its SGD in the momentum kernel (launches counted),
+   peak memory under 24 GB, its first step again bit for bit, the fp32
+   encoder against float64 and the encoder served hybridized at B=4
+   against eager;
+25. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -562,7 +582,8 @@ kernels not at all:
    ``symbolic_module_launches``, phase 20's under ``export_launches``,
    phase 21's under ``op_slice_launches``, phase 22's under
    ``control_flow_detection_launches``, phase 23's under
-   ``observability_flash_launches``;
+   ``observability_flash_launches``, phase 24's under
+   ``longformer_launches``;
    the SGD kernels' bf16/fp16 entries, and the mixed path's own entry
    beside the unfused route's ``before_ms``), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -619,8 +640,22 @@ from mxnet_tpu_torch.gluon.model_zoo.rcnn import (RCNNLoss,
                                                   mask_rcnn_resnet18_v1)
 from mxnet_tpu_torch.gluon.model_zoo.ssd import (SSDMultiBoxLoss,
                                                  ssd_512_resnet50_v1)
-from mxnet_tpu_torch.gluon.model_zoo.transformer import (CausalLM, bert_base,
+from mxnet_tpu_torch.gluon.model_zoo.transformer import (CausalLM,
+                                                          LongformerEncoder,
+                                                          bert_base,
                                                           causal_lm_small)
+from mxnet_tpu_torch.gluon.contrib.estimator import (BatchBegin, BatchEnd,
+                                                     CheckpointHandler,
+                                                     Estimator,
+                                                     LoggingHandler,
+                                                     StoppingHandler)
+from mxnet_tpu_torch.contrib.quantization import (QuantizedConv2D,
+                                                  QuantizedDense,
+                                                  quantize_net)
+from mxnet_tpu_torch.ndarray.ops_sldwin import (direct_context,
+                                                direct_score,
+                                                sldwin_context,
+                                                sldwin_score)
 from mxnet_tpu_torch.gluon.model_zoo import vision as vision_zoo
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
 from mxnet_tpu_torch.initializer import Xavier
@@ -10163,7 +10198,11 @@ OBS_PRIORITY = {"bert_base": 2, "causal_lm_small": 1}
 OBS_SLO_MS = 25.0                 # BERT-base's socket-to-socket p99 budget
 OBS_OVERLOAD = {"clients": 48, "requests": 192, "length": 512}
 OBS_QUIET = {"clients": 1, "requests": 12, "length": 16}
-OBS_QUIET_ROUNDS = 3
+#: the quiet spell: up to this many rounds, one controller tick after
+#: each, until the shed steps down.  The controller steps down on the
+#: second consecutive interval whose served p99 is under 0.6 x the SLO;
+#: one slow request on a shared host spoils an interval of 12.
+OBS_QUIET_ROUNDS = 8
 OBS_SAMPLE_HZ = 100.0
 OBS_WD_FACTOR = 4.0
 OBS_WD_TICK_S = 0.5
@@ -10676,15 +10715,30 @@ def front_door_cell(seed: int, dev, out_dir: Path, classify, lm) -> dict:
     return res
 
 
+def unshed_due(p99_ms: list, threshold_ms: float):
+    """The quiet tick (0-based) on which ``SloController`` is due to step
+    its shed down: the second of two consecutive intervals whose served
+    p99 is under ``threshold_ms``; None if no two are."""
+    good = [v < threshold_ms for v in p99_ms]
+    return next((i for i in range(1, len(good))
+                 if good[i - 1] and good[i]), None)
+
+
 def slo_cell(seed: int, fe, models) -> dict:
     """(e) an overload round of BERT-base past its ``slo_ms`` makes
     ``SloController.tick()`` shed the generation model (429 at the door)
-    and double BERT-base's workers; quiet rounds un-shed it."""
+    and double BERT-base's workers; quiet rounds un-shed it on the second
+    consecutive interval whose served p99 is under the recovery
+    threshold, read beside the controller from the same histogram."""
     ctl = tuning.SloController(models, enabled=True)
     bert = models.get("bert_base")
     rec = obs_flight.recorder()
     n_tune = len(rec.tunings())
     ctl.tick()                                   # the intervals' baseline
+    # the controller's signal, read alongside it: each tick's interval
+    # of BERT-base's served latency
+    seen = tuning.HistogramDelta(bert.h_request)
+    seen.take()
     heavy = obs_requests(seed + 25, OBS_OVERLOAD["requests"],
                          OBS_OVERLOAD["length"])
     light = obs_requests(seed + 26, OBS_QUIET["requests"],
@@ -10694,13 +10748,19 @@ def slo_cell(seed: int, fe, models) -> dict:
         shed_tick = ctl.tick()
         level, workers = models.shed_level, bert.server.workers
         shed_status = obs_generate(fe.port, 1)[0][0]
-        quiet, ticks = [], []
+        seen.take()
+        threads = sorted(t.name for t in threading.enumerate())
+        quiet, ticks, p99_ms = [], [], []
         for _ in range(OBS_QUIET_ROUNDS):
             quiet.append(obs_round(fe.port, light, OBS_QUIET["clients"]))
             ticks.append(ctl.tick())
+            p99_ms.append(seen.take()["p99"] / 1e3)
             if models.shed_level < level:
                 break
         after_status = obs_generate(fe.port, 1)[0][0]
+    due = unshed_due(p99_ms, OBS_SLO_MS * ctl.recover)
+    stepped = next((i for i, d in enumerate(ticks) if d is not None
+                    and d["to"] < d["from"]), None)
     decisions = [d for d in [shed_tick] + ticks if d is not None]
     tunings = [d for d in rec.tunings()[n_tune:] if d["controller"] == "slo"]
     metric = registry().counter("tuning.slo.decisions").n
@@ -10711,11 +10771,14 @@ def slo_cell(seed: int, fe, models) -> dict:
         "workers_raised": workers > 2,
         "quiet_unsheds": models.shed_level
         <= OBS_PRIORITY["causal_lm_small"] and after_status == 200,
+        "unshed_when_due": stepped is not None and stepped == due,
         "workers_back": bert.server.workers == 2,
         "flight_records": len(tunings) == len(decisions) >= 2,
         "tuning_metrics": metric >= len(decisions)}
     return {"overload": _brief_round(over),
             "quiet": [_brief_round(q) for q in quiet],
+            "quiet_served_p99_ms": p99_ms, "unshed_due_tick": due,
+            "unshed_tick": stepped, "threads_at_quiet": threads,
             "shed_level_after_overload": level,
             "workers_after_overload": workers,
             "shed_status": shed_status, "after_status": after_status,
@@ -11070,6 +11133,409 @@ def observability_phase(seed: int, card: str, out_dir: Path) -> dict:
             "launches": front["flash"]["launches"],
             "seconds": time.monotonic() - t0, "part_seconds": parts,
             "ok": front["ok"] and wd["ok"] and slots["ok"] and prof["ok"]}
+
+
+# ---- phase 24: int8 ResNet-50 v1 served, Longformer-base trained --------
+#: the served requests and the timed forwards' batch (int8 and fp32)
+Q_BATCH = 32
+Q_SIZE = 224
+#: entropy calibration: batches x images (host numpy: 54 layers of
+#: 8001-bin |x| histograms over both passes, then ~65 candidate
+#: thresholds x 255 groups a layer)
+Q_CALIB = (2, 4)
+Q_TIMED = 5
+#: the card's int8 logits against the CPU's int8 run with the card's
+#: roundings, over max(1, max |logit|)
+Q_LOGIT_TOL = 1e-4
+#: served against eager, over max(1, max |logit|)
+Q_SERVE_TOL = 1e-6
+Q_BUCKETS = (8, 32)
+
+#: Longformer-base (``allenai/longformer-base-4096``): 12 layers, 768
+#: units, FFN 3072, 12 heads, window 512 (w = 256 a side), 4096 positions,
+#: RoBERTa's vocabulary of 50,265
+LF = {"vocab": 50265, "layers": 12, "units": 768, "ffn": 3072, "heads": 12,
+      "w": 256, "length": 4096}
+LF_BATCH, LF_STEPS, LF_SERVE_BATCH = 1, 3, 4
+LF_OPT = {"learning_rate": 0.01, "momentum": 0.9}
+LF_MEM_GB = 24.0
+#: the sliding-window ops against their direct-gather plain version, and
+#: the fp32 encoder against float64, over max(1, max |ref|)
+SLDWIN_TOL = 1e-5
+LF64_TOL = 1e-4
+LF_SERVE_TOL = 1e-6
+
+
+def q_model():
+    return resnet50_v1(classes=1000)
+
+
+def lf_encoder():
+    return LongformerEncoder(LF["vocab"], num_layers=LF["layers"],
+                             units=LF["units"], hidden_size=LF["ffn"],
+                             num_heads=LF["heads"], w=LF["w"],
+                             max_length=LF["length"])
+
+
+class RoundDecisions(Decisions):
+    """While open, every ``torch.round`` (int8 quantization's, in
+    ``ops_quantization.quantize_tensor``) records its result, one tensor a
+    call in call order, or, given ``masks`` (the card's results), returns
+    those and counts the elements where its own rounding differs
+    (``flips``).  A value within rounding of a half step can fall either
+    way in the card's and the CPU's fp32 arithmetic; holding the CPU run
+    to the card's int8 inputs keeps the comparison about the rest."""
+
+    ROUNDS = (torch.round, torch.Tensor.round)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in self.ROUNDS:
+            return func(*args, **kwargs)
+        own = func(*args, **kwargs)
+        self.units += own.numel()
+        if self._forced is None:
+            self.masks.append(own.detach())
+            return own
+        card = self._forced[self._calls].to(own.device, own.dtype)
+        self._calls += 1
+        self.flips += int((own != card).sum())
+        return card
+
+
+def quantize_like(net, twin) -> None:
+    """Swap ``net``'s Dense and Conv2D layers for int8 blocks with the
+    input ranges calibrated for ``twin``, its quantized copy (so both
+    quantize alike)."""
+    for (name, child), other in zip(list(net._modules.items()),
+                                    twin._modules.values()):
+        if isinstance(other, (QuantizedConv2D, QuantizedDense)):
+            net._modules[name] = type(other)(child, other._calib)
+        elif isinstance(child, gluon.Block):
+            quantize_like(child, other)
+
+
+def _predict(model, data):
+    with torch.no_grad(), autograd.predict_mode():
+        return model(data)
+
+
+def int8_resnet_run(seed: int) -> dict:
+    """(a) ResNet-50 v1 at 224 x 224, calibrated (``entropy``) on
+    ``Q_CALIB`` seeded batches, quantized (53 convolutions and the Dense)
+    and served ``Q_BATCH`` requests through ``ModelServer``'s captured
+    graphs; each quantized layer's int32 accumulator on the card's own
+    int8 input against the CPU's; the card's int8 logits against a CPU
+    int8 run given the card's roundings (``RoundDecisions``)."""
+    dev = gpu(0)
+    checks, res = {}, {}
+    net = q_model()
+    net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+    weights = {k: v.cpu().numpy() for k, v in _snapshot(net).items()}
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    x = torch.randn(Q_BATCH, 3, Q_SIZE, Q_SIZE, device=dev, generator=gen)
+    calib = [torch.randn(Q_CALIB[1], 3, Q_SIZE, Q_SIZE, device=dev,
+                         generator=gen) for _ in range(Q_CALIB[0])]
+    targets = {"QuantizedConv2D": sum(isinstance(m, nn.Conv2D)
+                                      for m in net.modules()),
+               "QuantizedDense": sum(isinstance(m, nn.Dense)
+                                     for m in net.modules())}
+    fp32 = _predict(net, x)
+    res["fp32_forward_ms"] = cuda_ms(lambda: _predict(net, x), Q_TIMED)
+    t0 = time.monotonic()
+    quantize_net(net, calib_data=[nd.NDArray(c) for c in calib],
+                 calib_mode="entropy")
+    res["calibrate_s"] = time.monotonic() - t0
+    layers = [m for m in net.modules()
+              if isinstance(m, (QuantizedConv2D, QuantizedDense))]
+    kinds = [type(m).__name__ for m in layers]
+    res["layers"] = {k: kinds.count(k) for k in sorted(set(kinds))}
+    checks["layers"] = res["layers"] == targets
+    int8 = _predict(net, x)
+    res["int8_forward_ms"] = cuda_ms(lambda: _predict(net, x), Q_TIMED)
+    checks["finite"] = tuple(int8.shape) == (Q_BATCH, 1000) and \
+        bool(torch.isfinite(int8).all())
+    res["int8_vs_fp32"] = {
+        "rel_err": _rel_err(int8, fp32),
+        "top1_agree": (int8.argmax(1) == fp32.argmax(1)).float().mean()
+        .item()}
+
+    # each layer's accumulator on the card's own int8 input, and the card's
+    # roundings for the CPU's run of one image
+    inputs = {}
+    handles = [blk.register_forward_hook(
+        lambda b, args, out, i=i: inputs.__setitem__(i, args[0]._data))
+        for i, blk in enumerate(layers)]
+    with RoundDecisions() as card_rounds:
+        one = _predict(net, x[:1])
+    for h in handles:
+        h.remove()
+    acc_equal, acc_max = 0, 0
+    for i, blk in enumerate(layers):
+        acc, ins = blk.accumulate(inputs[i])
+        ref = blk._int_op(*[t.cpu() for t in ins])[0]
+        acc_equal += int(torch.equal(acc.cpu(), ref))
+        acc_max = max(acc_max, int(ref.abs().max()))
+    del inputs
+    checks["accumulators_bitwise"] = acc_equal == len(layers)
+    cpu_net = q_model()
+    load_reference_params(cpu_net, weights, ctx=cpu())
+    quantize_like(cpu_net, net)
+    with RoundDecisions(card_rounds.masks) as forced:
+        cpu_one = _predict(cpu_net, x[:1].cpu())
+    e2e = _rel_err(one, cpu_one)
+    checks["cpu_logits"] = e2e <= Q_LOGIT_TOL and \
+        forced.flips <= DECISION_FLIPS * max(forced.units, 1)
+    res["accumulators"] = {"layers": len(layers), "bitwise": acc_equal,
+                           "max_abs": acc_max, "images": 1}
+    res["cpu_int8"] = {"rel_err": e2e, "tol": Q_LOGIT_TOL,
+                       "rounded": forced.units, "flips": forced.flips}
+    del cpu_net, card_rounds, forced
+
+    # served: Q_BATCH requests through the captured graphs
+    srv = ModelServer(net, max_batch=Q_BUCKETS[-1], batch_buckets=Q_BUCKETS,
+                      queue_depth=4 * Q_BATCH, deadline_ms=0, workers=2,
+                      batch_window_us=5000)
+    served = serve_exported(srv, x.cpu().numpy())
+    answers = served.pop("answers")
+    serve_err = _rel_err(answers, int8)
+    checks["served"] = serve_err <= Q_SERVE_TOL and \
+        served["executables"] >= 1
+    res["served"] = served | {
+        "requests": Q_BATCH, "rel_err_vs_eager": serve_err,
+        "bitwise_eager": _bitwise([answers.to(int8.device)], [int8]),
+        "graphs": srv._block.graph_stats()["graphs"]}
+    del srv
+    free_graphs(net)
+    res.update(batch=Q_BATCH, calibration_images=Q_CALIB[0] * Q_CALIB[1],
+               checks=checks, ok=all(checks.values()))
+    return res
+
+
+def sldwin_check(seed: int) -> dict:
+    """One layer's score and context ops, forward and gradients, at
+    Longformer-base's heads and width, B=1 and L=4096, against the
+    direct-gather plain version on the card (which holds both 6.46 GB
+    bands), with the bytes each saves for its backward."""
+    dev = gpu(0)
+    b, length, h = LF_BATCH, LF["length"], LF["heads"]
+    d, w = LF["units"] // h, LF["w"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 241)
+    q, k, v, g = (torch.randn(b, length, h, d, device=dev, generator=gen)
+                  for _ in range(4))
+    dil = torch.ones(h, dtype=torch.int32, device=dev)
+
+    def run(score_fn, context_fn):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        saved = []
+
+        def pack(t):
+            saved.append(t.numel() * t.element_size())
+            return t
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            s = score_fn(ins[0], ins[1], dil, w) * (1.0 / math.sqrt(d))
+            c = context_fn(torch.softmax(s, dim=-1), ins[2], dil, w)
+        kept = sum(saved)
+        (c * g).sum().backward()
+        torch.cuda.synchronize()
+        out = [s.detach(), c.detach()] + [t.grad for t in ins]
+        return out, kept, (time.monotonic() - t0) * 1e3
+    ours, kept, ms = run(sldwin_score, sldwin_context)
+    plain, plain_kept, plain_ms = run(direct_score, direct_context)
+    errs = {name: _rel_err(a, r) for name, a, r in zip(
+        ("score", "context", "dq", "dk", "dv"), ours, plain)}
+    band = b * h * length * (2 * w + 1) * d * 4
+    del ours, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"shape": [b, length, h, d], "w": w, "rel_err": errs,
+            "tol": SLDWIN_TOL, "kept_bytes": kept,
+            "plain_kept_bytes": plain_kept, "band_bytes": band,
+            "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms,
+            "ok": all(e <= SLDWIN_TOL for e in errs.values())
+            and kept < band <= plain_kept}
+
+
+class _StepClock(BatchBegin, BatchEnd):
+    """An Estimator handler: each step's wall time and peak memory, the
+    first step's loss and updated weights."""
+
+    def __init__(self, net):
+        self.net, self.ms, self.peak_gb = net, [], []
+        self.first = None
+
+    def batch_begin(self, estimator):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.t0 = time.monotonic()
+
+    def batch_end(self, estimator):
+        torch.cuda.synchronize()
+        self.ms.append((time.monotonic() - self.t0) * 1e3)
+        self.peak_gb.append(torch.cuda.max_memory_allocated() / 1e9)
+        if estimator.processed_batches == 1:
+            self.first = (estimator._batch_loss._data.detach().clone(),
+                          _snapshot(self.net))
+
+
+def longformer_run(seed: int) -> dict:
+    """(b) Longformer-base with a Dense(50265) head trained ``LF_STEPS``
+    steps at B=1, L=4096 through ``Estimator.fit`` (``StoppingHandler``,
+    ``CheckpointHandler`` into a temporary directory, ``LoggingHandler``),
+    ``gluon.Trainer("sgd", momentum=0.9)`` in the momentum kernel; its
+    first step again from the same weights, bit for bit; the fp32 encoder
+    against float64; the encoder served hybridized at B=4 against
+    eager."""
+    dev = gpu(0)
+    checks, res = {}, {}
+    enc = lf_encoder()
+    head = nn.Dense(LF["vocab"], flatten=False, in_units=LF["units"])
+    net = nn.HybridSequential()
+    net.add(enc, head)
+    net.initialize(mx_init.Xavier(), ctx=dev, seed=seed)
+    params = net.collect_params()
+    res["params"] = sum(p._tensor().numel() for p in params.values())
+    res["encoder_params"] = sum(p._tensor().numel()
+                                for p in enc.collect_params().values())
+    gen = torch.Generator(device=dev).manual_seed(seed + 242)
+    shape = (LF_BATCH, LF["length"])
+    tokens = torch.randint(0, LF["vocab"], shape, device=dev,
+                           generator=gen).float()
+    labels = torch.randint(0, LF["vocab"], shape, device=dev,
+                           generator=gen).float()
+    w_init = _snapshot(net)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(params, "sgd", LF_OPT)
+    est = Estimator(net, lossfn, train_metrics=metric.Loss("ce"),
+                    trainer=trainer)
+    clock = _StepClock(net)
+    batch = (nd.NDArray(tokens), nd.NDArray(labels))
+    trainable = [p for p in params.values() if p.grad_req != "null"]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        zero_counts()
+        est.fit([batch] * (LF_STEPS + 1), epochs=1, batch_size=LF_BATCH,
+                event_handlers=[StoppingHandler(max_batch=LF_STEPS),
+                                CheckpointHandler(tmp, "longformer"),
+                                LoggingHandler(log_interval=1), clock])
+        torch.cuda.synchronize()
+        launches = multi_sgd_mom.launches
+        others = other_launches(multi_sgd_mom)
+        saved = {f: os.path.getsize(os.path.join(tmp, f))
+                 for f in sorted(os.listdir(tmp))}
+    expected = -(-len(trainable) // AGG) * LF_STEPS
+    losses = est.loss_metric.get()[1]
+    checks["steps"] = est.processed_batches == LF_STEPS
+    checks["launches"] = launches == expected and others == 0
+    checks["checkpoint"] = sorted(saved) == ["longformer-epoch0.params",
+                                             "longformer.states"] and \
+        all(n > 0 for n in saved.values())
+    checks["memory"] = max(clock.peak_gb) < LF_MEM_GB
+    checks["finite"] = math.isfinite(losses)
+    res.update(steps=est.processed_batches, step_ms=clock.ms,
+               peak_memory_gb=clock.peak_gb, launches=launches,
+               expected_launches=expected, trainable_params=len(trainable),
+               mean_loss=losses, checkpoint_bytes=saved)
+    del est, trainer
+
+    # the first step again from the same weights: the same bits
+    with torch.no_grad():
+        for p, t in zip(params.values(), w_init.values()):
+            p._tensor().copy_(t)
+    rerun = gluon.Trainer(params, "sgd", LF_OPT)
+    with autograd.record():
+        loss = lossfn(net(batch[0]), batch[1])
+    loss.backward()
+    rerun.step(LF_BATCH)
+    torch.cuda.synchronize()
+    first_loss, first_weights = clock.first
+    checks["step_bitwise"] = _bitwise([loss._data.detach()], [first_loss]) \
+        and _bitwise(list(_snapshot(net).values()),
+                     list(first_weights.values()))
+    res["rerun_launches"] = multi_sgd_mom.launches - launches
+    del rerun, loss, clock, w_init, first_weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fp32 encoder against float64, on the card
+    out32 = _predict(enc, tokens)
+    enc64 = lf_encoder()
+    load_reference_params(enc64, {k: p._tensor().detach().cpu().numpy()
+                                  for k, p in enc.collect_params().items()},
+                          ctx=dev)
+    enc64.cast("float64")
+    out64 = _predict(enc64, tokens)
+    res["fp64"] = {"rel_err": _rel_err(out32, out64), "tol": LF64_TOL,
+                   "max_abs_ref": out64.abs().max().item()}
+    checks["fp64"] = res["fp64"]["rel_err"] <= LF64_TOL and \
+        bool(torch.isfinite(out32).all())
+    del enc64, out64, out32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the encoder served hybridized at B=4 against its eager forward
+    many = torch.randint(0, LF["vocab"], (LF_SERVE_BATCH, LF["length"]),
+                         device=dev, generator=gen).float()
+    eager = _predict(enc, many)
+    enc.hybridize()
+    srv = ModelServer(enc, max_batch=LF_SERVE_BATCH,
+                      batch_buckets=(LF_SERVE_BATCH,), deadline_ms=0,
+                      workers=1, batch_window_us=20000)
+    served = serve_exported(srv, many.cpu().numpy())
+    answers = served.pop("answers")
+    res["served"] = served | {
+        "batch": LF_SERVE_BATCH, "rel_err_vs_eager": _rel_err(answers, eager),
+        "bitwise_eager": _bitwise([answers.to(eager.device)], [eager]),
+        "graphs": enc.graph_stats()["graphs"]}
+    checks["served"] = res["served"]["rel_err_vs_eager"] <= LF_SERVE_TOL
+    del srv, eager, answers
+    free_graphs(enc)
+    res.update(checks=checks, ok=all(checks.values()))
+    return res
+
+
+def slice24_phase(seed: int, card: str) -> dict:
+    """Phase 24: (a) int8 ResNet-50 v1, (b) the sliding-window ops and
+    Longformer-base; every count set to 0 just before the phase (and
+    again just before (b)'s fit, whose momentum launches are read just
+    after it), no kernel launched but (b)'s momentum SGD."""
+    start = time.monotonic()
+    zero_counts()
+    res, seconds = {"card": card}, {}
+    for key, fn in (("int8_resnet", int8_resnet_run),
+                    ("sldwin", sldwin_check),
+                    ("longformer", longformer_run)):
+        t0 = time.monotonic()
+        if key == "longformer":
+            res["other_launches"] = other_launches()
+        res[key] = fn(seed)
+        seconds[key] = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = res["longformer"]["launches"]
+    res.update(part_seconds=seconds, seconds=time.monotonic() - start,
+               ok=all(res[k]["ok"] for k in seconds)
+               and res["other_launches"] == 0)
+    return res
+
+
+def failed_checks(report, path: str = "") -> list:
+    """The dotted path of every false entry of every ``checks`` dict in
+    a phase's report, so that a failure names what failed."""
+    out = []
+    if isinstance(report, dict):
+        for key, value in report.items():
+            at = f"{path}.{key}" if path else str(key)
+            if key == "checks" and isinstance(value, dict):
+                out += [f"{at}.{c}" for c, ok in value.items() if not ok]
+            else:
+                out += failed_checks(value, at)
+    elif isinstance(report, (list, tuple)):
+        for i, value in enumerate(report):
+            out += failed_checks(value, f"{path}[{i}]")
+    return out
 
 
 def main() -> int:
@@ -11596,6 +12062,38 @@ def main() -> int:
     print(f"phase 23 on {card}: {obs['seconds']:.1f} s "
           f"{json.dumps(obs['part_seconds'])}, checks "
           f"{json.dumps(r['checks'])}", flush=True)
+    slice24 = slice24_phase(args.seed, card)
+    r = slice24["int8_resnet"]
+    print(f"phase 24 int8 resnet50_v1 on {card}: {json.dumps(r['layers'])}, "
+          f"calibrated on {r['calibration_images']} images in "
+          f"{r['calibrate_s']:.1f} s, forward at batch {r['batch']}: int8 "
+          f"{r['int8_forward_ms']:.3f} ms, fp32 {r['fp32_forward_ms']:.3f} "
+          f"ms, int8 vs fp32 {json.dumps(r['int8_vs_fp32'])}", flush=True)
+    print(f"phase 24 int8 checks on {card}: accumulators "
+          f"{json.dumps(r['accumulators'])}, cpu int8 "
+          f"{json.dumps(r['cpu_int8'])}, served {r['served']['requests']} "
+          f"requests p50 {r['served']['latency_ms_p50']:.3f} ms, "
+          f"{r['served']['requests_per_s']:.1f} requests/s, vs eager "
+          f"{r['served']['rel_err_vs_eager']:.3g} (bitwise "
+          f"{r['served']['bitwise_eager']}), {json.dumps(r['checks'])}",
+          flush=True)
+    print(f"phase 24 sldwin ops on {card}:", json.dumps(slice24["sldwin"]),
+          flush=True)
+    r = slice24["longformer"]
+    print(f"phase 24 longformer-base on {card}: {r['params']} parameters, "
+          f"{r['steps']} Estimator steps at B={LF_BATCH} L={LF['length']}, "
+          f"step ms {[round(v, 3) for v in r['step_ms']]}, peak memory GB "
+          f"{[round(v, 3) for v in r['peak_memory_gb']]}, momentum launches "
+          f"{r['launches']} (expected {r['expected_launches']}), mean loss "
+          f"{r['mean_loss']:.5f}, fp64 {json.dumps(r['fp64'])}", flush=True)
+    print(f"phase 24 longformer served on {card}: batch "
+          f"{r['served']['batch']}, vs eager "
+          f"{r['served']['rel_err_vs_eager']:.3g} (bitwise "
+          f"{r['served']['bitwise_eager']}), p50 "
+          f"{r['served']['latency_ms_p50']:.3f} ms, checks "
+          f"{json.dumps(r['checks'])}", flush=True)
+    print(f"phase 24 on {card}: {slice24['seconds']:.1f} s "
+          f"{json.dumps(slice24['part_seconds'])}", flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -11701,6 +12199,7 @@ def main() -> int:
            "optimizer_zoo_launches": zoo_launches("multi_sgd_mom"),
            "export_launches": export["train"]["launches"],
            "op_slice_launches": slice21["launches"],
+           "longformer_launches": slice24["launches"],
            "control_flow_detection_launches": {
                "rfcn": slice22["rfcn"]["launches"],
                "feedforward": slice22["feedforward"]["launches"]},
@@ -11763,13 +12262,13 @@ def main() -> int:
          "generation": gen, "training_surface": surface,
          "data_pipeline": data, "model_surface": surface18,
          "symbolic": symbolic, "export": export, "op_slice": slice21, "slice22": slice22,
-         "observability": obs, "kernels": kernels,
+         "observability": obs, "slice24": slice24, "kernels": kernels,
          "event_fallbacks": EVENT_FALLBACKS, "elapsed_s": elapsed},
         indent=1))
     print(f"timings by CUDA events where every trace lost records: "
           f"{json.dumps(EVENT_FALLBACKS)}", flush=True)
     failed = [f"sgd kernel checks {sgd['failed']}"] if sgd["failed"] else []
-    failed += [f"{name} phase" for name, ph in (
+    failed += [f"{name} phase {failed_checks(ph)[:20]}" for name, ph in (
         ("mlp", mlp), ("resnet50", resnet), ("rtc", rtc_res),
         ("custom-op mlp", custom), ("bert train", bert),
         ("low precision", low), ("imperative mlp", imp), ("nmt", nmt),
@@ -11779,7 +12278,7 @@ def main() -> int:
         ("data pipeline", data), ("model surface", surface18),
         ("symbolic", symbolic), ("export", export), ("op slice", slice21),
         ("control flow and detection", slice22),
-        ("observability", obs))
+        ("observability", obs), ("int8 and longformer", slice24))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

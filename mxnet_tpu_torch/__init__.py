@@ -49,10 +49,11 @@ from . import attribute, autograd, base, callback, context, contrib, \
     engine, faults, gluon, image, initializer, io, kernels, kvstore, \
     lr_scheduler, metric, model, module, monitor, name, ndarray, \
     observability, operator, optimizer, profiler, random, recordio, rnn, \
-    rtc, serving, symbol, tuning
+    rtc, runtime, serving, symbol, test_utils, tuning, visualization
 from .attribute import AttrScope
-from .base import MXNetError
-from .context import Context, cpu, current_context, gpu, num_gpus
+from .base import MXNetError, get_env, list_env, register_env
+from .context import Context, cpu, cpu_pinned, current_context, gpu, \
+    num_gpus
 from .convert import load_reference_params
 from .monitor import Monitor
 
@@ -60,16 +61,28 @@ nd = ndarray
 init = initializer
 sym = symbol
 mod = module
+kv = kvstore
+viz = visualization
+
+
+def waitall() -> None:
+    """Block until every op queued on every device has run
+    (``mx.nd.waitall``)."""
+    engine.wait_all()
+
 
 __all__ = ["AttrScope", "Context", "MXNetError", "Monitor", "attribute",
            "autograd", "base", "callback",
-           "context", "contrib", "cpu", "current_context", "engine",
-           "faults", "gpu", "gluon", "image", "init", "initializer", "io",
-           "kernels", "kvstore", "load_reference_params", "lr_scheduler",
+           "context", "contrib", "cpu", "cpu_pinned", "current_context",
+           "engine", "faults", "get_env", "gpu", "gluon", "image", "init",
+           "initializer", "io", "kernels", "kv", "kvstore", "list_env",
+           "load_reference_params", "lr_scheduler",
            "metric", "mod", "model", "module", "monitor", "name", "nd",
            "ndarray", "num_gpus",
            "observability", "operator", "optimizer", "profiler", "random",
-           "recordio", "rnn", "rtc", "serving", "sym", "symbol", "tuning"]
+           "recordio", "register_env", "rnn", "rtc", "runtime", "serving",
+           "sym", "symbol", "test_utils", "tuning", "visualization", "viz",
+           "waitall"]
 
 # opt-in exporters and sampler, as the JAX package starts them at import:
 # a Prometheus /metrics endpoint when MXTPU_METRICS_PORT is set, a JSONL

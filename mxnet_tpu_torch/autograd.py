@@ -44,7 +44,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward", "grad", "mark_variables", "Function"]
+           "is_training", "backward", "grad", "mark_variables", "Function",
+           "get_symbol"]
 
 _state = threading.local()
 
@@ -241,6 +242,14 @@ class _Bridge(torch.autograd.Function):
         return (None, None) + tuple(
             _tensor(g) if need else None
             for g, need in zip(grads, ctx.needs_input_grad[2:]))
+
+
+def get_symbol(x):
+    """MXNet's ``autograd.get_symbol``: the recorded computation is torch's
+    graph, not a graph of ops, so this raises as the JAX package's does
+    (:323); ``HybridBlock`` called on a ``Symbol`` gives the graph."""
+    raise MXNetError("get_symbol is not supported on the imperative tape; "
+                     "use HybridBlock.hybridize() or the Symbol API")
 
 
 class Function:

@@ -1,5 +1,5 @@
-"""Training callbacks: ``Speedometer``, ``do_checkpoint`` and
-``module_checkpoint``.
+"""Training callbacks: ``Speedometer``, ``do_checkpoint``,
+``module_checkpoint``, ``log_train_metric`` and ``ProgressBar``.
 
 Counterpart of ``mxnet_tpu/callback.py``.  ``Speedometer`` logs samples
 per second and the metric every ``frequent`` batches and keeps the last
@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import logging
 
-__all__ = ["Speedometer", "do_checkpoint", "module_checkpoint"]
+__all__ = ["Speedometer", "do_checkpoint", "module_checkpoint",
+           "log_train_metric", "ProgressBar"]
 
 
 class Speedometer:
@@ -86,3 +87,34 @@ def module_checkpoint(mod, prefix: str, period: int = 1,
         if (iter_no + 1) % period == 0:
             mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
     return _callback
+
+
+def log_train_metric(period: int, auto_reset: bool = False):
+    """A batch-end callback logging the metric every ``period`` batches
+    (``auto_reset``: reset it after each log)."""
+
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            name_value = param.eval_metric.get_name_value()
+            for name, value in name_value:
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+    return _callback
+
+
+class ProgressBar:
+    """A batch-end callback logging a text bar of ``nbatch`` out of
+    ``total``."""
+
+    def __init__(self, total: int, length: int = 80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param) -> None:
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = int(round(100.0 * count / float(self.total)))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")

@@ -23,7 +23,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "as_device",
+__all__ = ["Context", "cpu", "cpu_pinned", "gpu", "current_context", "as_device",
            "context_of", "num_gpus"]
 
 
@@ -117,6 +117,11 @@ def context_of(device: torch.device) -> Context:
 
 def cpu(device_id: int = 0) -> Context:
     return _CPU
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """MXNet's page-locked host context: the host (``cpu()``)."""
+    return Context("cpu_pinned", device_id)
 
 
 def gpu(device_id: int = 0) -> Context:

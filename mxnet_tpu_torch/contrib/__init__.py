@@ -1,4 +1,5 @@
-"""Contributed modules (``mx.contrib``): automatic mixed precision."""
-from . import amp
+"""Contributed modules (``mx.contrib``): automatic mixed precision and
+int8 quantization."""
+from . import amp, quantization
 
-__all__ = ["amp"]
+__all__ = ["amp", "quantization"]

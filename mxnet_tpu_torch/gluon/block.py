@@ -119,7 +119,7 @@ from ..base import MXNetError
 from ..context import DeviceLike
 from ..contrib.amp import amp as _amp
 from ..ndarray.ndarray import NDArray
-from ..ndarray.register import call_on_tensors, has_ndarray, unwrap
+from ..ndarray.register import call_on_tensors, has_ndarray, unwrap, wrap
 from . import cached_op
 from ..symbol.symbol import Group, Symbol
 from .parameter import Parameter, ParameterDict
@@ -229,6 +229,24 @@ class Block(nn.Module):
                 object.__setattr__(self, "_deferred_shapes", True)
             return
         super().__setattr__(name, value)
+
+    def register_forward_hook(self, hook, **kwargs):
+        """Call ``hook(block, args, out)`` after each forward, with the
+        inputs and outputs as ``NDArray``s (MXNet's and the JAX package's
+        signature, ``mxnet_tpu/gluon/block.py:217``); returns the handle
+        whose ``remove()`` takes it off."""
+        def call(module, args, out):
+            return hook(module, wrap(tuple(args)), wrap(out))
+        return super().register_forward_hook(call, **kwargs)
+
+    def summary(self, *inputs):
+        """Run the block on ``inputs``, print its parameter count (the
+        JAX package's ``Block.summary``, :223) and return the output."""
+        out = self(*inputs)
+        total = sum(int(np.prod(p.shape)) for p in
+                    self.collect_params().values())
+        print(f"{type(self).__name__}: {total} parameters")
+        return out
 
     def infer_shape(self, *args) -> None:
         """Fix the unknown dimensions of this block's parameters from its

@@ -1,8 +1,13 @@
-"""``gluon.contrib``: ``cnn.DeformableConvolution``.
+"""``gluon.contrib``: ``cnn.DeformableConvolution``, ``nn`` (``SyncBatchNorm``
+and MXNet's import path of ``HybridConcurrent``/``Identity``), ``rnn``
+(the conv cells and ``VariationalDropoutCell``) and ``estimator``
+(``Estimator`` and its handlers).
 
-Counterpart of ``mxnet_tpu/gluon/contrib/``; its ``nn``, ``rnn`` and
-``estimator`` modules are not ported.
+Counterpart of ``mxnet_tpu/gluon/contrib/``.
 """
 from . import cnn  # noqa: F401
+from . import nn  # noqa: F401
+from . import rnn  # noqa: F401
+from . import estimator  # noqa: F401
 
-__all__ = ["cnn"]
+__all__ = ["cnn", "estimator", "nn", "rnn"]

@@ -44,6 +44,18 @@ def _apply_weighting(loss, weight=None, sample_weight=None):
     return loss
 
 
+def _weighting_sym(F, loss, weight=None, sample_weight=None):
+    """``_apply_weighting`` in graph ops (the JAX package's
+    ``mxnet_tpu/gluon/loss.py:19-26``), for the symbolic bodies."""
+    if sample_weight is not None:
+        loss = F.broadcast_mul(loss, sample_weight)
+    if weight is not None:
+        if not isinstance(weight, (int, float)):
+            raise MXNetError("weight must be a number")
+        loss = loss * weight
+    return loss
+
+
 class Loss(HybridBlock):
     def __init__(self, weight, batch_axis, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -94,6 +106,18 @@ class SoftmaxCrossEntropyLoss(Loss):
                                                            keepdim=True)
         return self._batch_mean(
             _apply_weighting(loss, self._weight, sample_weight))
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        """The symbolic body (``mxnet_tpu/gluon/loss.py:110-119``)."""
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        if self._sparse_label:
+            loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
+        else:
+            loss = -F.sum(pred * F.reshape_like(label, pred),
+                          axis=self._axis, keepdims=True)
+        loss = _weighting_sym(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss
@@ -159,6 +183,14 @@ class KLDivLoss(Loss):
         loss = label * (torch.log(label + 1e-12) - pred)
         return self._batch_mean(
             _apply_weighting(loss, self._weight, sample_weight))
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        """The symbolic body (``mxnet_tpu/gluon/loss.py:132-137``)."""
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _weighting_sym(F, loss, self._weight, sample_weight)
+        return F.mean(loss, axis=self._batch_axis, exclude=True)
 
 
 class HuberLoss(Loss):
@@ -335,3 +367,17 @@ class CTCLoss(Loss):
         lengths = [v for v in (pred_lengths, label_lengths) if v is not None]
         return _apply_weighting(fn(pred, label, *lengths), self._weight,
                                 sample_weight)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        """The symbolic body (``mxnet_tpu/gluon/loss.py:312-327``)."""
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        lengths = [v for v in (pred_lengths, label_lengths) if v is not None]
+        loss = F.CTCLoss(pred, label, *lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _weighting_sym(F, loss, self._weight, sample_weight)

@@ -10,7 +10,9 @@ serving and pretraining paths and the NMT training and translation path:
 ``bert_small`` / ``transformer_nmt_base`` configurations, and the
 decoder-only ``CausalLM`` of generation serving (``CausalLMCell``,
 ``causal_lm_small``, :682-906) with its paged-KV entries
-``hybrid_prefill`` and ``hybrid_decode``, with the same parameter names and the same attention-kernel policy: an attention
+``hybrid_prefill`` and ``hybrid_decode``, and the Longformer encoder
+(``SlidingWindowSelfAttention``, ``LongformerEncoderCell``,
+``LongformerEncoder``, :555-680), with the same parameter names and the same attention-kernel policy: an attention
 without an explicit mask takes the flash path (the NMT encoder's
 self-attention and the decoder's cross-attention), a masked one the
 masked-softmax path (the decoder's causal self-attention, whose
@@ -34,6 +36,8 @@ from ...base import MXNetError, get_env
 from ...contrib.amp import amp as _amp
 from ...kernels.flash_attention import flash_attention
 from ...ndarray.ndarray import NDArray
+from ...ndarray.ops_sldwin import (sldwin_context, sldwin_mask_like,
+                                   sldwin_score)
 from ...ndarray.register import get_op
 from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, HybridSequential, LayerNorm
@@ -42,7 +46,9 @@ __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerEncoderCell",
            "TransformerDecoderCell", "TransformerEncoder",
            "TransformerDecoder", "TransformerNMT", "BERTEncoder",
            "BERTModel", "bert_base", "bert_small", "transformer_nmt_base",
-           "CausalLMCell", "CausalLM", "causal_lm_small"]
+           "CausalLMCell", "CausalLM", "causal_lm_small",
+           "SlidingWindowSelfAttention", "LongformerEncoderCell",
+           "LongformerEncoder"]
 
 
 def _masked_softmax(scores, mask):
@@ -528,6 +534,126 @@ def transformer_nmt_base(vocab_size=32000, **kwargs):
 def _positions(batch: int, seq: int, device) -> torch.Tensor:
     """(batch, seq) position ids 0..seq-1 (a broadcast view)."""
     return torch.arange(seq, device=device).expand(batch, seq)
+
+
+class SlidingWindowSelfAttention(HybridBlock):
+    """Longformer's local self-attention (``mxnet_tpu/gluon/model_zoo/
+    transformer.py:555-609``): each query attends to the ``2w+1`` keys of
+    its band, per-head ``dilation``, over the ``_contrib_sldwin_atten_*``
+    ops (``ndarray/ops_sldwin.py``), which keep (B, L, H, W) scores and
+    never the (B, H, L, W, D) band between forward and backward.  The
+    dilations are a device constant made once a device and the valid
+    lengths a fill, so a step copies nothing from the host and
+    ``hybridize()`` can capture it."""
+
+    def __init__(self, units, num_heads, w, dilation=None, dropout=0.0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if units % num_heads:
+            raise MXNetError(f"units {units} not divisible by heads "
+                             f"{num_heads}")
+        self._units = units
+        self._heads = num_heads
+        self._w = int(w)
+        self._dilation = tuple(dilation) if dilation is not None else \
+            (1,) * num_heads
+        if len(self._dilation) != num_heads:
+            raise MXNetError("dilation needs one entry per head")
+        self._dil = {}
+        with self.name_scope():
+            self.qkv = Dense(3 * units, flatten=False, in_units=units,
+                             prefix="qkv_")
+            self.proj = Dense(units, flatten=False, in_units=units,
+                              prefix="proj_")
+            self.drop = Dropout(dropout) if dropout else None
+
+    def _dilations(self, device) -> torch.Tensor:
+        dil = self._dil.get(device)
+        if dil is None:
+            dil = self._dil[device] = torch.tensor(
+                self._dilation, dtype=torch.int32, device=device)
+        return dil
+
+    def forward(self, x, valid_len=None):
+        b, l = x.shape[0], x.shape[1]
+        d = self._units // self._heads
+        q, k, v = (t.reshape(b, l, self._heads, d)
+                   for t in self.qkv(x).split(self._units, dim=-1))
+        dil = self._dilations(x.device)
+        if valid_len is None:
+            valid_len = torch.full((b,), l, dtype=torch.int32,
+                                   device=x.device)
+        s = sldwin_score(q, k, dil, self._w) * (1.0 / math.sqrt(d))
+        m = sldwin_mask_like(s, dil, valid_len, self._w)
+        att = torch.softmax(s + (1.0 - m) * -1e9, dim=-1) * m
+        if self.drop is not None:
+            att = self.drop(att)
+        ctx = sldwin_context(att, v, dil, self._w)
+        return self.proj(ctx.reshape(b, l, self._units))
+
+    def hybrid_forward(self, F, x, valid_len=None, **params):
+        raise MXNetError(
+            "SlidingWindowSelfAttention supports the imperative/"
+            "hybridize path; compose the _sldwin_atten_* ops "
+            "directly for hand-built Symbol graphs")
+
+
+class LongformerEncoderCell(HybridBlock):
+    """Post-LN encoder layer with banded self-attention (:612-639)."""
+
+    def __init__(self, units, hidden_size, num_heads, w, dilation=None,
+                 dropout=0.0, activation="gelu", prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.attn = SlidingWindowSelfAttention(
+                units, num_heads, w, dilation, dropout, prefix="attn_")
+            self.ln1 = LayerNorm(in_channels=units, prefix="ln1_")
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       activation, prefix="ffn_")
+            self.ln2 = LayerNorm(in_channels=units, prefix="ln2_")
+            self.drop = Dropout(dropout) if dropout else None
+
+    def forward(self, x, valid_len=None):
+        a = self.attn(x, valid_len)
+        if self.drop is not None:
+            a = self.drop(a)
+        x = self.ln1(x + a)
+        f = self.ffn(x)
+        if self.drop is not None:
+            f = self.drop(f)
+        return self.ln2(x + f)
+
+
+class LongformerEncoder(HybridBlock):
+    """Token and position embeddings, LayerNorm, then ``num_layers``
+    banded encoder layers (:642-680): the long-sequence encoder family,
+    O(L·w) attention memory where BERT's is O(L²).  Only local attention:
+    the JAX package has no global attention."""
+
+    def __init__(self, vocab_size, num_layers=2, units=64,
+                 hidden_size=128, num_heads=4, w=32, dilation=None,
+                 max_length=4096, dropout=0.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
+        with self.name_scope():
+            self.tok = Embedding(vocab_size, units, prefix="tok_")
+            self.pos = Embedding(max_length, units, prefix="pos_")
+            self.layers = HybridSequential(prefix="layers_")
+            with self.layers.name_scope():
+                for _ in range(num_layers):
+                    self.layers.add(LongformerEncoderCell(
+                        units, hidden_size, num_heads, w, dilation,
+                        dropout))
+            self.ln = LayerNorm(in_channels=units, prefix="ln_")
+
+    def forward(self, tokens, valid_len=None):
+        b, l = tokens.shape[0], tokens.shape[1]
+        pos = self.pos(torch.arange(l, device=tokens.device))
+        h = self.ln(self.tok(tokens) + pos.reshape(1, l, self._units))
+        for cell in self.layers:
+            h = cell(h, valid_len)
+        return h
 
 
 class CausalLMCell(HybridBlock):

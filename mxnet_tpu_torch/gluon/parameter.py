@@ -504,6 +504,18 @@ class ParameterDict:
         self._params[full] = param
         return param
 
+    def get_constant(self, name: str, value=None) -> Constant:
+        """Fetch-or-create the ``Constant`` ``prefix + name`` holding
+        ``value`` (the JAX package's :296)."""
+        full = self._prefix + name
+        if full in self._params:
+            return self._params[full]
+        if value is None:
+            raise MXNetError(f"constant {full!r} not found and no value given")
+        c = Constant(full, value)
+        self._params[full] = c
+        return c
+
     def update(self, other: "ParameterDict") -> None:
         for k, v in other.items():
             if k in self._params and self._params[k] is not v:

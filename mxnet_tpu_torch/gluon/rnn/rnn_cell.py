@@ -175,11 +175,22 @@ class RNNCell(_GatedCell):
         super().__init__(hidden_size, input_size, i2h_weight_initializer,
                          h2h_weight_initializer, i2h_bias_initializer,
                          h2h_bias_initializer, prefix=prefix, params=params)
+        self._activation = activation
         self._act = activation_maker(activation)
 
     def forward(self, x, states):
         i2h, h2h = self._projections(x, states[0])
         out = self._act(i2h + h2h)
+        return out, [out]
+
+    def hybrid_forward(self, F, x, states, i2h_weight, h2h_weight,
+                       i2h_bias, h2h_bias):
+        """The symbolic body (``mxnet_tpu/gluon/rnn/rnn_cell.py:94-102``)."""
+        i2h = F.FullyConnected(x, i2h_weight, i2h_bias,
+                               num_hidden=self._hidden_size)
+        h2h = F.FullyConnected(states[0], h2h_weight, h2h_bias,
+                               num_hidden=self._hidden_size)
+        out = F.Activation(i2h + h2h, act_type=self._activation)
         return out, [out]
 
 
@@ -195,6 +206,18 @@ class LSTMCell(_GatedCell):
         i, f, g, o = (i2h + h2h).chunk(4, dim=1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        return h_new, [h_new, c_new]
+
+    def hybrid_forward(self, F, x, states, i2h_weight, h2h_weight,
+                       i2h_bias, h2h_bias):
+        """The symbolic body (``mxnet_tpu/gluon/rnn/rnn_cell.py:133-147``)."""
+        h, c = states
+        n = 4 * self._hidden_size
+        gates = F.FullyConnected(x, i2h_weight, i2h_bias, num_hidden=n) + \
+            F.FullyConnected(h, h2h_weight, h2h_bias, num_hidden=n)
+        i, f, g, o = F.split(gates, num_outputs=4, axis=1)
+        c_new = F.sigmoid(f) * c + F.sigmoid(i) * F.tanh(g)
+        h_new = F.sigmoid(o) * F.tanh(c_new)
         return h_new, [h_new, c_new]
 
 
@@ -213,6 +236,20 @@ class GRUCell(_GatedCell):
         z = torch.sigmoid(xz + hz)
         n = torch.tanh(xn + r * hn)
         out = (1 - z) * n + z * h
+        return out, [out]
+
+    def hybrid_forward(self, F, x, states, i2h_weight, h2h_weight,
+                       i2h_bias, h2h_bias):
+        """The symbolic body (``mxnet_tpu/gluon/rnn/rnn_cell.py:177-190``)."""
+        h = states[0]
+        n = 3 * self._hidden_size
+        xr, xz, xn = F.split(F.FullyConnected(
+            x, i2h_weight, i2h_bias, num_hidden=n), num_outputs=3, axis=1)
+        hr, hz, hn = F.split(F.FullyConnected(
+            h, h2h_weight, h2h_bias, num_hidden=n), num_outputs=3, axis=1)
+        r = F.sigmoid(xr + hr)
+        z = F.sigmoid(xz + hz)
+        out = (1 - z) * F.tanh(xn + r * hn) + z * h
         return out, [out]
 
 

@@ -45,6 +45,10 @@ class KVStore:
         self._store: Dict[Any, NDArray] = {}
         self._updater = None
 
+    @property
+    def type(self) -> str:
+        return self._type
+
     def init(self, key, value) -> None:
         for k, v in zip(*_pair(key, value)):
             v = v[0] if isinstance(v, (list, tuple)) else v

@@ -135,6 +135,17 @@ class BaseModule:
                     cb(param)
         return eval_metric.get_name_value()
 
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` for each batch of
+        ``eval_data`` run forward in predict mode."""
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            yield self.get_outputs(), nbatch, eval_batch
+
     def predict(self, eval_data, num_batch=None, merge_batches=True,
                 reset=True, always_output_list=False):
         """Forward over an iterator and collect outputs."""

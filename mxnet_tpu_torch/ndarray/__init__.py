@@ -25,11 +25,11 @@ import numpy as np
 
 from . import (ops_contrib, ops_control_flow, ops_ctc,  # noqa: F401
                ops_elemwise, ops_image, ops_linalg, ops_matrix, ops_misc,
-               ops_nn, ops_optimizer, ops_random, ops_reduce, ops_spatial,
-               ops_tail)
+               ops_nn, ops_optimizer, ops_quantization, ops_random,
+               ops_reduce, ops_sldwin, ops_spatial, ops_tail)
 from . import contrib, image, random, utils
 from .ndarray import (NDArray, arange, array, empty, eye, full, linspace,
-                      ones, zeros)
+                      moveaxis, ones, zeros)
 from .ops_custom import Custom
 from .ops_optimizer import (adagrad_update, adam_update, adamw_update,
                             ftml_update, ftrl_update, group_adagrad_update,
@@ -109,6 +109,8 @@ for _name in ("group_adagrad_update", "adamw_update", "mp_adamw_update"):
     setattr(_this, "_contrib_" + _name, getattr(_this, _name))
     setattr(contrib, _name, getattr(_this, _name))
 
+#: the JAX package's fluent list (``mxnet_tpu/ndarray/__init__.py:57-69``)
+#: and the port's earlier one, which holds its core methods
 _FLUENT_METHODS = (
     "sum", "mean", "prod", "max", "min", "argmax", "argmin", "transpose",
     "dot", "broadcast_to", "broadcast_like", "expand_dims", "squeeze",
@@ -119,7 +121,17 @@ _FLUENT_METHODS = (
     "sin", "cos", "tan", "arcsin", "arccos", "arctan", "sinh", "cosh",
     "tanh", "arcsinh", "arccosh", "arctanh", "degrees", "radians", "erf",
     "erfinv", "gamma", "gammaln", "relu", "sigmoid", "softmax",
-    "log_softmax", "zeros_like", "ones_like")
+    "log_softmax", "zeros_like", "ones_like", "sort", "argsort", "topk",
+    "softmin", "norm", "split", "slice_like", "diag", "nansum", "nanprod",
+    "pad", "shape_array", "size_array", "reshape_like")
+
+#: the methods an ``NDArray`` has by hand (views, host reads) that a
+#: ``Symbol`` takes from the registry (the JAX package's
+#: ``_CORE_SYM_METHODS``, :93-96)
+_CORE_SYM_METHODS = (
+    "sum", "mean", "max", "min", "argmax", "argmin", "reshape",
+    "transpose", "dot", "broadcast_to", "flatten", "expand_dims",
+    "squeeze", "slice")
 
 
 def _attach_fluent(name):
@@ -137,6 +149,25 @@ for _m in _FLUENT_METHODS:
         setattr(NDArray, _m, _attach_fluent(_m))
 
 
+def _attach_symbol_fluent() -> None:
+    """The same methods on ``Symbol``, each the ``mx.sym`` frontend of its
+    op with the symbol as first input (``mxnet_tpu/ndarray/__init__.py:
+    100-111``), so a ``hybrid_forward`` that calls ``x.reshape(...)``
+    exports."""
+    from ..symbol.register import _make_frontend
+    from ..symbol.symbol import Symbol
+    for m in _FLUENT_METHODS + _CORE_SYM_METHODS:
+        if hasattr(Symbol, m) or m not in _registry:
+            continue
+        fe = _make_frontend(_registry[m].name)
+
+        def method(self, *args, _fe=fe, **kwargs):
+            return _fe(self, *args, **kwargs)
+        method.__name__ = m
+        method.__doc__ = f"Fluent form of ``mx.sym.{m}`` (self as data)."
+        setattr(Symbol, m, method)
+
+
 def waitall() -> None:
     """Block until every op queued on every device has run."""
     from ..engine import wait_all
@@ -145,6 +176,6 @@ def waitall() -> None:
 
 __all__ = sorted({"Custom", "NDArray", "arange", "array", "contrib",
                   "empty", "eye", "flash_attention", "full", "get_op",
-                  "linspace", "list_ops", "load", "ones", "random", "save",
+                  "linspace", "list_ops", "load", "moveaxis", "ones", "random", "save",
                   "utils", "waitall", "zeros"} | set(ops_optimizer.__all__)
                  | set(_registry))

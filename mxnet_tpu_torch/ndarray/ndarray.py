@@ -550,6 +550,12 @@ def eye(N, M=0, k=0, ctx: DeviceLike = None, dtype=None) -> NDArray:
     return NDArray(out)
 
 
+def moveaxis(data: NDArray, source, destination) -> NDArray:
+    """MXNet's ``nd.moveaxis``: ``data`` with axes ``source`` moved to
+    ``destination`` (a view, as ``transpose``'s)."""
+    return NDArray(torch.movedim(data._data, source, destination))
+
+
 def linspace(start, stop, num, endpoint=True, ctx: DeviceLike = None,
              dtype=None) -> NDArray:
     num = int(num)

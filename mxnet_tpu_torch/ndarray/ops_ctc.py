@@ -28,6 +28,8 @@ def ctc_loss_maker(use_data_lengths=False, use_label_lengths=False,
 
     def fn(data, label, *lengths):
         t, n, c = data.shape
+        if data.is_meta:                 # shape inference: (N,) float32
+            return data.new_empty((n,), dtype=torch.float32)
         lengths = list(lengths)
         data_len = lengths.pop(0).long() if use_data_lengths else \
             torch.full((n,), t, dtype=torch.long)

@@ -49,6 +49,7 @@ import torch
 
 from ..base import MXNetError, torch_dtype
 from .ndarray import resolve_reshape
+from .ops_reduce import SMALL_INT, int32_result
 from .register import register_op, simple_op
 
 
@@ -489,6 +490,8 @@ def moments_maker(axes=None, keepdims=False):
     dims = tuple(axes) if axes is not None else None
 
     def fn(x):
+        if x.dtype in SMALL_INT:
+            x = x.float()                    # the JAX package's float32
         d = dims if dims is not None else tuple(range(x.dim()))
         var, mean = torch.var_mean(x, dim=d, keepdim=keepdims,
                                    correction=0)
@@ -523,16 +526,17 @@ def cumsum_maker(axis=None, dtype=None):
     dt = None if dtype is None else torch_dtype(dtype)
 
     def fn(x):
+        keep = x.dtype if x.dtype in SMALL_INT else None
         out = torch.cumsum(x.reshape(-1) if axis is None else x,
-                           dim=0 if axis is None else axis)
+                           dim=0 if axis is None else axis, dtype=keep)
         return out if dt is None else out.to(dt)
     return fn
 
 
 def trace_maker(offset=0, axis1=0, axis2=1):
     def fn(x):
-        return torch.diagonal(x, offset=offset, dim1=axis1,
-                              dim2=axis2).sum(-1)
+        return int32_result(x, torch.diagonal(
+            x, offset=offset, dim1=axis1, dim2=axis2).sum(-1))
     return fn
 
 
@@ -570,7 +574,8 @@ def space_to_depth_maker(block_size=1):
 
 def _register():
     register_op("dot", dot_maker)
-    register_op("batch_dot", batch_dot_maker)
+    register_op("batch_dot", batch_dot_maker,
+                aliases=("linalg_gemm2_batched",))
     register_op("reshape", reshape_maker, aliases=("Reshape",))
     register_op("transpose", transpose_maker)
     register_op("expand_dims", expand_dims_maker)

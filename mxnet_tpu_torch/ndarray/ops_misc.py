@@ -81,6 +81,7 @@ import torch.nn.functional as F
 from ..base import MXNetError, torch_dtype
 from ..context import as_device
 from .ops_spatial import jnp_linspace
+from .ops_reduce import int32_result
 from .register import host_read, register_op, simple_op
 
 
@@ -627,8 +628,8 @@ def square_sum_maker(axis=None, keepdims=False, exclude=False):
             norm = {a % x.dim() for a in ax}
             ax = tuple(i for i in range(x.dim()) if i not in norm)
         if ax is None:
-            return x.square().sum()
-        return x.square().sum(dim=ax, keepdim=keepdims)
+            return int32_result(x, x.square().sum())
+        return int32_result(x, x.square().sum(dim=ax, keepdim=keepdims))
     return fn
 
 

@@ -64,6 +64,7 @@ under ``torch.no_grad()``.
 from __future__ import annotations
 
 import functools
+from time import perf_counter
 from typing import List
 
 import numpy as np
@@ -114,6 +115,35 @@ def _same(a, b: torch.Tensor) -> bool:
             and a.dtype == b.dtype and a.stride() == b.stride())
 
 
+def _flat_tensors(res) -> List[torch.Tensor]:
+    if isinstance(res, (list, tuple)):
+        return [t for r in res for t in _flat_tensors(r)]
+    res = _t(res)
+    return [res] if isinstance(res, torch.Tensor) else []
+
+
+def _reported(op):
+    """``op`` reporting each call to the engine's listeners and waiting
+    under NaiveEngine, as ``register.invoke`` does for every other op
+    (so ``mx.profiler`` and ``Monitor`` see the updates, as in the JAX
+    package, where they go through ``invoke``).  ``op.unreported`` is the
+    call without the report: the registry's forms use it, as ``invoke``
+    reports them itself."""
+    name = op.__name__
+
+    @functools.wraps(op)
+    def call(*args, **kwargs):
+        eng = _engine()
+        if not eng.hooked:
+            return op(*args, **kwargs)
+        t0 = perf_counter()
+        res = op(*args, **kwargs)
+        eng.on_op(name, _flat_tensors(res), (perf_counter() - t0) * 1e6)
+        return res
+    call.unreported = op
+    return call
+
+
 def _on_ndarrays(n_states: int, n_host: int = 1):
     """The ``NDArray`` form of a per-tensor update ``fn(weight, grad,
     *states, *host_scalars, ...)`` that works in place on tensors: the
@@ -145,7 +175,7 @@ def _on_ndarrays(n_states: int, n_host: int = 1):
                     if not _same(tgt, src):
                         _t(tgt).copy_(src)
             return out
-        return op
+        return _reported(op)
     return deco
 
 __all__ = ["sgd_update", "sgd_mom_update", "mp_sgd_update",
@@ -261,7 +291,7 @@ def _multi_on_ndarrays(stride: int):
                     if not _same(tgt, src):
                         _t(tgt).copy_(src)
             return out
-        return op
+        return _reported(op)
     return deco
 
 
@@ -378,6 +408,7 @@ def _nd_form(updates_weight: bool):
                     if not _same(tgt, src):
                         _t(tgt).copy_(src)
             return out
+        op = _reported(op)
         op.updates_weight = updates_weight
         return op
     return deco
@@ -702,7 +733,8 @@ _REGISTERED = (
 def _maker(op):
     def maker(**kwargs):
         def fn(*tensors):
-            return op(*[NDArray(t) for t in tensors], **kwargs)._data
+            return op.unreported(*[NDArray(t) for t in tensors],
+                                 **kwargs)._data
         return fn
     maker.__doc__ = op.__doc__
     return maker
@@ -721,7 +753,7 @@ def _nd_form_maker(op):
     is on neither path."""
     def maker(**kwargs):
         def fn(*tensors):
-            res = op(*[NDArray(t) for t in tensors], **kwargs)
+            res = op.unreported(*[NDArray(t) for t in tensors], **kwargs)
             if isinstance(res, (list, tuple)):
                 return [r._data for r in res]
             return res._data

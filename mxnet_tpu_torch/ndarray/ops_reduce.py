@@ -15,6 +15,9 @@ accumulates in float32 and returns its own dtype
 (MXNet's convention), ``topk``/``argsort`` in ``dtype``.  Under AMP
 ``sum`` and ``mean`` are ``FP32_OPS``: the input is cast to float32
 first.
+An int8/int16/int32 input of ``sum``/``prod``/``nansum``/``nanprod``
+answers int32, wrapping as int32 arithmetic does, and of ``mean`` float32
+(the JAX package's dtypes, and MXNet's); int64 stays int64.
 
 Ties are ordered as the JAX package orders them, by stable sorts only
 (``torch.topk``'s order of equal values on the card is unspecified):
@@ -32,6 +35,15 @@ from ..contrib.amp import amp as _amp
 from .register import register_op
 
 _LOW = (torch.float16, torch.bfloat16)
+#: integer inputs whose sums and products are int32, as the JAX package's
+SMALL_INT = (torch.int8, torch.int16, torch.int32)
+
+
+def int32_result(x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+    """``res``, a sum or product over ``x`` that torch made int64, as the
+    int32 of the JAX package: integer sums and products are exact modulo
+    2**64, so the cast keeps int32's wrapped value."""
+    return res.to(torch.int32) if x.dtype in SMALL_INT else res
 
 
 def _axes(x: torch.Tensor, axis, exclude: bool):
@@ -44,11 +56,15 @@ def _axes(x: torch.Tensor, axis, exclude: bool):
     return axes
 
 
-def _make_reduce(op_name, fn, acc32=False, amp=False):
+def _make_reduce(op_name, fn, acc32=False, amp=False, ints=None):
+    """``ints``: what an int8/16/32 input gives, ``"int32"`` (sums and
+    products) or ``"float32"`` (``mean``); other reductions keep it."""
     def maker(axis=None, keepdims=False, exclude=False):
         def reduce(data):
             if amp:
                 data, = _amp.cast(op_name, data)
+            if ints == "float32" and data.dtype in SMALL_INT:
+                data = data.float()
             axes = _axes(data, axis, exclude)
             if axes == ():
                 return data.clone()          # no axis to reduce
@@ -58,6 +74,8 @@ def _make_reduce(op_name, fn, acc32=False, amp=False):
                                                   keepdim=keepdims)
             if keepdims and axes is None:
                 res = res.reshape((1,) * data.dim())
+            if ints == "int32":
+                res = int32_result(data, res)
             return res.to(data.dtype) if low else res
         return reduce
     return maker
@@ -153,14 +171,16 @@ def argsort_maker(axis=-1, is_ascend=True, dtype="float32"):
 
 
 def _register():
-    register_op("sum", _make_reduce("sum", torch.sum, acc32=True, amp=True),
+    register_op("sum", _make_reduce("sum", torch.sum, acc32=True, amp=True,
+                                    ints="int32"),
                 aliases=("sum_axis",))
     register_op("mean", _make_reduce("mean", torch.mean, acc32=True,
-                                     amp=True))
-    register_op("prod", _make_reduce("prod", _prod))
+                                     amp=True, ints="float32"))
+    register_op("prod", _make_reduce("prod", _prod, ints="int32"))
     register_op("nansum", _make_reduce("nansum", torch.nansum,
-                                       acc32=True))
-    register_op("nanprod", _make_reduce("nanprod", _nanprod))
+                                       acc32=True, ints="int32"))
+    register_op("nanprod", _make_reduce("nanprod", _nanprod,
+                                        ints="int32"))
     register_op("norm", norm_maker)
     register_op("max", _make_reduce("max", torch.amax),
                 aliases=("max_axis",))

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from .register import host_read, register_op, simple_op
+from .ops_reduce import SMALL_INT
 
 _F64 = torch.float64
 
@@ -236,9 +237,10 @@ def cumprod_maker(axis=None, dtype=None):
         if dtype is not None:
             from ..base import torch_dtype
             x = x.to(torch_dtype(dtype))
+        keep = x.dtype if x.dtype in SMALL_INT else None
         if axis is None:
-            return torch.cumprod(x.reshape(-1), 0)
-        return torch.cumprod(x, int(axis))
+            return torch.cumprod(x.reshape(-1), 0, dtype=keep)
+        return torch.cumprod(x, int(axis), dtype=keep)
     return fn
 
 

@@ -19,5 +19,10 @@ from ..ndarray.register import register_input_type  # noqa: E402
 register_input_type(Symbol)
 _attach_frontends(_sys.modules[__name__])
 
+# the fluent methods, as ``NDArray``'s (the list lives in ``ndarray``)
+from ..ndarray import _attach_symbol_fluent  # noqa: E402
+
+_attach_symbol_fluent()
+
 __all__ = ["Executor", "Group", "Symbol", "Variable", "contrib", "load",
            "load_json", "random", "var"]

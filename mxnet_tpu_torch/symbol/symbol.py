@@ -276,7 +276,21 @@ class Symbol:
         with torch.no_grad(), autograd.predict_mode():
             return [NDArray(t) for t in self.compile()(feed)]
 
+    def eval_dict(self, feed: Dict[str, Any]):
+        """Evaluate with a ``name -> NDArray`` feed: one ``NDArray``, or a
+        list of them for a graph of many outputs."""
+        outs = self.eval(**feed)
+        return outs[0] if len(outs) == 1 else outs
+
     # -- shape/type inference ---------------------------------------------
+    def infer_shape_partial(self, *args, **kwargs):
+        """``infer_shape``, or ``(None, None, None)`` where a shape stays
+        unknown (the JAX package's :348)."""
+        try:
+            return self.infer_shape(*args, **kwargs)
+        except MXNetError:
+            return None, None, None
+
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the shapes of some
         inputs (positional in ``list_arguments`` order, or by name),

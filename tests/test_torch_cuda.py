@@ -2518,3 +2518,80 @@ def test_observability_phase_on_card(card, monkeypatch, tmp_path):
     assert out["watchdog"]["ok"], out["watchdog"]["checks"]
     assert out["decode_slots"]["ok"], out["decode_slots"]["checks"]
     assert out["profiler"]["ok"], out["profiler"]
+
+
+def test_int8_ops_on_card_accumulate_as_the_cpu(card):
+    """The quantized convolution (K = 4608, sums past 2**24) and fully
+    connected ops on the card give the CPU's int32 accumulators bit for
+    bit; quantize on the card divides by a tensor, so its ties round as
+    the CPU's."""
+    from mxnet_tpu_torch.ndarray.ops_quantization import (
+        int_conv, int_linear, quantize_tensor, scale_of)
+    g = torch.Generator().manual_seed(21)
+    x = torch.randint(-127, 128, (2, 512, 7, 7), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (16, 512, 3, 3), generator=g,
+                      dtype=torch.int8)
+    x[:], w[0] = 127, 127
+    want = int_conv(x, w, (1, 1), (1, 1), (1, 1), 1)
+    got = int_conv(x.to(card), w.to(card), (1, 1), (1, 1), (1, 1), 1)
+    assert int(want.max()) > 2 ** 24 and torch.equal(got.cpu(), want)
+    a = x.reshape(2, -1)[:, :4608]
+    b = w.reshape(16, -1)
+    assert torch.equal(int_linear(a.to(card), b.to(card)).cpu(),
+                       int_linear(a, b))
+    ties = torch.arange(-20, 21, dtype=torch.float32) + 0.5
+    s = scale_of(torch.tensor(-127.0), torch.tensor(127.0))
+    assert torch.equal(quantize_tensor(ties.to(card), s.to(card)).cpu(),
+                       quantize_tensor(ties, s))
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_sldwin_ops_on_card_match_the_plain_version(card, symmetric):
+    from mxnet_tpu_torch.ndarray import ops_sldwin
+    g = torch.Generator().manual_seed(22)
+    q, k, v = (torch.randn(2, 300, 4, 32, generator=g).to(card)
+               for _ in range(3))
+    dil = torch.tensor([1, 2, 3, 1], dtype=torch.int32, device=card)
+    outs = []
+    for score, context in ((ops_sldwin.sldwin_score,
+                            ops_sldwin.sldwin_context),
+                           (ops_sldwin.direct_score,
+                            ops_sldwin.direct_context)):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        s = score(ins[0], ins[1], dil, 16, symmetric)
+        c = context(torch.softmax(s, -1), ins[2], dil, 16, symmetric)
+        c.square().sum().backward()
+        outs.append([s, c] + [t.grad for t in ins])
+    for a, b in zip(*outs):
+        assert (a - b).abs().max().item() <= 1e-5 * max(
+            1.0, b.abs().max().item())
+
+
+def test_longformer_on_card_replays_its_eager_forward(card):
+    """A hybridized 2-layer Longformer encoder replays its captured graph
+    bit for bit the eager forward, and a training step through its ops
+    is the same bits twice."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import (
+        LongformerEncoder)
+    net = LongformerEncoder(100, num_layers=2, units=64, hidden_size=128,
+                            num_heads=4, w=8, dilation=(1, 2, 1, 2),
+                            max_length=256)
+    net.initialize(ctx=card, seed=0)
+    tokens = torch.randint(0, 100, (2, 256), device=card).float()
+    with torch.no_grad(), autograd.predict_mode():
+        eager = net(tokens)
+        net.hybridize()
+        replays = [net(tokens) for _ in range(3)]
+    assert net.graph_stats()["replays"] >= 1
+    assert all(torch.equal(r, eager) for r in replays)
+    net.hybridize(False)
+
+    def grads():
+        with autograd.record():
+            out = net(tokens)
+        autograd.backward(out.square().mean())
+        return [p.grad()._data.clone() for p in
+                net.collect_params().values()]
+    assert all(torch.equal(a, b) for a, b in zip(grads(), grads()))

@@ -263,12 +263,13 @@ def test_scatter_nd_infers_binds_and_differentiates_through_sym():
 
 
 def test_new_ops_are_registered_and_every_port_op_is_a_jax_op():
-    """The registry holds 395 names (43 came with the symbolic slice, 132
+    """The registry holds 405 names (43 came with the symbolic slice, 132
     with the rest of the op files, 18 with control flow and the rest of
-    detection), each one also a JAX op."""
+    detection, 10 with quantization and the sliding window), each one
+    also a JAX op."""
     from mxnet_tpu.ndarray.register import list_ops as jax_ops
     ours = mt.nd.list_ops()
-    assert len(ours) == 395
+    assert len(ours) == 405
     assert not set(ours) - set(jax_ops())
 
 

@@ -227,10 +227,10 @@ def test_ndarray_form_updates_states_in_place_and_weight_through_out():
 
 
 def test_registry_names_match_the_jax_package():
-    """395 ops (161, the 13 ``_image_*`` ops of ``nd.image``, 28 of the
+    """405 ops (161, the 13 ``_image_*`` ops of ``nd.image``, 28 of the
     Gluon model surface, 43 of the symbolic AMP and Module surface, 132
-    of the rest of the op files and 18 of control flow and the rest of
-    detection);
+    of the rest of the op files, 18 of control flow and the rest of
+    detection and 10 of quantization and the sliding window);
     each new
     one under the JAX package's name and aliases, callable through the
     registry with MXNet's NDArray convention."""
@@ -243,7 +243,7 @@ def test_registry_names_match_the_jax_package():
            "mp_lamb_update_phase1", "mp_lamb_update_phase2",
            "multi_sum_sq"]
     ours, theirs = set(pnd.list_ops()), set(mx.nd.list_ops())
-    assert len(ours) == 395 and set(new) <= ours and ours <= theirs
+    assert len(ours) == 405 and set(new) <= ours and ours <= theirs
     for alias in ("group_adagrad_update", "adamw_update", "mp_adamw_update"):
         assert pnd.get_op(alias) is pnd.get_op("_contrib_" + alias)
         assert getattr(pnd.contrib, alias) is getattr(pnd, alias)

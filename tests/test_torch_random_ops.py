@@ -25,8 +25,8 @@ import mxnet_tpu_torch as mt
 N = 1 << 16
 SIGMAS = 6.0
 
-# the JAX package's ops that the port does not have yet, by file
-NOT_PORTED = {
+# the JAX package's last ten ops the port took, by file
+LAST_PORTED = {
     "ops_quantization": {
         "_contrib_dequantize", "_contrib_quantize", "_contrib_quantize_v2",
         "_contrib_quantized_conv", "_contrib_quantized_fully_connected",
@@ -39,19 +39,19 @@ NOT_PORTED = {
 
 def test_registry_has_377_jax_ops_and_lacks_exactly_28():
     """The registry's census (the name is the one it had at 377 ops):
-    395 ops, each a JAX op; the 10 missing are those of
-    ``ops_quantization`` (7) and ``ops_sldwin`` (3), each from that
-    file."""
+    all 405 of the JAX package's ops; the last 10 are those of
+    ``ops_quantization`` (7) and ``ops_sldwin`` (3), each from the file of
+    that name in both packages."""
     from mxnet_tpu.ndarray.register import get_op as jax_op
     ours, theirs = set(mt.nd.list_ops()), set(mx.nd.list_ops())
-    assert len(ours) == 395 and ours <= theirs
-    missing = theirs - ours
-    assert missing == set().union(*NOT_PORTED.values())
-    assert {n: len(v) for n, v in NOT_PORTED.items()} == {
+    assert len(ours) == 405 and ours == theirs
+    assert set().union(*LAST_PORTED.values()) <= ours
+    assert {n: len(v) for n, v in LAST_PORTED.items()} == {
         "ops_quantization": 7, "ops_sldwin": 3}
-    for name, ops in NOT_PORTED.items():
+    for name, ops in LAST_PORTED.items():
         for op in ops:
             assert jax_op(op).maker.__module__.endswith(name), op
+            assert mt.nd.get_op(op).maker.__module__.endswith(name), op
 
 
 def test_frontends_have_the_jax_signatures():

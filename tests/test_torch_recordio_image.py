@@ -214,7 +214,7 @@ def test_nd_image_random_ops_reproduce_under_mx_random_seed(op, kw):
 
 def test_nd_image_registry_and_errors():
     names = [n for n in pmx.nd.list_ops() if n.startswith("_image_")]
-    assert len(pmx.nd.list_ops()) == 395 and len(names) == 13
+    assert len(pmx.nd.list_ops()) == 405 and len(names) == 13
     assert set(names) <= set(mx.nd.list_ops())
     with pmx.cpu():
         x = pmx.nd.array(_hwc())
