@@ -11,8 +11,9 @@ training, each ``translate`` and the bucketing fit, and phase 13's SSD-512
 and Mask-RCNN training, phase 14's hybridized runs, phase 15's
 generation serving, each part of phase 16, each training run of
 phase 17, each model of phase 18, each part of phases 19 and 20,
-phases 21 and 22, phase 23's traced round, and phase 24 and its
-Longformer fit) and read just after;
+phases 21 and 22, phase 23's traced round, phase 24 and its
+Longformer fit, and each run of phase 25 in each rank) and read just
+after;
 a path must launch its kernel the expected number of times and the other
 kernels not at all:
 
@@ -567,7 +568,36 @@ kernels not at all:
    peak memory under 24 GB, its first step again bit for bit, the fp32
    encoder against float64 and the encoder served hybridized at B=4
    against eager;
-25. prints one JSON line of kernel measurements (flash: the fp32 and, as
+25. data-parallel training across processes: two ranks of this script
+   (``--rank-task phase25_rank``) started by the port's launcher
+   (``mxnet_tpu_torch/tools/launch.py``) on this one card, so over gloo,
+   each on ResNet-50 v1 at full width (224 x 224, 1000 classes, fp32,
+   weights from ``--seed``), SGD momentum 0.9, wd 1e-4, global batch 128
+   (64 a rank): (a) the JAX worker's kvstore invariants on CUDA tensors
+   (``tests/test_dist.py:19-60``) and ``gluon.Trainer(kvstore=
+   "dist_sync", update_on_kvstore=False)`` for 2 warm and 3 timed steps,
+   the momentum kernel launching exactly 41 times a step on each rank,
+   both ranks' trainable parameters bit for bit equal (SHA-1) after
+   every step; a check step at global batch 4 (2 a rank) held by
+   ``leaf_check`` against a CPU fp32 and a float64 step that runs each
+   rank's half through its own model and sums the gradients, and the
+   same check step with ``update_on_kvstore`` (the store's per-key
+   updater) held to the same references;
+   one with 2-bit compression whose pulled gradient is, bit for bit, the
+   sum of each rank's CPU quantization; the all-reduce of the 25.56 M
+   fp32 gradients timed alone (two ranks sharing one card: not a scaling
+   number); (b) ``parallel.ShardedTrainer`` at dp = 2: ZeRO 0, 1 and 2,
+   ``accum_steps=2`` and ``comm_bucket_mb=25``, each a check step at
+   global batch 4 from the initial weights held by ``leaf_check``
+   against a one-process CPU step on the whole batch (BatchNorm over the
+   global batch; for accumulation, over each microbatch) and 1 warm and
+   3 timed steps at 128, every parameter and running statistic bit for
+   bit equal across the ranks after every step, the momentum kernel's
+   launches exact (one call over every tensor or ZeRO slice a step),
+   ZeRO 1's optimizer state about half of ZeRO 0's; (c) in this process,
+   ``ShardedTrainer`` at dp = 1 at batch 128 (the JAX bench row's path),
+   its step time beside phase 6's;
+26. prints one JSON line of kernel measurements (flash: the fp32 and, as
    ``bf16_*``/``fp16_*``, the bf16 and fp16 B=8 L=512 cases, and every
    fp16 case; its training launches and its backward's times under
    ``train_launches`` and ``backward``; phase 12's launches and shapes
@@ -583,7 +613,8 @@ kernels not at all:
    phase 21's under ``op_slice_launches``, phase 22's under
    ``control_flow_detection_launches``, phase 23's under
    ``observability_flash_launches``, phase 24's under
-   ``longformer_launches``;
+   ``longformer_launches``, phase 25's under ``dist_launches`` and
+   ``sharded_launches``;
    the SGD kernels' bf16/fp16 entries, and the mixed path's own entry
    beside the unfused route's ``before_ms``), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -670,7 +701,10 @@ from mxnet_tpu_torch.kernels.multi_sgd import (multi_mp_sgd,
                                                multi_mp_sgd_plain, multi_sgd,
                                                multi_sgd_mom,
                                                multi_sgd_mom_plain,
-                                               multi_sgd_plain)
+                                               multi_sgd_plain, MAX_TENSORS)
+from mxnet_tpu_torch import kvstore as mx_kv
+from mxnet_tpu_torch import parallel as mx_par
+from mxnet_tpu_torch.parallel import dist as mx_dist
 from mxnet_tpu_torch import tuning
 from mxnet_tpu_torch.observability import export as obs_export
 from mxnet_tpu_torch.observability import flight as obs_flight
@@ -11521,6 +11555,458 @@ def slice24_phase(seed: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: data-parallel training across processes
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2
+DIST_BATCH = 64                      # a rank: global batch 128
+DIST_WARM, DIST_STEPS = 2, 3
+DIST_CHECK = 2                       # a rank at the check steps: global 4
+DIST_THRESHOLD = 0.5                 # 2-bit compression
+DIST_TIMEOUT = 900                   # the ranks' launch, seconds
+SHARDED_VARIANTS = {"zero0": {}, "zero1": {"zero_stage": 1},
+                    "zero2": {"zero_stage": 2},
+                    "accum2": {"accum_steps": 2},
+                    "bucket25": {"comm_bucket_mb": 25}}
+SHARDED_WARM, SHARDED_STEPS = 1, 3
+ONE_PROCESS_WARM, ONE_PROCESS_STEPS = 2, 3
+LAUNCHER = "mxnet_tpu_torch/tools/launch.py"
+
+
+def _trainable(net) -> list:
+    return [p for p in net.collect_params().values() if p.grad_req != "null"]
+
+
+def _digest(net, trainable_only: bool) -> bytes:
+    """SHA-1 of the parameters' bytes (trainable ones, or every one)."""
+    h = hashlib.sha1()
+    params = _trainable(net) if trainable_only else \
+        list(net.collect_params().values())
+    for p in params:
+        h.update(p._tensor().detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest().encode()
+
+
+def replicas_equal(net, trainable_only: bool = False) -> bool:
+    """Every rank holds the same parameter bits."""
+    return len(set(mx_dist.allgather_bytes(
+        _digest(net, trainable_only)))) == 1
+
+
+def load_snapshot(net, snap: dict) -> None:
+    """The weights of ``snap`` into ``net``, in place; gradients dropped."""
+    with torch.no_grad():
+        for k, p in net.collect_params().items():
+            p._tensor().copy_(snap[k])
+    for p in _trainable(net):
+        p._data.grad = None
+        p.fresh = True
+
+
+def global_batch(seed: int, n: int, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed + 25)
+    x = torch.randn(n, 3, 224, 224, device=dev, generator=gen)
+    y = torch.randint(0, 1000, (n,), device=dev, generator=gen).float()
+    return x, y
+
+
+def quantize_2bit(g: np.ndarray) -> np.ndarray:
+    """The JAX package's 2-bit quantization of one pushed gradient
+    (``mxnet_tpu/kvstore.py:277-294``, no residual yet) as signed codes:
+    +1 at or above the threshold, -1 at or below its negative."""
+    return (g >= DIST_THRESHOLD).astype(np.int8) - \
+        (g <= -DIST_THRESHOLD).astype(np.int8)
+
+
+def dist_invariants(ctx) -> dict:
+    """``tests/test_dist.py:19-60``'s four kvstore invariants on CUDA
+    tensors."""
+    nd = mxt.nd
+    rank, nw = mx_dist.rank(), mx_dist.num_workers()
+    store = mx_kv.create("dist_sync")
+    store.init(3, nd.ones((4, 5), ctx=ctx) * (1.0 if rank == 0 else 99.0))
+    out = nd.zeros((4, 5), ctx=ctx)
+    store.pull(3, out=out)
+    checks = {"init_broadcasts_rank0": bool((out.asnumpy() == 1.0).all())}
+    store.push(3, nd.ones((4, 5), ctx=ctx) * 2.0)
+    store.pull(3, out=out)
+    checks["pull_is_workers_times_push"] = bool(
+        (out.asnumpy() == 2.0 * nw).all())
+    store.push(3, nd.ones((4, 5), ctx=ctx) * (rank + 1))
+    store.pull(3, out=out)
+    checks["distinct_pushes_sum"] = bool(
+        (out.asnumpy() == sum(r + 1 for r in range(nw))).all())
+    s2 = mx_kv.KVStore("dist_sync")
+    s2.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    s2.init(7, nd.zeros((8,), ctx=ctx))
+    g = nd.array(np.full((8,), 0.3, np.float32), ctx=ctx)
+    o2 = nd.zeros((8,), ctx=ctx)
+    s2.push(7, g)
+    s2.pull(7, out=o2)
+    first = o2.asnumpy()
+    s2.push(7, g)
+    s2.pull(7, out=o2)
+    checks["compression_error_feedback"] = bool(
+        (first == 0.0).all() and (o2.asnumpy() == 0.5 * nw).all())
+    checks["on_cuda"] = o2._data.is_cuda
+    return {"backend": mx_dist.backend(), "checks": checks}
+
+
+def summed_step(arrays: dict, parts, dtype, lossfn, shared: bool) -> dict:
+    """One ResNet-50 SGD step (``RESNET_OPT``) on the CPU in ``dtype``
+    whose gradient is the sum of each part's forward and backward: each
+    part on its own copy of the model (its own BatchNorm statistics, as
+    ranks under ``gluon.Trainer``), or in turn on one model (``shared``:
+    microbatches).  Returns the first model's snapshot after the step."""
+    models = []
+    grads = None
+    for i, (xp, yp) in enumerate(parts):
+        if shared and models:
+            model = models[0]
+        else:
+            model = resnet50_v1(classes=1000)
+            load_reference_params(model, arrays, ctx=cpu())
+            model.to(dtype)
+            models.append(model)
+        with autograd.record():
+            loss = lossfn(model(xp.cpu().to(dtype)), yp.cpu())
+        autograd.backward(loss)
+        g = [p._grad_tensor().detach().clone() for p in _trainable(model)]
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+    main = models[0]
+    for p, g in zip(_trainable(main), grads):
+        p._grad_tensor().copy_(g)
+        p.fresh = False
+    gluon.Trainer(main.collect_params(), "sgd", RESNET_OPT).step(
+        sum(int(xp.shape[0]) for xp, _ in parts))
+    return _snapshot(main)
+
+
+def dist_store_run(seed: int, net, w_init, x, y, lossfn) -> dict:
+    """(a) ``gluon.Trainer`` over ``dist_sync``: the timed steps, the
+    check step at global batch 4 through the local update and through
+    ``update_on_kvstore``, and one step with 2-bit compression."""
+    rank, nw = mx_dist.rank(), mx_dist.num_workers()
+    lo, hi = rank * DIST_BATCH, (rank + 1) * DIST_BATCH
+    xr, yr = x[lo:hi], y[lo:hi]
+    params = net.collect_params()
+
+    def step(tr, xb, yb, total):
+        with autograd.record():
+            loss = lossfn(net(xb), yb)
+        autograd.backward(loss)
+        tr.step(total)
+        return loss.detach().mean()
+
+    load_snapshot(net, w_init)
+    tr = gluon.Trainer(params, "sgd", RESNET_OPT, kvstore="dist_sync",
+                       update_on_kvstore=False)
+    torch.cuda.synchronize()
+    zero_counts()
+    ms, equal, losses = [], [], []
+    for _ in range(DIST_WARM + DIST_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(step(tr, xr, yr, nw * DIST_BATCH))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        equal.append(replicas_equal(net, trainable_only=True))
+    launches = multi_sgd_mom.launches
+    other = other_launches(multi_sgd_mom)
+    steps = DIST_WARM + DIST_STEPS
+    per_step = -(-len(_trainable(net)) // AGG)
+    # the all-reduce of the 25.56 M fp32 gradients alone
+    flat = torch.cat([p._grad_tensor().reshape(-1) for p in _trainable(net)])
+    reduce_ms = []
+    for _ in range(3):
+        mx_dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        mx_dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.monotonic() - t0) * 1e3)
+    del flat
+    # the check step: 2 rows a rank from the initial weights
+    c_lo, c_hi = rank * DIST_CHECK, (rank + 1) * DIST_CHECK
+    load_snapshot(net, w_init)
+    step(gluon.Trainer(params, "sgd", RESNET_OPT,
+                       kvstore=mx_kv.KVStore("dist_sync"),
+                       update_on_kvstore=False),
+         x[c_lo:c_hi], y[c_lo:c_hi], nw * DIST_CHECK)
+    check_after = _snapshot(net)
+    check_equal = replicas_equal(net, trainable_only=True)
+    # the same check step with update_on_kvstore: the store's updater
+    # (per key) in place of the local multi-tensor update
+    load_snapshot(net, w_init)
+    step(gluon.Trainer(params, "sgd", RESNET_OPT,
+                       kvstore=mx_kv.KVStore("dist_sync"),
+                       update_on_kvstore=True),
+         x[c_lo:c_hi], y[c_lo:c_hi], nw * DIST_CHECK)
+    on_after = _snapshot(net)
+    on_equal = replicas_equal(net, trainable_only=True)
+    on_vs_off = _max_diff(on_after, check_after)
+    # 2-bit compression: the pulled gradient is the sum over the ranks of
+    # each one's quantized gradient, bit for bit
+    load_snapshot(net, w_init)
+    tr2 = gluon.Trainer(params, "sgd", RESNET_OPT,
+                        kvstore=mx_kv.KVStore("dist_sync"),
+                        update_on_kvstore=False,
+                        compression_params={"type": "2bit",
+                                            "threshold": DIST_THRESHOLD})
+    with autograd.record():
+        loss = lossfn(net(xr), yr)
+    autograd.backward(loss)
+    local = [p._grad_tensor().detach().reshape(-1).to("cpu", copy=True)
+             .numpy() for p in _trainable(net)]
+    tr2.step(nw * DIST_BATCH)
+    codes = mx_dist.allreduce_host(np.concatenate(
+        [quantize_2bit(g) for g in local]))
+    want = codes.astype(np.float32) * np.float32(DIST_THRESHOLD)
+    pulled = torch.cat([p._grad_tensor().reshape(-1)
+                        for p in _trainable(net)]).cpu().numpy()
+    compressed = {"bitwise": bool(np.array_equal(pulled, want)),
+                  "nonzero": int(np.count_nonzero(want)),
+                  "elements": int(want.size),
+                  "replicas_equal": replicas_equal(net, trainable_only=True)}
+    del local, codes, want, pulled
+    timed = ms[DIST_WARM:]
+    losses = [v.item() for v in losses]
+    checks = {
+        "launches_exact": launches == per_step * steps,
+        "no_other_launches": other == 0,
+        "replicas_bitwise_every_step": all(equal),
+        "finite_losses": all(math.isfinite(v) for v in losses),
+        "check_step_replicas_bitwise": check_equal,
+        "update_on_kvstore_replicas_bitwise": on_equal,
+        "compressed_pull_bitwise": compressed["bitwise"]
+        and compressed["replicas_equal"] and compressed["nonzero"] > 0,
+    }
+    return {"launches": launches, "expected_launches_per_step": per_step,
+            "steps": steps, "other_launches": other, "losses": losses,
+            "step_ms": sum(timed) / len(timed), "step_ms_each": ms,
+            "images_per_s_per_rank": DIST_BATCH * 1e3 * len(timed)
+            / sum(timed), "allreduce_ms": reduce_ms,
+            "allreduce_bytes": 4 * sum(p._tensor().numel()
+                                       for p in _trainable(net)),
+            "update_on_kvstore_vs_local_max_abs": on_vs_off,
+            "compression": compressed, "check_after": check_after,
+            "on_after": on_after,
+            "checks": checks}
+
+
+def sharded_run(net, w_init, x, y, lossfn) -> dict:
+    """(b) ``ShardedTrainer`` at dp = 2: every variant's check step at
+    global batch 4 from the initial weights, then its timed steps at 128."""
+    nw = mx_dist.num_workers()
+    x4, y4 = x[:nw * DIST_CHECK], y[:nw * DIST_CHECK]
+    out = {}
+    for name, kw in SHARDED_VARIANTS.items():
+        load_snapshot(net, w_init)
+        tr = mx_par.ShardedTrainer(net, lossfn, "sgd", dict(RESNET_OPT),
+                                   **kw)
+        torch.cuda.synchronize()
+        zero_counts()
+        tr.step(x4, y4)
+        after = _snapshot(net)
+        equal = [replicas_equal(net)]
+        ms, losses = [], []
+        for _ in range(SHARDED_WARM + SHARDED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            losses.append(tr.step(x, y).item())
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t0) * 1e3)
+            equal.append(replicas_equal(net))
+        steps = 1 + SHARDED_WARM + SHARDED_STEPS
+        per_step = -(-len(_trainable(net)) // MAX_TENSORS)
+        timed = ms[SHARDED_WARM:]
+        out[name] = {
+            "launches": multi_sgd_mom.launches,
+            "expected_launches": per_step * steps,
+            "other_launches": other_launches(multi_sgd_mom),
+            "step_ms": sum(timed) / len(timed), "step_ms_each": ms,
+            "losses": losses, "replicas_equal": equal,
+            "opt_state_bytes": tr.peak_opt_state_bytes(),
+            "buckets": None if tr.grad_buckets is None
+            else len(tr.grad_buckets), "check_after": after}
+        del tr
+        gc.collect()
+    return out
+
+
+def dist25_rank(seed: int, out_dir: Path) -> dict:
+    """One rank of phase 25 (started two at a time by ``tools/launch.py``
+    in ``dist25_phase``): (a) the dist store, (b) ``ShardedTrainer``;
+    rank 0 then holds both check steps to the CPU by ``leaf_check``."""
+    t0 = time.monotonic()
+    mx_dist.init_process_group()
+    rank, dev = mx_dist.rank(), mx_dist.rank_device()
+    ctx = gpu(dev.index)
+    res = {"rank": rank, "device": str(dev), "join_s": time.monotonic() - t0}
+    res["invariants"] = dist_invariants(ctx)
+    net = resnet50_v1(classes=1000)
+    net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+    w_init = _snapshot(net)
+    x, y = global_batch(seed, mx_dist.num_workers() * DIST_BATCH, dev)
+    lossfn = gluon.loss.SoftmaxCrossEntropyLoss()
+    t1 = time.monotonic()
+    res["dist_store"] = dist_store_run(seed, net, w_init, x, y, lossfn)
+    res["sharded"] = sharded_run(net, w_init, x, y, lossfn)
+    res["train_s"] = time.monotonic() - t1
+    nw = mx_dist.num_workers()
+    sh = res["sharded"]
+    checks = {"gloo": res["invariants"]["backend"] == "gloo"}
+    for name, r in sh.items():
+        checks[f"{name}_launches_exact"] = \
+            r["launches"] == r["expected_launches"]
+        checks[f"{name}_no_other_launches"] = r["other_launches"] == 0
+        checks[f"{name}_replicas_bitwise"] = all(r["replicas_equal"])
+        checks[f"{name}_finite"] = all(math.isfinite(v)
+                                       for v in r["losses"])
+    ratio = sh["zero1"]["opt_state_bytes"] / sh["zero0"]["opt_state_bytes"]
+    checks["zero1_state_about_half"] = 0.45 < ratio < 0.6
+    checks["buckets_formed"] = (sh["bucket25"]["buckets"] or 0) > 1
+    res["zero1_state_ratio"] = ratio
+    if rank == 0:
+        # the CPU references: fp32, and float64 as the arbiter
+        t2 = time.monotonic()
+        arrays = {k: v.cpu().numpy() for k, v in w_init.items()}
+        xc, yc = x[:nw * DIST_CHECK].cpu(), y[:nw * DIST_CHECK].cpu()
+        halves = [(xc[r * DIST_CHECK:(r + 1) * DIST_CHECK],
+                   yc[r * DIST_CHECK:(r + 1) * DIST_CHECK])
+                  for r in range(nw)]
+        micro = [(xc[m * 2:(m + 1) * 2], yc[m * 2:(m + 1) * 2])
+                 for m in range(2)]
+        refs = {}
+        for dt in (torch.float32, torch.float64):
+            refs[("halves", dt)] = summed_step(arrays, halves, dt, lossfn,
+                                               shared=False)
+            refs[("whole", dt)] = summed_step(arrays, [(xc, yc)], dt,
+                                              lossfn, shared=True)
+            refs[("micro", dt)] = summed_step(arrays, micro, dt, lossfn,
+                                              shared=True)
+        leaves = {name: leaf_check(
+            res["dist_store"][key], refs[("halves", torch.float32)],
+            refs[("halves", torch.float64)], w_init)
+            for name, key in (("dist_store", "check_after"),
+                              ("update_on_kvstore", "on_after"))}
+        for name, r in sh.items():
+            kind = "micro" if name == "accum2" else "whole"
+            leaves[name] = leaf_check(r["check_after"],
+                                      refs[(kind, torch.float32)],
+                                      refs[(kind, torch.float64)], w_init)
+        res["variant_vs_zero0_max_abs"] = {
+            name: _max_diff(r["check_after"], sh["zero0"]["check_after"])
+            for name, r in sh.items()}
+        res["leaf_checks"] = {
+            k: {f: v[f] for f in ("ok", "leaves", "failed",
+                                  "cpu_share_median", "worst_margin")}
+            for k, v in leaves.items()}
+        for k, v in leaves.items():
+            checks[f"{k}_leaf_check"] = v["ok"]
+        res["cpu_check_s"] = time.monotonic() - t2
+        del refs
+    # rank 1 waits here while rank 0 computes the CPU references
+    mx_dist.barrier("phase25_done", timeout=DIST_TIMEOUT)
+    res["dist_store"].pop("check_after")
+    res["dist_store"].pop("on_after")
+    for r in sh.values():
+        r.pop("check_after")
+    res["checks"] = {**checks, **res["dist_store"]["checks"],
+                     **res["invariants"]["checks"]}
+    res["ok"] = all(res["checks"].values())
+    res["seconds"] = time.monotonic() - t0
+    mx_dist.shutdown()
+    return res
+
+
+#: the tasks a rank of a launched group runs (``RANK_FLAG``), each writing
+#: ``<out>/<task><rank>.json``
+RANK_TASKS = {"phase25_rank": dist25_rank}
+RANK_FLAG = "--rank-task"
+
+
+def one_process_sharded(seed: int, card: str) -> dict:
+    """(c) ``ShardedTrainer`` at dp = 1 in this process at batch 128: the
+    JAX bench row's path (``bench.py:34-77``)."""
+    dev = gpu(0)
+    net = resnet50_v1(classes=1000)
+    net.initialize(Xavier("gaussian", "in", 2), ctx=dev, seed=seed)
+    x, y = global_batch(seed, DIST_RANKS * DIST_BATCH, dev)
+    tr = mx_par.ShardedTrainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                               "sgd", dict(RESNET_OPT))
+    torch.cuda.synchronize()
+    zero_counts()
+    ms, losses = [], []
+    for _ in range(ONE_PROCESS_WARM + ONE_PROCESS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(tr.step(x, y).item())
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    steps = ONE_PROCESS_WARM + ONE_PROCESS_STEPS
+    per_step = -(-len(_trainable(net)) // MAX_TENSORS)
+    timed = ms[ONE_PROCESS_WARM:]
+    launches = multi_sgd_mom.launches
+    other = other_launches(multi_sgd_mom)
+    res = {"card": card, "batch": x.shape[0], "dp": tr.dp_size,
+           "launches": launches, "expected_launches": per_step * steps,
+           "step_ms": sum(timed) / len(timed), "step_ms_each": ms,
+           "images_per_s": x.shape[0] * 1e3 * len(timed) / sum(timed),
+           "losses": losses}
+    res["checks"] = {"launches_exact": launches == per_step * steps,
+                     "no_other_launches": other == 0,
+                     "finite": all(math.isfinite(v) for v in losses)}
+    res["ok"] = all(res["checks"].values())
+    del tr, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist25_phase(seed: int, card: str, out_dir: Path) -> dict:
+    """Phase 25: two ranks of ``dist25_rank`` on this card through the
+    port's launcher (gloo: the ranks share the card), then (c) in this
+    process."""
+    start = time.monotonic()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out_dir = out_dir.resolve()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    reports = [out_dir / f"phase25_rank{r}.json" for r in range(DIST_RANKS)]
+    for f in reports:
+        f.unlink(missing_ok=True)
+    root = Path(__file__).resolve().parent
+    proc = subprocess.Popen(
+        [sys.executable, str(root / LAUNCHER), "-n", str(DIST_RANKS),
+         sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+         "--out", str(out_dir), RANK_FLAG, "phase25_rank"],
+        cwd=str(root), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        log, _ = proc.communicate()
+        raise AssertionError(f"phase 25: the ranks outlived "
+                             f"{DIST_TIMEOUT} s:\n{log[-4000:]}")
+    if proc.returncode != 0 or not all(f.exists() for f in reports):
+        raise AssertionError(f"phase 25: the launch exited "
+                             f"{proc.returncode}:\n{log[-6000:]}")
+    ranks = [json.loads(f.read_text()) for f in reports]
+    ranks_s = time.monotonic() - start
+    one = one_process_sharded(seed, card)
+    res = {"card": card, "ranks": ranks, "one_process": one,
+           "ranks_s": ranks_s, "seconds": time.monotonic() - start}
+    res["dist_launches"] = [r["dist_store"]["launches"] for r in ranks]
+    res["sharded_launches"] = [
+        {k: v["launches"] for k, v in r["sharded"].items()} for r in ranks]
+    res["ok"] = all(r["ok"] for r in ranks) and one["ok"]
+    return res
+
+
 def failed_checks(report, path: str = "") -> list:
     """The dotted path of every false entry of every ``checks`` dict in
     a phase's report, so that a failure names what failed."""
@@ -11545,6 +12031,9 @@ def main() -> int:
     ap.add_argument(CHILD_FLAG, choices=sorted(CHILD_TASKS),
                     help="one measurement alone, in the process that "
                          "in_child starts")
+    ap.add_argument(RANK_FLAG, dest="rank_task",
+                    choices=sorted(RANK_TASKS),
+                    help="one rank of a phase that tools/launch.py starts")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -11559,6 +12048,14 @@ def main() -> int:
         report = CHILD_TASKS[args.child](args.seed, out)
         report["event_fallbacks"] = EVENT_FALLBACKS
         (out / f"{args.child}.json").write_text(json.dumps(report))
+        return 0
+    if args.rank_task:
+        # one rank of a group that tools/launch.py started: its report
+        # carries its rank in the name
+        out = Path(args.out)
+        report = RANK_TASKS[args.rank_task](args.seed, out)
+        name = f"{args.rank_task}{os.environ['DMLC_WORKER_ID']}"
+        (out / f"{name}.json").write_text(json.dumps(report))
         return 0
 
     start = t0 = time.monotonic()
@@ -12094,6 +12591,44 @@ def main() -> int:
           f"{json.dumps(r['checks'])}", flush=True)
     print(f"phase 24 on {card}: {slice24['seconds']:.1f} s "
           f"{json.dumps(slice24['part_seconds'])}", flush=True)
+    slice25 = dist25_phase(args.seed, card, Path(args.out))
+    for r in slice25["ranks"]:
+        d = r["dist_store"]
+        print(f"phase 25 rank {r['rank']} gluon.Trainer dist_sync on {card} "
+              f"(two ranks sharing one card over gloo, not a scaling "
+              f"number): step {d['step_ms']:.3f} ms at {DIST_BATCH} a rank "
+              f"({d['images_per_s_per_rank']:.1f} images/s a rank), "
+              f"all-reduce of {d['allreduce_bytes']} bytes "
+              f"{[round(v, 3) for v in d['allreduce_ms']]} ms, momentum "
+              f"launches {d['launches']} ({d['expected_launches_per_step']}"
+              f" a step x {d['steps']} steps expected), update_on_kvstore "
+              f"at the check step vs local "
+              f"{d['update_on_kvstore_vs_local_max_abs']:.3g} max-abs, "
+              f"2-bit {json.dumps(d['compression'])}", flush=True)
+        for name, v in r["sharded"].items():
+            print(f"phase 25 rank {r['rank']} ShardedTrainer {name} on "
+                  f"{card} (two ranks sharing one card): step "
+                  f"{v['step_ms']:.3f} ms at 128, momentum launches "
+                  f"{v['launches']} ({v['expected_launches']} expected), "
+                  f"optimizer state {v['opt_state_bytes']} bytes, buckets "
+                  f"{v['buckets']}, losses "
+                  f"{[round(x, 5) for x in v['losses']]}", flush=True)
+        if "leaf_checks" in r:
+            print(f"phase 25 leaf checks on {card}:",
+                  json.dumps(r["leaf_checks"]), "variants vs zero0",
+                  json.dumps(r["variant_vs_zero0_max_abs"]), flush=True)
+        print(f"phase 25 rank {r['rank']} checks on {card} "
+              f"({r['seconds']:.1f} s):", json.dumps(r["checks"]),
+              flush=True)
+    o = slice25["one_process"]
+    print(f"phase 25 (c) ShardedTrainer dp=1 on {card}: step "
+          f"{o['step_ms']:.3f} ms, {o['images_per_s']:.1f} images/s at "
+          f"batch {o['batch']}, momentum launches {o['launches']} "
+          f"({o['expected_launches']} expected); phase 6's hybridized "
+          f"gluon.Trainer step {resnet['step_ms']:.3f} ms, "
+          f"{resnet['images_per_s']:.1f} images/s", flush=True)
+    print(f"phase 25 on {card}: {slice25['seconds']:.1f} s (ranks "
+          f"{slice25['ranks_s']:.1f} s)", flush=True)
     main_row, bf16_row = (next(r for r in rows if r["case"] ==
                                f"bert_base B=8 L=512 {dt}")
                           for dt in ("float32", "bfloat16"))
@@ -12200,6 +12735,13 @@ def main() -> int:
            "export_launches": export["train"]["launches"],
            "op_slice_launches": slice21["launches"],
            "longformer_launches": slice24["launches"],
+           "dist_launches": {f"rank{r['rank']}": r["dist_store"]["launches"]
+                             for r in slice25["ranks"]},
+           "sharded_launches": {
+               **{f"rank{r['rank']}": {k: v["launches"] for k, v in
+                                       r["sharded"].items()}
+                  for r in slice25["ranks"]},
+               "one_process": slice25["one_process"]["launches"]},
            "control_flow_detection_launches": {
                "rfcn": slice22["rfcn"]["launches"],
                "feedforward": slice22["feedforward"]["launches"]},
@@ -12262,7 +12804,8 @@ def main() -> int:
          "generation": gen, "training_surface": surface,
          "data_pipeline": data, "model_surface": surface18,
          "symbolic": symbolic, "export": export, "op_slice": slice21, "slice22": slice22,
-         "observability": obs, "slice24": slice24, "kernels": kernels,
+         "observability": obs, "slice24": slice24, "slice25": slice25,
+         "kernels": kernels,
          "event_fallbacks": EVENT_FALLBACKS, "elapsed_s": elapsed},
         indent=1))
     print(f"timings by CUDA events where every trace lost records: "
@@ -12278,7 +12821,8 @@ def main() -> int:
         ("data pipeline", data), ("model surface", surface18),
         ("symbolic", symbolic), ("export", export), ("op slice", slice21),
         ("control flow and detection", slice22),
-        ("observability", obs), ("int8 and longformer", slice24))
+        ("observability", obs), ("int8 and longformer", slice24),
+        ("data parallel", slice25))
         if not ph["ok"]]
     if failed:
         print(f"chip_smoke: failed: {failed}", file=sys.stderr)

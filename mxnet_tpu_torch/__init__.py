@@ -42,14 +42,21 @@ Prometheus and JSONL export, causal tracing with W3C ``traceparent``,
 the flight recorder, the stack sampler, the progress watchdog,
 ``mx.profiler`` (op events, spans and ``torch.profiler``'s device trace
 on one timeline) and the ``tuning`` controllers.
+Data-parallel training across processes is the JAX package's:
+``python -m mxnet_tpu_torch.tools.launch -n N python train.py`` starts the
+ranks, the ``dist_*`` kvstores (with 2-bit compression) carry
+``gluon.Trainer``'s gradients over ``torch.distributed``, and
+``parallel.ShardedTrainer`` runs ZeRO, accumulation, communication
+buckets and BatchNorm over the global batch.
 Entry points run on ``gpu(0)`` unless the caller passes ``ctx=cpu()`` or
 opens a ``with mx.cpu():`` scope.
 """
 from . import attribute, autograd, base, callback, context, contrib, \
     engine, faults, gluon, image, initializer, io, kernels, kvstore, \
     lr_scheduler, metric, model, module, monitor, name, ndarray, \
-    observability, operator, optimizer, profiler, random, recordio, rnn, \
-    rtc, runtime, serving, symbol, test_utils, tuning, visualization
+    observability, operator, optimizer, parallel, profiler, random, \
+    recordio, rnn, rtc, runtime, serving, symbol, test_utils, tuning, \
+    visualization
 from .attribute import AttrScope
 from .base import MXNetError, get_env, list_env, register_env
 from .context import Context, cpu, cpu_pinned, current_context, gpu, \
@@ -79,7 +86,8 @@ __all__ = ["AttrScope", "Context", "MXNetError", "Monitor", "attribute",
            "load_reference_params", "lr_scheduler",
            "metric", "mod", "model", "module", "monitor", "name", "nd",
            "ndarray", "num_gpus",
-           "observability", "operator", "optimizer", "profiler", "random",
+           "observability", "operator", "optimizer", "parallel", "profiler",
+           "random",
            "recordio", "register_env", "rnn", "rtc", "runtime", "serving",
            "sym", "symbol", "test_utils", "tuning", "visualization", "viz",
            "waitall"]

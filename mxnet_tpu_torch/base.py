@@ -142,6 +142,32 @@ register_env("MXTPU_FRONTEND_PRIORITY", 0, int,
 register_env("MXTPU_FAULT_PLAN", "", str,
              "Deterministic fault-injection schedule, e.g. "
              "'loader_stall@4:1.5;loader_error@2' (faults.py).")
+register_env("MXTPU_DIST_TIMEOUT", 300.0, float,
+             "Per-attempt timeout (seconds) for joining the process group "
+             "and for every collective, barrier and store wait of "
+             "parallel.dist (a peer that never arrives raises "
+             "DeadlineExceeded).")
+register_env("MXTPU_ELASTIC", False, bool,
+             "Elastic process groups (host loss and re-forms): not "
+             "ported; init_process_group raises when it is on.")
+register_env("MXTPU_ZERO_STAGE", 0, int,
+             "Default ZeRO optimizer-state partitioning stage for "
+             "ShardedTrainer (0, 1 or 2): 0 = optimizer state replicated "
+             "on every rank; 1 = state sharded 1/dp per rank, gradients "
+             "reduce-scattered into each rank's slice and the updated "
+             "parameters all-gathered; 2 = the gradient (accumulation) "
+             "buffer is sharded too.  The zero_stage= argument overrides.")
+register_env("MXTPU_ACCUM_STEPS", 1, int,
+             "Default microbatched gradient accumulation for "
+             "ShardedTrainer: the step runs its global batch as N "
+             "microbatches, rescale-correct against the full batch.  The "
+             "accum_steps= argument overrides.")
+register_env("MXTPU_COMM_BUCKET_MB", 0.0, float,
+             "Bucketed gradient reduction for ShardedTrainer: buckets of "
+             "at most this many MB in reverse parameter order, each "
+             "reduced as soon as backward has produced it.  0 = one "
+             "reduction after the whole backward.  The comm_bucket_mb= "
+             "argument overrides.")
 register_env("MXTPU_DEVICE_PREFETCH", 0, int,
              "DataLoader device stage: keep up to N batches in flight on "
              "the device beyond the one being consumed, each copied from "
@@ -159,8 +185,9 @@ register_env("MXTPU_METRICS_JSONL", "", str,
 register_env("MXTPU_METRICS_INTERVAL", 60.0, float,
              "Seconds between JSONL metric snapshots.")
 register_env("MXTPU_METRICS_AGGREGATE", False, bool,
-             "Serve the host-labeled fleet view from /metrics (the local "
-             "host alone until the cross-host gather is ported).")
+             "Serve the fleet (all-hosts) view from /metrics, every "
+             "series host-labeled: the states of the last "
+             "snapshot(all_hosts=True) or fleet gather.")
 register_env("MXTPU_FLIGHT_STEPS", 256, int,
              "Crash flight-recorder ring capacity (0 disables).")
 register_env("MXTPU_FLIGHT_PATH", "", str,
@@ -178,6 +205,11 @@ register_env("MXTPU_TUNE_DECODE_SLOTS", False, bool,
              "Self-tuning: enable the DecodeSlotController (hill-climbs "
              "a GenerationServer's decode slots on interval tokens/s).  "
              "Off by default: attach it to a server explicitly.")
+register_env("MXTPU_TUNE_FLEET_GATHER", True, bool,
+             "Self-tuning: enable the FleetGatherController (the "
+             "multi-host metric gather over the process group's store, "
+             "barrier-free, on the timer thread) in an initialized "
+             "process group.")
 register_env("MXTPU_TUNE_INTERVAL", 2.0, float,
              "Self-tuning: seconds between the controller timer thread's "
              "ticks.")

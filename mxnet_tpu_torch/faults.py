@@ -1,12 +1,15 @@
 """Fault handling for the data pipeline: bounded retry and deterministic
 fault injection.
 
-The port's own copy of what the ``DataLoader`` uses from
-``mxnet_tpu/faults.py`` (:66-295): ``TransientFault``, ``retry_call``
-(exponential backoff with jitter), and
+The port's own copy of ``mxnet_tpu/faults.py`` (:66-295) as the
+``DataLoader`` and the process group use it: ``TransientFault``,
+``retry_call`` (exponential backoff with jitter, cut short by a
+``Deadline``), ``DeadlineExceeded``, ``Deadline`` and
+``call_with_deadline`` (every collective of ``parallel.dist`` raises
+``DeadlineExceeded`` when a peer never arrives), and
 ``FaultPlan``/``active_plan``/``set_fault_plan`` with the
-``MXTPU_FAULT_PLAN`` knob.  Deadlines and the supervisor's host-level
-kinds are not ported.
+``MXTPU_FAULT_PLAN`` knob.  The supervisor's host-level kinds are not
+ported.
 
 Fault-plan grammar (``MXTPU_FAULT_PLAN`` or :class:`FaultPlan`):
 
@@ -30,8 +33,9 @@ from typing import Callable, List, NamedTuple, Optional, Tuple, Type
 
 from .base import MXNetError, get_env
 
-__all__ = ["TransientFault", "retry_call", "FaultSpec", "FaultPlan",
-           "active_plan", "set_fault_plan"]
+__all__ = ["TransientFault", "DeadlineExceeded", "retry_call", "Deadline",
+           "call_with_deadline", "FaultSpec", "FaultPlan", "active_plan",
+           "set_fault_plan"]
 
 FAULT_PLAN_ENV = "MXTPU_FAULT_PLAN"
 
@@ -39,6 +43,10 @@ FAULT_PLAN_ENV = "MXTPU_FAULT_PLAN"
 class TransientFault(MXNetError):
     """A failure that is expected to succeed on retry (injected faults,
     flaky I/O)."""
+
+
+class DeadlineExceeded(MXNetError):
+    """A wall-clock deadline expired before the wrapped work finished."""
 
 
 def _retry_counter():
@@ -53,13 +61,15 @@ def retry_call(fn: Callable, *args,
                jitter: float = 0.25,
                retry_on: Tuple[Type[BaseException], ...] = (TransientFault,),
                on_retry: Optional[Callable] = None,
+               deadline: Optional["Deadline"] = None,
                sleep: Callable[[float], None] = time.sleep,
                **kwargs):
     """Call ``fn(*args, **kwargs)``, retrying ``retry_on`` failures with
     exponential backoff (``base_delay * 2**attempt``, capped at
     ``max_delay``) plus up to ``jitter`` fractional random spread.
 
-    ``on_retry(attempt, exc, delay)`` runs before each sleep.  The last
+    ``on_retry(attempt, exc, delay)`` runs before each sleep; once
+    ``deadline`` (a :class:`Deadline`) expires no retry is left.  The last
     failure re-raises.
     """
     if retries < 0:
@@ -70,15 +80,65 @@ def retry_call(fn: Callable, *args,
             return fn(*args, **kwargs)
         except retry_on as exc:
             attempt += 1
-            if attempt > retries:
+            if attempt > retries or (deadline is not None and
+                                     deadline.expired):
                 raise
             _retry_counter().inc()
             delay = min(max_delay, base_delay * (2.0 ** (attempt - 1)))
             if jitter:
                 delay *= 1.0 + jitter * _pyrandom.random()
+            if deadline is not None:
+                delay = min(delay, max(0.0, deadline.remaining()))
             if on_retry is not None:
                 on_retry(attempt, exc, delay)
             sleep(delay)
+
+
+class Deadline:
+    """A wall-clock budget shared across a sequence of operations."""
+
+    def __init__(self, timeout: float):
+        self.timeout = float(timeout)
+        self._start = time.monotonic()
+
+    def remaining(self) -> float:
+        return self.timeout - (time.monotonic() - self._start)
+
+    @property
+    def expired(self) -> bool:
+        return self.remaining() <= 0.0
+
+    def check(self, what: str = "operation") -> None:
+        if self.expired:
+            raise DeadlineExceeded(
+                f"{what} exceeded its {self.timeout:.1f}s deadline")
+
+
+def call_with_deadline(fn: Callable, timeout: float, *args, **kwargs):
+    """Run ``fn`` in a worker thread and give up after ``timeout`` seconds
+    with :class:`DeadlineExceeded`.  The abandoned thread is a daemon and
+    runs on to its end: use this only around idempotent calls (connects,
+    metadata reads), never around a change of shared state."""
+    box: List = []
+
+    def _run():
+        try:
+            box.append(("ok", fn(*args, **kwargs)))
+        except BaseException as exc:   # noqa: BLE001 — re-raised below
+            box.append(("err", exc))
+
+    t = threading.Thread(target=_run, daemon=True,
+                         name="mxtpu-deadline-worker")
+    t.start()
+    t.join(timeout)
+    if not box:
+        raise DeadlineExceeded(
+            f"{getattr(fn, '__name__', fn)!r} did not finish within "
+            f"{timeout:.1f}s")
+    tag, val = box[0]
+    if tag == "err":
+        raise val
+    return val
 
 
 class FaultSpec(NamedTuple):

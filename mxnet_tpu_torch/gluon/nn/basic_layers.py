@@ -27,7 +27,9 @@ for distribution.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -318,6 +320,19 @@ class BatchNorm(HybridBlock):
     statistics are updated here from ``torch.var_mean``, in the profiler
     range ``batchnorm_stats``.
 
+    Under ``parallel.ShardedTrainer`` at ``dp`` > 1 (inside
+    :func:`global_batch_stats`) the statistics are the global batch's,
+    over every rank's rows, as the JAX package's one-jit step computes
+    them: every rank's mean and sum of squared deviations from it reach
+    every rank by one all-reduce in forward (each rank's in its own slot
+    of a zero buffer, so exactly) and are combined there in rank order,
+    the global sum of squared deviations as the ranks' own plus each
+    one's rows times its mean's squared distance from the global mean
+    (no difference of large sums), and the two sums the input gradient
+    needs come by one all-reduce in backward; gamma's and beta's
+    gradients stay the rank's own, for the trainer to sum.  ``gluon.Trainer`` over a
+    distributed kvstore keeps each process's statistics, as MXNet does.
+
     Low precision: bf16/fp16 activations keep their dtype, and the batch
     statistics are taken in fp32 from ``x.float()``, as the JAX op does
     (``mxnet_tpu/ndarray/ops_nn.py:306-331``); the running statistics keep
@@ -384,6 +399,11 @@ class BatchNorm(HybridBlock):
         if not (autograd.is_training() and not self._use_global_stats):
             return F.batch_norm(x, r_mean, r_var, gamma, beta, False, 0.0,
                                 self._epsilon)
+        sync = getattr(_stat_sync, "group", None)
+        if sync is not None:
+            return _GlobalBatchNorm.apply(x, gamma, beta, r_mean, r_var,
+                                          self._momentum, self._epsilon,
+                                          sync)
         # a named range, so that a profile can tell this pass apart
         with torch.no_grad(), \
                 torch.profiler.record_function("batchnorm_stats"):
@@ -406,6 +426,78 @@ class BatchNorm(HybridBlock):
                            axis=self._axis,
                            _training=autograd.is_training()
                            and not self._use_global_stats)
+
+
+_stat_sync = threading.local()
+
+
+@contextlib.contextmanager
+def global_batch_stats(group, world: int):
+    """Inside, every ``BatchNorm`` in training mode of this thread takes
+    the statistics of the global batch over ``group``'s ``world`` ranks
+    (no-op for a group of one)."""
+    prev = getattr(_stat_sync, "group", None)
+    _stat_sync.group = (group, world) if world > 1 else None
+    try:
+        yield
+    finally:
+        _stat_sync.group = prev
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """BatchNorm over the global batch of a process group (see
+    ``BatchNorm``): channels on dim 1, statistics in fp32 (float64 for a
+    float64 input), biased variance."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, r_mean, r_var, mom, eps, sync):
+        from ...parallel import dist
+        group, world = sync
+        dims = [d for d in range(x.ndim) if d != 1]
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        xf = x if x.dtype == torch.float64 else x.float()
+        c = xf.shape[1]
+        n = xf.numel() // c
+        mean_r = xf.mean(dims)
+        m2_r = torch.square(xf - mean_r.view(shape)).sum(dims)
+        buf = xf.new_zeros(world, 2, c)
+        buf[dist.rank(), 0] = mean_r
+        buf[dist.rank(), 1] = m2_r
+        dist.all_reduce(buf, group=group)
+        total = n * world
+        mean = buf[:, 0].sum(0) / world
+        var = (buf[:, 1].sum(0) + n * torch.square(buf[:, 0] - mean)
+               .sum(0)) / total
+        with torch.profiler.record_function("batchnorm_stats"):
+            r_mean.copy_(r_mean * mom + mean * (1 - mom))
+            r_var.copy_(r_var * mom + var * (1 - mom))
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        y = xhat * gamma.view(shape).to(xf.dtype) if gamma is not None \
+            else xhat
+        y = y + beta.view(shape).to(xf.dtype)
+        ctx.save_for_backward(xhat, invstd, gamma)
+        ctx.sync, ctx.total, ctx.dims, ctx.shape = sync, total, dims, shape
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from ...parallel import dist
+        xhat, invstd, gamma = ctx.saved_tensors
+        dims, shape = ctx.dims, ctx.shape
+        dyf = dy.to(xhat.dtype)
+        c = xhat.shape[1]
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = (dyf * xhat).sum(dims)
+        buf = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(buf, group=ctx.sync[0])
+        scale = invstd if gamma is None else gamma.to(xhat.dtype) * invstd
+        dx = scale.view(shape) * (dyf - (buf[:c] / ctx.total).view(shape)
+                                  - xhat * (buf[c:] / ctx.total).view(shape))
+        dgamma = sum_dy_xhat.to(gamma.dtype) \
+            if gamma is not None and ctx.needs_input_grad[1] else None
+        dbeta = sum_dy.to(dy.dtype) if ctx.needs_input_grad[2] else None
+        return dx.to(dy.dtype), dgamma, dbeta, None, None, None, None, None
 
 
 class InstanceNorm(HybridBlock):

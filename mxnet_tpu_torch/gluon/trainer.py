@@ -20,14 +20,31 @@ the first step, as MXNet expects).  ``optimizer_params`` go to the
 optimizer as they are, ``lr_scheduler`` and ``begin_num_update``
 included.
 
-``kvstore`` takes ``"device"``, ``"local"``, None or a ``KVStore``; the
-distributed kvstores are not ported (``kvstore.create`` raises).
-``compression_params`` applies to distributed stores only: on a local
-one it warns and is ignored, as in the reference.  ``update_on_kvstore``
-None or False keeps the local update; True runs the optimizer through
-the kvstore's updater (the reference's ``_init_kvstore``, :73-102): at
-the first step the store takes the optimizer and a copy of each weight,
-and each step pushes the gradients and pulls the updated weights back.
+``kvstore`` takes a type name (``"device"``, ``"local"``, ``"nccl"``,
+``"dist_sync"``, ``"dist_device_sync"``, ``"dist"``), None or a
+``KVStore`` (the reference's ``_init_kvstore``, :73-102).  On a local
+store ``update_on_kvstore`` None or False keeps the local update, True
+runs the optimizer through the store's updater: at the first step the
+store takes the optimizer and a copy of each weight, and each step pushes
+the gradients and pulls the updated weights back.  On a distributed store
+(more than one process) ``update_on_kvstore`` defaults to True, and the
+first step broadcasts rank 0's weights through the store, so every
+process starts equal:
+
+- with ``update_on_kvstore`` each step pushes every live gradient in one
+  call (one coalesced all-reduce across the processes), each process
+  applies the same update to the same sum, and the weights are pulled
+  back;
+- without it ``allreduce_grads`` pushes every gradient in one call and
+  pulls the sums back into the gradients, and ``update`` runs the local
+  update on them (the multi-tensor SGD kernels, 41 launches a ResNet-50
+  step).
+
+``compression_params`` (2-bit, error feedback) applies to distributed
+stores only: on a local one it warns and is ignored, as in the reference.
+``allreduce_and_update`` is ``step``.  BatchNorm statistics stay per
+process on this path, as MXNet and the JAX package's imperative path keep
+them (``parallel.ShardedTrainer`` computes them over the global batch).
 
 ``save_states``/``load_states`` write and read the JAX package's pickle,
 ``{"states": {str(index): numpy tuples}, "num_update",
@@ -80,11 +97,16 @@ class Trainer:
         self._kvstore = kv_mod.create(kvstore) if isinstance(kvstore, str) \
             else kvstore
         if compression_params is not None and self._kvstore is not None:
-            warnings.warn("gradient compression applies to dist_* "
-                          "kvstores only; ignored for the local store")
-        self._update_on_kvstore = bool(update_on_kvstore)
+            if getattr(self._kvstore, "_dist", False):
+                self._kvstore.set_gradient_compression(compression_params)
+            else:
+                warnings.warn("gradient compression applies to dist_* "
+                              "kvstores only; ignored for the local store")
+        # None: decided at the first step (True on a distributed store)
+        self._update_on_kvstore = update_on_kvstore
         if self._update_on_kvstore and self._kvstore is None:
             raise MXNetError("update_on_kvstore=True requires a kvstore")
+        self._dist_kv = False
         self._kv_initialized = False
         self._states: Dict[int, object] = {}
         self._state_dtypes: Dict[int, torch.dtype] = {}
@@ -105,15 +127,25 @@ class Trainer:
         self._optimizer.set_learning_rate(lr)
 
     def _init_kvstore(self) -> None:
-        """With ``update_on_kvstore``, hand the store the optimizer and
-        a copy of every weight, once."""
+        """Decide the update path, once: with ``update_on_kvstore`` hand
+        the store the optimizer and a copy of every weight; on a
+        distributed store without it, take rank 0's weights through the
+        store."""
         if self._kv_initialized:
             return
+        kv = self._kvstore
+        self._dist_kv = kv is not None and getattr(kv, "_dist", False)
+        if self._update_on_kvstore is None:
+            self._update_on_kvstore = self._dist_kv
+        keys = list(range(len(self._params)))
+        weights = [NDArray(p._tensor().detach()) for p in self._params]
         if self._update_on_kvstore:
-            self._kvstore.set_optimizer(self._optimizer)
-            self._kvstore.init(list(range(len(self._params))),
-                               [NDArray(p._tensor().detach())
-                                for p in self._params])
+            kv.set_optimizer(self._optimizer)
+            kv.init(keys, weights)
+        elif self._dist_kv:
+            kv.init(keys, weights)
+            for i, w in zip(keys, weights):
+                kv.pull(i, out=w)
         self._kv_initialized = True
 
     def _live(self, ignore_stale_grad: bool):
@@ -148,13 +180,24 @@ class Trainer:
         self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self) -> None:
-        """Sum gradients across device replicas: one device, nothing to
-        do."""
+        """Sum the gradients across the processes of a distributed store:
+        one push of every gradient (one coalesced collective), the sums
+        pulled back into the gradients.  One process: nothing to do."""
         self._init_kvstore()
         if self._update_on_kvstore:
             raise MXNetError(
                 "allreduce_grads is not applicable when the optimizer runs "
                 "on the kvstore (update_on_kvstore=True)")
+        if not self._dist_kv:
+            return
+        grads = [NDArray(p._grad_tensor()) for p in self._params]
+        keys = list(range(len(grads)))
+        self._kvstore.push(keys, grads)
+        for i, g in zip(keys, grads):
+            self._kvstore.pull(i, out=g)
+
+    def allreduce_and_update(self, batch_size: int) -> None:
+        self.step(batch_size)
 
     @torch.no_grad()
     def update(self, batch_size: int, ignore_stale_grad: bool = False) -> None:

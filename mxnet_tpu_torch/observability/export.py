@@ -196,12 +196,14 @@ def aggregate_mode() -> bool:
 def prometheus_text_aggregate(
         reg: Optional[MetricsRegistry] = None) -> str:
     """The FLEET view in Prometheus text format: this host's series read
-    live plus the per-host states last installed
-    (:func:`~.registry.ingest_host_states`), each labeled
+    live plus every other host's from the most recent gather
+    (``snapshot(all_hosts=True)``, a collective run at fleet sync points
+    such as checkpoint boundaries, never from the scrape handler; or the
+    ``FleetGatherController``'s barrier-free gather), each labeled
     ``host="<process_index>"``.  Cross-host aggregation (sums, merged
-    quantiles) is PromQL's job — ``sum by (le)`` etc.  With no states
-    installed this serves the local host's series under its own host
-    label."""
+    quantiles) is PromQL's job — ``sum by (le)`` etc.  Before the first
+    gather (or single-process) this serves the local host's series under
+    its own host label."""
     lines = []
     for name, kind, entries in group_host_entries(last_host_states(reg)):
         pname = _prom_name(name)

@@ -18,14 +18,15 @@ something reads.
 The fleet view is a set of pure functions over per-host states
 (``merge_host_states``, ``group_host_entries``, ``state_bounds``,
 ``state_cumulative_buckets``, ``ingest_host_states``).  ``host_id()`` is
-the ``torch.distributed`` rank when a process group is up, else 0.  The
-gather of the other hosts' states over the wire waits for the port of
-the JAX package's ``parallel`` layer: until then ``gather_host_states``
-and ``snapshot(all_hosts=True)`` serve this host alone (labeled with its
-``host_id``), as the JAX package does without a process group.
+the ``torch.distributed`` rank when a process group is up, else 0.
+``gather_host_states`` (and ``snapshot(all_hosts=True)``) gathers every
+host's ``export_state()`` as JSON over ``parallel.dist.allgather_bytes``,
+a collective, as the JAX package does; without a process group it serves
+this host alone, labeled with its ``host_id``.
 """
 from __future__ import annotations
 
+import json
 import re
 import threading
 import time as _time
@@ -353,10 +354,11 @@ class MetricsRegistry:
         histograms → their aggregate sub-dict.  The single pull surface
         the exporters and tests read.
 
-        ``all_hosts=True`` is the fleet view's shape (counters summed,
-        histogram buckets added, every series with a ``host`` map),
-        over this host alone until the cross-host gather is ported (see
-        :func:`gather_host_states`)."""
+        ``all_hosts=True`` is the fleet view: every host's state gathered
+        (a collective: every process calls it together, e.g. at a
+        checkpoint boundary) and merged, counters summed, histogram
+        buckets added, every series with a ``host`` map; this host alone
+        without a process group (see :func:`gather_host_states`)."""
         if all_hosts:
             return merge_host_states(gather_host_states(self))
         with self._lock:
@@ -429,13 +431,29 @@ def host_id() -> int:
 
 def gather_host_states(reg: Optional[MetricsRegistry] = None
                        ) -> List[Tuple[int, dict]]:
-    """``(host_index, export_state())`` of this host alone: the gather of
-    the other hosts' states waits for the port of the ``parallel`` layer
-    (the JAX package gathers them over its process group).  States
-    installed by :func:`ingest_host_states` still reach
-    :func:`last_host_states`."""
+    """``(host_index, export_state())`` of every process: a collective
+    over ``parallel.dist.allgather_bytes`` when the process group is up,
+    this host alone otherwise.  A successful gather is kept for
+    :func:`last_host_states` (the aggregate endpoint serves it between
+    gathers); a failed one warns and serves the local view."""
+    global _last_host_states
     reg = reg if reg is not None else registry()
-    return [(host_id(), reg.export_state())]
+    local = reg.export_state()
+    states = [(host_id(), local)]
+    try:
+        from ..parallel import dist
+        if dist.is_initialized():
+            blobs = dist.allgather_bytes(json.dumps(local).encode("utf-8"))
+            states = [(i, json.loads(b.decode("utf-8")))
+                      for i, b in enumerate(blobs)]
+            _last_host_states = states
+    except Exception as e:   # noqa: BLE001 — observability must never
+        # kill the job it observes: degrade to the local view
+        import warnings
+        warnings.warn(f"multi-host metric gather failed; serving the "
+                      f"local view only ({e})", RuntimeWarning,
+                      stacklevel=2)
+    return states
 
 
 def ingest_host_states(states: List[Tuple[int, dict]]) -> None:

@@ -4,8 +4,9 @@
 Counterpart of ``mxnet_tpu/runtime.py`` (MXNet's ``mx.runtime``), with the
 JAX package's feature names, each answering what holds for the port:
 ``CUDA`` is whether torch sees a card; ``TPU``, ``XLA`` and ``PALLAS``
-are false (the port runs neither); ``SPARSE`` and ``DIST_KVSTORE`` are
-false until the sparse arrays and the distributed stores are ported;
+are false (the port runs neither); ``DIST_KVSTORE`` is true (the
+``dist_*`` stores over ``torch.distributed``); ``SPARSE`` is false until
+the sparse arrays are ported;
 ``NATIVE_RUNTIME`` is whether the native io core builds and loads;
 ``INT64_TENSOR_SIZE`` is true (torch indexes with int64 always, so
 ``enable_large_tensor`` changes nothing).
@@ -54,7 +55,7 @@ def _detect() -> Dict[str, bool]:
     return {"XLA": False, "TPU": False, "CPU": True,
             "CUDA": torch.cuda.is_available(), "PALLAS": False,
             "SPARSE": False, "IMAGE_DECODE": image, "BF16": True,
-            "DIST_KVSTORE": False, "NATIVE_RUNTIME": io_available()}
+            "DIST_KVSTORE": True, "NATIVE_RUNTIME": io_available()}
 
 
 class Features(dict):

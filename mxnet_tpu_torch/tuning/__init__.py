@@ -5,7 +5,8 @@ Counterpart of ``mxnet_tpu/tuning``.  :mod:`.controllers` holds the
 recorded as ``tuning.*`` metrics and a flight-recorder tuning record) and
 the controllers: :class:`~.controllers.PrefetchController`,
 :class:`~.controllers.DevicePrefetchController` and
-:class:`~.controllers.BatchWindowController` (the stock set,
+:class:`~.controllers.BatchWindowController` and
+:class:`~.controllers.FleetGatherController` (the stock set,
 :func:`standard_controllers`), and, constructed per live instance,
 :class:`~.controllers.DecodeSlotController` (a ``GenerationServer``) and
 :class:`~.controllers.SloController` (a ``ModelRegistry``).
@@ -25,7 +26,7 @@ Quick start::
 
 Knobs: ``MXTPU_TUNE_INTERVAL``, ``MXTPU_TUNE_DRY_RUN``,
 ``MXTPU_TUNE_PREFETCH`` / ``_DEVICE_PREFETCH`` / ``_BATCH_WINDOW`` /
-``_DECODE_SLOTS`` / ``_SLO``.
+``_FLEET_GATHER`` / ``_DECODE_SLOTS`` / ``_SLO``.
 
 Not ported: the JAX package's ``compile_cache`` (its executables
 serialized to disk for the next process).  A captured CUDA graph does not
@@ -42,13 +43,14 @@ from ..base import get_env
 from ..observability.registry import registry as _metrics_registry
 from .controllers import (BatchWindowController, Controller, CounterDelta,
                           DecodeSlotController, DevicePrefetchController,
-                          HistogramDelta, PrefetchController,
-                          SloController)
+                          FleetGatherController, HistogramDelta,
+                          PrefetchController, SloController)
 
 __all__ = ["TuningRuntime", "runtime", "standard_controllers", "start",
            "stop", "Controller", "PrefetchController",
            "BatchWindowController", "DecodeSlotController",
-           "DevicePrefetchController", "SloController", "HistogramDelta",
+           "DevicePrefetchController", "SloController",
+           "FleetGatherController", "HistogramDelta",
            "CounterDelta"]
 
 INTERVAL_ENV = "MXTPU_TUNE_INTERVAL"
@@ -166,17 +168,16 @@ def runtime() -> TuningRuntime:
 def standard_controllers(**overrides) -> List[Controller]:
     """The stock controllers, each gated by its own ``MXTPU_TUNE_*``
     enable knob (evaluated live at every tick, so a controller can be
-    switched off on a running process): the prefetch, batch-window and
-    device-prefetch controllers.  The JAX package's ``BulkSizeController``
-    is left out (the port has no bulked dispatch, so
-    ``MXNET_ENGINE_BULK_SIZE`` means nothing there), and so is its
-    ``FleetGatherController`` (the cross-host gather waits for the port
-    of the ``parallel`` layer).  Keyword overrides are forwarded per
-    controller:
+    switched off on a running process): the prefetch, batch-window,
+    fleet-gather and device-prefetch controllers, in the JAX package's
+    order.  Its ``BulkSizeController`` is left out (the port has no
+    bulked dispatch, so ``MXNET_ENGINE_BULK_SIZE`` means nothing there).
+    Keyword overrides are forwarded per controller:
     ``standard_controllers(batch_window={"vmax": 8000.0})``."""
     return [
         PrefetchController(**overrides.get("prefetch", {})),
         BatchWindowController(**overrides.get("batch_window", {})),
+        FleetGatherController(**overrides.get("fleet_gather", {})),
         DevicePrefetchController(**overrides.get("device_prefetch", {})),
     ]
 

@@ -17,13 +17,15 @@ reads signals the port already records and moves one knob:
                                 door's ``ModelRegistry``: shed the lowest
                                 priority first, scale the violator's
                                 dispatch workers
+:class:`FleetGatherController`  the multi-host metric gather, streamed on
+                                the timer thread over the process group's
+                                store (``dist.kv_publish``/``kv_collect``)
 ==============================  =============================================
 
-Left out, with the JAX package's reasons gone: ``BulkSizeController``
-(the port has no bulked dispatch, so ``MXNET_ENGINE_BULK_SIZE`` means
-nothing there), and ``FleetGatherController`` and
-``CommBucketController``, which wait for the port of the ``parallel``
-layer (a process group's gather, a ``ShardedTrainer``).
+Left out: ``BulkSizeController`` (the port has no bulked dispatch, so
+``MXNET_ENGINE_BULK_SIZE`` means nothing there), and
+``CommBucketController``, which reads the resilience layer's step times
+(ROADMAP Queue A 3c).
 
 Shared discipline (the :class:`Controller` base):
 
@@ -51,6 +53,7 @@ the move.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, List, Optional, Tuple
 
@@ -674,6 +677,92 @@ class DevicePrefetchController(Controller):
         from ..gluon.data import dataloader as _dl
         self._target = int(value)
         _dl.set_device_prefetch_override(self._target)
+
+
+# ---------------------------------------------------------------------------
+# FleetGatherController — the fleet view on the timer thread
+# ---------------------------------------------------------------------------
+
+class FleetGatherController(Controller):
+    """Stream the multi-host metric gather on the timer thread.
+
+    ``snapshot(all_hosts=True)`` is a collective (every host reaches it
+    in lockstep), which a free-running timer cannot promise.  This
+    controller uses the barrier-free store transport instead
+    (:func:`mxnet_tpu_torch.parallel.dist.kv_publish` / ``kv_collect``):
+    each tick publishes this host's ``export_state()`` under a
+    generation-stamped key and collects every peer's newest, with no
+    wait on a peer, so hosts may tick at their own rates (a peer's view
+    is at most one of its ticks stale; the ``tuning.fleet_gather.hosts``
+    gauge counts the hosts seen).  The collected states feed the view the
+    ``MXTPU_METRICS_AGGREGATE`` endpoint serves.
+
+    Not a knob controller: ``tick()`` is the gather itself (counted in
+    metrics; a change of the hosts seen is a decision in the flight
+    recorder's tuning ring); a dry run publishes and collects but does
+    not install the view.  Nothing to do without a process group.
+    """
+
+    name = "fleet_gather"
+    enable_env = "MXTPU_TUNE_FLEET_GATHER"
+    _KV_PREFIX = "mxtpu/fleetgather"
+
+    def __init__(self, **kw):
+        kw.setdefault("vmin", 0)
+        kw.setdefault("vmax", 0)
+        super().__init__(**kw)
+        self._last_hosts: Optional[Tuple[int, ...]] = None
+        self._g_hosts = registry().gauge(
+            "tuning.fleet_gather.hosts",
+            help="hosts visible in the latest barrier-free fleet "
+                 "gather (this host included)")
+        self._c_gathers = registry().counter(
+            "tuning.fleet_gather.gathers",
+            help="timer-thread fleet gathers streamed (every tick; "
+                 "`.decisions` counts only membership CHANGES)")
+
+    def current(self) -> float:
+        return 0.0
+
+    def tick(self) -> Optional[dict]:
+        if not self.enabled:
+            return None
+        from ..parallel import dist
+        if not dist.is_initialized():
+            return None
+        from ..observability.registry import ingest_host_states
+        local = registry().export_state()
+        dist.kv_publish(self._KV_PREFIX, json.dumps(local).encode("utf-8"))
+        blobs = dist.kv_collect(self._KV_PREFIX)
+        states: List[Tuple[int, dict]] = sorted(
+            (r, json.loads(b.decode("utf-8"))) for r, b in blobs.items())
+        applied = False
+        if not self.dry_run and states:
+            ingest_host_states(states)
+            applied = True
+        self._g_hosts.set(len(states))
+        self._c_gathers.inc()
+        hosts = tuple(r for r, _ in states)
+        if hosts == self._last_hosts:
+            # steady state: a record a tick would flood the flight
+            # recorder's tuning ring; only a change of hosts is recorded
+            return None
+        self._last_hosts = hosts
+        self._c_decisions.inc()
+        if applied:
+            self._c_applied.inc()
+        decision = {
+            "controller": self.name,
+            "knob": None,
+            "hosts": ",".join(str(r) for r in hosts),
+            "applied": applied,
+            "held": False,
+            "dry_run": self.dry_run,
+            "reason": f"fleet membership now {len(states)} host(s) in "
+                      f"the KV-transport gather",
+        }
+        self._flight.record_tuning(**decision)
+        return decision
 
 
 # ---------------------------------------------------------------------------

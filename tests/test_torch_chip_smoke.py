@@ -799,14 +799,22 @@ def _toy_detection(monkeypatch):
         monkeypatch.setattr(chip_smoke, name, value)
 
 
-def test_detection_phase_rehearses_on_the_cpu(monkeypatch):
+@pytest.fixture(scope="module")
+def toy_detection():
+    """Phase 13's toy run, shared: the rehearsal's checks read it, and its
+    eager Mask-RCNN losses are the reference of phase 14 (d)'s."""
+    with pytest.MonkeyPatch.context() as mp:
+        _toy_detection(mp)
+        return chip_smoke.detection_phase(0, "cpu")
+
+
+def test_detection_phase_rehearses_on_the_cpu(toy_detection):
     """Every check of phase 13 but the kernel's launches (0 on CPU
     tensors) passes with toy models: deferred shapes settled, the leaf
     checks (no ReLU or target decision flipped between two CPU runs),
     the detection against the CPU and a greedy loop, in fewer NMS
     passes than anchors."""
-    _toy_detection(monkeypatch)
-    out = chip_smoke.detection_phase(0, "cpu")
+    out = toy_detection
     for name in ("ssd", "rcnn"):
         checks = dict(out[name]["checks"])
         assert not checks.pop("momentum_launches")   # no kernel on the CPU
@@ -906,12 +914,12 @@ def test_replay_leaf_check_rehearses_on_the_cpu(monkeypatch):
     assert brief["vs_eager_grads"]["ok"] and not brief["ok"]
 
 
-def test_host_reading_rcnn_rehearses_on_the_cpu(monkeypatch):
+def test_host_reading_rcnn_rehearses_on_the_cpu(monkeypatch, toy_detection):
     """Phase 14 (d) with the toy Mask-RCNN on the CPU: ``hybridize()``
     warns once, each step is counted as an eager call, no entry is made,
     and the losses equal phase 13's eager run from the same weights."""
     _toy_detection(monkeypatch)
-    eager = chip_smoke.rcnn_phase(0, "cpu")["train"]["losses"]
+    eager = toy_detection["rcnn"]["train"]["losses"]
     out = chip_smoke.rcnn_graph_run(0, "cpu", eager)
     assert out["ok"], out["checks"]
     assert out["warnings"] == 1 and out["eager_calls"] == 2

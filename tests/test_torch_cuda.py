@@ -2595,3 +2595,130 @@ def test_longformer_on_card_replays_its_eager_forward(card):
         return [p.grad()._data.clone() for p in
                 net.collect_params().values()]
     assert all(torch.equal(a, b) for a, b in zip(grads(), grads()))
+
+
+def test_nccl_group_of_one_collectives_on_card(card):
+    """The NCCL route at the only size one card allows: a group of one,
+    every data collective on CUDA tensors, then the group is left."""
+    import socket
+    from mxnet_tpu_torch.parallel import dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist._join(f"127.0.0.1:{port}", 1, 0, "nccl", 60.0)
+    try:
+        assert dist.backend() == "nccl" and dist.is_initialized()
+        x = torch.arange(12, dtype=torch.float32, device=card)
+        assert torch.equal(dist.all_reduce(x.clone()), x)
+        assert torch.equal(dist.broadcast(x.clone(), 0), x)
+        assert torch.equal(dist.all_gather(x[:5]), x[:5])
+        assert torch.equal(dist.reduce_scatter(x), x)
+        out = torch.empty_like(x)
+        torch.distributed.all_gather_into_tensor(out, x)
+        assert torch.equal(out, x)
+        np.testing.assert_array_equal(dist.allgather_host(np.ones(3)),
+                                      np.ones((1, 3)))
+        assert dist.allgather_bytes(b"abc") == [b"abc"]
+        dist.barrier(timeout=10)
+    finally:
+        dist.shutdown()
+    assert not dist.is_initialized()
+
+
+TWO_RANKS_ON_CARD = """
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import gluon, kvstore as kv, nd, parallel as par
+from mxnet_tpu_torch.parallel import dist
+res = {}
+store = kv.create("dist_sync")
+dev = dist.rank_device()
+res["backend"], res["device"] = dist.backend(), str(dev)
+r, nw = dist.rank(), dist.num_workers()
+x = torch.full((7,), float(r + 1), device=dev)
+res["all_reduce"] = dist.all_reduce(x.clone()).cpu().numpy()
+res["broadcast"] = dist.broadcast(x.clone(), 0).cpu().numpy()
+res["all_gather"] = dist.all_gather(x[:3].clone()).cpu().numpy()
+res["reduce_scatter"] = dist.reduce_scatter(
+    torch.arange(8, dtype=torch.float32, device=dev) * (r + 1)).cpu().numpy()
+store.init(3, nd.ones((4, 5), ctx=mt.gpu(dev.index)) * (r + 1))
+store.push(3, nd.ones((4, 5), ctx=mt.gpu(dev.index)) * (r + 1))
+res["pushed"] = store.pull(3).asnumpy()
+net = gluon.nn.Dense(10, in_units=16)
+net.initialize(ctx=dev, seed=0)
+tr = par.ShardedTrainer(net, gluon.loss.L2Loss(), "sgd",
+                        {"learning_rate": 0.1, "momentum": 0.9},
+                        zero_stage=1)
+gen = torch.Generator().manual_seed(0)
+for _ in range(3):
+    tr.step(torch.randn(8, 16, generator=gen).to(dev),
+            torch.randn(8, 10, generator=gen).to(dev))
+res["weights"] = net.weight.data().asnumpy()
+store.barrier()
+save(res)
+"""
+
+
+def test_two_ranks_share_the_card_over_gloo(card, tmp_path):
+    """Two ranks on the one card: gloo is chosen, the data collectives
+    run on CUDA tensors (reduce-scatter and all-gather from all-reduce),
+    and a ZeRO-1 ShardedTrainer leaves both replicas bit for bit equal."""
+    from tests._torch_launch import run_ranks
+    results = run_ranks(2, TWO_RANKS_ON_CARD, tmp_path, timeout=120)
+    for r, res in enumerate(results):
+        assert res["backend"] == "gloo" and res["device"] == "cuda:0"
+        np.testing.assert_array_equal(res["all_reduce"], 3.0)
+        np.testing.assert_array_equal(res["broadcast"], 1.0)
+        np.testing.assert_array_equal(res["all_gather"], [1, 1, 1, 2, 2, 2])
+        np.testing.assert_array_equal(res["reduce_scatter"],
+                                      np.arange(8.0)[r * 4:(r + 1) * 4] * 3)
+        np.testing.assert_array_equal(res["pushed"], 3.0)
+    np.testing.assert_array_equal(results[0]["weights"],
+                                  results[1]["weights"])
+
+
+def test_momentum_kernel_on_zero_slices_matches_plain(card):
+    """ResNet-50's trainable tensors cut to rank 1's ZeRO rows at dp = 2
+    (views at their offsets inside the whole tensors, most not 16-byte
+    aligned), updated by the momentum kernel and by its plain version:
+    bit for bit."""
+    from chip_smoke import resnet50_trainable_shapes
+    g = torch.Generator().manual_seed(5)
+    whole = [torch.randn(s, generator=g).to(card)
+             for s in resnet50_trainable_shapes()]
+    slices = [t.view(2, -1)[1].view((t.shape[0] // 2,) + t.shape[1:])
+              if t.shape[0] % 2 == 0 else t for t in whole]
+    grads = [torch.randn(t.shape, generator=g).to(card) for t in slices]
+    moms = [torch.randn(t.shape, generator=g).to(card) for t in slices]
+    lrs = [0.1] * len(slices)
+    wds = [1e-4 * (i % 3) for i in range(len(slices))]
+    w_plain = [t.clone() for t in slices]
+    m_plain = [t.clone() for t in moms]
+    before = multi_sgd_mom.launches
+    multi_sgd_mom(slices, grads, moms, lrs, wds, momentum=0.9,
+                  rescale_grad=1 / 128)
+    multi_sgd_mom_plain(w_plain, grads, m_plain, lrs, wds, momentum=0.9,
+                        rescale_grad=1 / 128)
+    assert multi_sgd_mom.launches - before == -(-len(slices) // 64)
+    for a, b, c, d in zip(slices, w_plain, moms, m_plain):
+        assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def test_functional_optimizer_sgd_runs_the_plain_sgd_kernel(card):
+    """``parallel.optim``'s ``sgd`` without momentum: one call of the
+    ``sgd_kernel`` port over every tensor, bit for bit its plain
+    version."""
+    from mxnet_tpu_torch import optimizer
+    from mxnet_tpu_torch.parallel import make_functional_optimizer
+    g = torch.Generator().manual_seed(6)
+    shapes = [(128, 784), (128,), (64, 128), (64,), (10, 64), (10,)]
+    names = [f"p{i}_weight" for i in range(len(shapes))]
+    fopt = make_functional_optimizer(optimizer.create(
+        "sgd", learning_rate=0.1, wd=1e-4), names)
+    w = [torch.randn(s, generator=g).to(card) for s in shapes]
+    grads = [torch.randn(s, generator=g).to(card) for s in shapes]
+    plain = [t.clone() for t in w]
+    before = multi_sgd.launches
+    fopt.update(w, grads, fopt.init(w), 1, 0.1, 1 / 64)
+    multi_sgd_plain(plain, grads, [0.1] * 6, fopt.wds, rescale_grad=1 / 64)
+    assert multi_sgd.launches - before == 1
+    assert all(torch.equal(a, b) for a, b in zip(w, plain))

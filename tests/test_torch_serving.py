@@ -212,6 +212,11 @@ def test_port_imports_without_jax():
             "import mxnet_tpu_torch.serving.frontend\n"
             "import mxnet_tpu_torch.serving.server\n"
             "import mxnet_tpu_torch.gluon.cached_op\n"
+            "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.kvstore\n"
+            "import mxnet_tpu_torch.parallel.dist\n"
+            "import mxnet_tpu_torch.parallel.trainer\n"
+            "import mxnet_tpu_torch.tools.launch\n"
+            "import mxnet_tpu_torch.kvstore_server\n"
             "import mxnet_tpu_torch.observability.registry\n"
             "import mxnet_tpu_torch.observability.trace\n"
             "import mxnet_tpu_torch.observability.tracing\n"

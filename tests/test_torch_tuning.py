@@ -262,17 +262,19 @@ def test_dry_run_records_but_applies_nothing(fresh, monkeypatch):
 def test_standard_controllers_and_what_they_leave_out(fresh):
     m = fresh("mxnet_tpu_torch")
     names = [c.name for c in m["tuning"].standard_controllers()]
-    assert names == ["prefetch", "batch_window", "device_prefetch"]
+    assert names == ["prefetch", "batch_window", "fleet_gather",
+                     "device_prefetch"]
     jax_names = {c.__class__.__name__ for c in
                  _pkg("mxnet_tpu")["tuning"].standard_controllers()}
     port = {c.__class__.__name__ for c in
             m["tuning"].standard_controllers()}
-    # no bulked dispatch in the port; the gather waits for `parallel`
-    assert jax_names - port == {"BulkSizeController",
-                                "FleetGatherController"}
-    for gone in ("BulkSizeController", "FleetGatherController",
-                 "CommBucketController"):
+    # no bulked dispatch in the port; CommBucketController waits for the
+    # resilience layer's step times
+    assert jax_names - port == {"BulkSizeController"}
+    for gone in ("BulkSizeController", "CommBucketController"):
         assert not hasattr(m["ctl"], gone)
+    # without a process group the fleet gather has nothing to do
+    assert m["ctl"].FleetGatherController().tick() is None
 
 
 def test_runtime_keeps_a_raising_controller_and_joins(fresh, monkeypatch):

@@ -72,8 +72,9 @@ def test_runtime_features_have_the_jax_names():
     ours, theirs = mt.runtime.Features(), mx.runtime.Features()
     assert sorted(ours) == sorted(theirs)
     assert [f.name for f in mt.runtime.feature_list()] == list(ours)
-    for name in ("TPU", "XLA", "PALLAS", "DIST_KVSTORE", "SPARSE"):
+    for name in ("TPU", "XLA", "PALLAS", "SPARSE"):
         assert not mt.runtime.is_enabled(name)
+    assert mt.runtime.is_enabled("DIST_KVSTORE")
     assert mt.runtime.is_enabled("CUDA") == __import__("torch").cuda \
         .is_available()
     assert mt.runtime.is_enabled("CPU") and \
